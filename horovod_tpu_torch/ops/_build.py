@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 The sources under ``ops/csrc/`` have a plain C interface and include no
-PyTorch header, so they build in seconds.  One nvcc compiles them into
-one shared library,
+PyTorch header, so they build in seconds.  One nvcc per source, all started
+together, compiles them to objects, and one more links the objects into one
+shared library,
 ``<repo>/build/horovod_tpu_torch/libhvd_torch_kernels_<srchash>.so``, named by
 a hash of the sources and flags so that an edited source never loads a stale
 library.  The build runs at first use, never at import: the CPU-only tests
@@ -80,23 +81,39 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the sources into the shared library with one nvcc, unless a
-    library of the same sources exists."""
+    """Compile the sources into the shared library, one nvcc per source in
+    parallel and one to link, unless a library of the same sources
+    exists."""
     global build_log
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # A per-process name, then an atomic rename: ranks that build at the
+    # Per-process names, then an atomic rename: ranks that build at the
     # same time never load a half-written library.
-    part = f"{out}.{os.getpid()}.part"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-shared", "-o", part] + sources()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                           f"{r.stdout}{r.stderr}")
+    tag = f"{os.getpid()}.part"
+    objs, procs = [], []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [_nvcc()] + NVCC_FLAGS + ["-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    part = f"{out}.{tag}"
+    link = [_nvcc()] + NVCC_FLAGS + ["-shared", "-o", part] + objs
+    if all(rc == 0 for _, _, rc in logs):
+        r = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, r.stdout + r.stderr, r.returncode))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    for cmd, text, rc in logs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
     os.replace(part, out)
-    build_log = r.stdout + r.stderr
+    build_log = "".join(text for _, text, _ in logs)
     return out
 
 

@@ -1,14 +1,21 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
+// Flash attention for Hopper (sm_90a): the scalar (SIMT) forward, dQ and
+// dK/dV kernels, and the C entry points that choose between them and the
+// tensor-core kernels of flash_wgmma.cu.
 //
 // Replaces the three Pallas kernels of horovod_tpu/ops/pallas_attention.py:
-//   fwd_kernel  <- _fwd_kernel  (launched by _flash_fwd)
-//   dq_kernel   <- _dq_kernel   (launched by _flash_bwd)
-//   dkv_kernel  <- _dkv_kernel  (launched by _flash_bwd)
+//   fwd_kernel  <- _fwd_kernel  (launched by _flash_fwd), float32 only
+//   dq_kernel   <- _dq_kernel   (launched by _flash_bwd), every dtype
+//   dkv_kernel  <- _dkv_kernel  (launched by _flash_bwd), float32, and
+//                  bfloat16 q/k/v with the lse variant's float32 dO
+// bfloat16 q/k/v take fwd_wgmma_kernel, and with a bfloat16 dO
+// dkv_wgmma_kernel (flash_wgmma.cu).
 // They compute what those kernels compute: S = Q K^T * scale in fp32, causal
 // key j visible to query i iff j <= i, online softmax with O = acc / l and
 // lse = m + log l; backward P = exp(S - lse), dP = dO V^T,
 // dS = P * (dP - delta + dlse), dQ = dS K * scale, dV = P^T dO,
 // dK = dS^T Q * scale.  delta = rowsum(dO * O) is computed by the caller.
+// They round where the Pallas kernels round: dS to q's dtype before dS K and
+// dS^T Q, P to dO's dtype before P^T dO (no-ops in float32).
 //
 // Layout: q/k/v/dO are read as [B, S, H, D] through element strides for
 // b, s and h (d is contiguous), so the caller needs no head-major copy.
@@ -18,18 +25,20 @@
 // contiguous [B, S, H].
 //
 // What bounds them on this card, and what the design does about it:
-//   * At the flagship shape (B 8, S 1024, H 16, D 64, bf16, causal) the
-//     work is 17-34 GFLOP per kernel against 67-101 MB of traffic: far above
-//     the H100's ~295 FLOP/byte ridge, so the kernels are bound by
-//     arithmetic, never by device memory.  The [S, S] score matrix is never
+//   * At the flagship shape (B 8, S 1024, H 16, D 64, causal) the work is
+//     17-34 GFLOP per kernel against 68-102 MB of traffic, near even the
+//     bf16 tensor cores' ~295 FLOP/byte ridge and far above the fp32
+//     CUDA cores' ~20, so these kernels are bound by arithmetic, never by
+//     device memory.  The [S, S] score matrix is never
 //     written to device memory: each block keeps its score tile in shared
 //     memory and its running statistics and accumulators in registers.
-//   * This first version multiplies with scalar fp32 FMAs from shared-memory
-//     tiles (a 4x4 register micro-tile per thread), so it runs at the card's
+//   * These kernels multiply with scalar fp32 FMAs from shared-memory
+//     tiles (a 4x4 register micro-tile per thread), so they run at the card's
 //     fp32 CUDA-core rate, not its bf16 tensor-core rate, and the shared-
-//     memory loads feeding the FMAs are its limit.  Tiles are padded by one
-//     float per row so the 16 threads of a half-warp hit 16 banks.  Moving
-//     the products to mma/wgmma is later work.
+//     memory loads feeding the FMAs are their limit.  Tiles are padded by one
+//     float per row so the 16 threads of a half-warp hit 16 banks.  The
+//     bfloat16 forward and dK/dV run on the tensor cores (flash_wgmma.cu);
+//     moving dQ there is later work.
 //   * Causal blocks skip the key (query) tiles above the diagonal, and the
 //     grid hands out the tiles with the most work first to shorten the tail.
 //   * No atomics: every output element has exactly one writer, so results
@@ -40,6 +49,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_attention.cuh"
 
 namespace {
 
@@ -60,6 +71,10 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+// x rounded to T's precision, kept in fp32.
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
 }
 
 struct Str {  // element strides of a [B, S, H, D] view (d stride is 1)
@@ -87,13 +102,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Forward.  One block per (query tile, b*h): loops over key tiles up to the
-// causal limit, keeps m and l in shared memory and the output accumulator
-// in registers, and writes o and lse.
-template <typename T, typename TO, int D>
+// Forward, float32 only.  One block per (query tile, b*h): loops over key
+// tiles up to the causal limit, keeps m and l in shared memory and the
+// output accumulator in registers, and writes o and lse.
+template <int D>
 __global__ void __launch_bounds__(NT)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, TO* __restrict__ o, float* __restrict__ lse,
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o,
+           float* __restrict__ lse,
            Str sq, Str sk, Str sv, int H, int S, float scale, int causal) {
   constexpr int DP = D + 1, TN = D / 16;
   extern __shared__ float smem[];
@@ -110,7 +126,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
 
-  load_tile<T, D>(Qs, q + b * sq.b + h * sq.h, sq, q0, S);
+  load_tile<float, D>(Qs, q + b * sq.b + h * sq.h, sq, q0, S);
   if (tid < BQ) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -121,13 +137,13 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
   const int k_end = causal ? min(S, q0 + BQ) : S;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, kb, sk, k0, S);
-    load_tile<T, D>(Vs, vb, sv, k0, S);
+    load_tile<float, D>(Ks, kb, sk, k0, S);
+    load_tile<float, D>(Vs, vb, sv, k0, S);
     __syncthreads();
 
     float sacc[TM][TM];
@@ -206,7 +222,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = l_s[r];
     const long long row = ((long long)b * S + s) * H + h;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) o[row * D + tx + 16 * j] = from_f<TO>(acc[i][j] / l);
+    for (int j = 0; j < TN; ++j) o[row * D + tx + 16 * j] = acc[i][j] / l;
     if (tx == 0) lse[row] = m_s[r] + logf(l);
   }
 }
@@ -330,7 +346,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TM; ++j) dSs[(ty + 16 * i) * PS + tx + 16 * j] = ds[i][j];
+      for (int j = 0; j < TM; ++j)
+        dSs[(ty + 16 * i) * PS + tx + 16 * j] = round_to<T>(ds[i][j]);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
@@ -405,8 +422,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < TM; ++j) {
         const int idx = (ty + 16 * i) * PS + tx + 16 * j;
-        Ps[idx] = p[i][j];
-        dSs[idx] = ds[i][j];
+        Ps[idx] = round_to<TD>(p[i][j]);
+        dSs[idx] = round_to<T>(ds[i][j]);
       }
     __syncthreads();
     // Thread (ty, tx) now owns key rows ty + 16 i and columns tx + 16 j.
@@ -464,18 +481,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, typename TO, int D>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                const long long* st, int B, int S, int H, float scale,
                int causal, cudaStream_t stream) {
   const size_t smem = fwd_smem(D);
-  auto kernel = fwd_kernel<T, TO, D>;
+  auto kernel = fwd_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   kernel<<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (TO*)o, (float*)lse,
-      str_at(st, 0), str_at(st, 1), str_at(st, 2), H, S, scale, causal);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, str_at(st, 0), str_at(st, 1), str_at(st, 2), H, S, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -517,21 +534,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// Selects the template by head dim D; an unsupported D is an invalid value.
-#define HVD_DISPATCH_D(D, CALL)                           \
-  switch (D) {                                            \
-    case 16: { constexpr int HD = 16; return CALL; }      \
-    case 32: { constexpr int HD = 32; return CALL; }      \
-    case 64: { constexpr int HD = 64; return CALL; }      \
-    case 128: { constexpr int HD = 128; return CALL; }    \
-    default: return (int)cudaErrorInvalidValue;           \
-  }
-
 // dtype: 0 = float32, 1 = bfloat16, for q/k/v and the outputs.  do_f32: dO
 // is float32 where q/k/v are bfloat16 (the gradient of the lse variant's
 // float32 output); with float32 q/k/v, dO is float32 anyway.  strides: host
 // array of (b, s, h) element strides for q, k, v (and dO in the backward
-// launchers).
+// launchers).  The kernel is chosen by dtype: bfloat16 forward and dK/dV
+// (bfloat16 dO) on the tensor cores, the rest on the scalar kernels.
 // Each returns cudaGetLastError() after the launch (0 on success).
 extern "C" {
 
@@ -540,14 +548,11 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   int D, float scale, int causal, int dtype, int out_f32,
                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    HVD_DISPATCH_D(D, (launch_fwd<float, float, HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, st)))
-  }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (out_f32) {
-    HVD_DISPATCH_D(D, (launch_fwd<__nv_bfloat16, float, HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, st)))
-  }
-  HVD_DISPATCH_D(D, (launch_fwd<__nv_bfloat16, __nv_bfloat16, HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, st)))
+  if (dtype == 1)
+    return hvd_flash_fwd_wgmma(q, k, v, o, lse, strides, B, S, H, D, scale,
+                               causal, out_f32, st);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  HVD_DISPATCH_D(D, (launch_fwd<HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, st)))
 }
 
 int hvd_flash_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -577,10 +582,10 @@ int hvd_flash_dkv(const void* q, const void* k, const void* v,
     HVD_DISPATCH_D(D, (launch_dkv<float, float, HD>(q, k, v, dout, lse, delta, dlse, dk, dv, strides, B, S, H, scale, causal, st)))
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (do_f32) {
-    HVD_DISPATCH_D(D, (launch_dkv<__nv_bfloat16, float, HD>(q, k, v, dout, lse, delta, dlse, dk, dv, strides, B, S, H, scale, causal, st)))
-  }
-  HVD_DISPATCH_D(D, (launch_dkv<__nv_bfloat16, __nv_bfloat16, HD>(q, k, v, dout, lse, delta, dlse, dk, dv, strides, B, S, H, scale, causal, st)))
+  if (!do_f32)
+    return hvd_flash_dkv_wgmma(q, k, v, dout, lse, delta, dlse, dk, dv,
+                               strides, B, S, H, D, scale, causal, st);
+  HVD_DISPATCH_D(D, (launch_dkv<__nv_bfloat16, float, HD>(q, k, v, dout, lse, delta, dlse, dk, dv, strides, B, S, H, scale, causal, st)))
 }
 
 }  // extern "C"

@@ -1,0 +1,717 @@
+// Flash attention on Hopper's tensor cores (sm_90a): the forward and the
+// dK/dV kernels for bfloat16 q/k/v and a bfloat16 dO.
+//
+// Replace two Pallas kernels of horovod_tpu/ops/pallas_attention.py:
+//   fwd_wgmma_kernel <- _fwd_kernel  (:77, launched by _flash_fwd at :131)
+//   dkv_wgmma_kernel <- _dkv_kernel  (:215, launched by _flash_bwd at :293)
+// They compute what those kernels compute, and round where they round: S and
+// every product accumulate in fp32, P is rounded to bf16 before P.V and
+// P^T.dO, dS to bf16 before dS^T.Q (pallas_attention.py:112, :245, :252).
+// The fp32 variants, the lse variant's fp32 dO and the dQ kernel stay on the
+// scalar kernels of flash_attention.cu.
+//
+// What bounds them on this card, and what the design does about it:
+//   * At the flagship shape (B 8, S 1024, H 16, D 64, causal) the forward
+//     does 17 GFLOP against 68 MB of traffic and dK/dV 34 GFLOP against
+//     102 MB: both near the H100's ~295 FLOP/byte ridge (the forward's
+//     bound is its bytes, dK/dV's its operations), so they need the bf16
+//     tensor-core rate and full-rate loads.  Every product is a wgmma
+//     (m64nNk16, fp32 accumulators in registers), and the [S, S] scores
+//     never leave registers: the score accumulator is masked,
+//     exponentiated and packed to bf16 in place, and that packed fragment
+//     is the register A operand of the next wgmma (the m64 accumulator
+//     layout is the A-fragment layout).
+//   * Loads: a producer warp issues TMA copies of [rows, D] tiles of the
+//     strided [B, S, H, D] views into 128/64/32-byte swizzled shared memory
+//     (the swizzle of the wgmma descriptors), completing on mbarriers, into
+//     a two-stage ring, so the next tile's copy overlaps this tile's math.
+//     Rows past S read as zeros (the tensor map's bounds).
+//   * One consumer warpgroup per block (64 rows) and up to two blocks per
+//     SM: one block's softmax overlaps the other's wgmma.
+//   * Causal blocks skip the tiles above the diagonal and mask only the
+//     tiles that cross it; the heaviest tiles are handed out first.  Each
+//     output element has one writer: no atomics, deterministic results.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "flash_attention.cuh"
+
+namespace {
+
+constexpr int STAGES = 2;        // depth of the producer's ring
+constexpr int CONSUMER = 128;    // one consumer warpgroup
+constexpr int NT = CONSUMER + 32;  // and one producer warp
+constexpr int FQ = 64;           // forward: query rows per block
+constexpr int FK = 128;          // forward: key rows per tile
+constexpr int BKV = 64;          // dK/dV: key rows per block
+constexpr int BQ = 64;           // dK/dV: query rows per tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Shared-memory layout of a bf16 [rows, D] tile: D is cut into regions of
+// CW columns (one swizzled row of SW bytes); region i holds columns
+// [i CW, (i+1) CW) of every row, rows SW bytes apart, regions rows * SW
+// bytes apart.  SW is 128 bytes at D >= 64 (two regions at D 128), 64 at
+// D 32 and 32 at D 16; TMA writes the same swizzle that wgmma reads.
+template <int D>
+struct Tile {
+  static constexpr int SW = D >= 64 ? 128 : 2 * D;
+  static constexpr int CW = SW / 2;
+  static constexpr int NR = D / CW;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  __host__ __device__ static constexpr int bytes(int rows) { return rows * D * 2; }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// --- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// --- TMA -------------------------------------------------------------------
+
+// Copy rows [row0, row0 + rows) of the (b, h) slice, all D columns, into a
+// tile laid out as Tile<D> describes; completes `rows * D * 2` bytes on bar.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int row0,
+                                         int b, int h) {
+  using L = Tile<D>;
+#pragma unroll
+  for (int r = 0; r < L::NR; ++r) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(
+            smem_u32(dst + r * rows * L::SW)),
+        "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(r * L::CW), "r"(h),
+        "r"(row0), "r"(b)
+        : "memory");
+  }
+}
+
+// --- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle mode of SW-byte rows.
+template <int SW>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  constexpr uint64_t mode = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+// K-major operand: rows [r0, r0 + 64 or N) of a [rows, D] tile, columns
+// [16 kk, 16 kk + 16) as the depth.  8-row groups are 8 SW bytes apart.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(const uint8_t* tile, int rows,
+                                           int r0, int kk) {
+  using L = Tile<D>;
+  const int col = 16 * kk;
+  return make_desc<L::SW>(
+      smem_u32(tile + (col / L::CW) * rows * L::SW + r0 * L::SW +
+               (col % L::CW) * 2),
+      16, 8 * L::SW);
+}
+
+// MN-major operand B (transposed): rows [16 kk, 16 kk + 16) of a [rows, D]
+// tile as the depth and all D columns as N; column regions are rows * SW
+// bytes apart (the leading offset), 8-row groups 8 SW bytes (the stride).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int rows,
+                                            int kk) {
+  using L = Tile<D>;
+  return make_desc<L::SW>(smem_u32(tile + 16 * kk * L::SW), rows * L::SW,
+                          8 * L::SW);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of wgmma operands across
+// the asynchronous instructions that own them.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (m64 x N fp32 accumulator) += A (64 x 16, K-major smem) . B (N x 16,
+// K-major smem)^T; `acc` 0 overwrites d.
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
+// d (m64 x N) += A (64 x 16, bf16 registers) . B (16 x N, MN-major smem).
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                         uint64_t db);
+
+template <> __device__ __forceinline__ void
+wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <> __device__ __forceinline__ void
+wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <> __device__ __forceinline__ void
+wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <> __device__ __forceinline__ void
+wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <> __device__ __forceinline__ void
+wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <> __device__ __forceinline__ void
+wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Columns [16 kk, 16 kk + 16) of an m64 accumulator, rounded to bf16, as
+// the A fragment of a register-A wgmma: the two layouts coincide.
+template <int NR>
+__device__ __forceinline__ void a_frag(const float (&d)[NR], int kk,
+                                       uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return (uint8_t*)(((uintptr_t)p + 1023) & ~(uintptr_t)1023);
+}
+
+// In an m64 x N accumulator, thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 and 8 below it, and of each 8-column chunk j
+// the columns 8 j + 2 (t % 4) + {0, 1}: d[4 j + e] is row + 8 (e / 2),
+// column 8 j + 2 (t % 4) + e % 2.
+
+// Forward.  One block per (64-row query tile, b*h); the consumer warpgroup
+// walks key tiles of 128 up to the causal limit with the online softmax in
+// registers (m and l per row, in log2 units), and writes o and lse.
+template <typename TO, int D>
+__global__ void __launch_bounds__(NT, D == 128 ? 1 : 2)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, TO* __restrict__ o,
+                 float* __restrict__ lse, int H, int S, float scale,
+                 int causal) {
+  using L = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* Ks = Qs + L::bytes(FQ);            // [STAGES][FK, D]
+  uint8_t* Vs = Ks + STAGES * L::bytes(FK);   // [STAGES][FK, D]
+  uint64_t* q_full = (uint64_t*)(Vs + STAGES * L::bytes(FK));
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FQ;  // heaviest tiles first
+  const int k_end = causal ? min(S, q0 + FQ) : S;
+  const int n_tiles = (k_end + FK - 1) / FK;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], CONSUMER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMER) {  // producer warp: one lane issues every copy
+    if (tid == CONSUMER) {
+      mbar_expect_tx(q_full, L::bytes(FQ));
+      tma_tile<D>(Qs, &tq, q_full, FQ, q0, b, h);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(&k_full[st], L::bytes(FK));
+        tma_tile<D>(Ks + st * L::bytes(FK), &tk, &k_full[st], FK, t * FK, b, h);
+        mbar_expect_tx(&v_full[st], L::bytes(FK));
+        tma_tile<D>(Vs + st * L::bytes(FK), &tv, &v_full[st], FK, t * FK, b, h);
+      }
+    }
+    return;
+  }
+
+  const int lane = tid & 31, quad = lane & 3;
+  const int row0 = q0 + 16 * (tid >> 5) + (lane >> 2);  // and row0 + 8
+  const float sl2 = scale * LOG2E;
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const uint32_t ph = (t / STAGES) & 1;
+    const int k0 = t * FK;
+    const uint8_t* Kt = Ks + st * L::bytes(FK);
+    const uint8_t* Vt = Vs + st * L::bytes(FK);
+
+    // S = Q K^T for this key tile.
+    float s[FK / 2];
+    mbar_wait(&k_full[st], ph);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<FK>(s, desc_k<D>(Qs, FQ, 0, kk), desc_k<D>(Kt, FK, 0, kk), kk);
+    wg_commit();
+    wg_wait();
+    reg_fence(s);
+
+    // Scores in log2 units; the mask only where the tile crosses S or the
+    // causal diagonal.
+    const bool edge = k0 + FK > S || (causal && k0 + FK - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * sl2;
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * quad + (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          if (col >= S || (causal && col > row)) x = -INFINITY;
+        }
+        s[4 * j + e] = x;
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < FK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      mx = quad_max(mx);  // finite: key 0 (causal) or some key < S is visible
+      corr[i] = exp2f(m[i] - mx);
+      m[i] = mx;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[4 * j + e] - m[e >> 1]);
+        l[e >> 1] += p;  // this thread's share of the row sum, unrounded P
+        s[4 * j + e] = p;
+      }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      oacc[4 * j] *= corr[0];
+      oacc[4 * j + 1] *= corr[0];
+      oacc[4 * j + 2] *= corr[1];
+      oacc[4 * j + 3] *= corr[1];
+    }
+
+    // O += bf16(P) V, P straight from the registers.
+    uint32_t pa[FK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < FK / 16; ++kk) a_frag(s, kk, pa[kk]);
+    mbar_wait(&v_full[st], ph);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < FK / 16; ++kk)
+      wgmma_rs<D>(oacc, pa[kk], desc_mn<D>(Vt, FK, kk));
+    wg_commit();
+    wg_wait();
+    reg_fence(oacc);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s_row = row0 + 8 * i;
+    const float li = quad_sum(l[i]);
+    if (s_row >= S) continue;
+    const long long row = ((long long)b * S + s_row) * H + h;
+    const float inv = 1.f / li;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(o + row * D + 8 * j + 2 * quad, oacc[4 * j + 2 * i] * inv,
+             oacc[4 * j + 2 * i + 1] * inv);
+    if (quad == 0) lse[row] = m[i] * LN2 + logf(li);
+  }
+}
+
+// dK/dV in the transposed form.  One block per (64-row key tile, b*h); K
+// and V stay in shared memory while the producer streams the query tiles
+// from the causal start (Q, dO by TMA; lse and delta - dlse by the
+// producer's lanes).  Per tile: S^T = K Q^T and dP^T = V dO^T by wgmma,
+// P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta + dlse) in
+// registers, dV += bf16(P^T) dO and dK += bf16(dS^T) Q by register-A wgmma.
+template <int D>
+__global__ void __launch_bounds__(NT, D == 128 ? 1 : 2)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const float* __restrict__ dlse, __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, int H, int S, float scale,
+                 int causal) {
+  using L = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align1024(smem_raw);
+  uint8_t* Vs = Ks + L::bytes(BKV);
+  uint8_t* Qs = Vs + L::bytes(BKV);            // [STAGES][BQ, D]
+  uint8_t* dOs = Qs + STAGES * L::bytes(BQ);   // [STAGES][BQ, D]
+  float* stats = (float*)(dOs + STAGES * L::bytes(BQ));  // [STAGES][2][BQ]
+  uint64_t* kv_full = (uint64_t*)(stats + STAGES * 2 * BQ);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* empty = q_full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BKV;  // causal: low key tiles carry the most work
+  const int q_start = causal ? k0 : 0;
+  const int n_tiles = (S - q_start + BQ - 1) / BQ;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&q_full[s], 32);  // every producer lane stores stats
+      mbar_init(&empty[s], CONSUMER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMER) {  // producer warp
+    const int lane = tid - CONSUMER;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * L::bytes(BKV));
+      tma_tile<D>(Ks, &tk, kv_full, BKV, k0, b, h);
+      tma_tile<D>(Vs, &tv, kv_full, BKV, k0, b, h);
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % STAGES, q0 = q_start + t * BQ;
+      if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) - 1) & 1);
+      // Rows past S get lse = +inf (P = 0) and delta - dlse = 0.
+      float* lse_s = stats + st * 2 * BQ;
+      for (int r = lane; r < BQ; r += 32) {
+        const int s_row = q0 + r;
+        float ls = INFINITY, dd = 0.f;
+        if (s_row < S) {
+          const long long row = ((long long)b * S + s_row) * H + h;
+          ls = lse[row] * LOG2E;
+          dd = delta[row] - (dlse ? dlse[row] : 0.f);
+        }
+        lse_s[r] = ls;
+        lse_s[BQ + r] = dd;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&q_full[st], 2 * L::bytes(BQ));
+        tma_tile<D>(Qs + st * L::bytes(BQ), &tq, &q_full[st], BQ, q0, b, h);
+        tma_tile<D>(dOs + st * L::bytes(BQ), &tdo, &q_full[st], BQ, q0, b, h);
+      } else {
+        mbar_arrive(&q_full[st]);
+      }
+    }
+    return;
+  }
+
+  const int lane = tid & 31, quad = lane & 3;
+  const int krow = 16 * (tid >> 5) + (lane >> 2);  // key row in the tile, and +8
+  const float sl2 = scale * LOG2E;
+  float dkacc[D / 2], dvacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES, q0 = q_start + t * BQ;
+    const uint32_t ph = (t / STAGES) & 1;
+    const uint8_t* Qt = Qs + st * L::bytes(BQ);
+    const uint8_t* dOt = dOs + st * L::bytes(BQ);
+    const float* lse_s = stats + st * 2 * BQ;
+    const float* dd_s = lse_s + BQ;
+
+    float s[BQ / 2], dp[BQ / 2];
+    mbar_wait(&q_full[st], ph);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ>(s, desc_k<D>(Ks, BKV, 0, kk), desc_k<D>(Qt, BQ, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ>(dp, desc_k<D>(Vs, BKV, 0, kk), desc_k<D>(dOt, BQ, 0, kk), kk);
+    wg_commit();
+    wg_wait();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // Key row r, query column c: mask where the query precedes the key.
+    const bool diag = causal && q0 < k0 + BKV - 1;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * quad + (e & 1);
+        float p = exp2f(s[4 * j + e] * sl2 - lse_s[c]);
+        if (diag && q0 + c < k0 + krow + 8 * (e >> 1)) p = 0.f;
+        dp[4 * j + e] = p * (dp[4 * j + e] - dd_s[c]);
+        s[4 * j + e] = p;
+      }
+
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      a_frag(s, kk, pa[kk]);
+      a_frag(dp, kk, da[kk]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<D>(dvacc, pa[kk], desc_mn<D>(dOt, BQ, kk));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<D>(dkacc, da[kk], desc_mn<D>(Qt, BQ, kk));
+    wg_commit();
+    wg_wait();
+    reg_fence(dvacc);
+    reg_fence(dkacc);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s_row = k0 + krow + 8 * i;
+    if (s_row >= S) continue;
+    const long long row = ((long long)b * S + s_row) * H + h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * quad;
+      store2(dk + row * D + c, dkacc[4 * j + 2 * i] * scale,
+             dkacc[4 * j + 2 * i + 1] * scale);
+      store2(dv + row * D + c, dvacc[4 * j + 2 * i], dvacc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// --- host side -------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime's entry point
+// (no link against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A 4-D map (d, h, s, b) over a bf16 [B, S, H, D] view with element
+// strides st = (b, s, h), boxes of `rows` rows and one column region.
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
+             int S, int H, int rows) {
+  using L = Tile<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)L::CW, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, L::SWIZZLE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+constexpr size_t BARRIER_BYTES = 64;
+
+template <typename TO, int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+               const long long* st, int B, int S, int H, float scale,
+               int causal, cudaStream_t stream) {
+  using L = Tile<D>;
+  CUtensorMap tq, tk, tv;
+  int err;
+  if ((err = make_map<D>(&tq, q, st, B, S, H, FQ)) ||
+      (err = make_map<D>(&tk, k, st + 3, B, S, H, FK)) ||
+      (err = make_map<D>(&tv, v, st + 6, B, S, H, FK)))
+    return err;
+  const size_t smem = 1024 + L::bytes(FQ) + 2 * STAGES * L::bytes(FK) + BARRIER_BYTES;
+  auto kernel = fwd_wgmma_kernel<TO, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (S + FQ - 1) / FQ);
+  kernel<<<grid, NT, smem, stream>>>(tq, tk, tv, (TO*)o, (float*)lse, H, S,
+                                     scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, const void* dlse, void* dk,
+               void* dv, const long long* st, int B, int S, int H, float scale,
+               int causal, cudaStream_t stream) {
+  using L = Tile<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err;
+  if ((err = make_map<D>(&tq, q, st, B, S, H, BQ)) ||
+      (err = make_map<D>(&tk, k, st + 3, B, S, H, BKV)) ||
+      (err = make_map<D>(&tv, v, st + 6, B, S, H, BKV)) ||
+      (err = make_map<D>(&tdo, dout, st + 9, B, S, H, BQ)))
+    return err;
+  const size_t smem = 1024 + 2 * L::bytes(BKV) + 2 * STAGES * L::bytes(BQ) +
+                      STAGES * 2 * BQ * sizeof(float) + BARRIER_BYTES;
+  auto kernel = dkv_wgmma_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (S + BKV - 1) / BKV);
+  kernel<<<grid, NT, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+      (const float*)dlse, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, S, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+int hvd_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                        void* lse, const long long* strides, int B, int S,
+                        int H, int D, float scale, int causal, int out_f32,
+                        cudaStream_t stream) {
+  if (out_f32) {
+    HVD_DISPATCH_D(D, (launch_fwd<float, HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, stream)))
+  }
+  HVD_DISPATCH_D(D, (launch_fwd<__nv_bfloat16, HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, stream)))
+}
+
+int hvd_flash_dkv_wgmma(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        const void* dlse, void* dk, void* dv,
+                        const long long* strides, int B, int S, int H, int D,
+                        float scale, int causal, cudaStream_t stream) {
+  HVD_DISPATCH_D(D, (launch_dkv<HD>(q, k, v, dout, lse, delta, dlse, dk, dv, strides, B, S, H, scale, causal, stream)))
+}

@@ -1,16 +1,29 @@
 """Flash attention: the port of ``horovod_tpu/ops/pallas_attention.py``.
 
-Three hand-written CUDA kernels for Hopper (``csrc/flash_attention.cu``)
-replace the three Pallas kernels of the JAX package: the forward
-(``_fwd_kernel``), the dQ kernel (``_dq_kernel``) and the dK/dV kernel
-(``_dkv_kernel``).  Beside each stands its plain PyTorch version, written as
-the explicit formulas, in fp32:
+Hand-written CUDA kernels for Hopper replace the three Pallas kernels of
+the JAX package: the forward (``_fwd_kernel``), the dQ kernel
+(``_dq_kernel``) and the dK/dV kernel (``_dkv_kernel``).  The kernel is
+chosen by dtype (:func:`impl`): bfloat16 q/k/v take the tensor-core (wgmma)
+forward, and with a bfloat16 dO the wgmma dK/dV kernel
+(``csrc/flash_wgmma.cu``); float32, the lse variant's float32 dO and every
+dQ take the scalar (SIMT) kernels (``csrc/flash_attention.cu``).
+
+Beside them stand their plain PyTorch versions, written as the explicit
+formulas with fp32 sums:
 
 * forward:  S = Q Kᵀ·scale, causal key j visible to query i iff j <= i,
-  O = softmax(S) V, lse = logsumexp(S);
+  O = softmax(S) V, lse = logsumexp(S), as an online softmax over key
+  blocks of ``FWD_BLOCK_K``;
 * dQ:   P = exp(S - lse), dP = dO Vᵀ, dS = P ⊙ (dP - delta + dlse),
   dQ = dS K·scale, with delta = rowsum(dO ⊙ O);
 * dK/dV:  dV = Pᵀ dO, dK = dSᵀ Q·scale.
+
+They round where the Pallas kernels round, and so where the tensor cores
+do: P to V's dtype before P·V, P to dO's dtype before Pᵀ·dO, dS to K's
+dtype before dS·K and to Q's before dSᵀ·Q.  For fp32 inputs these casts do
+nothing.  The forward rounds the unnormalised P = exp(S - m) against the
+running row max m, which depends on the key blocks seen so far, so its
+plain version walks the same key blocks as the kernel.
 
 Which one runs depends only on where the tensors lie: CPU tensors take the
 plain versions, CUDA tensors launch the kernels, and a kernel that cannot
@@ -32,6 +45,8 @@ import torch
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The wgmma forward's key tile (FK in csrc/flash_wgmma.cu).
+FWD_BLOCK_K = 128
 
 # Launches of each kernel, counted where the wrapper launches it.
 launches = {"fwd": 0, "dq": 0, "dkv": 0}
@@ -67,13 +82,32 @@ def _bhs1(x):
     return x.transpose(1, 2).unsqueeze(-1)
 
 
+def _rounded(x, like):
+    """fp32 ``x`` rounded to ``like``'s dtype, as an fp32 product operand."""
+    return x.to(like.dtype).float()
+
+
 def _flash_fwd_plain(q, k, v, scale: float, causal: bool,
                      out_f32: bool = False):
-    """Dense masked softmax with its lse: ``(o [B,S,H,D], lse [B,S,H])``."""
+    """Masked softmax with its lse, ``(o [B,S,H,D], lse [B,S,H])``, as an
+    online softmax over key blocks of ``FWD_BLOCK_K``: running max m, sum l
+    of the fp32 P, and acc += round(P)·V per block."""
     s = _scores(q, k, scale, causal)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse.unsqueeze(-1))
-    o = torch.einsum("bhst,bthd->bshd", p, v.float())
+    m = torch.full(s.shape[:3] + (1,), float("-inf"), device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:3] + (q.shape[-1],), device=s.device)
+    for k0 in range(0, s.shape[-1], FWD_BLOCK_K):
+        sb = s[..., k0:k0 + FWD_BLOCK_K]
+        m_new = torch.maximum(m, sb.amax(-1, keepdim=True))
+        p = torch.exp(sb - m_new)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1, keepdim=True)
+        acc = corr * acc + torch.einsum(
+            "bhst,bthd->bhsd", _rounded(p, v),
+            v[:, k0:k0 + FWD_BLOCK_K].float())
+        m = m_new
+    o = (acc / l).transpose(1, 2)
+    lse = (m + torch.log(l)).squeeze(-1)
     return o.to(torch.float32 if out_f32 else q.dtype), _bsh(lse)
 
 
@@ -88,7 +122,7 @@ def _flash_dq_plain(q, k, v, do, lse, delta, dlse, scale: float,
                     causal: bool):
     """dQ = Σ_k dS·K·scale with dS = P ⊙ (dO Vᵀ - delta + dlse)."""
     _, ds = _probs_and_dscores(q, k, v, do, lse, delta, dlse, scale, causal)
-    dq = torch.einsum("bhst,bthd->bshd", ds, k.float()) * scale
+    dq = torch.einsum("bhst,bthd->bshd", _rounded(ds, k), k.float()) * scale
     return dq.to(q.dtype)
 
 
@@ -96,9 +130,35 @@ def _flash_dkv_plain(q, k, v, do, lse, delta, dlse, scale: float,
                      causal: bool):
     """dV = Σ_q Pᵀ·dO and dK = Σ_q dSᵀ·Q·scale."""
     p, ds = _probs_and_dscores(q, k, v, do, lse, delta, dlse, scale, causal)
-    dv = torch.einsum("bhst,bshd->bthd", p, do.float())
-    dk = torch.einsum("bhst,bshd->bthd", ds, q.float()) * scale
+    dv = torch.einsum("bhst,bshd->bthd", _rounded(p, do), do.float())
+    dk = torch.einsum("bhst,bshd->bthd", _rounded(ds, q), q.float()) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def rounding_slack(q, k, v, do, lse, delta, dlse, scale: float,
+                   causal: bool):
+    """Per element of ``o``, ``dq``, ``dk`` and ``dv``: how far a kernel
+    may lie from the plain version because the two round an intermediate
+    (P or dS) to bf16 from fp32 values that differ in their last bits (the
+    sums run in other orders).  Where those values straddle a rounding
+    boundary the two roundings differ by one bf16 ulp, at most 2⁻⁷ of the
+    term.  Such flips are rare and independent, so over a sum y = Σ a·b
+    they move y by far less than 2⁻⁷ times the root of Σ (a·b)², which is
+    the slack: the largest term's ulp where one term dominates, and
+    2⁻⁷·Σ|a·b|/√n where n terms share the sum evenly.  Zero where the
+    intermediate is not rounded (fp32)."""
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, dlse, scale, causal)
+
+    def slack(a, b, eq, rounded_to, mult=1.0):
+        if rounded_to.dtype == torch.float32:
+            return torch.zeros((), device=a.device)
+        return torch.einsum(eq, a.square(), b.float().square()).sqrt() * (
+            2.0 ** -7 * mult)
+
+    return {"o": slack(p, v, "bhst,bthd->bshd", v),
+            "dq": slack(ds, k, "bhst,bthd->bshd", k, scale),
+            "dk": slack(ds, q, "bhst,bshd->bthd", q, scale),
+            "dv": slack(p, do, "bhst,bshd->bthd", do)}
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +200,30 @@ def _check_qkv(q, k, v, do=None):
     return B, S, H, D
 
 
+def impl(kernel: str, dtype: torch.dtype,
+         do_dtype: Optional[torch.dtype] = None) -> str:
+    """Which CUDA kernel serves ``kernel`` ("fwd", "dq" or "dkv") for q/k/v
+    of ``dtype`` (and dO of ``do_dtype``): "wgmma" (tensor cores, TMA
+    loads) or "simt" (scalar FMAs)."""
+    if dtype != torch.bfloat16 or kernel == "dq":
+        return "simt"
+    if kernel == "dkv" and do_dtype not in (None, torch.bfloat16):
+        return "simt"
+    return "wgmma"
+
+
+def _check_tma(*named):
+    """The wgmma kernels load tiles through TMA tensor maps, which take a
+    16-byte aligned base and (b, s, h) strides of whole 16-byte units."""
+    for name, t in named:
+        steps = [st * t.element_size() for st in t.stride()[:3]]
+        if t.data_ptr() % 16 or any(st % 16 for st in steps):
+            raise ValueError(
+                f"{name} cannot be loaded by TMA: base address "
+                f"{t.data_ptr():#x} and (b, s, h) strides of {steps} bytes "
+                "must be multiples of 16 bytes")
+
+
 def _check_stat(name, t, like):
     B, S, H, _ = like.shape
     if t.dtype != torch.float32 or t.shape != (B, S, H) or \
@@ -170,6 +254,8 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool,
     from horovod_tpu_torch.ops import _build
 
     B, S, H, D = _check_qkv(q, k, v)
+    if impl("fwd", q.dtype) == "wgmma":
+        _check_tma(("q", q), ("k", k), ("v", v))
     lib = _build.lib()
     o = torch.empty((B, S, H, D), device=q.device,
                     dtype=torch.float32 if out_f32 else q.dtype)
@@ -221,6 +307,8 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, dlse, scale: float,
     from horovod_tpu_torch.ops import _build
 
     B, S, H, D = _bwd_args(q, k, v, do, lse, delta, dlse)
+    if impl("dkv", q.dtype, do.dtype) == "wgmma":
+        _check_tma(("q", q), ("k", k), ("v", v), ("dO", do))
     lib = _build.lib()
     dk = torch.empty((B, S, H, D), device=q.device, dtype=k.dtype)
     dv = torch.empty((B, S, H, D), device=q.device, dtype=v.dtype)

@@ -47,8 +47,10 @@ def make_transformer_train_step(
     :func:`default_optimizer`).  ``init_fn(seed) -> TrainState`` makes the
     model from ``seed`` and gives every rank rank 0's weights.
     ``step_fn(state, tokens, targets) -> (state, loss)`` takes this rank's
-    ``[B, S]`` slice of the batch and returns this rank's mean loss; the
-    model and optimizer are updated in place.  Needs ``hvd.init()``."""
+    ``[B, S]`` slice of the batch and returns the mean loss over the global
+    batch (an averaging allreduce of the ranks' mean losses, which is the
+    JAX step's value for equal per-rank batches); the model and optimizer
+    are updated in place.  Needs ``hvd.init()``."""
     dev = basics.resolve_device(device, "make_transformer_train_step()")
     make_inner = optimizer or default_optimizer
 
@@ -66,6 +68,6 @@ def make_transformer_train_step(
         loss = tfm.loss_fn(state.model, tokens.to(dev), targets.to(dev))
         loss.backward()
         state.optimizer.step()
-        return state._replace(step=state.step + 1), loss.detach()
+        return state._replace(step=state.step + 1), C.allreduce(loss.detach())
 
     return step_fn, init_fn

@@ -6,7 +6,8 @@ the JAX side runs its Pallas kernels in interpret mode, as
 a seed and handed to both.  Tolerances: 2e-5 on the forward and 2e-4 on the
 gradients in fp32 (the JAX package's own flash-vs-dense tolerances: both
 sides sum in other orders), bf16 against an fp32 oracle at bf16's
-resolution.
+resolution, and bf16 against JAX's bf16 flash, which rounds at the same
+points, at two bf16 ulps.
 
 The ``cuda`` cases hold each CUDA kernel against its plain version on the
 card and skip where torch finds no CUDA device.  JAX is imported inside the
@@ -152,6 +153,108 @@ def test_bf16_inputs_against_f32_oracle():
         _close(t.grad.float() / scale, np.asarray(gj) / scale, 2e-2)
 
 
+def _ulps_close(got, want, ulps):
+    """Each element within ``ulps`` bf16 ulps of its value (2⁻⁷ each, the
+    ulp at the bottom of a binade), plus as many ulps of the output's rms
+    for elements near zero."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    rms = float(np.sqrt(np.mean(want ** 2)))
+    np.testing.assert_array_less(np.abs(got - want),
+                                 ulps * 2.0 ** -7 * (np.abs(want) + rms))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_plain_versions_match_jax_flash(causal):
+    """bf16 through the port's plain versions and JAX's Pallas kernels
+    (interpret mode) on the same numpy inputs.  Both round P before P·V and
+    Pᵀ·dO and dS before dS·K and dSᵀ·Q, and the forward walks key blocks of
+    ``FWD_BLOCK_K`` on both sides, so they agree to two bf16 ulps: the sums
+    run in other orders, so an intermediate that lies on a rounding
+    boundary may round the other way, and each output rounds once."""
+    import jax
+    import jax.numpy as jnp
+
+    from horovod_tpu.ops.pallas_attention import flash_attention
+
+    arrs = _np_qkv(seed=8, S=2 * fa.FWD_BLOCK_K)
+    w = np.random.RandomState(9).randn(*arrs[0].shape).astype(np.float32)
+    ts = _torch(arrs, torch.bfloat16)
+    out = fa.flash_attention(*ts, causal=causal)
+    assert out.dtype == torch.bfloat16
+    (out.float() * torch.tensor(w)).sum().backward()
+
+    def run(q, k, v):
+        return flash_attention(q, k, v, causal=causal,
+                               block_q=fa.FWD_BLOCK_K,
+                               block_k=fa.FWD_BLOCK_K)
+
+    def loss(q, k, v):
+        return jnp.sum(run(q, k, v).astype(jnp.float32) * w)
+
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in arrs]
+    _ulps_close(out.detach().float(), run(*jargs).astype(jnp.float32), 2)
+    g = jax.grad(loss, argnums=(0, 1, 2))(*jargs)
+    for t, gj in zip(ts, g):
+        assert t.grad.dtype == torch.bfloat16
+        _ulps_close(t.grad.float(), gj.astype(jnp.float32), 2)
+
+
+def _fwd_fp32_formula(q, k, v, scale, causal):
+    """The plain forward before the rounding points: one dense softmax."""
+    s = fa._scores(q, k, scale, causal)
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.einsum("bhst,bthd->bshd", torch.exp(s - lse.unsqueeze(-1)), v)
+    return o, lse.transpose(1, 2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_versions_unchanged_for_fp32(causal):
+    """With fp32 inputs the rounding casts do nothing: the plain versions
+    give the dense fp32 formulas' values, up to fp32 summation order (the
+    forward's key blocks)."""
+    q, k, v = (torch.tensor(a) for a in _np_qkv(seed=10, S=300, D=16))
+    do = torch.tensor(_np_qkv(seed=11, S=300, D=16)[0])
+    scale = 0.25
+    o, lse = fa._flash_fwd_plain(q, k, v, scale, causal)
+    wo, wlse = _fwd_fp32_formula(q, k, v, scale, causal)
+    _close(o, wo, 1e-6)
+    _close(lse, wlse, 1e-6)
+    delta = (do * o).sum(-1)
+    dlse = torch.tensor(np.random.RandomState(12).randn(*lse.shape),
+                        dtype=torch.float32)
+    args = (q, k, v, do, lse, delta, dlse, scale, causal)
+    p, ds = fa._probs_and_dscores(*args)
+    torch.testing.assert_close(
+        fa._flash_dq_plain(*args),
+        torch.einsum("bhst,bthd->bshd", ds, k) * scale, rtol=0, atol=0)
+    dk, dv = fa._flash_dkv_plain(*args)
+    torch.testing.assert_close(
+        dk, torch.einsum("bhst,bshd->bthd", ds, q) * scale, rtol=0, atol=0)
+    torch.testing.assert_close(
+        dv, torch.einsum("bhst,bshd->bthd", p, do), rtol=0, atol=0)
+    assert all(float(t.abs().max()) == 0
+               for t in fa.rounding_slack(*args).values())
+
+
+def test_impl_is_chosen_by_dtype():
+    bf, f32 = torch.bfloat16, torch.float32
+    assert fa.impl("fwd", bf) == "wgmma"
+    assert fa.impl("dkv", bf, bf) == "wgmma"
+    assert fa.impl("dkv", bf, f32) == "simt"  # the lse variant's fp32 dO
+    assert fa.impl("dq", bf, bf) == "simt"
+    assert {fa.impl(k, f32, f32) for k in ("fwd", "dq", "dkv")} == {"simt"}
+
+
+def test_tma_check_rejects_unaligned_strides():
+    """A head stride of 36 bf16 values (72 bytes) is no whole number of
+    16-byte units, so the tensor map cannot describe it."""
+    x = torch.zeros(1, 64, 2, 36, dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="TMA"):
+        fa._check_tma(("q", x))
+    fa._check_tma(("q", torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16)))
+
+
 def test_cpu_path_launches_no_kernel():
     arrs = _np_qkv(S=64)
     ts = _torch(arrs)
@@ -208,41 +311,45 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _assert_kernel_close(got, want, dtype):
+def _assert_kernel_close(got, want, dtype, slack=0.0):
     """Each element of a kernel output within rtol·|want| + atol·rms(want)
-    of its plain version computed in fp32.  bf16 outputs: rtol two bf16
-    ulps (2^-7), as the kernel rounds its fp32 result once (at most half an
-    ulp), and atol 1e-3·rms for the fp32 sums' order.  fp32 outputs: 1e-4
-    and 1e-4·rms (summation order only)."""
+    + slack of its plain version on the same inputs (``chip_smoke.TOL``).
+    bf16 outputs: rtol one bf16 ulp at the bottom of a binade (2^-7), as
+    both sides round their fp32 result once, and atol 1e-3·rms for the fp32
+    sums' order.  fp32 outputs: 1e-4 and 1e-4·rms (summation order only).
+    ``slack`` (``fa.rounding_slack``) covers bf16 intermediates that both
+    sides round."""
     rtol, atol = (2.0 ** -7, 1e-3) if dtype == torch.bfloat16 else \
         (1e-4, 1e-4)
-    want = want.float()
-    torch.testing.assert_close(got.float(), want, rtol=rtol,
-                               atol=atol * float(want.pow(2).mean().sqrt()))
+    got, want = got.float(), want.float()
+    allowed = (rtol * want.abs() + atol * float(want.pow(2).mean().sqrt())
+               + slack)
+    worst = float(((got - want).abs() / allowed).max())
+    assert worst <= 1.0, f"worst element at {worst:.3f} of its tolerance"
 
 
 def _check_kernels(q, k, v, causal):
-    """Forward, dQ and dK/dV kernels against the plain versions computed in
-    fp32 on the same inputs, with a nonzero dlse."""
+    """Forward, dQ and dK/dV kernels against the plain versions (fp32 sums,
+    the kernels' rounding points) on the same inputs, with a nonzero
+    dlse."""
     dt = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     gen = torch.Generator(device=q.device).manual_seed(11)
-    qf, kf, vf = (t.float() for t in (q, k, v))
     o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
-    po, plse = fa._flash_fwd_plain(qf, kf, vf, scale, causal)
-    _assert_kernel_close(o, po, dt)
-    _assert_kernel_close(lse, plse, torch.float32)
+    po, plse = fa._flash_fwd_plain(q, k, v, scale, causal)
     do = torch.randn(q.shape, device=q.device, generator=gen).to(dt)
     dlse = torch.randn(plse.shape, device=q.device, generator=gen)
-    delta = (do.float() * po).sum(-1)
+    delta = (do.float() * po.float()).sum(-1)
     args = (q, k, v, do, plse, delta, dlse, scale, causal)
-    pargs = (qf, kf, vf, do.float(), plse, delta, dlse, scale, causal)
-    _assert_kernel_close(fa.flash_dq_cuda(*args), fa._flash_dq_plain(*pargs),
-                         dt)
+    slack = fa.rounding_slack(*args)
+    _assert_kernel_close(o, po, dt, slack["o"])
+    _assert_kernel_close(lse, plse, torch.float32)
+    _assert_kernel_close(fa.flash_dq_cuda(*args), fa._flash_dq_plain(*args),
+                         dt, slack["dq"])
     dk, dv = fa.flash_dkv_cuda(*args)
-    pdk, pdv = fa._flash_dkv_plain(*pargs)
-    _assert_kernel_close(dk, pdk, dt)
-    _assert_kernel_close(dv, pdv, dt)
+    pdk, pdv = fa._flash_dkv_plain(*args)
+    _assert_kernel_close(dk, pdk, dt, slack["dk"])
+    _assert_kernel_close(dv, pdv, dt, slack["dv"])
     torch.cuda.synchronize()
 
 
@@ -261,12 +368,16 @@ def test_cuda_kernels_match_plain(cuda_device, D, S, dtype):
 
 @pytest.mark.cuda
 def test_cuda_kernels_read_strided_inputs(cuda_device):
-    """q/k/v as views into one packed [B, S, 3, H, D] tensor."""
+    """q/k/v as views into one packed [B, S, 3, H, D] tensor, in fp32 (the
+    scalar kernels' pointer strides) and bf16 (the wgmma kernels' tensor
+    maps)."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
-    qkv = torch.randn(2, 200, 3, 4, 64, device=cuda_device, generator=gen)
-    q, k, v = qkv.unbind(2)
-    assert not q.is_contiguous()
-    _check_kernels(q, k, v, causal=True)
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(2, 200, 3, 4, 64, device=cuda_device,
+                          generator=gen).to(dt)
+        q, k, v = qkv.unbind(2)
+        assert not q.is_contiguous()
+        _check_kernels(q, k, v, causal=True)
 
 
 @pytest.mark.cuda
@@ -285,7 +396,9 @@ def test_cuda_autograd_runs_kernels(cuda_device):
 def _lse_variant_bf16_against_fp32_oracle(device, causal):
     """bf16 q/k/v through the lse variant: its fp32 output sends an fp32 dO
     to the backward, beside a nonzero dlse.  The oracle is the plain
-    versions in fp32 on the same (bf16) values."""
+    versions, with fp32 sums, on the same bf16 tensors: they round P before
+    P·V and dS before the dK and dQ products as the kernels do, and keep
+    P in fp32 before Pᵀ·dO, since dO is fp32."""
     gen = torch.Generator(device=device).manual_seed(17)
     q, k, v = (torch.randn(2, 200, 4, 64, device=device, generator=gen)
                .to(torch.bfloat16).requires_grad_() for _ in range(3))
@@ -296,15 +409,17 @@ def _lse_variant_bf16_against_fp32_oracle(device, causal):
     ((o * wo).sum() + (lse * wl).sum()).backward()
 
     scale = 1.0 / math.sqrt(q.shape[-1])
-    qf, kf, vf = (t.detach().float() for t in (q, k, v))
-    po, plse = fa._flash_fwd_plain(qf, kf, vf, scale, causal, out_f32=True)
-    _assert_kernel_close(o.detach(), po, torch.float32)
+    qb, kb, vb = (t.detach() for t in (q, k, v))
+    po, plse = fa._flash_fwd_plain(qb, kb, vb, scale, causal, out_f32=True)
+    pargs = (qb, kb, vb, wo, plse, (wo * po).sum(-1), wl, scale, causal)
+    slack = fa.rounding_slack(*pargs)
+    _assert_kernel_close(o.detach(), po, torch.float32, slack["o"])
     _assert_kernel_close(lse.detach(), plse, torch.float32)
-    pargs = (qf, kf, vf, wo, plse, (wo * po).sum(-1), wl, scale, causal)
     pdk, pdv = fa._flash_dkv_plain(*pargs)
-    for t, want in ((q, fa._flash_dq_plain(*pargs)), (k, pdk), (v, pdv)):
+    for t, want, sl in ((q, fa._flash_dq_plain(*pargs), slack["dq"]),
+                        (k, pdk, slack["dk"]), (v, pdv, slack["dv"])):
         assert t.grad.dtype == torch.bfloat16
-        _assert_kernel_close(t.grad, want, torch.bfloat16)
+        _assert_kernel_close(t.grad, want, torch.bfloat16, sl)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -318,6 +433,34 @@ def test_lse_variant_bf16_backward_takes_fp32_cotangent(causal):
 def test_cuda_lse_variant_backward_in_bf16(cuda_device, causal):
     _lse_variant_bf16_against_fp32_oracle(cuda_device, causal)
     assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_autograd_runs_wgmma_kernels(cuda_device):
+    """A bf16 forward and backward count one launch of each kernel: the
+    forward and dK/dV on the tensor cores, dQ on the scalar kernel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    ts = [torch.randn(2, 256, 4, 64, device=cuda_device, generator=gen)
+          .to(torch.bfloat16).requires_grad_() for _ in range(3)]
+    assert fa.impl("fwd", torch.bfloat16) == "wgmma"
+    assert fa.impl("dkv", torch.bfloat16, torch.bfloat16) == "wgmma"
+    fa.flash_attention(*ts).float().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert all(t.grad is not None and bool(t.grad.isfinite().all())
+               for t in ts)
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_wrappers_raise_on_strides_tma_cannot_take(cuda_device):
+    x = torch.zeros(1, 64, 2, 36, device=cuda_device,
+                    dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_fwd_cuda(x, x, x, 1.0, True)
+    st = torch.zeros(1, 64, 2, device=cuda_device)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_dkv_cuda(x, x, x, x, st, st, None, 1.0, True)
+    assert fa.launches == {"fwd": 0, "dq": 0, "dkv": 0}
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@ Three AdamW steps of ``make_transformer_train_step`` from the same weights
 * one process against JAX on a ``{"dp": 1}`` mesh;
 * a two-process gloo gang, two sequences per rank, against JAX on a
   ``{"dp": 2}`` mesh with the same four sequences.  Every parameter must be
-  identical across the ranks.
+  identical across the ranks, and each rank's returned loss is the loss
+  over the global batch.
 
 fp32 compute; losses and parameters at 1e-4 (Adam divides by the gradient's
 own size, so the gradients' 5e-4 agreement shrinks to the update's).  The
@@ -148,12 +149,27 @@ def test_two_rank_gloo_gang_matches_jax_dp2(eight_devices, tmp_path):
     for k in outs[0]:
         if k != "losses":
             np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
-    # Each rank's loss is the mean over its own half of the batch.
-    np.testing.assert_allclose((outs[0]["losses"] + outs[1]["losses"]) / 2,
-                               jlosses, rtol=1e-4, atol=1e-4)
+    # Each rank returns the loss over the global batch, as JAX's step does.
+    for r, out in enumerate(outs):
+        np.testing.assert_allclose(out["losses"], jlosses, rtol=1e-4,
+                                   atol=1e-4, err_msg=f"rank {r}")
     _assert_params_close(
         {k: torch.from_numpy(v) for k, v in outs[0].items()
          if k != "losses"}, jparams)
+
+
+def test_step_loss_is_the_loss_fn_on_the_same_batch(one_rank):
+    """On one rank the step's returned loss is ``loss_fn`` of the model as
+    it was before the update, on the same batch."""
+    toks, tgts = (torch.tensor(a) for a in _batch(2))
+    step_fn, init_fn = train.make_transformer_train_step(_port_cfg(),
+                                                         device="cpu")
+    state = init_fn(0)
+    with torch.no_grad():
+        want = tfm.loss_fn(state.model, toks, tgts)
+    state, loss = step_fn(state, toks, tgts)
+    assert loss.shape == () and not loss.requires_grad
+    torch.testing.assert_close(loss, want, rtol=0, atol=0)
 
 
 def test_backward_passes_per_step_applies_the_mean(one_rank):

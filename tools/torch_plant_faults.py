@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Plant faults in a copy of the port's CUDA kernels and show that
+``chip_smoke.py``'s element-wise kernel check fails each one.
+
+    python3 tools/torch_plant_faults.py
+
+Needs one NVIDIA card.  For each fault, the script copies
+``horovod_tpu_torch/`` and ``chip_smoke.py`` into a fresh temporary
+directory, edits one kernel source there (the checkout is never touched),
+builds that copy's kernels and runs ``chip_smoke.check_kernels`` on the
+flagship shape (B 8, S 1024, H 16, D 64, bf16, causal) and a ragged one
+(B 2, S 1000, H 8, D 128, bf16, non-causal, nonzero dlse).  Each check
+prints every output's worst element as a share of its tolerance; a fault is
+caught when that share exceeds 1.  Every fault touches only the last query
+rows or the last query tile, so a check scaled by the largest value would
+barely see it.  Exits non-zero if a fault goes uncaught.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join("horovod_tpu_torch", "ops", "csrc")
+
+# name: (source file, text to find, its replacement)
+FAULTS = {
+    # The forward's last query tile drops key tile 1 from P.V (l keeps it).
+    "fwd: last rows skip key tile 1": (
+        "flash_wgmma.cu",
+        "        s[4 * j + e] = p;\n      }\n#pragma unroll\n"
+        "    for (int j = 0; j < D / 8; ++j) {",
+        "        s[4 * j + e] = (t == 1 && blockIdx.y == 0) ? 0.f : p;\n"
+        "      }\n#pragma unroll\n    for (int j = 0; j < D / 8; ++j) {"),
+    # dQ's last query tile skips key tile 1.
+    "dq: last rows skip key tile 1": (
+        "flash_attention.cu",
+        "  for (int k0 = 0; k0 < k_end; k0 += BK) {\n    __syncthreads();\n"
+        "    load_tile<T, D>(Ks, kb, sk, k0, S);\n    load_tile<T, D>(Vs, vb, "
+        "sv, k0, S);\n    __syncthreads();\n    float p[TM][TM], ds[TM][TM];",
+        "  for (int k0 = 0; k0 < k_end; k0 += BK) {\n    if (k0 == BK && "
+        "blockIdx.y == 0) continue;\n    __syncthreads();\n    load_tile<T, "
+        "D>(Ks, kb, sk, k0, S);\n    load_tile<T, D>(Vs, vb, sv, k0, S);\n"
+        "    __syncthreads();\n    float p[TM][TM], ds[TM][TM];"),
+    # dK/dV drops the last query tile for every earlier key tile.
+    "dkv: last query tile skipped": (
+        "flash_wgmma.cu",
+        "        if (diag && q0 + c < k0 + krow + 8 * (e >> 1)) p = 0.f;\n",
+        "        if (diag && q0 + c < k0 + krow + 8 * (e >> 1)) p = 0.f;\n"
+        "        if (q0 + BQ >= S && k0 < q0) p = 0.f;\n"),
+}
+
+RUN = """
+import sys, torch
+sys.path.insert(0, {root!r})
+import chip_smoke
+from horovod_tpu_torch.ops import flash_attention as fa
+name, peaks = chip_smoke._peaks(torch.cuda.get_device_name(0))
+dev = torch.device("cuda", 0)
+caught = 0
+for shape in ((8, 1024, 16, 64, True, False), (2, 1000, 8, 128, False, True)):
+    B, S, H, D, causal, dlse = shape
+    try:
+        chip_smoke.check_kernels(fa, B, S, H, D, torch.bfloat16, causal,
+                                 dlse, peaks, dev, timed=False)
+    except AssertionError as e:
+        caught += 1
+        print("  caught:", e)
+sys.exit(0 if caught else 3)
+"""
+
+
+def plant(name, src, find, repl):
+    with tempfile.TemporaryDirectory() as root:
+        shutil.copytree(os.path.join(REPO, "horovod_tpu_torch"),
+                        os.path.join(root, "horovod_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
+        path = os.path.join(root, CSRC, src)
+        with open(path) as f:
+            text = f.read()
+        if text.count(find) != 1:
+            raise RuntimeError(f"{name}: the text to replace occurs "
+                               f"{text.count(find)} times in {src}")
+        with open(path, "w") as f:
+            f.write(text.replace(find, repl))
+        print(f"fault: {name} ({src})", flush=True)
+        r = subprocess.run([sys.executable, "-c", RUN.format(root=root)],
+                           cwd=root)
+        return r.returncode == 0
+
+
+def main() -> int:
+    missed = [name for name, fault in FAULTS.items() if not plant(name,
+                                                                  *fault)]
+    print(f"faults caught: {len(FAULTS) - len(missed)} of {len(FAULTS)}"
+          + (f"; missed {missed}" if missed else ""))
+    return 1 if missed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
