@@ -9,15 +9,13 @@ non-zero):
 0. the card (``nvidia-smi``), torch and nvcc versions;
 1. build the CUDA kernels from ``horovod_tpu_torch/ops/csrc`` with nvcc (one
    per source, in parallel), and disassemble the library: every bf16
-   instantiation of the forward and dK/dV kernels must hold tensor-core
+   instantiation of the forward, dQ and dK/dV kernels must hold tensor-core
    (``HGMMA``) instructions;
 2. hold each kernel (flash forward, dQ, dK/dV) against its plain PyTorch
    version (fp32 sums, the kernels' bf16 rounding points) on the same
    inputs, at the flagship shape (B 8, S 1024, H 16, D 64, bf16, causal) and
    at two ragged ones (S 1000, non-causal, nonzero dlse: D 128 bf16, and
-   D 32 fp32); time the kernel, the plain version and PyTorch's
-   ``scaled_dot_product_attention`` as a yardstick (forward alone for the
-   forward, backward alone for dQ and dK/dV; the port never calls it);
+   D 32 fp32);
 3. the slice: ``hvd.init()`` (a one-rank NCCL group), the flagship
    transformer at full width and depth (vocab 32768, d_model 1024, 8 layers,
    16 heads, d_ff 4096, seq 1024, batch 8, bf16, flash attention, remat)
@@ -28,7 +26,14 @@ non-zero):
    launches per step, the first step's gradients and every step's loss
    against the twin's, and the first step's loss against the same model
    with its attention through the plain forward (with and without its bf16
-   rounding of P).
+   rounding of P).  Then ten steps alone are timed and one is profiled;
+4. the kernel checks of phase 2 again, and the times of the kernel, the
+   plain version and PyTorch's ``scaled_dot_product_attention`` as a
+   yardstick (forward alone for the forward, backward alone for dQ and
+   dK/dV; the port never calls it), each as its kernels' device time per
+   call under ``torch.profiler``, and the kernel also between CUDA events,
+   which counts the host's gaps.  This comes after the slice, so that the
+   steps are timed before any profiler has run.
 
 The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -60,7 +65,7 @@ PEAKS = {
 SOURCES = {"simt": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
            "wgmma": "horovod_tpu_torch/ops/csrc/flash_wgmma.cu"}
 # Kernels that must run on the tensor cores, by their name in the library.
-WGMMA_KERNELS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel")
+WGMMA_KERNELS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel")
 REPLACES = {"fwd": "horovod_tpu/ops/pallas_attention.py:77",
             "dq": "horovod_tpu/ops/pallas_attention.py:174",
             "dkv": "horovod_tpu/ops/pallas_attention.py:215"}
@@ -131,6 +136,43 @@ def _time_ms(fn, reps=20, batches=5, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _kernel_rows(prof):
+    """The profile's device kernels by name, largest first.  A user range
+    ("Optimizer.step#AdamW.step") also carries the device time of the
+    kernels inside it, so ranges are left out."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
+                   and not getattr(e, "is_user_annotation", False)
+                   and not re.fullmatch(r"[\w.]+#[\w.]+", e.key)),
+                  key=_dev_us, reverse=True)
+
+
+def _device_ms(fn, reps=20, warmup=3):
+    """Device time of one call of ``fn``: the summed device time of the
+    kernels that ``reps`` calls launch, under ``torch.profiler``, over
+    ``reps``.  Unlike an event-timed loop it leaves out the gaps where the
+    card waits for the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_dev_us(e) for e in _kernel_rows(prof)) / reps / 1e3
 
 
 def _bound(kernel, B, S, H, D, dtype, causal, has_dlse, peaks):
@@ -235,15 +277,18 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
     }
     out = {}
     for kname, (kern, plain, lib) in timing.items():
-        ms, plain_ms, lib_ms = _time_ms(kern), _time_ms(plain), _time_ms(lib)
+        ms, plain_ms, lib_ms = (_device_ms(f) for f in (kern, plain, lib))
+        event_ms = _time_ms(kern)
         bound_ms, bound_by = _bound(kname, B, S, H, D, dtype, causal,
                                     with_dlse, peaks)
-        print(f"  {kname} ({impls[kname]}): kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.3f} ms  sdpa{'' if kname == 'fwd' else ' bwd'} "
-              f"{lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+        print(f"  {kname} ({impls[kname]}): kernel {ms:.4f} ms (events "
+              f"{event_ms:.4f} ms)  plain {plain_ms:.3f} ms  "
+              f"sdpa{'' if kname == 'fwd' else ' bwd'} {lib_ms:.4f} ms  "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
         out[kname] = dict(impl=impls[kname], max_abs_err=err[kname], ms=ms,
-                          plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=lib_ms)
+                          event_ms=event_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib_ms)
     return out
 
 
@@ -273,8 +318,9 @@ def check_sass(lib_path):
                     bad.append(f"{fname} holds no HGMMA")
     print(f"sass: {found} instantiations, each with HGMMA"
           if not bad else f"sass: {bad}")
-    # bf16 forward: 4 head dims x 2 output types; dK/dV: 4 head dims.
-    if found != {"fwd_wgmma_kernel": 8, "dkv_wgmma_kernel": 4}:
+    # bf16 forward: 4 head dims x 2 output types; dK/dV and dQ: 4 head dims.
+    if found != {"fwd_wgmma_kernel": 8, "dkv_wgmma_kernel": 4,
+                 "dq_wgmma_kernel": 4}:
         bad.append(f"wgmma instantiations found {found}")
     _fail_if(bad, "sass")
     return found
@@ -323,7 +369,6 @@ def _profile_step(step_fn, state, tokens, targets, step_ms):
     the kernels by name (largest first) and their sum, which on one stream
     is the device's busy time, against the unprofiled median ``step_ms``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -334,24 +379,16 @@ def _profile_step(step_fn, state, tokens, targets, step_ms):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # Kernels only: a user range ("Optimizer.step#AdamW.step") also carries
-    # the device time of the kernels inside it.
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0
-                   and not getattr(e, "is_user_annotation", False)
-                   and not re.fullmatch(r"[\w.]+#[\w.]+", e.key)),
-                  key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    rows = _kernel_rows(prof)
+    busy_ms = sum(_dev_us(e) for e in rows) / 1e3
     print(f"profile: kernels {busy_ms:.2f} ms in {sum(e.count for e in rows)} "
           f"launches; the profiled step took {wall_ms:.2f} ms, the median "
           f"step {step_ms:.2f} ms: device idle "
           f"{100 * (1 - busy_ms / step_ms):.1f}% of it")
-    for e in rows[:12]:
-        print(f"profile:   {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} "
+    flash = [e for e in rows[12:]
+             if re.search(r"\b(fwd|dq|dkv)(_wgmma)?_kernel<", e.key)]
+    for e in rows[:12] + flash:
+        print(f"profile:   {_dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
     return state
 
@@ -455,8 +492,10 @@ def _ptxas_report(log):
                 print(f"build: spills in {name}: {line.strip()}")
         elif name and "Used " in line and "registers" in line:
             regs = line.split("Used ", 1)[1].split(" registers")[0]
+            kname = re.search(r"\d([a-z]+(?:_wgmma)?_kernel)I", name)
             short = name.split("N_", 1)[-1][-70:]
-            print(f"build: {regs} registers  {short}")
+            print(f"build: {regs} registers  "
+                  f"{kname.group(1) if kname else ''}  {short}")
             name = None
     print(f"build: {spills} kernels with register spills")
 
@@ -494,21 +533,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    flagship = check_kernels(fa, 8, 1024, 16, 64, torch.bfloat16, True,
-                             False, peaks, dev)
-    check_kernels(fa, 2, 1000, 8, 128, torch.bfloat16, False, True, peaks, dev)
-    check_kernels(fa, 2, 1000, 8, 32, torch.float32, False, True, peaks, dev)
-
-    ratio = {k: m["ms"] / m["library_ms"] for k, m in flagship.items()}
-    print(f"kernels: flagship forward {ratio['fwd']:.2f}x SDPA's forward; "
-          f"dK/dV {ratio['dkv']:.2f}x and dQ {ratio['dq']:.2f}x SDPA's "
-          "whole backward")
+    # (B, S, H, D, dtype, causal, with dlse): the flagship, then two ragged.
+    shapes = ((8, 1024, 16, 64, torch.bfloat16, True, False),
+              (2, 1000, 8, 128, torch.bfloat16, False, True),
+              (2, 1000, 8, 32, torch.float32, False, True))
+    for shape in shapes:
+        check_kernels(fa, *shape, peaks, dev, timed=False)
 
     hvd.init()
     try:
         counts, step_ms, steps = run_slice(hvd, tfm, fa, dev, card)
     finally:
         hvd.shutdown()
+
+    # Timed after the slice, so that no profiler has run before the steps
+    # are timed.
+    flagship = check_kernels(fa, *shapes[0], peaks, dev)
+    for shape in shapes[1:]:
+        check_kernels(fa, *shape, peaks, dev)
+    ratio = {k: m["ms"] / m["library_ms"] for k, m in flagship.items()}
+    print(f"kernels: flagship forward {ratio['fwd']:.2f}x SDPA's forward; "
+          f"dK/dV {ratio['dkv']:.2f}x and dQ {ratio['dq']:.2f}x SDPA's "
+          "whole backward")
     attn_ms = sum(flagship[k]["ms"] * counts[k] / steps for k in counts)
     print(f"slice: attention kernels {attn_ms:.2f} ms of the {step_ms:.2f} ms "
           f"step (each kernel's flagship time x its launches per step)")

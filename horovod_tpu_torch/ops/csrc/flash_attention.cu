@@ -4,11 +4,11 @@
 //
 // Replaces the three Pallas kernels of horovod_tpu/ops/pallas_attention.py:
 //   fwd_kernel  <- _fwd_kernel  (launched by _flash_fwd), float32 only
-//   dq_kernel   <- _dq_kernel   (launched by _flash_bwd), every dtype
-//   dkv_kernel  <- _dkv_kernel  (launched by _flash_bwd), float32, and
+//   dq_kernel   <- _dq_kernel   (launched by _flash_bwd), float32, and
 //                  bfloat16 q/k/v with the lse variant's float32 dO
+//   dkv_kernel  <- _dkv_kernel  (launched by _flash_bwd), the same
 // bfloat16 q/k/v take fwd_wgmma_kernel, and with a bfloat16 dO
-// dkv_wgmma_kernel (flash_wgmma.cu).
+// dq_wgmma_kernel and dkv_wgmma_kernel (flash_wgmma.cu).
 // They compute what those kernels compute: S = Q K^T * scale in fp32, causal
 // key j visible to query i iff j <= i, online softmax with O = acc / l and
 // lse = m + log l; backward P = exp(S - lse), dP = dO V^T,
@@ -36,9 +36,9 @@
 //     tiles (a 4x4 register micro-tile per thread), so they run at the card's
 //     fp32 CUDA-core rate, not its bf16 tensor-core rate, and the shared-
 //     memory loads feeding the FMAs are their limit.  Tiles are padded by one
-//     float per row so the 16 threads of a half-warp hit 16 banks.  The
-//     bfloat16 forward and dK/dV run on the tensor cores (flash_wgmma.cu);
-//     moving dQ there is later work.
+//     float per row so the 16 threads of a half-warp hit 16 banks.  With
+//     bfloat16 q/k/v and dO every kernel runs on the tensor cores
+//     (flash_wgmma.cu); these serve float32 and the fp32 dO.
 //   * Causal blocks skip the key (query) tiles above the diagonal, and the
 //     grid hands out the tiles with the most work first to shorten the tail.
 //   * No atomics: every output element has exactly one writer, so results
@@ -538,8 +538,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // is float32 where q/k/v are bfloat16 (the gradient of the lse variant's
 // float32 output); with float32 q/k/v, dO is float32 anyway.  strides: host
 // array of (b, s, h) element strides for q, k, v (and dO in the backward
-// launchers).  The kernel is chosen by dtype: bfloat16 forward and dK/dV
-// (bfloat16 dO) on the tensor cores, the rest on the scalar kernels.
+// launchers).  The kernel is chosen by dtype: the bfloat16 forward, and dQ
+// and dK/dV with a bfloat16 dO, on the tensor cores; the rest on the scalar
+// kernels.
 // Each returns cudaGetLastError() after the launch (0 on success).
 extern "C" {
 
@@ -565,10 +566,10 @@ int hvd_flash_dq(const void* q, const void* k, const void* v, const void* dout,
     HVD_DISPATCH_D(D, (launch_dq<float, float, HD>(q, k, v, dout, lse, delta, dlse, dq, strides, B, S, H, scale, causal, st)))
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (do_f32) {
-    HVD_DISPATCH_D(D, (launch_dq<__nv_bfloat16, float, HD>(q, k, v, dout, lse, delta, dlse, dq, strides, B, S, H, scale, causal, st)))
-  }
-  HVD_DISPATCH_D(D, (launch_dq<__nv_bfloat16, __nv_bfloat16, HD>(q, k, v, dout, lse, delta, dlse, dq, strides, B, S, H, scale, causal, st)))
+  if (!do_f32)
+    return hvd_flash_dq_wgmma(q, k, v, dout, lse, delta, dlse, dq, strides, B,
+                              S, H, D, scale, causal, st);
+  HVD_DISPATCH_D(D, (launch_dq<__nv_bfloat16, float, HD>(q, k, v, dout, lse, delta, dlse, dq, strides, B, S, H, scale, causal, st)))
 }
 
 int hvd_flash_dkv(const void* q, const void* k, const void* v,

@@ -1,20 +1,22 @@
-// Flash attention on Hopper's tensor cores (sm_90a): the forward and the
+// Flash attention on Hopper's tensor cores (sm_90a): the forward, dQ and
 // dK/dV kernels for bfloat16 q/k/v and a bfloat16 dO.
 //
-// Replace two Pallas kernels of horovod_tpu/ops/pallas_attention.py:
+// Replace the three Pallas kernels of horovod_tpu/ops/pallas_attention.py:
 //   fwd_wgmma_kernel <- _fwd_kernel  (:77, launched by _flash_fwd at :131)
+//   dq_wgmma_kernel  <- _dq_kernel   (:174, launched by _flash_bwd at :274)
 //   dkv_wgmma_kernel <- _dkv_kernel  (:215, launched by _flash_bwd at :293)
 // They compute what those kernels compute, and round where they round: S and
 // every product accumulate in fp32, P is rounded to bf16 before P.V and
-// P^T.dO, dS to bf16 before dS^T.Q (pallas_attention.py:112, :245, :252).
-// The fp32 variants, the lse variant's fp32 dO and the dQ kernel stay on the
-// scalar kernels of flash_attention.cu.
+// P^T.dO, dS to bf16 before dS.K and dS^T.Q (pallas_attention.py:112, :207,
+// :245, :252); dQ's P is not rounded.  The fp32 variants and the lse
+// variant's fp32 dO stay on the scalar kernels of flash_attention.cu.
 //
 // What bounds them on this card, and what the design does about it:
 //   * At the flagship shape (B 8, S 1024, H 16, D 64, causal) the forward
-//     does 17 GFLOP against 68 MB of traffic and dK/dV 34 GFLOP against
-//     102 MB: both near the H100's ~295 FLOP/byte ridge (the forward's
-//     bound is its bytes, dK/dV's its operations), so they need the bf16
+//     does 17 GFLOP against 68 MB of traffic, dQ 26 GFLOP against 85 MB and
+//     dK/dV 34 GFLOP against 102 MB: all near the H100's ~295 FLOP/byte
+//     ridge (the forward's bound is its bytes, dQ's and dK/dV's their
+//     operations), so they need the bf16
 //     tensor-core rate and full-rate loads.  Every product is a wgmma
 //     (m64nNk16, fp32 accumulators in registers), and the [S, S] scores
 //     never leave registers: the score accumulator is masked,
@@ -49,6 +51,8 @@ constexpr int FQ = 64;           // forward: query rows per block
 constexpr int FK = 128;          // forward: key rows per tile
 constexpr int BKV = 64;          // dK/dV: key rows per block
 constexpr int BQ = 64;           // dK/dV: query rows per tile
+constexpr int DQ = 64;           // dQ: query rows per block
+constexpr int BKQ = 64;          // dQ: key rows per tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -594,6 +598,149 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// dQ.  One block per (64-row query tile, b*h), the forward's shape: Q and
+// dO stay in shared memory while the producer streams K and V tiles up to
+// the causal limit.  Per tile: S = Q K^T and dP = dO V^T by wgmma,
+// P = exp(S scale - lse) and dS = P (dP - delta + dlse) in registers, and
+// dQ += bf16(dS) K by register-A wgmma against K read MN-major (as the
+// forward reads V).  A thread's two query rows keep their lse and
+// delta - dlse in registers, read once.
+template <int D>
+__global__ void __launch_bounds__(NT, D == 128 ? 1 : 2)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const float* __restrict__ dlse, __nv_bfloat16* __restrict__ dq,
+                int H, int S, float scale, int causal) {
+  using L = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* dOs = Qs + L::bytes(DQ);
+  uint8_t* Ks = dOs + L::bytes(DQ);            // [STAGES][BKQ, D]
+  uint8_t* Vs = Ks + STAGES * L::bytes(BKQ);   // [STAGES][BKQ, D]
+  uint64_t* q_full = (uint64_t*)(Vs + STAGES * L::bytes(BKQ));
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* empty = kv_full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ;  // heaviest tiles first
+  const int k_end = causal ? min(S, q0 + DQ) : S;
+  const int n_tiles = (k_end + BKQ - 1) / BKQ;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&empty[s], CONSUMER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMER) {  // producer warp: one lane issues every copy
+    if (tid == CONSUMER) {
+      mbar_expect_tx(q_full, 2 * L::bytes(DQ));
+      tma_tile<D>(Qs, &tq, q_full, DQ, q0, b, h);
+      tma_tile<D>(dOs, &tdo, q_full, DQ, q0, b, h);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(&kv_full[st], 2 * L::bytes(BKQ));
+        tma_tile<D>(Ks + st * L::bytes(BKQ), &tk, &kv_full[st], BKQ, t * BKQ, b, h);
+        tma_tile<D>(Vs + st * L::bytes(BKQ), &tv, &kv_full[st], BKQ, t * BKQ, b, h);
+      }
+    }
+    return;
+  }
+
+  const int lane = tid & 31, quad = lane & 3;
+  const int row0 = q0 + 16 * (tid >> 5) + (lane >> 2);  // and row0 + 8
+  const float sl2 = scale * LOG2E;
+  // Rows past S get lse = +inf (P = 0) and delta - dlse = 0.
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s_row = row0 + 8 * i;
+    lse2[i] = INFINITY;
+    dd[i] = 0.f;
+    if (s_row < S) {
+      const long long row = ((long long)b * S + s_row) * H + h;
+      lse2[i] = lse[row] * LOG2E;
+      dd[i] = delta[row] - (dlse ? dlse[row] : 0.f);
+    }
+  }
+  float dqacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const uint32_t ph = (t / STAGES) & 1;
+    const int k0 = t * BKQ;
+    const uint8_t* Kt = Ks + st * L::bytes(BKQ);
+    const uint8_t* Vt = Vs + st * L::bytes(BKQ);
+
+    float s[BKQ / 2], dp[BKQ / 2];
+    mbar_wait(&kv_full[st], ph);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BKQ>(s, desc_k<D>(Qs, DQ, 0, kk), desc_k<D>(Kt, BKQ, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BKQ>(dp, desc_k<D>(dOs, DQ, 0, kk), desc_k<D>(Vt, BKQ, 0, kk), kk);
+    wg_commit();
+    wg_wait();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // The mask only where the tile crosses S or the causal diagonal.  Keys
+    // past S are zero rows, but exp(0 - lse) may overflow, and inf * 0 is
+    // NaN: they are masked, not left to the zeros.
+    const bool edge = k0 + BKQ > S || (causal && k0 + BKQ - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < BKQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[4 * j + e] * sl2 - lse2[e >> 1]);
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * quad + (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          if (col >= S || (causal && col > row)) p = 0.f;
+        }
+        dp[4 * j + e] = p * (dp[4 * j + e] - dd[e >> 1]);
+      }
+
+    // dQ += bf16(dS) K, dS straight from the registers.
+    uint32_t da[BKQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKQ / 16; ++kk) a_frag(dp, kk, da[kk]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKQ / 16; ++kk)
+      wgmma_rs<D>(dqacc, da[kk], desc_mn<D>(Kt, BKQ, kk));
+    wg_commit();
+    wg_wait();
+    reg_fence(dqacc);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s_row = row0 + 8 * i;
+    if (s_row >= S) continue;
+    const long long row = ((long long)b * S + s_row) * H + h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(dq + row * D + 8 * j + 2 * quad, dqacc[4 * j + 2 * i] * scale,
+             dqacc[4 * j + 2 * i + 1] * scale);
+  }
+}
+
 // --- host side -------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -696,6 +843,32 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* dlse, void* dq,
+              const long long* st, int B, int S, int H, float scale,
+              int causal, cudaStream_t stream) {
+  using L = Tile<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err;
+  if ((err = make_map<D>(&tq, q, st, B, S, H, DQ)) ||
+      (err = make_map<D>(&tk, k, st + 3, B, S, H, BKQ)) ||
+      (err = make_map<D>(&tv, v, st + 6, B, S, H, BKQ)) ||
+      (err = make_map<D>(&tdo, dout, st + 9, B, S, H, DQ)))
+    return err;
+  const size_t smem = 1024 + 2 * L::bytes(DQ) + 2 * STAGES * L::bytes(BKQ) +
+                      BARRIER_BYTES;
+  auto kernel = dq_wgmma_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (S + DQ - 1) / DQ);
+  kernel<<<grid, NT, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+      (const float*)dlse, (__nv_bfloat16*)dq, H, S, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int hvd_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
@@ -706,6 +879,14 @@ int hvd_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
     HVD_DISPATCH_D(D, (launch_fwd<float, HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, stream)))
   }
   HVD_DISPATCH_D(D, (launch_fwd<__nv_bfloat16, HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, stream)))
+}
+
+int hvd_flash_dq_wgmma(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       const void* dlse, void* dq, const long long* strides,
+                       int B, int S, int H, int D, float scale, int causal,
+                       cudaStream_t stream) {
+  HVD_DISPATCH_D(D, (launch_dq<HD>(q, k, v, dout, lse, delta, dlse, dq, strides, B, S, H, scale, causal, stream)))
 }
 
 int hvd_flash_dkv_wgmma(const void* q, const void* k, const void* v,

@@ -4,9 +4,9 @@ Hand-written CUDA kernels for Hopper replace the three Pallas kernels of
 the JAX package: the forward (``_fwd_kernel``), the dQ kernel
 (``_dq_kernel``) and the dK/dV kernel (``_dkv_kernel``).  The kernel is
 chosen by dtype (:func:`impl`): bfloat16 q/k/v take the tensor-core (wgmma)
-forward, and with a bfloat16 dO the wgmma dK/dV kernel
-(``csrc/flash_wgmma.cu``); float32, the lse variant's float32 dO and every
-dQ take the scalar (SIMT) kernels (``csrc/flash_attention.cu``).
+forward, and with a bfloat16 dO the wgmma dQ and dK/dV kernels
+(``csrc/flash_wgmma.cu``); float32 and the lse variant's float32 dO take
+the scalar (SIMT) kernels (``csrc/flash_attention.cu``).
 
 Beside them stand their plain PyTorch versions, written as the explicit
 formulas with fp32 sums:
@@ -205,9 +205,9 @@ def impl(kernel: str, dtype: torch.dtype,
     """Which CUDA kernel serves ``kernel`` ("fwd", "dq" or "dkv") for q/k/v
     of ``dtype`` (and dO of ``do_dtype``): "wgmma" (tensor cores, TMA
     loads) or "simt" (scalar FMAs)."""
-    if dtype != torch.bfloat16 or kernel == "dq":
+    if dtype != torch.bfloat16:
         return "simt"
-    if kernel == "dkv" and do_dtype not in (None, torch.bfloat16):
+    if kernel != "fwd" and do_dtype not in (None, torch.bfloat16):
         return "simt"
     return "wgmma"
 
@@ -271,12 +271,14 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool,
     return o, lse
 
 
-def _bwd_args(q, k, v, do, lse, delta, dlse):
+def _bwd_args(kernel, q, k, v, do, lse, delta, dlse):
     B, S, H, D = _check_qkv(q, k, v, do)
     _check_stat("lse", lse, q)
     _check_stat("delta", delta, q)
     if dlse is not None:
         _check_stat("dlse", dlse, q)
+    if impl(kernel, q.dtype, do.dtype) == "wgmma":
+        _check_tma(("q", q), ("k", k), ("v", v), ("dO", do))
     return B, S, H, D
 
 
@@ -285,7 +287,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta, dlse, scale: float,
     """dQ kernel.  ``dlse`` may be None (the lse received no gradient)."""
     from horovod_tpu_torch.ops import _build
 
-    B, S, H, D = _bwd_args(q, k, v, do, lse, delta, dlse)
+    B, S, H, D = _bwd_args("dq", q, k, v, do, lse, delta, dlse)
     lib = _build.lib()
     dq = torch.empty((B, S, H, D), device=q.device, dtype=q.dtype)
     with torch.cuda.device(q.device):
@@ -306,9 +308,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, dlse, scale: float,
     """dK/dV kernel: ``(dk, dv)``.  ``dlse`` may be None."""
     from horovod_tpu_torch.ops import _build
 
-    B, S, H, D = _bwd_args(q, k, v, do, lse, delta, dlse)
-    if impl("dkv", q.dtype, do.dtype) == "wgmma":
-        _check_tma(("q", q), ("k", k), ("v", v), ("dO", do))
+    B, S, H, D = _bwd_args("dkv", q, k, v, do, lse, delta, dlse)
     lib = _build.lib()
     dk = torch.empty((B, S, H, D), device=q.device, dtype=k.dtype)
     dv = torch.empty((B, S, H, D), device=q.device, dtype=v.dtype)

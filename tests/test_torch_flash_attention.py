@@ -242,7 +242,8 @@ def test_impl_is_chosen_by_dtype():
     assert fa.impl("fwd", bf) == "wgmma"
     assert fa.impl("dkv", bf, bf) == "wgmma"
     assert fa.impl("dkv", bf, f32) == "simt"  # the lse variant's fp32 dO
-    assert fa.impl("dq", bf, bf) == "simt"
+    assert fa.impl("dq", bf, bf) == "wgmma"
+    assert fa.impl("dq", bf, f32) == "simt"
     assert {fa.impl(k, f32, f32) for k in ("fwd", "dq", "dkv")} == {"simt"}
 
 
@@ -437,12 +438,13 @@ def test_cuda_lse_variant_backward_in_bf16(cuda_device, causal):
 
 @pytest.mark.cuda
 def test_cuda_bf16_autograd_runs_wgmma_kernels(cuda_device):
-    """A bf16 forward and backward count one launch of each kernel: the
-    forward and dK/dV on the tensor cores, dQ on the scalar kernel."""
+    """A bf16 forward and backward count one launch of each kernel, all
+    three on the tensor cores."""
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     ts = [torch.randn(2, 256, 4, 64, device=cuda_device, generator=gen)
           .to(torch.bfloat16).requires_grad_() for _ in range(3)]
     assert fa.impl("fwd", torch.bfloat16) == "wgmma"
+    assert fa.impl("dq", torch.bfloat16, torch.bfloat16) == "wgmma"
     assert fa.impl("dkv", torch.bfloat16, torch.bfloat16) == "wgmma"
     fa.flash_attention(*ts).float().sum().backward()
     torch.cuda.synchronize()
@@ -458,6 +460,8 @@ def test_cuda_wgmma_wrappers_raise_on_strides_tma_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="TMA"):
         fa.flash_fwd_cuda(x, x, x, 1.0, True)
     st = torch.zeros(1, 64, 2, device=cuda_device)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_dq_cuda(x, x, x, x, st, st, None, 1.0, True)
     with pytest.raises(ValueError, match="TMA"):
         fa.flash_dkv_cuda(x, x, x, x, st, st, None, 1.0, True)
     assert fa.launches == {"fwd": 0, "dq": 0, "dkv": 0}

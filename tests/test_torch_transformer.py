@@ -124,6 +124,43 @@ def test_bf16_logits_are_fp32():
     assert torch.isfinite(logits).all() and float(aux) == 0.0
 
 
+def test_bf16_vocab_projection_grads_match_jax():
+    """bf16 activations against an fp32 embedding, fp32 logits weighted by a
+    fixed fp32 tensor.  The reference forms dx and d embed from the fp32
+    cotangent; the port rounds the cotangent to bf16 first, then sums in
+    fp32 and rounds once, as the reference does.  That is one bf16 rounding
+    apart, held at two bf16 ulps of (|want| + rms)."""
+    import jax
+    import jax.numpy as jnp
+
+    from horovod_tpu.models import transformer as jtfm
+
+    rs = np.random.RandomState(0)
+    B, S, D, V = 2, 64, 128, 512
+    x = rs.randn(B, S, D).astype(np.float32)
+    embed = (rs.randn(V, D) / np.sqrt(D)).astype(np.float32)
+    w = rs.randn(B, S, V).astype(np.float32)
+
+    tx = torch.tensor(x).to(torch.bfloat16).requires_grad_()
+    te = torch.tensor(embed, requires_grad=True)
+    logits = tfm.vocab_projection(tx, te)
+    assert logits.dtype == torch.float32
+    (logits * torch.tensor(w)).sum().backward()
+    assert tx.grad.dtype == torch.bfloat16 and te.grad.dtype == torch.float32
+
+    jlogits, vjp = jax.vjp(jtfm.vocab_projection,
+                           jnp.asarray(x, jnp.bfloat16), jnp.asarray(embed))
+    jdx, jde = vjp(jnp.asarray(w))
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=1e-5, atol=1e-5)
+    for got, want in ((tx.grad, jdx), (te.grad, jde)):
+        got = got.float().numpy()
+        want = np.asarray(want, np.float32)
+        rms = float(np.sqrt(np.mean(want ** 2)))
+        np.testing.assert_array_less(np.abs(got - want),
+                                     2 * 2.0 ** -7 * (np.abs(want) + rms))
+
+
 def test_init_is_seeded():
     cfg = _port_cfg()
     a = tfm.init(3, cfg, device="cpu").state_dict()

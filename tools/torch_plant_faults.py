@@ -36,16 +36,12 @@ FAULTS = {
         "    for (int j = 0; j < D / 8; ++j) {",
         "        s[4 * j + e] = (t == 1 && blockIdx.y == 0) ? 0.f : p;\n"
         "      }\n#pragma unroll\n    for (int j = 0; j < D / 8; ++j) {"),
-    # dQ's last query tile skips key tile 1.
+    # dQ's last query tile skips key tile 1 (its dS is zero there).
     "dq: last rows skip key tile 1": (
-        "flash_attention.cu",
-        "  for (int k0 = 0; k0 < k_end; k0 += BK) {\n    __syncthreads();\n"
-        "    load_tile<T, D>(Ks, kb, sk, k0, S);\n    load_tile<T, D>(Vs, vb, "
-        "sv, k0, S);\n    __syncthreads();\n    float p[TM][TM], ds[TM][TM];",
-        "  for (int k0 = 0; k0 < k_end; k0 += BK) {\n    if (k0 == BK && "
-        "blockIdx.y == 0) continue;\n    __syncthreads();\n    load_tile<T, "
-        "D>(Ks, kb, sk, k0, S);\n    load_tile<T, D>(Vs, vb, sv, k0, S);\n"
-        "    __syncthreads();\n    float p[TM][TM], ds[TM][TM];"),
+        "flash_wgmma.cu",
+        "        dp[4 * j + e] = p * (dp[4 * j + e] - dd[e >> 1]);\n",
+        "        dp[4 * j + e] = (t == 1 && blockIdx.y == 0)\n"
+        "            ? 0.f : p * (dp[4 * j + e] - dd[e >> 1]);\n"),
     # dK/dV drops the last query tile for every earlier key tile.
     "dkv: last query tile skipped": (
         "flash_wgmma.cu",
