@@ -16,7 +16,14 @@ non-zero):
    inputs, at the flagship shape (B 8, S 1024, H 16, D 64, bf16, causal) and
    at two ragged ones (S 1000, non-causal, nonzero dlse: D 128 bf16, and
    D 32 fp32);
-3. the slice: ``hvd.init()`` (a one-rank NCCL group), the flagship
+3. inside one ``hvd.init()`` (a one-rank NCCL group), first the ResNet-50
+   slice: ``resnet50_config()`` at full width and depth (blocks 3, 4, 6, 3,
+   width 64, 1000 classes, bf16), batch 32 of 224x224 images from a fixed
+   seed, SGD(0.01, momentum 0.9), through ``make_resnet_train_step_hvd``.
+   Five steps, the first beside an fp32 twin from the same seed (step-0
+   loss, every gradient and the stem batch norm's statistics against it),
+   falling and finite losses, no flash kernel launched, three steps with
+   ``Compression.fp16``, then ten timed steps.  Then the flagship
    transformer at full width and depth (vocab 32768, d_model 1024, 8 layers,
    16 heads, d_ff 4096, seq 1024, batch 8, bf16, flash attention, remat)
    with weights from a fixed seed, five training steps through
@@ -26,7 +33,9 @@ non-zero):
    launches per step, the first step's gradients and every step's loss
    against the twin's, and the first step's loss against the same model
    with its attention through the plain forward (with and without its bf16
-   rounding of P).  Then ten steps alone are timed and one is profiled;
+   rounding of P).  Then ten steps alone are timed and one is profiled,
+   then one ResNet-50 step, and five MNIST steps (batch 64, Adam) must
+   give finite, falling losses;
 4. the kernel checks of phase 2 again, and the times of the kernel, the
    plain version and PyTorch's ``scaled_dot_product_attention`` as a
    yardstick (forward alone for the forward, backward alone for dQ and
@@ -66,6 +75,8 @@ SOURCES = {"simt": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
            "wgmma": "horovod_tpu_torch/ops/csrc/flash_wgmma.cu"}
 # Kernels that must run on the tensor cores, by their name in the library.
 WGMMA_KERNELS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel")
+# cuDNN's convolution and cuBLAS's matrix-product kernels, by name.
+CONV_KERNELS = r"xmma|cutlass|nvjet|gemm|cudnn|conv"
 REPLACES = {"fwd": "horovod_tpu/ops/pallas_attention.py:77",
             "dq": "horovod_tpu/ops/pallas_attention.py:174",
             "dkv": "horovod_tpu/ops/pallas_attention.py:215"}
@@ -95,6 +106,20 @@ TOL = {"bfloat16": (2.0 ** -7, 1e-3), "float32": (1e-4, 1e-4)}
 LOSS_TOL = 3e-4
 GRAD_TOL = 5e-2
 STEP_LOSS_TOL = 1e-2
+# The ResNet-50 phase against an fp32 twin from the same seed (TF32 off):
+# |loss_bf16 - loss_fp32| at step 0, each parameter's step-0 gradient as
+# |g - g_twin| / |g_twin| (the largest over the layers for each parameter
+# name), and the stem batch norm's running mean and variance after step 0
+# as |s - s_twin| / |s_twin|.  Each is about twice what an H100 measured
+# (PERF.md).  Below the head the gradients of a freshly initialized
+# ResNet-50 amplify rounding: fp32 against fp64 they differ by 2-3e-2, and
+# the bf16 ones are uncorrelated with fp64's (gaps 1.2-2.3, cosines near 0),
+# as the JAX package's rounding points make them.  So only the head's
+# gradients are held tightly, the rest only to stay finite and in scale.
+RESNET_LOSS_TOL = 1e-3
+RESNET_GRAD_TOL = {"head_b": 3e-3, "head_w": 0.3}
+RESNET_GRAD_TOL_BODY = 5.0
+RESNET_STATS_TOL = {"mean": 3e-3, "var": 1e-6}
 
 
 def _sh(cmd):
@@ -364,10 +389,11 @@ def _plain_step0_losses(tfm, fa, cfg, tokens, targets, dev):
     return losses
 
 
-def _profile_step(step_fn, state, tokens, targets, step_ms):
-    """One flagship step under ``torch.profiler``: prints the device time of
+def _profile_step(step_fn, state, tokens, targets, step_ms, what="profile"):
+    """One training step under ``torch.profiler``: prints the device time of
     the kernels by name (largest first) and their sum, which on one stream
-    is the device's busy time, against the unprofiled median ``step_ms``."""
+    is the device's busy time, against the unprofiled median ``step_ms``;
+    returns (state, the kernels' profiler rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -381,16 +407,17 @@ def _profile_step(step_fn, state, tokens, targets, step_ms):
 
     rows = _kernel_rows(prof)
     busy_ms = sum(_dev_us(e) for e in rows) / 1e3
-    print(f"profile: kernels {busy_ms:.2f} ms in {sum(e.count for e in rows)} "
+    launches = sum(e.count for e in rows)
+    print(f"{what}: kernels {busy_ms:.2f} ms in {launches} "
           f"launches; the profiled step took {wall_ms:.2f} ms, the median "
           f"step {step_ms:.2f} ms: device idle "
           f"{100 * (1 - busy_ms / step_ms):.1f}% of it")
     flash = [e for e in rows[12:]
              if re.search(r"\b(fwd|dq|dkv)(_wgmma)?_kernel<", e.key)]
     for e in rows[:12] + flash:
-        print(f"profile:   {_dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} "
+        print(f"{what}:   {_dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
-    return state
+    return state, rows
 
 
 def run_slice(hvd, tfm, fa, dev, card):
@@ -464,19 +491,164 @@ def run_slice(hvd, tfm, fa, dev, card):
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           "with the twin")
     del twin
-    times = []
-    for _ in range(2 * steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, loss = step_fn(state, tokens, targets)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    state, times, _ = _timed_steps(step_fn, state, tokens, targets, 2 * steps)
     step_ms = statistics.median(times)
     print(f"slice: step times alone, ms {times}")
     print(f"slice: median step {step_ms:.2f} ms, "
           f"{B * S / step_ms * 1e3:.0f} tokens/s on {card}")
     _profile_step(step_fn, state, tokens, targets, step_ms)
     return counts, step_ms, steps
+
+
+def _timed_steps(step_fn, state, images, labels, n):
+    """``n`` steps, each timed on the host clock between two
+    synchronizations: (state, times in ms, losses)."""
+    import torch
+
+    times, losses = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, images, labels)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return state, times, losses
+
+
+def _rel_gap(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def run_resnet(hvd, rn, fa, dev, card):
+    """The ResNet-50 slice: five steps of ``make_resnet_train_step_hvd``
+    (``Compression.none``) at full width and depth beside an fp32 twin's
+    first step from the same seed, three steps with ``Compression.fp16``,
+    then ten timed steps.  Returns what :func:`profile_resnet` needs."""
+    import dataclasses
+
+    import torch
+
+    cfg = rn.resnet50_config()  # blocks (3, 4, 6, 3), width 64, bf16
+    B, steps = 32, 5
+    gen = torch.Generator(device=dev).manual_seed(2)
+    images = torch.rand(B, 224, 224, 3, device=dev, generator=gen)
+    labels = torch.randint(0, cfg.num_classes, (B,), device=dev,
+                           generator=gen)
+
+    def sgd(params):  # bench.py's optimizer for the ResNet-50 step
+        return torch.optim.SGD(params, lr=0.01, momentum=0.9)
+
+    step_fn, init_fn = hvd.make_resnet_train_step_hvd(cfg, sgd)
+    twin_step, twin_init = hvd.make_resnet_train_step_hvd(
+        dataclasses.replace(cfg, compute_dtype=torch.float32), sgd)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    state = init_fn(0)
+    state, times, losses = _timed_steps(step_fn, state, images, labels, 1)
+    twin = twin_init(0)
+    twin, _, twin_losses = _timed_steps(twin_step, twin, images, labels, 1)
+    gaps = {}
+    for (name, p), (_, t) in zip(state.model.named_parameters(),
+                                 twin.model.named_parameters()):
+        key = name.split(".")[-1]
+        gaps[key] = max(gaps.get(key, 0.0), _rel_gap(p.grad, t.grad))
+    stats = {k: _rel_gap(getattr(state.model.stem_bn, k),
+                         getattr(twin.model.stem_bn, k))
+             for k in ("mean", "var")}
+    del twin
+    state, more, more_losses = _timed_steps(step_fn, state, images, labels,
+                                            steps - 1)
+    times += more
+    losses += more_losses
+    counts = dict(fa.launches)
+
+    bad = []
+    loss_gap = abs(losses[0] - twin_losses[0])
+    print(f"resnet50: losses {losses}")
+    print(f"resnet50: step-0 loss {losses[0]:.6f}, fp32 twin "
+          f"{twin_losses[0]:.6f}, gap {loss_gap:.3e} (tol {RESNET_LOSS_TOL})")
+    grad_tol = {k: RESNET_GRAD_TOL.get(k, RESNET_GRAD_TOL_BODY)
+                for k in gaps}
+    print("resnet50: step-0 gradient gap to the fp32 twin, largest over "
+          "layers (tol): " + ", ".join(f"{k} {v:.2e} ({grad_tol[k]:g})"
+                                       for k, v in gaps.items()))
+    print(f"resnet50: stem batch norm after step 0, gap to the fp32 twin: "
+          f"mean {stats['mean']:.2e}, var {stats['var']:.2e} "
+          f"(tol {RESNET_STATS_TOL['mean']}, {RESNET_STATS_TOL['var']})")
+    print(f"resnet50: flash kernel launches on this path {counts} (none "
+          "expected: the CNN path runs no TPU kernel's port)")
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        bad.append(f"loss did not fall over {steps} steps")
+    if loss_gap > RESNET_LOSS_TOL:
+        bad.append("step-0 loss disagrees with the fp32 twin")
+    if not all(gaps[k] <= grad_tol[k] for k in gaps):
+        bad.append("step-0 gradients disagree with the fp32 twin")
+    if any(stats[k] > RESNET_STATS_TOL[k] for k in stats):
+        bad.append("stem batch-norm statistics disagree with the fp32 twin")
+    if any(counts.values()):
+        bad.append(f"flash kernels launched on the CNN path: {counts}")
+
+    fp16_step, fp16_init = hvd.make_resnet_train_step_hvd(
+        cfg, sgd, compression=hvd.Compression.fp16)
+    _, _, fp16_losses = _timed_steps(fp16_step, fp16_init(0), images, labels,
+                                     3)
+    print(f"resnet50: Compression.fp16 losses {fp16_losses}")
+    if not (all(math.isfinite(x) for x in fp16_losses)
+            and fp16_losses[-1] < fp16_losses[0]):
+        bad.append(f"Compression.fp16 losses not finite and falling: "
+                   f"{fp16_losses}")
+    _fail_if(bad, "resnet50")
+
+    state, times, timed_losses = _timed_steps(step_fn, state, images, labels,
+                                              2 * steps)
+    step_ms = statistics.median(times)
+    print(f"resnet50: step times alone, ms {times}; losses {timed_losses}")
+    print(f"resnet50: median step {step_ms:.2f} ms, "
+          f"{B / step_ms * 1e3:.1f} images/s on {card}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return step_fn, state, images, labels, step_ms
+
+
+def profile_resnet(step_fn, state, images, labels, step_ms, card):
+    """One ResNet-50 step under ``torch.profiler`` (after every timed step
+    of the script, so that no profiler runs before one)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _, rows = _profile_step(step_fn, state, images, labels, step_ms,
+                            what="resnet50 profile")
+    busy_ms = sum(_dev_us(e) for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    conv = [e for e in rows if re.search(CONV_KERNELS, e.key)]
+    print(f"resnet50 profile: convolutions and matrix products (cuDNN, "
+          f"cuBLAS) {sum(_dev_us(e) for e in conv) / 1e3:.2f} ms in "
+          f"{sum(e.count for e in conv)} launches; everything else "
+          f"(batch norm, ReLU, residual adds, casts, pooling, SGD) "
+          f"{sum(_dev_us(e) for e in rows if e not in conv) / 1e3:.2f} ms "
+          f"in {sum(e.count for e in rows if e not in conv)}")
+    print(f"resnet50 profile: {launches} launches per step, device busy "
+          f"{busy_ms:.2f} ms of the {step_ms:.2f} ms median "
+          f"({images.shape[0] / step_ms * 1e3:.1f} images/s), idle "
+          f"{100 * (1 - busy_ms / step_ms):.1f}%; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+
+
+def run_mnist(hvd, dev):
+    """Five steps of ``make_mnist_train_step`` (Adam(1e-3), bf16) on 64
+    images: the losses must be finite and fall."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = torch.rand(64, 28, 28, 1, device=dev, generator=gen)
+    labels = torch.randint(0, 10, (64,), device=dev, generator=gen)
+    step_fn, init_fn = hvd.make_mnist_train_step()
+    _, times, losses = _timed_steps(step_fn, init_fn(0), images, labels, 5)
+    print(f"mnist: losses {losses}; step times ms {times}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"mnist: losses not finite and falling: {losses}")
 
 
 def _ptxas_report(log):
@@ -508,6 +680,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import resnet as rn
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -542,7 +715,12 @@ def main() -> int:
 
     hvd.init()
     try:
+        # Every timed step runs before the first profiler.
+        resnet = run_resnet(hvd, rn, fa, dev, card)
         counts, step_ms, steps = run_slice(hvd, tfm, fa, dev, card)
+        profile_resnet(*resnet, card)
+        del resnet
+        run_mnist(hvd, dev)
     finally:
         hvd.shutdown()
 

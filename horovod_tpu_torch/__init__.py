@@ -16,7 +16,10 @@ from horovod_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_lse)
 from horovod_tpu_torch.parallel.optimizer import (DistributedOptimizer,
                                                   allreduce_gradients)
-from horovod_tpu_torch.parallel.train import (TrainState,
+from horovod_tpu_torch.parallel.train import (ResNetState, TrainState,
+                                              make_mnist_train_step,
+                                              make_resnet_train_step,
+                                              make_resnet_train_step_hvd,
                                               make_transformer_train_step)
 
 Average = ReduceOp.AVERAGE
@@ -32,5 +35,7 @@ __all__ = [
     "Max", "Product", "allreduce", "grouped_allreduce", "allgather",
     "broadcast", "barrier", "Compression", "DistributedOptimizer",
     "allreduce_gradients", "flash_attention", "flash_attention_lse",
-    "TrainState", "make_transformer_train_step",
+    "TrainState", "make_transformer_train_step", "ResNetState",
+    "make_resnet_train_step", "make_resnet_train_step_hvd",
+    "make_mnist_train_step",
 ]

@@ -1,16 +1,25 @@
-"""Weight conversion between the JAX package's transformer parameters and
-the port's ``state_dict``.
+"""Weight conversion between the JAX package's parameter trees and the
+port's ``state_dict``.
 
-The JAX tree (``horovod_tpu.models.transformer.init``) stacks every layer
-parameter along a leading ``[L, ...]`` axis; the port keeps one module per
-layer.  The per-layer layouts are the same, so conversion is a slice along
-that axis.  Both sides hold numpy arrays (on the JAX side) and tensors (on
-the port's side); no JAX import is needed.
+Transformer: the JAX tree (``horovod_tpu.models.transformer.init``) stacks
+every layer parameter along a leading ``[L, ...]`` axis; the port keeps one
+module per layer.  The per-layer layouts are the same, so conversion is a
+slice along that axis.
+
+ResNet and MNIST: the JAX trees nest by name (``params["stage0_block0"]
+["bn1"]["scale"]``) and the port's keys join the same names with dots
+(``stage0_block0.bn1.scale``); ResNet's batch statistics
+(``batch_stats[...]["mean"]``) are the port's buffers of the same names.
+Conv weights are HWIO in JAX and OIHW in the port; dense weights keep the
+JAX layout ``[in, out]``.
+
+Both sides hold numpy arrays (on the JAX side) and tensors (on the port's
+side); no JAX import is needed.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -51,3 +60,66 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
               for k in LAYER_KEYS}
     return {"embed": a(state_dict["embed"]), "layers": layers,
             "ln_f": a(state_dict["ln_f"])}
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _nested_from_jax(*trees: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for tree in trees:
+        for key, a in _flatten(tree):
+            a = np.array(a, dtype=np.float32)
+            if a.ndim == 4:  # HWIO -> OIHW
+                a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+            sd[key] = torch.from_numpy(a)
+    return sd
+
+
+def _nested_to_jax(state_dict: Dict[str, torch.Tensor],
+                   stat_names=()) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if a.ndim == 4:  # OIHW -> HWIO
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        *path, leaf = key.split(".")
+        node = stats if leaf in stat_names else params
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    return params, stats
+
+
+def resnet_params_from_jax(params: Dict[str, Any],
+                           batch_stats: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ResNet ``(params, batch_stats)`` of numpy arrays
+    → the port's ``state_dict`` (fp32 CPU tensors)."""
+    return _nested_from_jax(params, batch_stats)
+
+
+def resnet_params_to_jax(state_dict: Dict[str, torch.Tensor]
+                         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The port's ResNet ``state_dict`` (or a dict of gradients keyed the
+    same way) → ``(params, batch_stats)`` trees of numpy arrays."""
+    return _nested_to_jax(state_dict, stat_names=("mean", "var"))
+
+
+def mnist_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's MNIST params of numpy arrays → the port's
+    ``state_dict`` (fp32 CPU tensors)."""
+    return _nested_from_jax(params)
+
+
+def mnist_params_to_jax(state_dict: Dict[str, torch.Tensor]
+                        ) -> Dict[str, Any]:
+    """The port's MNIST ``state_dict`` (or its gradients) → the JAX
+    package's params of numpy arrays."""
+    return _nested_to_jax(state_dict)[0]

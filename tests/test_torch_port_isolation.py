@@ -11,6 +11,8 @@ import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common.types import NoCudaDeviceError
+from horovod_tpu_torch.models import mnist
+from horovod_tpu_torch.models import resnet
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.parallel import train
 
@@ -55,6 +57,8 @@ def test_import_loads_no_jax_or_jax_package():
     assert r.returncode == 0, r.stderr
     loaded = r.stdout.split()
     assert "horovod_tpu_torch.models.transformer" in loaded
+    assert "horovod_tpu_torch.models.resnet" in loaded
+    assert "horovod_tpu_torch.models.mnist" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -105,3 +109,24 @@ def test_train_step_without_device_raises(no_cuda):
                                 n_heads=2, d_ff=16)
     with pytest.raises(NoCudaDeviceError):
         train.make_transformer_train_step(cfg)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: resnet.init(0, resnet.ResNetConfig(blocks=(1,), width=8)),
+    lambda: resnet.init(0, resnet.resnet18_config(), device="cuda"),
+    lambda: mnist.init(0),
+    lambda: mnist.init(0, device="cuda"),
+], ids=["resnet", "resnet-cuda", "mnist", "mnist-cuda"])
+def test_cnn_init_without_device_raises(no_cuda, make):
+    with pytest.raises(NoCudaDeviceError):
+        make()
+
+
+@pytest.mark.parametrize("builder", ["make_resnet_train_step",
+                                     "make_resnet_train_step_hvd",
+                                     "make_mnist_train_step"])
+def test_cnn_train_steps_without_device_raise(no_cuda, builder):
+    args = () if builder == "make_mnist_train_step" else (
+        resnet.resnet50_config(),)
+    with pytest.raises(NoCudaDeviceError, match=builder):
+        getattr(hvd, builder)(*args)
