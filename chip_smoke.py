@@ -13,9 +13,12 @@ non-zero):
    (``HGMMA``) instructions;
 2. hold each kernel (flash forward, dQ, dK/dV) against its plain PyTorch
    version (fp32 sums, the kernels' bf16 rounding points) on the same
-   inputs, at the flagship shape (B 8, S 1024, H 16, D 64, bf16, causal) and
-   at two ragged ones (S 1000, non-causal, nonzero dlse: D 128 bf16, and
-   D 32 fp32);
+   inputs, at the flagship shape (B 8, S 1024, H 16, D 64, bf16, causal), at
+   two ragged ones (S 1000, non-causal, nonzero dlse: D 128 bf16, and D 32
+   fp32), and at the ring hop's shard shape (B 8, S 1024, H 16, D 64, bf16)
+   in the variants a ring hop runs (``flash_attention_lse``: fp32 output,
+   fp32 dO, nonzero dlse), causal (the self-block) and not (the other
+   hops);
 3. inside one ``hvd.init()`` (a one-rank NCCL group), first the ResNet-50
    slice: ``resnet50_config()`` at full width and depth (blocks 3, 4, 6, 3,
    width 64, 1000 classes, bf16), batch 32 of 224x224 images from a fixed
@@ -27,7 +30,9 @@ non-zero):
    transformer at full width and depth (vocab 32768, d_model 1024, 8 layers,
    16 heads, d_ff 4096, seq 1024, batch 8, bf16, flash attention, remat)
    with weights from a fixed seed, five training steps through
-   ``make_transformer_train_step`` (``DistributedOptimizer`` over AdamW).
+   ``make_transformer_train_step(cfg, mesh=make_mesh())``
+   (``DistributedOptimizer`` over AdamW), whose step-0 loss must be, bit for
+   bit, the loss of the model built without a mesh.
    A twin with dense attention starts from the same weights and takes
    the same steps.  Checks: finite losses, 16 forward, 8 dQ and 8 dK/dV
    launches per step, the first step's gradients and every step's loss
@@ -36,7 +41,16 @@ non-zero):
    rounding of P).  Then ten steps alone are timed and one is profiled,
    then one ResNet-50 step, and five MNIST steps (batch 64, Adam) must
    give finite, falling losses;
-4. the kernel checks of phase 2 again, and the times of the kernel, the
+4. sequence parallelism at the flagship's width: ring and Ulysses
+   attention of four virtual ranks (``ring_attention.loopback_attention``,
+   the gang's schedule in one process) over a global sequence of 4 x 1024
+   (B 8, H 16, D 64, bf16), causal and not, against ``flash_attention`` over
+   the whole sequence: the output and dQ, dK, dV (the same dO) within
+   SP_TOL, and each ring run's launches by kernel variant (per virtual rank
+   one causal and three other hops' forward, dQ and dK/dV, all run); then
+   one causal ring layer's device time per virtual rank under
+   ``torch.profiler``, with the share of the scalar dQ and dK/dV;
+5. the kernel checks of phase 2 again, and the times of the kernel, the
    plain version and PyTorch's ``scaled_dot_product_attention`` as a
    yardstick (forward alone for the forward, backward alone for dQ and
    dK/dV; the port never calls it), each as its kernels' device time per
@@ -44,7 +58,10 @@ non-zero):
    which counts the host's gaps.  This comes after the slice, so that the
    steps are timed before any profiler has run.
 
-The last three lines are the ``kernels`` JSON, the card's name and power
+The ``kernels`` JSON lists the flagship's three kernels and the ring hop's
+six variants (``flash_<kernel>_ring_self`` and ``_ring_hop``), with their
+launches in the main path's run (the ring's: the causal ring run of phase
+4).  The last three lines are the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, where torch finds no CUDA device.
 """
@@ -120,6 +137,17 @@ RESNET_LOSS_TOL = 1e-3
 RESNET_GRAD_TOL = {"head_b": 3e-3, "head_w": 0.3}
 RESNET_GRAD_TOL_BODY = 5.0
 RESNET_STATS_TOL = {"mean": 3e-3, "var": 1e-6}
+# The sequence-parallel phase: ring and Ulysses attention of SP_RANKS
+# virtual ranks (``ring_attention.loopback_attention``, which runs the
+# gang's schedule in one process) at the flagship's width, against the
+# flash kernels over the whole sequence with the same dO.  Each output and
+# gradient as |got - want| / |want|, by impl, about twice the largest gap
+# the first H100 run measured (ring 3.9e-3, Ulysses 5.4e-3; PERF.md): the
+# ring rounds each hop's dQ, dK and dV to bf16 and adds them in bf16, and
+# Ulysses rounds its scores to bf16, as the JAX package does.
+SP_SHAPE = dict(B=8, S_local=1024, H=16, D=64)
+SP_RANKS = 4
+SP_TOL = {"ring": 8e-3, "ulysses": 1.1e-2}
 
 
 def _sh(cmd):
@@ -200,22 +228,32 @@ def _device_ms(fn, reps=20, warmup=3):
     return sum(_dev_us(e) for e in _kernel_rows(prof)) / reps / 1e3
 
 
-def _bound(kernel, B, S, H, D, dtype, causal, has_dlse, peaks):
+def _bound(kernel, B, S, H, D, dtype, causal, has_dlse, peaks,
+           lse_route=False):
     """Least time for the kernel's work: max(FLOPs / peak, bytes / rate),
     counting each input read once and each output written once, and only
-    the query-key pairs the causal mask leaves."""
+    the query-key pairs the causal mask leaves.  Each product of two
+    [pairs x D] operands is 2·D·pairs FLOPs at the rate of its operands'
+    type: on the lse route (``lse_route``: fp32 output, fp32 dO) the
+    products with dO (dO·Vᵀ, and Pᵀ·dO for dK/dV) are fp32, the rest bf16."""
     import torch
 
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kernel] * D * pairs
     e = torch.empty((), dtype=dtype).element_size()
+    e_do = 4 if lse_route else e
     n = B * S * H * D
     stats = 4 * B * S * H
-    nbytes = {"fwd": 4 * n * e + stats,
-              "dq": 5 * n * e + stats * (2 + has_dlse),
-              "dkv": 6 * n * e + stats * (2 + has_dlse)}[kernel]
+    # (products on q/k/v's type, products with dO)
+    products = {"fwd": (2, 0), "dq": (2, 1), "dkv": (2, 2)}[kernel]
+    nbytes = {"fwd": 3 * n * e + n * e_do + stats,
+              "dq": 4 * n * e + n * e_do + stats * (2 + has_dlse),
+              "dkv": 5 * n * e + n * e_do + stats * (2 + has_dlse)}[kernel]
     bf16, f32, bw = peaks
-    t_ops = flops / (bf16 if dtype == torch.bfloat16 else f32)
+
+    def rate(t):
+        return bf16 if t == 2 else f32
+
+    t_ops = 2 * D * pairs * (products[0] / rate(e) + products[1] / rate(e_do))
     t_bytes = nbytes / bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -245,27 +283,33 @@ def _check(name, got, want, failures, slack=0.0):
 
 
 def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
-                  timed=True):
+                  timed=True, lse_route=False):
     """Each kernel against its plain version on the same inputs; with
-    ``timed``, times each and returns {kernel: measurements}."""
+    ``timed``, times each and returns {kernel: measurements}.
+    ``lse_route``: the ring hop's variants, as ``flash_attention_lse``
+    runs them: the forward writes fp32 output, and the backward takes an
+    fp32 dO (and a dlse where ``with_dlse``)."""
     import torch
     import torch.nn.functional as F
 
     dname = str(dtype).split(".")[1]
     print(f"kernels at B {B} S {S} H {H} D {D} {dname} "
           f"{'causal' if causal else 'non-causal'}"
-          f"{' dlse' if with_dlse else ''}:")
-    gen = torch.Generator(device=dev).manual_seed(S * 131 + D)
+          f"{' dlse' if with_dlse else ''}"
+          f"{' fp32 output and dO' if lse_route else ''}:")
+    gen = torch.Generator(device=dev).manual_seed(S * 131 + D + lse_route)
     q, k, v, do = (torch.randn(B, S, H, D, device=dev, generator=gen)
                    .to(dtype) for _ in range(4))
+    if lse_route:
+        do = do.float()
     scale = 1.0 / math.sqrt(D)
-    po, plse = fa._flash_fwd_plain(q, k, v, scale, causal)
+    po, plse = fa._flash_fwd_plain(q, k, v, scale, causal, lse_route)
     dlse = (torch.randn(B, S, H, device=dev, generator=gen)
             if with_dlse else None)
     delta = (do.float() * po.float()).sum(-1)
     args = (q, k, v, do, plse, delta, dlse, scale, causal)
 
-    o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
+    o, lse = fa.flash_fwd_cuda(q, k, v, scale, causal, lse_route)
     dq = fa.flash_dq_cuda(*args)
     dk, dv = fa.flash_dkv_cuda(*args)
     torch.cuda.synchronize()
@@ -291,8 +335,9 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
         torch.autograd.grad(sdpa_out, (qg, kg, vg), doh, retain_graph=True)
 
     timing = {
-        "fwd": (lambda: fa.flash_fwd_cuda(q, k, v, scale, causal),
-                lambda: fa._flash_fwd_plain(q, k, v, scale, causal),
+        "fwd": (lambda: fa.flash_fwd_cuda(q, k, v, scale, causal, lse_route),
+                lambda: fa._flash_fwd_plain(q, k, v, scale, causal,
+                                            lse_route),
                 lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                        is_causal=causal)),
         "dq": (lambda: fa.flash_dq_cuda(*args),
@@ -305,7 +350,7 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
         ms, plain_ms, lib_ms = (_device_ms(f) for f in (kern, plain, lib))
         event_ms = _time_ms(kern)
         bound_ms, bound_by = _bound(kname, B, S, H, D, dtype, causal,
-                                    with_dlse, peaks)
+                                    with_dlse, peaks, lse_route)
         print(f"  {kname} ({impls[kname]}): kernel {ms:.4f} ms (events "
               f"{event_ms:.4f} ms)  plain {plain_ms:.3f} ms  "
               f"sdpa{'' if kname == 'fwd' else ' bwd'} {lib_ms:.4f} ms  "
@@ -420,7 +465,7 @@ def _profile_step(step_fn, state, tokens, targets, step_ms, what="profile"):
     return state, rows
 
 
-def run_slice(hvd, tfm, fa, dev, card):
+def run_slice(hvd, tfm, fa, make_mesh, dev, card):
     """Five flagship training steps, each followed by the same step of a
     dense-attention twin made from the same seed, and the step-0 loss with
     the plain attention; then, without the twin, ten timed steps and one
@@ -434,7 +479,8 @@ def run_slice(hvd, tfm, fa, dev, card):
         max_seq_len=1024, compute_dtype=torch.bfloat16, attn_impl="flash",
         remat=True)
     B, S, steps = 8, 1024, 5
-    step_fn, init_fn = hvd.make_transformer_train_step(cfg)
+    mesh = make_mesh()
+    step_fn, init_fn = hvd.make_transformer_train_step(cfg, mesh=mesh)
     twin_step, twin_init = hvd.make_transformer_train_step(
         dataclasses.replace(cfg, attn_impl="dense"))
     state, twin = init_fn(0), twin_init(0)
@@ -442,6 +488,8 @@ def run_slice(hvd, tfm, fa, dev, card):
     tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
                            generator=gen)
     targets = torch.roll(tokens, -1, dims=1)
+    with torch.no_grad():  # the step built without a mesh, as before
+        no_mesh_loss = float(tfm.loss_fn(state.model, tokens, targets))
     torch.cuda.reset_peak_memory_stats()
 
     fa.reset_launch_counts()
@@ -462,6 +510,10 @@ def run_slice(hvd, tfm, fa, dev, card):
                  flash=losses[0], dense=twin_losses[0])
 
     bad = []
+    print(f"slice: step built with mesh {mesh.shape}: step-0 loss "
+          f"{losses[0]!r}, without a mesh {no_mesh_loss!r}")
+    if losses[0] != no_mesh_loss:
+        bad.append("the step through make_mesh() moves the step-0 loss")
     print(f"slice: flash losses {losses}")
     print(f"slice: dense twin losses {twin_losses}")
     spread = max(step0.values()) - min(step0.values())
@@ -636,6 +688,115 @@ def profile_resnet(step_fn, state, images, labels, step_ms, card):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
 
 
+def _profile_rows(fn, reps, warmup=2):
+    """The device kernels that ``reps`` calls of ``fn`` launch, under
+    ``torch.profiler`` (see :func:`_kernel_rows`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return _kernel_rows(prof)
+
+
+def _ring_counts(fa, n, causal):
+    """The launches of each kernel variant that one ring layer's forward
+    and backward make over ``n`` virtual ranks: per rank one causal
+    self-block and ``n - 1`` other hops (all run, the future ones
+    discarded by their lse), or ``n`` non-causal hops."""
+    import torch
+
+    want = {}
+    for k in ("fwd", "dq", "dkv"):
+        for c, times in ((True, n * causal), (False, n * (n - causal))):
+            if times:
+                want[fa.variant(k, torch.bfloat16, torch.float32, c,
+                                out_f32=(k == "fwd"))] = times
+    return want
+
+
+def run_sp(fa, ra, dev, card):
+    """Ring and Ulysses attention at the flagship's width over a global
+    sequence of SP_RANKS x S_local, each virtual rank in turn through the
+    loopback, causal and not, against ``flash_attention`` over the whole
+    sequence (its forward and backward with the same dO); counts the
+    kernel launches of each ring run and times one ring layer.  Returns
+    {run name: its launches by kernel variant}."""
+    import torch
+
+    B, S, H, D = (SP_SHAPE[k] for k in ("B", "S_local", "H", "D"))
+    n = SP_RANKS
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, do = (torch.randn(B, n * S, H, D, device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    print(f"sp: B {B}, {n} virtual ranks x S {S} = {n * S}, H {H}, D {D}, "
+          "bf16, against flash_attention over the whole sequence")
+    bad, out = [], {}
+    for causal in (True, False):
+        want = fa.flash_attention(q, k, v, causal=causal)
+        want = (want.detach(),) + torch.autograd.grad(want, qkv, do)
+        for impl in ("ring", "ulysses"):
+            name = f"{impl} {'causal' if causal else 'non-causal'}"
+            fa.reset_launch_counts()
+            got = ra.loopback_attention(q, k, v, n, impl, causal)
+            got = (got.detach(),) + torch.autograd.grad(got, qkv, do)
+            torch.cuda.synchronize()
+            counts = dict(fa.variant_launches)
+            gaps = {t: _rel_gap(a, b)
+                    for t, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+            errs = {t: float((a.float() - b.float()).abs().max())
+                    for t, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+            print(f"sp: {name}: |got - want| / |want| "
+                  + ", ".join(f"{t} {g:.3e}" for t, g in gaps.items())
+                  + f" (tol {SP_TOL[impl]}); max abs err "
+                  + ", ".join(f"{t} {e:.3e}" for t, e in errs.items()))
+            print(f"sp: {name}: launches {counts}")
+            if max(gaps.values()) > SP_TOL[impl]:
+                bad.append(f"{name} disagrees with flash attention")
+            want_counts = (_ring_counts(fa, n, causal) if impl == "ring"
+                           else {})
+            if counts != want_counts:
+                bad.append(f"{name} launches {counts} != {want_counts}")
+            out[name] = counts
+        del want
+    _fail_if(bad, "sp")
+
+    def layer(impl):
+        def run():
+            o = (fa.flash_attention(q, k, v, causal=True) if impl == "flash"
+                 else ra.loopback_attention(q, k, v, n, impl, True))
+            torch.autograd.grad(o, qkv, do)
+        return run
+
+    reps = 5
+    whole = sum(_dev_us(e) for e in _profile_rows(layer("flash"), reps)
+                ) / reps / n / 1e3
+    rows = _profile_rows(layer("ring"), reps)
+    total = sum(_dev_us(e) for e in rows) / reps / n / 1e3
+    simt = sum(_dev_us(e) for e in rows
+               if re.search(r"\b(dq|dkv)_kernel<", e.key)) / reps / n / 1e3
+    fwd = sum(_dev_us(e) for e in rows
+              if re.search(r"\bfwd_wgmma_kernel<", e.key)) / reps / n / 1e3
+    uly = sum(_dev_us(e) for e in _profile_rows(layer("ulysses"), reps)
+              ) / reps / n / 1e3
+    print(f"sp: causal ring layer, forward and backward, per virtual rank: "
+          f"{total:.3f} ms of device time, of which the scalar dQ and "
+          f"dK/dV {simt:.3f} ms ({100 * simt / total:.1f}%) and the "
+          f"forward {fwd:.3f} ms; Ulysses {uly:.3f} ms; a quarter of the "
+          f"flash kernels over the whole sequence {whole:.3f} ms; {card}")
+    for e in rows[:8]:
+        print(f"sp:   {_dev_us(e) / reps / n / 1e3:8.3f} ms  "
+              f"x{e.count / reps / n:<5g} {e.key[:90]}")
+    return out
+
+
 def run_mnist(hvd, dev):
     """Five steps of ``make_mnist_train_step`` (Adam(1e-3), bf16) on 64
     images: the losses must be finite and fall."""
@@ -684,6 +845,8 @@ def main() -> int:
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import ring_attention as ra
+    from horovod_tpu_torch.parallel.mesh import make_mesh
 
     card = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
@@ -710,19 +873,29 @@ def main() -> int:
     shapes = ((8, 1024, 16, 64, torch.bfloat16, True, False),
               (2, 1000, 8, 128, torch.bfloat16, False, True),
               (2, 1000, 8, 32, torch.float32, False, True))
+    # The ring hop's variants at the shard shape: the self-block (causal)
+    # and the other hops (non-causal), fp32 output and dO, with dlse.
+    sp = SP_SHAPE
+    ring_shapes = {c: (sp["B"], sp["S_local"], sp["H"], sp["D"],
+                       torch.bfloat16, c, True) for c in (True, False)}
     for shape in shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False)
+    for shape in ring_shapes.values():
+        check_kernels(fa, *shape, peaks, dev, timed=False, lse_route=True)
 
     hvd.init()
     try:
         # Every timed step runs before the first profiler.
         resnet = run_resnet(hvd, rn, fa, dev, card)
-        counts, step_ms, steps = run_slice(hvd, tfm, fa, dev, card)
+        counts, step_ms, steps = run_slice(hvd, tfm, fa, make_mesh, dev,
+                                           card)
         profile_resnet(*resnet, card)
         del resnet
         run_mnist(hvd, dev)
     finally:
         hvd.shutdown()
+    torch.cuda.empty_cache()
+    sp_run = run_sp(fa, ra, dev, card)
 
     # Timed after the slice, so that no profiler has run before the steps
     # are timed.
@@ -737,10 +910,27 @@ def main() -> int:
     print(f"slice: attention kernels {attn_ms:.2f} ms of the {step_ms:.2f} ms "
           f"step (each kernel's flagship time x its launches per step)")
 
+    ring = {c: check_kernels(fa, *shape, peaks, dev, lse_route=True)
+            for c, shape in ring_shapes.items()}
+    per_rank = {k: ring[True][k]["ms"] + (SP_RANKS - 1) * ring[False][k]["ms"]
+                for k in ("fwd", "dq", "dkv")}
+    print("sp: causal ring layer per virtual rank, each kernel's time x its "
+          "launches: " + ", ".join(f"{k} {t:.3f} ms"
+                                   for k, t in per_rank.items()))
+
     kernels = [dict(name=f"flash_{k}", route="cuda",
                     source=SOURCES[flagship[k]["impl"]], replaces=REPLACES[k],
                     launches=counts[k], **flagship[k])
                for k in ("fwd", "dq", "dkv")]
+    # The ring hop's variants, with their launches in the causal ring run.
+    for c, tag in ((True, "self"), (False, "hop")):
+        for k in ("fwd", "dq", "dkv"):
+            var = fa.variant(k, torch.bfloat16, torch.float32, c,
+                             out_f32=(k == "fwd"))
+            kernels.append(dict(
+                name=f"flash_{k}_ring_{tag}", route="cuda",
+                source=SOURCES[ring[c][k]["impl"]], replaces=REPLACES[k],
+                launches=sp_run["ring causal"][var], **ring[c][k]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,9 @@
 The port imports ``torch`` and never ``jax`` or the JAX package.
 """
 
-from horovod_tpu_torch.basics import (device, init, is_initialized,
-                                      local_rank, local_size, rank,
-                                      shutdown, size)
+from horovod_tpu_torch.basics import (cross_rank, cross_size, device, init,
+                                      is_initialized, local_rank,
+                                      local_size, rank, shutdown, size)
 from horovod_tpu_torch.common.types import ReduceOp
 from horovod_tpu_torch.ops.collective import (allgather, allreduce, barrier,
                                               broadcast, grouped_allreduce)
@@ -31,11 +31,11 @@ Product = ReduceOp.PRODUCT
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
-    "local_size", "device", "ReduceOp", "Average", "Sum", "Adasum", "Min",
-    "Max", "Product", "allreduce", "grouped_allreduce", "allgather",
-    "broadcast", "barrier", "Compression", "DistributedOptimizer",
-    "allreduce_gradients", "flash_attention", "flash_attention_lse",
-    "TrainState", "make_transformer_train_step", "ResNetState",
-    "make_resnet_train_step", "make_resnet_train_step_hvd",
+    "local_size", "cross_rank", "cross_size", "device", "ReduceOp",
+    "Average", "Sum", "Adasum", "Min", "Max", "Product", "allreduce",
+    "grouped_allreduce", "allgather", "broadcast", "barrier", "Compression",
+    "DistributedOptimizer", "allreduce_gradients", "flash_attention",
+    "flash_attention_lse", "TrainState", "make_transformer_train_step",
+    "ResNetState", "make_resnet_train_step", "make_resnet_train_step_hvd",
     "make_mnist_train_step",
 ]

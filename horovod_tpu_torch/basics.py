@@ -8,6 +8,12 @@ discovery, in order:
 3. torchrun's ``RANK/WORLD_SIZE/LOCAL_RANK/LOCAL_WORLD_SIZE``;
 4. a single process (rank 0 of 1).
 
+The cross rank and size (which host, of how many) are
+``HVD_CROSS_RANK/HVD_CROSS_SIZE`` where the launcher sets them, else
+``rank // local_size`` and ``size // local_size``: ranks are numbered host
+by host.  (The JAX package derives them the same way from explicit
+arguments, but defaults them to 0 and 1 when only ``HVD_SIZE`` is set.)
+
 The device is ``cuda:<local_rank>`` with the NCCL backend unless the caller
 passes ``device="cpu"``, which selects gloo.  A one-rank job still creates a
 real one-rank process group (over an in-process ``HashStore``), so its
@@ -36,6 +42,8 @@ class _World:
     size: int
     local_rank: int
     local_size: int
+    cross_rank: int
+    cross_size: int
     device: torch.device
 
 
@@ -68,7 +76,11 @@ def _discover(rank, size, local_rank, local_size):
         local_rank = rank
     if local_size is None:
         local_size = size
-    return rank, size, local_rank, local_size
+    cross_rank = _env_int("HVD_CROSS_RANK")
+    cross_size = _env_int("HVD_CROSS_SIZE")
+    if cross_rank is None or cross_size is None:
+        cross_rank, cross_size = rank // local_size, max(size // local_size, 1)
+    return rank, size, local_rank, local_size, cross_rank, cross_size
 
 
 def _device(device, local_rank: int, what: str) -> torch.device:
@@ -104,7 +116,7 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
     with _lock:
         if _world is not None:
             return
-        r, s, lr, ls = _discover(rank, size, local_rank, local_size)
+        r, s, lr, ls, cr, cs = _discover(rank, size, local_rank, local_size)
         dev = _device(device, lr, "hvd.init()")
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -116,7 +128,7 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
             dist.init_process_group(backend,
                                     init_method=init_method or "env://",
                                     rank=r, world_size=s)
-        _world = _World(r, s, lr, ls, dev)
+        _world = _World(r, s, lr, ls, cr, cs, dev)
 
 
 def shutdown() -> None:
@@ -152,6 +164,16 @@ def local_rank() -> int:
 
 def local_size() -> int:
     return _w().local_size
+
+
+def cross_rank() -> int:
+    """Which host this rank runs on."""
+    return _w().cross_rank
+
+
+def cross_size() -> int:
+    """How many hosts the job spans."""
+    return _w().cross_size
 
 
 def device() -> torch.device:

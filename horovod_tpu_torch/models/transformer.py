@@ -6,18 +6,28 @@ and vocabulary projection, fp32 parameters and norms, and compute in
 ``cfg.compute_dtype`` (bf16 by default).  Parameter layouts are the JAX
 package's, one layer at a time: ``wq/wk/wv`` ``[D, H, HD]``, ``wo``
 ``[H, HD, D]``, ``w_in/w_gate`` ``[D, F]``, ``w_out`` ``[F, D]``, ``embed``
-``[V, D]``.  ``attn_impl="flash"`` runs the flash kernels of
-:mod:`horovod_tpu_torch.ops.flash_attention`; ``"dense"`` is masked softmax
-in PyTorch.  ``remat`` recomputes each layer in the backward pass
+``[V, D]``.  ``remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``).
 
+Attention follows the JAX package's rules.  ``attn_impl="flash"`` runs the
+flash kernels of :mod:`horovod_tpu_torch.ops.flash_attention` where the
+mesh shards neither heads (``tp``) nor the sequence (``sp``);
+``"ring"`` and ``"ulysses"`` run sequence-parallel attention
+(:mod:`horovod_tpu_torch.parallel.ring_attention`) where ``sp > 1``;
+everything else is dense masked softmax in PyTorch, so ``"ring"`` without
+a sequence axis is dense attention.  With a mesh, ``tokens`` are this
+rank's ``[B, S_local]`` slice of a ``P('dp', 'sp')`` batch and RoPE rotates
+each position at its place in the whole sequence.  Dense and flash
+attention over a sequence-sharded batch (which GSPMD gathers in the JAX
+package) raise.
+
 Not ported yet (see ROADMAP.md): the Switch MoE FFN (``n_experts > 0``),
-sequence-parallel attention (``ring``, ``ulysses``), tensor-parallel
-sharding, and the decode path.
+tensor-parallel sharding, and the decode path.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
@@ -28,6 +38,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.basics import resolve_device
+from horovod_tpu_torch.ops.flash_attention import flash_attention
+from horovod_tpu_torch.parallel import ring_attention as ra
+from horovod_tpu_torch.parallel.mesh import Mesh, mesh_axis_size
 
 
 @dataclass(frozen=True)
@@ -43,7 +56,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     compute_dtype: Any = torch.bfloat16
     # "dense": masked softmax in PyTorch; "flash": the flash kernels;
-    # "ring" / "ulysses": sequence parallel (not ported).
+    # "ring" / "ulysses": sequence parallel where the mesh has sp > 1.
     attn_impl: str = "dense"
     # Recompute each layer in the backward pass.
     remat: bool = True
@@ -61,11 +74,7 @@ def _check_supported(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             "the Switch MoE FFN (n_experts > 0) is not ported yet; see "
             "ROADMAP.md, Queue 1")
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} (sequence parallelism) is not "
-            "ported yet; see ROADMAP.md, Queue 1")
-    if cfg.attn_impl not in ("dense", "flash"):
+    if cfg.attn_impl not in ("dense", "ring", "ulysses", "flash"):
         raise ValueError(f"attn_impl must be dense/ring/ulysses/flash, got "
                          f"{cfg.attn_impl!r}")
 
@@ -101,9 +110,10 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
         self.ln_f = nn.Parameter(torch.ones(cfg.d_model, dtype=torch.float32))
 
-    def forward(self, tokens: torch.Tensor, *, remat: Optional[bool] = None
+    def forward(self, tokens: torch.Tensor, *, mesh: Optional[Mesh] = None,
+                remat: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return apply(self, tokens, remat=remat)
+        return apply(self, tokens, mesh=mesh, remat=remat)
 
 
 def init(seed: int, cfg: TransformerConfig, *, device=None) -> Transformer:
@@ -134,15 +144,16 @@ def _rmsnorm(x, g):
     return (y * g).to(x.dtype)
 
 
-def _rope(x, theta: float):
-    """Rotary embedding over head_dim halves; x: [B, S, H, HD], fp32 math,
-    cast back to x's dtype."""
+def _rope(x, theta: float, offset: int = 0):
+    """Rotary embedding over head_dim halves; x: [B, S, H, HD] at positions
+    ``offset + arange(S)``, fp32 math, cast back to x's dtype."""
     B, S, H, HD = x.shape
     half = HD // 2
     freqs = torch.exp(-math.log(theta) * torch.arange(
         half, dtype=torch.float32, device=x.device) / half)
-    ang = torch.arange(S, dtype=torch.float32, device=x.device)[:, None] \
-        * freqs[None, :]
+    pos = torch.arange(offset, offset + S, dtype=torch.float32,
+                       device=x.device)
+    ang = pos[:, None] * freqs[None, :]
     cos = torch.cos(ang)[None, :, None, :]
     sin = torch.sin(ang)[None, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
@@ -150,25 +161,32 @@ def _rope(x, theta: float):
                      dim=-1).to(x.dtype)
 
 
-def _attention(x, blk: Block, cfg: TransformerConfig):
+def _attention_fn(cfg: TransformerConfig, mesh: Optional[Mesh]):
+    """The JAX package's dispatch: flash where neither tp nor sp shards,
+    ring or Ulysses where sp > 1, dense otherwise."""
+    sp = 1 if mesh is None else mesh_axis_size(mesh, "sp")
+    tp = 1 if mesh is None else mesh_axis_size(mesh, "tp")
+    if cfg.attn_impl in ("ring", "ulysses") and sp > 1:
+        return ra.make_sharded_attention(mesh, impl=cfg.attn_impl,
+                                         causal=True, head_axis="tp")
+    if sp > 1:
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} over a sequence-sharded batch "
+            "(sp > 1) needs the whole sequence's keys; use 'ring' or "
+            "'ulysses' (see ROADMAP.md, Queue 1)")
+    if cfg.attn_impl == "flash" and tp == 1:
+        return functools.partial(flash_attention, causal=True)
+    return functools.partial(ra.full_attention, causal=True)
+
+
+def _attention(x, blk: Block, cfg: TransformerConfig, attend, offset: int):
     dtype = cfg.compute_dtype
     q = torch.einsum("bsd,dhk->bshk", x, blk.wq.to(dtype))
     k = torch.einsum("bsd,dhk->bshk", x, blk.wk.to(dtype))
     v = torch.einsum("bsd,dhk->bshk", x, blk.wv.to(dtype))
-    q = _rope(q, cfg.rope_theta)
-    k = _rope(k, cfg.rope_theta)
-    if cfg.attn_impl == "flash":
-        from horovod_tpu_torch.ops.flash_attention import flash_attention
-
-        ctx = flash_attention(q, k, v, causal=True)
-    else:  # "dense"; the constructor rejected every other value
-        S = x.shape[1]
-        scale = 1.0 / math.sqrt(cfg.head_dim)
-        logits = torch.einsum("bshk,bthk->bhst", q, k).float() * scale
-        mask = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
-        logits = logits.masked_fill(~mask, -1e30)
-        probs = torch.softmax(logits, dim=-1).to(dtype)
-        ctx = torch.einsum("bhst,bthk->bshk", probs, v)
+    q = _rope(q, cfg.rope_theta, offset)
+    k = _rope(k, cfg.rope_theta, offset)
+    ctx = attend(q, k, v)
     return torch.einsum("bshk,hkd->bsd", ctx, blk.wo.to(dtype))
 
 
@@ -178,25 +196,31 @@ def _dense_ffn(x, blk: Block, dtype):
     return (h * F.silu(g)) @ blk.w_out.to(dtype)
 
 
-def _layer(x, blk: Block, cfg: TransformerConfig):
-    x = x + _attention(_rmsnorm(x, blk.ln1), blk, cfg)
+def _layer(x, blk: Block, cfg: TransformerConfig, attend, offset: int):
+    x = x + _attention(_rmsnorm(x, blk.ln1), blk, cfg, attend, offset)
     return x + _dense_ffn(_rmsnorm(x, blk.ln2), blk, cfg.compute_dtype)
 
 
 def apply(model: Transformer, tokens: torch.Tensor, *,
-          remat: Optional[bool] = None):
-    """Forward pass.  ``tokens``: [B, S] integer.  Returns
-    ``(logits_fp32, aux_loss)``; ``remat`` defaults to ``cfg.remat``."""
+          mesh: Optional[Mesh] = None, remat: Optional[bool] = None):
+    """Forward pass.  ``tokens``: [B, S] integer, this rank's slice of a
+    ``P('dp', 'sp')`` batch when ``mesh`` is given (the rank at sp index
+    ``i`` holds positions ``i*S .. (i+1)*S - 1``).  Returns
+    ``(logits_fp32, aux_loss)`` for those tokens; ``remat`` defaults to
+    ``cfg.remat``."""
     cfg = model.cfg
     if remat is None:
         remat = cfg.remat
+    attend = _attention_fn(cfg, mesh)
+    offset = 0 if mesh is None else \
+        mesh.coords.get("sp", 0) * tokens.shape[1]
     x = model.embed[tokens].to(cfg.compute_dtype)
     for blk in model.layers:
         if remat:
-            x = checkpoint(_layer, x, blk, cfg, use_reentrant=False,
-                           preserve_rng_state=False)
+            x = checkpoint(_layer, x, blk, cfg, attend, offset,
+                           use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _layer(x, blk, cfg)
+            x = _layer(x, blk, cfg, attend, offset)
     x = _rmsnorm(x, model.ln_f)
     return vocab_projection(x, model.embed), x.new_zeros((), dtype=torch.float32)
 
@@ -237,6 +261,8 @@ def softmax_xent(logits, targets):
     return torch.mean(lse - target_logit)
 
 
-def loss_fn(model: Transformer, tokens, targets, *, aux_weight: float = 0.01):
-    logits, aux = apply(model, tokens)
+def loss_fn(model: Transformer, tokens, targets, *,
+            mesh: Optional[Mesh] = None, aux_weight: float = 0.01):
+    """Mean cross-entropy over this rank's tokens (see :func:`apply`)."""
+    logits, aux = apply(model, tokens, mesh=mesh)
     return softmax_xent(logits, targets) + aux_weight * aux

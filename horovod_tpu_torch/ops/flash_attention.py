@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,13 +48,30 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The wgmma forward's key tile (FK in csrc/flash_wgmma.cu).
 FWD_BLOCK_K = 128
 
-# Launches of each kernel, counted where the wrapper launches it.
+# Launches of each kernel, counted where the wrapper launches it, and of
+# each of its variants (see :func:`variant`).
 launches = {"fwd": 0, "dq": 0, "dkv": 0}
+variant_launches: Dict[str, int] = {}
 
 
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
+    variant_launches.clear()
+
+
+def variant(kernel: str, dtype: torch.dtype, do_dtype=None,
+            causal: bool = True, out_f32: bool = False) -> str:
+    """The compiled kernel a launch runs, e.g. ``"dq simt causal"`` or
+    ``"fwd wgmma f32out"`` (the forward's fp32-output instantiation, the
+    lse variant's)."""
+    return " ".join([kernel, impl(kernel, dtype, do_dtype)]
+                    + ["f32out"] * bool(out_f32) + ["causal"] * bool(causal))
+
+
+def _launched(kernel: str, name: str) -> None:
+    launches[kernel] += 1
+    variant_launches[name] = variant_launches.get(name, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +283,7 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool,
             lse.data_ptr(), _strides(q, k, v), B, S, H, D, float(scale),
             int(causal), _DTYPE_CODE[q.dtype], int(out_f32),
             _stream(q.device))
-    launches["fwd"] += 1
+    _launched("fwd", variant("fwd", q.dtype, causal=causal, out_f32=out_f32))
     _raise_on(err, "forward")
     return o, lse
 
@@ -298,7 +315,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta, dlse, scale: float,
             _strides(q, k, v, do), B, S, H, D, float(scale), int(causal),
             _DTYPE_CODE[q.dtype], int(do.dtype != q.dtype),
             _stream(q.device))
-    launches["dq"] += 1
+    _launched("dq", variant("dq", q.dtype, do.dtype, causal))
     _raise_on(err, "dQ")
     return dq
 
@@ -320,7 +337,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, dlse, scale: float,
             dv.data_ptr(), _strides(q, k, v, do), B, S, H, D, float(scale),
             int(causal), _DTYPE_CODE[q.dtype], int(do.dtype != q.dtype),
             _stream(q.device))
-    launches["dkv"] += 1
+    _launched("dkv", variant("dkv", q.dtype, do.dtype, causal))
     _raise_on(err, "dK/dV")
     return dk, dv
 

@@ -1,13 +1,15 @@
 """Distributed optimizer: the port of ``horovod_tpu/parallel/optimizer.py``.
 
 ``DistributedOptimizer(inner)`` wraps a ``torch.optim.Optimizer``: on
-``step()`` it reduces every parameter's gradient across the ranks with one
-:func:`grouped_allreduce` (one collective per dtype), then runs the inner
-optimizer.  With ``backward_passes_per_step=n`` it adds the gradients of n
-calls locally and reduces and applies their mean on every n-th call only,
-leaving parameters and inner state untouched on the others (the JAX
-package reduces every step and masks the update; the updates and state are
-the same).
+``step()`` it reduces every parameter's gradient across the ranks of
+``axis`` (default: every rank) with one :func:`grouped_allreduce` (one
+collective per dtype; ``hierarchical=True`` for the reduce-scatter,
+allreduce, all-gather route over an inner axis and ``outer_axis``), then
+runs the inner optimizer.  With ``backward_passes_per_step=n`` it adds the
+gradients of n calls locally and reduces and applies their mean on every
+n-th call only, leaving parameters and inner state untouched on the others
+(the JAX package reduces every step and masks the update; the updates and
+state are the same).
 """
 
 from __future__ import annotations
@@ -19,14 +21,22 @@ import torch
 from horovod_tpu_torch.common.types import ReduceOp
 from horovod_tpu_torch.ops import collective as C
 from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.parallel.mesh import Axis
 
 
 def allreduce_gradients(grads: Sequence[torch.Tensor], *,
                         op: ReduceOp = ReduceOp.AVERAGE,
-                        compression=Compression.none) -> List[torch.Tensor]:
-    """Compress, reduce as one fused group per dtype, decompress."""
+                        axis: Optional[Axis] = None,
+                        compression=Compression.none,
+                        hierarchical: bool = False,
+                        outer_axis: str = "dcn") -> List[torch.Tensor]:
+    """Compress, reduce as one fused group per dtype over ``axis`` (every
+    rank when None), decompress.  ``hierarchical=True`` needs ``axis`` to
+    name exactly the inner axis and ``outer_axis``."""
     comp = [compression.compress(g) for g in grads]
-    reduced = C.grouped_allreduce([c for c, _ in comp], op=op)
+    reduced = C.grouped_allreduce([c for c, _ in comp], op=op, axis=axis,
+                                  hierarchical=hierarchical,
+                                  outer_axis=outer_axis)
     return [compression.decompress(r, ctx)
             for r, (_, ctx) in zip(reduced, comp)]
 
@@ -39,8 +49,11 @@ class DistributedOptimizer:
 
     def __init__(self, inner: torch.optim.Optimizer, *,
                  op: ReduceOp = ReduceOp.AVERAGE,
+                 axis: Optional[Axis] = None,
                  compression=Compression.none,
                  backward_passes_per_step: int = 1,
+                 hierarchical: bool = False,
+                 outer_axis: str = "dcn",
                  nonfinite_policy: Optional[str] = None):
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
@@ -50,6 +63,9 @@ class DistributedOptimizer:
                 "ROADMAP.md, Queue 1")
         self.inner = inner
         self.op = op
+        self.axis = axis
+        self.hierarchical = hierarchical
+        self.outer_axis = outer_axis
         self.compression = compression
         self.backward_passes_per_step = backward_passes_per_step
         self._passes = 0
@@ -81,8 +97,10 @@ class DistributedOptimizer:
             grads = [None if a is None else a / n for a in self._acc]
             self._passes, self._acc = 0, []
         live = [i for i, g in enumerate(grads) if g is not None]
-        reduced = allreduce_gradients([grads[i] for i in live], op=self.op,
-                                      compression=self.compression)
+        reduced = allreduce_gradients(
+            [grads[i] for i in live], op=self.op, axis=self.axis,
+            compression=self.compression, hierarchical=self.hierarchical,
+            outer_axis=self.outer_axis)
         for i, g in zip(live, reduced):
             params[i].grad = g
         return self.inner.step()

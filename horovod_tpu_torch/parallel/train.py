@@ -1,5 +1,5 @@
-"""Data-parallel training steps: the port of
-``horovod_tpu/parallel/train.py`` (``make_transformer_train_step``,
+"""Training steps: the port of ``horovod_tpu/parallel/train.py``
+(``make_transformer_train_step``, data and sequence parallel over a mesh,
 ``make_resnet_train_step``, ``make_resnet_train_step_hvd`` and
 ``make_mnist_train_step``).
 
@@ -33,6 +33,7 @@ from horovod_tpu_torch.models import resnet as resnet_model
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import collective as C
 from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.parallel.mesh import Mesh
 from horovod_tpu_torch.parallel.optimizer import DistributedOptimizer
 
 MakeOptimizer = Callable[[Iterable[torch.nn.Parameter]],
@@ -66,6 +67,8 @@ def make_transformer_train_step(
     cfg: tfm.TransformerConfig,
     optimizer: Optional[MakeOptimizer] = None,
     *,
+    mesh: Optional[Mesh] = None,
+    zero1: bool = False,
     device=None,
 ):
     """Returns ``(step_fn, init_fn)``.
@@ -74,10 +77,35 @@ def make_transformer_train_step(
     :func:`default_optimizer`).  ``init_fn(seed) -> TrainState`` makes the
     model from ``seed`` and gives every rank rank 0's weights.
     ``step_fn(state, tokens, targets) -> (state, loss)`` takes this rank's
-    ``[B, S]`` slice of the batch and returns the mean loss over the global
-    batch (an averaging allreduce of the ranks' mean losses, which is the
-    JAX step's value for equal per-rank batches); the model and optimizer
-    are updated in place.  Needs ``hvd.init()``."""
+    ``[B/dp, S/sp]`` slice of the global batch, laid out ``P('dp', 'sp')``
+    over ``mesh`` (``None``: pure data parallelism over every rank), and
+    returns the mean loss over the global batch (an averaging allreduce of
+    the ranks' mean losses, the JAX step's value for equal slices); the
+    model and optimizer are updated in place.  With ``sp > 1`` the
+    attention is sequence parallel (``cfg.attn_impl`` "ring" or "ulysses").
+
+    Gradients are averaged over every rank of the mesh (dp x sp), and that
+    is the gradient of the global mean loss: every rank holds the whole
+    model and seeds its backward with its own mean loss L_r, and where a
+    rank's loss reaches another rank's keys and values, the ring's
+    ``ppermute`` (or Ulysses' all-to-all) backward has carried that
+    gradient to the rank that computed them, so the ranks' gradients sum to
+    that of sum_r L_r, and their mean is the gradient of the mean of the
+    L_r, which is the global mean loss when the slices are equal.
+
+    ``zero1=True`` (optimizer state sharded over dp) is not ported yet.
+    Needs ``hvd.init()``."""
+    if zero1:
+        raise NotImplementedError(
+            "zero1=True (ZeRO-1 optimizer-state sharding) is not ported "
+            "yet; see ROADMAP.md, Queue 1")
+    if mesh is not None:
+        model_axes = {a: n for a, n in mesh.shape.items()
+                      if a not in ("dp", "sp", "dcn") and n > 1}
+        if model_axes:
+            raise NotImplementedError(
+                f"mesh axes {model_axes} (tensor, pipeline or expert "
+                "parallelism) are not ported yet; see ROADMAP.md, Queue 1")
     dev = basics.resolve_device(device, "make_transformer_train_step()")
     make_inner = optimizer or default_optimizer
 
@@ -88,7 +116,8 @@ def make_transformer_train_step(
 
     def step_fn(state: TrainState, tokens, targets):
         state.optimizer.zero_grad(set_to_none=True)
-        loss = tfm.loss_fn(state.model, tokens.to(dev), targets.to(dev))
+        loss = tfm.loss_fn(state.model, tokens.to(dev), targets.to(dev),
+                           mesh=mesh)
         loss.backward()
         state.optimizer.step()
         return state._replace(step=state.step + 1), C.allreduce(loss.detach())

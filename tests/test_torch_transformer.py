@@ -170,11 +170,35 @@ def test_init_is_seeded():
     assert not torch.equal(a["embed"], c["embed"])
 
 
-@pytest.mark.parametrize("kw", [dict(n_experts=4), dict(attn_impl="ring"),
-                                dict(attn_impl="ulysses")])
+@pytest.mark.parametrize("kw", [dict(n_experts=4)])
 def test_unported_configurations_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfm.Transformer(_port_cfg(**kw))
+
+
+@pytest.mark.parametrize("attn_impl", ["ring", "ulysses"])
+def test_sequence_parallel_impls_without_sp_are_dense(attn_impl):
+    """The JAX package's rule: ring and Ulysses attention run only where the
+    mesh shards the sequence; without it they are dense attention.  So the
+    same logits as ``"dense"`` in the port (bit for bit: the same code),
+    and as the JAX package's ``attn_impl`` without a mesh."""
+    import jax
+    import jax.numpy as jnp
+
+    from horovod_tpu.models import transformer as jtfm
+
+    params = _jax_params(seed=2)
+    toks, _ = _tokens(seed=2)
+    with torch.no_grad():
+        got, _ = tfm.apply(_port_model(params, attn_impl=attn_impl),
+                           torch.tensor(toks))
+        dense, _ = tfm.apply(_port_model(params, attn_impl="dense"),
+                             torch.tensor(toks))
+    torch.testing.assert_close(got, dense, rtol=0, atol=0)
+    want, _ = jtfm.apply(jax.tree.map(jnp.asarray, params),
+                         jnp.asarray(toks), _jax_cfg(attn_impl=attn_impl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
 
 
 def test_unknown_attn_impl_raises():
