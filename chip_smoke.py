@@ -9,16 +9,19 @@ non-zero):
 0. the card (``nvidia-smi``), torch and nvcc versions;
 1. build the CUDA kernels from ``horovod_tpu_torch/ops/csrc`` with nvcc (one
    per source, in parallel), and disassemble the library: every bf16
-   instantiation of the forward, dQ and dK/dV kernels must hold tensor-core
-   (``HGMMA``) instructions;
+   instantiation of the forward, dQ and dK/dV kernels (five head-dim widths;
+   the forward's two output types, the backward's bf16 and fp32 dO) must
+   hold tensor-core (``HGMMA``) instructions;
 2. hold each kernel (flash forward, dQ, dK/dV) against its plain PyTorch
    version (fp32 sums, the kernels' bf16 rounding points) on the same
    inputs, at the flagship shape (B 8, S 1024, H 16, D 64, bf16, causal), at
    two ragged ones (S 1000, non-causal, nonzero dlse: D 128 bf16, and D 32
-   fp32), and at the ring hop's shard shape (B 8, S 1024, H 16, D 64, bf16)
+   fp32), at the ring hop's shard shape (B 8, S 1024, H 16, D 64, bf16)
    in the variants a ring hop runs (``flash_attention_lse``: fp32 output,
-   fp32 dO, nonzero dlse), causal (the self-block) and not (the other
-   hops);
+   fp32 dO split into bf16 planes by the split kernel, which must match its
+   plain version bit for bit, nonzero dlse), causal (the self-block) and not
+   (the other hops), and at head dims 96 and 256 (B 2, S 1000, H 8, dlse,
+   bf16) on both routes;
 3. inside one ``hvd.init()`` (a one-rank NCCL group), first the ResNet-50
    slice: ``resnet50_config()`` at full width and depth (blocks 3, 4, 6, 3,
    width 64, 1000 classes, bf16), batch 32 of 224x224 images from a fixed
@@ -47,9 +50,10 @@ non-zero):
    (B 8, H 16, D 64, bf16), causal and not, against ``flash_attention`` over
    the whole sequence: the output and dQ, dK, dV (the same dO) within
    SP_TOL, and each ring run's launches by kernel variant (per virtual rank
-   one causal and three other hops' forward, dQ and dK/dV, all run); then
-   one causal ring layer's device time per virtual rank under
-   ``torch.profiler``, with the share of the scalar dQ and dK/dV;
+   one causal and three other hops' forward, dQ and dK/dV, all run, and one
+   dO split per hop); then one causal ring layer's device time per virtual
+   rank under ``torch.profiler``, with the share of its backward kernels
+   (the fp32-dO dQ and dK/dV and the split);
 5. the kernel checks of phase 2 again, and the times of the kernel, the
    plain version and PyTorch's ``scaled_dot_product_attention`` as a
    yardstick (forward alone for the forward, backward alone for dQ and
@@ -58,11 +62,12 @@ non-zero):
    which counts the host's gaps.  This comes after the slice, so that the
    steps are timed before any profiler has run.
 
-The ``kernels`` JSON lists the flagship's three kernels and the ring hop's
-six variants (``flash_<kernel>_ring_self`` and ``_ring_hop``), with their
-launches in the main path's run (the ring's: the causal ring run of phase
-4).  The last three lines are the ``kernels`` JSON, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+The ``kernels`` JSON lists the flagship's three kernels, the ring hop's
+six variants (``flash_<kernel>_ring_self`` and ``_ring_hop``) and the ring
+hop's dO split (``flash_split_do``), with their launches in the main path's
+run (the ring's: the causal ring run of phase 4).  The last three lines are
+the ``kernels`` JSON, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, where torch finds no CUDA device.
 """
 
@@ -77,16 +82,17 @@ import subprocess
 import sys
 import time
 
-# Peak rates for the bound: (bf16 dense tensor-core FLOP/s, fp32 FLOP/s
-# outside the tensor cores, device-memory bytes/s), from NVIDIA's "H100
-# Tensor Core GPU" data sheet (dense rates, without sparsity, at the full
-# power limit), keyed by a part of the name the driver reports.  A card
-# that matches no key stops the run rather than borrow another's peaks.
+# Peak rates for the bound: (bf16 dense tensor-core FLOP/s, tf32 dense
+# tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores, device-memory
+# bytes/s), from NVIDIA's "H100 Tensor Core GPU" data sheet (dense rates,
+# without sparsity, at the full power limit), keyed by a part of the card's
+# name as torch reports it.  A card that matches no key stops the run
+# rather than borrow another's peaks.
 PEAKS = {
-    "H100 80GB HBM3": (989e12, 67e12, 3.35e12),  # SXM5
-    "H100 SXM": (989e12, 67e12, 3.35e12),
-    "H100 PCIe": (756e12, 51e12, 2.0e12),
-    "H100 NVL": (835e12, 60e12, 3.9e12),
+    "H100 80GB HBM3": (989e12, 494.7e12, 67e12, 3.35e12),  # SXM5
+    "H100 SXM": (989e12, 494.7e12, 67e12, 3.35e12),
+    "H100 PCIe": (756e12, 378e12, 51e12, 2.0e12),
+    "H100 NVL": (835e12, 417.5e12, 60e12, 3.9e12),
 }
 SOURCES = {"simt": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
            "wgmma": "horovod_tpu_torch/ops/csrc/flash_wgmma.cu"}
@@ -96,7 +102,9 @@ WGMMA_KERNELS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel")
 CONV_KERNELS = r"xmma|cutlass|nvjet|gemm|cudnn|conv"
 REPLACES = {"fwd": "horovod_tpu/ops/pallas_attention.py:77",
             "dq": "horovod_tpu/ops/pallas_attention.py:174",
-            "dkv": "horovod_tpu/ops/pallas_attention.py:215"}
+            "dkv": "horovod_tpu/ops/pallas_attention.py:215",
+            # the fp32 dO that _dq_kernel and _dkv_kernel read
+            "split": "horovod_tpu/ops/pallas_attention.py:190"}
 # Each element of a kernel output against its plain version on the same
 # inputs: |got - want| <= rtol |want| + atol rms(want) + slack, as (rtol,
 # atol), by the output's dtype.  bf16: rtol is one bf16 ulp at the bottom
@@ -107,6 +115,13 @@ REPLACES = {"fwd": "horovod_tpu/ops/pallas_attention.py:77",
 # roundings can differ by one ulp of a term, and slack is 2^-7 times the
 # root sum of squares of the sum's terms; zero where nothing is rounded.
 TOL = {"bfloat16": (2.0 ** -7, 1e-3), "float32": (1e-4, 1e-4)}
+# The lse route's fp32 dO reaches the tensor cores as two bf16 planes.  A
+# kernel that dropped the lo plane errs by about one rounding of its bf16
+# output, which TOL may pass, so each gradient's relative gap to the
+# fp32-dO plain version must also be at most SPLIT_GAP times the gap of the
+# plain version with dO rounded to bf16.  An H100 measured 0.06-0.11 of it
+# (PERF.md); a kernel without the lo plane reads about 1.
+SPLIT_GAP = 0.25
 # The slice against a dense-attention twin made from the same seed, taking
 # the same steps.  Step 0's loss is forward only; the gradients of step 0
 # (|g_flash - g_dense| / |g_dense| for each parameter) go through the dQ and
@@ -234,8 +249,12 @@ def _bound(kernel, B, S, H, D, dtype, causal, has_dlse, peaks,
     counting each input read once and each output written once, and only
     the query-key pairs the causal mask leaves.  Each product of two
     [pairs x D] operands is 2·D·pairs FLOPs at the rate of its operands'
-    type: on the lse route (``lse_route``: fp32 output, fp32 dO) the
-    products with dO (dO·Vᵀ, and Pᵀ·dO for dK/dV) are fp32, the rest bf16."""
+    type: bf16 at the bf16 tensor-core rate, fp32 q/k/v at the fp32 rate
+    outside the tensor cores; on the lse route (``lse_route``: fp32 output,
+    fp32 dO) the products with dO (dO·Vᵀ, and Pᵀ·dO for dK/dV) at the tf32
+    tensor-core rate, the least any tensor-core scheme of fp32-grade
+    precision needs.  The split ("split") only moves bytes: the fp32 dO in,
+    two bf16 planes out."""
     import torch
 
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
@@ -244,16 +263,16 @@ def _bound(kernel, B, S, H, D, dtype, causal, has_dlse, peaks,
     n = B * S * H * D
     stats = 4 * B * S * H
     # (products on q/k/v's type, products with dO)
-    products = {"fwd": (2, 0), "dq": (2, 1), "dkv": (2, 2)}[kernel]
+    products = {"fwd": (2, 0), "dq": (2, 1), "dkv": (2, 2),
+                "split": (0, 0)}[kernel]
     nbytes = {"fwd": 3 * n * e + n * e_do + stats,
               "dq": 4 * n * e + n * e_do + stats * (2 + has_dlse),
-              "dkv": 5 * n * e + n * e_do + stats * (2 + has_dlse)}[kernel]
-    bf16, f32, bw = peaks
-
-    def rate(t):
-        return bf16 if t == 2 else f32
-
-    t_ops = 2 * D * pairs * (products[0] / rate(e) + products[1] / rate(e_do))
+              "dkv": 5 * n * e + n * e_do + stats * (2 + has_dlse),
+              "split": 4 * n + 2 * 2 * n}[kernel]
+    bf16, tf32, f32, bw = peaks
+    rate_qkv = bf16 if e == 2 else f32
+    rate_do = tf32 if lse_route else rate_qkv
+    t_ops = 2 * D * pairs * (products[0] / rate_qkv + products[1] / rate_do)
     t_bytes = nbytes / bw
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -299,9 +318,11 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
           f"{' fp32 output and dO' if lse_route else ''}:")
     gen = torch.Generator(device=dev).manual_seed(S * 131 + D + lse_route)
     q, k, v, do = (torch.randn(B, S, H, D, device=dev, generator=gen)
-                   .to(dtype) for _ in range(4))
-    if lse_route:
-        do = do.float()
+                   for _ in range(4))
+    # The lse route's dO is fp32 at full precision: its bf16 lo plane is
+    # not zero.
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    do = do if lse_route else do.to(dtype)
     scale = 1.0 / math.sqrt(D)
     po, plse = fa._flash_fwd_plain(q, k, v, scale, causal, lse_route)
     dlse = (torch.randn(B, S, H, device=dev, generator=gen)
@@ -322,10 +343,39 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
            "dq": _check("dq", dq, pdq, bad, slack["dq"]),
            "dkv": max(_check("dk", dk, pdk, bad, slack["dk"]),
                       _check("dv", dv, pdv, bad, slack["dv"]))}
+    planes = None
+    if lse_route:  # the split: bit for bit
+        planes = fa.split_do_cuda(do)
+        want = fa._split_do_plain(do)
+        err["split"] = max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(planes, want))
+        same = all(torch.equal(a, b) for a, b in zip(planes, want))
+        print(f"  split: hi and lo {'equal' if same else 'DIFFER from'} "
+              "their plain versions")
+        if not same:
+            bad.append("the dO split differs from its plain version")
+        # What the split buys (SPLIT_GAP): each gradient's gap to the plain
+        # version, against the gap to it of the plain version with dO
+        # rounded to bf16 (a kernel that dropped the lo plane).
+        args16 = (q, k, v, do.to(torch.bfloat16).float()) + args[4:]
+        p16 = (fa._flash_dq_plain(*args16),) + fa._flash_dkv_plain(*args16)
+        gaps = {name: (_rel_gap(got, want), _rel_gap(rounded, want))
+                for name, got, want, rounded in zip(
+                    ("dq", "dk", "dv"), (dq, dk, dv), (pdq, pdk, pdv), p16)}
+        print("  split precision, |got - plain| / |plain| against the "
+              "bf16-dO plain version's: " + ", ".join(
+                  f"{name} {g:.2e} vs {g16:.2e}"
+                  for name, (g, g16) in gaps.items())
+              + f" (at most {SPLIT_GAP} of it)")
+        bad += [f"{name}'s gap to the fp32-dO plain version is not below "
+                f"{SPLIT_GAP} of a bf16 dO's" for name, (g, g16)
+                in gaps.items() if g > SPLIT_GAP * g16]
     _fail_if(bad, f"kernels at S {S} D {D} {dname}")
     if not timed:
         return {}
     impls = {kname: fa.impl(kname, dtype, do.dtype) for kname in err}
+    # One split serves both timed backward kernels, as in the backward.
+    bargs = dict(do_planes=planes)
 
     qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
@@ -340,20 +390,26 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
                                             lse_route),
                 lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                        is_causal=causal)),
-        "dq": (lambda: fa.flash_dq_cuda(*args),
+        "dq": (lambda: fa.flash_dq_cuda(*args, **bargs),
                lambda: fa._flash_dq_plain(*args), sdpa_bwd),
-        "dkv": (lambda: fa.flash_dkv_cuda(*args),
+        "dkv": (lambda: fa.flash_dkv_cuda(*args, **bargs),
                 lambda: fa._flash_dkv_plain(*args), sdpa_bwd),
     }
+    if lse_route:  # no PyTorch call splits a tensor into two planes
+        impls["split"] = "simt"
+        timing["split"] = (lambda: fa.split_do_cuda(do),
+                           lambda: fa._split_do_plain(do), None)
     out = {}
     for kname, (kern, plain, lib) in timing.items():
-        ms, plain_ms, lib_ms = (_device_ms(f) for f in (kern, plain, lib))
+        ms, plain_ms = _device_ms(kern), _device_ms(plain)
+        lib_ms = None if lib is None else _device_ms(lib)
         event_ms = _time_ms(kern)
         bound_ms, bound_by = _bound(kname, B, S, H, D, dtype, causal,
                                     with_dlse, peaks, lse_route)
+        lib_txt = ("" if lib is None else
+                   f"  sdpa{'' if kname == 'fwd' else ' bwd'} {lib_ms:.4f} ms")
         print(f"  {kname} ({impls[kname]}): kernel {ms:.4f} ms (events "
-              f"{event_ms:.4f} ms)  plain {plain_ms:.3f} ms  "
-              f"sdpa{'' if kname == 'fwd' else ' bwd'} {lib_ms:.4f} ms  "
+              f"{event_ms:.4f} ms)  plain {plain_ms:.3f} ms{lib_txt}  "
               f"bound {bound_ms:.4f} ms ({bound_by})")
         out[kname] = dict(impl=impls[kname], max_abs_err=err[kname], ms=ms,
                           event_ms=event_ms, plain_ms=plain_ms,
@@ -388,9 +444,10 @@ def check_sass(lib_path):
                     bad.append(f"{fname} holds no HGMMA")
     print(f"sass: {found} instantiations, each with HGMMA"
           if not bad else f"sass: {bad}")
-    # bf16 forward: 4 head dims x 2 output types; dK/dV and dQ: 4 head dims.
-    if found != {"fwd_wgmma_kernel": 8, "dkv_wgmma_kernel": 4,
-                 "dq_wgmma_kernel": 4}:
+    # Five head-dim widths, each with two output types (forward) or two dO
+    # types (dK/dV, dQ: bf16, and fp32 as bf16 planes).
+    if found != {"fwd_wgmma_kernel": 10, "dkv_wgmma_kernel": 10,
+                 "dq_wgmma_kernel": 10}:
         bad.append(f"wgmma instantiations found {found}")
     _fail_if(bad, "sass")
     return found
@@ -533,7 +590,7 @@ def run_slice(hvd, tfm, fa, make_mesh, dev, card):
         bad.append("a later step's loss disagrees with dense")
     if max(gaps.values()) > GRAD_TOL:
         bad.append("step-0 gradients disagree with dense")
-    want = {"fwd": 16 * steps, "dq": 8 * steps, "dkv": 8 * steps}
+    want = {"fwd": 16 * steps, "dq": 8 * steps, "dkv": 8 * steps, "split": 0}
     print(f"slice: kernel launches over {steps} steps {counts} "
           f"(want {want})")
     if counts != want:
@@ -709,10 +766,11 @@ def _ring_counts(fa, n, causal):
     """The launches of each kernel variant that one ring layer's forward
     and backward make over ``n`` virtual ranks: per rank one causal
     self-block and ``n - 1`` other hops (all run, the future ones
-    discarded by their lse), or ``n`` non-causal hops."""
+    discarded by their lse), or ``n`` non-causal hops; and one split of
+    each hop's fp32 dO."""
     import torch
 
-    want = {}
+    want = {"split": n * n}
     for k in ("fwd", "dq", "dkv"):
         for c, times in ((True, n * causal), (False, n * (n - causal))):
             if times:
@@ -779,16 +837,21 @@ def run_sp(fa, ra, dev, card):
     whole = sum(_dev_us(e) for e in _profile_rows(layer("flash"), reps)
                 ) / reps / n / 1e3
     rows = _profile_rows(layer("ring"), reps)
-    total = sum(_dev_us(e) for e in rows) / reps / n / 1e3
-    simt = sum(_dev_us(e) for e in rows
-               if re.search(r"\b(dq|dkv)_kernel<", e.key)) / reps / n / 1e3
-    fwd = sum(_dev_us(e) for e in rows
-              if re.search(r"\bfwd_wgmma_kernel<", e.key)) / reps / n / 1e3
+
+    def per_rank(pattern):
+        return sum(_dev_us(e) for e in rows
+                   if re.search(pattern, e.key)) / reps / n / 1e3
+
+    total = per_rank(".")
+    bwd = per_rank(r"\b(dq|dkv)_wgmma_kernel<\d+, true>")
+    split = per_rank(r"\bsplit_do_kernel\b")
+    fwd = per_rank(r"\bfwd_wgmma_kernel<")
     uly = sum(_dev_us(e) for e in _profile_rows(layer("ulysses"), reps)
               ) / reps / n / 1e3
     print(f"sp: causal ring layer, forward and backward, per virtual rank: "
-          f"{total:.3f} ms of device time, of which the scalar dQ and "
-          f"dK/dV {simt:.3f} ms ({100 * simt / total:.1f}%) and the "
+          f"{total:.3f} ms of device time, of which the fp32-dO dQ and "
+          f"dK/dV {bwd:.3f} ms and the dO split {split:.3f} ms (the "
+          f"backward kernels {100 * (bwd + split) / total:.1f}%) and the "
           f"forward {fwd:.3f} ms; Ulysses {uly:.3f} ms; a quarter of the "
           f"flash kernels over the whole sequence {whole:.3f} ms; {card}")
     for e in rows[:8]:
@@ -854,8 +917,9 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} "
           f"(CUDA {torch.version.cuda}) | nvcc: {nvcc}")
     peak_name, peaks = _peaks(torch.cuda.get_device_name(0))
-    print(f"peaks ({peak_name}): bf16 {peaks[0] / 1e12:g} TFLOP/s, fp32 "
-          f"{peaks[1] / 1e12:g} TFLOP/s, {peaks[2] / 1e12:g} TB/s")
+    print(f"peaks ({peak_name}): bf16 {peaks[0] / 1e12:g}, tf32 "
+          f"{peaks[1] / 1e12:g}, fp32 {peaks[2] / 1e12:g} TFLOP/s, "
+          f"{peaks[3] / 1e12:g} TB/s")
 
     t0 = time.perf_counter()
     _build.lib()
@@ -878,9 +942,13 @@ def main() -> int:
     sp = SP_SHAPE
     ring_shapes = {c: (sp["B"], sp["S_local"], sp["H"], sp["D"],
                        torch.bfloat16, c, True) for c in (True, False)}
-    for shape in shapes:
+    # Head dims off the powers of two (width 128 with zero columns) and the
+    # widest (256), ragged, with dlse, on the flash route and the lse route.
+    dim_shapes = ((2, 1000, 8, 96, torch.bfloat16, True, True),
+                  (2, 1000, 8, 256, torch.bfloat16, False, True))
+    for shape in shapes + dim_shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False)
-    for shape in ring_shapes.values():
+    for shape in tuple(ring_shapes.values()) + dim_shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False, lse_route=True)
 
     hvd.init()
@@ -906,14 +974,18 @@ def main() -> int:
     print(f"kernels: flagship forward {ratio['fwd']:.2f}x SDPA's forward; "
           f"dK/dV {ratio['dkv']:.2f}x and dQ {ratio['dq']:.2f}x SDPA's "
           "whole backward")
-    attn_ms = sum(flagship[k]["ms"] * counts[k] / steps for k in counts)
+    attn_ms = sum(flagship[k]["ms"] * counts[k] / steps
+                  for k in ("fwd", "dq", "dkv"))
     print(f"slice: attention kernels {attn_ms:.2f} ms of the {step_ms:.2f} ms "
           f"step (each kernel's flagship time x its launches per step)")
 
+    for shape in dim_shapes:
+        check_kernels(fa, *shape, peaks, dev)
+        check_kernels(fa, *shape, peaks, dev, lse_route=True)
     ring = {c: check_kernels(fa, *shape, peaks, dev, lse_route=True)
             for c, shape in ring_shapes.items()}
     per_rank = {k: ring[True][k]["ms"] + (SP_RANKS - 1) * ring[False][k]["ms"]
-                for k in ("fwd", "dq", "dkv")}
+                for k in ("fwd", "dq", "dkv", "split")}
     print("sp: causal ring layer per virtual rank, each kernel's time x its "
           "launches: " + ", ".join(f"{k} {t:.3f} ms"
                                    for k, t in per_rank.items()))
@@ -931,6 +1003,11 @@ def main() -> int:
                 name=f"flash_{k}_ring_{tag}", route="cuda",
                 source=SOURCES[ring[c][k]["impl"]], replaces=REPLACES[k],
                 launches=sp_run["ring causal"][var], **ring[c][k]))
+    # The split of each hop's fp32 dO, timed at the other hops' inputs.
+    kernels.append(dict(name="flash_split_do", route="cuda",
+                        source=SOURCES["wgmma"], replaces=REPLACES["split"],
+                        launches=sp_run["ring causal"]["split"],
+                        **ring[False]["split"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

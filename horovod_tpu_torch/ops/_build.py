@@ -37,19 +37,22 @@ build_log = ""  # nvcc's output of the build that produced the library
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, o, lse, strides, B, S, H, D, scale, causal, dtype, out_f32,
     # stream
     "hvd_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                       _I, _P],
-    # q, k, v, dO, lse, delta, dlse, dq, strides, B, S, H, D, scale,
-    # causal, dtype, do_f32, stream
-    "hvd_flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                     _I, _I, _I, _P],
-    # q, k, v, dO, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale,
-    # causal, dtype, do_f32, stream
-    "hvd_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _F, _I, _I, _I, _P],
+    # q, k, v, dO (or its hi plane), dO's lo plane (or null), lse, delta,
+    # dlse, dq, strides, B, S, H, D, scale, causal, dtype, stream
+    "hvd_flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _F, _I, _I, _P],
+    # q, k, v, dO (or its hi plane), dO's lo plane (or null), lse, delta,
+    # dlse, dk, dv, strides, B, S, H, D, scale, causal, dtype, stream
+    "hvd_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _F, _I, _I, _P],
+    # dO (fp32, contiguous), its element count, hi, lo, stream
+    "hvd_flash_split_do": [_P, _L, _P, _P, _P],
 }
 
 

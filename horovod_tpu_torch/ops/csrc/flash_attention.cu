@@ -1,44 +1,44 @@
 // Flash attention for Hopper (sm_90a): the scalar (SIMT) forward, dQ and
-// dK/dV kernels, and the C entry points that choose between them and the
-// tensor-core kernels of flash_wgmma.cu.
+// dK/dV kernels for float32, and the C entry points that choose between them
+// and the tensor-core kernels of flash_wgmma.cu.
 //
 // Replaces the three Pallas kernels of horovod_tpu/ops/pallas_attention.py:
-//   fwd_kernel  <- _fwd_kernel  (launched by _flash_fwd), float32 only
-//   dq_kernel   <- _dq_kernel   (launched by _flash_bwd), float32, and
-//                  bfloat16 q/k/v with the lse variant's float32 dO
-//   dkv_kernel  <- _dkv_kernel  (launched by _flash_bwd), the same
-// bfloat16 q/k/v take fwd_wgmma_kernel, and with a bfloat16 dO
-// dq_wgmma_kernel and dkv_wgmma_kernel (flash_wgmma.cu).
+//   fwd_kernel  <- _fwd_kernel  (launched by _flash_fwd), float32
+//   dq_kernel   <- _dq_kernel   (launched by _flash_bwd), float32
+//   dkv_kernel  <- _dkv_kernel  (launched by _flash_bwd), float32
+// bfloat16 q/k/v take fwd_wgmma_kernel, dq_wgmma_kernel and
+// dkv_wgmma_kernel (flash_wgmma.cu), with a bfloat16 dO or the lse
+// variant's float32 one.
 // They compute what those kernels compute: S = Q K^T * scale in fp32, causal
 // key j visible to query i iff j <= i, online softmax with O = acc / l and
 // lse = m + log l; backward P = exp(S - lse), dP = dO V^T,
 // dS = P * (dP - delta + dlse), dQ = dS K * scale, dV = P^T dO,
 // dK = dS^T Q * scale.  delta = rowsum(dO * O) is computed by the caller.
-// They round where the Pallas kernels round: dS to q's dtype before dS K and
-// dS^T Q, P to dO's dtype before P^T dO (no-ops in float32).
+// In float32 the Pallas kernels' rounding points (dS to q's dtype, P to
+// dO's) round nothing.
 //
 // Layout: q/k/v/dO are read as [B, S, H, D] through element strides for
 // b, s and h (d is contiguous), so the caller needs no head-major copy.
-// dO has q's type, or float32 with bfloat16 q/k/v: the lse variant's output
-// is float32, so its gradient is too, and it is read without rounding.
 // o/dq/dk/dv are written contiguous [B, S, H, D]; lse/delta/dlse are fp32
-// contiguous [B, S, H].
+// contiguous [B, S, H].  The kernels are instantiated at DP = 16, 32, 64,
+// 128 and 256 columns (HVD_DISPATCH_D) and serve any head dim D that is a
+// multiple of 8 up to DP: their tiles read columns D..DP-1 as zeros, which
+// add nothing to any product, and the stores skip them.
 //
 // What bounds them on this card, and what the design does about it:
 //   * At the flagship shape (B 8, S 1024, H 16, D 64, causal) the work is
-//     17-34 GFLOP per kernel against 68-102 MB of traffic, near even the
-//     bf16 tensor cores' ~295 FLOP/byte ridge and far above the fp32
-//     CUDA cores' ~20, so these kernels are bound by arithmetic, never by
-//     device memory.  The [S, S] score matrix is never
+//     17-34 GFLOP per kernel against 68-102 MB of traffic, far above the fp32
+//     CUDA cores' ~20 FLOP/byte ridge, so these kernels are bound by
+//     arithmetic, never by device memory.  The [S, S] score matrix is never
 //     written to device memory: each block keeps its score tile in shared
 //     memory and its running statistics and accumulators in registers.
 //   * These kernels multiply with scalar fp32 FMAs from shared-memory
 //     tiles (a 4x4 register micro-tile per thread), so they run at the card's
-//     fp32 CUDA-core rate, not its bf16 tensor-core rate, and the shared-
-//     memory loads feeding the FMAs are their limit.  Tiles are padded by one
-//     float per row so the 16 threads of a half-warp hit 16 banks.  With
-//     bfloat16 q/k/v and dO every kernel runs on the tensor cores
-//     (flash_wgmma.cu); these serve float32 and the fp32 dO.
+//     fp32 CUDA-core rate, and the shared-memory loads feeding the FMAs are
+//     their limit.  Tiles are padded by one float per row so the 16 threads
+//     of a half-warp hit 16 banks.  At DP 256 dQ and dK/dV take tiles of 32
+//     rows (2x2 scores a thread), so that their four [rows, DP] tiles fit
+//     in shared memory.
 //   * Causal blocks skip the key (query) tiles above the diagonal, and the
 //     grid hands out the tiles with the most work first to shorten the tail.
 //   * No atomics: every output element has exactly one writer, so results
@@ -46,7 +46,6 @@
 // Ragged S is masked with bounds checks (the Pallas code halved its
 // blocks until they divided S instead).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -54,42 +53,27 @@
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per tile
-constexpr int BK = 64;    // key rows per tile
 constexpr int NT = 256;   // threads per block: a 16 x 16 grid (ty, tx)
-constexpr int TM = 4;     // tile rows owned by a thread: ty + 16 * i
-constexpr int PS = BK + 1;  // padded row stride of a [BQ, BK] score tile
+constexpr int FR = 64;    // forward: query and key rows per tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T's precision, kept in fp32.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
+// dQ and dK/dV: query and key rows per tile.
+template <int DP> __host__ __device__ constexpr int bwd_rows() {
+  return DP > 128 ? 32 : 64;
 }
 
 struct Str {  // element strides of a [B, S, H, D] view (d stride is 1)
   long long b, s, h;
 };
 
-// Copy rows [row0, row0 + 64) of one (b, h) slice into a padded fp32 tile;
-// rows at or past S read as zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          Str st, int row0, int S) {
-  constexpr int DP = D + 1;
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, d = i % D, s = row0 + r;
-    dst[r * DP + d] = s < S ? to_f(src[(long long)s * st.s + d]) : 0.f;
+// Copy rows [row0, row0 + R) of one (b, h) slice into a padded [R, DP]
+// fp32 tile; rows at or past S and columns at or past D read as zero.
+template <int DP, int R>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
+                                          Str st, int row0, int S, int D) {
+  constexpr int PD = DP + 1;
+  for (int i = threadIdx.x; i < R * DP; i += NT) {
+    const int r = i / DP, d = i % DP, s = row0 + r;
+    dst[r * PD + d] = s < S && d < D ? src[(long long)s * st.s + d] : 0.f;
   }
 }
 
@@ -102,32 +86,32 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Forward, float32 only.  One block per (query tile, b*h): loops over key
-// tiles up to the causal limit, keeps m and l in shared memory and the
-// output accumulator in registers, and writes o and lse.
-template <int D>
+// Forward.  One block per (query tile, b*h): loops over key tiles up to the
+// causal limit, keeps m and l in shared memory and the output accumulator
+// in registers, and writes o and lse.
+template <int DP>
 __global__ void __launch_bounds__(NT)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o,
            float* __restrict__ lse,
-           Str sq, Str sk, Str sv, int H, int S, float scale, int causal) {
-  constexpr int DP = D + 1, TN = D / 16;
+           Str sq, Str sk, Str sv, int H, int S, int D, float scale, int causal) {
+  constexpr int PD = DP + 1, TM = FR / 16, TN = DP / 16, PS = FR + 1;
   extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][DP]
-  float* Ks = Qs + BQ * DP;      // [BK][DP]
-  float* Vs = Ks + BK * DP;      // [BK][DP]
-  float* Ps = Vs + BK * DP;      // [BQ][PS] scores, then probabilities
-  float* m_s = Ps + BQ * PS;     // [BQ] running max
-  float* l_s = m_s + BQ;         // [BQ] running sum
-  float* c_s = l_s + BQ;         // [BQ] this tile's rescale factor
+  float* Qs = smem;              // [FR][PD]
+  float* Ks = Qs + FR * PD;      // [FR][PD]
+  float* Vs = Ks + FR * PD;      // [FR][PD]
+  float* Ps = Vs + FR * PD;      // [FR][PS] scores, then probabilities
+  float* m_s = Ps + FR * PS;     // [FR] running max
+  float* l_s = m_s + FR;         // [FR] running sum
+  float* c_s = l_s + FR;         // [FR] this tile's rescale factor
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FR;  // heaviest tiles first
 
-  load_tile<float, D>(Qs, q + b * sq.b + h * sq.h, sq, q0, S);
-  if (tid < BQ) {
+  load_tile<DP, FR>(Qs, q + b * sq.b + h * sq.h, sq, q0, S, D);
+  if (tid < FR) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
@@ -139,11 +123,11 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-  const int k_end = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  const int k_end = causal ? min(S, q0 + FR) : S;
+  for (int k0 = 0; k0 < k_end; k0 += FR) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<float, D>(Ks, kb, sk, k0, S);
-    load_tile<float, D>(Vs, vb, sv, k0, S);
+    load_tile<DP, FR>(Ks, kb, sk, k0, S, D);
+    load_tile<DP, FR>(Vs, vb, sv, k0, S, D);
     __syncthreads();
 
     float sacc[TM][TM];
@@ -152,12 +136,12 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < TM; ++j) sacc[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DP; ++d) {
       float qv[TM], kv[TM];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) qv[i] = Qs[(ty + 16 * i) * DP + d];
+      for (int i = 0; i < TM; ++i) qv[i] = Qs[(ty + 16 * i) * PD + d];
 #pragma unroll
-      for (int j = 0; j < TM; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
+      for (int j = 0; j < TM; ++j) kv[j] = Ks[(tx + 16 * j) * PD + d];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -202,12 +186,12 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < TN; ++j) acc[i][j] *= corr;
     }
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
+    for (int c = 0; c < FR; ++c) {
       float pv[TM], vv[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) pv[i] = Ps[(ty + 16 * i) * PS + c];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) vv[j] = Vs[c * DP + tx + 16 * j];
+      for (int j = 0; j < TN; ++j) vv[j] = Vs[c * PD + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -222,22 +206,23 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float l = l_s[r];
     const long long row = ((long long)b * S + s) * H + h;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) o[row * D + tx + 16 * j] = acc[i][j] / l;
+    for (int j = 0; j < TN; ++j)
+      if (tx + 16 * j < D) o[row * D + tx + 16 * j] = acc[i][j] / l;
     if (tx == 0) lse[row] = m_s[r] + logf(l);
   }
 }
 
-// Recompute one [BQ, BK] tile of P and dS into registers: thread (ty, tx)
+// Recompute one [R, R] tile of P and dS into registers: thread (ty, tx)
 // holds rows ty + 16 i and columns tx + 16 j.  Qs/dOs hold the query tile,
 // Ks/Vs the key tile; lse_s and dd_s (= delta - dlse) the query rows' stats.
-template <int D>
+template <int DP, int R>
 __device__ __forceinline__ void p_ds_tile(const float* Qs, const float* dOs,
                                           const float* Ks, const float* Vs,
                                           const float* lse_s, const float* dd_s,
                                           int q0, int k0, int S, float scale,
-                                          int causal, float (&p)[TM][TM],
-                                          float (&ds)[TM][TM]) {
-  constexpr int DP = D + 1;
+                                          int causal, float (&p)[R / 16][R / 16],
+                                          float (&ds)[R / 16][R / 16]) {
+  constexpr int PD = DP + 1, TM = R / 16;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float sacc[TM][TM], dpacc[TM][TM];
 #pragma unroll
@@ -245,17 +230,17 @@ __device__ __forceinline__ void p_ds_tile(const float* Qs, const float* dOs,
 #pragma unroll
     for (int j = 0; j < TM; ++j) sacc[i][j] = dpacc[i][j] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DP; ++d) {
     float qv[TM], dov[TM], kv[TM], vv[TM];
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      qv[i] = Qs[(ty + 16 * i) * DP + d];
-      dov[i] = dOs[(ty + 16 * i) * DP + d];
+      qv[i] = Qs[(ty + 16 * i) * PD + d];
+      dov[i] = dOs[(ty + 16 * i) * PD + d];
     }
 #pragma unroll
     for (int j = 0; j < TM; ++j) {
-      kv[j] = Ks[(tx + 16 * j) * DP + d];
-      vv[j] = Vs[(tx + 16 * j) * DP + d];
+      kv[j] = Ks[(tx + 16 * j) * PD + d];
+      vv[j] = Vs[(tx + 16 * j) * PD + d];
     }
 #pragma unroll
     for (int i = 0; i < TM; ++i)
@@ -279,8 +264,9 @@ __device__ __forceinline__ void p_ds_tile(const float* Qs, const float* dOs,
   }
 }
 
-// Per-row statistics of a query tile: lse and delta - dlse (dlse may be
-// null: an lse output that received no gradient).
+// Per-row statistics of a query tile of R rows: lse and delta - dlse (dlse
+// may be null: an lse output that received no gradient).
+template <int R>
 __device__ __forceinline__ void load_row_stats(float* lse_s, float* dd_s,
                                                const float* __restrict__ lse,
                                                const float* __restrict__ delta,
@@ -288,7 +274,7 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* dd_s,
                                                int b, int h, int H, int q0,
                                                int S) {
   const int r = threadIdx.x;
-  if (r < BQ) {
+  if (r < R) {
     const int s = q0 + r;
     float l = 0.f, dd = 0.f;
     if (s < S) {
@@ -303,59 +289,61 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* dd_s,
 
 // dQ.  One block per (query tile, b*h), looping over key tiles up to the
 // causal limit; dQ stays in registers until the end.
-template <typename T, typename TD, int D>
+template <int DP>
 __global__ void __launch_bounds__(NT)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const TD* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          const float* __restrict__ dlse, T* __restrict__ dq, Str sq, Str sk,
-          Str sv, Str sdo, int H, int S, float scale, int causal) {
-  constexpr int DP = D + 1, TN = D / 16;
+          const float* __restrict__ dlse, float* __restrict__ dq, Str sq,
+          Str sk, Str sv, Str sdo, int H, int S, int D, float scale,
+          int causal) {
+  constexpr int R = bwd_rows<DP>();
+  constexpr int PD = DP + 1, TM = R / 16, TN = DP / 16, PS = R + 1;
   extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][DP]
-  float* dOs = Qs + BQ * DP;     // [BQ][DP]
-  float* Ks = dOs + BQ * DP;     // [BK][DP]
-  float* Vs = Ks + BK * DP;      // [BK][DP]
-  float* dSs = Vs + BK * DP;     // [BQ][PS]
-  float* lse_s = dSs + BQ * PS;  // [BQ]
-  float* dd_s = lse_s + BQ;      // [BQ]
+  float* Qs = smem;              // [R][PD]
+  float* dOs = Qs + R * PD;      // [R][PD]
+  float* Ks = dOs + R * PD;      // [R][PD]
+  float* Vs = Ks + R * PD;       // [R][PD]
+  float* dSs = Vs + R * PD;      // [R][PS]
+  float* lse_s = dSs + R * PS;   // [R]
+  float* dd_s = lse_s + R;       // [R]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;
 
-  load_tile<T, D>(Qs, q + b * sq.b + h * sq.h, sq, q0, S);
-  load_tile<TD, D>(dOs, dout + b * sdo.b + h * sdo.h, sdo, q0, S);
-  load_row_stats(lse_s, dd_s, lse, delta, dlse, b, h, H, q0, S);
+  load_tile<DP, R>(Qs, q + b * sq.b + h * sq.h, sq, q0, S, D);
+  load_tile<DP, R>(dOs, dout + b * sdo.b + h * sdo.h, sdo, q0, S, D);
+  load_row_stats<R>(lse_s, dd_s, lse, delta, dlse, b, h, H, q0, S);
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  const int k_end = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int k_end = causal ? min(S, q0 + R) : S;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();
-    load_tile<T, D>(Ks, kb, sk, k0, S);
-    load_tile<T, D>(Vs, vb, sv, k0, S);
+    load_tile<DP, R>(Ks, kb, sk, k0, S, D);
+    load_tile<DP, R>(Vs, vb, sv, k0, S, D);
     __syncthreads();
     float p[TM][TM], ds[TM][TM];
-    p_ds_tile<D>(Qs, dOs, Ks, Vs, lse_s, dd_s, q0, k0, S, scale, causal, p, ds);
+    p_ds_tile<DP, R>(Qs, dOs, Ks, Vs, lse_s, dd_s, q0, k0, S, scale, causal,
+                     p, ds);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TM; ++j)
-        dSs[(ty + 16 * i) * PS + tx + 16 * j] = round_to<T>(ds[i][j]);
+      for (int j = 0; j < TM; ++j) dSs[(ty + 16 * i) * PS + tx + 16 * j] = ds[i][j];
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
+    for (int c = 0; c < R; ++c) {
       float dsv[TM], kv[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) dsv[i] = dSs[(ty + 16 * i) * PS + c];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) kv[j] = Ks[c * DP + tx + 16 * j];
+      for (int j = 0; j < TN; ++j) kv[j] = Ks[c * PD + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -369,66 +357,69 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (s >= S) continue;
     const long long row = ((long long)b * S + s) * H + h;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) dq[row * D + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+    for (int j = 0; j < TN; ++j)
+      if (tx + 16 * j < D) dq[row * D + tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
 // dK/dV.  One block per (key tile, b*h), looping over query tiles from the
 // causal start; dK and dV stay in registers until the end.
-template <typename T, typename TD, int D>
+template <int DP>
 __global__ void __launch_bounds__(NT)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const TD* __restrict__ dout,
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           const float* __restrict__ dlse, T* __restrict__ dk,
-           T* __restrict__ dv, Str sq, Str sk, Str sv, Str sdo, int H, int S,
-           float scale, int causal) {
-  constexpr int DP = D + 1, TN = D / 16;
+           const float* __restrict__ dlse, float* __restrict__ dk,
+           float* __restrict__ dv, Str sq, Str sk, Str sv, Str sdo, int H,
+           int S, int D, float scale, int causal) {
+  constexpr int R = bwd_rows<DP>();
+  constexpr int PD = DP + 1, TM = R / 16, TN = DP / 16, PS = R + 1;
   extern __shared__ float smem[];
-  float* Ks = smem;              // [BK][DP]
-  float* Vs = Ks + BK * DP;      // [BK][DP]
-  float* Qs = Vs + BK * DP;      // [BQ][DP]
-  float* dOs = Qs + BQ * DP;     // [BQ][DP]
-  float* Ps = dOs + BQ * DP;     // [BQ][PS]
-  float* dSs = Ps + BQ * PS;     // [BQ][PS]
-  float* lse_s = dSs + BQ * PS;  // [BQ]
-  float* dd_s = lse_s + BQ;      // [BQ]
+  float* Ks = smem;              // [R][PD]
+  float* Vs = Ks + R * PD;       // [R][PD]
+  float* Qs = Vs + R * PD;       // [R][PD]
+  float* dOs = Qs + R * PD;      // [R][PD]
+  float* Ps = dOs + R * PD;      // [R][PS]
+  float* dSs = Ps + R * PS;      // [R][PS]
+  float* lse_s = dSs + R * PS;   // [R]
+  float* dd_s = lse_s + R;       // [R]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * BK;  // causal: low key tiles carry the most work
+  const int k0 = blockIdx.y * R;  // causal: low key tiles carry the most work
 
-  load_tile<T, D>(Ks, k + b * sk.b + h * sk.h, sk, k0, S);
-  load_tile<T, D>(Vs, v + b * sv.b + h * sv.h, sv, k0, S);
+  load_tile<DP, R>(Ks, k + b * sk.b + h * sk.h, sk, k0, S, D);
+  load_tile<DP, R>(Vs, v + b * sv.b + h * sv.h, sv, k0, S, D);
   float dk_acc[TM][TN], dv_acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const TD* dob = dout + b * sdo.b + h * sdo.h;
-  const int q_start = causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = q_start; q0 < S; q0 += BQ) {
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
+  const int q_start = causal ? k0 : 0;
+  for (int q0 = q_start; q0 < S; q0 += R) {
     __syncthreads();
-    load_tile<T, D>(Qs, qb, sq, q0, S);
-    load_tile<TD, D>(dOs, dob, sdo, q0, S);
-    load_row_stats(lse_s, dd_s, lse, delta, dlse, b, h, H, q0, S);
+    load_tile<DP, R>(Qs, qb, sq, q0, S, D);
+    load_tile<DP, R>(dOs, dob, sdo, q0, S, D);
+    load_row_stats<R>(lse_s, dd_s, lse, delta, dlse, b, h, H, q0, S);
     __syncthreads();
     float p[TM][TM], ds[TM][TM];
-    p_ds_tile<D>(Qs, dOs, Ks, Vs, lse_s, dd_s, q0, k0, S, scale, causal, p, ds);
+    p_ds_tile<DP, R>(Qs, dOs, Ks, Vs, lse_s, dd_s, q0, k0, S, scale, causal,
+                     p, ds);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TM; ++j) {
         const int idx = (ty + 16 * i) * PS + tx + 16 * j;
-        Ps[idx] = round_to<TD>(p[i][j]);
-        dSs[idx] = round_to<T>(ds[i][j]);
+        Ps[idx] = p[i][j];
+        dSs[idx] = ds[i][j];
       }
     __syncthreads();
     // Thread (ty, tx) now owns key rows ty + 16 i and columns tx + 16 j.
 #pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
+    for (int r = 0; r < R; ++r) {
       float pv[TM], dsv[TM], dov[TN], qv[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
@@ -437,8 +428,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        dov[j] = dOs[r * (D + 1) + tx + 16 * j];
-        qv[j] = Qs[r * (D + 1) + tx + 16 * j];
+        dov[j] = dOs[r * PD + tx + 16 * j];
+        qv[j] = Qs[r * PD + tx + 16 * j];
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -457,20 +448,23 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long row = ((long long)b * S + s) * H + h;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      dk[row * D + tx + 16 * j] = from_f<T>(dk_acc[i][j] * scale);
-      dv[row * D + tx + 16 * j] = from_f<T>(dv_acc[i][j]);
+      if (tx + 16 * j >= D) continue;
+      dk[row * D + tx + 16 * j] = dk_acc[i][j] * scale;
+      dv[row * D + tx + 16 * j] = dv_acc[i][j];
     }
   }
 }
 
-constexpr size_t fwd_smem(int D) {
-  return sizeof(float) * (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * PS + 3 * BQ);
+template <int DP> constexpr size_t fwd_smem() {
+  return sizeof(float) * (size_t)(3 * FR * (DP + 1) + FR * (FR + 1) + 3 * FR);
 }
-constexpr size_t dq_smem(int D) {
-  return sizeof(float) * (size_t)(2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * PS + 2 * BQ);
+template <int DP> constexpr size_t dq_smem() {
+  constexpr int R = bwd_rows<DP>();
+  return sizeof(float) * (size_t)(4 * R * (DP + 1) + R * (R + 1) + 2 * R);
 }
-constexpr size_t dkv_smem(int D) {
-  return sizeof(float) * (size_t)(2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * PS + 2 * BQ);
+template <int DP> constexpr size_t dkv_smem() {
+  constexpr int R = bwd_rows<DP>();
+  return sizeof(float) * (size_t)(4 * R * (DP + 1) + 2 * R * (R + 1) + 2 * R);
 }
 
 Str str_at(const long long* s, int i) { return Str{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
@@ -481,66 +475,70 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int D>
+template <int DP>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-               const long long* st, int B, int S, int H, float scale,
+               const long long* st, int B, int S, int H, int D, float scale,
                int causal, cudaStream_t stream) {
-  const size_t smem = fwd_smem(D);
-  auto kernel = fwd_kernel<D>;
+  const size_t smem = fwd_smem<DP>();
+  auto kernel = fwd_kernel<DP>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (S + BQ - 1) / BQ);
+  dim3 grid(B * H, (S + FR - 1) / FR);
   kernel<<<grid, NT, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
-      (float*)lse, str_at(st, 0), str_at(st, 1), str_at(st, 2), H, S, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, typename TD, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, const void* dlse, void* dq,
-              const long long* st, int B, int S, int H, float scale,
-              int causal, cudaStream_t stream) {
-  const size_t smem = dq_smem(D);
-  auto kernel = dq_kernel<T, TD, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (S + BQ - 1) / BQ);
-  kernel<<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const TD*)dout,
-      (const float*)lse, (const float*)delta, (const float*)dlse, (T*)dq,
-      str_at(st, 0), str_at(st, 1), str_at(st, 2), str_at(st, 3), H, S,
+      (float*)lse, str_at(st, 0), str_at(st, 1), str_at(st, 2), H, S, D,
       scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TD, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* dlse, void* dk,
-               void* dv, const long long* st, int B, int S, int H,
-               float scale, int causal, cudaStream_t stream) {
-  const size_t smem = dkv_smem(D);
-  auto kernel = dkv_kernel<T, TD, D>;
+template <int DP>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* dlse, void* dq,
+              const long long* st, int B, int S, int H, int D, float scale,
+              int causal, cudaStream_t stream) {
+  constexpr int R = bwd_rows<DP>();
+  const size_t smem = dq_smem<DP>();
+  auto kernel = dq_kernel<DP>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (S + BK - 1) / BK);
+  dim3 grid(B * H, (S + R - 1) / R);
   kernel<<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const TD*)dout,
-      (const float*)lse, (const float*)delta, (const float*)dlse, (T*)dk,
-      (T*)dv, str_at(st, 0), str_at(st, 1), str_at(st, 2), str_at(st, 3), H,
-      S, scale, causal);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (const float*)dlse, (float*)dq,
+      str_at(st, 0), str_at(st, 1), str_at(st, 2), str_at(st, 3), H, S, D,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, const void* dlse, void* dk,
+               void* dv, const long long* st, int B, int S, int H, int D,
+               float scale, int causal, cudaStream_t stream) {
+  constexpr int R = bwd_rows<DP>();
+  const size_t smem = dkv_smem<DP>();
+  auto kernel = dkv_kernel<DP>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (S + R - 1) / R);
+  kernel<<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (const float*)dlse, (float*)dk,
+      (float*)dv, str_at(st, 0), str_at(st, 1), str_at(st, 2), str_at(st, 3),
+      H, S, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, for q/k/v and the outputs.  do_f32: dO
-// is float32 where q/k/v are bfloat16 (the gradient of the lse variant's
-// float32 output); with float32 q/k/v, dO is float32 anyway.  strides: host
-// array of (b, s, h) element strides for q, k, v (and dO in the backward
-// launchers).  The kernel is chosen by dtype: the bfloat16 forward, and dQ
-// and dK/dV with a bfloat16 dO, on the tensor cores; the rest on the scalar
-// kernels.
+// dtype: 0 = float32, 1 = bfloat16, for q/k/v and the outputs.  dout_lo:
+// with bfloat16 q/k/v, the lo plane of a float32 dO split into two bf16
+// planes (dout is then its hi plane; hvd_flash_split_do, flash_wgmma.cu),
+// or null for a bfloat16 dO; with float32 q/k/v, null (dO is float32).
+// strides: host array of (b, s, h) element strides for q, k, v (and dO, or
+// its planes, in the backward launchers).  D: the head dim, a multiple of 8
+// up to 256.  The kernel is chosen by dtype: bfloat16 on the tensor cores,
+// float32 on the scalar kernels.
 // Each returns cudaGetLastError() after the launch (0 on success).
 extern "C" {
 
@@ -553,40 +551,33 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
     return hvd_flash_fwd_wgmma(q, k, v, o, lse, strides, B, S, H, D, scale,
                                causal, out_f32, st);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  HVD_DISPATCH_D(D, (launch_fwd<HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, st)))
+  HVD_DISPATCH_D(D, (launch_fwd<DP>(q, k, v, o, lse, strides, B, S, H, D, scale, causal, st)))
 }
 
 int hvd_flash_dq(const void* q, const void* k, const void* v, const void* dout,
-                 const void* lse, const void* delta, const void* dlse,
-                 void* dq, const long long* strides, int B, int S, int H,
-                 int D, float scale, int causal, int dtype, int do_f32,
+                 const void* dout_lo, const void* lse, const void* delta,
+                 const void* dlse, void* dq, const long long* strides, int B,
+                 int S, int H, int D, float scale, int causal, int dtype,
                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    HVD_DISPATCH_D(D, (launch_dq<float, float, HD>(q, k, v, dout, lse, delta, dlse, dq, strides, B, S, H, scale, causal, st)))
-  }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (!do_f32)
-    return hvd_flash_dq_wgmma(q, k, v, dout, lse, delta, dlse, dq, strides, B,
-                              S, H, D, scale, causal, st);
-  HVD_DISPATCH_D(D, (launch_dq<__nv_bfloat16, float, HD>(q, k, v, dout, lse, delta, dlse, dq, strides, B, S, H, scale, causal, st)))
+  if (dtype == 1)
+    return hvd_flash_dq_wgmma(q, k, v, dout, dout_lo, lse, delta, dlse, dq,
+                              strides, B, S, H, D, scale, causal, st);
+  if (dtype != 0 || dout_lo) return (int)cudaErrorInvalidValue;
+  HVD_DISPATCH_D(D, (launch_dq<DP>(q, k, v, dout, lse, delta, dlse, dq, strides, B, S, H, D, scale, causal, st)))
 }
 
 int hvd_flash_dkv(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  const void* dlse, void* dk, void* dv,
+                  const void* dout, const void* dout_lo, const void* lse,
+                  const void* delta, const void* dlse, void* dk, void* dv,
                   const long long* strides, int B, int S, int H, int D,
-                  float scale, int causal, int dtype, int do_f32,
-                  void* stream) {
+                  float scale, int causal, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    HVD_DISPATCH_D(D, (launch_dkv<float, float, HD>(q, k, v, dout, lse, delta, dlse, dk, dv, strides, B, S, H, scale, causal, st)))
-  }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (!do_f32)
-    return hvd_flash_dkv_wgmma(q, k, v, dout, lse, delta, dlse, dk, dv,
-                               strides, B, S, H, D, scale, causal, st);
-  HVD_DISPATCH_D(D, (launch_dkv<__nv_bfloat16, float, HD>(q, k, v, dout, lse, delta, dlse, dk, dv, strides, B, S, H, scale, causal, st)))
+  if (dtype == 1)
+    return hvd_flash_dkv_wgmma(q, k, v, dout, dout_lo, lse, delta, dlse, dk,
+                               dv, strides, B, S, H, D, scale, causal, st);
+  if (dtype != 0 || dout_lo) return (int)cudaErrorInvalidValue;
+  HVD_DISPATCH_D(D, (launch_dkv<DP>(q, k, v, dout, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, st)))
 }
 
 }  // extern "C"

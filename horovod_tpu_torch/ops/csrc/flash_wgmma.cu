@@ -1,5 +1,6 @@
 // Flash attention on Hopper's tensor cores (sm_90a): the forward, dQ and
-// dK/dV kernels for bfloat16 q/k/v and a bfloat16 dO.
+// dK/dV kernels for bfloat16 q/k/v, with a bfloat16 dO or (the lse
+// variant's gradient) a float32 dO.
 //
 // Replace the three Pallas kernels of horovod_tpu/ops/pallas_attention.py:
 //   fwd_wgmma_kernel <- _fwd_kernel  (:77, launched by _flash_fwd at :131)
@@ -8,8 +9,24 @@
 // They compute what those kernels compute, and round where they round: S and
 // every product accumulate in fp32, P is rounded to bf16 before P.V and
 // P^T.dO, dS to bf16 before dS.K and dS^T.Q (pallas_attention.py:112, :207,
-// :245, :252); dQ's P is not rounded.  The fp32 variants and the lse
-// variant's fp32 dO stay on the scalar kernels of flash_attention.cu.
+// :245, :252); dQ's P is not rounded.  The fp32 variants stay on the scalar
+// kernels of flash_attention.cu.
+//
+// A float32 dO (F32DO) keeps the reference's fp32 products on bf16 tensor
+// cores: split_do_kernel splits it once per backward into two bf16 planes,
+// hi = bf16(dO) and lo = bf16(dO - hi), which hold it to about 2^-17.
+// dP = dO.V^T is hi.V^T + lo.V^T (V is exact in bf16).  P^T.dO takes P
+// unrounded (p.astype(fp32) is a no-op in the reference): P splits the same
+// way in registers, and dV += P_hi.hi + P_lo.hi + P_hi.lo; the dropped
+// P_lo.lo is about 2^-16 of a term, far below the bf16 output's rounding.
+// dS is rounded to bf16 as on the bf16 route.
+//
+// Head dims: the kernels are instantiated at DP = 16, 32, 64, 128 and 256
+// columns and serve any head dim D that is a multiple of 8 up to DP (the
+// least DP not below D; HVD_DISPATCH_D).  The tensor maps span the real D,
+// so TMA fills columns D..DP-1 with zeros, which add nothing to any product,
+// and the stores skip them.  D must be a multiple of 8 so that a row of a
+// contiguous bf16 tensor is a whole number of 16-byte units, as TMA needs.
 //
 // What bounds them on this card, and what the design does about it:
 //   * At the flagship shape (B 8, S 1024, H 16, D 64, causal) the forward
@@ -22,7 +39,8 @@
 //     never leave registers: the score accumulator is masked,
 //     exponentiated and packed to bf16 in place, and that packed fragment
 //     is the register A operand of the next wgmma (the m64 accumulator
-//     layout is the A-fragment layout).
+//     layout is the A-fragment layout).  The F32DO kernels run 4/3 (dQ) and
+//     7/4 (dK/dV) of the bf16 route's wgmmas for the split's extra products.
 //   * Loads: a producer warp issues TMA copies of [rows, D] tiles of the
 //     strided [B, S, H, D] views into 128/64/32-byte swizzled shared memory
 //     (the swizzle of the wgmma descriptors), completing on mbarriers, into
@@ -30,6 +48,12 @@
 //     Rows past S read as zeros (the tensor map's bounds).
 //   * One consumer warpgroup per block (64 rows) and up to two blocks per
 //     SM: one block's softmax overlaps the other's wgmma.
+//   * Registers at DP 256: the forward walks key tiles of 64 (its m64 x 256
+//     output accumulator takes 128 registers a thread), and dK/dV gives each
+//     block 128 of the 256 output columns (two such accumulators would not
+//     fit), so two blocks of a key tile each recompute S^T and dP^T.  Its
+//     F32DO instantiation takes query tiles of 32 so that the Q, hi and lo
+//     ring fits in shared memory.
 //   * Causal blocks skip the tiles above the diagonal and mask only the
 //     tiles that cross it; the heaviest tiles are handed out first.  Each
 //     output element has one writer: no atomics, deterministic results.
@@ -48,28 +72,39 @@ constexpr int STAGES = 2;        // depth of the producer's ring
 constexpr int CONSUMER = 128;    // one consumer warpgroup
 constexpr int NT = CONSUMER + 32;  // and one producer warp
 constexpr int FQ = 64;           // forward: query rows per block
-constexpr int FK = 128;          // forward: key rows per tile
 constexpr int BKV = 64;          // dK/dV: key rows per block
-constexpr int BQ = 64;           // dK/dV: query rows per tile
 constexpr int DQ = 64;           // dQ: query rows per block
 constexpr int BKQ = 64;          // dQ: key rows per tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Shared-memory layout of a bf16 [rows, D] tile: D is cut into regions of
+// Forward: key rows per tile.
+template <int DP> __host__ __device__ constexpr int fwd_keys() {
+  return DP > 128 ? 64 : 128;
+}
+// dK/dV: query rows per tile, and output columns per block.
+template <int DP, bool F32DO> __host__ __device__ constexpr int dkv_rows() {
+  return F32DO && DP > 128 ? 32 : 64;
+}
+template <int DP> __host__ __device__ constexpr int dkv_cols() {
+  return DP > 128 ? 128 : DP;
+}
+
+// Shared-memory layout of a bf16 [rows, DP] tile: DP is cut into regions of
 // CW columns (one swizzled row of SW bytes); region i holds columns
 // [i CW, (i+1) CW) of every row, rows SW bytes apart, regions rows * SW
-// bytes apart.  SW is 128 bytes at D >= 64 (two regions at D 128), 64 at
-// D 32 and 32 at D 16; TMA writes the same swizzle that wgmma reads.
-template <int D>
+// bytes apart.  SW is 128 bytes at DP >= 64 (two regions at DP 128, four at
+// 256), 64 at DP 32 and 32 at DP 16; TMA writes the same swizzle that wgmma
+// reads.
+template <int DP>
 struct Tile {
-  static constexpr int SW = D >= 64 ? 128 : 2 * D;
+  static constexpr int SW = DP >= 64 ? 128 : 2 * DP;
   static constexpr int CW = SW / 2;
-  static constexpr int NR = D / CW;
+  static constexpr int NR = DP / CW;
   static constexpr CUtensorMapSwizzle SWIZZLE =
       SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                 : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  __host__ __device__ static constexpr int bytes(int rows) { return rows * D * 2; }
+  __host__ __device__ static constexpr int bytes(int rows) { return rows * DP * 2; }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -109,13 +144,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // --- TMA -------------------------------------------------------------------
 
-// Copy rows [row0, row0 + rows) of the (b, h) slice, all D columns, into a
-// tile laid out as Tile<D> describes; completes `rows * D * 2` bytes on bar.
-template <int D>
+// Copy rows [row0, row0 + rows) of the (b, h) slice, all DP columns, into a
+// tile laid out as Tile<DP> describes; completes `rows * DP * 2` bytes on
+// bar (columns past the map's D arrive as zeros and count all the same).
+template <int DP>
 __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map,
                                          uint64_t* bar, int rows, int row0,
                                          int b, int h) {
-  using L = Tile<D>;
+  using L = Tile<DP>;
 #pragma unroll
   for (int r = 0; r < L::NR; ++r) {
     asm volatile(
@@ -141,12 +177,12 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
 }
 
-// K-major operand: rows [r0, r0 + 64 or N) of a [rows, D] tile, columns
+// K-major operand: rows [r0, r0 + 64 or N) of a [rows, DP] tile, columns
 // [16 kk, 16 kk + 16) as the depth.  8-row groups are 8 SW bytes apart.
-template <int D>
+template <int DP>
 __device__ __forceinline__ uint64_t desc_k(const uint8_t* tile, int rows,
                                            int r0, int kk) {
-  using L = Tile<D>;
+  using L = Tile<DP>;
   const int col = 16 * kk;
   return make_desc<L::SW>(
       smem_u32(tile + (col / L::CW) * rows * L::SW + r0 * L::SW +
@@ -154,15 +190,17 @@ __device__ __forceinline__ uint64_t desc_k(const uint8_t* tile, int rows,
       16, 8 * L::SW);
 }
 
-// MN-major operand B (transposed): rows [16 kk, 16 kk + 16) of a [rows, D]
-// tile as the depth and all D columns as N; column regions are rows * SW
-// bytes apart (the leading offset), 8-row groups 8 SW bytes (the stride).
-template <int D>
+// MN-major operand B (transposed): rows [16 kk, 16 kk + 16) of a [rows, DP]
+// tile as the depth and the columns from c0 (a multiple of CW) on as N;
+// column regions are rows * SW bytes apart (the leading offset), 8-row
+// groups 8 SW bytes (the stride).
+template <int DP>
 __device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int rows,
-                                            int kk) {
-  using L = Tile<D>;
-  return make_desc<L::SW>(smem_u32(tile + 16 * kk * L::SW), rows * L::SW,
-                          8 * L::SW);
+                                            int kk, int c0) {
+  using L = Tile<DP>;
+  return make_desc<L::SW>(
+      smem_u32(tile + (c0 / L::CW) * rows * L::SW + 16 * kk * L::SW),
+      rows * L::SW, 8 * L::SW);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -190,6 +228,16 @@ __device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
 template <int N>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                          uint64_t db);
+
+template <> __device__ __forceinline__ void
+wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
 
 template <> __device__ __forceinline__ void
 wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db, int acc) {
@@ -265,6 +313,39 @@ __device__ __forceinline__ void a_frag(const float (&d)[NR], int kk,
   for (int i = 0; i < 4; ++i) a[i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
 }
 
+// The same columns as two A fragments, hi = bf16(x) and lo = bf16(x - hi):
+// hi + lo holds x to about 2^-17 of it.
+template <int NR>
+__device__ __forceinline__ void a_frag_split(const float (&d)[NR], int kk,
+                                             uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = d[8 * kk + 2 * i], x1 = d[8 * kk + 2 * i + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+  }
+}
+
+// d (m64 x N) += A . B, B the columns [c0, c0 + N) of a [rows, DP] tile read
+// MN-major with rows [16 kk, 16 kk + 16) as the depth.  N over 128 runs as
+// 128-column wgmmas: n128 accumulators side by side are the wider one.
+template <int DP, int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4],
+                                       const uint8_t* tile, int rows, int kk,
+                                       int c0) {
+  if constexpr (N <= 128) {
+    wgmma_rs<N>(d, a, desc_mn<DP>(tile, rows, kk, c0));
+  } else {
+#pragma unroll
+    for (int n = 0; n < N / 128; ++n)
+      wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(d + 64 * n), a,
+                    desc_mn<DP>(tile, rows, kk, c0 + 128 * n));
+  }
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -288,23 +369,25 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 // In an m64 x N accumulator, thread t of the warpgroup holds rows
 // 16 (t / 32) + (t % 32) / 4 and 8 below it, and of each 8-column chunk j
 // the columns 8 j + 2 (t % 4) + {0, 1}: d[4 j + e] is row + 8 (e / 2),
-// column 8 j + 2 (t % 4) + e % 2.
+// column 8 j + 2 (t % 4) + e % 2.  Outputs have D columns (a multiple of
+// 8), so a chunk is stored whole or not at all.
 
 // Forward.  One block per (64-row query tile, b*h); the consumer warpgroup
-// walks key tiles of 128 up to the causal limit with the online softmax in
+// walks key tiles of FK up to the causal limit with the online softmax in
 // registers (m and l per row, in log2 units), and writes o and lse.
-template <typename TO, int D>
-__global__ void __launch_bounds__(NT, D == 128 ? 1 : 2)
+template <typename TO, int DP>
+__global__ void __launch_bounds__(NT, DP >= 128 ? 1 : 2)
 fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, TO* __restrict__ o,
-                 float* __restrict__ lse, int H, int S, float scale,
+                 float* __restrict__ lse, int H, int S, int D, float scale,
                  int causal) {
-  using L = Tile<D>;
+  using L = Tile<DP>;
+  constexpr int FK = fwd_keys<DP>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
-  uint8_t* Ks = Qs + L::bytes(FQ);            // [STAGES][FK, D]
-  uint8_t* Vs = Ks + STAGES * L::bytes(FK);   // [STAGES][FK, D]
+  uint8_t* Ks = Qs + L::bytes(FQ);            // [STAGES][FK, DP]
+  uint8_t* Vs = Ks + STAGES * L::bytes(FK);   // [STAGES][FK, DP]
   uint64_t* q_full = (uint64_t*)(Vs + STAGES * L::bytes(FK));
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + STAGES;
@@ -330,14 +413,14 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid >= CONSUMER) {  // producer warp: one lane issues every copy
     if (tid == CONSUMER) {
       mbar_expect_tx(q_full, L::bytes(FQ));
-      tma_tile<D>(Qs, &tq, q_full, FQ, q0, b, h);
+      tma_tile<DP>(Qs, &tq, q_full, FQ, q0, b, h);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % STAGES;
         if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) - 1) & 1);
         mbar_expect_tx(&k_full[st], L::bytes(FK));
-        tma_tile<D>(Ks + st * L::bytes(FK), &tk, &k_full[st], FK, t * FK, b, h);
+        tma_tile<DP>(Ks + st * L::bytes(FK), &tk, &k_full[st], FK, t * FK, b, h);
         mbar_expect_tx(&v_full[st], L::bytes(FK));
-        tma_tile<D>(Vs + st * L::bytes(FK), &tv, &v_full[st], FK, t * FK, b, h);
+        tma_tile<DP>(Vs + st * L::bytes(FK), &tv, &v_full[st], FK, t * FK, b, h);
       }
     }
     return;
@@ -346,9 +429,9 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = tid & 31, quad = lane & 3;
   const int row0 = q0 + 16 * (tid >> 5) + (lane >> 2);  // and row0 + 8
   const float sl2 = scale * LOG2E;
-  float oacc[D / 2];
+  float oacc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   mbar_wait(q_full, 0);
@@ -364,8 +447,8 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&k_full[st], ph);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<FK>(s, desc_k<D>(Qs, FQ, 0, kk), desc_k<D>(Kt, FK, 0, kk), kk);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<FK>(s, desc_k<DP>(Qs, FQ, 0, kk), desc_k<DP>(Kt, FK, 0, kk), kk);
     wg_commit();
     wg_wait();
     reg_fence(s);
@@ -406,7 +489,7 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         s[4 * j + e] = p;
       }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DP / 8; ++j) {
       oacc[4 * j] *= corr[0];
       oacc[4 * j + 1] *= corr[0];
       oacc[4 * j + 2] *= corr[1];
@@ -421,7 +504,7 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < FK / 16; ++kk)
-      wgmma_rs<D>(oacc, pa[kk], desc_mn<D>(Vt, FK, kk));
+      mma_rs<DP, DP>(oacc, pa[kk], Vt, FK, kk, 0);
     wg_commit();
     wg_wait();
     reg_fence(oacc);
@@ -436,36 +519,42 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const long long row = ((long long)b * S + s_row) * H + h;
     const float inv = 1.f / li;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store2(o + row * D + 8 * j + 2 * quad, oacc[4 * j + 2 * i] * inv,
-             oacc[4 * j + 2 * i + 1] * inv);
+    for (int j = 0; j < DP / 8; ++j)
+      if (8 * j < D)
+        store2(o + row * D + 8 * j + 2 * quad, oacc[4 * j + 2 * i] * inv,
+               oacc[4 * j + 2 * i + 1] * inv);
     if (quad == 0) lse[row] = m[i] * LN2 + logf(li);
   }
 }
 
-// dK/dV in the transposed form.  One block per (64-row key tile, b*h); K
-// and V stay in shared memory while the producer streams the query tiles
-// from the causal start (Q, dO by TMA; lse and delta - dlse by the
-// producer's lanes).  Per tile: S^T = K Q^T and dP^T = V dO^T by wgmma,
-// P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta + dlse) in
-// registers, dV += bf16(P^T) dO and dK += bf16(dS^T) Q by register-A wgmma.
-template <int D>
-__global__ void __launch_bounds__(NT, D == 128 ? 1 : 2)
+// dK/dV in the transposed form.  One block per (64-row key tile, b*h, NC
+// output columns from c0); K and V stay in shared memory while the producer
+// streams the query tiles from the causal start (Q and dO, or dO's hi and
+// lo planes, by TMA; lse and delta - dlse by the producer's lanes).  Per
+// tile: S^T = K Q^T and dP^T = V dO^T by wgmma, P^T = exp(S^T scale - lse)
+// and dS^T = P^T (dP^T - delta + dlse) in registers, dV += bf16(P^T) dO
+// (F32DO: P^T split, three products) and dK += bf16(dS^T) Q by register-A
+// wgmma.
+template <int DP, bool F32DO>
+__global__ void __launch_bounds__(NT, DP >= 128 ? 1 : 2)
 dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tdo_lo,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const float* __restrict__ dlse, __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, int H, int S, float scale,
-                 int causal) {
-  using L = Tile<D>;
+                 __nv_bfloat16* __restrict__ dv, int H, int S, int D,
+                 float scale, int causal) {
+  using L = Tile<DP>;
+  constexpr int BQ = dkv_rows<DP, F32DO>(), NC = dkv_cols<DP>();
+  constexpr int NP = F32DO ? 2 : 1;  // dO planes
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Ks = align1024(smem_raw);
   uint8_t* Vs = Ks + L::bytes(BKV);
-  uint8_t* Qs = Vs + L::bytes(BKV);            // [STAGES][BQ, D]
-  uint8_t* dOs = Qs + STAGES * L::bytes(BQ);   // [STAGES][BQ, D]
-  float* stats = (float*)(dOs + STAGES * L::bytes(BQ));  // [STAGES][2][BQ]
+  uint8_t* Qs = Vs + L::bytes(BKV);                // [STAGES][BQ, DP]
+  uint8_t* dOs = Qs + STAGES * L::bytes(BQ);       // [STAGES][NP][BQ, DP]
+  float* stats = (float*)(dOs + STAGES * NP * L::bytes(BQ));  // [STAGES][2][BQ]
   uint64_t* kv_full = (uint64_t*)(stats + STAGES * 2 * BQ);
   uint64_t* q_full = kv_full + 1;
   uint64_t* empty = q_full + STAGES;
@@ -473,6 +562,7 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * BKV;  // causal: low key tiles carry the most work
+  const int c0 = blockIdx.z * NC;
   const int q_start = causal ? k0 : 0;
   const int n_tiles = (S - q_start + BQ - 1) / BQ;
 
@@ -490,8 +580,8 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int lane = tid - CONSUMER;
     if (lane == 0) {
       mbar_expect_tx(kv_full, 2 * L::bytes(BKV));
-      tma_tile<D>(Ks, &tk, kv_full, BKV, k0, b, h);
-      tma_tile<D>(Vs, &tv, kv_full, BKV, k0, b, h);
+      tma_tile<DP>(Ks, &tk, kv_full, BKV, k0, b, h);
+      tma_tile<DP>(Vs, &tv, kv_full, BKV, k0, b, h);
     }
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % STAGES, q0 = q_start + t * BQ;
@@ -510,9 +600,12 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         lse_s[BQ + r] = dd;
       }
       if (lane == 0) {
-        mbar_expect_tx(&q_full[st], 2 * L::bytes(BQ));
-        tma_tile<D>(Qs + st * L::bytes(BQ), &tq, &q_full[st], BQ, q0, b, h);
-        tma_tile<D>(dOs + st * L::bytes(BQ), &tdo, &q_full[st], BQ, q0, b, h);
+        uint8_t* dOt = dOs + st * NP * L::bytes(BQ);
+        mbar_expect_tx(&q_full[st], (1 + NP) * L::bytes(BQ));
+        tma_tile<DP>(Qs + st * L::bytes(BQ), &tq, &q_full[st], BQ, q0, b, h);
+        tma_tile<DP>(dOt, &tdo, &q_full[st], BQ, q0, b, h);
+        if (F32DO)
+          tma_tile<DP>(dOt + L::bytes(BQ), &tdo_lo, &q_full[st], BQ, q0, b, h);
       } else {
         mbar_arrive(&q_full[st]);
       }
@@ -523,16 +616,16 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = tid & 31, quad = lane & 3;
   const int krow = 16 * (tid >> 5) + (lane >> 2);  // key row in the tile, and +8
   const float sl2 = scale * LOG2E;
-  float dkacc[D / 2], dvacc[D / 2];
+  float dkacc[NC / 2], dvacc[NC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % STAGES, q0 = q_start + t * BQ;
     const uint32_t ph = (t / STAGES) & 1;
     const uint8_t* Qt = Qs + st * L::bytes(BQ);
-    const uint8_t* dOt = dOs + st * L::bytes(BQ);
+    const uint8_t* dOt = dOs + st * NP * L::bytes(BQ);  // hi, then lo
     const float* lse_s = stats + st * 2 * BQ;
     const float* dd_s = lse_s + BQ;
 
@@ -540,11 +633,14 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&q_full[st], ph);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BQ>(s, desc_k<D>(Ks, BKV, 0, kk), desc_k<D>(Qt, BQ, 0, kk), kk);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<BQ>(s, desc_k<DP>(Ks, BKV, 0, kk), desc_k<DP>(Qt, BQ, 0, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BQ>(dp, desc_k<D>(Vs, BKV, 0, kk), desc_k<D>(dOt, BQ, 0, kk), kk);
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<BQ>(dp, desc_k<DP>(Vs, BKV, 0, kk),
+                     desc_k<DP>(dOt + pn * L::bytes(BQ), BQ, 0, kk), pn + kk);
     wg_commit();
     wg_wait();
     reg_fence(s);
@@ -563,19 +659,30 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         s[4 * j + e] = p;
       }
 
-    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    uint32_t pa[BQ / 16][4], plo[F32DO ? BQ / 16 : 1][4], da[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      a_frag(s, kk, pa[kk]);
+      if constexpr (F32DO)
+        a_frag_split(s, kk, pa[kk], plo[kk]);
+      else
+        a_frag(s, kk, pa[kk]);
       a_frag(dp, kk, da[kk]);
     }
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      wgmma_rs<D>(dvacc, pa[kk], desc_mn<D>(dOt, BQ, kk));
+      mma_rs<DP, NC>(dvacc, pa[kk], dOt, BQ, kk, c0);
+    if constexpr (F32DO) {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        mma_rs<DP, NC>(dvacc, plo[kk], dOt, BQ, kk, c0);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        mma_rs<DP, NC>(dvacc, pa[kk], dOt + L::bytes(BQ), BQ, kk, c0);
+    }
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      wgmma_rs<D>(dkacc, da[kk], desc_mn<D>(Qt, BQ, kk));
+      mma_rs<DP, NC>(dkacc, da[kk], Qt, BQ, kk, c0);
     wg_commit();
     wg_wait();
     reg_fence(dvacc);
@@ -589,8 +696,9 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (s_row >= S) continue;
     const long long row = ((long long)b * S + s_row) * H + h;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int c = 8 * j + 2 * quad;
+    for (int j = 0; j < NC / 8; ++j) {
+      const int c = c0 + 8 * j + 2 * quad;
+      if (c0 + 8 * j >= D) continue;
       store2(dk + row * D + c, dkacc[4 * j + 2 * i] * scale,
              dkacc[4 * j + 2 * i + 1] * scale);
       store2(dv + row * D + c, dvacc[4 * j + 2 * i], dvacc[4 * j + 2 * i + 1]);
@@ -599,27 +707,30 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // dQ.  One block per (64-row query tile, b*h), the forward's shape: Q and
-// dO stay in shared memory while the producer streams K and V tiles up to
-// the causal limit.  Per tile: S = Q K^T and dP = dO V^T by wgmma,
-// P = exp(S scale - lse) and dS = P (dP - delta + dlse) in registers, and
-// dQ += bf16(dS) K by register-A wgmma against K read MN-major (as the
-// forward reads V).  A thread's two query rows keep their lse and
-// delta - dlse in registers, read once.
-template <int D>
-__global__ void __launch_bounds__(NT, D == 128 ? 1 : 2)
+// dO (or dO's hi and lo planes) stay in shared memory while the producer
+// streams K and V tiles up to the causal limit.  Per tile: S = Q K^T and
+// dP = dO V^T (F32DO: hi V^T + lo V^T) by wgmma, P = exp(S scale - lse) and
+// dS = P (dP - delta + dlse) in registers, and dQ += bf16(dS) K by
+// register-A wgmma against K read MN-major (as the forward reads V).  A
+// thread's two query rows keep their lse and delta - dlse in registers,
+// read once.
+template <int DP, bool F32DO>
+__global__ void __launch_bounds__(NT, DP >= 128 ? 1 : 2)
 dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tdo_lo,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 const float* __restrict__ dlse, __nv_bfloat16* __restrict__ dq,
-                int H, int S, float scale, int causal) {
-  using L = Tile<D>;
+                int H, int S, int D, float scale, int causal) {
+  using L = Tile<DP>;
+  constexpr int NP = F32DO ? 2 : 1;  // dO planes
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
-  uint8_t* dOs = Qs + L::bytes(DQ);
-  uint8_t* Ks = dOs + L::bytes(DQ);            // [STAGES][BKQ, D]
-  uint8_t* Vs = Ks + STAGES * L::bytes(BKQ);   // [STAGES][BKQ, D]
+  uint8_t* dOs = Qs + L::bytes(DQ);              // [NP][DQ, DP]
+  uint8_t* Ks = dOs + NP * L::bytes(DQ);         // [STAGES][BKQ, DP]
+  uint8_t* Vs = Ks + STAGES * L::bytes(BKQ);     // [STAGES][BKQ, DP]
   uint64_t* q_full = (uint64_t*)(Vs + STAGES * L::bytes(BKQ));
   uint64_t* kv_full = q_full + 1;
   uint64_t* empty = kv_full + STAGES;
@@ -642,15 +753,16 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (tid >= CONSUMER) {  // producer warp: one lane issues every copy
     if (tid == CONSUMER) {
-      mbar_expect_tx(q_full, 2 * L::bytes(DQ));
-      tma_tile<D>(Qs, &tq, q_full, DQ, q0, b, h);
-      tma_tile<D>(dOs, &tdo, q_full, DQ, q0, b, h);
+      mbar_expect_tx(q_full, (1 + NP) * L::bytes(DQ));
+      tma_tile<DP>(Qs, &tq, q_full, DQ, q0, b, h);
+      tma_tile<DP>(dOs, &tdo, q_full, DQ, q0, b, h);
+      if (F32DO) tma_tile<DP>(dOs + L::bytes(DQ), &tdo_lo, q_full, DQ, q0, b, h);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % STAGES;
         if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) - 1) & 1);
         mbar_expect_tx(&kv_full[st], 2 * L::bytes(BKQ));
-        tma_tile<D>(Ks + st * L::bytes(BKQ), &tk, &kv_full[st], BKQ, t * BKQ, b, h);
-        tma_tile<D>(Vs + st * L::bytes(BKQ), &tv, &kv_full[st], BKQ, t * BKQ, b, h);
+        tma_tile<DP>(Ks + st * L::bytes(BKQ), &tk, &kv_full[st], BKQ, t * BKQ, b, h);
+        tma_tile<DP>(Vs + st * L::bytes(BKQ), &tv, &kv_full[st], BKQ, t * BKQ, b, h);
       }
     }
     return;
@@ -672,9 +784,9 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       dd[i] = delta[row] - (dlse ? dlse[row] : 0.f);
     }
   }
-  float dqacc[D / 2];
+  float dqacc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dqacc[i] = 0.f;
 
   mbar_wait(q_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -688,11 +800,14 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&kv_full[st], ph);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BKQ>(s, desc_k<D>(Qs, DQ, 0, kk), desc_k<D>(Kt, BKQ, 0, kk), kk);
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<BKQ>(s, desc_k<DP>(Qs, DQ, 0, kk), desc_k<DP>(Kt, BKQ, 0, kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BKQ>(dp, desc_k<D>(dOs, DQ, 0, kk), desc_k<D>(Vt, BKQ, 0, kk), kk);
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<BKQ>(dp, desc_k<DP>(dOs + pn * L::bytes(DQ), DQ, 0, kk),
+                      desc_k<DP>(Vt, BKQ, 0, kk), pn + kk);
     wg_commit();
     wg_wait();
     reg_fence(s);
@@ -722,7 +837,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BKQ / 16; ++kk)
-      wgmma_rs<D>(dqacc, da[kk], desc_mn<D>(Kt, BKQ, kk));
+      mma_rs<DP, DP>(dqacc, da[kk], Kt, BKQ, kk, 0);
     wg_commit();
     wg_wait();
     reg_fence(dqacc);
@@ -735,10 +850,29 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (s_row >= S) continue;
     const long long row = ((long long)b * S + s_row) * H + h;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store2(dq + row * D + 8 * j + 2 * quad, dqacc[4 * j + 2 * i] * scale,
-             dqacc[4 * j + 2 * i + 1] * scale);
+    for (int j = 0; j < DP / 8; ++j)
+      if (8 * j < D)
+        store2(dq + row * D + 8 * j + 2 * quad, dqacc[4 * j + 2 * i] * scale,
+               dqacc[4 * j + 2 * i + 1] * scale);
   }
+}
+
+// The fp32 dO's bf16 planes for the F32DO kernels: hi = bf16(dO) and
+// lo = bf16(dO - hi) (the difference is exact in fp32), elementwise over a
+// contiguous, 16-byte aligned dO of n4 groups of four.  Bound by its bytes
+// (4 in, 2 + 2 out per element): float4 loads, one group a thread.
+__global__ void __launch_bounds__(256)
+split_do_kernel(const float4* __restrict__ dout, int n4,
+                uint2* __restrict__ hi, uint2* __restrict__ lo) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float4 x = dout[i];
+  const __nv_bfloat162 h01 = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 h23 = __floats2bfloat162_rn(x.z, x.w);
+  hi[i] = make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
+                     *reinterpret_cast<const uint32_t*>(&h23));
+  lo[i] = make_uint2(pack_bf16(x.x - __low2float(h01), x.y - __high2float(h01)),
+                     pack_bf16(x.z - __low2float(h23), x.w - __high2float(h23)));
 }
 
 // --- host side -------------------------------------------------------------
@@ -771,11 +905,13 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map (d, h, s, b) over a bf16 [B, S, H, D] view with element
-// strides st = (b, s, h), boxes of `rows` rows and one column region.
-template <int D>
+// strides st = (b, s, h), boxes of `rows` rows and one column region of
+// Tile<DP>.  Its extent in d is the real D: TMA fills the columns from D to
+// DP with zeros.
+template <int DP>
 int make_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
-             int S, int H, int rows) {
-  using L = Tile<D>;
+             int S, int H, int D, int rows) {
+  using L = Tile<DP>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
@@ -794,78 +930,95 @@ int make_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
 
 constexpr size_t BARRIER_BYTES = 64;
 
-template <typename TO, int D>
+template <typename TO, int DP>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-               const long long* st, int B, int S, int H, float scale,
+               const long long* st, int B, int S, int H, int D, float scale,
                int causal, cudaStream_t stream) {
-  using L = Tile<D>;
+  using L = Tile<DP>;
+  constexpr int FK = fwd_keys<DP>();
   CUtensorMap tq, tk, tv;
   int err;
-  if ((err = make_map<D>(&tq, q, st, B, S, H, FQ)) ||
-      (err = make_map<D>(&tk, k, st + 3, B, S, H, FK)) ||
-      (err = make_map<D>(&tv, v, st + 6, B, S, H, FK)))
+  if ((err = make_map<DP>(&tq, q, st, B, S, H, D, FQ)) ||
+      (err = make_map<DP>(&tk, k, st + 3, B, S, H, D, FK)) ||
+      (err = make_map<DP>(&tv, v, st + 6, B, S, H, D, FK)))
     return err;
   const size_t smem = 1024 + L::bytes(FQ) + 2 * STAGES * L::bytes(FK) + BARRIER_BYTES;
-  auto kernel = fwd_wgmma_kernel<TO, D>;
+  auto kernel = fwd_wgmma_kernel<TO, DP>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * H, (S + FQ - 1) / FQ);
-  kernel<<<grid, NT, smem, stream>>>(tq, tk, tv, (TO*)o, (float*)lse, H, S,
+  kernel<<<grid, NT, smem, stream>>>(tq, tk, tv, (TO*)o, (float*)lse, H, S, D,
                                      scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, const void* dlse, void* dk,
-               void* dv, const long long* st, int B, int S, int H, float scale,
-               int causal, cudaStream_t stream) {
-  using L = Tile<D>;
-  CUtensorMap tq, tk, tv, tdo;
+// The maps of the backward kernels: q, k, v, and dO (or dO's hi plane) with
+// the element strides st, and dO's lo plane (F32DO; a plane of hi's layout).
+template <int DP, bool F32DO>
+int make_bwd_maps(CUtensorMap (&m)[5], const void* q, const void* k,
+                  const void* v, const void* dout, const void* dout_lo,
+                  const long long* st, int B, int S, int H, int D, int q_rows,
+                  int k_rows) {
   int err;
-  if ((err = make_map<D>(&tq, q, st, B, S, H, BQ)) ||
-      (err = make_map<D>(&tk, k, st + 3, B, S, H, BKV)) ||
-      (err = make_map<D>(&tv, v, st + 6, B, S, H, BKV)) ||
-      (err = make_map<D>(&tdo, dout, st + 9, B, S, H, BQ)))
+  if ((err = make_map<DP>(&m[0], q, st, B, S, H, D, q_rows)) ||
+      (err = make_map<DP>(&m[1], k, st + 3, B, S, H, D, k_rows)) ||
+      (err = make_map<DP>(&m[2], v, st + 6, B, S, H, D, k_rows)) ||
+      (err = make_map<DP>(&m[3], dout, st + 9, B, S, H, D, q_rows)))
     return err;
-  const size_t smem = 1024 + 2 * L::bytes(BKV) + 2 * STAGES * L::bytes(BQ) +
+  m[4] = m[3];
+  return F32DO ? make_map<DP>(&m[4], dout_lo, st + 9, B, S, H, D, q_rows) : 0;
+}
+
+template <int DP, bool F32DO>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* dout_lo, const void* lse, const void* delta,
+               const void* dlse, void* dk, void* dv, const long long* st,
+               int B, int S, int H, int D, float scale, int causal,
+               cudaStream_t stream) {
+  using L = Tile<DP>;
+  constexpr int BQ = dkv_rows<DP, F32DO>(), NC = dkv_cols<DP>();
+  constexpr int NP = F32DO ? 2 : 1;
+  CUtensorMap m[5];
+  int err = make_bwd_maps<DP, F32DO>(m, q, k, v, dout, dout_lo, st, B, S, H,
+                                     D, BQ, BKV);
+  if (err) return err;
+  const size_t smem = 1024 + 2 * L::bytes(BKV) +
+                      (1 + NP) * STAGES * L::bytes(BQ) +
                       STAGES * 2 * BQ * sizeof(float) + BARRIER_BYTES;
-  auto kernel = dkv_wgmma_kernel<D>;
+  auto kernel = dkv_wgmma_kernel<DP, F32DO>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * H, (S + BKV - 1) / BKV);
+  dim3 grid(B * H, (S + BKV - 1) / BKV, DP / NC);
   kernel<<<grid, NT, smem, stream>>>(
-      tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-      (const float*)dlse, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, S, scale,
-      causal);
+      m[0], m[1], m[2], m[3], m[4], (const float*)lse, (const float*)delta,
+      (const float*)dlse, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, S, D,
+      scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DP, bool F32DO>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, const void* dlse, void* dq,
-              const long long* st, int B, int S, int H, float scale,
-              int causal, cudaStream_t stream) {
-  using L = Tile<D>;
-  CUtensorMap tq, tk, tv, tdo;
-  int err;
-  if ((err = make_map<D>(&tq, q, st, B, S, H, DQ)) ||
-      (err = make_map<D>(&tk, k, st + 3, B, S, H, BKQ)) ||
-      (err = make_map<D>(&tv, v, st + 6, B, S, H, BKQ)) ||
-      (err = make_map<D>(&tdo, dout, st + 9, B, S, H, DQ)))
-    return err;
-  const size_t smem = 1024 + 2 * L::bytes(DQ) + 2 * STAGES * L::bytes(BKQ) +
-                      BARRIER_BYTES;
-  auto kernel = dq_wgmma_kernel<D>;
+              const void* dout_lo, const void* lse, const void* delta,
+              const void* dlse, void* dq, const long long* st, int B, int S,
+              int H, int D, float scale, int causal, cudaStream_t stream) {
+  using L = Tile<DP>;
+  constexpr int NP = F32DO ? 2 : 1;
+  CUtensorMap m[5];
+  int err = make_bwd_maps<DP, F32DO>(m, q, k, v, dout, dout_lo, st, B, S, H,
+                                     D, DQ, BKQ);
+  if (err) return err;
+  const size_t smem = 1024 + (1 + NP) * L::bytes(DQ) +
+                      2 * STAGES * L::bytes(BKQ) + BARRIER_BYTES;
+  auto kernel = dq_wgmma_kernel<DP, F32DO>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * H, (S + DQ - 1) / DQ);
   kernel<<<grid, NT, smem, stream>>>(
-      tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-      (const float*)dlse, (__nv_bfloat16*)dq, H, S, scale, causal);
+      m[0], m[1], m[2], m[3], m[4], (const float*)lse, (const float*)delta,
+      (const float*)dlse, (__nv_bfloat16*)dq, H, S, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -876,23 +1029,39 @@ int hvd_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                         int H, int D, float scale, int causal, int out_f32,
                         cudaStream_t stream) {
   if (out_f32) {
-    HVD_DISPATCH_D(D, (launch_fwd<float, HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, stream)))
+    HVD_DISPATCH_D(D, (launch_fwd<float, DP>(q, k, v, o, lse, strides, B, S, H, D, scale, causal, stream)))
   }
-  HVD_DISPATCH_D(D, (launch_fwd<__nv_bfloat16, HD>(q, k, v, o, lse, strides, B, S, H, scale, causal, stream)))
+  HVD_DISPATCH_D(D, (launch_fwd<__nv_bfloat16, DP>(q, k, v, o, lse, strides, B, S, H, D, scale, causal, stream)))
 }
 
 int hvd_flash_dq_wgmma(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       const void* dlse, void* dq, const long long* strides,
-                       int B, int S, int H, int D, float scale, int causal,
-                       cudaStream_t stream) {
-  HVD_DISPATCH_D(D, (launch_dq<HD>(q, k, v, dout, lse, delta, dlse, dq, strides, B, S, H, scale, causal, stream)))
+                       const void* dout, const void* dout_lo, const void* lse,
+                       const void* delta, const void* dlse, void* dq,
+                       const long long* strides, int B, int S, int H, int D,
+                       float scale, int causal, cudaStream_t stream) {
+  if (dout_lo) {
+    HVD_DISPATCH_D(D, (launch_dq<DP, true>(q, k, v, dout, dout_lo, lse, delta, dlse, dq, strides, B, S, H, D, scale, causal, stream)))
+  }
+  HVD_DISPATCH_D(D, (launch_dq<DP, false>(q, k, v, dout, dout_lo, lse, delta, dlse, dq, strides, B, S, H, D, scale, causal, stream)))
 }
 
 int hvd_flash_dkv_wgmma(const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta,
-                        const void* dlse, void* dk, void* dv,
+                        const void* dout, const void* dout_lo, const void* lse,
+                        const void* delta, const void* dlse, void* dk, void* dv,
                         const long long* strides, int B, int S, int H, int D,
                         float scale, int causal, cudaStream_t stream) {
-  HVD_DISPATCH_D(D, (launch_dkv<HD>(q, k, v, dout, lse, delta, dlse, dk, dv, strides, B, S, H, scale, causal, stream)))
+  if (dout_lo) {
+    HVD_DISPATCH_D(D, (launch_dkv<DP, true>(q, k, v, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, stream)))
+  }
+  HVD_DISPATCH_D(D, (launch_dkv<DP, false>(q, k, v, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, stream)))
+}
+
+extern "C" int hvd_flash_split_do(const void* dout, long long n, void* hi,
+                                  void* lo, void* stream) {
+  if (n <= 0 || n % 4 || n / 4 > 0x7fffffffLL || (uintptr_t)dout % 16)
+    return (int)cudaErrorInvalidValue;
+  const int n4 = (int)(n / 4);
+  split_do_kernel<<<(n4 + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float4*)dout, n4, (uint2*)hi, (uint2*)lo);
+  return (int)cudaGetLastError();
 }

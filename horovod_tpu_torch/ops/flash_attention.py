@@ -4,9 +4,13 @@ Hand-written CUDA kernels for Hopper replace the three Pallas kernels of
 the JAX package: the forward (``_fwd_kernel``), the dQ kernel
 (``_dq_kernel``) and the dK/dV kernel (``_dkv_kernel``).  The kernel is
 chosen by dtype (:func:`impl`): bfloat16 q/k/v take the tensor-core (wgmma)
-forward, and with a bfloat16 dO the wgmma dQ and dK/dV kernels
-(``csrc/flash_wgmma.cu``); float32 and the lse variant's float32 dO take
-the scalar (SIMT) kernels (``csrc/flash_attention.cu``).
+kernels (``csrc/flash_wgmma.cu``), float32 the scalar (SIMT) kernels
+(``csrc/flash_attention.cu``).  The lse variant's float32 dO reaches the
+wgmma dQ and dK/dV kernels as two bf16 planes, ``hi = bf16(dO)`` and
+``lo = bf16(dO - hi)`` (:func:`split_do_cuda`, one pass per backward), so
+their products with dO keep fp32's precision on bf16 tensor cores.  The
+kernels take any head dim that is a multiple of 8 up to 256
+(:func:`kernel_head_dim`).
 
 Beside them stand their plain PyTorch versions, written as the explicit
 formulas with fp32 sums:
@@ -43,15 +47,37 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# The widths the kernels are instantiated at (HVD_DISPATCH_D in
+# csrc/flash_attention.cuh).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The wgmma forward's key tile (FK in csrc/flash_wgmma.cu).
+# The wgmma forward's key tile (fwd_keys in csrc/flash_wgmma.cu) at head
+# dims up to 128; see :func:`fwd_block_k`.
 FWD_BLOCK_K = 128
 
 # Launches of each kernel, counted where the wrapper launches it, and of
-# each of its variants (see :func:`variant`).
-launches = {"fwd": 0, "dq": 0, "dkv": 0}
+# each of its variants (see :func:`variant`; the dO split is "split").
+launches = {"fwd": 0, "dq": 0, "dkv": 0, "split": 0}
 variant_launches: Dict[str, int] = {}
+
+
+def kernel_head_dim(D: int) -> int:
+    """The instantiated width that serves head dim ``D``: the least of
+    :data:`KERNEL_HEAD_DIMS` not below it.  The kernels read the columns
+    from D to that width as zeros and write none of them.  D must be a
+    multiple of 8 (a row of a contiguous bf16 tensor is then a whole number
+    of the 16-byte units TMA moves) up to 256; any other raises."""
+    if D <= 0 or D % 8 or D > KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {D} is not supported by the flash "
+                         "kernels: it must be a multiple of 8 up to 256")
+    return next(w for w in KERNEL_HEAD_DIMS if w >= D)
+
+
+def fwd_block_k(D: int) -> int:
+    """The wgmma forward's key tile at head dim ``D``: ``FWD_BLOCK_K``, and
+    64 over 128, where the [64, D] output accumulator takes half the
+    registers.  The plain forward walks the same blocks."""
+    return FWD_BLOCK_K if D <= 128 else 64
 
 
 def reset_launch_counts() -> None:
@@ -62,11 +88,15 @@ def reset_launch_counts() -> None:
 
 def variant(kernel: str, dtype: torch.dtype, do_dtype=None,
             causal: bool = True, out_f32: bool = False) -> str:
-    """The compiled kernel a launch runs, e.g. ``"dq simt causal"`` or
+    """The compiled kernel a launch runs, e.g. ``"dq simt causal"``,
     ``"fwd wgmma f32out"`` (the forward's fp32-output instantiation, the
-    lse variant's)."""
+    lse variant's) or ``"dkv wgmma f32do"`` (the backward's instantiation
+    for the lse variant's fp32 dO, split into bf16 planes)."""
+    f32do = (kernel != "fwd" and dtype == torch.bfloat16
+             and do_dtype == torch.float32)
     return " ".join([kernel, impl(kernel, dtype, do_dtype)]
-                    + ["f32out"] * bool(out_f32) + ["causal"] * bool(causal))
+                    + ["f32out"] * bool(out_f32) + ["f32do"] * f32do
+                    + ["causal"] * bool(causal))
 
 
 def _launched(kernel: str, name: str) -> None:
@@ -107,21 +137,22 @@ def _rounded(x, like):
 def _flash_fwd_plain(q, k, v, scale: float, causal: bool,
                      out_f32: bool = False):
     """Masked softmax with its lse, ``(o [B,S,H,D], lse [B,S,H])``, as an
-    online softmax over key blocks of ``FWD_BLOCK_K``: running max m, sum l
-    of the fp32 P, and acc += round(P)·V per block."""
+    online softmax over key blocks of :func:`fwd_block_k`: running max m,
+    sum l of the fp32 P, and acc += round(P)·V per block."""
     s = _scores(q, k, scale, causal)
     m = torch.full(s.shape[:3] + (1,), float("-inf"), device=s.device)
     l = torch.zeros_like(m)
     acc = torch.zeros(s.shape[:3] + (q.shape[-1],), device=s.device)
-    for k0 in range(0, s.shape[-1], FWD_BLOCK_K):
-        sb = s[..., k0:k0 + FWD_BLOCK_K]
+    bk = fwd_block_k(q.shape[-1])
+    for k0 in range(0, s.shape[-1], bk):
+        sb = s[..., k0:k0 + bk]
         m_new = torch.maximum(m, sb.amax(-1, keepdim=True))
         p = torch.exp(sb - m_new)
         corr = torch.exp(m - m_new)
         l = corr * l + p.sum(-1, keepdim=True)
         acc = corr * acc + torch.einsum(
             "bhst,bthd->bhsd", _rounded(p, v),
-            v[:, k0:k0 + FWD_BLOCK_K].float())
+            v[:, k0:k0 + bk].float())
         m = m_new
     o = (acc / l).transpose(1, 2)
     lse = (m + torch.log(l)).squeeze(-1)
@@ -150,6 +181,14 @@ def _flash_dkv_plain(q, k, v, do, lse, delta, dlse, scale: float,
     dv = torch.einsum("bhst,bshd->bthd", _rounded(p, do), do.float())
     dk = torch.einsum("bhst,bshd->bthd", _rounded(ds, q), q.float()) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _split_do_plain(do):
+    """An fp32 dO as two bf16 planes ``(hi, lo)``: hi = bf16(dO) and lo =
+    bf16(dO - hi).  dO - hi is exact in fp32, so hi + lo holds dO to about
+    2⁻¹⁷ of it."""
+    hi = do.to(torch.bfloat16)
+    return hi, (do - hi.float()).to(torch.bfloat16)
 
 
 def rounding_slack(q, k, v, do, lse, delta, dlse, scale: float,
@@ -207,8 +246,7 @@ def _check_qkv(q, k, v, do=None):
     if q.dim() != 4:
         raise ValueError(f"expected [B, S, H, D], got {tuple(q.shape)}")
     B, S, H, D = q.shape
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {SUPPORTED_HEAD_DIMS}")
+    kernel_head_dim(D)
     if B * S * H == 0:
         raise ValueError(f"empty input {tuple(q.shape)}")
     if q.numel() >= 2 ** 31:
@@ -220,13 +258,10 @@ def _check_qkv(q, k, v, do=None):
 def impl(kernel: str, dtype: torch.dtype,
          do_dtype: Optional[torch.dtype] = None) -> str:
     """Which CUDA kernel serves ``kernel`` ("fwd", "dq" or "dkv") for q/k/v
-    of ``dtype`` (and dO of ``do_dtype``): "wgmma" (tensor cores, TMA
-    loads) or "simt" (scalar FMAs)."""
-    if dtype != torch.bfloat16:
-        return "simt"
-    if kernel != "fwd" and do_dtype not in (None, torch.bfloat16):
-        return "simt"
-    return "wgmma"
+    of ``dtype`` (and dO of ``do_dtype``, bf16 or fp32 with bf16 q/k/v):
+    "wgmma" (tensor cores, TMA loads) for bfloat16, "simt" (scalar FMAs)
+    for float32."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def _check_tma(*named):
@@ -288,55 +323,99 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool,
     return o, lse
 
 
-def _bwd_args(kernel, q, k, v, do, lse, delta, dlse):
+def split_do_cuda(do):
+    """The split kernel: an fp32 dO as its bf16 planes ``[2, B, S, H, D]``
+    (hi, then lo; see :func:`_split_do_plain`), for the wgmma dQ and dK/dV
+    kernels' f32do instantiations."""
+    from horovod_tpu_torch.ops import _build
+
+    if not do.is_cuda or do.dtype != torch.float32:
+        raise ValueError(f"the split takes a CUDA float32 dO, got {do.dtype} "
+                         f"on {do.device}")
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        do = do.clone(memory_format=torch.contiguous_format)
+    kernel_head_dim(do.shape[-1])
+    if do.numel() >= 2 ** 33:
+        raise ValueError(f"dO of {do.numel()} elements is too large for the "
+                         "split's 32-bit indexing")
+    lib = _build.lib()
+    planes = torch.empty((2,) + tuple(do.shape), device=do.device,
+                         dtype=torch.bfloat16)
+    with torch.cuda.device(do.device):
+        err = lib.hvd_flash_split_do(do.data_ptr(), do.numel(),
+                                     planes[0].data_ptr(),
+                                     planes[1].data_ptr(), _stream(do.device))
+    _launched("split", "split")
+    _raise_on(err, "dO split")
+    return planes
+
+
+def _bwd_args(kernel, q, k, v, do, lse, delta, dlse, do_planes):
+    """Checks the backward's inputs; returns ((B, S, H, D), the dO tensors
+    the kernel reads and their lo plane's pointer or None).  An fp32 dO
+    with bf16 q/k/v goes to the kernel as its bf16 planes: ``do_planes``
+    where the caller split it already, else split here."""
     B, S, H, D = _check_qkv(q, k, v, do)
     _check_stat("lse", lse, q)
     _check_stat("delta", delta, q)
     if dlse is not None:
         _check_stat("dlse", dlse, q)
+    lo = None
     if impl(kernel, q.dtype, do.dtype) == "wgmma":
+        if do.dtype == torch.float32:
+            planes = split_do_cuda(do) if do_planes is None else do_planes
+            if planes.shape != (2,) + tuple(q.shape) or \
+                    planes.dtype != torch.bfloat16 or \
+                    not planes.is_contiguous():
+                raise ValueError("dO planes must be contiguous bf16 "
+                                 f"[2, B, S, H, D], got {planes.dtype} "
+                                 f"{tuple(planes.shape)}")
+            do, lo = planes[0], planes[1].data_ptr()
         _check_tma(("q", q), ("k", k), ("v", v), ("dO", do))
-    return B, S, H, D
+    return (B, S, H, D), do, lo
 
 
 def flash_dq_cuda(q, k, v, do, lse, delta, dlse, scale: float,
-                  causal: bool):
-    """dQ kernel.  ``dlse`` may be None (the lse received no gradient)."""
+                  causal: bool, do_planes=None):
+    """dQ kernel.  ``dlse`` may be None (the lse received no gradient).
+    ``do_planes``: an fp32 dO's planes from :func:`split_do_cuda`, so that
+    dQ and dK/dV share one split."""
     from horovod_tpu_torch.ops import _build
 
-    B, S, H, D = _bwd_args("dq", q, k, v, do, lse, delta, dlse)
+    (B, S, H, D), dok, lo = _bwd_args("dq", q, k, v, do, lse, delta, dlse,
+                                      do_planes)
     lib = _build.lib()
     dq = torch.empty((B, S, H, D), device=q.device, dtype=q.dtype)
     with torch.cuda.device(q.device):
         err = lib.hvd_flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dok.data_ptr(), lo,
             lse.data_ptr(), delta.data_ptr(),
             None if dlse is None else dlse.data_ptr(), dq.data_ptr(),
-            _strides(q, k, v, do), B, S, H, D, float(scale), int(causal),
-            _DTYPE_CODE[q.dtype], int(do.dtype != q.dtype),
-            _stream(q.device))
+            _strides(q, k, v, dok), B, S, H, D, float(scale), int(causal),
+            _DTYPE_CODE[q.dtype], _stream(q.device))
     _launched("dq", variant("dq", q.dtype, do.dtype, causal))
     _raise_on(err, "dQ")
     return dq
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, dlse, scale: float,
-                   causal: bool):
-    """dK/dV kernel: ``(dk, dv)``.  ``dlse`` may be None."""
+                   causal: bool, do_planes=None):
+    """dK/dV kernel: ``(dk, dv)``.  ``dlse`` may be None; ``do_planes`` as
+    for :func:`flash_dq_cuda`."""
     from horovod_tpu_torch.ops import _build
 
-    B, S, H, D = _bwd_args("dkv", q, k, v, do, lse, delta, dlse)
+    (B, S, H, D), dok, lo = _bwd_args("dkv", q, k, v, do, lse, delta, dlse,
+                                      do_planes)
     lib = _build.lib()
     dk = torch.empty((B, S, H, D), device=q.device, dtype=k.dtype)
     dv = torch.empty((B, S, H, D), device=q.device, dtype=v.dtype)
     with torch.cuda.device(q.device):
         err = lib.hvd_flash_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dok.data_ptr(), lo,
             lse.data_ptr(), delta.data_ptr(),
             None if dlse is None else dlse.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _strides(q, k, v, do), B, S, H, D, float(scale),
-            int(causal), _DTYPE_CODE[q.dtype], int(do.dtype != q.dtype),
-            _stream(q.device))
+            dv.data_ptr(), _strides(q, k, v, dok), B, S, H, D, float(scale),
+            int(causal), _DTYPE_CODE[q.dtype], _stream(q.device))
     _launched("dkv", variant("dkv", q.dtype, do.dtype, causal))
     _raise_on(err, "dK/dV")
     return dk, dv
@@ -388,8 +467,11 @@ class _FlashAttention(torch.autograd.Function):
             dq = _flash_dq_plain(*args)
             dk, dv = _flash_dkv_plain(*args)
         else:
-            dq = flash_dq_cuda(*args)
-            dk, dv = flash_dkv_cuda(*args)
+            # An fp32 dO (the lse variant's) is split once for both kernels.
+            planes = (split_do_cuda(do) if impl("dq", q.dtype) == "wgmma"
+                      and do.dtype == torch.float32 else None)
+            dq = flash_dq_cuda(*args, do_planes=planes)
+            dk, dv = flash_dkv_cuda(*args, do_planes=planes)
         return dq, dk, dv, None, None, None
 
 

@@ -69,7 +69,7 @@ class DistributedOptimizer:
         self.compression = compression
         self.backward_passes_per_step = backward_passes_per_step
         self._passes = 0
-        self._acc: List[Optional[torch.Tensor]] = []
+        self._acc: List[torch.Tensor] = []
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.inner.zero_grad(set_to_none=set_to_none)
@@ -80,27 +80,30 @@ class DistributedOptimizer:
     def step(self):
         """Reduce the gradients and run the inner step (every
         ``backward_passes_per_step``-th call).  Returns the inner step's
-        result, or None on a call that only accumulated."""
+        result, or None on a call that only accumulated.
+
+        A parameter without a gradient (``.grad`` None: unused in this
+        backward) counts as a zero gradient, as a leaf of the JAX package's
+        gradient pytree always has one: every rank then fuses buffers of
+        one size, and the inner optimizer updates (and, with AdamW, decays)
+        every parameter, as optax does."""
         params = self._params()
-        grads = [p.grad for p in params]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
         n = self.backward_passes_per_step
         if n > 1:
             if not self._acc:
-                self._acc = [None] * len(params)
-            for i, g in enumerate(grads):
-                if g is not None:
-                    self._acc[i] = g.clone() if self._acc[i] is None \
-                        else self._acc[i] + g
+                self._acc = [g.clone() for g in grads]
+            else:
+                self._acc = [a + g for a, g in zip(self._acc, grads)]
             self._passes += 1
             if self._passes < n:
                 return None
-            grads = [None if a is None else a / n for a in self._acc]
+            grads = [a / n for a in self._acc]
             self._passes, self._acc = 0, []
-        live = [i for i, g in enumerate(grads) if g is not None]
         reduced = allreduce_gradients(
-            [grads[i] for i in live], op=self.op, axis=self.axis,
-            compression=self.compression, hierarchical=self.hierarchical,
-            outer_axis=self.outer_axis)
-        for i, g in zip(live, reduced):
-            params[i].grad = g
+            grads, op=self.op, axis=self.axis, compression=self.compression,
+            hierarchical=self.hierarchical, outer_axis=self.outer_axis)
+        for p, g in zip(params, reduced):
+            p.grad = g
         return self.inner.step()

@@ -241,9 +241,9 @@ def test_impl_is_chosen_by_dtype():
     bf, f32 = torch.bfloat16, torch.float32
     assert fa.impl("fwd", bf) == "wgmma"
     assert fa.impl("dkv", bf, bf) == "wgmma"
-    assert fa.impl("dkv", bf, f32) == "simt"  # the lse variant's fp32 dO
+    assert fa.impl("dkv", bf, f32) == "wgmma"  # the lse variant's fp32 dO
     assert fa.impl("dq", bf, bf) == "wgmma"
-    assert fa.impl("dq", bf, f32) == "simt"
+    assert fa.impl("dq", bf, f32) == "wgmma"
     assert {fa.impl(k, f32, f32) for k in ("fwd", "dq", "dkv")} == {"simt"}
 
 
@@ -261,7 +261,7 @@ def test_cpu_path_launches_no_kernel():
     ts = _torch(arrs)
     o, lse = fa.flash_attention_lse(*ts)
     (o.sum() + lse.sum()).backward()
-    assert fa.launches == {"fwd": 0, "dq": 0, "dkv": 0}
+    assert fa.launches == {"fwd": 0, "dq": 0, "dkv": 0, "split": 0}
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -388,10 +388,10 @@ def test_cuda_autograd_runs_kernels(cuda_device):
           .requires_grad_() for _ in range(3)]
     o, lse = fa.flash_attention_lse(*ts)
     (o.sum() + lse.sum()).backward()
-    assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1, "split": 0}
     o = fa.flash_attention(*ts)
     o.sum().backward()  # the lse gets no gradient: dlse is None
-    assert fa.launches == {"fwd": 2, "dq": 2, "dkv": 2}
+    assert fa.launches == {"fwd": 2, "dq": 2, "dkv": 2, "split": 0}
 
 
 def _lse_variant_bf16_against_fp32_oracle(device, causal):
@@ -426,14 +426,15 @@ def _lse_variant_bf16_against_fp32_oracle(device, causal):
 @pytest.mark.parametrize("causal", [True, False])
 def test_lse_variant_bf16_backward_takes_fp32_cotangent(causal):
     _lse_variant_bf16_against_fp32_oracle(torch.device("cpu"), causal)
-    assert fa.launches == {"fwd": 0, "dq": 0, "dkv": 0}
+    assert fa.launches == {"fwd": 0, "dq": 0, "dkv": 0, "split": 0}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_lse_variant_backward_in_bf16(cuda_device, causal):
     _lse_variant_bf16_against_fp32_oracle(cuda_device, causal)
-    assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1}
+    # One split of the fp32 dO serves both backward kernels.
+    assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1, "split": 1}
 
 
 @pytest.mark.cuda
@@ -448,7 +449,7 @@ def test_cuda_bf16_autograd_runs_wgmma_kernels(cuda_device):
     assert fa.impl("dkv", torch.bfloat16, torch.bfloat16) == "wgmma"
     fa.flash_attention(*ts).float().sum().backward()
     torch.cuda.synchronize()
-    assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1, "split": 0}
     assert all(t.grad is not None and bool(t.grad.isfinite().all())
                for t in ts)
 
@@ -464,14 +465,15 @@ def test_cuda_wgmma_wrappers_raise_on_strides_tma_cannot_take(cuda_device):
         fa.flash_dq_cuda(x, x, x, x, st, st, None, 1.0, True)
     with pytest.raises(ValueError, match="TMA"):
         fa.flash_dkv_cuda(x, x, x, x, st, st, None, 1.0, True)
-    assert fa.launches == {"fwd": 0, "dq": 0, "dkv": 0}
+    assert fa.launches == {"fwd": 0, "dq": 0, "dkv": 0, "split": 0}
 
 
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
-    q = torch.zeros(1, 64, 2, 48, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q, q, q)
+    for D in (20, 264):
+        q = torch.zeros(1, 64, 2, D, device=cuda_device)
+        with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+            fa.flash_attention(q, q, q)
     h = torch.zeros(1, 64, 2, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(h, h, h)

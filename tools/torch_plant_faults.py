@@ -9,11 +9,14 @@ Needs one NVIDIA card.  For each fault, the script copies
 directory, edits one kernel source there (the checkout is never touched),
 builds that copy's kernels and runs ``chip_smoke.check_kernels`` on the
 flagship shape (B 8, S 1024, H 16, D 64, bf16, causal) and a ragged one
-(B 2, S 1000, H 8, D 128, bf16, non-causal, nonzero dlse).  Each check
+(B 2, S 1000, H 8, D 128, bf16, non-causal, nonzero dlse), the latter also
+on the lse route (fp32 output and dO, split into bf16 planes).  Each check
 prints every output's worst element as a share of its tolerance; a fault is
-caught when that share exceeds 1.  Every fault touches only the last query
-rows or the last query tile, so a check scaled by the largest value would
-barely see it.  Exits non-zero if a fault goes uncaught.
+caught when that share exceeds 1, the split differs from its plain
+version, or a gradient of the lse route lies as far from its plain version
+as one computed from a bf16 dO (``chip_smoke.SPLIT_GAP``).  The first three faults touch only the last query rows or the
+last query tile, so a check scaled by the largest value would barely see
+them.  Exits non-zero if a fault goes uncaught.
 """
 
 from __future__ import annotations
@@ -33,9 +36,9 @@ FAULTS = {
     "fwd: last rows skip key tile 1": (
         "flash_wgmma.cu",
         "        s[4 * j + e] = p;\n      }\n#pragma unroll\n"
-        "    for (int j = 0; j < D / 8; ++j) {",
+        "    for (int j = 0; j < DP / 8; ++j) {",
         "        s[4 * j + e] = (t == 1 && blockIdx.y == 0) ? 0.f : p;\n"
-        "      }\n#pragma unroll\n    for (int j = 0; j < D / 8; ++j) {"),
+        "      }\n#pragma unroll\n    for (int j = 0; j < DP / 8; ++j) {"),
     # dQ's last query tile skips key tile 1 (its dS is zero there).
     "dq: last rows skip key tile 1": (
         "flash_wgmma.cu",
@@ -48,6 +51,24 @@ FAULTS = {
         "        if (diag && q0 + c < k0 + krow + 8 * (e >> 1)) p = 0.f;\n",
         "        if (diag && q0 + c < k0 + krow + 8 * (e >> 1)) p = 0.f;\n"
         "        if (q0 + BQ >= S && k0 < q0) p = 0.f;\n"),
+    # The fp32 dO's lo plane holds hi again: hi + lo is twice dO.
+    "split: lo plane is hi": (
+        "flash_wgmma.cu",
+        "pack_bf16(x.x - __low2float(h01), x.y - __high2float(h01))",
+        "pack_bf16(x.x, x.y)"),
+    # dK/dV with an fp32 dO takes P_hi where its P_lo.hi product needs P_lo.
+    "dkv f32do: P_lo replaced by P_hi": (
+        "flash_wgmma.cu",
+        "        mma_rs<DP, NC>(dvacc, plo[kk], dOt, BQ, kk, c0);",
+        "        mma_rs<DP, NC>(dvacc, pa[kk], dOt, BQ, kk, c0);"),
+    # dQ with an fp32 dO ignores its lo plane: dP from bf16(dO) alone.  Its
+    # worst element lands near TOL; the split-precision check
+    # (chip_smoke.SPLIT_GAP) reads it at the bf16 dO's gap.
+    "dq f32do: lo plane dropped": (
+        "flash_wgmma.cu",
+        "        wgmma_ss<BKQ>(dp, desc_k<DP>(dOs + pn * L::bytes(DQ)",
+        "        if (pn == 0) wgmma_ss<BKQ>(dp, desc_k<DP>(dOs + pn * "
+        "L::bytes(DQ)"),
 }
 
 RUN = """
@@ -58,11 +79,14 @@ from horovod_tpu_torch.ops import flash_attention as fa
 name, peaks = chip_smoke._peaks(torch.cuda.get_device_name(0))
 dev = torch.device("cuda", 0)
 caught = 0
-for shape in ((8, 1024, 16, 64, True, False), (2, 1000, 8, 128, False, True)):
-    B, S, H, D, causal, dlse = shape
+for shape in ((8, 1024, 16, 64, True, False, False),
+              (2, 1000, 8, 128, False, True, False),
+              (2, 1000, 8, 128, False, True, True)):
+    B, S, H, D, causal, dlse, lse_route = shape
     try:
         chip_smoke.check_kernels(fa, B, S, H, D, torch.bfloat16, causal,
-                                 dlse, peaks, dev, timed=False)
+                                 dlse, peaks, dev, timed=False,
+                                 lse_route=lse_route)
     except AssertionError as e:
         caught += 1
         print("  caught:", e)
