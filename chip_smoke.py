@@ -8,20 +8,24 @@ non-zero):
 
 0. the card (``nvidia-smi``), torch and nvcc versions;
 1. build the CUDA kernels from ``horovod_tpu_torch/ops/csrc`` with nvcc (one
-   per source, in parallel), and disassemble the library: every bf16
-   instantiation of the forward, dQ and dK/dV kernels (five head-dim widths;
-   the forward's two output types, the backward's bf16 and fp32 dO) must
-   hold tensor-core (``HGMMA``) instructions;
+   per source, in parallel), and disassemble the library: every
+   instantiation of the tensor-core forward, dQ and dK/dV kernels (five
+   head-dim widths; the forward's bf16 q/k/v with two output types and fp32
+   q/k/v, dK/dV's bf16 q/k/v with a bf16 or fp32 dO and fp32 q/k/v, dQ's
+   bf16 q/k/v with a bf16 or fp32 dO) must hold ``HGMMA`` instructions;
 2. hold each kernel (flash forward, dQ, dK/dV) against its plain PyTorch
    version (fp32 sums, the kernels' bf16 rounding points) on the same
    inputs, at the flagship shape (B 8, S 1024, H 16, D 64, bf16, causal), at
    two ragged ones (S 1000, non-causal, nonzero dlse: D 128 bf16, and D 32
-   fp32), at the ring hop's shard shape (B 8, S 1024, H 16, D 64, bf16)
-   in the variants a ring hop runs (``flash_attention_lse``: fp32 output,
-   fp32 dO split into bf16 planes by the split kernel, which must match its
-   plain version bit for bit, nonzero dlse), causal (the self-block) and not
-   (the other hops), and at head dims 96 and 256 (B 2, S 1000, H 8, dlse,
-   bf16) on both routes;
+   fp32, the latter also on the lse route), at the flagship's attention in
+   fp32 (B 8, S 1024, H 16, D 64, causal), at the ring hop's shard shape
+   (B 8, S 1024, H 16, D 64, bf16) in the variants a ring hop runs
+   (``flash_attention_lse``: fp32 output, fp32 dO split into bf16 planes by
+   the split kernel, nonzero dlse), causal (the self-block) and not (the
+   other hops), and at head dims 96 and 256 (B 2, S 1000, H 8, dlse, bf16)
+   on both routes.  fp32 q/k/v reach the forward and dK/dV as three bf16
+   planes each (the split of q/k/v, and of dO); every split must match its
+   plain version bit for bit;
 3. inside one ``hvd.init()`` (a one-rank NCCL group), first the ResNet-50
    slice: ``resnet50_config()`` at full width and depth (blocks 3, 4, 6, 3,
    width 64, 1000 classes, bf16), batch 32 of 224x224 images from a fixed
@@ -43,7 +47,11 @@ non-zero):
    with its attention through the plain forward (with and without its bf16
    rounding of P).  Then ten steps alone are timed and one is profiled,
    then one ResNet-50 step, and five MNIST steps (batch 64, Adam) must
-   give finite, falling losses;
+   give finite, falling losses.  Last, one flagship step in fp32
+   (``compute_dtype`` float32, the same widths) beside a dense-attention
+   fp32 twin from the same seed: its step-0 loss and gradients against the
+   twin's, and its launches of the fp32 kernels (16 forwards and q/k/v
+   splits, 8 dQ, dK/dV and dO splits);
 4. sequence parallelism at the flagship's width: ring and Ulysses
    attention of four virtual ranks (``ring_attention.loopback_attention``,
    the gang's schedule in one process) over a global sequence of 4 x 1024
@@ -64,8 +72,11 @@ non-zero):
 
 The ``kernels`` JSON lists the flagship's three kernels, the ring hop's
 six variants (``flash_<kernel>_ring_self`` and ``_ring_hop``) and the ring
-hop's dO split (``flash_split_do``), with their launches in the main path's
-run (the ring's: the causal ring run of phase 4).  The last three lines are
+hop's dO split (``flash_split_do``), then the fp32 kernels
+(``flash_<kernel>_fp32``, ``flash_split_qkv_fp32``,
+``flash_split_do_fp32``) timed at the flagship's attention in fp32, with
+their launches in the main path's run (the ring's: the causal ring run of
+phase 4; the fp32 kernels': the fp32 step).  The last three lines are
 the ``kernels`` JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, where torch finds no CUDA device.
@@ -104,7 +115,9 @@ REPLACES = {"fwd": "horovod_tpu/ops/pallas_attention.py:77",
             "dq": "horovod_tpu/ops/pallas_attention.py:174",
             "dkv": "horovod_tpu/ops/pallas_attention.py:215",
             # the fp32 dO that _dq_kernel and _dkv_kernel read
-            "split": "horovod_tpu/ops/pallas_attention.py:190"}
+            "split": "horovod_tpu/ops/pallas_attention.py:190",
+            # the fp32 q, k and v that _fwd_kernel (and _dkv_kernel) read
+            "split_qkv": "horovod_tpu/ops/pallas_attention.py:98"}
 # Each element of a kernel output against its plain version on the same
 # inputs: |got - want| <= rtol |want| + atol rms(want) + slack, as (rtol,
 # atol), by the output's dtype.  bf16: rtol is one bf16 ulp at the bottom
@@ -163,6 +176,13 @@ RESNET_STATS_TOL = {"mean": 3e-3, "var": 1e-6}
 SP_SHAPE = dict(B=8, S_local=1024, H=16, D=64)
 SP_RANKS = 4
 SP_TOL = {"ring": 8e-3, "ulysses": 1.1e-2}
+# The flagship step in fp32 (compute_dtype float32, TF32 off) against a
+# dense-attention fp32 twin from the same seed: |loss - loss_twin| at step
+# 0 and each parameter's step-0 gradient as |g - g_twin| / |g_twin| (the
+# largest over the layers for each parameter name), about twice what an
+# H100 measured (9.5e-7, one fp32 ulp of the loss, and 2.4e-5; PERF.md).
+F32_LOSS_TOL = 2e-6
+F32_GRAD_TOL = 5e-5
 
 
 def _sh(cmd):
@@ -224,37 +244,46 @@ def _kernel_rows(prof):
                   key=_dev_us, reverse=True)
 
 
-def _device_ms(fn, reps=20, warmup=3):
+def _device_ms(fn, reps=20, warmup=3, tries=3):
     """Device time of one call of ``fn``: the summed device time of the
     kernels that ``reps`` calls launch, under ``torch.profiler``, over
     ``reps``.  Unlike an event-timed loop it leaves out the gaps where the
-    card waits for the host."""
+    card waits for the host.  A profile that shows no device time at all
+    (the profiler has dropped a window's kernels on the card) is taken
+    again, up to ``tries`` times; then None: not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_dev_us(e) for e in _kernel_rows(prof)) / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_dev_us(e) for e in _kernel_rows(prof))
+        if us > 0:
+            return us / reps / 1e3
+    return None
 
 
 def _bound(kernel, B, S, H, D, dtype, causal, has_dlse, peaks,
-           lse_route=False):
+           lse_route=False, cuda_cores=False):
     """Least time for the kernel's work: max(FLOPs / peak, bytes / rate),
     counting each input read once and each output written once, and only
     the query-key pairs the causal mask leaves.  Each product of two
     [pairs x D] operands is 2·D·pairs FLOPs at the rate of its operands'
-    type: bf16 at the bf16 tensor-core rate, fp32 q/k/v at the fp32 rate
-    outside the tensor cores; on the lse route (``lse_route``: fp32 output,
-    fp32 dO) the products with dO (dO·Vᵀ, and Pᵀ·dO for dK/dV) at the tf32
-    tensor-core rate, the least any tensor-core scheme of fp32-grade
-    precision needs.  The split ("split") only moves bytes: the fp32 dO in,
-    two bf16 planes out."""
+    type: bf16 at the bf16 tensor-core rate; fp32 at the tf32 tensor-core
+    rate, the least any tensor-core scheme of fp32-grade precision needs:
+    the products of fp32 q/k/v, and on the lse route (``lse_route``: fp32
+    output, fp32 dO) the products with dO (dO·Vᵀ, and Pᵀ·dO for dK/dV).
+    ``cuda_cores``: fp32 q/k/v's products at the fp32 rate outside the
+    tensor cores instead (the bound before the fp32 kernels used them).
+    The split passes only move bytes, each fp32 input in and its bf16
+    planes out: "split" dO's (two planes beside bf16 q/k/v, three beside
+    fp32), "split_qkv" q, k and v's (three planes each)."""
     import torch
 
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
@@ -262,16 +291,18 @@ def _bound(kernel, B, S, H, D, dtype, causal, has_dlse, peaks,
     e_do = 4 if lse_route else e
     n = B * S * H * D
     stats = 4 * B * S * H
+    planes = 2 if e == 2 else 3
     # (products on q/k/v's type, products with dO)
-    products = {"fwd": (2, 0), "dq": (2, 1), "dkv": (2, 2),
-                "split": (0, 0)}[kernel]
+    products = {"fwd": (2, 0), "dq": (2, 1), "dkv": (2, 2), "split": (0, 0),
+                "split_qkv": (0, 0)}[kernel]
     nbytes = {"fwd": 3 * n * e + n * e_do + stats,
               "dq": 4 * n * e + n * e_do + stats * (2 + has_dlse),
               "dkv": 5 * n * e + n * e_do + stats * (2 + has_dlse),
-              "split": 4 * n + 2 * 2 * n}[kernel]
+              "split": 4 * n + planes * 2 * n,
+              "split_qkv": 3 * (4 * n + 3 * 2 * n)}[kernel]
     bf16, tf32, f32, bw = peaks
-    rate_qkv = bf16 if e == 2 else f32
-    rate_do = tf32 if lse_route else rate_qkv
+    rate_qkv = bf16 if e == 2 else f32 if cuda_cores else tf32
+    rate_do = tf32 if lse_route and e == 2 else rate_qkv
     t_ops = 2 * D * pairs * (products[0] / rate_qkv + products[1] / rate_do)
     t_bytes = nbytes / bw
     return (max(t_ops, t_bytes) * 1e3,
@@ -307,11 +338,14 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
     ``timed``, times each and returns {kernel: measurements}.
     ``lse_route``: the ring hop's variants, as ``flash_attention_lse``
     runs them: the forward writes fp32 output, and the backward takes an
-    fp32 dO (and a dlse where ``with_dlse``)."""
+    fp32 dO (and a dlse where ``with_dlse``).  fp32 q/k/v (either route)
+    also run the split passes, each held to its plain version bit for
+    bit."""
     import torch
     import torch.nn.functional as F
 
     dname = str(dtype).split(".")[1]
+    fp32 = dtype == torch.float32
     print(f"kernels at B {B} S {S} H {H} D {D} {dname} "
           f"{'causal' if causal else 'non-causal'}"
           f"{' dlse' if with_dlse else ''}"
@@ -343,20 +377,27 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
            "dq": _check("dq", dq, pdq, bad, slack["dq"]),
            "dkv": max(_check("dk", dk, pdk, bad, slack["dk"]),
                       _check("dv", dv, pdv, bad, slack["dv"]))}
-    planes = None
-    if lse_route:  # the split: bit for bit
-        planes = fa.split_do_cuda(do)
-        want = fa._split_do_plain(do)
-        err["split"] = max(float((a.float() - b.float()).abs().max())
-                           for a, b in zip(planes, want))
-        same = all(torch.equal(a, b) for a, b in zip(planes, want))
-        print(f"  split: hi and lo {'equal' if same else 'DIFFER from'} "
+
+    def split_check(name, got, want):  # bit for bit
+        err[name] = float((got.float() - want.float()).abs().max())
+        same = torch.equal(got, want)
+        print(f"  {name}: its planes {'equal' if same else 'DIFFER from'} "
               "their plain versions")
         if not same:
-            bad.append("the dO split differs from its plain version")
+            bad.append(f"the {name} pass differs from its plain version")
+
+    planes = qkv_planes = None
+    if fp32:
+        qkv_planes = fa.split_qkv_cuda(q, k, v)
+        split_check("split_qkv", qkv_planes, fa._split_qkv_plain(q, k, v))
+    if lse_route or fp32:
+        n = fa.do_planes_of(dtype)
+        planes = fa.split_do_cuda(do, n)
+        split_check("split", planes, torch.stack(fa._split_plain(do, n)))
+    if lse_route:
         # What the split buys (SPLIT_GAP): each gradient's gap to the plain
         # version, against the gap to it of the plain version with dO
-        # rounded to bf16 (a kernel that dropped the lo plane).
+        # rounded to bf16 (a kernel that dropped the lower planes).
         args16 = (q, k, v, do.to(torch.bfloat16).float()) + args[4:]
         p16 = (fa._flash_dq_plain(*args16),) + fa._flash_dkv_plain(*args16)
         gaps = {name: (_rel_gap(got, want), _rel_gap(rounded, want))
@@ -373,9 +414,11 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
     _fail_if(bad, f"kernels at S {S} D {D} {dname}")
     if not timed:
         return {}
-    impls = {kname: fa.impl(kname, dtype, do.dtype) for kname in err}
-    # One split serves both timed backward kernels, as in the backward.
-    bargs = dict(do_planes=planes)
+    impls = {kname: fa.impl(kname, dtype, do.dtype) if kname in ("fwd", "dq",
+                                                               "dkv")
+             else "simt" for kname in err}
+    # One split serves the timed kernels, as in the forward and backward.
+    qkv = dict(qkv_planes=qkv_planes) if fp32 else {}
 
     qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     qg, kg, vg = (t.detach().requires_grad_() for t in (qh, kh, vh))
@@ -385,36 +428,62 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
         torch.autograd.grad(sdpa_out, (qg, kg, vg), doh, retain_graph=True)
 
     timing = {
-        "fwd": (lambda: fa.flash_fwd_cuda(q, k, v, scale, causal, lse_route),
+        "fwd": (lambda: fa.flash_fwd_cuda(q, k, v, scale, causal, lse_route,
+                                          **qkv),
                 lambda: fa._flash_fwd_plain(q, k, v, scale, causal,
                                             lse_route),
                 lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                        is_causal=causal)),
-        "dq": (lambda: fa.flash_dq_cuda(*args, **bargs),
+        "dq": (lambda: fa.flash_dq_cuda(*args, do_planes=planes),
                lambda: fa._flash_dq_plain(*args), sdpa_bwd),
-        "dkv": (lambda: fa.flash_dkv_cuda(*args, **bargs),
+        "dkv": (lambda: fa.flash_dkv_cuda(*args, do_planes=planes, **qkv),
                 lambda: fa._flash_dkv_plain(*args), sdpa_bwd),
     }
-    if lse_route:  # no PyTorch call splits a tensor into two planes
-        impls["split"] = "simt"
-        timing["split"] = (lambda: fa.split_do_cuda(do),
-                           lambda: fa._split_do_plain(do), None)
+    # No PyTorch call splits a tensor into planes.
+    if planes is not None:
+        timing["split"] = (lambda: fa.split_do_cuda(do, n),
+                           lambda: fa._split_plain(do, n), None)
+    if fp32:
+        timing["split_qkv"] = (lambda: fa.split_qkv_cuda(q, k, v),
+                               lambda: fa._split_qkv_plain(q, k, v), None)
     out = {}
     for kname, (kern, plain, lib) in timing.items():
         ms, plain_ms = _device_ms(kern), _device_ms(plain)
         lib_ms = None if lib is None else _device_ms(lib)
         event_ms = _time_ms(kern)
+        # Where the profiler saw no device time, the events' time stands
+        # in (it counts the host's gaps as well).
+        timed_by = "events" if ms is None else "device"
+        ms = event_ms if ms is None else ms
+        plain_ms = _time_ms(plain) if plain_ms is None else plain_ms
+        if lib is not None and lib_ms is None:
+            lib_ms = _time_ms(lib)
         bound_ms, bound_by = _bound(kname, B, S, H, D, dtype, causal,
                                     with_dlse, peaks, lse_route)
         lib_txt = ("" if lib is None else
                    f"  sdpa{'' if kname == 'fwd' else ' bwd'} {lib_ms:.4f} ms")
-        print(f"  {kname} ({impls[kname]}): kernel {ms:.4f} ms (events "
-              f"{event_ms:.4f} ms)  plain {plain_ms:.3f} ms{lib_txt}  "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+        old = {}
+        if fp32 and lib is not None:  # the fp32 CUDA cores' bound beside it
+            old = dict(old_bound_ms=_bound(kname, B, S, H, D, dtype, causal,
+                                           with_dlse, peaks, lse_route,
+                                           cuda_cores=True)[0])
+            lib_txt += f"  old bound {old['old_bound_ms']:.4f} ms"
+        print(f"  {kname} ({impls[kname]}): kernel {ms:.4f} ms by "
+              f"{timed_by} (events {event_ms:.4f} ms)  plain "
+              f"{plain_ms:.3f} ms{lib_txt}  bound {bound_ms:.4f} ms "
+              f"({bound_by})")
         out[kname] = dict(impl=impls[kname], max_abs_err=err[kname], ms=ms,
-                          event_ms=event_ms, plain_ms=plain_ms,
+                          timed_by=timed_by, event_ms=event_ms,
+                          plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=lib_ms)
+                          library_ms=lib_ms, **old)
+    if fp32:
+        fwd = out["fwd"]["ms"] + out["split_qkv"]["ms"]
+        dkv = out["dkv"]["ms"] + out["split_qkv"]["ms"] + out["split"]["ms"]
+        print(f"  fp32 forward with the q/k/v split {fwd:.4f} ms against "
+              f"SDPA's forward {out['fwd']['library_ms']:.4f} ms; dK/dV "
+              f"with the q/k/v and dO splits {dkv:.4f} ms against SDPA's "
+              f"whole backward {out['dkv']['library_ms']:.4f} ms")
     return out
 
 
@@ -444,9 +513,10 @@ def check_sass(lib_path):
                     bad.append(f"{fname} holds no HGMMA")
     print(f"sass: {found} instantiations, each with HGMMA"
           if not bad else f"sass: {bad}")
-    # Five head-dim widths, each with two output types (forward) or two dO
-    # types (dK/dV, dQ: bf16, and fp32 as bf16 planes).
-    if found != {"fwd_wgmma_kernel": 10, "dkv_wgmma_kernel": 10,
+    # Five head-dim widths, each with bf16 q/k/v's two output types and
+    # fp32 q/k/v (forward), bf16 q/k/v's two dO types and fp32 q/k/v
+    # (dK/dV), or bf16 q/k/v's two dO types (dQ).
+    if found != {"fwd_wgmma_kernel": 15, "dkv_wgmma_kernel": 15,
                  "dq_wgmma_kernel": 10}:
         bad.append(f"wgmma instantiations found {found}")
     _fail_if(bad, "sass")
@@ -474,10 +544,10 @@ def _plain_step0_losses(tfm, fa, cfg, tokens, targets, dev):
 
     import torch
 
-    def plain(q, k, v, scale, causal, out_f32=False):
+    def plain(q, k, v, scale, causal, out_f32=False, qkv_planes=None):
         return fa._flash_fwd_plain(q, k, v, scale, causal, out_f32)
 
-    def plain_f32(q, k, v, scale, causal, out_f32=False):
+    def plain_f32(q, k, v, scale, causal, out_f32=False, qkv_planes=None):
         o, lse = fa._flash_fwd_plain(q.float(), k.float(), v.float(), scale,
                                      causal, True)
         return o.to(torch.float32 if out_f32 else q.dtype), lse
@@ -607,6 +677,58 @@ def run_slice(hvd, tfm, fa, make_mesh, dev, card):
           f"{B * S / step_ms * 1e3:.0f} tokens/s on {card}")
     _profile_step(step_fn, state, tokens, targets, step_ms)
     return counts, step_ms, steps
+
+
+def run_fp32_step(hvd, tfm, fa, dev):
+    """One full-width flagship step in fp32 (``compute_dtype`` float32,
+    flash attention) through ``make_transformer_train_step``, beside a
+    dense-attention fp32 twin made from the same seed: the step-0 loss and
+    every gradient against the twin's, and the step's launches of the fp32
+    kernels.  Checked, not timed.  Returns the launches by variant."""
+    import dataclasses
+
+    import torch
+
+    f32 = torch.float32
+    cfg = tfm.TransformerConfig(
+        vocab_size=32768, d_model=1024, n_layers=8, n_heads=16, d_ff=4096,
+        max_seq_len=1024, compute_dtype=f32, attn_impl="flash", remat=True)
+    B, S = 8, 1024
+    step_fn, init_fn = hvd.make_transformer_train_step(cfg)
+    twin_step, twin_init = hvd.make_transformer_train_step(
+        dataclasses.replace(cfg, attn_impl="dense"))
+    state, twin = init_fn(0), twin_init(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                           generator=gen)
+    targets = torch.roll(tokens, -1, dims=1)
+    fa.reset_launch_counts()
+    state, loss = step_fn(state, tokens, targets)
+    torch.cuda.synchronize()
+    counts = dict(fa.variant_launches)
+    twin, twin_loss = twin_step(twin, tokens, targets)
+    gaps = _grad_gaps(state.model, twin.model)
+    loss, twin_loss = float(loss), float(twin_loss)
+    del state, twin
+
+    bad = []
+    print(f"fp32 step: step-0 loss {loss!r}, dense fp32 twin {twin_loss!r}, "
+          f"gap {abs(loss - twin_loss):.3e} (tol {F32_LOSS_TOL})")
+    print("fp32 step: step-0 gradient gap to the dense twin, largest over "
+          "layers: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" (tol {F32_GRAD_TOL})")
+    want = {fa.variant("fwd", f32, causal=True): 16, "split qkv": 16,
+            fa.variant("dq", f32, f32, True): 8,
+            fa.variant("dkv", f32, f32, True): 8, "split": 8}
+    print(f"fp32 step: launches {counts} (want {want})")
+    if not math.isfinite(loss) or abs(loss - twin_loss) > F32_LOSS_TOL:
+        bad.append("the step-0 loss disagrees with the dense twin")
+    if max(gaps.values()) > F32_GRAD_TOL:
+        bad.append("step-0 gradients disagree with the dense twin")
+    if counts != want:
+        bad.append(f"launches {counts} != {want}")
+    _fail_if(bad, "fp32 step")
+    return counts
 
 
 def _timed_steps(step_fn, state, images, labels, n):
@@ -843,8 +965,9 @@ def run_sp(fa, ra, dev, card):
                    if re.search(pattern, e.key)) / reps / n / 1e3
 
     total = per_rank(".")
-    bwd = per_rank(r"\b(dq|dkv)_wgmma_kernel<\d+, true>")
-    split = per_rank(r"\bsplit_do_kernel\b")
+    bwd = per_rank(r"\b(dq_wgmma_kernel<\d+, true>|"
+                   r"dkv_wgmma_kernel<\d+, true, false>)")
+    split = per_rank(r"\bsplit_kernel<2>")
     fwd = per_rank(r"\bfwd_wgmma_kernel<")
     uly = sum(_dev_us(e) for e in _profile_rows(layer("ulysses"), reps)
               ) / reps / n / 1e3
@@ -937,6 +1060,8 @@ def main() -> int:
     shapes = ((8, 1024, 16, 64, torch.bfloat16, True, False),
               (2, 1000, 8, 128, torch.bfloat16, False, True),
               (2, 1000, 8, 32, torch.float32, False, True))
+    # The flagship's attention in fp32: the fp32 step phase's shape.
+    f32_flagship = (8, 1024, 16, 64, torch.float32, True, False)
     # The ring hop's variants at the shard shape: the self-block (causal)
     # and the other hops (non-causal), fp32 output and dO, with dlse.
     sp = SP_SHAPE
@@ -946,9 +1071,9 @@ def main() -> int:
     # widest (256), ragged, with dlse, on the flash route and the lse route.
     dim_shapes = ((2, 1000, 8, 96, torch.bfloat16, True, True),
                   (2, 1000, 8, 256, torch.bfloat16, False, True))
-    for shape in shapes + dim_shapes:
+    for shape in shapes + (f32_flagship,) + dim_shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False)
-    for shape in tuple(ring_shapes.values()) + dim_shapes:
+    for shape in tuple(ring_shapes.values()) + (shapes[2],) + dim_shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False, lse_route=True)
 
     hvd.init()
@@ -960,6 +1085,8 @@ def main() -> int:
         profile_resnet(*resnet, card)
         del resnet
         run_mnist(hvd, dev)
+        torch.cuda.empty_cache()
+        f32_run = run_fp32_step(hvd, tfm, fa, dev)
     finally:
         hvd.shutdown()
     torch.cuda.empty_cache()
@@ -979,6 +1106,7 @@ def main() -> int:
     print(f"slice: attention kernels {attn_ms:.2f} ms of the {step_ms:.2f} ms "
           f"step (each kernel's flagship time x its launches per step)")
 
+    f32 = check_kernels(fa, *f32_flagship, peaks, dev)
     for shape in dim_shapes:
         check_kernels(fa, *shape, peaks, dev)
         check_kernels(fa, *shape, peaks, dev, lse_route=True)
@@ -1008,6 +1136,22 @@ def main() -> int:
                         source=SOURCES["wgmma"], replaces=REPLACES["split"],
                         launches=sp_run["ring causal"]["split"],
                         **ring[False]["split"]))
+    # The fp32 kernels at the flagship's attention in fp32, with their
+    # launches in the fp32 step: the forward and dK/dV on wgmma, dQ scalar,
+    # and the splits of q/k/v (per forward) and of dO (per backward).
+    f32t = torch.float32
+    for k in ("fwd", "dq", "dkv"):
+        kernels.append(dict(
+            name=f"flash_{k}_fp32", route="cuda",
+            source=SOURCES[f32[k]["impl"]], replaces=REPLACES[k],
+            launches=f32_run[fa.variant(k, f32t, f32t, True)], **f32[k]))
+    kernels.append(dict(name="flash_split_qkv_fp32", route="cuda",
+                        source=SOURCES["wgmma"],
+                        replaces=REPLACES["split_qkv"],
+                        launches=f32_run["split qkv"], **f32["split_qkv"]))
+    kernels.append(dict(name="flash_split_do_fp32", route="cuda",
+                        source=SOURCES["wgmma"], replaces=REPLACES["split"],
+                        launches=f32_run["split"], **f32["split"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -37,22 +37,27 @@ build_log = ""  # nvcc's output of the build that produced the library
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 _SIGNATURES = {
-    # q, k, v, o, lse, strides, B, S, H, D, scale, causal, dtype, out_f32,
-    # stream
-    "hvd_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                      _I, _P],
+    # q, k, v (or their hi planes), their lower planes (an array: q mid,
+    # q lo, k mid, k lo, v mid, v lo; or null), o, lse, strides, B, S, H, D,
+    # scale, causal, dtype, out_f32, stream
+    "hvd_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                      _I, _I, _P],
     # q, k, v, dO (or its hi plane), dO's lo plane (or null), lse, delta,
     # dlse, dq, strides, B, S, H, D, scale, causal, dtype, stream
     "hvd_flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _F, _I, _I, _P],
-    # q, k, v, dO (or its hi plane), dO's lo plane (or null), lse, delta,
-    # dlse, dk, dv, strides, B, S, H, D, scale, causal, dtype, stream
-    "hvd_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _F, _I, _I, _P],
-    # dO (fp32, contiguous), its element count, hi, lo, stream
-    "hvd_flash_split_do": [_P, _L, _P, _P, _P],
+    # q, k, v (or their hi planes), their and dO's lower planes (an array:
+    # q mid, q lo, k mid, k lo, v mid, v lo, dO mid, dO lo; or null), dO (or
+    # its hi plane), dO's lo plane (bf16 q/k/v with an fp32 dO; or null),
+    # lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, dtype,
+    # stream
+    "hvd_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _I, _I, _I, _F, _I, _I, _P],
+    # number of inputs, their fp32 bases (an array), their (b, s, h)
+    # strides, B, S, H, D, planes per input (2 or 3), the bf16 planes
+    # [n, planes, B, S, H, D], stream
+    "hvd_flash_split": [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -1,9 +1,11 @@
 // Shared by the flash kernel sources: the head-dim dispatch, and the
 // launchers of the tensor-core (wgmma) kernels in flash_wgmma.cu, which
 // hvd_flash_fwd, hvd_flash_dq and hvd_flash_dkv (flash_attention.cu) choose
-// for bfloat16 q/k/v.  Arguments as there; dout_lo is the lo plane of a
-// float32 dO split into bf16 planes (dout its hi plane), or null for a
-// bfloat16 dO.  Each returns a cudaError_t (0 on success),
+// for bfloat16 q/k/v, and for float32 q/k/v's forward and dK/dV.
+// Arguments as there; lo is null, or the three lo planes of float32 q, k
+// and v split into bf16 planes (q, k, v their hi planes); dout_lo is the lo
+// plane of a float32 dO split into bf16 planes (dout its hi plane), or null
+// for a bfloat16 dO.  Each returns a cudaError_t (0 on success),
 // cudaErrorInvalidValue where the tensor map cannot describe the input (a
 // base or a (b, s, h) stride that is not a multiple of 16 bytes).
 #pragma once
@@ -23,9 +25,10 @@
   if ((D) <= 128) { constexpr int DP = 128; return CALL; }       \
   { constexpr int DP = 256; return CALL; }
 
-int hvd_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
-                        void* lse, const long long* strides, int B, int S,
-                        int H, int D, float scale, int causal, int out_f32,
+int hvd_flash_fwd_wgmma(const void* q, const void* k, const void* v,
+                        const void* const* lo, void* o, void* lse,
+                        const long long* strides, int B, int S, int H, int D,
+                        float scale, int causal, int out_f32,
                         cudaStream_t stream);
 
 int hvd_flash_dq_wgmma(const void* q, const void* k, const void* v,
@@ -35,7 +38,9 @@ int hvd_flash_dq_wgmma(const void* q, const void* k, const void* v,
                        float scale, int causal, cudaStream_t stream);
 
 int hvd_flash_dkv_wgmma(const void* q, const void* k, const void* v,
-                        const void* dout, const void* dout_lo, const void* lse,
-                        const void* delta, const void* dlse, void* dk, void* dv,
-                        const long long* strides, int B, int S, int H, int D,
-                        float scale, int causal, cudaStream_t stream);
+                        const void* const* lo, const void* dout,
+                        const void* dout_lo, const void* lse,
+                        const void* delta, const void* dlse, void* dk,
+                        void* dv, const long long* strides, int B, int S,
+                        int H, int D, float scale, int causal,
+                        cudaStream_t stream);

@@ -1,6 +1,7 @@
 // Flash attention on Hopper's tensor cores (sm_90a): the forward, dQ and
 // dK/dV kernels for bfloat16 q/k/v, with a bfloat16 dO or (the lse
-// variant's gradient) a float32 dO.
+// variant's gradient) a float32 dO, and the forward and dK/dV for float32
+// q/k/v.
 //
 // Replace the three Pallas kernels of horovod_tpu/ops/pallas_attention.py:
 //   fwd_wgmma_kernel <- _fwd_kernel  (:77, launched by _flash_fwd at :131)
@@ -9,17 +10,33 @@
 // They compute what those kernels compute, and round where they round: S and
 // every product accumulate in fp32, P is rounded to bf16 before P.V and
 // P^T.dO, dS to bf16 before dS.K and dS^T.Q (pallas_attention.py:112, :207,
-// :245, :252); dQ's P is not rounded.  The fp32 variants stay on the scalar
-// kernels of flash_attention.cu.
+// :245, :252); dQ's P is not rounded.  The float32 dQ stays on the scalar
+// kernel of flash_attention.cu.
 //
-// A float32 dO (F32DO) keeps the reference's fp32 products on bf16 tensor
-// cores: split_do_kernel splits it once per backward into two bf16 planes,
-// hi = bf16(dO) and lo = bf16(dO - hi), which hold it to about 2^-17.
-// dP = dO.V^T is hi.V^T + lo.V^T (V is exact in bf16).  P^T.dO takes P
-// unrounded (p.astype(fp32) is a no-op in the reference): P splits the same
-// way in registers, and dV += P_hi.hi + P_lo.hi + P_hi.lo; the dropped
-// P_lo.lo is about 2^-16 of a term, far below the bf16 output's rounding.
-// dS is rounded to bf16 as on the bf16 route.
+// fp32 products on bf16 tensor cores: split_kernel splits an fp32 tensor
+// into bf16 planes, each the bf16 rounding of what the planes before it
+// leave (every difference exact in fp32), and a product runs as wgmmas of
+// plane pairs.  (tf32 wgmma would need no split, but reads K-major
+// operands only, and P.V, P^T.dO and dS^T.Q read V, dO and Q MN-major.)
+// An operand computed in registers (P, dS) splits the same way there.
+//   * F32DO (bf16 q/k/v, the lse variant's fp32 dO): dO arrives as two
+//     planes, hi = bf16(dO) and lo = bf16(dO - hi), which hold it to about
+//     2^-17.  dP = dO.V^T is hi.V^T + lo.V^T (V is exact in bf16).  P^T.dO
+//     takes P unrounded (p.astype(fp32) is a no-op in the reference):
+//     dV += P_hi.hi + P_lo.hi + P_hi.lo; the dropped P_lo.lo is about
+//     2^-16 of a term, far below the bf16 output's rounding.  dS is rounded
+//     to bf16 as on the bf16 route.
+//   * F32IN (fp32 q/k/v, hence fp32 dO and output): the reference's casts
+//     of P and dS round nothing, and the outputs are fp32, so two planes
+//     are not enough: an element of a sum of 1000 terms each off by up to
+//     2^-16 lands past the fp32 check's 1e-4 (tests/test_torch_flash_fp32.py
+//     emulates it).  Q, K, V and dO arrive as three planes (hi, mid, lo:
+//     24 bits, fp32's own), P and dS split into three in registers, and
+//     every product (S = Q.K^T and O += P.V in the forward; S^T = K.Q^T,
+//     dP^T = V.dO^T, dV += P^T.dO and dK += dS^T.Q in dK/dV) is six
+//     wgmmas: the plane pairs whose magnitudes multiply to at least 2^-16 of
+//     the term (pair_a, pair_b).  The causal and ragged masks zero P before
+//     it splits, so every plane is zero there.
 //
 // Head dims: the kernels are instantiated at DP = 16, 32, 64, 128 and 256
 // columns and serve any head dim D that is a multiple of 8 up to DP (the
@@ -40,7 +57,9 @@
 //     exponentiated and packed to bf16 in place, and that packed fragment
 //     is the register A operand of the next wgmma (the m64 accumulator
 //     layout is the A-fragment layout).  The F32DO kernels run 4/3 (dQ) and
-//     7/4 (dK/dV) of the bf16 route's wgmmas for the split's extra products.
+//     7/4 (dK/dV) of the bf16 route's wgmmas for the split's extra products,
+//     the F32IN kernels six times as many, and the split pass moves 8 or 10
+//     bytes an element (fp32 in, two or three bf16 planes out).
 //   * Loads: a producer warp issues TMA copies of [rows, D] tiles of the
 //     strided [B, S, H, D] views into 128/64/32-byte swizzled shared memory
 //     (the swizzle of the wgmma descriptors), completing on mbarriers, into
@@ -54,6 +73,16 @@
 //     fit), so two blocks of a key tile each recompute S^T and dP^T.  Its
 //     F32DO instantiation takes query tiles of 32 so that the Q, hi and lo
 //     ring fits in shared memory.
+//   * Shared memory and registers of the F32IN planes: the forward takes
+//     key tiles of 64 at DP <= 32, 32 at DP 64 and 128 and 16 at DP 256;
+//     dK/dV query tiles of 32 at DP <= 64 and 16 above (which keeps the
+//     split fragments of P and dS beside the accumulators in registers).
+//     At DP 256 three planes of K and V for 64 keys (192 KB) leave no room
+//     for the query ring, so that block takes 32 keys: its wgmmas still
+//     make 64 rows, rows 32-63 read the next 4 KB of its own shared memory,
+//     and those rows are never stored.  Its blocks take 64 output columns
+//     each (four per key tile, each recomputing S^T and dP^T): two m64 x
+//     128 accumulators spill beside the six-pair products.
 //   * Causal blocks skip the tiles above the diagonal and mask only the
 //     tiles that cross it; the heaviest tiles are handed out first.  Each
 //     output element has one writer: no atomics, deterministic results.
@@ -64,6 +93,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_attention.cuh"
 
 namespace {
@@ -72,22 +103,39 @@ constexpr int STAGES = 2;        // depth of the producer's ring
 constexpr int CONSUMER = 128;    // one consumer warpgroup
 constexpr int NT = CONSUMER + 32;  // and one producer warp
 constexpr int FQ = 64;           // forward: query rows per block
-constexpr int BKV = 64;          // dK/dV: key rows per block
 constexpr int DQ = 64;           // dQ: query rows per block
 constexpr int BKQ = 64;          // dQ: key rows per tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Forward: key rows per tile.
-template <int DP> __host__ __device__ constexpr int fwd_keys() {
+template <int DP, bool F32IN> __host__ __device__ constexpr int fwd_keys() {
+  if (F32IN) return DP > 128 ? 16 : DP > 32 ? 32 : 64;
   return DP > 128 ? 64 : 128;
 }
-// dK/dV: query rows per tile, and output columns per block.
-template <int DP, bool F32DO> __host__ __device__ constexpr int dkv_rows() {
+// dK/dV: key rows per block, query rows per tile, and output columns per
+// block.
+template <int DP, bool F32IN> __host__ __device__ constexpr int dkv_keys() {
+  return F32IN && DP > 128 ? 32 : 64;
+}
+template <int DP, bool F32DO, bool F32IN>
+__host__ __device__ constexpr int dkv_rows() {
+  if (F32IN) return DP > 64 ? 16 : 32;
   return F32DO && DP > 128 ? 32 : 64;
 }
-template <int DP> __host__ __device__ constexpr int dkv_cols() {
-  return DP > 128 ? 128 : DP;
+template <int DP, bool F32IN> __host__ __device__ constexpr int dkv_cols() {
+  return DP > 128 ? (F32IN ? 64 : 128) : DP;
+}
+
+// The F32IN products: plane pairs (plane of a, plane of b; hi 0, mid 1,
+// lo 2) whose magnitudes multiply to at least 2^-16 of a.b.  The dropped
+// pairs (mid.lo, lo.mid, lo.lo) are under 2^-24 of it.
+constexpr int NPAIRS = 6;
+__host__ __device__ constexpr int pair_a(int i) {
+  return i == 2 || i == 3 ? 1 : i == 5 ? 2 : 0;
+}
+__host__ __device__ constexpr int pair_b(int i) {
+  return i == 1 || i == 3 ? 1 : i == 4 ? 2 : 0;
 }
 
 // Shared-memory layout of a bf16 [rows, DP] tile: DP is cut into regions of
@@ -230,6 +278,16 @@ __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                          uint64_t db);
 
 template <> __device__ __forceinline__ void
+wgmma_ss<16>(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <> __device__ __forceinline__ void
 wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
@@ -328,6 +386,24 @@ __device__ __forceinline__ void a_frag_split(const float (&d)[NR], int kk,
   }
 }
 
+// The same columns as three A fragments (F32IN): hi = bf16(x), mid =
+// bf16(x - hi) and lo = bf16(x - hi - mid), each difference exact in fp32;
+// their sum holds x to about 2^-24 of it.
+template <int NR>
+__device__ __forceinline__ void a_frag_split3(const float (&d)[NR], int kk,
+                                              uint32_t (&f)[3][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = d[8 * kk + 2 * i], x1 = d[8 * kk + 2 * i + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
+    const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+    f[0][i] = *reinterpret_cast<const uint32_t*>(&h);
+    f[1][i] = *reinterpret_cast<const uint32_t*>(&m);
+    f[2][i] = pack_bf16(r0 - __low2float(m), r1 - __high2float(m));
+  }
+}
+
 // d (m64 x N) += A . B, B the columns [c0, c0 + N) of a [rows, DP] tile read
 // MN-major with rows [16 kk, 16 kk + 16) as the depth.  N over 128 runs as
 // 128-column wgmmas: n128 accumulators side by side are the wider one.
@@ -372,23 +448,44 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 // column 8 j + 2 (t % 4) + e % 2.  Outputs have D columns (a multiple of
 // 8), so a chunk is stored whole or not at all.
 
+// The tensor maps of a kernel's operands, one per plane: hi first; F32IN
+// also mid and lo; F32DO dO's lo second.  Entries a kernel does not read
+// repeat the hi map.
+struct Maps {
+  CUtensorMap q[3], k[3], v[3], dout[3];
+};
+
+// Load planes [0, NPL) of rows [row0, row0 + rows) into consecutive tiles
+// from dst, completing on bar.
+template <int DP, int NPL>
+__device__ __forceinline__ void tma_planes(uint8_t* dst,
+                                           const CUtensorMap (&map)[3],
+                                           uint64_t* bar, int rows, int row0,
+                                           int b, int h) {
+#pragma unroll
+  for (int pl = 0; pl < NPL; ++pl)
+    tma_tile<DP>(dst + pl * Tile<DP>::bytes(rows), &map[pl], bar, rows, row0,
+                 b, h);
+}
+
 // Forward.  One block per (64-row query tile, b*h); the consumer warpgroup
 // walks key tiles of FK up to the causal limit with the online softmax in
-// registers (m and l per row, in log2 units), and writes o and lse.
-template <typename TO, int DP>
+// registers (m and l per row, in log2 units), and writes o and lse.  F32IN:
+// Q, K and V arrive as three planes each, P splits into three, and the
+// output is fp32.
+template <typename TO, int DP, bool F32IN>
 __global__ void __launch_bounds__(NT, DP >= 128 ? 1 : 2)
-fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                 const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, TO* __restrict__ o,
+fwd_wgmma_kernel(const __grid_constant__ Maps maps, TO* __restrict__ o,
                  float* __restrict__ lse, int H, int S, int D, float scale,
                  int causal) {
   using L = Tile<DP>;
-  constexpr int FK = fwd_keys<DP>();
+  constexpr int FK = fwd_keys<DP, F32IN>();
+  constexpr int NPI = F32IN ? 3 : 1;  // planes of q, k and v
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* Qs = align1024(smem_raw);
-  uint8_t* Ks = Qs + L::bytes(FQ);            // [STAGES][FK, DP]
-  uint8_t* Vs = Ks + STAGES * L::bytes(FK);   // [STAGES][FK, DP]
-  uint64_t* q_full = (uint64_t*)(Vs + STAGES * L::bytes(FK));
+  uint8_t* Qs = align1024(smem_raw);               // [NPI][FQ, DP]
+  uint8_t* Ks = Qs + NPI * L::bytes(FQ);           // [STAGES][NPI][FK, DP]
+  uint8_t* Vs = Ks + STAGES * NPI * L::bytes(FK);  // [STAGES][NPI][FK, DP]
+  uint64_t* q_full = (uint64_t*)(Vs + STAGES * NPI * L::bytes(FK));
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + STAGES;
   uint64_t* empty = v_full + STAGES;
@@ -412,15 +509,17 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (tid >= CONSUMER) {  // producer warp: one lane issues every copy
     if (tid == CONSUMER) {
-      mbar_expect_tx(q_full, L::bytes(FQ));
-      tma_tile<DP>(Qs, &tq, q_full, FQ, q0, b, h);
+      mbar_expect_tx(q_full, NPI * L::bytes(FQ));
+      tma_planes<DP, NPI>(Qs, maps.q, q_full, FQ, q0, b, h);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % STAGES;
         if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) - 1) & 1);
-        mbar_expect_tx(&k_full[st], L::bytes(FK));
-        tma_tile<DP>(Ks + st * L::bytes(FK), &tk, &k_full[st], FK, t * FK, b, h);
-        mbar_expect_tx(&v_full[st], L::bytes(FK));
-        tma_tile<DP>(Vs + st * L::bytes(FK), &tv, &v_full[st], FK, t * FK, b, h);
+        mbar_expect_tx(&k_full[st], NPI * L::bytes(FK));
+        tma_planes<DP, NPI>(Ks + st * NPI * L::bytes(FK), maps.k, &k_full[st],
+                            FK, t * FK, b, h);
+        mbar_expect_tx(&v_full[st], NPI * L::bytes(FK));
+        tma_planes<DP, NPI>(Vs + st * NPI * L::bytes(FK), maps.v, &v_full[st],
+                            FK, t * FK, b, h);
       }
     }
     return;
@@ -439,16 +538,26 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int st = t % STAGES;
     const uint32_t ph = (t / STAGES) & 1;
     const int k0 = t * FK;
-    const uint8_t* Kt = Ks + st * L::bytes(FK);
-    const uint8_t* Vt = Vs + st * L::bytes(FK);
+    const uint8_t* Kt = Ks + st * NPI * L::bytes(FK);  // its planes in turn
+    const uint8_t* Vt = Vs + st * NPI * L::bytes(FK);
 
-    // S = Q K^T for this key tile.
+    // S = Q K^T for this key tile (F32IN: over the plane pairs).
     float s[FK / 2];
     mbar_wait(&k_full[st], ph);
     wg_fence();
+    if constexpr (F32IN) {
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<FK>(s, desc_k<DP>(Qs, FQ, 0, kk), desc_k<DP>(Kt, FK, 0, kk), kk);
+      for (int pr = 0; pr < NPAIRS; ++pr)
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<FK>(s, desc_k<DP>(Qs + pair_a(pr) * L::bytes(FQ), FQ, 0, kk),
+                       desc_k<DP>(Kt + pair_b(pr) * L::bytes(FK), FK, 0, kk),
+                       pr + kk);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<FK>(s, desc_k<DP>(Qs, FQ, 0, kk), desc_k<DP>(Kt, FK, 0, kk), kk);
+    }
     wg_commit();
     wg_wait();
     reg_fence(s);
@@ -496,15 +605,30 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       oacc[4 * j + 3] *= corr[1];
     }
 
-    // O += bf16(P) V, P straight from the registers.
-    uint32_t pa[FK / 16][4];
+    // O += bf16(P) V, P straight from the registers (F32IN: P split into
+    // three, over the plane pairs).
+    if constexpr (F32IN) {
+      uint32_t pf[FK / 16][3][4];
 #pragma unroll
-    for (int kk = 0; kk < FK / 16; ++kk) a_frag(s, kk, pa[kk]);
-    mbar_wait(&v_full[st], ph);
-    wg_fence();
+      for (int kk = 0; kk < FK / 16; ++kk) a_frag_split3(s, kk, pf[kk]);
+      mbar_wait(&v_full[st], ph);
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < FK / 16; ++kk)
-      mma_rs<DP, DP>(oacc, pa[kk], Vt, FK, kk, 0);
+      for (int pr = 0; pr < NPAIRS; ++pr)
+#pragma unroll
+        for (int kk = 0; kk < FK / 16; ++kk)
+          mma_rs<DP, DP>(oacc, pf[kk][pair_a(pr)],
+                         Vt + pair_b(pr) * L::bytes(FK), FK, kk, 0);
+    } else {
+      uint32_t pa[FK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < FK / 16; ++kk) a_frag(s, kk, pa[kk]);
+      mbar_wait(&v_full[st], ph);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < FK / 16; ++kk)
+        mma_rs<DP, DP>(oacc, pa[kk], Vt, FK, kk, 0);
+    }
     wg_commit();
     wg_wait();
     reg_fence(oacc);
@@ -527,33 +651,35 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// dK/dV in the transposed form.  One block per (64-row key tile, b*h, NC
+// dK/dV in the transposed form.  One block per (BK-row key tile, b*h, NC
 // output columns from c0); K and V stay in shared memory while the producer
-// streams the query tiles from the causal start (Q and dO, or dO's hi and
-// lo planes, by TMA; lse and delta - dlse by the producer's lanes).  Per
-// tile: S^T = K Q^T and dP^T = V dO^T by wgmma, P^T = exp(S^T scale - lse)
-// and dS^T = P^T (dP^T - delta + dlse) in registers, dV += bf16(P^T) dO
+// streams the query tiles from the causal start (Q and dO, or dO's planes,
+// by TMA; lse and delta - dlse by the producer's lanes).  Per tile:
+// S^T = K Q^T and dP^T = V dO^T by wgmma, P^T = exp(S^T scale - lse) and
+// dS^T = P^T (dP^T - delta + dlse) in registers, dV += bf16(P^T) dO
 // (F32DO: P^T split, three products) and dK += bf16(dS^T) Q by register-A
-// wgmma.
-template <int DP, bool F32DO>
+// wgmma.  F32IN: K, V, Q and dO arrive as three planes each, P^T and dS^T
+// split into three, every product runs over the plane pairs, and dK and dV
+// are fp32.
+template <int DP, bool F32DO, bool F32IN>
 __global__ void __launch_bounds__(NT, DP >= 128 ? 1 : 2)
-dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                 const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv,
-                 const __grid_constant__ CUtensorMap tdo,
-                 const __grid_constant__ CUtensorMap tdo_lo,
+dkv_wgmma_kernel(const __grid_constant__ Maps maps,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 const float* __restrict__ dlse, __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, int H, int S, int D,
-                 float scale, int causal) {
+                 const float* __restrict__ dlse,
+                 std::conditional_t<F32IN, float, __nv_bfloat16>* __restrict__ dk,
+                 std::conditional_t<F32IN, float, __nv_bfloat16>* __restrict__ dv,
+                 int H, int S, int D, float scale, int causal) {
+  static_assert(F32DO || !F32IN, "fp32 q/k/v come with an fp32 dO");
   using L = Tile<DP>;
-  constexpr int BQ = dkv_rows<DP, F32DO>(), NC = dkv_cols<DP>();
-  constexpr int NP = F32DO ? 2 : 1;  // dO planes
+  constexpr int BK = dkv_keys<DP, F32IN>(), BQ = dkv_rows<DP, F32DO, F32IN>();
+  constexpr int NC = dkv_cols<DP, F32IN>();
+  constexpr int NPI = F32IN ? 3 : 1;            // planes of q, k and v
+  constexpr int NP = F32IN ? 3 : F32DO ? 2 : 1;  // planes of dO
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* Ks = align1024(smem_raw);
-  uint8_t* Vs = Ks + L::bytes(BKV);
-  uint8_t* Qs = Vs + L::bytes(BKV);                // [STAGES][BQ, DP]
-  uint8_t* dOs = Qs + STAGES * L::bytes(BQ);       // [STAGES][NP][BQ, DP]
+  uint8_t* Ks = align1024(smem_raw);                // [NPI][BK, DP]
+  uint8_t* Vs = Ks + NPI * L::bytes(BK);            // [NPI][BK, DP]
+  uint8_t* Qs = Vs + NPI * L::bytes(BK);            // [STAGES][NPI][BQ, DP]
+  uint8_t* dOs = Qs + STAGES * NPI * L::bytes(BQ);  // [STAGES][NP][BQ, DP]
   float* stats = (float*)(dOs + STAGES * NP * L::bytes(BQ));  // [STAGES][2][BQ]
   uint64_t* kv_full = (uint64_t*)(stats + STAGES * 2 * BQ);
   uint64_t* q_full = kv_full + 1;
@@ -561,7 +687,7 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * BKV;  // causal: low key tiles carry the most work
+  const int k0 = blockIdx.y * BK;  // causal: low key tiles carry the most work
   const int c0 = blockIdx.z * NC;
   const int q_start = causal ? k0 : 0;
   const int n_tiles = (S - q_start + BQ - 1) / BQ;
@@ -579,9 +705,9 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid >= CONSUMER) {  // producer warp
     const int lane = tid - CONSUMER;
     if (lane == 0) {
-      mbar_expect_tx(kv_full, 2 * L::bytes(BKV));
-      tma_tile<DP>(Ks, &tk, kv_full, BKV, k0, b, h);
-      tma_tile<DP>(Vs, &tv, kv_full, BKV, k0, b, h);
+      mbar_expect_tx(kv_full, 2 * NPI * L::bytes(BK));
+      tma_planes<DP, NPI>(Ks, maps.k, kv_full, BK, k0, b, h);
+      tma_planes<DP, NPI>(Vs, maps.v, kv_full, BK, k0, b, h);
     }
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % STAGES, q0 = q_start + t * BQ;
@@ -600,12 +726,11 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         lse_s[BQ + r] = dd;
       }
       if (lane == 0) {
-        uint8_t* dOt = dOs + st * NP * L::bytes(BQ);
-        mbar_expect_tx(&q_full[st], (1 + NP) * L::bytes(BQ));
-        tma_tile<DP>(Qs + st * L::bytes(BQ), &tq, &q_full[st], BQ, q0, b, h);
-        tma_tile<DP>(dOt, &tdo, &q_full[st], BQ, q0, b, h);
-        if (F32DO)
-          tma_tile<DP>(dOt + L::bytes(BQ), &tdo_lo, &q_full[st], BQ, q0, b, h);
+        mbar_expect_tx(&q_full[st], (NPI + NP) * L::bytes(BQ));
+        tma_planes<DP, NPI>(Qs + st * NPI * L::bytes(BQ), maps.q, &q_full[st],
+                            BQ, q0, b, h);
+        tma_planes<DP, NP>(dOs + st * NP * L::bytes(BQ), maps.dout,
+                           &q_full[st], BQ, q0, b, h);
       } else {
         mbar_arrive(&q_full[st]);
       }
@@ -624,30 +749,46 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % STAGES, q0 = q_start + t * BQ;
     const uint32_t ph = (t / STAGES) & 1;
-    const uint8_t* Qt = Qs + st * L::bytes(BQ);
-    const uint8_t* dOt = dOs + st * NP * L::bytes(BQ);  // hi, then lo
+    const uint8_t* Qt = Qs + st * NPI * L::bytes(BQ);   // its planes in turn
+    const uint8_t* dOt = dOs + st * NP * L::bytes(BQ);  // hi, then mid or lo
     const float* lse_s = stats + st * 2 * BQ;
     const float* dd_s = lse_s + BQ;
 
     float s[BQ / 2], dp[BQ / 2];
     mbar_wait(&q_full[st], ph);
     wg_fence();
+    if constexpr (F32IN) {
+      // A loop over the pairs at DP 256, where the unrolled pairs' K and V
+      // descriptors, hoisted out of the tile loop, spill.
+#pragma unroll (DP > 128 ? 1 : NPAIRS)
+      for (int pr = 0; pr < NPAIRS; ++pr)
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<BQ>(s, desc_k<DP>(Ks, BKV, 0, kk), desc_k<DP>(Qt, BQ, 0, kk), kk);
-#pragma unroll
-    for (int pn = 0; pn < NP; ++pn)
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<BQ>(s, desc_k<DP>(Ks + pair_a(pr) * L::bytes(BK), BK, 0, kk),
+                       desc_k<DP>(Qt + pair_b(pr) * L::bytes(BQ), BQ, 0, kk),
+                       pr + kk);
+          wgmma_ss<BQ>(dp, desc_k<DP>(Vs + pair_a(pr) * L::bytes(BK), BK, 0, kk),
+                       desc_k<DP>(dOt + pair_b(pr) * L::bytes(BQ), BQ, 0, kk),
+                       pr + kk);
+        }
+    } else {
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<BQ>(dp, desc_k<DP>(Vs, BKV, 0, kk),
-                     desc_k<DP>(dOt + pn * L::bytes(BQ), BQ, 0, kk), pn + kk);
+        wgmma_ss<BQ>(s, desc_k<DP>(Ks, BK, 0, kk), desc_k<DP>(Qt, BQ, 0, kk), kk);
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<BQ>(dp, desc_k<DP>(Vs, BK, 0, kk),
+                       desc_k<DP>(dOt + pn * L::bytes(BQ), BQ, 0, kk), pn + kk);
+    }
     wg_commit();
     wg_wait();
     reg_fence(s);
     reg_fence(dp);
 
     // Key row r, query column c: mask where the query precedes the key.
-    const bool diag = causal && q0 < k0 + BKV - 1;
+    const bool diag = causal && q0 < k0 + BK - 1;
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
@@ -659,30 +800,49 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         s[4 * j + e] = p;
       }
 
-    uint32_t pa[BQ / 16][4], plo[F32DO ? BQ / 16 : 1][4], da[BQ / 16][4];
+    if constexpr (F32IN) {
+      uint32_t pf[BQ / 16][3][4], df[BQ / 16][3][4];
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      if constexpr (F32DO)
-        a_frag_split(s, kk, pa[kk], plo[kk]);
-      else
-        a_frag(s, kk, pa[kk]);
-      a_frag(dp, kk, da[kk]);
-    }
-    wg_fence();
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        a_frag_split3(s, kk, pf[kk]);
+        a_frag_split3(dp, kk, df[kk]);
+      }
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk)
-      mma_rs<DP, NC>(dvacc, pa[kk], dOt, BQ, kk, c0);
-    if constexpr (F32DO) {
+      for (int pr = 0; pr < NPAIRS; ++pr)
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          mma_rs<DP, NC>(dvacc, pf[kk][pair_a(pr)],
+                         dOt + pair_b(pr) * L::bytes(BQ), BQ, kk, c0);
+          mma_rs<DP, NC>(dkacc, df[kk][pair_a(pr)],
+                         Qt + pair_b(pr) * L::bytes(BQ), BQ, kk, c0);
+        }
+    } else {
+      uint32_t pa[BQ / 16][4], plo[F32DO ? BQ / 16 : 1][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        if constexpr (F32DO)
+          a_frag_split(s, kk, pa[kk], plo[kk]);
+        else
+          a_frag(s, kk, pa[kk]);
+        a_frag(dp, kk, da[kk]);
+      }
+      wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        mma_rs<DP, NC>(dvacc, plo[kk], dOt, BQ, kk, c0);
+        mma_rs<DP, NC>(dvacc, pa[kk], dOt, BQ, kk, c0);
+      if constexpr (F32DO) {
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          mma_rs<DP, NC>(dvacc, plo[kk], dOt, BQ, kk, c0);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          mma_rs<DP, NC>(dvacc, pa[kk], dOt + L::bytes(BQ), BQ, kk, c0);
+      }
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        mma_rs<DP, NC>(dvacc, pa[kk], dOt + L::bytes(BQ), BQ, kk, c0);
+        mma_rs<DP, NC>(dkacc, da[kk], Qt, BQ, kk, c0);
     }
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk)
-      mma_rs<DP, NC>(dkacc, da[kk], Qt, BQ, kk, c0);
     wg_commit();
     wg_wait();
     reg_fence(dvacc);
@@ -693,7 +853,8 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int s_row = k0 + krow + 8 * i;
-    if (s_row >= S) continue;
+    // Rows from BK on (BK 32) are the next key tile's: not this block's.
+    if ((BK < 64 && krow + 8 * i >= BK) || s_row >= S) continue;
     const long long row = ((long long)b * S + s_row) * H + h;
 #pragma unroll
     for (int j = 0; j < NC / 8; ++j) {
@@ -857,22 +1018,56 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// The fp32 dO's bf16 planes for the F32DO kernels: hi = bf16(dO) and
-// lo = bf16(dO - hi) (the difference is exact in fp32), elementwise over a
-// contiguous, 16-byte aligned dO of n4 groups of four.  Bound by its bytes
-// (4 in, 2 + 2 out per element): float4 loads, one group a thread.
+// The bf16 planes of fp32 tensors for the F32DO and F32IN kernels: plane 0
+// is bf16(x), and each further plane the bf16 rounding of what the planes
+// before it leave of x (each difference exact in fp32): NPL 2 gives hi and
+// lo (about 2^-17 of x left), NPL 3 hi, mid and lo (about 2^-24).
+// Elementwise.  Input t (blockIdx.y) is a [B, S, H, D] view with (b, s, h)
+// element strides st[t] and d contiguous, its base and strides 16-byte
+// aligned; its planes go to out[NPL t + p], each a contiguous [B, S, H, D]
+// of n4 groups of four.  Bound by its bytes (4 in, 2 NPL out per element):
+// float4 loads, one group a thread.
+constexpr int SPLIT_MAX = 3;  // q, k and v
+struct SplitIn {
+  const float* x[SPLIT_MAX];
+  long long st[SPLIT_MAX][3];
+};
+
+template <int NPL>
 __global__ void __launch_bounds__(256)
-split_do_kernel(const float4* __restrict__ dout, int n4,
-                uint2* __restrict__ hi, uint2* __restrict__ lo) {
+split_kernel(const SplitIn in, int S, int H, int D4, int n4,
+             uint2* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
-  const float4 x = dout[i];
-  const __nv_bfloat162 h01 = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 h23 = __floats2bfloat162_rn(x.z, x.w);
-  hi[i] = make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
-                     *reinterpret_cast<const uint32_t*>(&h23));
-  lo[i] = make_uint2(pack_bf16(x.x - __low2float(h01), x.y - __high2float(h01)),
-                     pack_bf16(x.z - __low2float(h23), x.w - __high2float(h23)));
+  // This block's input, chosen without indexing the parameter by a
+  // run-time value (which would copy it to local memory).
+  const int t = blockIdx.y;
+  const float* x = in.x[0];
+  long long sb = in.st[0][0], ss = in.st[0][1], sh = in.st[0][2];
+#pragma unroll
+  for (int j = 1; j < SPLIT_MAX; ++j)
+    if (t == j) {
+      x = in.x[j];
+      sb = in.st[j][0];
+      ss = in.st[j][1];
+      sh = in.st[j][2];
+    }
+  int r = i / D4;
+  const int d = 4 * (i - r * D4);
+  const int h = r % H;
+  r /= H;
+  const int s = r % S, b = r / S;
+  float4 v = *reinterpret_cast<const float4*>(x + b * sb + s * ss + h * sh + d);
+  uint2* plane = out + (long long)NPL * t * n4 + i;
+#pragma unroll
+  for (int p = 0; p < NPL; ++p, plane += n4) {
+    const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
+    *plane = make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
+                        *reinterpret_cast<const uint32_t*>(&h23));
+    v = make_float4(v.x - __low2float(h01), v.y - __high2float(h01),
+                    v.z - __low2float(h23), v.w - __high2float(h23));
+  }
 }
 
 // --- host side -------------------------------------------------------------
@@ -928,73 +1123,101 @@ int make_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The maps of an operand's planes: ptr[0] (its hi plane, or the tensor)
+// with element strides st, and ptr[1..np) of the same layout; entries from
+// np on repeat the hi map, unread.
+template <int DP>
+int make_planes(CUtensorMap (&m)[3], const void* const* ptr, int np,
+                const long long* st, int B, int S, int H, int D, int rows) {
+  for (int pl = 0; pl < 3; ++pl) {
+    if (pl >= np) {
+      m[pl] = m[0];
+      continue;
+    }
+    int err = make_map<DP>(&m[pl], ptr[pl], st, B, S, H, D, rows);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// The maps of q, k and v (element strides st, st + 3, st + 6), with q_rows
+// and k_rows rows a box; lo: null, or their mid and lo planes (F32IN), as
+// {q mid, q lo, k mid, k lo, v mid, v lo}.
+template <int DP>
+int make_qkv_maps(Maps& maps, const void* q, const void* k, const void* v,
+                  const void* const* lo, const long long* st, int B, int S,
+                  int H, int D, int q_rows, int k_rows) {
+  CUtensorMap* dst[3] = {maps.q, maps.k, maps.v};
+  const void* hi[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const void* ptr[3] = {hi[i], lo ? lo[2 * i] : nullptr,
+                          lo ? lo[2 * i + 1] : nullptr};
+    CUtensorMap m[3];
+    int err = make_planes<DP>(m, ptr, lo ? 3 : 1, st + 3 * i, B, S, H, D,
+                              i == 0 ? q_rows : k_rows);
+    if (err) return err;
+    for (int pl = 0; pl < 3; ++pl) dst[i][pl] = m[pl];
+  }
+  return 0;
+}
+
 constexpr size_t BARRIER_BYTES = 64;
 
-template <typename TO, int DP>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-               const long long* st, int B, int S, int H, int D, float scale,
-               int causal, cudaStream_t stream) {
+template <typename TO, int DP, bool F32IN>
+int launch_fwd(const void* q, const void* k, const void* v,
+               const void* const* lo, void* o, void* lse, const long long* st,
+               int B, int S, int H, int D, float scale, int causal,
+               cudaStream_t stream) {
   using L = Tile<DP>;
-  constexpr int FK = fwd_keys<DP>();
-  CUtensorMap tq, tk, tv;
-  int err;
-  if ((err = make_map<DP>(&tq, q, st, B, S, H, D, FQ)) ||
-      (err = make_map<DP>(&tk, k, st + 3, B, S, H, D, FK)) ||
-      (err = make_map<DP>(&tv, v, st + 6, B, S, H, D, FK)))
-    return err;
-  const size_t smem = 1024 + L::bytes(FQ) + 2 * STAGES * L::bytes(FK) + BARRIER_BYTES;
-  auto kernel = fwd_wgmma_kernel<TO, DP>;
+  constexpr int FK = fwd_keys<DP, F32IN>();
+  constexpr int NPI = F32IN ? 3 : 1;
+  Maps maps;
+  int err = make_qkv_maps<DP>(maps, q, k, v, lo, st, B, S, H, D, FQ, FK);
+  if (err) return err;
+  for (int pl = 0; pl < 3; ++pl) maps.dout[pl] = maps.q[0];
+  const size_t smem =
+      1024 + NPI * (L::bytes(FQ) + 2 * STAGES * L::bytes(FK)) + BARRIER_BYTES;
+  auto kernel = fwd_wgmma_kernel<TO, DP, F32IN>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * H, (S + FQ - 1) / FQ);
-  kernel<<<grid, NT, smem, stream>>>(tq, tk, tv, (TO*)o, (float*)lse, H, S, D,
+  kernel<<<grid, NT, smem, stream>>>(maps, (TO*)o, (float*)lse, H, S, D,
                                      scale, causal);
   return (int)cudaGetLastError();
 }
 
-// The maps of the backward kernels: q, k, v, and dO (or dO's hi plane) with
-// the element strides st, and dO's lo plane (F32DO; a plane of hi's layout).
-template <int DP, bool F32DO>
-int make_bwd_maps(CUtensorMap (&m)[5], const void* q, const void* k,
-                  const void* v, const void* dout, const void* dout_lo,
-                  const long long* st, int B, int S, int H, int D, int q_rows,
-                  int k_rows) {
-  int err;
-  if ((err = make_map<DP>(&m[0], q, st, B, S, H, D, q_rows)) ||
-      (err = make_map<DP>(&m[1], k, st + 3, B, S, H, D, k_rows)) ||
-      (err = make_map<DP>(&m[2], v, st + 6, B, S, H, D, k_rows)) ||
-      (err = make_map<DP>(&m[3], dout, st + 9, B, S, H, D, q_rows)))
-    return err;
-  m[4] = m[3];
-  return F32DO ? make_map<DP>(&m[4], dout_lo, st + 9, B, S, H, D, q_rows) : 0;
-}
-
-template <int DP, bool F32DO>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* dout_lo, const void* lse, const void* delta,
-               const void* dlse, void* dk, void* dv, const long long* st,
-               int B, int S, int H, int D, float scale, int causal,
-               cudaStream_t stream) {
+// dO's planes: dout (hi), and dout_lo (F32DO: its lo plane), or lo[6] and
+// lo[7] (F32IN: its mid and lo planes).
+template <int DP, bool F32DO, bool F32IN>
+int launch_dkv(const void* q, const void* k, const void* v,
+               const void* const* lo, const void* dout, const void* dout_lo,
+               const void* lse, const void* delta, const void* dlse, void* dk,
+               void* dv, const long long* st, int B, int S, int H, int D,
+               float scale, int causal, cudaStream_t stream) {
   using L = Tile<DP>;
-  constexpr int BQ = dkv_rows<DP, F32DO>(), NC = dkv_cols<DP>();
-  constexpr int NP = F32DO ? 2 : 1;
-  CUtensorMap m[5];
-  int err = make_bwd_maps<DP, F32DO>(m, q, k, v, dout, dout_lo, st, B, S, H,
-                                     D, BQ, BKV);
+  using TG = std::conditional_t<F32IN, float, __nv_bfloat16>;
+  constexpr int BK = dkv_keys<DP, F32IN>(), BQ = dkv_rows<DP, F32DO, F32IN>();
+  constexpr int NC = dkv_cols<DP, F32IN>();
+  constexpr int NPI = F32IN ? 3 : 1, NP = F32IN ? 3 : F32DO ? 2 : 1;
+  Maps maps;
+  int err = make_qkv_maps<DP>(maps, q, k, v, lo, st, B, S, H, D, BQ, BK);
   if (err) return err;
-  const size_t smem = 1024 + 2 * L::bytes(BKV) +
-                      (1 + NP) * STAGES * L::bytes(BQ) +
+  const void* dptr[3] = {dout, F32IN ? lo[6] : dout_lo,
+                         F32IN ? lo[7] : nullptr};
+  if ((err = make_planes<DP>(maps.dout, dptr, NP, st + 9, B, S, H, D, BQ)))
+    return err;
+  const size_t smem = 1024 + 2 * NPI * L::bytes(BK) +
+                      (NPI + NP) * STAGES * L::bytes(BQ) +
                       STAGES * 2 * BQ * sizeof(float) + BARRIER_BYTES;
-  auto kernel = dkv_wgmma_kernel<DP, F32DO>;
+  auto kernel = dkv_wgmma_kernel<DP, F32DO, F32IN>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * H, (S + BKV - 1) / BKV, DP / NC);
-  kernel<<<grid, NT, smem, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], (const float*)lse, (const float*)delta,
-      (const float*)dlse, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, S, D,
-      scale, causal);
+  dim3 grid(B * H, (S + BK - 1) / BK, DP / NC);
+  kernel<<<grid, NT, smem, stream>>>(maps, (const float*)lse,
+                                     (const float*)delta, (const float*)dlse,
+                                     (TG*)dk, (TG*)dv, H, S, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1006,9 +1229,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   using L = Tile<DP>;
   constexpr int NP = F32DO ? 2 : 1;
   CUtensorMap m[5];
-  int err = make_bwd_maps<DP, F32DO>(m, q, k, v, dout, dout_lo, st, B, S, H,
-                                     D, DQ, BKQ);
-  if (err) return err;
+  int err;
+  if ((err = make_map<DP>(&m[0], q, st, B, S, H, D, DQ)) ||
+      (err = make_map<DP>(&m[1], k, st + 3, B, S, H, D, BKQ)) ||
+      (err = make_map<DP>(&m[2], v, st + 6, B, S, H, D, BKQ)) ||
+      (err = make_map<DP>(&m[3], dout, st + 9, B, S, H, D, DQ)))
+    return err;
+  m[4] = m[3];
+  if (F32DO && (err = make_map<DP>(&m[4], dout_lo, st + 9, B, S, H, D, DQ)))
+    return err;
   const size_t smem = 1024 + (1 + NP) * L::bytes(DQ) +
                       2 * STAGES * L::bytes(BKQ) + BARRIER_BYTES;
   auto kernel = dq_wgmma_kernel<DP, F32DO>;
@@ -1024,14 +1253,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-int hvd_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
-                        void* lse, const long long* strides, int B, int S,
-                        int H, int D, float scale, int causal, int out_f32,
+int hvd_flash_fwd_wgmma(const void* q, const void* k, const void* v,
+                        const void* const* lo, void* o, void* lse,
+                        const long long* strides, int B, int S, int H, int D,
+                        float scale, int causal, int out_f32,
                         cudaStream_t stream) {
-  if (out_f32) {
-    HVD_DISPATCH_D(D, (launch_fwd<float, DP>(q, k, v, o, lse, strides, B, S, H, D, scale, causal, stream)))
+  if (lo) {
+    HVD_DISPATCH_D(D, (launch_fwd<float, DP, true>(q, k, v, lo, o, lse, strides, B, S, H, D, scale, causal, stream)))
   }
-  HVD_DISPATCH_D(D, (launch_fwd<__nv_bfloat16, DP>(q, k, v, o, lse, strides, B, S, H, D, scale, causal, stream)))
+  if (out_f32) {
+    HVD_DISPATCH_D(D, (launch_fwd<float, DP, false>(q, k, v, lo, o, lse, strides, B, S, H, D, scale, causal, stream)))
+  }
+  HVD_DISPATCH_D(D, (launch_fwd<__nv_bfloat16, DP, false>(q, k, v, lo, o, lse, strides, B, S, H, D, scale, causal, stream)))
 }
 
 int hvd_flash_dq_wgmma(const void* q, const void* k, const void* v,
@@ -1046,22 +1279,44 @@ int hvd_flash_dq_wgmma(const void* q, const void* k, const void* v,
 }
 
 int hvd_flash_dkv_wgmma(const void* q, const void* k, const void* v,
-                        const void* dout, const void* dout_lo, const void* lse,
-                        const void* delta, const void* dlse, void* dk, void* dv,
-                        const long long* strides, int B, int S, int H, int D,
-                        float scale, int causal, cudaStream_t stream) {
-  if (dout_lo) {
-    HVD_DISPATCH_D(D, (launch_dkv<DP, true>(q, k, v, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, stream)))
+                        const void* const* lo, const void* dout,
+                        const void* dout_lo, const void* lse,
+                        const void* delta, const void* dlse, void* dk,
+                        void* dv, const long long* strides, int B, int S,
+                        int H, int D, float scale, int causal,
+                        cudaStream_t stream) {
+  if (lo) {
+    if (dout_lo) return (int)cudaErrorInvalidValue;
+    HVD_DISPATCH_D(D, (launch_dkv<DP, true, true>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, stream)))
   }
-  HVD_DISPATCH_D(D, (launch_dkv<DP, false>(q, k, v, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, stream)))
+  if (dout_lo) {
+    HVD_DISPATCH_D(D, (launch_dkv<DP, true, false>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, stream)))
+  }
+  HVD_DISPATCH_D(D, (launch_dkv<DP, false, false>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, stream)))
 }
 
-extern "C" int hvd_flash_split_do(const void* dout, long long n, void* hi,
-                                  void* lo, void* stream) {
-  if (n <= 0 || n % 4 || n / 4 > 0x7fffffffLL || (uintptr_t)dout % 16)
+extern "C" int hvd_flash_split(int n, const void* const* x,
+                               const long long* strides, int B, int S, int H,
+                               int D, int np, void* planes, void* stream) {
+  const long long n4 = (long long)B * S * H * D / 4;
+  if (n < 1 || n > SPLIT_MAX || (np != 2 && np != 3) || B < 1 || S < 1 ||
+      H < 1 || D < 4 || D % 4 || n4 > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const int n4 = (int)(n / 4);
-  split_do_kernel<<<(n4 + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      (const float4*)dout, n4, (uint2*)hi, (uint2*)lo);
+  SplitIn in = {};
+  for (int t = 0; t < n; ++t) {
+    in.x[t] = (const float*)x[t];
+    if ((uintptr_t)x[t] % 16) return (int)cudaErrorInvalidValue;
+    for (int j = 0; j < 3; ++j) {
+      in.st[t][j] = strides[3 * t + j];
+      if (in.st[t][j] % 4) return (int)cudaErrorInvalidValue;
+    }
+  }
+  dim3 grid((unsigned)((n4 + 255) / 256), n);
+  if (np == 3)
+    split_kernel<3><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        in, S, H, D / 4, (int)n4, (uint2*)planes);
+  else
+    split_kernel<2><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        in, S, H, D / 4, (int)n4, (uint2*)planes);
   return (int)cudaGetLastError();
 }

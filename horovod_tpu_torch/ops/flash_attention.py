@@ -4,12 +4,19 @@ Hand-written CUDA kernels for Hopper replace the three Pallas kernels of
 the JAX package: the forward (``_fwd_kernel``), the dQ kernel
 (``_dq_kernel``) and the dK/dV kernel (``_dkv_kernel``).  The kernel is
 chosen by dtype (:func:`impl`): bfloat16 q/k/v take the tensor-core (wgmma)
-kernels (``csrc/flash_wgmma.cu``), float32 the scalar (SIMT) kernels
-(``csrc/flash_attention.cu``).  The lse variant's float32 dO reaches the
-wgmma dQ and dK/dV kernels as two bf16 planes, ``hi = bf16(dO)`` and
-``lo = bf16(dO - hi)`` (:func:`split_do_cuda`, one pass per backward), so
-their products with dO keep fp32's precision on bf16 tensor cores.  The
-kernels take any head dim that is a multiple of 8 up to 256
+kernels of ``csrc/flash_wgmma.cu`` for all three; float32 q/k/v take the
+wgmma forward and dK/dV too, and the scalar (SIMT) dQ of
+``csrc/flash_attention.cu``.  A float32 operand reaches a wgmma kernel as
+bf16 planes, each the bf16 rounding of what the planes before it leave
+(:func:`_split_plain`), made by one split pass: :func:`split_qkv_cuda`
+splits float32 q/k/v into three planes (hi, mid, lo) once per forward,
+kept for the backward, and :func:`split_do_cuda` a float32 dO once per
+backward, into three planes beside float32 q/k/v and into two (hi, lo)
+beside bfloat16 q/k/v (the lse variant's dO).  A product of two
+three-plane operands runs as six bf16 products (the plane pairs down to
+2⁻¹⁶ of the term), which keeps fp32's precision on bf16 tensor cores;
+two planes would not (``tests/test_torch_flash_fp32.py``).  The kernels
+take any head dim that is a multiple of 8 up to 256
 (:func:`kernel_head_dim`).
 
 Beside them stand their plain PyTorch versions, written as the explicit
@@ -25,8 +32,8 @@ formulas with fp32 sums:
 They round where the Pallas kernels round, and so where the tensor cores
 do: P to V's dtype before P·V, P to dO's dtype before Pᵀ·dO, dS to K's
 dtype before dS·K and to Q's before dSᵀ·Q.  For fp32 inputs these casts do
-nothing.  The forward rounds the unnormalised P = exp(S - m) against the
-running row max m, which depends on the key blocks seen so far, so its
+nothing.  The bf16 forward rounds the unnormalised P = exp(S - m) against
+the running row max m, which depends on the key blocks seen so far, so its
 plain version walks the same key blocks as the kernel.
 
 Which one runs depends only on where the tensors lie: CPU tensors take the
@@ -56,7 +63,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 FWD_BLOCK_K = 128
 
 # Launches of each kernel, counted where the wrapper launches it, and of
-# each of its variants (see :func:`variant`; the dO split is "split").
+# each of its variants (see :func:`variant`; the split pass is "split",
+# its variants "split" for a dO and "split qkv" for q, k and v).
 launches = {"fwd": 0, "dq": 0, "dkv": 0, "split": 0}
 variant_launches: Dict[str, int] = {}
 
@@ -88,15 +96,18 @@ def reset_launch_counts() -> None:
 
 def variant(kernel: str, dtype: torch.dtype, do_dtype=None,
             causal: bool = True, out_f32: bool = False) -> str:
-    """The compiled kernel a launch runs, e.g. ``"dq simt causal"``,
-    ``"fwd wgmma f32out"`` (the forward's fp32-output instantiation, the
-    lse variant's) or ``"dkv wgmma f32do"`` (the backward's instantiation
-    for the lse variant's fp32 dO, split into bf16 planes)."""
-    f32do = (kernel != "fwd" and dtype == torch.bfloat16
-             and do_dtype == torch.float32)
-    return " ".join([kernel, impl(kernel, dtype, do_dtype)]
-                    + ["f32out"] * bool(out_f32) + ["f32do"] * f32do
-                    + ["causal"] * bool(causal))
+    """The compiled kernel a launch runs, e.g. ``"dq simt causal"`` (fp32),
+    ``"fwd wgmma f32out"`` (bf16 q/k/v, fp32 output: the lse variant's),
+    ``"dkv wgmma f32do"`` (bf16 q/k/v with the lse variant's fp32 dO, split
+    into bf16 planes) or ``"fwd wgmma fp32"`` (fp32 q/k/v as bf16
+    planes)."""
+    name = impl(kernel, dtype, do_dtype)
+    bf16 = dtype == torch.bfloat16
+    f32do = kernel != "fwd" and bf16 and do_dtype == torch.float32
+    fp32 = dtype == torch.float32 and name == "wgmma"
+    return " ".join([kernel, name] + ["fp32"] * fp32
+                    + ["f32out"] * (bool(out_f32) and bf16)
+                    + ["f32do"] * f32do + ["causal"] * bool(causal))
 
 
 def _launched(kernel: str, name: str) -> None:
@@ -183,12 +194,22 @@ def _flash_dkv_plain(q, k, v, do, lse, delta, dlse, scale: float,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _split_do_plain(do):
-    """An fp32 dO as two bf16 planes ``(hi, lo)``: hi = bf16(dO) and lo =
-    bf16(dO - hi).  dO - hi is exact in fp32, so hi + lo holds dO to about
-    2⁻¹⁷ of it."""
-    hi = do.to(torch.bfloat16)
-    return hi, (do - hi.float()).to(torch.bfloat16)
+def _split_plain(x, n: int = 2):
+    """An fp32 tensor as ``n`` bf16 planes: the first bf16(x), each next
+    one the bf16 rounding of what the planes before it leave of x (each
+    difference exact in fp32).  Two planes (hi, lo) hold x to about 2⁻¹⁷
+    of it, three (hi, mid, lo) to about 2⁻²⁴."""
+    planes, rest = [], x
+    for _ in range(n):
+        planes.append(rest.to(torch.bfloat16))
+        rest = rest - planes[-1].float()
+    return tuple(planes)
+
+
+def _split_qkv_plain(q, k, v):
+    """fp32 q, k and v as their three bf16 planes ``[3, 3, B, S, H, D]``
+    (see :func:`_split_plain`), as :func:`split_qkv_cuda` lays them out."""
+    return torch.stack([torch.stack(_split_plain(t, 3)) for t in (q, k, v)])
 
 
 def rounding_slack(q, k, v, do, lse, delta, dlse, scale: float,
@@ -259,14 +280,16 @@ def impl(kernel: str, dtype: torch.dtype,
          do_dtype: Optional[torch.dtype] = None) -> str:
     """Which CUDA kernel serves ``kernel`` ("fwd", "dq" or "dkv") for q/k/v
     of ``dtype`` (and dO of ``do_dtype``, bf16 or fp32 with bf16 q/k/v):
-    "wgmma" (tensor cores, TMA loads) for bfloat16, "simt" (scalar FMAs)
-    for float32."""
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    "wgmma" (tensor cores, TMA loads) for bfloat16, and for float32's
+    forward and dK/dV (as bf16 planes); "simt" (scalar FMAs) for float32's
+    dQ."""
+    return "simt" if dtype == torch.float32 and kernel == "dq" else "wgmma"
 
 
 def _check_tma(*named):
-    """The wgmma kernels load tiles through TMA tensor maps, which take a
-    16-byte aligned base and (b, s, h) strides of whole 16-byte units."""
+    """The wgmma kernels load tiles through TMA tensor maps, and the split
+    reads fp32 in 16-byte vectors: both take a 16-byte aligned base and
+    (b, s, h) strides of whole 16-byte units."""
     for name, t in named:
         steps = [st * t.element_size() for st in t.stride()[:3]]
         if t.data_ptr() % 16 or any(st % 16 for st in steps):
@@ -290,6 +313,10 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _ptrs(*ts):
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"flash {name} kernel launch failed: CUDA error "
@@ -300,22 +327,94 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _split_cuda(name, n, *xs):
+    """The split kernel over fp32 ``xs`` (checked, one shape, d contiguous,
+    16-byte aligned): their ``n`` bf16 planes each, ``[len(xs), n, B, S, H,
+    D]`` (see :func:`_split_plain`).  ``name``: the launch's variant."""
+    from horovod_tpu_torch.ops import _build
+
+    B, S, H, D = xs[0].shape
+    lib = _build.lib()
+    planes = torch.empty((len(xs), n, B, S, H, D), device=xs[0].device,
+                         dtype=torch.bfloat16)
+    with torch.cuda.device(xs[0].device):
+        err = lib.hvd_flash_split(len(xs), _ptrs(*xs), _strides(*xs), B, S,
+                                  H, D, n, planes.data_ptr(),
+                                  _stream(xs[0].device))
+    _launched("split", name)
+    _raise_on(err, "split")
+    return planes
+
+
+def split_do_cuda(do, n: int = 2):
+    """The split kernel on an fp32 dO: its ``n`` bf16 planes ``[n, B, S, H,
+    D]`` (see :func:`_split_plain`): two for the wgmma kernels' f32do
+    instantiations (bf16 q/k/v), three for their fp32 ones."""
+    if not do.is_cuda or do.dtype != torch.float32 or do.dim() != 4:
+        raise ValueError(f"the split takes a CUDA float32 [B, S, H, D] dO, "
+                         f"got {do.dtype} {tuple(do.shape)} on {do.device}")
+    kernel_head_dim(do.shape[-1])
+    if do.numel() >= 2 ** 33:
+        raise ValueError(f"dO of {do.numel()} elements is too large for the "
+                         "split's 32-bit indexing")
+    steps = [st * 4 for st in do.stride()[:3]]
+    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(st % 16
+                                                        for st in steps):
+        do = do.clone(memory_format=torch.contiguous_format)
+    return _split_cuda("split", n, do)[0]
+
+
+def split_qkv_cuda(q, k, v):
+    """The split kernel on fp32 q, k and v, in one launch: their three bf16
+    planes each, ``[3, 3, B, S, H, D]`` (see :func:`_split_qkv_plain`), for
+    the wgmma forward's and dK/dV's fp32 instantiations."""
+    _check_qkv(q, k, v)
+    if q.dtype != torch.float32:
+        raise ValueError(f"the split takes float32 q/k/v, got {q.dtype}")
+    _check_tma(("q", q), ("k", k), ("v", v))
+    return _split_cuda("split qkv", 3, q, k, v)
+
+
+def _check_planes(name, planes, shape, like):
+    if planes.shape != shape or planes.dtype != torch.bfloat16 or \
+            not planes.is_contiguous() or planes.device != like.device:
+        raise ValueError(f"{name} planes must be contiguous bf16 {shape} on "
+                         f"{like.device}, got {planes.dtype} "
+                         f"{tuple(planes.shape)} on {planes.device}")
+
+
+def _kernel_qkv(q, k, v, planes):
+    """The q/k/v tensors the wgmma forward and dK/dV read, and their lower
+    planes (q mid, q lo, k mid, k lo, v mid, v lo; None for bf16 q/k/v).
+    fp32 q/k/v go as their bf16 planes: ``planes`` where the caller split
+    them (:func:`split_qkv_cuda`), else split here."""
+    if q.dtype != torch.float32:
+        _check_tma(("q", q), ("k", k), ("v", v))
+        return (q, k, v), None
+    if planes is None:
+        planes = split_qkv_cuda(q, k, v)
+    _check_planes("q/k/v", planes, (3, 3) + tuple(q.shape), q)
+    return tuple(planes[:, 0]), [p for t in planes for p in t[1:]]
+
+
 def flash_fwd_cuda(q, k, v, scale: float, causal: bool,
-                   out_f32: bool = False):
-    """Forward kernel: ``(o [B,S,H,D], lse [B,S,H] fp32)``."""
+                   out_f32: bool = False, qkv_planes=None):
+    """Forward kernel: ``(o [B,S,H,D], lse [B,S,H] fp32)``.
+    ``qkv_planes``: fp32 q/k/v's planes from :func:`split_qkv_cuda`, so that
+    the forward and dK/dV share one split."""
     from horovod_tpu_torch.ops import _build
 
     B, S, H, D = _check_qkv(q, k, v)
-    if impl("fwd", q.dtype) == "wgmma":
-        _check_tma(("q", q), ("k", k), ("v", v))
+    (qk, kk, vk), lo = _kernel_qkv(q, k, v, qkv_planes)
     lib = _build.lib()
     o = torch.empty((B, S, H, D), device=q.device,
                     dtype=torch.float32 if out_f32 else q.dtype)
     lse = torch.empty((B, S, H), device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
         err = lib.hvd_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), _strides(q, k, v), B, S, H, D, float(scale),
+            qk.data_ptr(), kk.data_ptr(), vk.data_ptr(),
+            None if lo is None else _ptrs(*lo), o.data_ptr(),
+            lse.data_ptr(), _strides(qk, kk, vk), B, S, H, D, float(scale),
             int(causal), _DTYPE_CODE[q.dtype], int(out_f32),
             _stream(q.device))
     _launched("fwd", variant("fwd", q.dtype, causal=causal, out_f32=out_f32))
@@ -323,37 +422,16 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool,
     return o, lse
 
 
-def split_do_cuda(do):
-    """The split kernel: an fp32 dO as its bf16 planes ``[2, B, S, H, D]``
-    (hi, then lo; see :func:`_split_do_plain`), for the wgmma dQ and dK/dV
-    kernels' f32do instantiations."""
-    from horovod_tpu_torch.ops import _build
-
-    if not do.is_cuda or do.dtype != torch.float32:
-        raise ValueError(f"the split takes a CUDA float32 dO, got {do.dtype} "
-                         f"on {do.device}")
-    if not do.is_contiguous() or do.data_ptr() % 16:
-        do = do.clone(memory_format=torch.contiguous_format)
-    kernel_head_dim(do.shape[-1])
-    if do.numel() >= 2 ** 33:
-        raise ValueError(f"dO of {do.numel()} elements is too large for the "
-                         "split's 32-bit indexing")
-    lib = _build.lib()
-    planes = torch.empty((2,) + tuple(do.shape), device=do.device,
-                         dtype=torch.bfloat16)
-    with torch.cuda.device(do.device):
-        err = lib.hvd_flash_split_do(do.data_ptr(), do.numel(),
-                                     planes[0].data_ptr(),
-                                     planes[1].data_ptr(), _stream(do.device))
-    _launched("split", "split")
-    _raise_on(err, "dO split")
-    return planes
+def do_planes_of(dtype: torch.dtype) -> int:
+    """How many bf16 planes a wgmma backward kernel takes an fp32 dO in
+    beside q/k/v of ``dtype``: three beside fp32, two beside bf16."""
+    return 3 if dtype == torch.float32 else 2
 
 
 def _bwd_args(kernel, q, k, v, do, lse, delta, dlse, do_planes):
-    """Checks the backward's inputs; returns ((B, S, H, D), the dO tensors
-    the kernel reads and their lo plane's pointer or None).  An fp32 dO
-    with bf16 q/k/v goes to the kernel as its bf16 planes: ``do_planes``
+    """Checks the backward's inputs; returns ((B, S, H, D), the dO tensor
+    the kernel reads and its lower planes, or None).  An fp32 dO goes to a
+    wgmma kernel as its bf16 planes (:func:`do_planes_of`): ``do_planes``
     where the caller split it already, else split here."""
     B, S, H, D = _check_qkv(q, k, v, do)
     _check_stat("lse", lse, q)
@@ -363,15 +441,11 @@ def _bwd_args(kernel, q, k, v, do, lse, delta, dlse, do_planes):
     lo = None
     if impl(kernel, q.dtype, do.dtype) == "wgmma":
         if do.dtype == torch.float32:
-            planes = split_do_cuda(do) if do_planes is None else do_planes
-            if planes.shape != (2,) + tuple(q.shape) or \
-                    planes.dtype != torch.bfloat16 or \
-                    not planes.is_contiguous():
-                raise ValueError("dO planes must be contiguous bf16 "
-                                 f"[2, B, S, H, D], got {planes.dtype} "
-                                 f"{tuple(planes.shape)}")
-            do, lo = planes[0], planes[1].data_ptr()
-        _check_tma(("q", q), ("k", k), ("v", v), ("dO", do))
+            n = do_planes_of(q.dtype)
+            planes = split_do_cuda(do, n) if do_planes is None else do_planes
+            _check_planes("dO", planes, (n,) + tuple(q.shape), q)
+            do, lo = planes[0], list(planes[1:])
+        _check_tma(("dO", do))
     return (B, S, H, D), do, lo
 
 
@@ -379,16 +453,19 @@ def flash_dq_cuda(q, k, v, do, lse, delta, dlse, scale: float,
                   causal: bool, do_planes=None):
     """dQ kernel.  ``dlse`` may be None (the lse received no gradient).
     ``do_planes``: an fp32 dO's planes from :func:`split_do_cuda`, so that
-    dQ and dK/dV share one split."""
+    dQ and dK/dV share one split (the fp32 dQ reads dO as it is)."""
     from horovod_tpu_torch.ops import _build
 
     (B, S, H, D), dok, lo = _bwd_args("dq", q, k, v, do, lse, delta, dlse,
                                       do_planes)
+    if impl("dq", q.dtype) == "wgmma":
+        _check_tma(("q", q), ("k", k), ("v", v))
     lib = _build.lib()
     dq = torch.empty((B, S, H, D), device=q.device, dtype=q.dtype)
     with torch.cuda.device(q.device):
         err = lib.hvd_flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dok.data_ptr(), lo,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dok.data_ptr(),
+            None if lo is None else lo[0].data_ptr(),
             lse.data_ptr(), delta.data_ptr(),
             None if dlse is None else dlse.data_ptr(), dq.data_ptr(),
             _strides(q, k, v, dok), B, S, H, D, float(scale), int(causal),
@@ -399,23 +476,30 @@ def flash_dq_cuda(q, k, v, do, lse, delta, dlse, scale: float,
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, dlse, scale: float,
-                   causal: bool, do_planes=None):
+                   causal: bool, do_planes=None, qkv_planes=None):
     """dK/dV kernel: ``(dk, dv)``.  ``dlse`` may be None; ``do_planes`` as
-    for :func:`flash_dq_cuda`."""
+    for :func:`flash_dq_cuda`, ``qkv_planes`` as for
+    :func:`flash_fwd_cuda`."""
     from horovod_tpu_torch.ops import _build
 
-    (B, S, H, D), dok, lo = _bwd_args("dkv", q, k, v, do, lse, delta, dlse,
-                                      do_planes)
+    (B, S, H, D), dok, do_lo = _bwd_args("dkv", q, k, v, do, lse, delta,
+                                         dlse, do_planes)
+    (qk, kk, vk), qkv_lo = _kernel_qkv(q, k, v, qkv_planes)
+    if qkv_lo is None:  # bf16 q/k/v: an fp32 dO's lo plane on its own
+        lo, do_lo = None, None if do_lo is None else do_lo[0].data_ptr()
+    else:  # fp32: dO's mid and lo planes follow q/k/v's
+        lo, do_lo = _ptrs(*qkv_lo, *do_lo), None
     lib = _build.lib()
     dk = torch.empty((B, S, H, D), device=q.device, dtype=k.dtype)
     dv = torch.empty((B, S, H, D), device=q.device, dtype=v.dtype)
     with torch.cuda.device(q.device):
         err = lib.hvd_flash_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dok.data_ptr(), lo,
-            lse.data_ptr(), delta.data_ptr(),
+            qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), lo, dok.data_ptr(),
+            do_lo, lse.data_ptr(), delta.data_ptr(),
             None if dlse is None else dlse.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _strides(q, k, v, dok), B, S, H, D, float(scale),
-            int(causal), _DTYPE_CODE[q.dtype], _stream(q.device))
+            dv.data_ptr(), _strides(qk, kk, vk, dok), B, S, H, D,
+            float(scale), int(causal), _DTYPE_CODE[q.dtype],
+            _stream(q.device))
     _launched("dkv", variant("dkv", q.dtype, do.dtype, causal))
     _raise_on(err, "dK/dV")
     return dk, dv
@@ -442,11 +526,16 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, out_f32):
+        planes = None
         if _on_cpu(q, k, v):
             o, lse = _flash_fwd_plain(q, k, v, scale, causal, out_f32)
         else:
-            o, lse = flash_fwd_cuda(q, k, v, scale, causal, out_f32)
-        ctx.save_for_backward(q, k, v, o, lse)
+            # fp32 q/k/v are split once, for the forward and dK/dV.
+            if q.dtype == torch.float32:
+                planes = split_qkv_cuda(q, k, v)
+            o, lse = flash_fwd_cuda(q, k, v, scale, causal, out_f32,
+                                    qkv_planes=planes)
+        ctx.save_for_backward(q, k, v, o, lse, planes)
         ctx.scale, ctx.causal = scale, causal
         # An output that received no gradient arrives as None, not zeros.
         ctx.set_materialize_grads(False)
@@ -454,7 +543,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, planes = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
         if do.stride(-1) != 1:
@@ -467,11 +556,13 @@ class _FlashAttention(torch.autograd.Function):
             dq = _flash_dq_plain(*args)
             dk, dv = _flash_dkv_plain(*args)
         else:
-            # An fp32 dO (the lse variant's) is split once for both kernels.
-            planes = (split_do_cuda(do) if impl("dq", q.dtype) == "wgmma"
-                      and do.dtype == torch.float32 else None)
-            dq = flash_dq_cuda(*args, do_planes=planes)
-            dk, dv = flash_dkv_cuda(*args, do_planes=planes)
+            # An fp32 dO (the lse variant's, or fp32 q/k/v's) is split once
+            # for both kernels.
+            do_planes = (split_do_cuda(do, do_planes_of(q.dtype))
+                         if do.dtype == torch.float32 else None)
+            dq = flash_dq_cuda(*args, do_planes=do_planes)
+            dk, dv = flash_dkv_cuda(*args, do_planes=do_planes,
+                                    qkv_planes=planes)
         return dq, dk, dv, None, None, None
 
 

@@ -244,7 +244,10 @@ def test_impl_is_chosen_by_dtype():
     assert fa.impl("dkv", bf, f32) == "wgmma"  # the lse variant's fp32 dO
     assert fa.impl("dq", bf, bf) == "wgmma"
     assert fa.impl("dq", bf, f32) == "wgmma"
-    assert {fa.impl(k, f32, f32) for k in ("fwd", "dq", "dkv")} == {"simt"}
+    # fp32 q/k/v: forward and dK/dV on wgmma (as bf16 planes), dQ scalar.
+    assert fa.impl("fwd", f32) == "wgmma"
+    assert fa.impl("dkv", f32, f32) == "wgmma"
+    assert fa.impl("dq", f32, f32) == "simt"
 
 
 def test_tma_check_rejects_unaligned_strides():
@@ -370,8 +373,8 @@ def test_cuda_kernels_match_plain(cuda_device, D, S, dtype):
 @pytest.mark.cuda
 def test_cuda_kernels_read_strided_inputs(cuda_device):
     """q/k/v as views into one packed [B, S, 3, H, D] tensor, in fp32 (the
-    scalar kernels' pointer strides) and bf16 (the wgmma kernels' tensor
-    maps)."""
+    split's and the scalar dQ's strided reads) and bf16 (the wgmma
+    kernels' tensor maps)."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     for dt in (torch.float32, torch.bfloat16):
         qkv = torch.randn(2, 200, 3, 4, 64, device=cuda_device,
@@ -388,10 +391,11 @@ def test_cuda_autograd_runs_kernels(cuda_device):
           .requires_grad_() for _ in range(3)]
     o, lse = fa.flash_attention_lse(*ts)
     (o.sum() + lse.sum()).backward()
-    assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1, "split": 0}
+    # fp32 q/k/v are split once in the forward, dO once in the backward.
+    assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1, "split": 2}
     o = fa.flash_attention(*ts)
     o.sum().backward()  # the lse gets no gradient: dlse is None
-    assert fa.launches == {"fwd": 2, "dq": 2, "dkv": 2, "split": 0}
+    assert fa.launches == {"fwd": 2, "dq": 2, "dkv": 2, "split": 4}
 
 
 def _lse_variant_bf16_against_fp32_oracle(device, causal):

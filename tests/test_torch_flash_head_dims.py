@@ -126,7 +126,9 @@ def test_impl_and_variant_of_the_fp32_do_route():
         assert fa.variant(k, bf, f32, True) == f"{k} wgmma f32do causal"
         assert fa.variant(k, bf, f32, False) == f"{k} wgmma f32do"
         assert fa.variant(k, bf, bf, True) == f"{k} wgmma causal"
-        assert fa.variant(k, f32, f32, False) == f"{k} simt"
+    # fp32 q/k/v: the dQ stays scalar, dK/dV runs on wgmma as bf16 planes.
+    assert fa.variant("dq", f32, f32, False) == "dq simt"
+    assert fa.variant("dkv", f32, f32, False) == "dkv wgmma fp32"
     assert fa.variant("fwd", bf, causal=False, out_f32=True) == \
         "fwd wgmma f32out"
 
@@ -138,7 +140,7 @@ def test_split_plain_holds_do():
     x = torch.tensor(rs.randn(3, 50, 2, 24).astype(np.float32)
                      * np.exp(rs.uniform(-20, 20, (3, 50, 2, 24)))
                      .astype(np.float32))
-    hi, lo = fa._split_do_plain(x)
+    hi, lo = fa._split_plain(x)
     assert hi.dtype == lo.dtype == torch.bfloat16
     assert torch.equal(hi, x.to(torch.bfloat16))
     err = (hi.double() + lo.double() - x.double()).abs()
@@ -254,5 +256,5 @@ def test_cuda_split_matches_plain_bit_for_bit(cuda_device):
                                   generator=gen) * 10)
     for do in (x, x[:, 1:]):  # contiguous, and a view the wrapper copies
         planes = fa.split_do_cuda(do)
-        hi, lo = fa._split_do_plain(do)
+        hi, lo = fa._split_plain(do)
         assert torch.equal(planes[0], hi) and torch.equal(planes[1], lo)
