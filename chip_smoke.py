@@ -11,8 +11,8 @@ non-zero):
    per source, in parallel), and disassemble the library: every
    instantiation of the tensor-core forward, dQ and dK/dV kernels (five
    head-dim widths; the forward's bf16 q/k/v with two output types and fp32
-   q/k/v, dK/dV's bf16 q/k/v with a bf16 or fp32 dO and fp32 q/k/v, dQ's
-   bf16 q/k/v with a bf16 or fp32 dO) must hold ``HGMMA`` instructions;
+   q/k/v; dQ's and dK/dV's bf16 q/k/v with a bf16 or fp32 dO, and fp32
+   q/k/v) must hold ``HGMMA`` instructions;
 2. hold each kernel (flash forward, dQ, dK/dV) against its plain PyTorch
    version (fp32 sums, the kernels' bf16 rounding points) on the same
    inputs, at the flagship shape (B 8, S 1024, H 16, D 64, bf16, causal), at
@@ -23,9 +23,9 @@ non-zero):
    (``flash_attention_lse``: fp32 output, fp32 dO split into bf16 planes by
    the split kernel, nonzero dlse), causal (the self-block) and not (the
    other hops), and at head dims 96 and 256 (B 2, S 1000, H 8, dlse, bf16)
-   on both routes.  fp32 q/k/v reach the forward and dK/dV as three bf16
-   planes each (the split of q/k/v, and of dO); every split must match its
-   plain version bit for bit;
+   on both routes.  fp32 q/k/v reach the forward, dQ and dK/dV as three
+   bf16 planes each (the split of q/k/v, and of dO); every split must match
+   its plain version bit for bit;
 3. inside one ``hvd.init()`` (a one-rank NCCL group), first the ResNet-50
    slice: ``resnet50_config()`` at full width and depth (blocks 3, 4, 6, 3,
    width 64, 1000 classes, bf16), batch 32 of 224x224 images from a fixed
@@ -105,8 +105,8 @@ PEAKS = {
     "H100 PCIe": (756e12, 378e12, 51e12, 2.0e12),
     "H100 NVL": (835e12, 417.5e12, 60e12, 3.9e12),
 }
-SOURCES = {"simt": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
-           "wgmma": "horovod_tpu_torch/ops/csrc/flash_wgmma.cu"}
+# Every kernel of the port, and its C entry points.
+SOURCE = "horovod_tpu_torch/ops/csrc/flash_wgmma.cu"
 # Kernels that must run on the tensor cores, by their name in the library.
 WGMMA_KERNELS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel")
 # cuDNN's convolution and cuBLAS's matrix-product kernels, by name.
@@ -122,7 +122,9 @@ REPLACES = {"fwd": "horovod_tpu/ops/pallas_attention.py:77",
 # inputs: |got - want| <= rtol |want| + atol rms(want) + slack, as (rtol,
 # atol), by the output's dtype.  bf16: rtol is one bf16 ulp at the bottom
 # of a binade (2^-7): both sides round their fp32 result once, so equal
-# sums end at most one ulp apart; fp32: summation order only.  slack
+# sums end at most one ulp apart; fp32: the order of the sums and the
+# fp32 kernels' three-plane products (each term within about 2^-16 of its
+# fp32 value; tests/test_torch_flash_fp32.py emulates them).  slack
 # (fa.rounding_slack) covers the bf16 intermediates (P, dS) that both
 # sides round: from fp32 values that differ in their last bits the two
 # roundings can differ by one ulp of a term, and slack is 2^-7 times the
@@ -412,11 +414,14 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
                 f"{SPLIT_GAP} of a bf16 dO's" for name, (g, g16)
                 in gaps.items() if g > SPLIT_GAP * g16]
     _fail_if(bad, f"kernels at S {S} D {D} {dname}")
+    if fp32:
+        print(f"  dq_wgmma_kernel<{fa.kernel_head_dim(D)}, true, true>: "
+              f"{_registers('dq', D, True, True)}")
     if not timed:
         return {}
-    impls = {kname: fa.impl(kname, dtype, do.dtype) if kname in ("fwd", "dq",
-                                                               "dkv")
-             else "simt" for kname in err}
+    # The flash kernels run on the tensor cores; the splits are elementwise.
+    impls = {kname: "wgmma" if kname in ("fwd", "dq", "dkv")
+             else "elementwise" for kname in err}
     # One split serves the timed kernels, as in the forward and backward.
     qkv = dict(qkv_planes=qkv_planes) if fp32 else {}
 
@@ -434,7 +439,7 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
                                             lse_route),
                 lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                        is_causal=causal)),
-        "dq": (lambda: fa.flash_dq_cuda(*args, do_planes=planes),
+        "dq": (lambda: fa.flash_dq_cuda(*args, do_planes=planes, **qkv),
                lambda: fa._flash_dq_plain(*args), sdpa_bwd),
         "dkv": (lambda: fa.flash_dkv_cuda(*args, do_planes=planes, **qkv),
                 lambda: fa._flash_dkv_plain(*args), sdpa_bwd),
@@ -479,11 +484,11 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
                           library_ms=lib_ms, **old)
     if fp32:
         fwd = out["fwd"]["ms"] + out["split_qkv"]["ms"]
-        dkv = out["dkv"]["ms"] + out["split_qkv"]["ms"] + out["split"]["ms"]
+        bwd = out["dq"]["ms"] + out["dkv"]["ms"] + out["split"]["ms"]
         print(f"  fp32 forward with the q/k/v split {fwd:.4f} ms against "
-              f"SDPA's forward {out['fwd']['library_ms']:.4f} ms; dK/dV "
-              f"with the q/k/v and dO splits {dkv:.4f} ms against SDPA's "
-              f"whole backward {out['dkv']['library_ms']:.4f} ms")
+              f"SDPA's forward {out['fwd']['library_ms']:.4f} ms; dQ, dK/dV "
+              f"and the dO split {bwd:.4f} ms against SDPA's whole backward "
+              f"{out['dkv']['library_ms']:.4f} ms")
     return out
 
 
@@ -514,10 +519,10 @@ def check_sass(lib_path):
     print(f"sass: {found} instantiations, each with HGMMA"
           if not bad else f"sass: {bad}")
     # Five head-dim widths, each with bf16 q/k/v's two output types and
-    # fp32 q/k/v (forward), bf16 q/k/v's two dO types and fp32 q/k/v
-    # (dK/dV), or bf16 q/k/v's two dO types (dQ).
+    # fp32 q/k/v (forward), or bf16 q/k/v's two dO types and fp32 q/k/v
+    # (dQ, dK/dV).
     if found != {"fwd_wgmma_kernel": 15, "dkv_wgmma_kernel": 15,
-                 "dq_wgmma_kernel": 10}:
+                 "dq_wgmma_kernel": 15}:
         bad.append(f"wgmma instantiations found {found}")
     _fail_if(bad, "sass")
     return found
@@ -965,8 +970,7 @@ def run_sp(fa, ra, dev, card):
                    if re.search(pattern, e.key)) / reps / n / 1e3
 
     total = per_rank(".")
-    bwd = per_rank(r"\b(dq_wgmma_kernel<\d+, true>|"
-                   r"dkv_wgmma_kernel<\d+, true, false>)")
+    bwd = per_rank(r"\b(dq|dkv)_wgmma_kernel<\d+, true, false>")
     split = per_rank(r"\bsplit_kernel<2>")
     fwd = per_rank(r"\bfwd_wgmma_kernel<")
     uly = sum(_dev_us(e) for e in _profile_rows(layer("ulysses"), reps)
@@ -998,6 +1002,22 @@ def run_mnist(hvd, dev):
         raise AssertionError(f"mnist: losses not finite and falling: {losses}")
 
 
+# {mangled kernel name: registers a thread}, from the build's ptxas report.
+REGISTERS = {}
+
+
+def _registers(kernel, D, *flags):
+    """The registers of ``<kernel>_wgmma_kernel`` at head dim D with its
+    bool template arguments ``flags``, as ptxas reported them."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    key = f"{kernel}_wgmma_kernelILi{fa.kernel_head_dim(D)}E" + "".join(
+        f"Lb{int(f)}E" for f in flags)
+    regs = [r for name, r in REGISTERS.items() if key in name]
+    return (f"{regs[0]} registers" if len(regs) == 1
+            else "registers not reported")
+
+
 def _ptxas_report(log):
     """Registers and spills of each kernel, from ``ptxas -v``."""
     name, spills = None, 0
@@ -1011,6 +1031,7 @@ def _ptxas_report(log):
                 print(f"build: spills in {name}: {line.strip()}")
         elif name and "Used " in line and "registers" in line:
             regs = line.split("Used ", 1)[1].split(" registers")[0]
+            REGISTERS[name] = int(regs)
             kname = re.search(r"\d([a-z]+(?:_wgmma)?_kernel)I", name)
             short = name.split("N_", 1)[-1][-70:]
             print(f"build: {regs} registers  "
@@ -1119,7 +1140,7 @@ def main() -> int:
                                    for k, t in per_rank.items()))
 
     kernels = [dict(name=f"flash_{k}", route="cuda",
-                    source=SOURCES[flagship[k]["impl"]], replaces=REPLACES[k],
+                    source=SOURCE, replaces=REPLACES[k],
                     launches=counts[k], **flagship[k])
                for k in ("fwd", "dq", "dkv")]
     # The ring hop's variants, with their launches in the causal ring run.
@@ -1129,28 +1150,28 @@ def main() -> int:
                              out_f32=(k == "fwd"))
             kernels.append(dict(
                 name=f"flash_{k}_ring_{tag}", route="cuda",
-                source=SOURCES[ring[c][k]["impl"]], replaces=REPLACES[k],
+                source=SOURCE, replaces=REPLACES[k],
                 launches=sp_run["ring causal"][var], **ring[c][k]))
     # The split of each hop's fp32 dO, timed at the other hops' inputs.
     kernels.append(dict(name="flash_split_do", route="cuda",
-                        source=SOURCES["wgmma"], replaces=REPLACES["split"],
+                        source=SOURCE, replaces=REPLACES["split"],
                         launches=sp_run["ring causal"]["split"],
                         **ring[False]["split"]))
     # The fp32 kernels at the flagship's attention in fp32, with their
-    # launches in the fp32 step: the forward and dK/dV on wgmma, dQ scalar,
-    # and the splits of q/k/v (per forward) and of dO (per backward).
+    # launches in the fp32 step: the forward, dQ and dK/dV on wgmma, and the
+    # splits of q/k/v (per forward) and of dO (per backward).
     f32t = torch.float32
     for k in ("fwd", "dq", "dkv"):
         kernels.append(dict(
             name=f"flash_{k}_fp32", route="cuda",
-            source=SOURCES[f32[k]["impl"]], replaces=REPLACES[k],
+            source=SOURCE, replaces=REPLACES[k],
             launches=f32_run[fa.variant(k, f32t, f32t, True)], **f32[k]))
     kernels.append(dict(name="flash_split_qkv_fp32", route="cuda",
-                        source=SOURCES["wgmma"],
+                        source=SOURCE,
                         replaces=REPLACES["split_qkv"],
                         launches=f32_run["split qkv"], **f32["split_qkv"]))
     kernels.append(dict(name="flash_split_do_fp32", route="cuda",
-                        source=SOURCES["wgmma"], replaces=REPLACES["split"],
+                        source=SOURCE, replaces=REPLACES["split"],
                         launches=f32_run["split"], **f32["split"]))
     print(json.dumps({"kernels": kernels}))
     print(card)

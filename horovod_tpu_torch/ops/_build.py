@@ -43,15 +43,13 @@ _SIGNATURES = {
     # scale, causal, dtype, out_f32, stream
     "hvd_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                       _I, _I, _P],
-    # q, k, v, dO (or its hi plane), dO's lo plane (or null), lse, delta,
-    # dlse, dq, strides, B, S, H, D, scale, causal, dtype, stream
-    "hvd_flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _F, _I, _I, _P],
     # q, k, v (or their hi planes), their and dO's lower planes (an array:
     # q mid, q lo, k mid, k lo, v mid, v lo, dO mid, dO lo; or null), dO (or
     # its hi plane), dO's lo plane (bf16 q/k/v with an fp32 dO; or null),
-    # lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, dtype,
-    # stream
+    # lse, delta, dlse, dq, strides, B, S, H, D, scale, causal, dtype, stream
+    "hvd_flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _F, _I, _I, _P],
+    # as hvd_flash_dq, with dk, dv in place of dq
     "hvd_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                       _I, _I, _I, _F, _I, _I, _P],
     # number of inputs, their fp32 bases (an array), their (b, s, h)

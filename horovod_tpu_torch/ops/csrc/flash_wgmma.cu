@@ -1,7 +1,7 @@
 // Flash attention on Hopper's tensor cores (sm_90a): the forward, dQ and
 // dK/dV kernels for bfloat16 q/k/v, with a bfloat16 dO or (the lse
-// variant's gradient) a float32 dO, and the forward and dK/dV for float32
-// q/k/v.
+// variant's gradient) a float32 dO, and for float32 q/k/v; the split pass
+// that cuts fp32 tensors into bf16 planes; and the C entry points.
 //
 // Replace the three Pallas kernels of horovod_tpu/ops/pallas_attention.py:
 //   fwd_wgmma_kernel <- _fwd_kernel  (:77, launched by _flash_fwd at :131)
@@ -10,15 +10,16 @@
 // They compute what those kernels compute, and round where they round: S and
 // every product accumulate in fp32, P is rounded to bf16 before P.V and
 // P^T.dO, dS to bf16 before dS.K and dS^T.Q (pallas_attention.py:112, :207,
-// :245, :252); dQ's P is not rounded.  The float32 dQ stays on the scalar
-// kernel of flash_attention.cu.
+// :245, :252); dQ's P is not rounded.  delta = rowsum(dO * O) is computed by
+// the caller.  Causal key j is visible to query i iff j <= i.
 //
 // fp32 products on bf16 tensor cores: split_kernel splits an fp32 tensor
 // into bf16 planes, each the bf16 rounding of what the planes before it
 // leave (every difference exact in fp32), and a product runs as wgmmas of
 // plane pairs.  (tf32 wgmma would need no split, but reads K-major
-// operands only, and P.V, P^T.dO and dS^T.Q read V, dO and Q MN-major.)
-// An operand computed in registers (P, dS) splits the same way there.
+// operands only, and P.V, P^T.dO, dS.K and dS^T.Q read V, dO, K and Q
+// MN-major.)  An operand computed in registers (P, dS) splits the same way
+// there.
 //   * F32DO (bf16 q/k/v, the lse variant's fp32 dO): dO arrives as two
 //     planes, hi = bf16(dO) and lo = bf16(dO - hi), which hold it to about
 //     2^-17.  dP = dO.V^T is hi.V^T + lo.V^T (V is exact in bf16).  P^T.dO
@@ -26,18 +27,23 @@
 //     dV += P_hi.hi + P_lo.hi + P_hi.lo; the dropped P_lo.lo is about
 //     2^-16 of a term, far below the bf16 output's rounding.  dS is rounded
 //     to bf16 as on the bf16 route.
-//   * F32IN (fp32 q/k/v, hence fp32 dO and output): the reference's casts
+//   * F32IN (fp32 q/k/v, hence fp32 dO and outputs): the reference's casts
 //     of P and dS round nothing, and the outputs are fp32, so two planes
 //     are not enough: an element of a sum of 1000 terms each off by up to
 //     2^-16 lands past the fp32 check's 1e-4 (tests/test_torch_flash_fp32.py
 //     emulates it).  Q, K, V and dO arrive as three planes (hi, mid, lo:
 //     24 bits, fp32's own), P and dS split into three in registers, and
-//     every product (S = Q.K^T and O += P.V in the forward; S^T = K.Q^T,
-//     dP^T = V.dO^T, dV += P^T.dO and dK += dS^T.Q in dK/dV) is six
-//     wgmmas: the plane pairs whose magnitudes multiply to at least 2^-16 of
-//     the term (pair_a, pair_b).  The causal and ragged masks zero P before
-//     it splits, so every plane is zero there.
+//     every product (S = Q.K^T and O += P.V in the forward; S = Q.K^T,
+//     dP = dO.V^T and dQ += dS.K in dQ; S^T = K.Q^T, dP^T = V.dO^T,
+//     dV += P^T.dO and dK += dS^T.Q in dK/dV) is six wgmmas: the plane
+//     pairs whose magnitudes multiply to at least 2^-16 of the term
+//     (pair_a, pair_b); dQ issues them smallest first (dq_pair).  The
+//     causal and ragged masks zero P before it splits, so every plane is
+//     zero there.
 //
+// Layout: q/k/v/dO are read as [B, S, H, D] through element strides for b,
+// s and h (d contiguous), so the caller makes no head-major copy; the
+// outputs are contiguous [B, S, H, D], lse/delta/dlse fp32 [B, S, H].
 // Head dims: the kernels are instantiated at DP = 16, 32, 64, 128 and 256
 // columns and serve any head dim D that is a multiple of 8 up to DP (the
 // least DP not below D; HVD_DISPATCH_D).  The tensor maps span the real D,
@@ -73,16 +79,21 @@
 //     fit), so two blocks of a key tile each recompute S^T and dP^T.  Its
 //     F32DO instantiation takes query tiles of 32 so that the Q, hi and lo
 //     ring fits in shared memory.
-//   * Shared memory and registers of the F32IN planes: the forward takes
-//     key tiles of 64 at DP <= 32, 32 at DP 64 and 128 and 16 at DP 256;
-//     dK/dV query tiles of 32 at DP <= 64 and 16 above (which keeps the
+//   * Shared memory and registers of the F32IN planes: the forward and dQ
+//     take key tiles of 64 at DP <= 32, 32 at DP 64 and 128 and 16 at DP
+//     256; dK/dV query tiles of 32 at DP <= 64 and 16 above (which keeps the
 //     split fragments of P and dS beside the accumulators in registers).
 //     At DP 256 three planes of K and V for 64 keys (192 KB) leave no room
-//     for the query ring, so that block takes 32 keys: its wgmmas still
+//     for the query ring, so a dK/dV block takes 32 keys: its wgmmas still
 //     make 64 rows, rows 32-63 read the next 4 KB of its own shared memory,
 //     and those rows are never stored.  Its blocks take 64 output columns
 //     each (four per key tile, each recomputing S^T and dP^T): two m64 x
-//     128 accumulators spill beside the six-pair products.
+//     128 accumulators spill beside the six-pair products.  A dQ block at
+//     DP 256 takes 32 query rows the same way (Q's and dO's resident planes
+//     for 64 rows would take 192 KB): a row of dS feeds only its own row of
+//     dQ, so rows 32-63 reach no stored element.  Its key tiles of 16 make
+//     S and dP of m64n16 wgmmas, far below the tensor cores' rate: that
+//     instantiation is slow (PERF.md), and no main path runs it.
 //   * Causal blocks skip the tiles above the diagonal and mask only the
 //     tiles that cross it; the heaviest tiles are handed out first.  Each
 //     output element has one writer: no atomics, deterministic results.
@@ -95,7 +106,18 @@
 
 #include <type_traits>
 
-#include "flash_attention.cuh"
+// Selects the template width DP that serves head dim D: the least of 16,
+// 32, 64, 128 and 256 not below D.  The kernels read columns D..DP-1 as
+// zeros and write none of them.  A D that is not a multiple of 8 in
+// [8, 256] is an invalid value.
+#define HVD_DISPATCH_D(D, CALL)                                  \
+  if ((D) < 8 || (D) > 256 || (D) % 8)                           \
+    return (int)cudaErrorInvalidValue;                           \
+  if ((D) <= 16) { constexpr int DP = 16; return CALL; }         \
+  if ((D) <= 32) { constexpr int DP = 32; return CALL; }         \
+  if ((D) <= 64) { constexpr int DP = 64; return CALL; }         \
+  if ((D) <= 128) { constexpr int DP = 128; return CALL; }       \
+  { constexpr int DP = 256; return CALL; }
 
 namespace {
 
@@ -103,8 +125,6 @@ constexpr int STAGES = 2;        // depth of the producer's ring
 constexpr int CONSUMER = 128;    // one consumer warpgroup
 constexpr int NT = CONSUMER + 32;  // and one producer warp
 constexpr int FQ = 64;           // forward: query rows per block
-constexpr int DQ = 64;           // dQ: query rows per block
-constexpr int BKQ = 64;          // dQ: key rows per tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -112,6 +132,13 @@ constexpr float LN2 = 0.6931471805599453f;
 template <int DP, bool F32IN> __host__ __device__ constexpr int fwd_keys() {
   if (F32IN) return DP > 128 ? 16 : DP > 32 ? 32 : 64;
   return DP > 128 ? 64 : 128;
+}
+// dQ: query rows per block and key rows per tile.
+template <int DP, bool F32IN> __host__ __device__ constexpr int dq_rows() {
+  return F32IN && DP > 128 ? 32 : 64;
+}
+template <int DP, bool F32IN> __host__ __device__ constexpr int dq_keys() {
+  return F32IN ? fwd_keys<DP, true>() : 64;
 }
 // dK/dV: key rows per block, query rows per tile, and output columns per
 // block.
@@ -137,6 +164,14 @@ __host__ __device__ constexpr int pair_a(int i) {
 __host__ __device__ constexpr int pair_b(int i) {
   return i == 1 || i == 3 ? 1 : i == 4 ? 2 : 0;
 }
+// The order in which dQ issues the pairs: the smallest (the lo and mid.mid
+// products, about 2^-16 of a term) first and hi.hi last, so that the small
+// terms are summed at their own scale before the large one joins them.  The
+// tensor cores' fp32 accumulation keeps less of a small term added to a
+// large sum: with hi.hi first, dQ's worst element at the flagship's width
+// read 0.86 of the fp32 check's tolerance on an H100, in this order 0.16
+// (PERF.md).
+__host__ __device__ constexpr int dq_pair(int i) { return NPAIRS - 1 - i; }
 
 // Shared-memory layout of a bf16 [rows, DP] tile: DP is cut into regions of
 // CW columns (one swizzled row of SW bytes); region i holds columns
@@ -867,40 +902,41 @@ dkv_wgmma_kernel(const __grid_constant__ Maps maps,
   }
 }
 
-// dQ.  One block per (64-row query tile, b*h), the forward's shape: Q and
-// dO (or dO's hi and lo planes) stay in shared memory while the producer
-// streams K and V tiles up to the causal limit.  Per tile: S = Q K^T and
-// dP = dO V^T (F32DO: hi V^T + lo V^T) by wgmma, P = exp(S scale - lse) and
-// dS = P (dP - delta + dlse) in registers, and dQ += bf16(dS) K by
-// register-A wgmma against K read MN-major (as the forward reads V).  A
-// thread's two query rows keep their lse and delta - dlse in registers,
-// read once.
-template <int DP, bool F32DO>
+// dQ.  One block per (BQ-row query tile, b*h), the forward's shape: Q and
+// dO (or their planes) stay in shared memory while the producer streams K
+// and V tiles up to the causal limit.  Per tile: S = Q K^T and dP = dO V^T
+// (F32DO: hi V^T + lo V^T) by wgmma, P = exp(S scale - lse) and dS = P (dP -
+// delta + dlse) in registers, and dQ += bf16(dS) K by register-A wgmma
+// against K read MN-major (as the forward reads V).  A thread's two query
+// rows keep their lse and delta - dlse in registers, read once.  F32IN: Q,
+// K, V and dO arrive as three planes each, dS splits into three, every
+// product runs over the plane pairs, and dQ is fp32.
+template <int DP, bool F32DO, bool F32IN>
 __global__ void __launch_bounds__(NT, DP >= 128 ? 1 : 2)
-dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv,
-                const __grid_constant__ CUtensorMap tdo,
-                const __grid_constant__ CUtensorMap tdo_lo,
+dq_wgmma_kernel(const __grid_constant__ Maps maps,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                const float* __restrict__ dlse, __nv_bfloat16* __restrict__ dq,
+                const float* __restrict__ dlse,
+                std::conditional_t<F32IN, float, __nv_bfloat16>* __restrict__ dq,
                 int H, int S, int D, float scale, int causal) {
+  static_assert(F32DO || !F32IN, "fp32 q/k/v come with an fp32 dO");
   using L = Tile<DP>;
-  constexpr int NP = F32DO ? 2 : 1;  // dO planes
+  constexpr int BQ = dq_rows<DP, F32IN>(), BK = dq_keys<DP, F32IN>();
+  constexpr int NPI = F32IN ? 3 : 1;            // planes of q, k and v
+  constexpr int NP = F32IN ? 3 : F32DO ? 2 : 1;  // planes of dO
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* Qs = align1024(smem_raw);
-  uint8_t* dOs = Qs + L::bytes(DQ);              // [NP][DQ, DP]
-  uint8_t* Ks = dOs + NP * L::bytes(DQ);         // [STAGES][BKQ, DP]
-  uint8_t* Vs = Ks + STAGES * L::bytes(BKQ);     // [STAGES][BKQ, DP]
-  uint64_t* q_full = (uint64_t*)(Vs + STAGES * L::bytes(BKQ));
+  uint8_t* Qs = align1024(smem_raw);               // [NPI][BQ, DP]
+  uint8_t* dOs = Qs + NPI * L::bytes(BQ);          // [NP][BQ, DP]
+  uint8_t* Ks = dOs + NP * L::bytes(BQ);           // [STAGES][NPI][BK, DP]
+  uint8_t* Vs = Ks + STAGES * NPI * L::bytes(BK);  // [STAGES][NPI][BK, DP]
+  uint64_t* q_full = (uint64_t*)(Vs + STAGES * NPI * L::bytes(BK));
   uint64_t* kv_full = q_full + 1;
   uint64_t* empty = kv_full + STAGES;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ;  // heaviest tiles first
-  const int k_end = causal ? min(S, q0 + DQ) : S;
-  const int n_tiles = (k_end + BKQ - 1) / BKQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int n_tiles = (k_end + BK - 1) / BK;
 
   if (tid == 0) {
     mbar_init(q_full, 1);
@@ -914,23 +950,25 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (tid >= CONSUMER) {  // producer warp: one lane issues every copy
     if (tid == CONSUMER) {
-      mbar_expect_tx(q_full, (1 + NP) * L::bytes(DQ));
-      tma_tile<DP>(Qs, &tq, q_full, DQ, q0, b, h);
-      tma_tile<DP>(dOs, &tdo, q_full, DQ, q0, b, h);
-      if (F32DO) tma_tile<DP>(dOs + L::bytes(DQ), &tdo_lo, q_full, DQ, q0, b, h);
+      mbar_expect_tx(q_full, (NPI + NP) * L::bytes(BQ));
+      tma_planes<DP, NPI>(Qs, maps.q, q_full, BQ, q0, b, h);
+      tma_planes<DP, NP>(dOs, maps.dout, q_full, BQ, q0, b, h);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % STAGES;
         if (t >= STAGES) mbar_wait(&empty[st], ((t / STAGES) - 1) & 1);
-        mbar_expect_tx(&kv_full[st], 2 * L::bytes(BKQ));
-        tma_tile<DP>(Ks + st * L::bytes(BKQ), &tk, &kv_full[st], BKQ, t * BKQ, b, h);
-        tma_tile<DP>(Vs + st * L::bytes(BKQ), &tv, &kv_full[st], BKQ, t * BKQ, b, h);
+        mbar_expect_tx(&kv_full[st], 2 * NPI * L::bytes(BK));
+        tma_planes<DP, NPI>(Ks + st * NPI * L::bytes(BK), maps.k, &kv_full[st],
+                            BK, t * BK, b, h);
+        tma_planes<DP, NPI>(Vs + st * NPI * L::bytes(BK), maps.v, &kv_full[st],
+                            BK, t * BK, b, h);
       }
     }
     return;
   }
 
   const int lane = tid & 31, quad = lane & 3;
-  const int row0 = q0 + 16 * (tid >> 5) + (lane >> 2);  // and row0 + 8
+  const int qrow = 16 * (tid >> 5) + (lane >> 2);  // row in the block, and +8
+  const int row0 = q0 + qrow;
   const float sl2 = scale * LOG2E;
   // Rows past S get lse = +inf (P = 0) and delta - dlse = 0.
   float lse2[2], dd[2];
@@ -953,22 +991,40 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % STAGES;
     const uint32_t ph = (t / STAGES) & 1;
-    const int k0 = t * BKQ;
-    const uint8_t* Kt = Ks + st * L::bytes(BKQ);
-    const uint8_t* Vt = Vs + st * L::bytes(BKQ);
+    const int k0 = t * BK;
+    const uint8_t* Kt = Ks + st * NPI * L::bytes(BK);  // its planes in turn
+    const uint8_t* Vt = Vs + st * NPI * L::bytes(BK);
 
-    float s[BKQ / 2], dp[BKQ / 2];
+    float s[BK / 2], dp[BK / 2];
     mbar_wait(&kv_full[st], ph);
     wg_fence();
+    if constexpr (F32IN) {
+      // The pairs smallest first (see dq_pair), in a loop at DP 256 as in
+      // dK/dV.
+#pragma unroll (DP > 128 ? 1 : NPAIRS)
+      for (int i = 0; i < NPAIRS; ++i) {
+        const int pr = dq_pair(i);
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<BKQ>(s, desc_k<DP>(Qs, DQ, 0, kk), desc_k<DP>(Kt, BKQ, 0, kk), kk);
-#pragma unroll
-    for (int pn = 0; pn < NP; ++pn)
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          wgmma_ss<BK>(s, desc_k<DP>(Qs + pair_a(pr) * L::bytes(BQ), BQ, 0, kk),
+                       desc_k<DP>(Kt + pair_b(pr) * L::bytes(BK), BK, 0, kk),
+                       i + kk);
+          wgmma_ss<BK>(dp, desc_k<DP>(dOs + pair_a(pr) * L::bytes(BQ), BQ, 0, kk),
+                       desc_k<DP>(Vt + pair_b(pr) * L::bytes(BK), BK, 0, kk),
+                       i + kk);
+        }
+      }
+    } else {
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<BKQ>(dp, desc_k<DP>(dOs + pn * L::bytes(DQ), DQ, 0, kk),
-                      desc_k<DP>(Vt, BKQ, 0, kk), pn + kk);
+        wgmma_ss<BK>(s, desc_k<DP>(Qs, BQ, 0, kk), desc_k<DP>(Kt, BK, 0, kk), kk);
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<BK>(dp, desc_k<DP>(dOs + pn * L::bytes(BQ), BQ, 0, kk),
+                       desc_k<DP>(Vt, BK, 0, kk), pn + kk);
+    }
     wg_commit();
     wg_wait();
     reg_fence(s);
@@ -977,9 +1033,9 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // The mask only where the tile crosses S or the causal diagonal.  Keys
     // past S are zero rows, but exp(0 - lse) may overflow, and inf * 0 is
     // NaN: they are masked, not left to the zeros.
-    const bool edge = k0 + BKQ > S || (causal && k0 + BKQ - 1 > q0);
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
 #pragma unroll
-    for (int j = 0; j < BKQ / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(s[4 * j + e] * sl2 - lse2[e >> 1]);
@@ -991,14 +1047,30 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         dp[4 * j + e] = p * (dp[4 * j + e] - dd[e >> 1]);
       }
 
-    // dQ += bf16(dS) K, dS straight from the registers.
-    uint32_t da[BKQ / 16][4];
+    // dQ += bf16(dS) K, dS straight from the registers (F32IN: dS split
+    // into three, over the plane pairs).
+    if constexpr (F32IN) {
+      uint32_t df[BK / 16][3][4];
 #pragma unroll
-    for (int kk = 0; kk < BKQ / 16; ++kk) a_frag(dp, kk, da[kk]);
-    wg_fence();
+      for (int kk = 0; kk < BK / 16; ++kk) a_frag_split3(dp, kk, df[kk]);
+      wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BKQ / 16; ++kk)
-      mma_rs<DP, DP>(dqacc, da[kk], Kt, BKQ, kk, 0);
+      for (int i = 0; i < NPAIRS; ++i) {
+        const int pr = dq_pair(i);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          mma_rs<DP, DP>(dqacc, df[kk][pair_a(pr)],
+                         Kt + pair_b(pr) * L::bytes(BK), BK, kk, 0);
+      }
+    } else {
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) a_frag(dp, kk, da[kk]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        mma_rs<DP, DP>(dqacc, da[kk], Kt, BK, kk, 0);
+    }
     wg_commit();
     wg_wait();
     reg_fence(dqacc);
@@ -1008,7 +1080,8 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int s_row = row0 + 8 * i;
-    if (s_row >= S) continue;
+    // Rows from BQ on (BQ 32) are the next query tile's: not this block's.
+    if ((BQ < 64 && qrow + 8 * i >= BQ) || s_row >= S) continue;
     const long long row = ((long long)b * S + s_row) * H + h;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j)
@@ -1187,8 +1260,24 @@ int launch_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// dO's planes: dout (hi), and dout_lo (F32DO: its lo plane), or lo[6] and
-// lo[7] (F32IN: its mid and lo planes).
+// The maps of the backward kernels' operands: q, k and v as make_qkv_maps
+// makes them, and dO's planes: dout (hi), and dout_lo (F32DO: its lo
+// plane), or lo[6] and lo[7] (F32IN: its mid and lo planes), with q_rows
+// rows a box.
+template <int DP, bool F32DO, bool F32IN>
+int make_bwd_maps(Maps& maps, const void* q, const void* k, const void* v,
+                  const void* const* lo, const void* dout,
+                  const void* dout_lo, const long long* st, int B, int S,
+                  int H, int D, int q_rows, int k_rows) {
+  constexpr int NP = F32IN ? 3 : F32DO ? 2 : 1;
+  int err = make_qkv_maps<DP>(maps, q, k, v, lo, st, B, S, H, D, q_rows,
+                              k_rows);
+  if (err) return err;
+  const void* dptr[3] = {dout, F32IN ? lo[6] : dout_lo,
+                         F32IN ? lo[7] : nullptr};
+  return make_planes<DP>(maps.dout, dptr, NP, st + 9, B, S, H, D, q_rows);
+}
+
 template <int DP, bool F32DO, bool F32IN>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* const* lo, const void* dout, const void* dout_lo,
@@ -1201,12 +1290,9 @@ int launch_dkv(const void* q, const void* k, const void* v,
   constexpr int NC = dkv_cols<DP, F32IN>();
   constexpr int NPI = F32IN ? 3 : 1, NP = F32IN ? 3 : F32DO ? 2 : 1;
   Maps maps;
-  int err = make_qkv_maps<DP>(maps, q, k, v, lo, st, B, S, H, D, BQ, BK);
+  int err = make_bwd_maps<DP, F32DO, F32IN>(maps, q, k, v, lo, dout, dout_lo,
+                                            st, B, S, H, D, BQ, BK);
   if (err) return err;
-  const void* dptr[3] = {dout, F32IN ? lo[6] : dout_lo,
-                         F32IN ? lo[7] : nullptr};
-  if ((err = make_planes<DP>(maps.dout, dptr, NP, st + 9, B, S, H, D, BQ)))
-    return err;
   const size_t smem = 1024 + 2 * NPI * L::bytes(BK) +
                       (NPI + NP) * STAGES * L::bytes(BQ) +
                       STAGES * 2 * BQ * sizeof(float) + BARRIER_BYTES;
@@ -1221,83 +1307,111 @@ int launch_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <int DP, bool F32DO>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* dout_lo, const void* lse, const void* delta,
-              const void* dlse, void* dq, const long long* st, int B, int S,
-              int H, int D, float scale, int causal, cudaStream_t stream) {
+template <int DP, bool F32DO, bool F32IN>
+int launch_dq(const void* q, const void* k, const void* v,
+              const void* const* lo, const void* dout, const void* dout_lo,
+              const void* lse, const void* delta, const void* dlse, void* dq,
+              const long long* st, int B, int S, int H, int D, float scale,
+              int causal, cudaStream_t stream) {
   using L = Tile<DP>;
-  constexpr int NP = F32DO ? 2 : 1;
-  CUtensorMap m[5];
-  int err;
-  if ((err = make_map<DP>(&m[0], q, st, B, S, H, D, DQ)) ||
-      (err = make_map<DP>(&m[1], k, st + 3, B, S, H, D, BKQ)) ||
-      (err = make_map<DP>(&m[2], v, st + 6, B, S, H, D, BKQ)) ||
-      (err = make_map<DP>(&m[3], dout, st + 9, B, S, H, D, DQ)))
-    return err;
-  m[4] = m[3];
-  if (F32DO && (err = make_map<DP>(&m[4], dout_lo, st + 9, B, S, H, D, DQ)))
-    return err;
-  const size_t smem = 1024 + (1 + NP) * L::bytes(DQ) +
-                      2 * STAGES * L::bytes(BKQ) + BARRIER_BYTES;
-  auto kernel = dq_wgmma_kernel<DP, F32DO>;
+  using TG = std::conditional_t<F32IN, float, __nv_bfloat16>;
+  constexpr int BQ = dq_rows<DP, F32IN>(), BK = dq_keys<DP, F32IN>();
+  constexpr int NPI = F32IN ? 3 : 1, NP = F32IN ? 3 : F32DO ? 2 : 1;
+  Maps maps;
+  int err = make_bwd_maps<DP, F32DO, F32IN>(maps, q, k, v, lo, dout, dout_lo,
+                                            st, B, S, H, D, BQ, BK);
+  if (err) return err;
+  const size_t smem = 1024 + (NPI + NP) * L::bytes(BQ) +
+                      2 * STAGES * NPI * L::bytes(BK) + BARRIER_BYTES;
+  auto kernel = dq_wgmma_kernel<DP, F32DO, F32IN>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B * H, (S + DQ - 1) / DQ);
-  kernel<<<grid, NT, smem, stream>>>(
-      m[0], m[1], m[2], m[3], m[4], (const float*)lse, (const float*)delta,
-      (const float*)dlse, (__nv_bfloat16*)dq, H, S, D, scale, causal);
+  dim3 grid(B * H, (S + BQ - 1) / BQ);
+  kernel<<<grid, NT, smem, stream>>>(maps, (const float*)lse,
+                                     (const float*)delta, (const float*)dlse,
+                                     (TG*)dq, H, S, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-int hvd_flash_fwd_wgmma(const void* q, const void* k, const void* v,
-                        const void* const* lo, void* o, void* lse,
-                        const long long* strides, int B, int S, int H, int D,
-                        float scale, int causal, int out_f32,
-                        cudaStream_t stream) {
+// The C entry points.  dtype: 0 = float32, 1 = bfloat16, for q/k/v and the
+// outputs.  float32 q/k/v (and dO) reach the kernels as three bf16 planes
+// each (from hvd_flash_split): q, k, v (and dout) are then the hi planes,
+// and lo the array of the lower planes, {q mid, q lo, k mid, k lo, v mid,
+// v lo} (and dO mid, dO lo in the backward); with bfloat16 q/k/v lo is
+// null, and dout_lo is the lo plane of the lse variant's float32 dO (dout
+// its hi plane) or null for a bfloat16 dO.  strides: host array of (b, s,
+// h) element strides for q, k, v (and dO, or its planes, in the backward);
+// a lower plane has its hi plane's strides.  D: the head dim, a multiple of
+// 8 up to 256.  Each returns a cudaError_t: cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue where the arguments name
+// no instantiation or the tensor map cannot describe the input (a base or
+// a (b, s, h) stride that is not a multiple of 16 bytes).
+extern "C" {
+
+int hvd_flash_fwd(const void* q, const void* k, const void* v,
+                  const void* const* lo, void* o, void* lse,
+                  const long long* strides, int B, int S, int H, int D,
+                  float scale, int causal, int dtype, int out_f32,
+                  void* stream) {
+  if ((dtype != 0 && dtype != 1) || (dtype == 0) != (lo != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   if (lo) {
-    HVD_DISPATCH_D(D, (launch_fwd<float, DP, true>(q, k, v, lo, o, lse, strides, B, S, H, D, scale, causal, stream)))
+    HVD_DISPATCH_D(D, (launch_fwd<float, DP, true>(q, k, v, lo, o, lse, strides, B, S, H, D, scale, causal, st)))
   }
   if (out_f32) {
-    HVD_DISPATCH_D(D, (launch_fwd<float, DP, false>(q, k, v, lo, o, lse, strides, B, S, H, D, scale, causal, stream)))
+    HVD_DISPATCH_D(D, (launch_fwd<float, DP, false>(q, k, v, lo, o, lse, strides, B, S, H, D, scale, causal, st)))
   }
-  HVD_DISPATCH_D(D, (launch_fwd<__nv_bfloat16, DP, false>(q, k, v, lo, o, lse, strides, B, S, H, D, scale, causal, stream)))
+  HVD_DISPATCH_D(D, (launch_fwd<__nv_bfloat16, DP, false>(q, k, v, lo, o, lse, strides, B, S, H, D, scale, causal, st)))
 }
 
-int hvd_flash_dq_wgmma(const void* q, const void* k, const void* v,
-                       const void* dout, const void* dout_lo, const void* lse,
-                       const void* delta, const void* dlse, void* dq,
-                       const long long* strides, int B, int S, int H, int D,
-                       float scale, int causal, cudaStream_t stream) {
-  if (dout_lo) {
-    HVD_DISPATCH_D(D, (launch_dq<DP, true>(q, k, v, dout, dout_lo, lse, delta, dlse, dq, strides, B, S, H, D, scale, causal, stream)))
-  }
-  HVD_DISPATCH_D(D, (launch_dq<DP, false>(q, k, v, dout, dout_lo, lse, delta, dlse, dq, strides, B, S, H, D, scale, causal, stream)))
-}
-
-int hvd_flash_dkv_wgmma(const void* q, const void* k, const void* v,
-                        const void* const* lo, const void* dout,
-                        const void* dout_lo, const void* lse,
-                        const void* delta, const void* dlse, void* dk,
-                        void* dv, const long long* strides, int B, int S,
-                        int H, int D, float scale, int causal,
-                        cudaStream_t stream) {
+int hvd_flash_dq(const void* q, const void* k, const void* v,
+                 const void* const* lo, const void* dout, const void* dout_lo,
+                 const void* lse, const void* delta, const void* dlse,
+                 void* dq, const long long* strides, int B, int S, int H,
+                 int D, float scale, int causal, int dtype, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (dtype == 0) != (lo != nullptr) ||
+      (lo && dout_lo))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   if (lo) {
-    if (dout_lo) return (int)cudaErrorInvalidValue;
-    HVD_DISPATCH_D(D, (launch_dkv<DP, true, true>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, stream)))
+    HVD_DISPATCH_D(D, (launch_dq<DP, true, true>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dq, strides, B, S, H, D, scale, causal, st)))
   }
   if (dout_lo) {
-    HVD_DISPATCH_D(D, (launch_dkv<DP, true, false>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, stream)))
+    HVD_DISPATCH_D(D, (launch_dq<DP, true, false>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dq, strides, B, S, H, D, scale, causal, st)))
   }
-  HVD_DISPATCH_D(D, (launch_dkv<DP, false, false>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, stream)))
+  HVD_DISPATCH_D(D, (launch_dq<DP, false, false>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dq, strides, B, S, H, D, scale, causal, st)))
 }
 
-extern "C" int hvd_flash_split(int n, const void* const* x,
-                               const long long* strides, int B, int S, int H,
-                               int D, int np, void* planes, void* stream) {
+int hvd_flash_dkv(const void* q, const void* k, const void* v,
+                  const void* const* lo, const void* dout,
+                  const void* dout_lo, const void* lse, const void* delta,
+                  const void* dlse, void* dk, void* dv,
+                  const long long* strides, int B, int S, int H, int D,
+                  float scale, int causal, int dtype, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (dtype == 0) != (lo != nullptr) ||
+      (lo && dout_lo))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (lo) {
+    HVD_DISPATCH_D(D, (launch_dkv<DP, true, true>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, st)))
+  }
+  if (dout_lo) {
+    HVD_DISPATCH_D(D, (launch_dkv<DP, true, false>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, st)))
+  }
+  HVD_DISPATCH_D(D, (launch_dkv<DP, false, false>(q, k, v, lo, dout, dout_lo, lse, delta, dlse, dk, dv, strides, B, S, H, D, scale, causal, st)))
+}
+
+// The split pass: n (1-3) fp32 [B, S, H, D] inputs x (16-byte aligned, d
+// contiguous, (b, s, h) element strides in strides, multiples of 4), each
+// into np (2 or 3) bf16 planes, written to planes as a contiguous
+// [n, np, B, S, H, D].
+int hvd_flash_split(int n, const void* const* x, const long long* strides,
+                    int B, int S, int H, int D, int np, void* planes,
+                    void* stream) {
   const long long n4 = (long long)B * S * H * D / 4;
   if (n < 1 || n > SPLIT_MAX || (np != 2 && np != 3) || B < 1 || S < 1 ||
       H < 1 || D < 4 || D % 4 || n4 > 0x7fffffffLL)
@@ -1320,3 +1434,5 @@ extern "C" int hvd_flash_split(int n, const void* const* x,
         in, S, H, D / 4, (int)n4, (uint2*)planes);
   return (int)cudaGetLastError();
 }
+
+}  // extern "C"

@@ -2,22 +2,20 @@
 
 Hand-written CUDA kernels for Hopper replace the three Pallas kernels of
 the JAX package: the forward (``_fwd_kernel``), the dQ kernel
-(``_dq_kernel``) and the dK/dV kernel (``_dkv_kernel``).  The kernel is
-chosen by dtype (:func:`impl`): bfloat16 q/k/v take the tensor-core (wgmma)
-kernels of ``csrc/flash_wgmma.cu`` for all three; float32 q/k/v take the
-wgmma forward and dK/dV too, and the scalar (SIMT) dQ of
-``csrc/flash_attention.cu``.  A float32 operand reaches a wgmma kernel as
-bf16 planes, each the bf16 rounding of what the planes before it leave
-(:func:`_split_plain`), made by one split pass: :func:`split_qkv_cuda`
-splits float32 q/k/v into three planes (hi, mid, lo) once per forward,
-kept for the backward, and :func:`split_do_cuda` a float32 dO once per
-backward, into three planes beside float32 q/k/v and into two (hi, lo)
-beside bfloat16 q/k/v (the lse variant's dO).  A product of two
-three-plane operands runs as six bf16 products (the plane pairs down to
-2⁻¹⁶ of the term), which keeps fp32's precision on bf16 tensor cores;
-two planes would not (``tests/test_torch_flash_fp32.py``).  The kernels
-take any head dim that is a multiple of 8 up to 256
-(:func:`kernel_head_dim`).
+(``_dq_kernel``) and the dK/dV kernel (``_dkv_kernel``).  All three run on
+the tensor cores (wgmma, ``csrc/flash_wgmma.cu``) for bfloat16 and float32
+q/k/v alike; :func:`variant` names the instantiation a launch runs.  A
+float32 operand reaches a kernel as bf16 planes, each the bf16 rounding of
+what the planes before it leave (:func:`_split_plain`), made by one split
+pass: :func:`split_qkv_cuda` splits float32 q/k/v into three planes (hi,
+mid, lo) once per forward, kept for the backward's two kernels, and
+:func:`split_do_cuda` a float32 dO once per backward, into three planes
+beside float32 q/k/v and into two (hi, lo) beside bfloat16 q/k/v (the lse
+variant's dO).  A product of two three-plane operands runs as six bf16
+products (the plane pairs down to 2⁻¹⁶ of the term), which keeps fp32's
+precision on bf16 tensor cores; two planes would not
+(``tests/test_torch_flash_fp32.py``).  The kernels take any head dim that
+is a multiple of 8 up to 256 (:func:`kernel_head_dim`).
 
 Beside them stand their plain PyTorch versions, written as the explicit
 formulas with fp32 sums:
@@ -55,7 +53,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 # The widths the kernels are instantiated at (HVD_DISPATCH_D in
-# csrc/flash_attention.cuh).
+# csrc/flash_wgmma.cu).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The wgmma forward's key tile (fwd_keys in csrc/flash_wgmma.cu) at head
@@ -96,16 +94,15 @@ def reset_launch_counts() -> None:
 
 def variant(kernel: str, dtype: torch.dtype, do_dtype=None,
             causal: bool = True, out_f32: bool = False) -> str:
-    """The compiled kernel a launch runs, e.g. ``"dq simt causal"`` (fp32),
-    ``"fwd wgmma f32out"`` (bf16 q/k/v, fp32 output: the lse variant's),
-    ``"dkv wgmma f32do"`` (bf16 q/k/v with the lse variant's fp32 dO, split
-    into bf16 planes) or ``"fwd wgmma fp32"`` (fp32 q/k/v as bf16
-    planes)."""
-    name = impl(kernel, dtype, do_dtype)
+    """The compiled kernel a launch of ``kernel`` ("fwd", "dq" or "dkv")
+    runs for q/k/v of ``dtype`` and dO of ``do_dtype``, e.g.
+    ``"dq wgmma causal"`` (bf16), ``"fwd wgmma f32out"`` (bf16 q/k/v, fp32
+    output: the lse variant's), ``"dkv wgmma f32do"`` (bf16 q/k/v with the
+    lse variant's fp32 dO, split into bf16 planes) or ``"dq wgmma fp32"``
+    (fp32 q/k/v as bf16 planes)."""
     bf16 = dtype == torch.bfloat16
     f32do = kernel != "fwd" and bf16 and do_dtype == torch.float32
-    fp32 = dtype == torch.float32 and name == "wgmma"
-    return " ".join([kernel, name] + ["fp32"] * fp32
+    return " ".join([kernel, "wgmma"] + ["fp32"] * (not bf16)
                     + ["f32out"] * (bool(out_f32) and bf16)
                     + ["f32do"] * f32do + ["causal"] * bool(causal))
 
@@ -276,16 +273,6 @@ def _check_qkv(q, k, v, do=None):
     return B, S, H, D
 
 
-def impl(kernel: str, dtype: torch.dtype,
-         do_dtype: Optional[torch.dtype] = None) -> str:
-    """Which CUDA kernel serves ``kernel`` ("fwd", "dq" or "dkv") for q/k/v
-    of ``dtype`` (and dO of ``do_dtype``, bf16 or fp32 with bf16 q/k/v):
-    "wgmma" (tensor cores, TMA loads) for bfloat16, and for float32's
-    forward and dK/dV (as bf16 planes); "simt" (scalar FMAs) for float32's
-    dQ."""
-    return "simt" if dtype == torch.float32 and kernel == "dq" else "wgmma"
-
-
 def _check_tma(*named):
     """The wgmma kernels load tiles through TMA tensor maps, and the split
     reads fp32 in 16-byte vectors: both take a 16-byte aligned base and
@@ -384,10 +371,10 @@ def _check_planes(name, planes, shape, like):
 
 
 def _kernel_qkv(q, k, v, planes):
-    """The q/k/v tensors the wgmma forward and dK/dV read, and their lower
-    planes (q mid, q lo, k mid, k lo, v mid, v lo; None for bf16 q/k/v).
-    fp32 q/k/v go as their bf16 planes: ``planes`` where the caller split
-    them (:func:`split_qkv_cuda`), else split here."""
+    """The q/k/v tensors the kernels read, and their lower planes (q mid,
+    q lo, k mid, k lo, v mid, v lo; None for bf16 q/k/v).  fp32 q/k/v go
+    as their bf16 planes: ``planes`` where the caller split them
+    (:func:`split_qkv_cuda`), else split here."""
     if q.dtype != torch.float32:
         _check_tma(("q", q), ("k", k), ("v", v))
         return (q, k, v), None
@@ -401,7 +388,7 @@ def flash_fwd_cuda(q, k, v, scale: float, causal: bool,
                    out_f32: bool = False, qkv_planes=None):
     """Forward kernel: ``(o [B,S,H,D], lse [B,S,H] fp32)``.
     ``qkv_planes``: fp32 q/k/v's planes from :func:`split_qkv_cuda`, so that
-    the forward and dK/dV share one split."""
+    the forward and the backward kernels share one split."""
     from horovod_tpu_torch.ops import _build
 
     B, S, H, D = _check_qkv(q, k, v)
@@ -428,48 +415,61 @@ def do_planes_of(dtype: torch.dtype) -> int:
     return 3 if dtype == torch.float32 else 2
 
 
-def _bwd_args(kernel, q, k, v, do, lse, delta, dlse, do_planes):
-    """Checks the backward's inputs; returns ((B, S, H, D), the dO tensor
-    the kernel reads and its lower planes, or None).  An fp32 dO goes to a
-    wgmma kernel as its bf16 planes (:func:`do_planes_of`): ``do_planes``
-    where the caller split it already, else split here."""
+def _bwd_args(q, k, v, do, lse, delta, dlse, do_planes, qkv_planes):
+    """Checks the backward's inputs; returns ((B, S, H, D), the tensors of
+    ``hvd_flash_dq``'s and ``hvd_flash_dkv``'s arguments up to ``dlse``
+    (see :func:`_addresses`)).  An fp32 dO goes to the kernels as its bf16
+    planes (:func:`do_planes_of`): ``do_planes`` where the caller split it
+    already, else split here; fp32 q/k/v likewise (``qkv_planes``,
+    :func:`_kernel_qkv`).  The caller holds the tensors until the launch:
+    planes split here live only in them."""
     B, S, H, D = _check_qkv(q, k, v, do)
     _check_stat("lse", lse, q)
     _check_stat("delta", delta, q)
     if dlse is not None:
         _check_stat("dlse", dlse, q)
-    lo = None
-    if impl(kernel, q.dtype, do.dtype) == "wgmma":
-        if do.dtype == torch.float32:
-            n = do_planes_of(q.dtype)
-            planes = split_do_cuda(do, n) if do_planes is None else do_planes
-            _check_planes("dO", planes, (n,) + tuple(q.shape), q)
-            do, lo = planes[0], list(planes[1:])
-        _check_tma(("dO", do))
-    return (B, S, H, D), do, lo
+    do_lo = None
+    if do.dtype == torch.float32:
+        n = do_planes_of(q.dtype)
+        planes = split_do_cuda(do, n) if do_planes is None else do_planes
+        _check_planes("dO", planes, (n,) + tuple(q.shape), q)
+        do, do_lo = planes[0], list(planes[1:])
+    _check_tma(("dO", do))
+    (qk, kk, vk), qkv_lo = _kernel_qkv(q, k, v, qkv_planes)
+    if qkv_lo is None:  # bf16 q/k/v: an fp32 dO's lo plane on its own
+        lo, do_lo = None, None if do_lo is None else do_lo[0]
+    else:  # fp32: dO's mid and lo planes follow q/k/v's
+        lo, do_lo = qkv_lo + do_lo, None
+    return (B, S, H, D), (qk, kk, vk, lo, do, do_lo, lse, delta, dlse)
+
+
+def _addresses(operands):
+    """The backward kernels' operands (:func:`_bwd_args`) as their C entry
+    points take them, and then the (b, s, h) strides of q, k, v and dO: a
+    tensor as its address, a list of planes as an array of addresses, None
+    as null."""
+    args = [None if t is None else _ptrs(*t) if isinstance(t, list)
+            else t.data_ptr() for t in operands]
+    return args, _strides(*operands[:3], operands[4])
 
 
 def flash_dq_cuda(q, k, v, do, lse, delta, dlse, scale: float,
-                  causal: bool, do_planes=None):
+                  causal: bool, do_planes=None, qkv_planes=None):
     """dQ kernel.  ``dlse`` may be None (the lse received no gradient).
-    ``do_planes``: an fp32 dO's planes from :func:`split_do_cuda`, so that
-    dQ and dK/dV share one split (the fp32 dQ reads dO as it is)."""
+    ``do_planes``: an fp32 dO's planes from :func:`split_do_cuda`, and
+    ``qkv_planes`` fp32 q/k/v's from :func:`split_qkv_cuda`, so that dQ
+    and dK/dV share one split of each."""
     from horovod_tpu_torch.ops import _build
 
-    (B, S, H, D), dok, lo = _bwd_args("dq", q, k, v, do, lse, delta, dlse,
-                                      do_planes)
-    if impl("dq", q.dtype) == "wgmma":
-        _check_tma(("q", q), ("k", k), ("v", v))
+    (B, S, H, D), operands = _bwd_args(q, k, v, do, lse, delta, dlse,
+                                       do_planes, qkv_planes)
+    args, strides = _addresses(operands)
     lib = _build.lib()
     dq = torch.empty((B, S, H, D), device=q.device, dtype=q.dtype)
     with torch.cuda.device(q.device):
-        err = lib.hvd_flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dok.data_ptr(),
-            None if lo is None else lo[0].data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            None if dlse is None else dlse.data_ptr(), dq.data_ptr(),
-            _strides(q, k, v, dok), B, S, H, D, float(scale), int(causal),
-            _DTYPE_CODE[q.dtype], _stream(q.device))
+        err = lib.hvd_flash_dq(*args, dq.data_ptr(), strides, B, S, H, D,
+                               float(scale), int(causal),
+                               _DTYPE_CODE[q.dtype], _stream(q.device))
     _launched("dq", variant("dq", q.dtype, do.dtype, causal))
     _raise_on(err, "dQ")
     return dq
@@ -477,29 +477,20 @@ def flash_dq_cuda(q, k, v, do, lse, delta, dlse, scale: float,
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, dlse, scale: float,
                    causal: bool, do_planes=None, qkv_planes=None):
-    """dK/dV kernel: ``(dk, dv)``.  ``dlse`` may be None; ``do_planes`` as
-    for :func:`flash_dq_cuda`, ``qkv_planes`` as for
-    :func:`flash_fwd_cuda`."""
+    """dK/dV kernel: ``(dk, dv)``.  Arguments as for
+    :func:`flash_dq_cuda`."""
     from horovod_tpu_torch.ops import _build
 
-    (B, S, H, D), dok, do_lo = _bwd_args("dkv", q, k, v, do, lse, delta,
-                                         dlse, do_planes)
-    (qk, kk, vk), qkv_lo = _kernel_qkv(q, k, v, qkv_planes)
-    if qkv_lo is None:  # bf16 q/k/v: an fp32 dO's lo plane on its own
-        lo, do_lo = None, None if do_lo is None else do_lo[0].data_ptr()
-    else:  # fp32: dO's mid and lo planes follow q/k/v's
-        lo, do_lo = _ptrs(*qkv_lo, *do_lo), None
+    (B, S, H, D), operands = _bwd_args(q, k, v, do, lse, delta, dlse,
+                                       do_planes, qkv_planes)
+    args, strides = _addresses(operands)
     lib = _build.lib()
     dk = torch.empty((B, S, H, D), device=q.device, dtype=k.dtype)
     dv = torch.empty((B, S, H, D), device=q.device, dtype=v.dtype)
     with torch.cuda.device(q.device):
-        err = lib.hvd_flash_dkv(
-            qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), lo, dok.data_ptr(),
-            do_lo, lse.data_ptr(), delta.data_ptr(),
-            None if dlse is None else dlse.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _strides(qk, kk, vk, dok), B, S, H, D,
-            float(scale), int(causal), _DTYPE_CODE[q.dtype],
-            _stream(q.device))
+        err = lib.hvd_flash_dkv(*args, dk.data_ptr(), dv.data_ptr(), strides,
+                                B, S, H, D, float(scale), int(causal),
+                                _DTYPE_CODE[q.dtype], _stream(q.device))
     _launched("dkv", variant("dkv", q.dtype, do.dtype, causal))
     _raise_on(err, "dK/dV")
     return dk, dv
@@ -530,7 +521,8 @@ class _FlashAttention(torch.autograd.Function):
         if _on_cpu(q, k, v):
             o, lse = _flash_fwd_plain(q, k, v, scale, causal, out_f32)
         else:
-            # fp32 q/k/v are split once, for the forward and dK/dV.
+            # fp32 q/k/v are split once, for the forward and both backward
+            # kernels.
             if q.dtype == torch.float32:
                 planes = split_qkv_cuda(q, k, v)
             o, lse = flash_fwd_cuda(q, k, v, scale, causal, out_f32,
@@ -557,10 +549,10 @@ class _FlashAttention(torch.autograd.Function):
             dk, dv = _flash_dkv_plain(*args)
         else:
             # An fp32 dO (the lse variant's, or fp32 q/k/v's) is split once
-            # for both kernels.
+            # for both kernels, and the forward's q/k/v planes serve both.
             do_planes = (split_do_cuda(do, do_planes_of(q.dtype))
                          if do.dtype == torch.float32 else None)
-            dq = flash_dq_cuda(*args, do_planes=do_planes)
+            dq = flash_dq_cuda(*args, do_planes=do_planes, qkv_planes=planes)
             dk, dv = flash_dkv_cuda(*args, do_planes=do_planes,
                                     qkv_planes=planes)
         return dq, dk, dv, None, None, None

@@ -238,16 +238,19 @@ def test_plain_versions_unchanged_for_fp32(causal):
 
 
 def test_impl_is_chosen_by_dtype():
+    """Every kernel of either dtype runs on the tensor cores; the dtypes
+    choose the instantiation."""
     bf, f32 = torch.bfloat16, torch.float32
-    assert fa.impl("fwd", bf) == "wgmma"
-    assert fa.impl("dkv", bf, bf) == "wgmma"
-    assert fa.impl("dkv", bf, f32) == "wgmma"  # the lse variant's fp32 dO
-    assert fa.impl("dq", bf, bf) == "wgmma"
-    assert fa.impl("dq", bf, f32) == "wgmma"
-    # fp32 q/k/v: forward and dK/dV on wgmma (as bf16 planes), dQ scalar.
-    assert fa.impl("fwd", f32) == "wgmma"
-    assert fa.impl("dkv", f32, f32) == "wgmma"
-    assert fa.impl("dq", f32, f32) == "simt"
+    assert fa.variant("fwd", bf) == "fwd wgmma causal"
+    assert fa.variant("dkv", bf, bf) == "dkv wgmma causal"
+    # the lse variant's fp32 dO
+    assert fa.variant("dkv", bf, f32) == "dkv wgmma f32do causal"
+    assert fa.variant("dq", bf, bf) == "dq wgmma causal"
+    assert fa.variant("dq", bf, f32) == "dq wgmma f32do causal"
+    # fp32 q/k/v: all three as bf16 planes.
+    assert fa.variant("fwd", f32) == "fwd wgmma fp32 causal"
+    assert fa.variant("dkv", f32, f32) == "dkv wgmma fp32 causal"
+    assert fa.variant("dq", f32, f32) == "dq wgmma fp32 causal"
 
 
 def test_tma_check_rejects_unaligned_strides():
@@ -320,7 +323,8 @@ def _assert_kernel_close(got, want, dtype, slack=0.0):
     + slack of its plain version on the same inputs (``chip_smoke.TOL``).
     bf16 outputs: rtol one bf16 ulp at the bottom of a binade (2^-7), as
     both sides round their fp32 result once, and atol 1e-3·rms for the fp32
-    sums' order.  fp32 outputs: 1e-4 and 1e-4·rms (summation order only).
+    sums' order.  fp32 outputs: 1e-4 and 1e-4·rms (the sums' order and the
+    three-plane products).
     ``slack`` (``fa.rounding_slack``) covers bf16 intermediates that both
     sides round."""
     rtol, atol = (2.0 ** -7, 1e-3) if dtype == torch.bfloat16 else \
@@ -373,8 +377,7 @@ def test_cuda_kernels_match_plain(cuda_device, D, S, dtype):
 @pytest.mark.cuda
 def test_cuda_kernels_read_strided_inputs(cuda_device):
     """q/k/v as views into one packed [B, S, 3, H, D] tensor, in fp32 (the
-    split's and the scalar dQ's strided reads) and bf16 (the wgmma
-    kernels' tensor maps)."""
+    split's strided reads) and bf16 (the kernels' tensor maps)."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     for dt in (torch.float32, torch.bfloat16):
         qkv = torch.randn(2, 200, 3, 4, 64, device=cuda_device,
@@ -448,12 +451,12 @@ def test_cuda_bf16_autograd_runs_wgmma_kernels(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     ts = [torch.randn(2, 256, 4, 64, device=cuda_device, generator=gen)
           .to(torch.bfloat16).requires_grad_() for _ in range(3)]
-    assert fa.impl("fwd", torch.bfloat16) == "wgmma"
-    assert fa.impl("dq", torch.bfloat16, torch.bfloat16) == "wgmma"
-    assert fa.impl("dkv", torch.bfloat16, torch.bfloat16) == "wgmma"
     fa.flash_attention(*ts).float().sum().backward()
     torch.cuda.synchronize()
     assert fa.launches == {"fwd": 1, "dq": 1, "dkv": 1, "split": 0}
+    assert fa.variant_launches == {"fwd wgmma causal": 1,
+                                   "dq wgmma causal": 1,
+                                   "dkv wgmma causal": 1}
     assert all(t.grad is not None and bool(t.grad.isfinite().all())
                for t in ts)
 

@@ -1,20 +1,20 @@
 """The port's flash attention for float32 q/k/v.
 
-Float32 q/k/v run the tensor-core (wgmma) forward and dK/dV as three bf16
-planes each (hi, mid, lo: each the bf16 rounding of what the planes before
-it leave), made by one split pass, and every product as six bf16 products,
-the plane pairs whose magnitudes multiply to at least 2⁻¹⁶ of the term;
-the dQ stays scalar.  On the CPU:
+Float32 q/k/v run the tensor-core (wgmma) forward, dQ and dK/dV as three
+bf16 planes each (hi, mid, lo: each the bf16 rounding of what the planes
+before it leave), made by one split pass, and every product as six bf16
+products, the plane pairs whose magnitudes multiply to at least 2⁻¹⁶ of the
+term.  On the CPU:
 
 * the split's plain version, and a plain emulation of that arithmetic
   (defined here) held against the plain versions at ``chip_smoke.py``'s
   float32 shapes and head dims 32, 64 and 256: every element must land
-  within ``chip_smoke.TOL["float32"]``, at most a quarter of it.  Without
-  any one mid plane the emulation fails that tolerance, without any one
-  lo plane it exceeds the quarter, and with two planes (hi, lo; three
-  products, the scheme of the lse variant's fp32 dO) it fails the
-  tolerance too.  This is the design's precision budget, shown without a
-  card;
+  within ``chip_smoke.TOL["float32"]``, at most a quarter of it, over all
+  outputs and over dQ alone.  Without any one mid plane the emulation
+  fails that tolerance, without any one lo plane it exceeds the quarter,
+  and with two planes (hi, lo; three products, the scheme of the lse
+  variant's fp32 dO) it fails the tolerance too.  This is the design's
+  precision budget, shown without a card;
 * ``impl`` and ``variant`` for float32;
 * the port's float32 forward and gradients through ``flash_attention`` and
   ``flash_attention_lse`` (with a dlse) against the JAX package's Pallas
@@ -104,10 +104,10 @@ def _masked(s, causal):
 
 
 def _emulated(args, drop=None, planes=3):
-    """The fp32 forward's (o, lse) and dK/dV's (dk, dv) as the kernels
-    compute them: every product over the plane pairs, P = exp(S - m) and
-    dS unrounded (P masked to zero before it splits).  ``drop``: (operand,
-    plane) left out of every product it enters."""
+    """The fp32 forward's o and lse, dQ and dK/dV's dk and dv as the
+    kernels compute them, by name: every product over the plane pairs,
+    P = exp(S - m) and dS unrounded (P masked to zero before it splits).
+    ``drop``: (operand, plane) left out of every product it enters."""
     q, k, v, do, lse, delta, dlse, scale, causal = args
 
     def prod(eq, a, an, b, bn):
@@ -119,14 +119,15 @@ def _emulated(args, drop=None, planes=3):
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    o = prod("bhst,bthd->bhsd", p, "p", v, "v") / l
-    olse = (m + torch.log(l)).squeeze(-1).transpose(1, 2)
+    out = {"o": (prod("bhst,bthd->bhsd", p, "p", v, "v") / l).transpose(1, 2),
+           "lse": (m + torch.log(l)).squeeze(-1).transpose(1, 2)}
     p = torch.exp(s - fa._bhs1(lse))
     dp = prod("bshd,bthd->bhst", do, "do", v, "v")
     ds = p * (dp - fa._bhs1(delta - dlse))
-    dv = prod("bhst,bshd->bthd", p, "p", do, "do")
-    dk = prod("bhst,bshd->bthd", ds, "ds", q, "q") * scale
-    return o.transpose(1, 2), olse, dk, dv
+    out["dq"] = prod("bhst,bthd->bshd", ds, "ds", k, "k") * scale
+    out["dv"] = prod("bhst,bshd->bthd", p, "p", do, "do")
+    out["dk"] = prod("bhst,bshd->bthd", ds, "ds", q, "q") * scale
+    return out
 
 
 # chip_smoke.py's float32 shapes (S, D, causal, with dlse) and width 256.
@@ -136,9 +137,10 @@ BUDGET_SHAPES = [(1000, 32, False, True), (1024, 64, True, False),
                  (1000, 256, False, True)]
 
 
-def _budget(S, D, causal, with_dlse, drop=None, planes=3):
-    """The worst share of the tolerance over o, lse, dk and dv of the
-    emulation against the plain versions on inputs from a numpy seed."""
+def _budget(S, D, causal, with_dlse, drop=None, planes=3, outputs=None):
+    """The worst share of the tolerance over ``outputs`` (all of o, lse,
+    dq, dk and dv by default) of the emulation against the plain versions
+    on inputs from a numpy seed."""
     rs = np.random.RandomState(S + D)
     q, k, v, do = (torch.tensor(rs.randn(1, S, 2, D).astype(np.float32))
                    for _ in range(4))
@@ -147,9 +149,11 @@ def _budget(S, D, causal, with_dlse, drop=None, planes=3):
     scale = 1.0 / math.sqrt(D)
     po, plse = fa._flash_fwd_plain(q, k, v, scale, causal)
     args = (q, k, v, do, plse, (do * po).sum(-1), dlse, scale, causal)
-    want = (po, plse) + fa._flash_dkv_plain(*args)
+    want = dict(zip(("o", "lse", "dq", "dk", "dv"),
+                    (po, plse, fa._flash_dq_plain(*args))
+                    + fa._flash_dkv_plain(*args)))
     got = _emulated(args, drop, planes)
-    return max(_worst(a, b) for a, b in zip(got, want))
+    return max(_worst(got[name], want[name]) for name in outputs or want)
 
 
 @pytest.mark.parametrize("S,D,causal,with_dlse", BUDGET_SHAPES)
@@ -183,16 +187,47 @@ def test_two_planes_fail_the_fp32_tolerance():
     assert worst > 1.0, f"two planes: {worst:.3f} of TOL"
 
 
+# dQ's products: S = Q·Kᵀ, dP = dO·Vᵀ and dQ = dS·K.
+DQ_OPERANDS = ["q", "k", "v", "do", "ds"]
+
+
+@pytest.mark.parametrize("S,D,causal,with_dlse", BUDGET_SHAPES)
+def test_dq_three_plane_products_fit_the_fp32_tolerance(S, D, causal,
+                                                        with_dlse):
+    worst = _budget(S, D, causal, with_dlse, outputs=("dq",))
+    assert worst <= 0.25, f"dq's worst element at {worst:.3f} of TOL"
+
+
+@pytest.mark.parametrize("operand", DQ_OPERANDS)
+@pytest.mark.parametrize("shape", BUDGET_SHAPES)
+def test_dq_without_a_mid_plane_fails_the_fp32_tolerance(shape, operand):
+    worst = _budget(*shape, drop=(operand, 1), outputs=("dq",))
+    assert worst > 1.0, (f"dq without {operand}'s mid plane: {worst:.3f} "
+                         "of TOL")
+
+
+@pytest.mark.parametrize("operand", DQ_OPERANDS)
+def test_dq_without_a_lo_plane_exceeds_the_budget(operand):
+    """At the flagship's width each lo plane is needed for dQ's quarter of
+    the tolerance too."""
+    worst = _budget(*BUDGET_SHAPES[1], drop=(operand, 2), outputs=("dq",))
+    assert worst > 0.25, (f"dq without {operand}'s lo plane: {worst:.3f} "
+                          "of TOL")
+
+
+def test_dq_two_planes_fail_the_fp32_tolerance():
+    worst = _budget(*BUDGET_SHAPES[1], planes=2, outputs=("dq",))
+    assert worst > 1.0, f"dq with two planes: {worst:.3f} of TOL"
+
+
 def test_impl_and_variant_for_fp32():
-    assert fa.impl("fwd", F32) == "wgmma"
-    assert fa.impl("dkv", F32, F32) == "wgmma"
-    assert fa.impl("dq", F32, F32) == "simt"
+    """Every fp32 kernel runs on the tensor cores as bf16 planes."""
     assert fa.variant("fwd", F32, causal=True) == "fwd wgmma fp32 causal"
     # The lse variant's fp32 output is the same instantiation.
     assert fa.variant("fwd", F32, causal=False, out_f32=True) == \
         "fwd wgmma fp32"
     assert fa.variant("dkv", F32, F32, True) == "dkv wgmma fp32 causal"
-    assert fa.variant("dq", F32, F32, True) == "dq simt causal"
+    assert fa.variant("dq", F32, F32, True) == "dq wgmma fp32 causal"
 
 
 def test_split_wrappers_reject_cpu_tensors():
@@ -303,15 +338,15 @@ def test_cuda_fp32_kernels_match_plain(cuda_device, D, lse_route):
                for _ in range(3))
     for causal in (True, False):
         _check_fp32(q, k, v, causal, lse_route, seed=D)
-    # Each forward and dK/dV wrapper split q/k/v, and dK/dV its dO.
-    assert fa.variant_launches["split qkv"] == 4
-    assert fa.variant_launches["split"] == 2
+    # Each wrapper split q/k/v, and dQ and dK/dV each their dO.
+    assert fa.variant_launches["split qkv"] == 6
+    assert fa.variant_launches["split"] == 4
 
 
 @pytest.mark.cuda
 def test_cuda_fp32_autograd_splits_once(cuda_device):
     """A forward and backward split q/k/v once (the forward's planes serve
-    dK/dV) and dO once; the dQ reads fp32 as it is."""
+    dQ and dK/dV) and dO once (for both)."""
     gen = torch.Generator(device=cuda_device).manual_seed(41)
     ts = [torch.randn(2, 256, 4, 64, device=cuda_device, generator=gen)
           .requires_grad_() for _ in range(3)]
@@ -320,8 +355,32 @@ def test_cuda_fp32_autograd_splits_once(cuda_device):
     torch.cuda.synchronize()
     assert fa.variant_launches == {
         "split qkv": 1, "fwd wgmma fp32 causal": 1, "split": 1,
-        "dq simt causal": 1, "dkv wgmma fp32 causal": 1}
+        "dq wgmma fp32 causal": 1, "dkv wgmma fp32 causal": 1}
     assert all(bool(t.grad.isfinite().all()) for t in ts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 256])
+def test_cuda_fp32_dq_takes_the_planes_it_is_given(cuda_device, D):
+    """dQ from fp32 q/k/v and dO as they are (the wrapper splits them) and
+    from their planes split beforehand, as the backward passes them: the
+    same dQ bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(43 + D)
+    q, k, v, do = (torch.randn(2, 200, 3, D, device=cuda_device,
+                               generator=gen) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    po, plse = fa._flash_fwd_plain(q, k, v, scale, True)
+    dlse = torch.randn(plse.shape, device=cuda_device, generator=gen)
+    args = (q, k, v, do, plse, (do * po).sum(-1), dlse, scale, True)
+    alone = fa.flash_dq_cuda(*args)
+    assert fa.variant_launches == {"split qkv": 1, "split": 1,
+                                   "dq wgmma fp32 causal": 1}
+    given = fa.flash_dq_cuda(*args, do_planes=fa.split_do_cuda(do, 3),
+                             qkv_planes=fa.split_qkv_cuda(q, k, v))
+    torch.cuda.synchronize()
+    assert torch.equal(alone, given)
+    assert fa.variant_launches == {"split qkv": 2, "split": 2,
+                                   "dq wgmma fp32 causal": 2}
 
 
 @pytest.mark.cuda

@@ -122,12 +122,11 @@ def test_fwd_block_k_follows_the_kernel():
 def test_impl_and_variant_of_the_fp32_do_route():
     bf, f32 = torch.bfloat16, torch.float32
     for k in ("dq", "dkv"):
-        assert fa.impl(k, bf, f32) == "wgmma"
         assert fa.variant(k, bf, f32, True) == f"{k} wgmma f32do causal"
         assert fa.variant(k, bf, f32, False) == f"{k} wgmma f32do"
         assert fa.variant(k, bf, bf, True) == f"{k} wgmma causal"
-    # fp32 q/k/v: the dQ stays scalar, dK/dV runs on wgmma as bf16 planes.
-    assert fa.variant("dq", f32, f32, False) == "dq simt"
+    # fp32 q/k/v: dQ and dK/dV run on wgmma as bf16 planes.
+    assert fa.variant("dq", f32, f32, False) == "dq wgmma fp32"
     assert fa.variant("dkv", f32, f32, False) == "dkv wgmma fp32"
     assert fa.variant("fwd", bf, causal=False, out_f32=True) == \
         "fwd wgmma f32out"

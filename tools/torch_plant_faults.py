@@ -70,9 +70,9 @@ FAULTS = {
     # (chip_smoke.SPLIT_GAP) reads it at the bf16 dO's gap.
     "dq f32do: lo plane dropped": (
         "flash_wgmma.cu",
-        "        wgmma_ss<BKQ>(dp, desc_k<DP>(dOs + pn * L::bytes(DQ)",
-        "        if (pn == 0) wgmma_ss<BKQ>(dp, desc_k<DP>(dOs + pn * "
-        "L::bytes(DQ)"),
+        "          wgmma_ss<BK>(dp, desc_k<DP>(dOs + pn * L::bytes(BQ)",
+        "          if (pn == 0) wgmma_ss<BK>(dp, desc_k<DP>(dOs + pn * "
+        "L::bytes(BQ)"),
     # The fp32 forward's S leaves out Q's mid plane (its products with K's
     # hi and mid planes).  (Without Q's lo plane instead, an element moves
     # by 0.1-0.5 of the fp32 tolerance: tests/test_torch_flash_fp32.py.)
@@ -90,6 +90,13 @@ FAULTS = {
         "          mma_rs<DP, NC>(dvacc, pf[kk][pair_a(pr)],",
         "          mma_rs<DP, NC>(dvacc, pf[kk][pair_a(pr) == 2 ? 0 "
         ": pair_a(pr)],"),
+    # The fp32 dQ's dS.K leaves out dS's mid plane (its products with K's
+    # hi and mid planes).
+    "dq fp32: dS.K drops dS's mid plane": (
+        "flash_wgmma.cu",
+        "          mma_rs<DP, DP>(dqacc, df[kk][pair_a(pr)],",
+        "          if (pair_a(pr) != 1)\n"
+        "          mma_rs<DP, DP>(dqacc, df[kk][pair_a(pr)],"),
 }
 
 RUN = """
