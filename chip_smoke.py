@@ -29,7 +29,9 @@ non-zero):
 3. inside one ``hvd.init()`` (a one-rank NCCL group), first the ResNet-50
    slice: ``resnet50_config()`` at full width and depth (blocks 3, 4, 6, 3,
    width 64, 1000 classes, bf16), batch 32 of 224x224 images from a fixed
-   seed, SGD(0.01, momentum 0.9), through ``make_resnet_train_step_hvd``.
+   seed, SGD(0.01, momentum 0.9), through ``make_resnet_train_step_hvd``
+   with ``mesh=make_mesh(), axis=("dp",)``, whose step-0 loss must be the
+   no-mesh step's bit for bit.
    Five steps, the first beside an fp32 twin from the same seed (step-0
    loss, every gradient and the stem batch norm's statistics against it),
    falling and finite losses, no flash kernel launched, three steps with
@@ -38,16 +40,27 @@ non-zero):
    16 heads, d_ff 4096, seq 1024, batch 8, bf16, flash attention, remat)
    with weights from a fixed seed, five training steps through
    ``make_transformer_train_step(cfg, mesh=make_mesh())``
-   (``DistributedOptimizer`` over AdamW), whose step-0 loss must be, bit for
-   bit, the loss of the model built without a mesh.
+   (``DistributedOptimizer`` over AdamW, built with
+   ``HVD_NONFINITE_POLICY=skip`` set, which must not arm its guard), whose
+   step-0 loss must be, bit for bit, the loss of the model built without a
+   mesh.
    A twin with dense attention starts from the same weights and takes
    the same steps.  Checks: finite losses, 16 forward, 8 dQ and 8 dK/dV
    launches per step, the first step's gradients and every step's loss
    against the twin's, and the first step's loss against the same model
    with its attention through the plain forward (with and without its bf16
-   rounding of P).  Then ten steps alone are timed and one is profiled,
-   then one ResNet-50 step, and five MNIST steps (batch 64, Adam) must
-   give finite, falling losses.  Last, one flagship step in fp32
+   rounding of P).  Then ten steps alone are timed.  Then the same
+   flagship with the Switch MoE FFN (8 experts, capacity factor 1.25;
+   0.87 G parameters): five steps beside a dense-attention twin (step-0
+   loss, and the gradients outside the experts, against the twin's; the
+   experts' gradients and the tokens the twin routes elsewhere reported),
+   falling finite losses, 16 forward, 8 dQ and 8 dK/dV launches per step,
+   each layer's dropped share and aux loss, ten timed steps.  Then one
+   step of each is profiled, then one ResNet-50 step, five MNIST steps
+   (batch 64, Adam) must give finite, falling losses, and the non-finite
+   gradient guard runs on the card (``skip`` leaves parameters and AdamW
+   state bit for bit, ``zero`` equals the step with the entry zeroed,
+   ``off`` adds no collective).  Last, one flagship step in fp32
    (``compute_dtype`` float32, the same widths) beside a dense-attention
    fp32 twin from the same seed: its step-0 loss and gradients against the
    twin's, and its launches of the fp32 kernels (16 forwards and q/k/v
@@ -70,9 +83,11 @@ non-zero):
    which counts the host's gaps.  This comes after the slice, so that the
    steps are timed before any profiler has run.
 
-The ``kernels`` JSON lists the flagship's three kernels, the ring hop's
-six variants (``flash_<kernel>_ring_self`` and ``_ring_hop``) and the ring
-hop's dO split (``flash_split_do``), then the fp32 kernels
+The ``kernels`` JSON lists the flagship's three kernels, the same three
+with their launches in the MoE flagship's run (``flash_<kernel>_moe``: its
+attention is the flagship's), the ring hop's six variants
+(``flash_<kernel>_ring_self`` and ``_ring_hop``) and the ring hop's dO
+split (``flash_split_do``), then the fp32 kernels
 (``flash_<kernel>_fp32``, ``flash_split_qkv_fp32``,
 ``flash_split_do_fp32``) timed at the flagship's attention in fp32, with
 their launches in the main path's run (the ring's: the causal ring run of
@@ -600,8 +615,9 @@ def _profile_step(step_fn, state, tokens, targets, step_ms, what="profile"):
 def run_slice(hvd, tfm, fa, make_mesh, dev, card):
     """Five flagship training steps, each followed by the same step of a
     dense-attention twin made from the same seed, and the step-0 loss with
-    the plain attention; then, without the twin, ten timed steps and one
-    profiled.  Returns (launch counts, median step ms, steps)."""
+    the plain attention; then, without the twin, ten timed steps.  Returns
+    (launch counts, median step ms, steps, what :func:`_profile_step`
+    needs)."""
     import dataclasses
 
     import torch
@@ -615,7 +631,16 @@ def run_slice(hvd, tfm, fa, make_mesh, dev, card):
     step_fn, init_fn = hvd.make_transformer_train_step(cfg, mesh=mesh)
     twin_step, twin_init = hvd.make_transformer_train_step(
         dataclasses.replace(cfg, attn_impl="dense"))
-    state, twin = init_fn(0), twin_init(0)
+    # HVD_NONFINITE_POLICY arms a user's DistributedOptimizer and the hvd
+    # ResNet step, never this step (the JAX package's GSPMD step has no
+    # guard): built with it set, the step must issue no agreement, so its
+    # step-0 loss stays the no-mesh model's bit for bit.
+    os.environ["HVD_NONFINITE_POLICY"] = "skip"
+    try:
+        state = init_fn(0)
+    finally:
+        del os.environ["HVD_NONFINITE_POLICY"]
+    twin = twin_init(0)
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
                            generator=gen)
@@ -642,10 +667,14 @@ def run_slice(hvd, tfm, fa, make_mesh, dev, card):
                  flash=losses[0], dense=twin_losses[0])
 
     bad = []
-    print(f"slice: step built with mesh {mesh.shape}: step-0 loss "
-          f"{losses[0]!r}, without a mesh {no_mesh_loss!r}")
+    print(f"slice: step built with mesh {mesh.shape} (and "
+          f"HVD_NONFINITE_POLICY=skip set, guard "
+          f"{state.optimizer.guard}): step-0 loss {losses[0]!r}, without a "
+          f"mesh {no_mesh_loss!r}")
     if losses[0] != no_mesh_loss:
         bad.append("the step through make_mesh() moves the step-0 loss")
+    if state.optimizer.guard is not None:
+        bad.append("HVD_NONFINITE_POLICY armed the transformer step")
     print(f"slice: flash losses {losses}")
     print(f"slice: dense twin losses {twin_losses}")
     spread = max(step0.values()) - min(step0.values())
@@ -680,8 +709,238 @@ def run_slice(hvd, tfm, fa, make_mesh, dev, card):
     print(f"slice: step times alone, ms {times}")
     print(f"slice: median step {step_ms:.2f} ms, "
           f"{B * S / step_ms * 1e3:.0f} tokens/s on {card}")
-    _profile_step(step_fn, state, tokens, targets, step_ms)
-    return counts, step_ms, steps
+    return counts, step_ms, steps, (step_fn, state, tokens, targets, step_ms)
+
+
+def _moe_routes(tfm, model, tokens, mesh):
+    """One forward without remat or gradients at the model's weights: the
+    routing of each MoE layer (``transformer.apply``'s ``stats``)."""
+    import torch
+
+    stats = []
+    with torch.no_grad():
+        tfm.apply(model, tokens, mesh=mesh, remat=False, stats=stats)
+    return stats
+
+
+def run_moe(hvd, tfm, fa, make_mesh, dev, card):
+    """The flagship with the Switch MoE FFN (8 experts, capacity factor
+    1.25) at full width: five steps through
+    ``make_transformer_train_step(cfg, mesh=make_mesh())``, each followed
+    by the same step of a dense-attention twin made from the same seed.  A
+    bf16 difference in attention flips some tokens' experts, and a flip
+    moves every later token's place in that expert's buffer, so which
+    tokens drop: the tokens the twin routes elsewhere by itself are
+    printed, and at step 0 the twin replays the flash model's routing
+    (``transformer._route``), so that the step-0 loss and every gradient
+    are held against the twin's with the flagship's tolerances; later
+    steps run on their own routing; 16 forward, 8 dQ and 8 dK/dV launches
+    a step;
+    each layer's dropped share and aux loss; then ten timed steps.
+    Returns (launch counts, median step ms, steps, what
+    :func:`_profile_step` needs)."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    cfg = tfm.TransformerConfig(
+        vocab_size=32768, d_model=1024, n_layers=8, n_heads=16, d_ff=4096,
+        max_seq_len=1024, compute_dtype=torch.bfloat16, attn_impl="flash",
+        remat=True, n_experts=8, capacity_factor=1.25)
+    B, S, steps = 8, 1024, 5
+    mesh = make_mesh()
+    step_fn, init_fn = hvd.make_transformer_train_step(cfg, mesh=mesh)
+    twin_step, twin_init = hvd.make_transformer_train_step(
+        dataclasses.replace(cfg, attn_impl="dense"))
+    state, twin = init_fn(0), twin_init(0)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    n_expert = sum(p.numel() for n, p in state.model.named_parameters()
+                   if n.split(".")[-1] in ("w_in", "w_gate", "w_out"))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                           generator=gen)
+    targets = torch.roll(tokens, -1, dims=1)
+    bad = []
+    routes = _moe_routes(tfm, state.model, tokens, mesh)
+    twin_routes = _moe_routes(tfm, twin.model, tokens, None)
+    flipped = [int((a["expert"] != b["expert"]).sum())
+               for a, b in zip(routes, twin_routes)]
+    torch.cuda.reset_peak_memory_stats()
+
+    # Step 0's twin replays the flash model's routing, call by call (each
+    # layer's forward, then its recompute in the backward): the twins then
+    # keep and drop the same tokens and differ only in their attention.
+    recorded, real_route = [], tfm._route
+
+    def record(gates):
+        expert, gate = real_route(gates)
+        recorded.append(expert)
+        return expert, gate
+
+    def replay(gates):
+        expert = recorded.pop(0)
+        return expert, gates.gather(-1, expert[:, None])[:, 0]
+
+    fa.reset_launch_counts()
+    losses, twin_losses, times = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(tfm, "_route", record if i == 0
+                               else real_route):
+            state, loss = step_fn(state, tokens, targets)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        with mock.patch.object(tfm, "_route", replay if i == 0
+                               else real_route):
+            twin, twin_loss = twin_step(twin, tokens, targets)
+        twin_losses.append(float(twin_loss))
+        if i == 0:
+            gaps = _grad_gaps(state.model, twin.model)
+            if recorded:
+                bad.append(f"{len(recorded)} recorded routings not replayed")
+    counts = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    print(f"moe: {n_params / 1e9:.3f} G parameters, {n_expert / 1e9:.3f} G "
+          f"of them in the experts; capacity "
+          f"{max(1, int(cfg.capacity_factor * S * B / cfg.n_experts))} "
+          "tokens an expert a layer")
+    print("moe: at the seed's weights, per layer: dropped share "
+          + ", ".join(f"{float(r['dropped']) / r['tokens']:.4f}"
+                      for r in routes)
+          + "; aux loss " + ", ".join(f"{float(r['aux']):.4f}"
+                                      for r in routes))
+    print(f"moe: tokens the dense-attention twin routes to another expert "
+          f"by itself, per layer (of {B * S}): {flipped}; at step 0 it "
+          "replays the flash model's routing")
+    print(f"moe: flash losses {losses}")
+    print(f"moe: dense twin losses {twin_losses} (from step 1 on its own "
+          "routing: reported)")
+    diff0 = abs(losses[0] - twin_losses[0])
+    print(f"moe: step-0 |flash - dense| {diff0:.3e} (tol {LOSS_TOL})")
+    print("moe: step-0 gradient gap to the dense twin, largest over layers: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" (tol {GRAD_TOL})")
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        bad.append(f"loss did not fall over {steps} steps: {losses}")
+    if diff0 > LOSS_TOL:
+        bad.append("step-0 loss disagrees with the dense twin")
+    if max(gaps.values()) > GRAD_TOL:
+        bad.append("step-0 gradients disagree with the dense twin")
+    want = {"fwd": 16 * steps, "dq": 8 * steps, "dkv": 8 * steps, "split": 0}
+    print(f"moe: kernel launches over {steps} steps {counts} (want {want})")
+    if counts != want:
+        bad.append(f"launch counts {counts} != {want}")
+    _fail_if(bad, "moe")
+    print(f"moe: step times with the twin between them, ms {times}; peak "
+          f"memory {peak:.2f} GiB with the twin")
+    del twin
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, times, _ = _timed_steps(step_fn, state, tokens, targets, 2 * steps)
+    step_ms = statistics.median(times)
+    print(f"moe: step times alone, ms {times}")
+    print(f"moe: median step {step_ms:.2f} ms, "
+          f"{B * S / step_ms * 1e3:.0f} tokens/s on {card}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts, step_ms, steps, (step_fn, state, tokens, targets, step_ms)
+
+
+def run_guard(hvd, dev):
+    """The non-finite gradient guard on the card: a small model's
+    ``DistributedOptimizer(AdamW)`` with a NaN planted in one gradient
+    entry.  ``skip``: parameters and AdamW state bit for bit as before the
+    step, one skip counted; ``zero``: the step equals the step taken with
+    that entry zeroed; ``off`` issues one allreduce (the gradients' one
+    dtype) and ``skip`` one more, the agreement."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.integrity import nonfinite as nf
+
+    def model():
+        torch.manual_seed(0)
+        return torch.nn.Sequential(torch.nn.Linear(64, 128), torch.nn.GELU(),
+                                   torch.nn.Linear(128, 8)).to(dev)
+
+    x = torch.randn(32, 64, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(6))
+
+    def step(net, opt, poison=None):
+        opt.zero_grad()
+        net(x).square().mean().backward()
+        if poison is not None:
+            net[0].weight.grad[3, 5] = poison
+        opt.step()
+
+    def snapshot(net, opt):
+        return ([p.detach().clone() for p in net.parameters()],
+                [t.clone() for st in opt.inner.state.values()
+                 for t in st.values()])
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a[0] + a[1],
+                                                     b[0] + b[1]))
+
+    def adamw(net):
+        return torch.optim.AdamW(net.parameters(), lr=1e-3)
+
+    bad = []
+    nf.reset_counters()
+    net = model()
+    opt = hvd.DistributedOptimizer(adamw(net), nonfinite_policy="skip")
+    step(net, opt)
+    before = snapshot(net, opt)
+    step(net, opt, poison=float("nan"))
+    skipped_same = same(before, snapshot(net, opt))
+    print(f"guard: skip: NaN planted, parameters and AdamW state bit for bit "
+          f"unchanged {skipped_same}; guard skipped {opt.guard.skipped}, "
+          f"counters {nf.counters()}")
+    if not (skipped_same and opt.guard.skipped == 1
+            and nf.counters() == {"agreed": 1, "skipped": 1}):
+        bad.append("skip did not leave the step untouched and counted once")
+    step(net, opt)
+    if same(before, snapshot(net, opt)):
+        bad.append("skip: the next good step did not apply")
+
+    net_z, net_ref = model(), model()
+    opt_z = hvd.DistributedOptimizer(adamw(net_z), nonfinite_policy="zero")
+    opt_ref = hvd.DistributedOptimizer(adamw(net_ref), nonfinite_policy="off")
+    step(net_z, opt_z, poison=float("inf"))
+    step(net_ref, opt_ref, poison=0.0)
+    zero_same = same(snapshot(net_z, opt_z), snapshot(net_ref, opt_ref))
+    print(f"guard: zero: the step with an Inf equals the step with that "
+          f"entry zeroed, bit for bit: {zero_same}")
+    if not zero_same:
+        bad.append("zero differs from the step with the entry zeroed")
+
+    calls = {}
+    real = dist.all_reduce
+    for policy in ("off", "skip"):
+        n = [0]
+
+        def spy(*a, n=n, **k):
+            n[0] += 1
+            return real(*a, **k)
+
+        net = model()
+        opt = hvd.DistributedOptimizer(adamw(net), nonfinite_policy=policy)
+        dist.all_reduce = spy
+        try:
+            step(net, opt)
+        finally:
+            dist.all_reduce = real
+        calls[policy] = n[0]
+    print(f"guard: allreduces per step {calls} (off: the gradients' one; "
+          "skip: one more, the agreement)")
+    if calls != {"off": 1, "skip": 2}:
+        bad.append(f"allreduces per step {calls}")
+    _fail_if(bad, "guard")
 
 
 def run_fp32_step(hvd, tfm, fa, dev):
@@ -756,11 +1015,13 @@ def _rel_gap(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def run_resnet(hvd, rn, fa, dev, card):
+def run_resnet(hvd, rn, fa, make_mesh, dev, card):
     """The ResNet-50 slice: five steps of ``make_resnet_train_step_hvd``
-    (``Compression.none``) at full width and depth beside an fp32 twin's
-    first step from the same seed, three steps with ``Compression.fp16``,
-    then ten timed steps.  Returns what :func:`profile_resnet` needs."""
+    (``Compression.none``) through ``mesh=make_mesh(), axis=("dp",)`` at
+    full width and depth, whose step-0 loss must be the no-mesh step's bit
+    for bit, beside an fp32 twin's first step from the same seed, three
+    steps with ``Compression.fp16``, then ten timed steps.  Returns what
+    :func:`profile_resnet` needs."""
     import dataclasses
 
     import torch
@@ -775,9 +1036,15 @@ def run_resnet(hvd, rn, fa, dev, card):
     def sgd(params):  # bench.py's optimizer for the ResNet-50 step
         return torch.optim.SGD(params, lr=0.01, momentum=0.9)
 
-    step_fn, init_fn = hvd.make_resnet_train_step_hvd(cfg, sgd)
+    mesh = make_mesh()
+    step_fn, init_fn = hvd.make_resnet_train_step_hvd(cfg, sgd, mesh=mesh,
+                                                      axis=("dp",))
     twin_step, twin_init = hvd.make_resnet_train_step_hvd(
         dataclasses.replace(cfg, compute_dtype=torch.float32), sgd)
+    # The same step built without a mesh, from the same seed.
+    no_mesh_step, no_mesh_init = hvd.make_resnet_train_step_hvd(cfg, sgd)
+    _, _, no_mesh_loss = _timed_steps(no_mesh_step, no_mesh_init(0), images,
+                                      labels, 1)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     state = init_fn(0)
@@ -802,6 +1069,10 @@ def run_resnet(hvd, rn, fa, dev, card):
     bad = []
     loss_gap = abs(losses[0] - twin_losses[0])
     print(f"resnet50: losses {losses}")
+    print(f"resnet50: step built with mesh {mesh.shape}, axis ('dp',): "
+          f"step-0 loss {losses[0]!r}, without a mesh {no_mesh_loss[0]!r}")
+    if losses[0] != no_mesh_loss[0]:
+        bad.append("the step through make_mesh() moves the step-0 loss")
     print(f"resnet50: step-0 loss {losses[0]:.6f}, fp32 twin "
           f"{twin_losses[0]:.6f}, gap {loss_gap:.3e} (tol {RESNET_LOSS_TOL})")
     grad_tol = {k: RESNET_GRAD_TOL.get(k, RESNET_GRAD_TOL_BODY)
@@ -1100,12 +1371,22 @@ def main() -> int:
     hvd.init()
     try:
         # Every timed step runs before the first profiler.
-        resnet = run_resnet(hvd, rn, fa, dev, card)
-        counts, step_ms, steps = run_slice(hvd, tfm, fa, make_mesh, dev,
-                                           card)
+        resnet = run_resnet(hvd, rn, fa, make_mesh, dev, card)
+        counts, step_ms, steps, slice_prof = run_slice(hvd, tfm, fa,
+                                                       make_mesh, dev, card)
+        moe_counts, moe_ms, moe_steps, moe_prof = run_moe(
+            hvd, tfm, fa, make_mesh, dev, card)
+        _profile_step(*moe_prof, what="moe profile")
+        print(f"moe profile: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del moe_prof
+        torch.cuda.empty_cache()
+        _profile_step(*slice_prof)
+        del slice_prof
         profile_resnet(*resnet, card)
         del resnet
         run_mnist(hvd, dev)
+        run_guard(hvd, dev)
         torch.cuda.empty_cache()
         f32_run = run_fp32_step(hvd, tfm, fa, dev)
     finally:
@@ -1143,6 +1424,16 @@ def main() -> int:
                     source=SOURCE, replaces=REPLACES[k],
                     launches=counts[k], **flagship[k])
                for k in ("fwd", "dq", "dkv")]
+    # The MoE flagship's attention is the flagship's: the same kernels at
+    # the same shape, with their launches in the MoE run.
+    kernels += [dict(name=f"flash_{k}_moe", route="cuda",
+                     source=SOURCE, replaces=REPLACES[k],
+                     launches=moe_counts[k], **flagship[k])
+                for k in ("fwd", "dq", "dkv")]
+    moe_attn = sum(flagship[k]["ms"] * moe_counts[k] / moe_steps
+                   for k in ("fwd", "dq", "dkv"))
+    print(f"moe: attention kernels {moe_attn:.2f} ms of the {moe_ms:.2f} ms "
+          f"step (each kernel's flagship time x its launches per step)")
     # The ring hop's variants, with their launches in the causal ring run.
     for c, tag in ((True, "self"), (False, "hop")):
         for k in ("fwd", "dq", "dkv"):

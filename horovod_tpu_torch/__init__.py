@@ -15,7 +15,9 @@ from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_lse)
 from horovod_tpu_torch.parallel.optimizer import (DistributedOptimizer,
-                                                  allreduce_gradients)
+                                                  allreduce_gradients,
+                                                  distributed_grad,
+                                                  distributed_value_and_grad)
 from horovod_tpu_torch.parallel.train import (ResNetState, TrainState,
                                               make_mnist_train_step,
                                               make_resnet_train_step,
@@ -34,7 +36,8 @@ __all__ = [
     "local_size", "cross_rank", "cross_size", "device", "ReduceOp",
     "Average", "Sum", "Adasum", "Min", "Max", "Product", "allreduce",
     "grouped_allreduce", "allgather", "broadcast", "barrier", "Compression",
-    "DistributedOptimizer", "allreduce_gradients", "flash_attention",
+    "DistributedOptimizer", "allreduce_gradients", "distributed_grad",
+    "distributed_value_and_grad", "flash_attention",
     "flash_attention_lse", "TrainState", "make_transformer_train_step",
     "ResNetState", "make_resnet_train_step", "make_resnet_train_step_hvd",
     "make_mnist_train_step",

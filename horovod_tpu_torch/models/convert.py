@@ -4,7 +4,8 @@ port's ``state_dict``.
 Transformer: the JAX tree (``horovod_tpu.models.transformer.init``) stacks
 every layer parameter along a leading ``[L, ...]`` axis; the port keeps one
 module per layer.  The per-layer layouts are the same, so conversion is a
-slice along that axis.
+slice along that axis.  Given a mesh, both directions keep this rank's
+shard, cut by ``transformer.param_specs`` (numpy or tensor slicing).
 
 ResNet and MNIST: the JAX trees nest by name (``params["stage0_block0"]
 ["bn1"]["scale"]``) and the port's keys join the same names with dots
@@ -24,42 +25,74 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from horovod_tpu_torch.models import transformer as tfm
+from horovod_tpu_torch.parallel.mesh import shard
+
 LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_in", "w_gate",
               "w_out")
+# The Switch MoE FFN's layer parameters (``n_experts > 0``).
+MOE_LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "router", "w_in",
+                  "w_gate", "w_out")
 
 
-def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{"embed", "layers": {k: [L, ...]}, "ln_f"}`` of numpy arrays →
-    the port's ``state_dict`` (fp32 CPU tensors)."""
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
+def _specs(moe: bool):
+    return tfm.param_specs(tfm.TransformerConfig(n_experts=int(moe)))
 
-    layers = tree["layers"]
-    extra = set(layers) - set(LAYER_KEYS)
+
+def _layer_keys(names) -> Tuple[str, ...]:
+    keys = MOE_LAYER_KEYS if "router" in names else LAYER_KEYS
+    extra = set(names) - set(keys)
     if extra:
-        raise NotImplementedError(
-            f"layer parameters {sorted(extra)} (MoE) are not ported yet")
+        raise ValueError(f"unknown layer parameters {sorted(extra)}")
+    return keys
+
+
+def params_from_jax(tree: Dict[str, Any], mesh=None
+                    ) -> Dict[str, torch.Tensor]:
+    """``{"embed", "layers": {k: [L, ...]}, "ln_f"}`` of numpy arrays →
+    the port's ``state_dict`` (fp32 CPU tensors); with ``mesh`` (anything
+    with ``shape`` and ``coords``), this rank's shard of it."""
+    layers = tree["layers"]
+    keys = _layer_keys(layers)
+    specs = _specs("router" in keys)
+
+    def t(a, spec):
+        a = np.array(a, dtype=np.float32)
+        if mesh is not None:
+            a = shard(a, spec, mesh)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
     n_layers = np.shape(layers["wq"])[0]
-    sd = {"embed": t(tree["embed"]), "ln_f": t(tree["ln_f"])}
+    sd = {"embed": t(tree["embed"], specs["embed"]),
+          "ln_f": t(tree["ln_f"], specs["ln_f"])}
     for i in range(n_layers):
-        for k in LAYER_KEYS:
-            sd[f"layers.{i}.{k}"] = t(np.asarray(layers[k])[i])
+        for k in keys:
+            sd[f"layers.{i}.{k}"] = t(np.asarray(layers[k])[i],
+                                      specs["layers"][k])
     return sd
 
 
-def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def params_to_jax(state_dict: Dict[str, torch.Tensor], mesh=None
+                  ) -> Dict[str, Any]:
     """The port's ``state_dict`` (or a dict of gradients keyed the same
-    way) → the JAX package's stacked tree of numpy arrays."""
-    def a(x):
-        return x.detach().to("cpu", torch.float32).numpy()
-
+    way) → the JAX package's stacked tree of numpy arrays; with ``mesh``,
+    this rank's shard of that tree (``state_dict`` whole)."""
     n_layers = 1 + max(int(k.split(".")[1]) for k in state_dict
                        if k.startswith("layers."))
-    layers = {k: np.stack([a(state_dict[f"layers.{i}.{k}"])
+    keys = _layer_keys({k.split(".")[-1] for k in state_dict
+                        if k.startswith("layers.")})
+    specs = _specs("router" in keys)
+
+    def a(x, spec):
+        x = x.detach().to("cpu", torch.float32).numpy()
+        return x if mesh is None else shard(x, spec, mesh)
+
+    layers = {k: np.stack([a(state_dict[f"layers.{i}.{k}"],
+                             specs["layers"][k])
                            for i in range(n_layers)])
-              for k in LAYER_KEYS}
-    return {"embed": a(state_dict["embed"]), "layers": layers,
-            "ln_f": a(state_dict["ln_f"])}
+              for k in keys}
+    return {"embed": a(state_dict["embed"], specs["embed"]), "layers": layers,
+            "ln_f": a(state_dict["ln_f"], specs["ln_f"])}
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):

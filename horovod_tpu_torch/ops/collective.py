@@ -8,10 +8,13 @@ for CPU tensors.  Every function takes ``axis``: an
 ``None`` for every rank (the default group).  Every function returns a new
 tensor and leaves its input as it was.
 
-``alltoall`` and ``ppermute_ring`` are differentiable (the backward of an
-equal-split all-to-all is the same exchange of the gradient; that of a
-shift around the ring is the opposite shift), as their JAX counterparts are
-under autodiff; the reductions are not.
+``alltoall``, ``ppermute_ring`` and ``allgather_dim`` are differentiable
+(the backward of an equal-split all-to-all is the same exchange of the
+gradient; that of a shift around the ring is the opposite shift; that of an
+all-gather is a reduce-scatter), as their JAX counterparts are under
+autodiff; the reductions are not.  ``copy_to_axis`` and
+``reduce_from_axis`` are the two halves of a tensor-parallel region (the
+collectives GSPMD inserts around the JAX package's sharded products).
 """
 
 from __future__ import annotations
@@ -296,3 +299,72 @@ def ppermute_ring(x: torch.Tensor, axis: Axis, shift: int = 1
     sent: the primitive under ring attention.  Differentiable: the backward
     sends the gradient ``-shift`` steps, the transpose of the shift."""
     return _PPermuteRing.apply(x, axis, int(shift))
+
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return torch.cat(list(_gather(x, ax).unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        piece = reduce_scatter(g.movedim(ctx.dim, 0), ReduceOp.SUM,
+                               axis=ctx.ax)
+        return piece.movedim(0, ctx.dim), None, None
+
+
+def allgather_dim(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim``, in index order (every
+    rank the same shape).  Differentiable: the backward reduce-scatters the
+    gradient (SUM), so each rank gets the sum over the ranks of its block's
+    gradient."""
+    if axis.size == 1:
+        return x
+    return _AllGatherDim.apply(x, _in_rank_order(axis), dim)
+
+
+def _sum(x, ax):
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ax.group)
+    return y
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.ax), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _sum(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_axis(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """Enter a region whose ranks along ``axis`` each compute a part: the
+    identity forward, a SUM allreduce of the gradient backward (each rank's
+    part gives a partial gradient of ``x``).  Megatron's ``f``; ``x`` is
+    replicated over ``axis``.  None or a size-1 axis: ``x`` itself."""
+    if axis is None or axis.size == 1:
+        return x
+    return _CopyTo.apply(x, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """Leave such a region: a SUM allreduce of the ranks' partial results
+    forward, the identity backward (the result is replicated, and so is its
+    gradient).  Megatron's ``g``.  None or a size-1 axis: ``x`` itself."""
+    if axis is None or axis.size == 1:
+        return x
+    return _ReduceFrom.apply(x, axis)

@@ -16,8 +16,10 @@ coordinates on every other axis.  The collectives of
 package's take axis names.
 
 The JAX package's ``filter_spec`` and ``sharding_for`` build
-``PartitionSpec`` shardings for tensor-parallel parameters; they wait for
-the tensor-parallel slice (ROADMAP.md, Queue 1).
+``PartitionSpec`` shardings for GSPMD; torch has none.  Each rank holds its
+own shard of a tensor-parallel or expert-parallel parameter, cut by
+:func:`horovod_tpu_torch.models.transformer.param_specs` and
+:func:`shard`.
 """
 
 from __future__ import annotations
@@ -110,10 +112,11 @@ class Mesh:
 
     def axis(self, *names: str) -> Axis:
         """The axes ``names`` seen from this rank, index row-major in the
-        order given.  A combination of axes not asked for before creates
-        its process groups: every rank must ask for it, in the same order
-        as the others."""
-        if not names or any(n not in self.shape for n in names) or \
+        order given; no names: this rank alone (size 1, a group of one).
+        A combination of axes not asked for before creates its process
+        groups: every rank must ask for it, in the same order as the
+        others."""
+        if any(n not in self.shape for n in names) or \
                 len(set(names)) != len(names):
             raise ValueError(f"axes {names} are not distinct axes of the "
                              f"mesh {self.shape}")
@@ -177,6 +180,38 @@ def make_hierarchical_mesh(*, inner_axes: Optional[Dict[str, int]] = None
 
 def mesh_axis_size(mesh: Mesh, name: str) -> int:
     return mesh.shape.get(name, 1)
+
+
+def sub_axis(mesh: Mesh, names) -> Axis:
+    """The axes of ``names`` that the mesh has, in the mesh's order, as one
+    :class:`Axis` (none of them: this rank alone)."""
+    return mesh.axis(*(a for a in mesh.axis_names if a in names))
+
+
+def present_axes(mesh: Mesh, names) -> Tuple[str, ...]:
+    """Those of ``names`` that the mesh has with a size above one, in the
+    mesh's order."""
+    return tuple(a for a in mesh.shape if a in names and mesh.shape[a] > 1)
+
+
+def shard(x, spec, mesh: Mesh):
+    """This rank's block of ``x`` (a tensor or numpy array) under ``spec``:
+    one axis name or None per dimension, as a ``PartitionSpec`` reads;
+    a dimension over an axis of size ``n`` is cut into ``n`` equal blocks
+    and the rank keeps block ``mesh.coords[axis]``.  Axes the mesh lacks
+    leave their dimension whole.  ``mesh`` needs only ``shape`` and
+    ``coords``."""
+    for dim, name in enumerate(spec):
+        n = mesh.shape.get(name, 1) if name is not None else 1
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                             f"split over {name!r} of size {n}")
+        b = x.shape[dim] // n
+        i = mesh.coords[name]
+        x = x[(slice(None),) * dim + (slice(i * b, (i + 1) * b),)]
+    return x
 
 
 def data_parallel_axes(mesh: Mesh) -> Tuple[str, ...]:

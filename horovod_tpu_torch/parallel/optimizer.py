@@ -10,6 +10,11 @@ gradients of n calls locally and reduces and applies their mean on every
 n-th call only, leaving parameters and inner state untouched on the others
 (the JAX package reduces every step and masks the update; the updates and
 state are the same).
+
+``nonfinite_policy`` arms the non-finite gradient guard
+(:mod:`horovod_tpu_torch.integrity.nonfinite`).  :func:`distributed_grad`
+and :func:`distributed_value_and_grad` are the DistributedGradientTape
+analogs: ``torch.func`` gradients, allreduced.
 """
 
 from __future__ import annotations
@@ -17,8 +22,10 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
+from torch.utils import _pytree
 
 from horovod_tpu_torch.common.types import ReduceOp
+from horovod_tpu_torch.integrity import nonfinite as _nf
 from horovod_tpu_torch.ops import collective as C
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.parallel.mesh import Axis
@@ -44,8 +51,17 @@ def allreduce_gradients(grads: Sequence[torch.Tensor], *,
 class DistributedOptimizer:
     """Wrap ``inner`` so that its updates see globally reduced gradients.
 
-    The non-finite gradient guard of the JAX package is not ported yet:
-    asking for it raises."""
+    ``nonfinite_policy`` (default: ``HVD_NONFINITE_POLICY``, then ``off``)
+    arms the non-finite gradient guard: a one-element MAX allreduce agrees
+    a per-step any-NaN/Inf flag over ``axis`` (with ``hierarchical=True``
+    it names the inner axis and ``outer_axis``, so the agreement spans the
+    whole reduction set and no slice applies a step another skips), so
+    that every rank
+    skips (``skip``), sanitizes (``zero``) or raises on (``raise``) the
+    same step.  ``off`` adds no collective.  Pass ``nonfinite_guard`` (a
+    :class:`~horovod_tpu_torch.integrity.nonfinite.NonFiniteGuard`) to keep
+    a handle on its counters; ``self.guard`` is the guard in use, or None.
+    The guard composes with ``backward_passes_per_step == 1`` only."""
 
     def __init__(self, inner: torch.optim.Optimizer, *,
                  op: ReduceOp = ReduceOp.AVERAGE,
@@ -54,13 +70,22 @@ class DistributedOptimizer:
                  backward_passes_per_step: int = 1,
                  hierarchical: bool = False,
                  outer_axis: str = "dcn",
-                 nonfinite_policy: Optional[str] = None):
+                 nonfinite_policy: Optional[str] = None,
+                 nonfinite_guard: Optional[_nf.NonFiniteGuard] = None):
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
-        if nonfinite_policy not in (None, "off"):
-            raise NotImplementedError(
-                "the non-finite gradient guard is not ported yet; see "
-                "ROADMAP.md, Queue 1")
+        guard = nonfinite_guard
+        policy = guard.policy if guard is not None \
+            else _nf.resolve_policy(nonfinite_policy)
+        if policy != "off":
+            if backward_passes_per_step != 1:
+                raise ValueError(
+                    "the non-finite gradient guard composes with "
+                    "backward_passes_per_step == 1 only; accumulate at the "
+                    "data-loader level to combine them")
+            if guard is None:
+                guard = _nf.NonFiniteGuard(policy)
+        self.guard = guard
         self.inner = inner
         self.op = op
         self.axis = axis
@@ -80,7 +105,8 @@ class DistributedOptimizer:
     def step(self):
         """Reduce the gradients and run the inner step (every
         ``backward_passes_per_step``-th call).  Returns the inner step's
-        result, or None on a call that only accumulated.
+        result, or None on a call that only accumulated or that the guard
+        skipped (then no gradient is reduced and nothing is updated).
 
         A parameter without a gradient (``.grad`` None: unused in this
         backward) counts as a zero gradient, as a leaf of the JAX package's
@@ -101,9 +127,55 @@ class DistributedOptimizer:
                 return None
             grads = [a / n for a in self._acc]
             self._passes, self._acc = 0, []
+        if self.guard is not None:
+            grads, skip = self.guard.intercept(grads, self.axis)
+            if skip:
+                return None
         reduced = allreduce_gradients(
             grads, op=self.op, axis=self.axis, compression=self.compression,
             hierarchical=self.hierarchical, outer_axis=self.outer_axis)
         for p, g in zip(params, reduced):
             p.grad = g
         return self.inner.step()
+
+
+def _reduce_tree(grads, **kw):
+    leaves, spec = _pytree.tree_flatten(grads)
+    return _pytree.tree_unflatten(allreduce_gradients(leaves, **kw), spec)
+
+
+def distributed_grad(fun, *, op: ReduceOp = ReduceOp.AVERAGE,
+                     axis: Optional[Axis] = None,
+                     compression=Compression.none,
+                     argnums=0, has_aux: bool = False):
+    """DistributedGradientTape analog: ``torch.func.grad(fun)`` with the
+    gradients allreduced across ``axis`` (every rank when None) through
+    :func:`allreduce_gradients`.  Returns ``grads``, or ``(grads, aux)``
+    with ``has_aux``, as JAX's ``grad`` does."""
+    gfun = torch.func.grad(fun, argnums=argnums, has_aux=has_aux)
+    kw = dict(op=op, axis=axis, compression=compression)
+
+    def wrapped(*args, **kwargs):
+        if has_aux:
+            grads, aux = gfun(*args, **kwargs)
+            return _reduce_tree(grads, **kw), aux
+        return _reduce_tree(gfun(*args, **kwargs), **kw)
+
+    return wrapped
+
+
+def distributed_value_and_grad(fun, *, op: ReduceOp = ReduceOp.AVERAGE,
+                               axis: Optional[Axis] = None,
+                               compression=Compression.none,
+                               argnums=0, has_aux: bool = False):
+    """As :func:`distributed_grad`, returning ``(value, grads)`` (with
+    ``has_aux``: ``((value, aux), grads)``), JAX's ``value_and_grad``
+    order.  The value is this rank's, not reduced."""
+    vgfun = torch.func.grad_and_value(fun, argnums=argnums, has_aux=has_aux)
+    kw = dict(op=op, axis=axis, compression=compression)
+
+    def wrapped(*args, **kwargs):
+        grads, val = vgfun(*args, **kwargs)
+        return val, _reduce_tree(grads, **kw)
+
+    return wrapped

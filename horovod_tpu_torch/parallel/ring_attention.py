@@ -13,7 +13,11 @@
 * **Ulysses** (:func:`ulysses_attention`): one all-to-all turns sequence
   sharding into head sharding, dense attention runs locally on each head
   group (PyTorch, no kernel, as in the JAX package), and a second all-to-all
-  turns it back.  Needs ``heads % sp == 0``.
+  turns it back.  Needs ``heads % sp == 0`` (under tensor parallelism, the
+  heads of one tp rank).
+* **Gathered dense attention** (:func:`gathered_attention`): K/V
+  all-gathered over ``sp``, what GSPMD does for the JAX package's dense
+  attention over a sequence-sharded batch.
 
 There are no global arrays in torch: every function takes this rank's
 ``[B, S_local, H, D]`` shards, the rank at index ``i`` of the axis holding
@@ -92,17 +96,33 @@ def ring_attention(q, k, v, axis: Axis, causal: bool = True):
                  lambda kv, step: C.ppermute_ring(kv, axis, 1), causal)
 
 
-def full_attention(q, k, v, causal: bool = True):
+def full_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     """Dense softmax attention on one device (the oracle for tests, and
     Ulysses' local attention): scores in the inputs' dtype, softmax in
-    fp32, probabilities cast back before P·V."""
-    S, D = q.shape[1], q.shape[-1]
+    fp32, probabilities cast back before P·V.  The queries sit at positions
+    ``q_offset + arange(S_q)`` of the keys' sequence (for the causal
+    mask)."""
+    Sq, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / math.sqrt(D))
     if causal:
-        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        mask = (torch.arange(Sk, device=q.device)[None, :]
+                <= q_offset + torch.arange(Sq, device=q.device)[:, None])
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def gathered_attention(q, k, v, axis: Axis, causal: bool = True):
+    """Dense attention over a sequence sharded along ``axis``: K/V are
+    all-gathered (the backward reduce-scatters their gradients) and this
+    rank's queries, sequence block ``axis.index``, attend to the whole
+    sequence at their own positions.  What GSPMD does for the JAX
+    package's dense attention (and its flash attention, which falls back
+    to dense) over a sequence-sharded batch.  q/k/v: this rank's ``[B,
+    S_local, H, D]`` shards."""
+    kv = C.allgather_dim(torch.stack([k, v]), 2, axis)
+    return full_attention(q, kv[0], kv[1], causal,
+                          q_offset=axis.index * q.shape[1])
 
 
 # exchange(x) with x [R, n, ...] for the R ranks a process holds: chunk j of
@@ -136,10 +156,18 @@ def _ulysses(q, k, v, n: int, exchange: Exchange, causal: bool):
     return heads_to_seq(out)
 
 
-def ulysses_attention(q, k, v, axis: Axis, causal: bool = True):
+def ulysses_attention(q, k, v, axis: Axis, causal: bool = True,
+                      head_axis: Optional[Axis] = None):
     """Ulysses sequence parallelism over ``axis``: q/k/v are this rank's
     ``[B, S_local, H, D]`` shards with H divisible by the axis size;
-    returns ``[B, S_local, H, D]``."""
+    returns ``[B, S_local, H, D]``.  ``head_axis``: the tensor-parallel
+    axis that already split the heads (H is then this rank's H/tp)."""
+    n = axis.size
+    if head_axis is not None and q.shape[2] % n:
+        raise ValueError(
+            f"Ulysses needs the heads of a tp rank (H/tp = {q.shape[2]}, "
+            f"tp {head_axis.size}) divisible by sp ({n})")
+
     def exchange(x):
         return C.alltoall(x[0], axis=axis)[None]
 
@@ -152,16 +180,17 @@ def make_sharded_attention(mesh: Mesh, impl: str = "ring", axis: str = "sp",
                            head_axis: Optional[str] = None):
     """Bind ring or Ulysses attention to the mesh's ``axis``.  Returns
     ``fn(q, k, v) -> out`` on this rank's ``[B, S_local, H, D]`` shards.
-    Heads sharded over ``head_axis`` (tensor parallelism) wait for the
-    tensor-parallel slice."""
+    Heads sharded over ``head_axis`` (tensor parallelism) are this rank's
+    heads already: the ring runs on them as on any heads, and Ulysses
+    needs their number divisible by the axis size."""
     fns = {"ring": ring_attention, "ulysses": ulysses_attention}
     if impl not in fns:
         raise ValueError(f"impl must be one of {sorted(fns)}")
-    if head_axis is not None and mesh_axis_size(mesh, head_axis) > 1:
-        raise NotImplementedError(
-            "tensor-parallel heads are not ported yet; see ROADMAP.md, "
-            "Queue 1")
-    return functools.partial(fns[impl], axis=mesh.axis(axis), causal=causal)
+    fn = functools.partial(fns[impl], axis=mesh.axis(axis), causal=causal)
+    if impl == "ulysses" and head_axis is not None and \
+            mesh_axis_size(mesh, head_axis) > 1:
+        fn = functools.partial(fn, head_axis=mesh.axis(head_axis))
+    return fn
 
 
 def loopback_attention(q, k, v, n: int, impl: str = "ring",

@@ -1,13 +1,18 @@
 """Training steps: the port of ``horovod_tpu/parallel/train.py``
-(``make_transformer_train_step``, data and sequence parallel over a mesh,
-``make_resnet_train_step``, ``make_resnet_train_step_hvd`` and
-``make_mnist_train_step``).
+(``make_transformer_train_step`` over a mesh of data, sequence, tensor and
+expert axes, ``make_resnet_train_step``, ``make_resnet_train_step_hvd``
+and ``make_mnist_train_step``).
 
-Every rank holds the whole model and its own slice of the batch.  One step
-is forward, backward, one fused gradient allreduce through
-:class:`DistributedOptimizer` (where the JAX package let GSPMD infer the
-reduction over ``dp``), and the optimizer update.  Each step returns the
-mean loss over the global batch.
+Every rank holds its own slice of the batch and the whole model, or its
+shard of it over ``tp`` and ``ep``.  One step is forward, backward, one
+fused gradient allreduce through :class:`DistributedOptimizer` over the
+axes that split the batch (where the JAX package let GSPMD infer the
+reduction), and the optimizer update.  Each step returns the mean loss over
+the global batch.  ``HVD_NONFINITE_POLICY`` arms the non-finite gradient
+guard in ``make_resnet_train_step_hvd`` (and in a caller's own
+``DistributedOptimizer``), where the JAX package's does; the other steps
+pass ``nonfinite_policy="off"``, as the JAX package's GSPMD steps run no
+guard.
 
 The two ResNet steps differ in their batch-norm statistics at more than one
 rank, as the JAX package's do.  ``make_resnet_train_step`` is the JAX jit
@@ -33,7 +38,7 @@ from horovod_tpu_torch.models import resnet as resnet_model
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import collective as C
 from horovod_tpu_torch.ops.compression import Compression
-from horovod_tpu_torch.parallel.mesh import Mesh
+from horovod_tpu_torch.parallel.mesh import Axis, Mesh, sub_axis
 from horovod_tpu_torch.parallel.optimizer import DistributedOptimizer
 
 MakeOptimizer = Callable[[Iterable[torch.nn.Parameter]],
@@ -75,43 +80,48 @@ def make_transformer_train_step(
 
     ``optimizer`` builds the inner optimizer from the parameters (default
     :func:`default_optimizer`).  ``init_fn(seed) -> TrainState`` makes the
-    model from ``seed`` and gives every rank rank 0's weights.
+    model from ``seed`` (the whole model's weights drawn on the CPU; over
+    ``mesh`` each rank keeps its ``tp``/``ep`` shard) and gives every rank
+    the weights of the first rank holding the same shard.
     ``step_fn(state, tokens, targets) -> (state, loss)`` takes this rank's
     ``[B/dp, S/sp]`` slice of the global batch, laid out ``P('dp', 'sp')``
-    over ``mesh`` (``None``: pure data parallelism over every rank), and
-    returns the mean loss over the global batch (an averaging allreduce of
-    the ranks' mean losses, the JAX step's value for equal slices); the
-    model and optimizer are updated in place.  With ``sp > 1`` the
-    attention is sequence parallel (``cfg.attn_impl`` "ring" or "ulysses").
+    over ``mesh`` and replicated over ``tp``, ``ep`` and ``dcn`` (``None``:
+    pure data parallelism over every rank), and returns the mean loss over
+    the global batch; the model and optimizer are updated in place.
+    Attention follows the JAX package's dispatch (see
+    :mod:`horovod_tpu_torch.models.transformer`).
 
-    Gradients are averaged over every rank of the mesh (dp x sp), and that
-    is the gradient of the global mean loss: every rank holds the whole
-    model and seeds its backward with its own mean loss L_r, and where a
-    rank's loss reaches another rank's keys and values, the ring's
-    ``ppermute`` (or Ulysses' all-to-all) backward has carried that
-    gradient to the rank that computed them, so the ranks' gradients sum to
-    that of sum_r L_r, and their mean is the gradient of the mean of the
-    L_r, which is the global mean loss when the slices are equal.
+    Gradients are averaged over the ranks of ``dcn``, ``dp`` and ``sp``
+    (every rank without a mesh), never over ``tp`` or ``ep``, and that is
+    the gradient of the global mean loss.  Each rank seeds its backward
+    with its own mean loss L_r.  Where a rank's loss reaches another
+    rank's keys and values, the ring's ``ppermute``, Ulysses' all-to-all or
+    the K/V all-gather carries that gradient back in its backward to the
+    rank that computed them; where it reaches the global MoE statistics
+    (``density_proxy``), their differentiable allreduce sums the ranks'
+    gradients.  So the ranks' gradients sum to that of sum_r L_r, and their
+    mean is the gradient of the mean of the L_r, which is the global mean
+    loss when the slices are equal.  Within a ``tp`` or ``ep`` group the
+    ranks share their tokens and loss: a sharded parameter's gradient is
+    its shard of the whole one, and the collectives at the edges of the
+    tensor- and expert-parallel regions give every rank the whole gradient
+    of each replicated parameter.
 
-    ``zero1=True`` (optimizer state sharded over dp) is not ported yet.
-    Needs ``hvd.init()``."""
+    ``zero1=True`` (optimizer state sharded over dp) and a ``pp`` axis are
+    not ported yet.  Needs ``hvd.init()``."""
     if zero1:
         raise NotImplementedError(
             "zero1=True (ZeRO-1 optimizer-state sharding) is not ported "
             "yet; see ROADMAP.md, Queue 1")
-    if mesh is not None:
-        model_axes = {a: n for a, n in mesh.shape.items()
-                      if a not in ("dp", "sp", "dcn") and n > 1}
-        if model_axes:
-            raise NotImplementedError(
-                f"mesh axes {model_axes} (tensor, pipeline or expert "
-                "parallelism) are not ported yet; see ROADMAP.md, Queue 1")
+    tfm.check_mesh(cfg, mesh)
     dev = basics.resolve_device(device, "make_transformer_train_step()")
     make_inner = optimizer or default_optimizer
 
     def init_fn(seed: int) -> TrainState:
-        model = _from_rank0(tfm.init(seed, cfg, device=dev))
-        opt = DistributedOptimizer(make_inner(model.parameters()))
+        axis = None if mesh is None else sub_axis(mesh, ("dcn", "dp", "sp"))
+        model = _from_rank0(tfm.init(seed, cfg, device=dev, mesh=mesh), axis)
+        opt = DistributedOptimizer(make_inner(model.parameters()), axis=axis,
+                                   nonfinite_policy="off")
         return TrainState(model, opt, 0)
 
     def step_fn(state: TrainState, tokens, targets):
@@ -120,17 +130,20 @@ def make_transformer_train_step(
                            mesh=mesh)
         loss.backward()
         state.optimizer.step()
-        return state._replace(step=state.step + 1), C.allreduce(loss.detach())
+        return state._replace(step=state.step + 1), C.allreduce(
+            loss.detach(), axis=state.optimizer.axis)
 
     return step_fn, init_fn
 
 
-def _from_rank0(model: torch.nn.Module) -> torch.nn.Module:
-    """Give every rank rank 0's parameters and buffers."""
-    if basics.size() > 1:
+def _from_rank0(model: torch.nn.Module,
+                axis: Optional[Axis] = None) -> torch.nn.Module:
+    """Give every rank of ``axis`` (every rank when None) the parameters
+    and buffers of the rank at index 0."""
+    if (basics.size() if axis is None else axis.size) > 1:
         with torch.no_grad():
             for t in list(model.parameters()) + list(model.buffers()):
-                t.copy_(C.broadcast(t.detach(), root_rank=0))
+                t.copy_(C.broadcast(t.detach(), root_rank=0, axis=axis))
     return model
 
 
@@ -141,43 +154,58 @@ def resnet_sgd(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
                            nesterov=False)
 
 
-def _global_mean(t: torch.Tensor) -> torch.Tensor:
-    """The mean of ``t`` over the ranks, differentiable: the backward sums
-    the ranks' gradients, so the averaged gradient is the global loss's."""
-    return dist_nn.all_reduce(t, op=dist.ReduceOp.SUM) / basics.size()
+def _data_axis(mesh: Optional[Mesh], axes) -> Optional[Axis]:
+    """The axes of ``axes`` (a name or names) the mesh has, which split the
+    batch; None (every rank) without a mesh."""
+    if mesh is None:
+        return None
+    return sub_axis(mesh, (axes,) if isinstance(axes, str) else tuple(axes))
 
 
-def _resnet_step(cfg, optimizer, compression, sync_bn, device, what):
+def _global_mean(t: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The mean of ``t`` over the ranks of ``axis``, differentiable: the
+    backward sums the ranks' gradients, so the averaged gradient is the
+    global loss's."""
+    group = None if axis is None else axis.group
+    n = basics.size() if axis is None else axis.size
+    return dist_nn.all_reduce(t, op=dist.ReduceOp.SUM, group=group) / n
+
+
+def _resnet_step(cfg, optimizer, compression, sync_bn, device, what, axis,
+                 nonfinite_policy):
     dev = basics.resolve_device(device, what)
     make_inner = optimizer or resnet_sgd
 
     def init_fn(seed: int) -> ResNetState:
         model = _from_rank0(resnet_model.init(seed, cfg, device=dev))
         opt = DistributedOptimizer(make_inner(model.parameters()),
-                                   compression=compression)
+                                   compression=compression, axis=axis,
+                                   nonfinite_policy=nonfinite_policy)
         return ResNetState(model, opt, 0)
 
     def step_fn(state: ResNetState, images, labels):
-        multi = basics.size() > 1
+        multi = (basics.size() if axis is None else axis.size) > 1
         state.optimizer.zero_grad(set_to_none=True)
         loss, new_stats = resnet_model.loss_fn(
             state.model, images.to(dev), labels.to(dev),
-            reduce=_global_mean if multi and sync_bn else None)
+            reduce=(lambda t: _global_mean(t, axis)) if multi and sync_bn
+            else None)
         loss.backward()
         state.optimizer.step()
         if multi and not sync_bn:
             names = list(new_stats)
             new_stats = dict(zip(names, C.grouped_allreduce(
-                [new_stats[n] for n in names])))
+                [new_stats[n] for n in names], axis=axis)))
         resnet_model.write_stats(state.model, new_stats)
-        return state._replace(step=state.step + 1), C.allreduce(loss.detach())
+        return state._replace(step=state.step + 1), C.allreduce(
+            loss.detach(), axis=axis)
 
     return step_fn, init_fn
 
 
 def make_resnet_train_step(cfg: resnet_model.ResNetConfig,
                            optimizer: Optional[MakeOptimizer] = None, *,
-                           device=None):
+                           mesh: Optional[Mesh] = None, device=None):
     """Data-parallel ResNet step with the global batch's batch-norm
     statistics: the JAX package's jit step.
 
@@ -186,27 +214,36 @@ def make_resnet_train_step(cfg: resnet_model.ResNetConfig,
     ``init_fn(seed) -> ResNetState`` makes the model from ``seed`` and gives
     every rank rank 0's parameters and statistics.  ``step_fn(state,
     images, labels) -> (state, loss)`` takes this rank's ``[B, H, W, 3]``
-    images and ``[B]`` labels (every rank the same B); each batch norm
-    allreduces its per-channel mean and then its mean squared deviation
-    inside the forward, so the statistics, the loss and the averaged
+    images and ``[B]`` labels (every rank the same B): its slice of a
+    batch split over ``dp`` of ``mesh`` (and replicated over its other
+    axes), or over every rank without a mesh.  Each batch norm allreduces
+    its per-channel mean and then its mean squared deviation over those
+    ranks inside the forward, so the statistics, the loss and the averaged
     gradient are those of the global batch.  The model, its statistics and
     the optimizer are updated in place.  Needs ``hvd.init()``."""
     return _resnet_step(cfg, optimizer, Compression.none, True, device,
-                        "make_resnet_train_step()")
+                        "make_resnet_train_step()", _data_axis(mesh, "dp"),
+                        "off")
 
 
 def make_resnet_train_step_hvd(cfg: resnet_model.ResNetConfig,
                                optimizer: Optional[MakeOptimizer] = None, *,
-                               compression=Compression.none, device=None):
+                               compression=Compression.none,
+                               mesh: Optional[Mesh] = None, axis=("dp",),
+                               device=None):
     """Classic-Horovod ResNet step: the JAX package's ``shard_map`` step.
 
     As :func:`make_resnet_train_step`, except that each rank's batch norms
     use its own slice's statistics, and after the step the new running
-    statistics are averaged across the ranks (one fused allreduce).
-    ``compression`` is the gradient allreduce's
-    (:class:`~horovod_tpu_torch.ops.compression.Compression`)."""
+    statistics are averaged across the ranks (one fused allreduce).  With
+    ``mesh``, the axes of ``axis`` that the mesh has split the batch (as
+    one dimension) and carry every reduction: gradients, statistics and
+    the loss; without one, every rank.  ``compression`` is the gradient
+    allreduce's (:class:`~horovod_tpu_torch.ops.compression.Compression`);
+    ``HVD_NONFINITE_POLICY`` arms its non-finite gradient guard."""
     return _resnet_step(cfg, optimizer, compression, False, device,
-                        "make_resnet_train_step_hvd()")
+                        "make_resnet_train_step_hvd()",
+                        _data_axis(mesh, axis), None)
 
 
 def mnist_adam(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
@@ -216,18 +253,22 @@ def mnist_adam(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
 
 
 def make_mnist_train_step(optimizer: Optional[MakeOptimizer] = None, *,
-                          device=None):
+                          mesh: Optional[Mesh] = None, device=None):
     """Data-parallel MNIST step.  Returns ``(step_fn, init_fn)``:
     ``init_fn(seed) -> TrainState`` and ``step_fn(state, images, labels)
-    -> (state, loss)`` with ``[B, 28, 28, 1]`` images, as the transformer's
-    (default optimizer :func:`mnist_adam`).  Needs ``hvd.init()``."""
+    -> (state, loss)`` with ``[B, 28, 28, 1]`` images, this rank's slice of
+    a batch split over ``dp`` of ``mesh`` (every rank without one), as the
+    transformer's (default optimizer :func:`mnist_adam`).  Needs
+    ``hvd.init()``."""
     dev = basics.resolve_device(device, "make_mnist_train_step()")
     make_inner = optimizer or mnist_adam
+    axis = _data_axis(mesh, "dp")
 
     def init_fn(seed: int) -> TrainState:
         model = _from_rank0(mnist_model.init(seed, device=dev))
         return TrainState(model, DistributedOptimizer(
-            make_inner(model.parameters())), 0)
+            make_inner(model.parameters()), axis=axis,
+            nonfinite_policy="off"), 0)
 
     def step_fn(state: TrainState, images, labels):
         state.optimizer.zero_grad(set_to_none=True)
@@ -235,6 +276,7 @@ def make_mnist_train_step(optimizer: Optional[MakeOptimizer] = None, *,
                                    labels.to(dev))
         loss.backward()
         state.optimizer.step()
-        return state._replace(step=state.step + 1), C.allreduce(loss.detach())
+        return state._replace(step=state.step + 1), C.allreduce(
+            loss.detach(), axis=axis)
 
     return step_fn, init_fn

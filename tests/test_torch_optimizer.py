@@ -9,8 +9,11 @@ gang, where ``u`` is used on rank 0 only and ``z`` on no rank, takes three
 AdamW steps; JAX takes them on a ``{"dp": 2}`` mesh, where the loss
 multiplies ``u``'s term by a per-device flag that is 0 on device 1.  fp32;
 weights at 1e-6 (the two AdamW formulas add the same terms in another
-order).  The worker imports only torch and the port at module level; JAX is
-imported inside the tests.
+order).  The same gang holds ``distributed_grad`` and
+``distributed_value_and_grad`` (``torch.func`` gradients, averaged over
+the ranks) against the JAX package's in a ``shard_map``, at 1e-6.  The
+worker imports only torch and the port at module level; JAX is imported
+inside the tests.
 """
 
 import time
@@ -68,11 +71,32 @@ def _port_steps(rank, params, x):
     return {k: p.detach().numpy() for k, p in ps.items()}
 
 
+def _loss(p, xs):
+    y = xs @ p["w"] + p["b"]
+    return (y ** 2).mean() + (y.mean(0) * p["u"]).sum(), (y ** 2).sum()
+
+
+def _port_grads(rank, params, x):
+    """``distributed_grad`` (with respect to the weights and the inputs)
+    and ``distributed_value_and_grad`` (with an aux) on this rank's first
+    inputs; the values stay this rank's, the gradients are averaged."""
+    p = {k: torch.tensor(v) for k, v in params.items()}
+    xs = torch.tensor(x[rank, 0])
+    gp, gx = hvd.distributed_grad(lambda p, xs: _loss(p, xs)[0],
+                                  argnums=(0, 1))(p, xs)
+    (val, aux), g2 = hvd.distributed_value_and_grad(_loss, has_aux=True)(
+        p, xs)
+    return {"dg.x": gx.numpy(), "val": val.numpy(), "aux": aux.numpy(),
+            **{f"dg.{k}": v.numpy() for k, v in gp.items()},
+            **{f"dvg.{k}": v.numpy() for k, v in g2.items()}}
+
+
 def _gang_worker(rank, size, store, out_dir):
     hvd.init(rank=rank, size=size, device="cpu", init_method=f"file://{store}")
     try:
         params, x = _data()
-        np.savez(f"{out_dir}/rank{rank}.npz", **_port_steps(rank, params, x))
+        np.savez(f"{out_dir}/rank{rank}.npz", **_port_steps(rank, params, x),
+                 **_port_grads(rank, params, x))
     finally:
         hvd.shutdown()
 
@@ -113,13 +137,71 @@ def _jax_steps(eight_devices, params, x):
     return {k: np.asarray(v) for k, v in p.items()}
 
 
+def _jax_grads(eight_devices, params, x):
+    """JAX's ``distributed_grad`` and ``distributed_value_and_grad`` in a
+    ``shard_map`` over {"dp": 2}: (gradients, [values], [auxes])."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from horovod_tpu.parallel import mesh as mesh_mod
+    from horovod_tpu.parallel import optimizer as jopt
+    from horovod_tpu.parallel.shard import shard_map
+
+    mesh = mesh_mod.make_mesh({"dp": 2}, devices=eight_devices[:2])
+
+    def loss(p, xs):
+        y = xs @ p["w"] + p["b"]
+        return (jnp.mean(y ** 2) + jnp.sum(jnp.mean(y, 0) * p["u"]),
+                jnp.sum(y ** 2))
+
+    def body(p, xs):
+        gp, gx = jopt.distributed_grad(lambda p, xs: loss(p, xs)[0],
+                                       axis="dp", argnums=(0, 1))(p, xs[0])
+        (val, aux), g2 = jopt.distributed_value_and_grad(
+            loss, axis="dp", has_aux=True)(p, xs[0])
+        return gp, gx, g2, val[None], aux[None]
+
+    f = jax.jit(shard_map(body, mesh, in_specs=(P(), P("dp")),
+                          out_specs=(P(), P(), P(), P("dp"), P("dp"))))
+    gp, gx, g2, val, aux = f({k: jnp.asarray(v) for k, v in params.items()},
+                             jnp.asarray(x[:, 0]))
+    grads = {"dg.x": np.asarray(gx),
+             **{f"dg.{k}": np.asarray(v) for k, v in gp.items()},
+             **{f"dvg.{k}": np.asarray(v) for k, v in g2.items()}}
+    return grads, np.asarray(val), np.asarray(aux)
+
+
+@pytest.fixture(scope="module")
+def gang(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("optimizer_gang")
+    _spawn_gang(_gang_worker, 2, (2, str(tmp / "store"), str(tmp)),
+                timeout=180.0)
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(2)]
+
+
 @pytest.mark.timeout(240)
-def test_unused_parameters_reduce_and_update_as_jax(eight_devices, tmp_path):
+def test_distributed_grad_matches_jax(eight_devices, gang):
+    """Gradients averaged over the two ranks, each rank's own value and
+    aux, as the JAX package's (fp32, 1e-6)."""
+    params, x = _data()
+    grads, vals, auxes = _jax_grads(eight_devices, params, x)
+    for r, out in enumerate(gang):
+        for k, want in grads.items():
+            np.testing.assert_allclose(out[k], want, rtol=1e-6, atol=1e-6,
+                                       err_msg=f"rank {r} {k}")
+        np.testing.assert_allclose(out["val"], vals[r], rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(out["aux"], auxes[r], rtol=1e-6,
+                                   atol=1e-6)
+    assert not np.allclose(gang[0]["val"], gang[1]["val"])
+
+
+@pytest.mark.timeout(240)
+def test_unused_parameters_reduce_and_update_as_jax(eight_devices, gang):
     params, x = _data()
     want = _jax_steps(eight_devices, params, x)
-    _spawn_gang(_gang_worker, 2, (2, str(tmp_path / "store"), str(tmp_path)),
-                timeout=180.0)
-    outs = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    outs = gang
     for k in NAMES:
         np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
         np.testing.assert_allclose(outs[0][k], want[k], rtol=1e-6, atol=1e-6,

@@ -200,6 +200,17 @@ def test_backward_passes_per_step_applies_the_mean(one_rank):
 
 
 def test_nonfinite_guard_is_not_ported(one_rank):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hvd.DistributedOptimizer(torch.optim.SGD([torch.zeros(1)], lr=1.0),
-                                 nonfinite_policy="skip")
+    """The guard is ported (``tests/test_torch_nonfinite.py``).  What it
+    still refuses, as the JAX package does, is to combine with
+    ``backward_passes_per_step > 1``, and an unknown policy."""
+    p = [torch.zeros(1, requires_grad=True)]
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(p, lr=1.0),
+                                   nonfinite_policy="skip")
+    assert opt.guard is not None and opt.guard.policy == "skip"
+    with pytest.raises(ValueError, match="backward_passes_per_step"):
+        hvd.DistributedOptimizer(torch.optim.SGD(p, lr=1.0),
+                                 nonfinite_policy="skip",
+                                 backward_passes_per_step=2)
+    with pytest.raises(ValueError, match="unknown non-finite policy"):
+        hvd.DistributedOptimizer(torch.optim.SGD(p, lr=1.0),
+                                 nonfinite_policy="bogus")

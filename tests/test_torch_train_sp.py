@@ -10,6 +10,9 @@ the batch laid out ``P('dp', 'sp')``:
 * ``{"dp": 2, "sp": 2}`` with ring and with Ulysses attention;
 * ``{"sp": 4}`` with ring attention.
 
+(Dense and flash attention over ``sp``, and tensor parallelism, are
+``tests/test_torch_train_tp.py``'s.)
+
 2 layers, d_model 64, 4 heads, vocab 128, global batch 4 x 64, fp32.  Every
 rank's loss at every step is the JAX step's (the loss over the global
 batch), every rank ends with the same weights, and those are JAX's: both at
@@ -213,17 +216,32 @@ def test_rope_rotates_at_the_offset():
 
 
 def test_what_the_step_does_not_take_raises():
-    """ZeRO-1, model-parallel mesh axes, and dense or flash attention over
-    a sequence-sharded batch (which the JAX package leaves to GSPMD) raise
-    (meshes stand in by their shape: nothing is built before the check)."""
+    """ZeRO-1 and a pipeline (``pp``) axis raise (meshes stand in by their
+    shape: nothing is built before the check).  Tensor and expert axes,
+    and dense or flash attention over a sequence-sharded batch, run
+    (``tests/test_torch_train_tp.py``, ``tests/test_torch_moe.py``): there
+    dense and flash attention gather K/V over ``sp``, as GSPMD does.
+    Ulysses raises where a tp rank's heads do not split over ``sp``."""
+    from horovod_tpu_torch.parallel import ring_attention as ra
+
     cfg = tfm.TransformerConfig(compute_dtype=torch.float32, **SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.make_transformer_train_step(cfg, zero1=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.make_transformer_train_step(
-            cfg, mesh=SimpleNamespace(shape={"dp": 2, "tp": 2}),
+            cfg, mesh=SimpleNamespace(shape={"dp": 2, "pp": 2}),
             device="cpu")
+
+    def axis(n):
+        return SimpleNamespace(names=("sp",), size=n, index=0)
+
+    mesh = SimpleNamespace(shape={"sp": 2, "tp": 2},
+                           axis=lambda name: axis(2))
     for impl in ("dense", "flash"):
-        with pytest.raises(NotImplementedError, match="'ring' or 'ulysses'"):
-            tfm._attention_fn(dataclasses.replace(cfg, attn_impl=impl),
-                              SimpleNamespace(shape={"sp": 2}))
+        fn = tfm._attention_fn(dataclasses.replace(cfg, attn_impl=impl),
+                               mesh)
+        assert fn.func is ra.gathered_attention
+    q = torch.zeros(1, 4, 2, 16)  # a tp rank's 2 of 4 heads
+    with pytest.raises(ValueError, match=r"H/tp = 2, tp 2\) divisible by "
+                       r"sp \(4\)"):
+        ra.ulysses_attention(q, q, q, axis(4), head_axis=axis(2))

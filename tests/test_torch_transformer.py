@@ -8,6 +8,8 @@ other orders, and the flash path adds the blockwise softmax's own rounding
 imported inside the tests only.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -172,8 +174,13 @@ def test_init_is_seeded():
 
 @pytest.mark.parametrize("kw", [dict(n_experts=4)])
 def test_unported_configurations_raise(kw):
+    """The Switch MoE FFN is ported (``tests/test_torch_moe.py``): the
+    model builds.  What still raises is a pipeline (``pp``) mesh axis."""
+    model = tfm.Transformer(_port_cfg(**kw))
+    assert tuple(model.layers[0].router.shape) == (32, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.Transformer(_port_cfg(**kw))
+        tfm.Transformer(_port_cfg(**kw), mesh=SimpleNamespace(
+            shape={"dp": 2, "pp": 2}))
 
 
 @pytest.mark.parametrize("attn_impl", ["ring", "ulysses"])
