@@ -55,12 +55,28 @@ non-zero):
    loss, and the gradients outside the experts, against the twin's; the
    experts' gradients and the tokens the twin routes elsewhere reported),
    falling finite losses, 16 forward, 8 dQ and 8 dK/dV launches per step,
-   each layer's dropped share and aux loss, ten timed steps.  Then one
-   step of each is profiled, then one ResNet-50 step, five MNIST steps
-   (batch 64, Adam) must give finite, falling losses, and the non-finite
-   gradient guard runs on the card (``skip`` leaves parameters and AdamW
-   state bit for bit, ``zero`` equals the step with the entry zeroed,
-   ``off`` adds no collective).  Last, one flagship step in fp32
+   each layer's dropped share and aux loss, ten timed steps.  Then the
+   pipelined flagship (``make_pipeline_train_step`` with four stages of
+   two layers and four microbatches of two rows, every stage in this
+   process through ``loopback_pipeline``) on batches drawn through the
+   input pipeline (``ArrayDataset``, ``ShardedSampler``, ``batches``,
+   ``prefetch_to_device``; the first batch bit for bit the plain
+   iteration's): three steps beside the unpipelined flagship step from the
+   same weights (step-0 loss and every gradient, later losses), falling
+   finite losses, 64 forward, 32 dQ and 32 dK/dV launches a step; a
+   verified checkpoint after step 3 resumed into a state from another
+   seed, whose step 4 equals the original's bit for bit, and a corrupted
+   second checkpoint that ``restore_verified`` falls back past; five timed
+   steps.  Then one step of each is profiled, then one ResNet-50 step,
+   five MNIST steps (batch 64, Adam) must give finite, falling losses, and
+   the non-finite gradient guard runs on the card (``skip`` leaves
+   parameters and AdamW state bit for bit, ``zero`` equals the step with
+   the entry zeroed, ``off`` adds no collective).  ZeRO-1 at one rank
+   (``zero1=True`` through ``make_mesh()``) logs the JAX package's "no dp
+   axis > 1" warning and its first two flagship steps equal
+   ``zero1=False``'s bit for bit.  Adasum over four virtual ranks'
+   step-0 flagship gradients (``adasum_loopback``, fp32) agrees with the
+   float64 oracle within ADASUM_TOL.  Last, one flagship step in fp32
    (``compute_dtype`` float32, the same widths) beside a dense-attention
    fp32 twin from the same seed: its step-0 loss and gradients against the
    twin's, and its launches of the fp32 kernels (16 forwards and q/k/v
@@ -85,7 +101,10 @@ non-zero):
 
 The ``kernels`` JSON lists the flagship's three kernels, the same three
 with their launches in the MoE flagship's run (``flash_<kernel>_moe``: its
-attention is the flagship's), the ring hop's six variants
+attention is the flagship's), the same three at the pipelined flagship's
+microbatch (B 2, S 1024, H 16, D 64, bf16, causal; checked in phase 2)
+with their launches in its run (``flash_<kernel>_pp``), the ring hop's six
+variants
 (``flash_<kernel>_ring_self`` and ``_ring_hop``) and the ring hop's dO
 split (``flash_split_do``), then the fp32 kernels
 (``flash_<kernel>_fp32``, ``flash_split_qkv_fp32``,
@@ -200,6 +219,22 @@ SP_TOL = {"ring": 8e-3, "ulysses": 1.1e-2}
 # H100 measured (9.5e-7, one fp32 ulp of the loss, and 2.4e-5; PERF.md).
 F32_LOSS_TOL = 2e-6
 F32_GRAD_TOL = 5e-5
+# The pipelined flagship: loopback_pipeline's P stages of L/P layers each,
+# M microbatches of B/M rows.  Its step-0 loss and gradients are held
+# against the unpipelined flagship step's with LOSS_TOL and GRAD_TOL, its
+# later losses with STEP_LOSS_TOL: the same weights and batches, the same
+# bf16 residual stream, the kernels at the microbatch's shape.
+PP_STAGES, PP_MICRO = 4, 4
+# Adasum over four virtual ranks' step-0 flagship gradients (fp32, 168 M
+# elements each) against the float64 oracle, as |got - want| / |want|.
+# Each round sums three fp32 dot products over the whole vector: with
+# fp32 partial sums the relative error of each is of order 1e-7 to 1e-6,
+# and so is that of each coefficient; two rounds give a few 1e-6.  1e-5
+# leaves room above that and is far below the 0.1-1 a wrong coefficient or
+# pairing gives (the combination of two gradients at cosine c moves by
+# about c/2 of a gradient).
+ADASUM_RANKS = 4
+ADASUM_TOL = 1e-5
 
 
 def _sh(cmd):
@@ -995,6 +1030,320 @@ def run_fp32_step(hvd, tfm, fa, dev):
     return counts
 
 
+def _flagship_cfg(tfm, **kw):
+    """The flagship of ``bench.py:388-391`` (bf16, flash, remat)."""
+    import torch
+
+    return tfm.TransformerConfig(
+        vocab_size=32768, d_model=1024, n_layers=8, n_heads=16, d_ff=4096,
+        max_seq_len=1024, compute_dtype=torch.bfloat16, attn_impl="flash",
+        remat=True, **kw)
+
+
+def _token_batches(dev, n_batches, B=8, S=1024, vocab=32768, seed=7):
+    """``n_batches`` flagship batches drawn through the port's input
+    pipeline: an ``ArrayDataset`` of ``n_batches * B`` random sequences of
+    ``S + 1`` tokens (the targets are the tokens shifted by one),
+    ``ShardedSampler`` (one rank), ``batches`` and ``prefetch_to_device``
+    onto the card.  The first batch must equal, bit for bit, the plain
+    iteration's moved to the card.  Returns the batches as (tokens,
+    targets) pairs on the card."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.data import (ArrayDataset, ShardedSampler,
+                                        batches, prefetch_to_device)
+
+    seqs = np.random.RandomState(seed).randint(
+        0, vocab, (n_batches * B, S + 1)).astype(np.int64)
+    ds = ArrayDataset(seqs[:, :-1], seqs[:, 1:])
+
+    def loader():
+        return batches(ds, ShardedSampler(len(ds), 0, 1, seed=seed), B)
+
+    got = list(prefetch_to_device(loader(), device=dev))
+    plain = next(loader())
+    same = all(torch.equal(g, torch.from_numpy(a).to(dev))
+               for g, a in zip(got[0], plain))
+    print(f"data: {len(got)} batches of {B} x {S} tokens through "
+          f"ShardedSampler, batches and prefetch_to_device (pinned memory, "
+          f"a side stream); on {got[0][0].device}; the first equals the "
+          f"plain iteration's bit for bit: {same}")
+    if not same or len(got) != n_batches or got[0][0].device != dev:
+        raise AssertionError("data: prefetch_to_device does not give the "
+                             "plain iteration's batches on the card")
+    return got
+
+
+def run_pipeline(hvd, tfm, fa, dev, card):
+    """The pipelined flagship: ``make_pipeline_train_step`` with
+    ``n_stages=PP_STAGES`` (every stage's schedule in this process,
+    ``loopback_pipeline``) and ``PP_MICRO`` microbatches, on batches from
+    the input pipeline.  Three steps beside the unpipelined flagship step
+    from the same weights on the same batches: step-0 loss and every
+    step-0 gradient, later losses, falling finite losses, and the flash
+    launches per step (bubble ticks skipped: each layer's forward runs
+    once per stage and microbatch, and again in its recompute).  Then the
+    checkpoint round trip (``save_verified`` after step 3, step 4,
+    ``restore_verified`` into a state from another seed, step 4 again: the
+    loss and every parameter bit for bit; a second checkpoint with one
+    file corrupted: ``restore_verified`` falls back to the first), and
+    five timed steps.  Returns (launch counts, median step ms, steps,
+    what :func:`_profile_step` needs)."""
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch.parallel import pipeline as pl
+    from horovod_tpu_torch.parallel import train
+    from horovod_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = _flagship_cfg(tfm)
+    steps = 3
+    data = _token_batches(dev, steps + 2)
+    step_fn, init_fn = pl.make_pipeline_train_step(
+        cfg, n_stages=PP_STAGES, n_microbatches=PP_MICRO)
+    state = init_fn(0)
+    fa.reset_launch_counts()
+    losses = []
+    for i in range(steps):
+        state, loss = step_fn(state, *data[i])
+        losses.append(float(loss))
+        if i == 0:
+            grads = {k: p.grad.clone()
+                     for k, p in state.model.named_parameters()}
+    torch.cuda.synchronize()
+    counts = dict(fa.launches)
+
+    twin_step, twin_init = hvd.make_transformer_train_step(cfg)
+    twin = twin_init(0)
+    twin_losses, gaps = [], {}
+    for i in range(steps):
+        twin, loss = twin_step(twin, *data[i])
+        twin_losses.append(float(loss))
+        if i == 0:
+            for k, p in twin.model.named_parameters():
+                key = k.split(".")[-1]
+                gaps[key] = max(gaps.get(key, 0.0), _rel_gap(grads[k],
+                                                             p.grad))
+    del twin, grads
+
+    bad = []
+    diffs = [abs(a - b) for a, b in zip(losses, twin_losses)]
+    print(f"pp: loopback_pipeline, {PP_STAGES} stages x "
+          f"{cfg.n_layers // PP_STAGES} layers, {PP_MICRO} microbatches of "
+          f"{data[0][0].shape[0] // PP_MICRO} rows; losses {losses}")
+    print(f"pp: unpipelined flagship losses {twin_losses}; |pp - plain| "
+          f"{[f'{d:.3e}' for d in diffs]} (tol {LOSS_TOL} at step 0, "
+          f"{STEP_LOSS_TOL} after)")
+    print("pp: step-0 gradient gap to the unpipelined step, largest over "
+          "layers: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" (tol {GRAD_TOL})")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        bad.append(f"losses not finite and falling: {losses}")
+    if diffs[0] > LOSS_TOL or max(diffs[1:]) > STEP_LOSS_TOL:
+        bad.append("losses disagree with the unpipelined step")
+    if max(gaps.values()) > GRAD_TOL:
+        bad.append("step-0 gradients disagree with the unpipelined step")
+    per = PP_STAGES * PP_MICRO * (cfg.n_layers // PP_STAGES)
+    want = {"fwd": 2 * per * steps, "dq": per * steps, "dkv": per * steps,
+            "split": 0}
+    print(f"pp: kernel launches over {steps} steps {counts} (want {want}: "
+          f"bubble ticks skipped, each layer recomputed)")
+    if counts != want:
+        bad.append(f"launch counts {counts} != {want}")
+    _fail_if(bad, "pp")
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ckpt.save_verified(root, train.state_tree(state), step=steps)
+        save_s = time.perf_counter() - t0
+        state, loss = step_fn(state, *data[steps])
+        t0 = time.perf_counter()
+        tree, at = ckpt.restore_verified(root)
+        fresh = train.load_state_tree(init_fn(1), tree)
+        restore_s = time.perf_counter() - t0
+        del tree
+        fresh, again = step_fn(fresh, *data[steps])
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            state.model.state_dict().values(),
+            fresh.model.state_dict().values()))
+        del fresh
+        second = ckpt.save_verified(root, train.state_tree(state),
+                                    step=steps + 1)
+        victim = os.path.join(second, os.listdir(second)[0])
+        with open(victim, "r+b") as fh:  # one byte of the file, flipped
+            fh.seek(os.path.getsize(victim) // 2)
+            b = fh.read(1)
+            fh.seek(-1, 1)
+            fh.write(bytes([b[0] ^ 0xFF]))
+        ok, reason = ckpt.verify_checkpoint(second)
+        tree, fallback = ckpt.restore_verified(root)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(root) for f in fs)
+        del tree
+    print(f"pp: checkpoint after step {at}: saved in {save_s:.1f} s, "
+          f"restored into a state from another seed in {restore_s:.1f} s "
+          f"({size / 2**30:.2f} GiB for two checkpoints); step {steps + 1} "
+          f"resumed: loss {float(again)!r} against {float(loss)!r}, every "
+          f"parameter equal: {same_params}")
+    print(f"pp: second checkpoint with a byte flipped: verifies {ok} "
+          f"({reason}); restore_verified fell back to step {fallback}")
+    if at != steps or float(again) != float(loss) or not same_params:
+        bad.append("the resumed step differs from the original")
+    if ok or fallback != steps:
+        bad.append("restore_verified did not fall back past the corrupted "
+                   "checkpoint")
+    _fail_if(bad, "pp checkpoint")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, times, _ = _timed_steps(step_fn, state, *data[steps + 1], 5)
+    step_ms = statistics.median(times)
+    B, S = data[0][0].shape
+    print(f"pp: step times alone, ms {times}")
+    print(f"pp: median step {step_ms:.2f} ms, "
+          f"{B * S / step_ms * 1e3:.0f} tokens/s on {card}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, of which "
+          f"{base / 2**30:.2f} GiB allocated before the steps (this "
+          "state, and the earlier phases' kept for their profiles)")
+    # Where the memory goes: the same model's loss through the pipeline and
+    # unpipelined, each forward and backward from the same state.
+    for name, loss_fn in (
+            ("pipelined", lambda: pl.pipeline_loss_fn(
+                state.model, *data[steps + 1], n_stages=PP_STAGES,
+                n_microbatches=PP_MICRO)),
+            ("unpipelined", lambda: tfm.loss_fn(state.model,
+                                                *data[steps + 1]))):
+        state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = loss_fn()
+        torch.cuda.synchronize()
+        fwd = torch.cuda.max_memory_allocated()
+        held = torch.cuda.memory_allocated()
+        loss.backward()
+        torch.cuda.synchronize()
+        bwd = torch.cuda.max_memory_allocated()
+        print(f"pp: memory of the {name} loss on one state: "
+              f"{base / 2**30:.2f} GiB before, peak {fwd / 2**30:.2f} in "
+              f"the forward, {held / 2**30:.2f} held for the backward, "
+              f"peak {bwd / 2**30:.2f} in the backward")
+        del loss
+    state.optimizer.zero_grad(set_to_none=True)
+    return counts, step_ms, steps, (step_fn, state, *data[steps + 1],
+                                    step_ms)
+
+
+def run_zero1(hvd, tfm, make_mesh, dev):
+    """``make_transformer_train_step(cfg, mesh=make_mesh(), zero1=True)``
+    at one rank: the JAX package's "no dp axis > 1" warning, and its first
+    two flagship steps bit for bit those of ``zero1=False``."""
+    import logging
+
+    import torch
+
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    cfg = _flagship_cfg(tfm)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1024), device=dev,
+                           generator=gen)
+    targets = torch.roll(tokens, -1, dims=1)
+    records = Records()
+    logger = logging.getLogger("horovod_tpu_torch")
+    logger.addHandler(records)
+    try:
+        zero_step, zero_init = hvd.make_transformer_train_step(
+            cfg, mesh=make_mesh(), zero1=True)
+    finally:
+        logger.removeHandler(records)
+    losses = {}
+    for name, (step_fn, init_fn) in (
+            ("zero1", (zero_step, zero_init)),
+            ("plain", hvd.make_transformer_train_step(cfg,
+                                                      mesh=make_mesh()))):
+        state = init_fn(0)
+        _, _, losses[name] = _timed_steps(step_fn, state, tokens, targets, 2)
+        params = [p.detach().clone() for p in state.model.parameters()]
+        del state
+        if name == "zero1":
+            zero_params = params
+    same = all(torch.equal(a, b) for a, b in zip(zero_params, params))
+    print(f"zero1: warnings {records.messages}; losses {losses['zero1']} "
+          f"against zero1=False {losses['plain']}; parameters after two "
+          f"steps equal: {same}")
+    bad = []
+    if records.messages != ["zero1=True but the mesh has no dp axis > 1; "
+                            "optimizer state stays replicated"]:
+        bad.append(f"warnings {records.messages}")
+    if losses["zero1"] != losses["plain"] or not same:
+        bad.append("the steps differ from zero1=False")
+    _fail_if(bad, "zero1")
+
+
+def run_adasum(tfm, dev, card):
+    """Adasum over ADASUM_RANKS virtual ranks (``adasum_loopback``): each
+    rank's gradient is the flagship's step-0 gradient (fp32, flattened) on
+    its own seed's batch; the result against the port's float64 oracle
+    (``adasum_reduce_numpy``) on the same gradients, within ADASUM_TOL;
+    every virtual rank's result the same bit for bit."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.ops import adasum
+
+    cfg = _flagship_cfg(tfm)
+    model = tfm.init(0, cfg, device=dev)
+    grads = []
+    for r in range(ADASUM_RANKS):
+        gen = torch.Generator(device=dev).manual_seed(100 + r)
+        tokens = torch.randint(0, cfg.vocab_size, (8, 1024), device=dev,
+                               generator=gen)
+        model.zero_grad(set_to_none=True)
+        tfm.loss_fn(model, tokens, torch.roll(tokens, -1, dims=1)).backward()
+        grads.append(torch.cat([p.grad.reshape(-1)
+                                for p in model.parameters()]))
+    del model
+    xs = torch.stack(grads)
+    del grads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = adasum.adasum_loopback(xs)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(got[0], g) for g in got[1:])
+    host = xs.cpu().numpy()
+    cos = float(torch.nn.functional.cosine_similarity(xs[0], xs[1], dim=0))
+    del xs
+    t0 = time.perf_counter()
+    want = adasum.adasum_reduce_numpy(list(host))
+    oracle_s = time.perf_counter() - t0
+    g = got[0].cpu().numpy().astype(np.float64)
+    rel = float(np.linalg.norm(g - want) / np.linalg.norm(want))
+    worst = float(np.abs(g - want).max() / np.abs(want).max())
+    print(f"adasum: {ADASUM_RANKS} virtual ranks x {host.shape[1]} fp32 "
+          f"elements (the flagship's step-0 gradients, four seeds' batches; "
+          f"cosine of ranks 0 and 1 {cos:.4f}); adasum_loopback "
+          f"{card_ms:.1f} ms on {card}, float64 oracle {oracle_s:.1f} s on "
+          f"the host")
+    print(f"adasum: |got - oracle| / |oracle| {rel:.3e} (tol {ADASUM_TOL}), "
+          f"max |got - oracle| / max |oracle| {worst:.3e}; every virtual "
+          f"rank's result the same: {same}")
+    if not same or not rel <= ADASUM_TOL:
+        raise AssertionError("adasum: the loopback disagrees with the "
+                             "float64 oracle")
+
+
 def _timed_steps(step_fn, state, images, labels, n):
     """``n`` steps, each timed on the host clock between two
     synchronizations: (state, times in ms, losses)."""
@@ -1363,7 +1712,9 @@ def main() -> int:
     # widest (256), ragged, with dlse, on the flash route and the lse route.
     dim_shapes = ((2, 1000, 8, 96, torch.bfloat16, True, True),
                   (2, 1000, 8, 256, torch.bfloat16, False, True))
-    for shape in shapes + (f32_flagship,) + dim_shapes:
+    # The pipelined flagship's microbatch: B 8 / PP_MICRO rows.
+    micro = (8 // PP_MICRO, 1024, 16, 64, torch.bfloat16, True, False)
+    for shape in shapes + (f32_flagship, micro) + dim_shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False)
     for shape in tuple(ring_shapes.values()) + (shapes[2],) + dim_shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False, lse_route=True)
@@ -1376,6 +1727,12 @@ def main() -> int:
                                                        make_mesh, dev, card)
         moe_counts, moe_ms, moe_steps, moe_prof = run_moe(
             hvd, tfm, fa, make_mesh, dev, card)
+        torch.cuda.empty_cache()
+        pp_counts, pp_ms, pp_steps, pp_prof = run_pipeline(hvd, tfm, fa,
+                                                           dev, card)
+        _profile_step(*pp_prof, what="pp profile")
+        del pp_prof
+        torch.cuda.empty_cache()
         _profile_step(*moe_prof, what="moe profile")
         print(f"moe profile: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1387,6 +1744,10 @@ def main() -> int:
         del resnet
         run_mnist(hvd, dev)
         run_guard(hvd, dev)
+        torch.cuda.empty_cache()
+        run_zero1(hvd, tfm, make_mesh, dev)
+        torch.cuda.empty_cache()
+        run_adasum(tfm, dev, card)
         torch.cuda.empty_cache()
         f32_run = run_fp32_step(hvd, tfm, fa, dev)
     finally:
@@ -1407,6 +1768,12 @@ def main() -> int:
                   for k in ("fwd", "dq", "dkv"))
     print(f"slice: attention kernels {attn_ms:.2f} ms of the {step_ms:.2f} ms "
           f"step (each kernel's flagship time x its launches per step)")
+
+    mb = check_kernels(fa, *micro, peaks, dev)
+    pp_attn = sum(mb[k]["ms"] * pp_counts[k] / pp_steps
+                  for k in ("fwd", "dq", "dkv"))
+    print(f"pp: attention kernels {pp_attn:.2f} ms of the {pp_ms:.2f} ms "
+          f"step (each kernel's microbatch time x its launches per step)")
 
     f32 = check_kernels(fa, *f32_flagship, peaks, dev)
     for shape in dim_shapes:
@@ -1434,6 +1801,12 @@ def main() -> int:
                    for k in ("fwd", "dq", "dkv"))
     print(f"moe: attention kernels {moe_attn:.2f} ms of the {moe_ms:.2f} ms "
           f"step (each kernel's flagship time x its launches per step)")
+    # The pipelined flagship's kernels at its microbatch's shape, with
+    # their launches in the pipelined run.
+    kernels += [dict(name=f"flash_{k}_pp", route="cuda",
+                     source=SOURCE, replaces=REPLACES[k],
+                     launches=pp_counts[k], **mb[k])
+                for k in ("fwd", "dq", "dkv")]
     # The ring hop's variants, with their launches in the causal ring run.
     for c, tag in ((True, "self"), (False, "hop")):
         for k in ("fwd", "dq", "dkv"):

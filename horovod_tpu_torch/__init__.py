@@ -5,6 +5,7 @@
 The port imports ``torch`` and never ``jax`` or the JAX package.
 """
 
+from horovod_tpu_torch import data  # noqa: F401  (sampling + prefetch)
 from horovod_tpu_torch.basics import (cross_rank, cross_size, device, init,
                                       is_initialized, local_rank,
                                       local_size, rank, shutdown, size)

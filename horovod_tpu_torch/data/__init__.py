@@ -1,0 +1,291 @@
+"""Distributed input pipeline: the port of ``horovod_tpu/data/__init__.py``.
+
+Rank-sharded sampling, batching, and prefetch onto the card::
+
+    sampler = ShardedSampler(len(ds), rank=hvd.rank(), size=hvd.size())
+    for epoch in range(epochs):
+        sampler.set_epoch(epoch)
+        for xb, yb in prefetch_to_device(batches(ds, sampler, 64)):
+            state, loss = train_step(state, xb, yb)
+
+Everything is plain numpy until :func:`prefetch_to_device`, which copies
+each batch from pinned host memory to the card on a side stream while the
+training loop runs the step before it.  :class:`ShardedSampler` gives the
+JAX package's indices for the same ``(seed, epoch, rank, size)``.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterable, Iterator, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.utils import _pytree
+
+from horovod_tpu_torch.basics import resolve_device
+
+__all__ = [
+    "ShardedSampler",
+    "ArrayDataset",
+    "batches",
+    "prefetch_to_device",
+]
+
+
+class ShardedSampler:
+    """Deterministic per-rank index shard with per-epoch reshuffling.
+
+    Every rank sees ``ceil(n / size)`` indices (the tail is padded by
+    wrapping, so all ranks take the same number of steps and collectives
+    stay aligned); the permutation is seeded by ``(seed, epoch)``
+    identically on every rank (numpy's ``RandomState``, as in the JAX
+    package), and each rank takes a strided slice of it.  Call
+    :meth:`set_epoch` before each epoch or every epoch repeats epoch 0's
+    order.  With ``drop_last=True`` the global sample count is truncated to
+    a multiple of ``size`` instead of padded."""
+
+    def __init__(self, n_samples: int, rank: int, size: int, *,
+                 shuffle: bool = True, seed: int = 0,
+                 drop_last: bool = False):
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} outside [0, {size})")
+        if n_samples <= 0:
+            raise ValueError("empty dataset")
+        self.n_samples = int(n_samples)
+        self.rank = int(rank)
+        self.size = int(size)
+        self.shuffle = bool(shuffle)
+        self.seed = int(seed)
+        self.drop_last = bool(drop_last)
+        self._epoch = 0
+        if drop_last:
+            self._per_rank = self.n_samples // self.size
+            if self._per_rank == 0:
+                raise ValueError(
+                    f"{n_samples} samples over {size} ranks with "
+                    "drop_last leaves rank shards empty")
+        else:
+            self._per_rank = -(-self.n_samples // self.size)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def __len__(self) -> int:
+        return self._per_rank
+
+    def __iter__(self) -> Iterator[int]:
+        if self.shuffle:
+            order = np.random.RandomState(
+                (self.seed * 1_000_003 + self._epoch) % (2 ** 31)
+            ).permutation(self.n_samples)
+        else:
+            order = np.arange(self.n_samples)
+        total = self._per_rank * self.size
+        if total > self.n_samples:  # pad by wrapping
+            order = np.concatenate([order, order[: total - self.n_samples]])
+        else:
+            order = order[:total]
+        return iter(order[self.rank:total:self.size].tolist())
+
+
+class ArrayDataset:
+    """Tuple-of-arrays dataset: ``ds.batch(idx) -> (arrays[0][idx], ...)``."""
+
+    def __init__(self, *arrays: np.ndarray):
+        if not arrays:
+            raise ValueError("need at least one array")
+        n = len(arrays[0])
+        for a in arrays[1:]:
+            if len(a) != n:
+                raise ValueError("arrays disagree on length")
+        self.arrays = tuple(np.asarray(a) for a in arrays)
+
+    def __len__(self) -> int:
+        return len(self.arrays[0])
+
+    def batch(self, idx: Sequence[int]) -> Tuple[np.ndarray, ...]:
+        ix = np.asarray(idx)
+        return tuple(a[ix] for a in self.arrays)
+
+    @staticmethod
+    def from_parquet(paths, columns: Sequence[str]) -> "ArrayDataset":
+        """Load parquet files (a path, glob, or list) into memory as one
+        dataset.  Each column becomes one array with its stored dtype;
+        list-valued columns reshape to ``[rows, width]`` (one nesting
+        level, rows must agree on width).  Needs ``pyarrow``, imported
+        here."""
+        import glob as globlib
+        import os
+
+        import pyarrow.parquet as pq
+
+        if isinstance(paths, (str, bytes, os.PathLike)):
+            pattern = os.fsdecode(paths)
+            matched = sorted(globlib.glob(pattern))
+            if matched:
+                paths = matched
+            elif globlib.has_magic(pattern):
+                raise FileNotFoundError(
+                    f"glob {pattern!r} matched no files")
+            else:
+                paths = [pattern]
+        tables = [pq.read_table(p, columns=list(columns)) for p in paths]
+        cols = []
+        for name in columns:
+            parts = [_arrow_column_to_numpy(t[name]) for t in tables]
+            cols.append(np.concatenate(parts) if len(parts) > 1
+                        else parts[0])
+        return ArrayDataset(*cols)
+
+
+def _arrow_column_to_numpy(chunked) -> np.ndarray:
+    """Arrow column → numpy, dtype-preserving; fixed-width list columns
+    reshape from their flattened values buffer."""
+    import pyarrow as pa
+
+    arrs = []
+    for chunk in chunked.chunks:
+        t = chunk.type
+        if pa.types.is_list(t) or pa.types.is_large_list(t) \
+                or pa.types.is_fixed_size_list(t):
+            values = chunk.flatten().to_numpy(zero_copy_only=False)
+            n = len(chunk)
+            if n == 0:
+                arrs.append(values.reshape(0, -1))
+                continue
+            width, rem = divmod(len(values), n)
+            if rem:
+                raise ValueError(
+                    "ragged list column: rows must agree on width")
+            arrs.append(values.reshape(n, width))
+        else:
+            arrs.append(chunk.to_numpy(zero_copy_only=False))
+    if not arrs:
+        return np.empty((0,))
+    return np.concatenate(arrs) if len(arrs) > 1 else arrs[0]
+
+
+def batches(dataset, sampler: ShardedSampler, batch_size: int, *,
+            drop_remainder: bool = True) -> Iterator[Tuple[np.ndarray, ...]]:
+    """Yields host-side batches of ``dataset`` in ``sampler`` order.
+
+    ``dataset`` needs ``batch(list_of_indices)`` (:class:`ArrayDataset`)
+    or plain ``__getitem__`` over which samples are stacked.
+    ``drop_remainder=True`` (default) keeps batch shapes static."""
+    buf: list = []
+    take = getattr(dataset, "batch", None)
+    for i in sampler:
+        buf.append(i)
+        if len(buf) == batch_size:
+            yield take(buf) if take else _stack(dataset, buf)
+            buf = []
+    if buf and not drop_remainder:
+        yield take(buf) if take else _stack(dataset, buf)
+
+
+def _stack(dataset, idx):
+    rows = [dataset[i] for i in idx]
+    if isinstance(rows[0], tuple):
+        return tuple(np.stack(col) for col in zip(*rows))
+    return np.stack(rows)
+
+
+def prefetch_to_device(it: Iterable, *, buffer_size: int = 2,
+                       device=None) -> Iterator:
+    """Moves batches (numpy arrays, tensors, or tuples, lists and dicts of
+    them) to ``device`` ``buffer_size`` ahead of consumption.
+
+    ``device`` defaults to the card (``hvd.init()``'s device, else
+    ``cuda:<local_rank>``) and raises
+    :class:`~horovod_tpu_torch.common.types.NoCudaDeviceError` without one;
+    ``device="cpu"`` gives CPU tensors.  A daemon thread pulls from ``it``,
+    copies each array into pinned host memory and from there to the card
+    with ``non_blocking=True`` on a side stream, and records an event; the
+    consumer's stream waits on that event before the batch is yielded, so
+    the copy overlaps the previous step and no kernel reads a batch before
+    it has arrived.  Leaving the loop early stops the producer; an error in
+    ``it`` is raised on the consumer's side.  The device and
+    ``buffer_size`` are checked when it is called."""
+    dev = resolve_device(device, "prefetch_to_device()")
+    if buffer_size < 1:
+        raise ValueError("buffer_size must be >= 1")
+    return _prefetch(it, buffer_size, dev)
+
+
+def _prefetch(it: Iterable, buffer_size: int, dev: torch.device
+              ) -> Iterator:
+    cuda = dev.type == "cuda"
+    side = torch.cuda.Stream(device=dev) if cuda else None
+
+    def tensor(a):
+        return a if isinstance(a, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(a))
+
+    def put(batch):
+        if not cuda:
+            return _pytree.tree_map(lambda a: tensor(a).to(dev), batch), None
+        with torch.cuda.device(dev), torch.cuda.stream(side):
+            out = _pytree.tree_map(
+                lambda a: tensor(a).pin_memory().to(dev, non_blocking=True),
+                batch)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return out, ready
+
+    q: queue.Queue = queue.Queue(maxsize=buffer_size)
+    stop = threading.Event()  # consumer gone: the producer must exit
+
+    class _Err:
+        def __init__(self, exc):
+            self.exc = exc
+
+    _END = object()
+
+    def send(item) -> bool:
+        """Blocking put that gives up when the consumer has left."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for batch in it:
+                if not send(put(batch)):
+                    return
+        except Exception as e:  # surfaced on the consumer side
+            send(_Err(e))
+        else:
+            send(_END)
+
+    threading.Thread(target=producer, daemon=True,
+                     name="prefetch_to_device").start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                return
+            if isinstance(item, _Err):
+                raise item.exc
+            batch, ready = item
+            if ready is not None:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(ready)
+                # The side stream allocated the batch; the consumer's
+                # stream uses it from here on.
+                _pytree.tree_map(lambda t: t.record_stream(stream), batch)
+            yield batch
+    finally:
+        # Early exit (break / generator close): wake a producer blocked in
+        # put() and drop any buffered batches.
+        stop.set()
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break

@@ -5,7 +5,9 @@ Transformer: the JAX tree (``horovod_tpu.models.transformer.init``) stacks
 every layer parameter along a leading ``[L, ...]`` axis; the port keeps one
 module per layer.  The per-layer layouts are the same, so conversion is a
 slice along that axis.  Given a mesh, both directions keep this rank's
-shard, cut by ``transformer.param_specs`` (numpy or tensor slicing).
+shard, cut by ``transformer.param_specs`` (numpy or tensor slicing); with
+``pipeline=True`` also the layers of its ``pp`` stage, renumbered from 0
+(``pipeline.pipeline_param_specs``: the stacked axis over ``pp``).
 
 ResNet and MNIST: the JAX trees nest by name (``params["stage0_block0"]
 ["bn1"]["scale"]``) and the port's keys join the same names with dots
@@ -47,14 +49,24 @@ def _layer_keys(names) -> Tuple[str, ...]:
     return keys
 
 
-def params_from_jax(tree: Dict[str, Any], mesh=None
-                    ) -> Dict[str, torch.Tensor]:
+def _stacked_specs(moe: bool, pipeline: bool):
+    """Specs of the stacked tree: the layer axis over ``pp`` with
+    ``pipeline``, whole without."""
+    specs = _specs(moe)
+    lead = "pp" if pipeline else None
+    specs["layers"] = {k: (lead,) + v for k, v in specs["layers"].items()}
+    return specs
+
+
+def params_from_jax(tree: Dict[str, Any], mesh=None, *,
+                    pipeline: bool = False) -> Dict[str, torch.Tensor]:
     """``{"embed", "layers": {k: [L, ...]}, "ln_f"}`` of numpy arrays →
     the port's ``state_dict`` (fp32 CPU tensors); with ``mesh`` (anything
-    with ``shape`` and ``coords``), this rank's shard of it."""
+    with ``shape`` and ``coords``), this rank's shard of it, and with
+    ``pipeline`` its stage's layers."""
     layers = tree["layers"]
     keys = _layer_keys(layers)
-    specs = _specs("router" in keys)
+    specs = _stacked_specs("router" in keys, pipeline)
 
     def t(a, spec):
         a = np.array(a, dtype=np.float32)
@@ -62,34 +74,42 @@ def params_from_jax(tree: Dict[str, Any], mesh=None
             a = shard(a, spec, mesh)
         return torch.from_numpy(np.ascontiguousarray(a))
 
-    n_layers = np.shape(layers["wq"])[0]
     sd = {"embed": t(tree["embed"], specs["embed"]),
           "ln_f": t(tree["ln_f"], specs["ln_f"])}
-    for i in range(n_layers):
-        for k in keys:
-            sd[f"layers.{i}.{k}"] = t(np.asarray(layers[k])[i],
-                                      specs["layers"][k])
-    return sd
+    for k in keys:
+        stacked = t(layers[k], specs["layers"][k])
+        for i in range(stacked.shape[0]):
+            sd[f"layers.{i}.{k}"] = stacked[i].clone()
+    return dict(sorted(sd.items(), key=lambda kv: _order(kv[0], keys)))
 
 
-def params_to_jax(state_dict: Dict[str, torch.Tensor], mesh=None
-                  ) -> Dict[str, Any]:
+def _order(key: str, keys) -> Tuple:
+    """``state_dict`` order: embed, ln_f, the layers in turn."""
+    if key.startswith("layers."):
+        _, i, k = key.split(".")
+        return (2, int(i), keys.index(k))
+    return (0 if key == "embed" else 1, 0, 0)
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor], mesh=None, *,
+                  pipeline: bool = False) -> Dict[str, Any]:
     """The port's ``state_dict`` (or a dict of gradients keyed the same
     way) → the JAX package's stacked tree of numpy arrays; with ``mesh``,
-    this rank's shard of that tree (``state_dict`` whole)."""
+    this rank's shard of that tree (``state_dict`` whole), and with
+    ``pipeline`` its stage's layers."""
     n_layers = 1 + max(int(k.split(".")[1]) for k in state_dict
                        if k.startswith("layers."))
     keys = _layer_keys({k.split(".")[-1] for k in state_dict
                         if k.startswith("layers.")})
-    specs = _specs("router" in keys)
+    specs = _stacked_specs("router" in keys, pipeline)
 
     def a(x, spec):
         x = x.detach().to("cpu", torch.float32).numpy()
         return x if mesh is None else shard(x, spec, mesh)
 
-    layers = {k: np.stack([a(state_dict[f"layers.{i}.{k}"],
-                             specs["layers"][k])
-                           for i in range(n_layers)])
+    layers = {k: a(torch.stack([state_dict[f"layers.{i}.{k}"]
+                                for i in range(n_layers)]),
+                   specs["layers"][k])
               for k in keys}
     return {"embed": a(state_dict["embed"], specs["embed"]), "layers": layers,
             "ln_f": a(state_dict["ln_f"], specs["ln_f"])}

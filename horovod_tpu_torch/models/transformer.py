@@ -39,7 +39,10 @@ collectives, the port calls them:
   in PyTorch, over K/V all-gathered along ``sp`` where the sequence is
   sharded (what GSPMD does there).
 
-Not ported yet (see ROADMAP.md): a ``pp`` axis and the decode path.
+A ``pp`` axis holds whole replicas here, as the JAX package's
+``param_specs`` name no ``pp``; :mod:`horovod_tpu_torch.parallel.pipeline`
+splits the layers over it.  Not ported yet (see ROADMAP.md): the decode
+path.
 """
 
 from __future__ import annotations
@@ -124,17 +127,13 @@ def shard_state_dict(state_dict: Dict[str, torch.Tensor],
 
 
 def check_mesh(cfg: TransformerConfig, mesh) -> None:
-    """Raise for what the model does not run over ``mesh``: a ``pp`` axis
-    (not ported) and sizes the split axes do not divide."""
+    """Raise for what the model does not run over ``mesh``: sizes the
+    split axes do not divide."""
     if cfg.attn_impl not in ("dense", "ring", "ulysses", "flash"):
         raise ValueError(f"attn_impl must be dense/ring/ulysses/flash, got "
                          f"{cfg.attn_impl!r}")
     if mesh is None:
         return
-    if mesh_axis_size(mesh, "pp") > 1:
-        raise NotImplementedError(
-            "pipeline parallelism (a pp mesh axis) is not ported yet; see "
-            "ROADMAP.md, Queue 1")
     tp, ep = mesh_axis_size(mesh, "tp"), mesh_axis_size(mesh, "ep")
     split = {"n_heads": (cfg.n_heads, tp), "d_ff": (cfg.d_ff, tp),
              "vocab_size": (cfg.vocab_size, tp)}
@@ -244,7 +243,9 @@ class _Layout:
     ep_index: int = 0
 
 
-def _layout(mesh: Optional[Mesh]) -> _Layout:
+def _layout(mesh: Optional[Mesh], data=("dp", "sp")) -> _Layout:
+    """The layout of a forward over ``mesh`` whose batch is split over the
+    axes of ``data`` (the pipeline's cells: ``dp`` alone)."""
     if mesh is None:
         return _Layout()
 
@@ -252,12 +253,15 @@ def _layout(mesh: Optional[Mesh]) -> _Layout:
         names = present_axes(mesh, names)
         return (mesh.axis(*names), names) if names else (None, ())
 
-    data, data_names = axis(("dp", "sp"))
+    def size_coord(name):
+        if name not in data:
+            return (1, 0)
+        return (mesh_axis_size(mesh, name), mesh.coords.get(name, 0))
+
+    data_axis, data_names = axis(data)
     return _Layout(
-        tp=axis(("tp",))[0], experts=axis(("ep", "tp"))[0], data=data,
-        data_names=data_names,
-        dp=(mesh_axis_size(mesh, "dp"), mesh.coords.get("dp", 0)),
-        sp=(mesh_axis_size(mesh, "sp"), mesh.coords.get("sp", 0)),
+        tp=axis(("tp",))[0], experts=axis(("ep", "tp"))[0], data=data_axis,
+        data_names=data_names, dp=size_coord("dp"), sp=size_coord("sp"),
         ep_index=mesh.coords.get("ep", 0))
 
 

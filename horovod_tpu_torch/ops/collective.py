@@ -8,11 +8,13 @@ for CPU tensors.  Every function takes ``axis``: an
 ``None`` for every rank (the default group).  Every function returns a new
 tensor and leaves its input as it was.
 
-``alltoall``, ``ppermute_ring`` and ``allgather_dim`` are differentiable
-(the backward of an equal-split all-to-all is the same exchange of the
-gradient; that of a shift around the ring is the opposite shift; that of an
-all-gather is a reduce-scatter), as their JAX counterparts are under
-autodiff; the reductions are not.  ``copy_to_axis`` and
+``alltoall``, ``ppermute``, ``ppermute_ring`` and ``allgather_dim`` are
+differentiable (the backward of an equal-split all-to-all is the same
+exchange of the gradient; that of a permutation is the inverse permutation,
+and of a shift around the ring the opposite shift; that of an all-gather is
+a reduce-scatter), as their JAX counterparts are under autodiff; the
+reductions are not.  ``allreduce(op=ReduceOp.ADASUM)`` runs
+:func:`horovod_tpu_torch.ops.adasum.adasum_allreduce`.  ``copy_to_axis`` and
 ``reduce_from_axis`` are the two halves of a tensor-parallel region (the
 collectives GSPMD inserts around the JAX package's sharded products).
 """
@@ -97,12 +99,14 @@ def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
 
     ``AVERAGE`` divides by the axis size; ``PRODUCT`` is an all-gather
     followed by a local product, as in the JAX package.  Pre- and postscale
-    multiply before and after the reduction."""
-    if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not ported yet; see ROADMAP.md, Queue 1 "
-            "(rest of the compiled regime)")
+    multiply before and after the reduction.  ``ADASUM`` is
+    :func:`~horovod_tpu_torch.ops.adasum.adasum_allreduce` over ``axis``,
+    and ignores pre- and postscale, as the JAX package does."""
     ax = _ax(axis)  # raises before init
+    if op == ReduceOp.ADASUM:
+        from horovod_tpu_torch.ops import adasum
+
+        return adasum.adasum_allreduce(x, axis=ax)
     if prescale_factor != 1.0:
         x = x * prescale_factor
     if op == ReduceOp.PRODUCT or x.dtype in _GATHER_REDUCED:
@@ -125,7 +129,9 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
                       hierarchical: bool = False,
                       outer_axis: str = "dcn") -> List[torch.Tensor]:
     """Fused allreduce of a list of tensors: one flat buffer per dtype, one
-    collective per buffer, split back to the input shapes.
+    collective per buffer, split back to the input shapes.  Under
+    ``ADASUM`` each fused buffer is combined as one vector, as in the JAX
+    package.
 
     ``hierarchical=True`` reduces each buffer with
     :func:`hierarchical_allreduce`; ``axis`` must then name exactly the
@@ -299,6 +305,59 @@ def ppermute_ring(x: torch.Tensor, axis: Axis, shift: int = 1
     sent: the primitive under ring attention.  Differentiable: the backward
     sends the gradient ``-shift`` steps, the transpose of the shift."""
     return _PPermuteRing.apply(x, axis, int(shift))
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, perm):
+        ctx.ax, ctx.perm = ax, perm
+        return _permute(x, ax, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.ax, tuple((d, s) for s, d in ctx.perm)), \
+            None, None
+
+
+def _permute(x, ax, perm):
+    """Post this rank's send and receive of ``perm`` at once (no rank
+    blocks on its send); zeros where no index sends to this one."""
+    me = ax.index
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    x = x.contiguous()
+    if src == [me]:
+        y = x.clone()
+    else:
+        y = torch.zeros_like(x)
+    ops = []
+    if dst and dst != [me]:
+        ops.append(dist.P2POp(dist.isend, x, ax.ranks[dst[0]],
+                              group=ax.group))
+    if src and src != [me]:
+        ops.append(dist.P2POp(dist.irecv, y, ax.ranks[src[0]],
+                              group=ax.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return y
+
+
+def ppermute(x: torch.Tensor, axis: Axis, perm) -> torch.Tensor:
+    """``lax.ppermute`` over ``axis``: ``perm`` is a list of ``(source,
+    destination)`` index pairs, each index at most once as a source and
+    once as a destination; the rank at index ``d`` gets the ``x`` of the
+    rank at index ``s``, and zeros where no pair names it as a
+    destination.  Every rank of the axis calls it with the same ``perm``.
+    Differentiable: the backward applies the inverse permutation."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    for i in (0, 1):
+        seen = [p[i] for p in perm]
+        if len(set(seen)) != len(seen) or \
+                not all(0 <= j < axis.size for j in seen):
+            raise ValueError(f"perm {perm} is not a partial permutation of "
+                             f"the {axis.size} indices of the axis")
+    return _PPermute.apply(x, axis, perm)
 
 
 class _AllGatherDim(torch.autograd.Function):

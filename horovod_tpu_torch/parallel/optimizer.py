@@ -99,6 +99,13 @@ class DistributedOptimizer:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.inner.zero_grad(set_to_none=set_to_none)
 
+    def state_dict(self):
+        """The inner optimizer's state (for a checkpoint)."""
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state_dict) -> None:
+        self.inner.load_state_dict(state_dict)
+
     def _params(self) -> List[torch.Tensor]:
         return [p for g in self.inner.param_groups for p in g["params"]]
 

@@ -26,7 +26,8 @@ after the step.  At one rank the two are the same step.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, NamedTuple, Optional
+import logging
+from typing import Callable, Dict, Iterable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -38,8 +39,13 @@ from horovod_tpu_torch.models import resnet as resnet_model
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import collective as C
 from horovod_tpu_torch.ops.compression import Compression
-from horovod_tpu_torch.parallel.mesh import Axis, Mesh, sub_axis
-from horovod_tpu_torch.parallel.optimizer import DistributedOptimizer
+from horovod_tpu_torch.common.types import ReduceOp
+from horovod_tpu_torch.parallel.mesh import Axis, Mesh, mesh_axis_size, \
+    sub_axis
+from horovod_tpu_torch.parallel.optimizer import DistributedOptimizer, \
+    allreduce_gradients
+
+_log = logging.getLogger("horovod_tpu_torch")
 
 MakeOptimizer = Callable[[Iterable[torch.nn.Parameter]],
                          torch.optim.Optimizer]
@@ -47,7 +53,7 @@ MakeOptimizer = Callable[[Iterable[torch.nn.Parameter]],
 
 class TrainState(NamedTuple):
     model: torch.nn.Module
-    optimizer: DistributedOptimizer
+    optimizer: "DistributedOptimizer | Zero1Optimizer"
     step: int
 
 
@@ -107,21 +113,35 @@ def make_transformer_train_step(
     tensor- and expert-parallel regions give every rank the whole gradient
     of each replicated parameter.
 
-    ``zero1=True`` (optimizer state sharded over dp) and a ``pp`` axis are
-    not ported yet.  Needs ``hvd.init()``."""
-    if zero1:
-        raise NotImplementedError(
-            "zero1=True (ZeRO-1 optimizer-state sharding) is not ported "
-            "yet; see ROADMAP.md, Queue 1")
+    A ``pp`` axis holds replicas, as in the JAX package, whose
+    ``param_specs`` name no ``pp``: its ranks hold the whole model and the
+    same slice of the batch (:mod:`horovod_tpu_torch.parallel.pipeline`
+    splits the layers over it).
+
+    ``zero1=True`` shards the optimizer state over ``dp`` (ZeRO stage 1,
+    :class:`Zero1Optimizer`): each rank keeps the AdamW moments of 1/dp of
+    every eligible parameter, the first dimension that ``tp`` or ``ep`` do
+    not split and that dp divides; the step reduce-scatters that
+    parameter's gradient over ``dp`` (and averages the piece over ``dcn``
+    and ``sp``), updates the piece and all-gathers the parameter.  Other
+    parameters keep today's allreduce and replicated update.  The JAX
+    package's two warnings are logged where the state stays replicated: no
+    ``dp`` axis larger than 1, or no dimension divisible by dp.  Needs
+    ``hvd.init()``."""
     tfm.check_mesh(cfg, mesh)
     dev = basics.resolve_device(device, "make_transformer_train_step()")
     make_inner = optimizer or default_optimizer
+    zero_dims = _zero1_dims(cfg, mesh) if zero1 else {}
 
     def init_fn(seed: int) -> TrainState:
         axis = None if mesh is None else sub_axis(mesh, ("dcn", "dp", "sp"))
         model = _from_rank0(tfm.init(seed, cfg, device=dev, mesh=mesh), axis)
-        opt = DistributedOptimizer(make_inner(model.parameters()), axis=axis,
-                                   nonfinite_policy="off")
+        if zero_dims:
+            opt = Zero1Optimizer(model, make_inner, zero_dims, mesh=mesh,
+                                 axis=axis)
+        else:
+            opt = DistributedOptimizer(make_inner(model.parameters()),
+                                       axis=axis, nonfinite_policy="off")
         return TrainState(model, opt, 0)
 
     def step_fn(state: TrainState, tokens, targets):
@@ -134,6 +154,122 @@ def make_transformer_train_step(
             loss.detach(), axis=state.optimizer.axis)
 
     return step_fn, init_fn
+
+
+def _zero1_dims(cfg: tfm.TransformerConfig, mesh: Optional[Mesh]
+                ) -> Dict[str, int]:
+    """ZeRO-1's eligible parameters: ``{name: dimension}``, the first
+    dimension of this rank's shard that no axis of the mesh splits (the
+    JAX package's ``_zero1_augment`` on its filtered specs) and that dp
+    divides, at least dp long.  Logs the JAX package's warning, and
+    returns no parameter, where the state stays replicated."""
+    n = 1 if mesh is None else mesh_axis_size(mesh, "dp")
+    if n <= 1:
+        _log.warning("zero1=True but the mesh has no dp axis > 1; "
+                     "optimizer state stays replicated")
+        return {}
+    specs = tfm.param_specs(cfg)
+    with torch.device("meta"):
+        shapes = {k: p.shape for k, p in
+                  tfm.Transformer(cfg, mesh).named_parameters()}
+    dims = {}
+    for name, shape in shapes.items():
+        spec = tfm.spec_of(specs, name)
+        for d, size in enumerate(shape):
+            if spec[d] not in mesh.shape and size % n == 0 and size >= n:
+                dims[name] = d
+                break
+    if not dims:
+        _log.warning("zero1=True but no optimizer-state dimension is "
+                     "divisible by dp=%d; state stays replicated", n)
+    return dims
+
+
+class Zero1Optimizer:
+    """ZeRO stage 1 over ``dp``: the inner optimizer steps this rank's
+    1/dp piece of each parameter of ``dims`` (``{name: dimension}``; the
+    piece at its ``dp`` index along that dimension) and the whole of the
+    others, so its state for a sharded parameter is 1/dp of it.
+
+    ``step()`` averages each sharded parameter's gradient by a
+    reduce-scatter over ``dp`` and an allreduce of the piece over the rest
+    of ``axis`` (``dcn`` and ``sp``), the other gradients by one fused
+    allreduce over ``axis``, as :class:`DistributedOptimizer` does; runs
+    the inner step; and all-gathers each sharded parameter over ``dp``.
+    A parameter without a gradient counts as a zero gradient.  The update
+    is elementwise (AdamW), so it is the replicated step's."""
+
+    def __init__(self, model: torch.nn.Module, make_inner: MakeOptimizer,
+                 dims: Dict[str, int], *, mesh: Mesh, axis: Axis):
+        self.axis = axis
+        self.dp = mesh.axis("dp")
+        self.rest = sub_axis(mesh, ("dcn", "sp"))
+        self.dims = dims
+        self.params = list(model.named_parameters())
+        # The inner optimizer's parameters, in the model's order: for each
+        # sharded parameter a view of this rank's piece of it (so loading
+        # the model's weights loads the pieces), else the parameter.
+        self.pieces = {}
+        for name, p in self.params:
+            if name in dims:
+                b = p.shape[dims[name]] // self.dp.size
+                self.pieces[name] = torch.nn.Parameter(
+                    p.detach().narrow(dims[name], self.dp.index * b, b))
+        self.inner = make_inner([self.pieces.get(name, p)
+                                 for name, p in self.params])
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+        for _, p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self):
+        params = dict(self.params)
+        grads = {name: torch.zeros_like(p) if p.grad is None else p.grad
+                 for name, p in self.params}
+        whole = [name for name, _ in self.params if name not in self.dims]
+        for name, g in zip(whole, allreduce_gradients(
+                [grads[n] for n in whole], axis=self.axis)):
+            params[name].grad = g
+        names = list(self.pieces)
+        scattered = [C.reduce_scatter(
+            grads[n].movedim(self.dims[n], 0).contiguous(), ReduceOp.AVERAGE,
+            axis=self.dp).movedim(0, self.dims[n]) for n in names]
+        if self.rest.size > 1:
+            scattered = C.grouped_allreduce(scattered, axis=self.rest)
+        for n, g in zip(names, scattered):
+            self.pieces[n].grad = g.contiguous()
+        out = self.inner.step()
+        for n in names:
+            d = self.dims[n]
+            params[n].copy_(C.allgather(
+                self.pieces[n].movedim(d, 0).contiguous(),
+                axis=self.dp).movedim(0, d))
+        return out
+
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state_dict) -> None:
+        self.inner.load_state_dict(state_dict)
+
+
+def state_tree(state: TrainState):
+    """A training state as a checkpoint tree: ``{"model": state_dict,
+    "optimizer": the optimizer's state_dict, "step": step}`` (see
+    :mod:`horovod_tpu_torch.utils.checkpoint`)."""
+    return {"model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(), "step": state.step}
+
+
+def load_state_tree(state: TrainState, tree) -> TrainState:
+    """Load a tree from :func:`state_tree` into ``state`` (built the same
+    way, on the same mesh): the model's parameters, then the optimizer's
+    state; returns the state at the tree's step."""
+    state.model.load_state_dict(tree["model"])
+    state.optimizer.load_state_dict(tree["optimizer"])
+    return state._replace(step=int(tree["step"]))
 
 
 def _from_rank0(model: torch.nn.Module,

@@ -8,6 +8,10 @@ import os
 # The non-finite gradient guard (integrity/nonfinite.py).
 NONFINITE_POLICY = "HVD_NONFINITE_POLICY"
 NONFINITE_LIMIT = "HVD_NONFINITE_LIMIT"
+# Verified checkpoints (utils/checkpoint.py): how many to keep, and the
+# elastic membership epoch written into each manifest.
+CKPT_KEEP = "HVD_CKPT_KEEP"
+ELASTIC_EPOCH = "HVD_ELASTIC_EPOCH"
 
 
 def get_int(name: str, default: int) -> int:

@@ -145,12 +145,20 @@ def test_broadcast_and_allgather(gang):
 
 
 def test_adasum_raises_and_uninitialized_raises():
+    """Before ``init`` every allreduce raises, Adasum's too.  Adasum is
+    ported (``tests/test_torch_adasum.py``): at one rank it returns the
+    rank's own tensor."""
     x = torch.ones(2)
     hvd.shutdown()
     with pytest.raises(ValueError, match="init"):
         hvd.allreduce(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="init"):
         hvd.allreduce(x, op=hvd.Adasum)
+    hvd.init(device="cpu")
+    try:
+        assert torch.equal(hvd.allreduce(x, op=hvd.Adasum), x)
+    finally:
+        hvd.shutdown()
 
 
 @pytest.mark.parametrize("name", ["none", "fp16", "float16", "bfloat16",

@@ -59,6 +59,9 @@ def test_import_loads_no_jax_or_jax_package():
     assert "horovod_tpu_torch.models.transformer" in loaded
     assert "horovod_tpu_torch.models.resnet" in loaded
     assert "horovod_tpu_torch.models.mnist" in loaded
+    for mod in ("ops.adasum", "parallel.pipeline", "data",
+                "utils.checkpoint"):
+        assert f"horovod_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -109,6 +112,18 @@ def test_train_step_without_device_raises(no_cuda):
                                 n_heads=2, d_ff=16)
     with pytest.raises(NoCudaDeviceError):
         train.make_transformer_train_step(cfg)
+
+
+def test_pipeline_and_prefetch_without_device_raise(no_cuda):
+    from horovod_tpu_torch.data import prefetch_to_device
+    from horovod_tpu_torch.parallel import pipeline
+
+    cfg = tfm.TransformerConfig(vocab_size=16, d_model=16, n_layers=2,
+                                n_heads=2, d_ff=16)
+    with pytest.raises(NoCudaDeviceError, match="make_pipeline_train_step"):
+        pipeline.make_pipeline_train_step(cfg, n_stages=2)
+    with pytest.raises(NoCudaDeviceError, match="prefetch_to_device"):
+        prefetch_to_device(iter([]))
 
 
 @pytest.mark.parametrize("make", [

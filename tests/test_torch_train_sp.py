@@ -215,22 +215,29 @@ def test_rope_rotates_at_the_offset():
     assert not torch.allclose(tfm._rope(x[:, 8:], 10000.0), whole[:, 8:])
 
 
-def test_what_the_step_does_not_take_raises():
-    """ZeRO-1 and a pipeline (``pp``) axis raise (meshes stand in by their
-    shape: nothing is built before the check).  Tensor and expert axes,
-    and dense or flash attention over a sequence-sharded batch, run
-    (``tests/test_torch_train_tp.py``, ``tests/test_torch_moe.py``): there
-    dense and flash attention gather K/V over ``sp``, as GSPMD does.
-    Ulysses raises where a tp rank's heads do not split over ``sp``."""
+def test_what_the_step_does_not_take_raises(caplog):
+    """ZeRO-1 and a pipeline (``pp``) axis no longer raise (meshes stand
+    in by their shape: nothing is built before the step runs): ZeRO-1
+    without a dp axis > 1 logs the JAX package's warning and keeps the
+    state replicated, and a ``pp`` axis holds replicas
+    (``tests/test_torch_zero1.py``, ``tests/test_torch_pipeline.py``).
+    Tensor and expert axes, and dense or flash attention over a
+    sequence-sharded batch, run (``tests/test_torch_train_tp.py``,
+    ``tests/test_torch_moe.py``): there dense and flash attention gather
+    K/V over ``sp``, as GSPMD does.  Ulysses raises where a tp rank's heads
+    do not split over ``sp``; a mesh whose tp does not divide the heads
+    raises."""
     from horovod_tpu_torch.parallel import ring_attention as ra
 
     cfg = tfm.TransformerConfig(compute_dtype=torch.float32, **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with caplog.at_level("WARNING", logger="horovod_tpu_torch"):
         train.make_transformer_train_step(cfg, zero1=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert "zero1=True but the mesh has no dp axis > 1" in caplog.text
+    train.make_transformer_train_step(
+        cfg, mesh=SimpleNamespace(shape={"dp": 2, "pp": 2}), device="cpu")
+    with pytest.raises(ValueError, match="n_heads 4 is not divisible"):
         train.make_transformer_train_step(
-            cfg, mesh=SimpleNamespace(shape={"dp": 2, "pp": 2}),
-            device="cpu")
+            cfg, mesh=SimpleNamespace(shape={"tp": 3}), device="cpu")
 
     def axis(n):
         return SimpleNamespace(names=("sp",), size=n, index=0)

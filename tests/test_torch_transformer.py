@@ -175,12 +175,19 @@ def test_init_is_seeded():
 @pytest.mark.parametrize("kw", [dict(n_experts=4)])
 def test_unported_configurations_raise(kw):
     """The Switch MoE FFN is ported (``tests/test_torch_moe.py``): the
-    model builds.  What still raises is a pipeline (``pp``) mesh axis."""
+    model builds.  A pipeline (``pp``) mesh axis is ported too
+    (``tests/test_torch_pipeline.py``): over it the model holds every
+    layer, a replica, as the JAX package's ``param_specs`` name no
+    ``pp``.  What still raises is a mesh whose axes do not divide the
+    model: experts over an ``ep`` that does not divide them."""
     model = tfm.Transformer(_port_cfg(**kw))
     assert tuple(model.layers[0].router.shape) == (32, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    replica = tfm.Transformer(_port_cfg(**kw), mesh=SimpleNamespace(
+        shape={"dp": 2, "pp": 2}))
+    assert len(replica.layers) == len(model.layers)
+    with pytest.raises(ValueError, match="n_experts 4 is not divisible"):
         tfm.Transformer(_port_cfg(**kw), mesh=SimpleNamespace(
-            shape={"dp": 2, "pp": 2}))
+            shape={"ep": 3}))
 
 
 @pytest.mark.parametrize("attn_impl", ["ring", "ulysses"])
