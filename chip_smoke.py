@@ -80,7 +80,10 @@ non-zero):
    (``compute_dtype`` float32, the same widths) beside a dense-attention
    fp32 twin from the same seed: its step-0 loss and gradients against the
    twin's, and its launches of the fp32 kernels (16 forwards and q/k/v
-   splits, 8 dQ, dK/dV and dO splits);
+   splits, 8 dQ, dK/dV and dO splits).  Then the replica audit:
+   ``fingerprint`` over the flagship's training state after one step (the
+   parameters and AdamW's moments, 2.0 GB) timed, and ``audit_replicas`` at
+   one rank must return its folded digest;
 4. sequence parallelism at the flagship's width: ring and Ulysses
    attention of four virtual ranks (``ring_attention.loopback_attention``,
    the gang's schedule in one process) over a global sequence of 4 x 1024
@@ -91,7 +94,21 @@ non-zero):
    dO split per hop); then one causal ring layer's device time per virtual
    rank under ``torch.profiler``, with the share of its backward kernels
    (the fp32-dO dQ and dK/dV and the split);
-5. the kernel checks of phase 2 again, and the times of the kernel, the
+5. serving: the flagship (bf16, weights from seed 0) in a ``DecodeEngine``
+   of 8 slots over a cache of 1024 positions, behind ``Scheduler`` and
+   ``FrontDoor`` on 127.0.0.1, stepped by one loop thread in the order
+   of the JAX package's serving loop while 16 client threads post
+   ``/generate`` at once (prompts of 32-512 tokens, 64-256 new tokens, from
+   a seed).  Every reply must be 200 with its tokens, and they must equal
+   ``generate`` on each prompt alone; a request decoded beside seven
+   neighbours must give the logits and token it gives alone in the engine,
+   at every step, bit for bit; ``prefill_request``'s logits are held to the
+   last position of ``apply`` with dense attention.  Prints TTFT, the
+   decode step at eight live slots, one profiled decode step, prefill
+   times, the KV cache's bytes and the peak memory.  Serving runs no
+   flash kernel (its attention is dense), so it adds no entry to the
+   kernels JSON;
+6. the kernel checks of phase 2 again, and the times of the kernel, the
    plain version and PyTorch's ``scaled_dot_product_attention`` as a
    yardstick (forward alone for the forward, backward alone for dQ and
    dK/dV; the port never calls it), each as its kernels' device time per
@@ -118,6 +135,7 @@ result, where torch finds no CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1344,6 +1362,323 @@ def run_adasum(tfm, dev, card):
                              "float64 oracle")
 
 
+# The serving phase: the flagship (bf16, dense FFN, weights from seed 0)
+# behind FrontDoor, Scheduler and DecodeEngine in this process.  SERVE_SLOTS
+# decode slots over a cache of SERVE_CACHE positions; SERVE_CLIENTS client
+# threads post at once, with prompts of 32-512 tokens and 64-256 new tokens
+# drawn from SERVE_SEED.  The served tokens must equal generate()'s on each
+# prompt alone, bit for bit (rows never mix in the decode step); a request
+# decoded beside neighbours must give, at every step, the logits and token
+# it gives alone in the engine; and prefill_request's logits are held to
+# the last position of apply() with dense attention within TOL["bfloat16"].
+SERVE_SLOTS, SERVE_CACHE, SERVE_CLIENTS, SERVE_SEED = 8, 1024, 16, 11
+
+
+def _serve_drive(scheduler, engine, stop, steps):
+    """One rank's serving loop, in the order of the JAX package's
+    ``serving/loop.py`` (``_drive``, ``_apply_frame``, ``_emit``): at each
+    token boundary the scheduler's admissions, a prefill of each (its first
+    token emitted), one ``step()`` when a slot is live, that step's token
+    for every live slot, and a slot retired when its request has its
+    tokens.  Runs until ``stop`` is set and no work is left; appends each
+    step's (host ms, live slots) to ``steps``."""
+    import torch
+
+    live = {}
+
+    def emit(slot, token):
+        scheduler.on_token(slot, token)
+        live[slot] -= 1
+        if live[slot] <= 0:
+            engine.clear(slot)
+            del live[slot]
+            scheduler.complete(slot)
+
+    while not (stop.is_set() and not scheduler.has_work()):
+        admissions = scheduler.take_admissions()
+        if not admissions and not live:
+            time.sleep(0.001)
+            continue
+        for slot, req in admissions:
+            live[slot] = req.max_new
+            emit(slot, engine.prefill(slot, req.prompt))
+        if live:
+            n = len(live)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = engine.step()  # the tokens reach the host: synchronized
+            steps.append(((time.perf_counter() - t0) * 1e3, n))
+            for slot in sorted(live):
+                emit(slot, int(toks[slot]))
+
+
+def _post(port, body, out, i):
+    """One client: POST ``body`` to ``/generate``; ``out[i]`` = (status,
+    the reply's JSON)."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        c.request("POST", "/generate", json.dumps(body))
+        r = c.getresponse()
+        out[i] = (r.status, json.loads(r.read() or b"{}"))
+    finally:
+        c.close()
+
+
+def _engine_alone(engine, prompt, n, neighbours=()):
+    """Decode ``prompt`` in slot 0 of ``engine`` for ``n`` tokens, the other
+    slots idle or holding ``neighbours`` (prompts for slots 1, 2, ...):
+    slot 0's tokens and each step's logits."""
+    for s in range(engine.max_batch):
+        engine.clear(s)
+    toks = [engine.prefill(0, prompt)]
+    for s, p in enumerate(neighbours, start=1):
+        engine.prefill(s, p)
+    logits = []
+    for _ in range(n - 1):
+        toks.append(int(engine.step()[0]))
+        logits.append(engine.logits[0].clone())
+    for s in range(engine.max_batch):
+        engine.clear(s)
+    return toks, logits
+
+
+def run_serve(tfm, dev, card):
+    """The flagship served: ``DecodeEngine`` (SERVE_SLOTS slots, cache
+    SERVE_CACHE), ``Scheduler`` and ``FrontDoor`` on 127.0.0.1, driven by
+    :func:`_serve_drive` in one thread while SERVE_CLIENTS threads post
+    ``/generate`` at once.  Checks every reply (200, its tokens), the
+    tokens against ``generate`` alone on each prompt, slot independence bit
+    for bit, and ``prefill_request`` against ``apply``; prints TTFT, the
+    decode step at eight live slots, one profiled decode step, prefill
+    times, the KV cache's bytes and the peak memory."""
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.serving import DecodeEngine, FrontDoor, Scheduler
+
+    t_phase = time.perf_counter()
+    cfg = _flagship_cfg(tfm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = tfm.init(0, cfg, device=dev)
+    engine = DecodeEngine(model, cfg, max_batch=SERVE_SLOTS,
+                          cache_len=SERVE_CACHE, device=dev)
+    kv_bytes = engine.ks.nbytes + engine.vs.nbytes
+    cast_bytes = sum(t.nbytes for t in [engine.model.embed] + [
+        t for blk in engine.model.layers for t in vars(blk).values()]
+        if t.dtype == cfg.compute_dtype)
+    print(f"serve: flagship (vocab {cfg.vocab_size}, d_model {cfg.d_model}, "
+          f"{cfg.n_layers} layers, {cfg.n_heads} heads, d_ff {cfg.d_ff}, "
+          f"bf16, seed 0); DecodeEngine {SERVE_SLOTS} slots x cache "
+          f"{SERVE_CACHE}: KV cache {kv_bytes} bytes "
+          f"({kv_bytes / 2**20:.0f} MiB), matrices cast once "
+          f"{cast_bytes} bytes ({cast_bytes / 1e6:.0f} MB)")
+
+    rs = np.random.RandomState(SERVE_SEED)
+    reqs = []
+    for _ in range(SERVE_CLIENTS):
+        n = int(rs.randint(32, 513))
+        new = int(rs.randint(64, 257))
+        reqs.append((rs.randint(0, cfg.vocab_size, n).tolist(), new))
+    assert all(len(p) + m <= SERVE_CACHE for p, m in reqs)
+
+    # Prefill times (host clock, synchronized), at prompts of 128 and 512.
+    prefill_ms = {}
+    for n in (128, 512):
+        prompt = reqs[0][0] * 16
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.prefill(0, prompt[:n])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prefill_ms[n] = statistics.median(times[1:])
+    # The decode step at eight live slots with no server running.
+    for s, (p, _) in enumerate(reqs[:SERVE_SLOTS]):
+        engine.prefill(s, p)
+    quiet = []
+    for _ in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step()
+        quiet.append((time.perf_counter() - t0) * 1e3)
+    for s in range(SERVE_SLOTS):
+        engine.clear(s)
+
+    sched = Scheduler(max_batch=SERVE_SLOTS, max_queue=64,
+                      cache_len=SERVE_CACHE)
+    door = FrontDoor(sched, host="127.0.0.1", port=0, timeout_s=600.0)
+    port = door.start()
+    stop, steps, err = threading.Event(), [], []
+
+    def drive():
+        try:
+            _serve_drive(sched, engine, stop, steps)
+        except BaseException as e:  # noqa: B036 -- reported below
+            err.append(e)
+            sched.fail_all(f"the serving loop failed: {e!r}")
+            raise
+
+    stepper = threading.Thread(target=drive, name="serve-loop")
+    replies = [None] * SERVE_CLIENTS
+    clients = [threading.Thread(target=_post, args=(
+        port, {"prompt": p, "max_new_tokens": m}, replies, i))
+        for i, (p, m) in enumerate(reqs)]
+    t0 = time.perf_counter()
+    stepper.start()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=600)
+    serve_s = time.perf_counter() - t0
+    stop.set()
+    stepper.join(timeout=60)
+    door.stop()
+    if err:
+        raise err[0]
+    bad = []
+    for i, ((p, m), r) in enumerate(zip(reqs, replies)):
+        if r is None or r[0] != 200 or len(r[1].get("tokens", ())) != m:
+            bad.append(f"request {i}: reply {r and r[0]} "
+                       f"{str(r and r[1])[:120]}")
+    _fail_if(bad, "serve")
+
+    # The tokens against generate() on each prompt alone.
+    t_or = time.perf_counter()
+    for i, (p, m) in enumerate(reqs):
+        want = tfm.generate(model, [p], max_new_tokens=m,
+                            cache_len=SERVE_CACHE)[0, len(p):].tolist()
+        got = replies[i][1]["tokens"]
+        if got != want:
+            j = next(k for k in range(m) if got[k] != want[k])
+            _, logits = _engine_alone(engine, p, j + 1)
+            top = (torch.topk(logits[j - 1], 2).values.tolist() if j
+                   else None)
+            bad.append(f"request {i}: tokens leave generate()'s at step "
+                       f"{j} (top-2 logits there {top})")
+    oracle_s = time.perf_counter() - t_or
+    _fail_if(bad, "serve")
+
+    # Slot independence: request 0 alone in the engine, then beside seven
+    # neighbours; every step's logits and token bit for bit.
+    p0, m0 = reqs[0]
+    n0 = min(m0, 64)
+    alone, la = _engine_alone(engine, p0, n0)
+    beside, lb = _engine_alone(engine, p0, n0,
+                               [p for p, _ in reqs[1:SERVE_SLOTS]])
+    same_logits = all(torch.equal(a, b) for a, b in zip(la, lb))
+    print(f"serve: slot independence over {n0} tokens: tokens equal "
+          f"{alone == beside}, logits equal at every step {same_logits}")
+    if alone != beside or not same_logits:
+        bad.append("a request beside neighbours decodes other logits or "
+                   "tokens than alone")
+
+    # prefill_request against the last position of apply(), dense attention.
+    dense = tfm.Transformer(dataclasses.replace(cfg, attn_impl="dense"))
+    dense.load_state_dict(model.state_dict())
+    dense.to(dev)
+    with torch.inference_mode():
+        got, _, _ = tfm.prefill_request(
+            engine.model, torch.tensor(p0, device=dev), SERVE_CACHE)
+        want = tfm.apply(dense, torch.tensor([p0], device=dev))[0][0, -1]
+    del dense
+    rtol, atol = TOL["bfloat16"]
+    allowed = rtol * want.abs() + atol * float(want.pow(2).mean().sqrt())
+    worst = float(((got - want).abs() / allowed).max())
+    print(f"serve: prefill_request logits against apply()'s last position "
+          f"(dense attention), prompt {len(p0)}: max abs err "
+          f"{float((got - want).abs().max()):.3e}, worst/tol {worst:.3f}, "
+          f"bit for bit {torch.equal(got, want)}")
+    if not worst <= 1.0:
+        bad.append("prefill_request's logits disagree with apply()'s")
+    _fail_if(bad, "serve")
+
+    # One decode step at eight live slots under the profiler.
+    for s, (p, _) in enumerate(reqs[:SERVE_SLOTS]):
+        engine.prefill(s, p)
+    engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    busy_ms = sum(_dev_us(e) for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    peak = torch.cuda.max_memory_allocated() - held
+
+    full = [t for t, n in steps if n == SERVE_SLOTS]
+    if not full:
+        raise AssertionError("serve: no decode step ran with every slot "
+                             "live")
+    step_ms = statistics.median(full)
+    ttft = sorted(r[1]["ttft_ms"] for r in replies)
+    tokens = sum(m for _, m in reqs)
+    print(f"serve: {SERVE_CLIENTS} requests, {tokens} tokens in "
+          f"{serve_s:.2f} s ({tokens / serve_s:.1f} tokens/s), "
+          f"{len(steps)} decode steps; TTFT p50 "
+          f"{np.percentile(ttft, 50):.2f} ms, p99 "
+          f"{np.percentile(ttft, 99):.2f} ms; {card}")
+    print(f"serve: decode step at {SERVE_SLOTS} live slots: median "
+          f"{step_ms:.3f} ms over {len(full)} steps "
+          f"({SERVE_SLOTS / step_ms * 1e3:.1f} tokens/s); with no server "
+          f"running {statistics.median(quiet[3:]):.3f} ms; profiled step: "
+          f"kernels {busy_ms:.3f} ms in {launches} launches, device idle "
+          f"{100 * (1 - busy_ms / step_ms):.1f}% of the median")
+    for e in rows[:8]:
+        print(f"serve:   {_dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+    print(f"serve: prefill {prefill_ms[128]:.3f} ms at 128 tokens, "
+          f"{prefill_ms[512]:.3f} ms at 512; peak memory "
+          f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held "
+          f"before; oracles {oracle_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def run_audit(hvd, tfm, make_mesh, dev, card):
+    """``fingerprint`` over the flagship's training state after one step
+    (``train.state_tree``: the parameters and AdamW's two moments), timed;
+    at one rank ``audit_replicas`` must return its folded digest."""
+    import torch
+
+    from horovod_tpu_torch.integrity import audit
+    from horovod_tpu_torch.parallel import train
+
+    cfg = _flagship_cfg(tfm)
+    step_fn, init_fn = hvd.make_transformer_train_step(cfg, mesh=make_mesh())
+    state = init_fn(0)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1024), device=dev,
+                           generator=gen)
+    state, _ = step_fn(state, tokens, torch.roll(tokens, -1, dims=1))
+    tree = train.state_tree(state)
+    nbytes = sum(t.nbytes for _, t in audit._leaves(tree)
+                 if isinstance(t, torch.Tensor))
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        folded, per_leaf = audit.fingerprint(tree)
+        times.append(time.perf_counter() - t0)
+    agreed = audit.audit_replicas(tree)
+    s = statistics.median(times)
+    print(f"audit: fingerprint of the flagship's training state "
+          f"({len(per_leaf)} leaves, {nbytes} bytes = "
+          f"{nbytes / 2**30:.3f} GiB) in {s:.3f} s: "
+          f"{nbytes / 2**30 / s:.3f} GiB/s (median of 3); audit_replicas "
+          f"at one rank {agreed:016x}, fingerprint {folded:016x}; {card}")
+    if agreed != folded:
+        raise AssertionError("audit: audit_replicas does not return the "
+                             "folded digest at one rank")
+
+
 def _timed_steps(step_fn, state, images, labels, n):
     """``n`` steps, each timed on the host clock between two
     synchronizations: (state, times in ms, losses)."""
@@ -1661,6 +1996,7 @@ def _ptxas_report(log):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1750,10 +2086,15 @@ def main() -> int:
         run_adasum(tfm, dev, card)
         torch.cuda.empty_cache()
         f32_run = run_fp32_step(hvd, tfm, fa, dev)
+        torch.cuda.empty_cache()
+        run_audit(hvd, tfm, make_mesh, dev, card)
     finally:
         hvd.shutdown()
     torch.cuda.empty_cache()
     sp_run = run_sp(fa, ra, dev, card)
+    torch.cuda.empty_cache()
+    run_serve(tfm, dev, card)
+    torch.cuda.empty_cache()
 
     # Timed after the slice, so that no profiler has run before the steps
     # are timed.
@@ -1837,6 +2178,8 @@ def main() -> int:
     kernels.append(dict(name="flash_split_do_fp32", route="cuda",
                         source=SOURCE, replaces=REPLACES["split"],
                         launches=f32_run["split"], **f32["split"]))
+    print(f"chip_smoke: total wall time "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

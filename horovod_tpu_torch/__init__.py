@@ -15,6 +15,7 @@ from horovod_tpu_torch.ops.collective import (allgather, allreduce, barrier,
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_lse)
+from horovod_tpu_torch.parallel.multihost import init_torch_distributed
 from horovod_tpu_torch.parallel.optimizer import (DistributedOptimizer,
                                                   allreduce_gradients,
                                                   distributed_grad,
@@ -41,5 +42,5 @@ __all__ = [
     "distributed_value_and_grad", "flash_attention",
     "flash_attention_lse", "TrainState", "make_transformer_train_step",
     "ResNetState", "make_resnet_train_step", "make_resnet_train_step_hvd",
-    "make_mnist_train_step",
+    "make_mnist_train_step", "init_torch_distributed",
 ]

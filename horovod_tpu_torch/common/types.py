@@ -1,8 +1,11 @@
 """Types the port shares across modules.
 
 The port's copy of what it needs from ``horovod_tpu/common/types.py``
-(``DataType`` and ``ReduceOp``, with the same values, and the dtype
-mappings); the port imports nothing of the JAX package.
+(``DataType`` and ``ReduceOp``, with the same values, the dtype
+mappings, and the errors of the audit and the rendezvous KV:
+``RanksFailedError``, ``ReplicaDivergenceError`` and ``FencedError``, with
+the same messages and attributes); the port imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -105,3 +108,74 @@ class NoCudaDeviceError(RuntimeError):
         super().__init__(
             f"{what} runs on the CUDA device by default and torch finds no "
             "CUDA device; pass device='cpu' to run on the CPU")
+
+
+class RanksFailedError(RuntimeError):
+    """Raised by the enqueue API after the coordinator evicted dead ranks.
+
+    In-flight collectives complete on the survivors (zero stand-ins via
+    the Join machinery); the *next* submitted op raises this so the
+    training loop can checkpoint and exit for a ``--max-restarts``
+    relaunch."""
+
+    def __init__(self, ranks):
+        self.ranks = sorted(int(r) for r in ranks)
+        super().__init__(
+            f"rank(s) {self.ranks} stopped responding and were evicted; "
+            f"surviving ranks completed in-flight collectives — "
+            f"checkpoint and restart (hvdrun --max-restarts relaunches "
+            f"automatically)")
+
+
+class ReplicaDivergenceError(RanksFailedError):
+    """The replica-divergence audit found rank(s) whose replicated state
+    no longer bit-matches the gang's (silent corruption: a flipped bit,
+    a non-deterministic kernel, bad HBM).
+
+    Subclasses :class:`RanksFailedError` with ``.ranks`` = the deviant
+    rank(s), so ``@hvd.elastic.run`` treats it exactly like a dead rank:
+    the deviants are evicted, the survivors roll back to the last commit
+    and re-form.  Every rank computes the identical verdict from the
+    same allgathered digests, so the deviant evicts *itself* (it exits
+    instead of re-joining) while the survivors agree on the new world.
+    """
+
+    def __init__(self, ranks, leaf_path: str = "",
+                 digests=None):
+        self.leaf_path = leaf_path
+        self.digests = dict(digests or {})
+        RuntimeError.__init__(self)  # skip RanksFailedError's message
+        self.ranks = sorted(int(r) for r in ranks)
+        detail = f" (first divergent leaf: {leaf_path})" if leaf_path \
+            else ""
+        self.args = (
+            f"replica state diverged on rank(s) {self.ranks}{detail}; "
+            f"the replicated parameters no longer bit-match across the "
+            f"gang — evict the deviant rank(s) and restore survivors "
+            f"from the last commit/checkpoint",)
+
+
+class FencedError(RuntimeError):
+    """A stale-epoch actor was rejected by the current gang incarnation.
+
+    Raised on a **zombie** — a rank that was evicted (long GC pause,
+    network blip, chaos stall) while the survivors re-formed at a newer
+    membership epoch — when it wakes up and tries to write into the new
+    gang: a control frame gets a ``TAG_FENCE`` reply from the
+    coordinator, a KV write under ``elastic/*`` gets HTTP 409 from the
+    rendezvous server.  Deliberately NOT a :class:`RanksFailedError`
+    subclass: the elastic wrapper re-forms on those, but a fenced rank
+    has no seat in the new world — it must exit, and the typed class is
+    how the training loop tells "my peers died, re-form" apart from
+    "I am the zombie, stop".
+    """
+
+    def __init__(self, what: str, stale_epoch: int, current_epoch: int):
+        self.what = what
+        self.stale_epoch = int(stale_epoch)
+        self.current_epoch = int(current_epoch)
+        super().__init__(
+            f"fenced {what}: this rank is at membership epoch "
+            f"{self.stale_epoch} but the gang re-formed at epoch "
+            f"{self.current_epoch}; this process was evicted and has no "
+            f"seat in the new world — exit instead of corrupting it")

@@ -41,8 +41,12 @@ collectives, the port calls them:
 
 A ``pp`` axis holds whole replicas here, as the JAX package's
 ``param_specs`` name no ``pp``; :mod:`horovod_tpu_torch.parallel.pipeline`
-splits the layers over it.  Not ported yet (see ROADMAP.md): the decode
-path.
+splits the layers over it.
+
+**Decoding** (:func:`generate`, :func:`prefill_request`, :func:`decode_step`,
+the JAX package's KV-cache path) runs dense attention over a cache laid out
+``[L, B, Smax, H, HD]`` (:data:`KV_CACHE_SPEC`: heads over ``tp``), under
+``torch.inference_mode()``; :mod:`horovod_tpu_torch.serving` batches it.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -271,21 +276,26 @@ def _rmsnorm(x, g):
     return (y * g).to(x.dtype)
 
 
-def _rope(x, theta: float, offset: int = 0):
-    """Rotary embedding over head_dim halves; x: [B, S, H, HD] at positions
-    ``offset + arange(S)``, fp32 math, cast back to x's dtype."""
-    B, S, H, HD = x.shape
-    half = HD // 2
+def _rotate(x, theta: float, pos):
+    """Rotary embedding over head_dim halves of x ``[B, S, H, HD]`` at the
+    fp32 positions ``pos`` ``[B or 1, S]``: fp32 math, cast back to x's
+    dtype."""
+    half = x.shape[-1] // 2
     freqs = torch.exp(-math.log(theta) * torch.arange(
         half, dtype=torch.float32, device=x.device) / half)
-    pos = torch.arange(offset, offset + S, dtype=torch.float32,
-                       device=x.device)
-    ang = pos[:, None] * freqs[None, :]
-    cos = torch.cos(ang)[None, :, None, :]
-    sin = torch.sin(ang)[None, :, None, :]
+    ang = pos[..., None] * freqs
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def _rope(x, theta: float, offset: int = 0):
+    """RoPE of x ``[B, S, H, HD]`` at positions ``offset + arange(S)``."""
+    S = x.shape[1]
+    return _rotate(x, theta, torch.arange(
+        offset, offset + S, dtype=torch.float32, device=x.device)[None])
 
 
 def _attention_fn(cfg: TransformerConfig, mesh: Optional[Mesh]):
@@ -305,18 +315,26 @@ def _attention_fn(cfg: TransformerConfig, mesh: Optional[Mesh]):
     return functools.partial(ra.full_attention, causal=True)
 
 
+def _project_qkv(x, blk: Block, dtype, tp: Optional[Axis]):
+    """q, k, v ``[B, S, H, HD]`` in ``dtype`` (this rank's heads over
+    ``tp``), before RoPE."""
+    x = C.copy_to_axis(x, tp)
+    return tuple(torch.einsum("bsd,dhk->bshk", x, w.to(dtype))
+                 for w in (blk.wq, blk.wk, blk.wv))
+
+
+def _project_out(ctx, blk: Block, dtype, tp: Optional[Axis]):
+    return C.reduce_from_axis(
+        torch.einsum("bshk,hkd->bsd", ctx, blk.wo.to(dtype)), tp)
+
+
 def _attention(x, blk: Block, cfg: TransformerConfig, attend, offset: int,
                tp: Optional[Axis]):
     dtype = cfg.compute_dtype
-    x = C.copy_to_axis(x, tp)
-    q = torch.einsum("bsd,dhk->bshk", x, blk.wq.to(dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, blk.wk.to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, blk.wv.to(dtype))
+    q, k, v = _project_qkv(x, blk, dtype, tp)
     q = _rope(q, cfg.rope_theta, offset)
     k = _rope(k, cfg.rope_theta, offset)
-    ctx = attend(q, k, v)
-    return C.reduce_from_axis(
-        torch.einsum("bshk,hkd->bsd", ctx, blk.wo.to(dtype)), tp)
+    return _project_out(attend(q, k, v), blk, dtype, tp)
 
 
 def _dense_ffn(x, blk: Block, dtype, tp: Optional[Axis]):
@@ -548,3 +566,230 @@ def loss_fn(model: Transformer, tokens, targets, *,
     tp = mesh.axis("tp") if mesh is not None and \
         mesh_axis_size(mesh, "tp") > 1 else None
     return softmax_xent(logits, targets, tp) + aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# Autoregressive generation (KV cache)
+# ---------------------------------------------------------------------------
+#
+# The JAX package's decode path, with its rounding points: q/k/v and the
+# rotated K/V in the compute dtype, scores in the compute dtype then fp32,
+# the -1e30 mask over the whole cache length (Smax shapes the softmax's
+# reduction), fp32 softmax cast back to the compute dtype, and fp32
+# vocabulary logits for the last position only.  Dense FFN and dense
+# attention: no flash kernel runs here.  The entry points run under
+# torch.inference_mode() and write the caches in place (the JAX package
+# donates them).  Over a mesh with ``tp``, each rank holds its H/tp heads of
+# the cache and the layers are the training path's Megatron regions; the
+# vocabulary logits are gathered over ``tp``.
+
+# [L, B, Smax, H, HD], heads over tp.
+KV_CACHE_SPEC = (None, None, None, "tp", None)
+
+
+def _rope_rows(x, theta: float, pos):
+    """RoPE of one token per row, row ``b`` at position ``pos[b]``: x
+    ``[B, 1, H, HD]``, pos ``[B]`` integer."""
+    return _rotate(x, theta, pos.float()[:, None])
+
+
+def _attend_cache(q, k_cache, v_cache, valid):
+    """One query per row against the whole cache: q ``[B, 1, H, HD]``,
+    caches ``[B, Smax, H, HD]``, ``valid`` ``[B or 1, Smax]``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bshk,bthk->bhst", q, k_cache).float() * scale
+    logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthk->bshk", probs, v_cache)
+
+
+def _attention_cached(x, blk: Block, cfg: TransformerConfig, k_cache,
+                      v_cache, pos: int, tp: Optional[Axis] = None):
+    """One token's attention against the cache: x ``[B, 1, D]``, caches
+    ``[B, Smax, H, HD]`` (valid through ``pos``, written at ``pos`` in
+    place), ``pos`` the token's position (one for every row)."""
+    dtype = cfg.compute_dtype
+    q, k, v = _project_qkv(x, blk, dtype, tp)
+    q = _rope(q, cfg.rope_theta, pos)
+    k = _rope(k, cfg.rope_theta, pos)
+    k_cache[:, pos] = k[:, 0]
+    v_cache[:, pos] = v[:, 0]
+    valid = torch.arange(k_cache.shape[1], device=x.device)[None] <= pos
+    return _project_out(_attend_cache(q, k_cache, v_cache, valid), blk,
+                        dtype, tp)
+
+
+def _attention_cached_slots(x, blk: Block, cfg: TransformerConfig, k_cache,
+                            v_cache, pos, tp: Optional[Axis] = None):
+    """:func:`_attention_cached` with a position per slot: ``pos`` ``[B]``,
+    RoPE row by row, each row's cache written at its own position."""
+    dtype = cfg.compute_dtype
+    q, k, v = _project_qkv(x, blk, dtype, tp)
+    q = _rope_rows(q, cfg.rope_theta, pos)
+    k = _rope_rows(k, cfg.rope_theta, pos)
+    rows = torch.arange(x.shape[0], device=x.device)
+    k_cache.index_put_((rows, pos), k[:, 0])
+    v_cache.index_put_((rows, pos), v[:, 0])
+    valid = (torch.arange(k_cache.shape[1], device=x.device)[None, :]
+             <= pos[:, None])                                   # [B, Smax]
+    return _project_out(_attend_cache(q, k_cache, v_cache, valid), blk,
+                        dtype, tp)
+
+
+def _decode_tp(model, mesh: Optional[Mesh]) -> Optional[Axis]:
+    """The ``tp`` axis a decode runs its Megatron regions over (None
+    without one)."""
+    if model.cfg.n_experts:
+        raise NotImplementedError(
+            "generate() supports dense-FFN configs; MoE decode needs "
+            "per-step routing with capacity 1")
+    return _layout(mesh).tp
+
+
+def _head(model, x, tp: Optional[Axis]):
+    """fp32 next-token logits ``[B, V]`` of the last position of ``x``,
+    the whole vocabulary (gathered over ``tp``)."""
+    x = _rmsnorm(x[:, -1:], model.ln_f)
+    logits = vocab_projection(C.copy_to_axis(x, tp), model.embed)[:, 0]
+    return logits if tp is None else C.allgather_dim(logits, -1, tp)
+
+
+def _prefill(model, tokens, Smax: int, tp: Optional[Axis] = None):
+    """Forward over the prompt ``tokens`` ``[B, S]``: the next-token
+    logits of the last position (fp32, ``[B, V]``) and each layer's rotated
+    K/V, zero past ``S``, as caches ``[L, B, Smax, H, HD]``."""
+    cfg = model.cfg
+    dtype = cfg.compute_dtype
+    B, S = tokens.shape
+    L, HD = len(model.layers), cfg.head_dim
+    H = model.layers[0].wq.shape[1]
+    ks = torch.zeros((L, B, Smax, H, HD), dtype=dtype, device=tokens.device)
+    vs = torch.zeros_like(ks)
+    x = _embed(model.embed, tokens, tp).to(dtype)
+    for i, blk in enumerate(model.layers):
+        q, k, v = _project_qkv(_rmsnorm(x, blk.ln1), blk, dtype, tp)
+        q = _rope(q, cfg.rope_theta)
+        k = _rope(k, cfg.rope_theta)
+        ks[i, :, :S] = k
+        vs[i, :, :S] = v
+        ctx = ra.full_attention(q, k, v, causal=True)
+        x = x + _project_out(ctx, blk, dtype, tp)
+        x = x + _dense_ffn(_rmsnorm(x, blk.ln2), blk, dtype, tp)
+    return _head(model, x, tp), ks, vs
+
+
+def _sample(logits, temperature: float, generator):
+    if temperature > 0.0:
+        probs = torch.softmax(logits / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.argmax(logits, dim=-1)
+
+
+@torch.inference_mode()
+def generate(model, prompt, *, max_new_tokens: int, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             cache_len: Optional[int] = None, device=None) -> torch.Tensor:
+    """Autoregressive decode.  ``prompt``: ``[B, S0]`` integer (a tensor or
+    anything ``torch.as_tensor`` takes).  Returns ``[B, S0 +
+    max_new_tokens]`` (prompt and generated tokens) on the model's device.
+    ``temperature=0`` is greedy argmax; otherwise sampling from
+    ``softmax(logits / temperature)`` with ``generator``, which the caller
+    must pass (its stream is torch's, not the JAX package's).
+
+    ``cache_len`` pins the KV cache's length (default: ``S0 +
+    max_new_tokens``).  The positions past the tokens are masked, but the
+    length still shapes the softmax's reduction, so a comparison with a
+    serving cache (:class:`horovod_tpu_torch.serving.DecodeEngine`) passes
+    the serving length.  Runs on ``device`` (default: the card), where the
+    model must be.  Dense-FFN configs only."""
+    tp = _decode_tp(model, None)
+    cfg = model.cfg
+    dev = resolve_device(device, "generate()")
+    if model.embed.device != dev:
+        raise ValueError(f"the model is on {model.embed.device}, not {dev}")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature sampling needs generator (a "
+                         "torch.Generator)")
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, "
+                         f"got {max_new_tokens}")
+    prompt = torch.as_tensor(prompt, device=dev)
+    B, S0 = prompt.shape
+    Smax = S0 + max_new_tokens
+    if Smax > cfg.max_seq_len:
+        raise ValueError(
+            f"prompt + new tokens ({Smax}) exceeds max_seq_len "
+            f"({cfg.max_seq_len})")
+    if cache_len is not None:
+        if cache_len < Smax:
+            raise ValueError(
+                f"cache_len ({cache_len}) is shorter than prompt + new "
+                f"tokens ({Smax})")
+        Smax = cache_len
+    dtype = cfg.compute_dtype
+    logits, ks, vs = _prefill(model, prompt, Smax, tp)
+    tok = _sample(logits, temperature, generator)
+    out = [tok]
+    for pos in range(S0, S0 + max_new_tokens - 1):
+        x = _embed(model.embed, tok[:, None], tp).to(dtype)
+        for i, blk in enumerate(model.layers):
+            x = x + _attention_cached(_rmsnorm(x, blk.ln1), blk, cfg, ks[i],
+                                      vs[i], pos, tp)
+            x = x + _dense_ffn(_rmsnorm(x, blk.ln2), blk, dtype, tp)
+        tok = _sample(_head(model, x, tp), temperature, generator)
+        out.append(tok)
+    return torch.cat([prompt, torch.stack(out, 1).to(prompt.dtype)], dim=1)
+
+
+@torch.inference_mode()
+def decode_step(model, tok, pos, ks, vs, *, mesh: Optional[Mesh] = None):
+    """One continuous-batching step: embed ``tok`` ``[B]``, attend each
+    slot at its own position ``pos`` ``[B]``, and return (next-token logits
+    ``[B, V]`` fp32, ``ks``, ``vs``), the caches ``[L, B, Smax, H, HD]``
+    written in place.  The layer is :func:`generate`'s with the per-slot
+    attention.  ``model``: a :class:`Transformer` or its
+    :func:`decode_weights`."""
+    tp = _decode_tp(model, mesh)
+    cfg = model.cfg
+    dtype = cfg.compute_dtype
+    x = _embed(model.embed, tok[:, None], tp).to(dtype)
+    for i, blk in enumerate(model.layers):
+        x = x + _attention_cached_slots(_rmsnorm(x, blk.ln1), blk, cfg,
+                                        ks[i], vs[i], pos, tp)
+        x = x + _dense_ffn(_rmsnorm(x, blk.ln2), blk, dtype, tp)
+    return _head(model, x, tp), ks, vs
+
+
+@torch.inference_mode()
+def prefill_request(model, prompt, cache_len: int, *,
+                    mesh: Optional[Mesh] = None):
+    """Prefill one request, ``prompt`` ``[S0]`` integer on the model's
+    device: (next-token logits ``[V]`` fp32, K/V caches ``[L, 1,
+    cache_len, H, HD]``) to be written into a serving batch's slot."""
+    logits, ks, vs = _prefill(model, prompt[None], cache_len,
+                              _decode_tp(model, mesh))
+    return logits[0], ks, vs
+
+
+_NORMS = ("ln1", "ln2", "ln_f")
+
+
+def decode_weights(model: Transformer, device) -> Any:
+    """The model's parameters for decoding on ``device``: the matrices
+    (``embed``, ``wq/wk/wv/wo``, ``w_in/w_gate/w_out``) cast once to the
+    compute dtype, the norms fp32, with ``cfg``, ``embed``, ``layers`` and
+    ``ln_f`` as the decode functions read them.  The decode path casts each
+    matrix to the compute dtype where it uses it, so this gives the same
+    values without a cast of every matrix every step."""
+    dtype = model.cfg.compute_dtype
+
+    def cast(name, p):
+        p = p.detach()
+        return p.to(device) if name in _NORMS else p.to(device, dtype)
+
+    layers = [SimpleNamespace(**{n: cast(n, p)
+                                 for n, p in blk.named_parameters()})
+              for blk in model.layers]
+    return SimpleNamespace(cfg=model.cfg, layers=layers,
+                           embed=cast("embed", model.embed),
+                           ln_f=cast("ln_f", model.ln_f))

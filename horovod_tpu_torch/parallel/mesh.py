@@ -153,6 +153,13 @@ class Mesh:
         return f"Mesh({self.shape}, coords={self.coords})"
 
 
+def num_slices() -> int:
+    """Number of DCN-connected groups.  On TPU pods the JAX package counts
+    ICI slices; on GPUs the matching unit is a host, so this is
+    ``cross_size()``.  Needs ``hvd.init()``."""
+    return basics.cross_size()
+
+
 def make_mesh(axes: Optional[Dict[str, int]] = None) -> Mesh:
     """A mesh over every rank.  ``axes`` maps axis name -> size; one size
     may be ``-1`` (inferred).  With no arguments, a pure data-parallel mesh

@@ -60,7 +60,8 @@ def test_import_loads_no_jax_or_jax_package():
     assert "horovod_tpu_torch.models.resnet" in loaded
     assert "horovod_tpu_torch.models.mnist" in loaded
     for mod in ("ops.adasum", "parallel.pipeline", "data",
-                "utils.checkpoint"):
+                "utils.checkpoint", "integrity.audit", "parallel.multihost",
+                "runner.http_client", "serving.decode", "serving.server"):
         assert f"horovod_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -145,3 +146,42 @@ def test_cnn_train_steps_without_device_raise(no_cuda, builder):
         resnet.resnet50_config(),)
     with pytest.raises(NoCudaDeviceError, match=builder):
         getattr(hvd, builder)(*args)
+
+
+def test_generate_and_decode_engine_without_device_raise(no_cuda):
+    from horovod_tpu_torch.serving import DecodeEngine
+
+    cfg = tfm.TransformerConfig(vocab_size=16, d_model=16, n_layers=1,
+                                n_heads=2, d_ff=16, max_seq_len=8)
+    model = tfm.init(0, cfg, device="cpu")
+    with pytest.raises(NoCudaDeviceError, match="generate"):
+        tfm.generate(model, [[1, 2]], max_new_tokens=2)
+    with pytest.raises(NoCudaDeviceError, match="DecodeEngine"):
+        DecodeEngine(model, cfg, max_batch=2)
+
+
+def test_multihost_gang_without_device_raises(no_cuda, monkeypatch):
+    """``init_torch_distributed`` publishes the store's address; the
+    ``hvd.init()`` after it then refuses to run on the CPU unasked."""
+    from horovod_tpu.runner.http_server import RendezvousServer
+
+    from horovod_tpu_torch.parallel import multihost
+
+    srv = RendezvousServer(host="127.0.0.1", port=0)
+    port = srv.start()
+    try:
+        monkeypatch.setattr(multihost, "_initialized", False)
+        for k, v in (("HVD_RANK", "0"), ("HVD_SIZE", "2"),
+                     ("HVD_RENDEZVOUS_ADDR", "127.0.0.1"),
+                     ("HVD_RENDEZVOUS_PORT", str(port)),
+                     ("MASTER_ADDR", "unset"), ("MASTER_PORT", "unset")):
+            monkeypatch.setenv(k, v)
+        monkeypatch.delenv("HVD_RDV_SCOPE", raising=False)
+        monkeypatch.delenv("HVD_SECRET_KEY", raising=False)
+        multihost.init_torch_distributed()
+        assert os.environ["MASTER_PORT"] != "unset"
+        with pytest.raises(NoCudaDeviceError, match="hvd.init"):
+            hvd.init()
+        assert not hvd.is_initialized()
+    finally:
+        srv.stop()

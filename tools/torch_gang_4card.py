@@ -5,6 +5,8 @@ over NCCL, each held against its one-process twin.
     python3 tools/torch_gang_4card.py          # four cards, one rank each
     python3 tools/torch_gang_4card.py --cpu    # rehearsal: four gloo ranks,
                                                # a small model, no card
+    python3 tools/torch_gang_4card.py --zero1-seeds 8,21,22
+                                               # ZeRO-1 on more batches
 
 One process per card (``hvd.init`` over ``tcp://127.0.0.1:<free port>``).
 On the flagship of ``chip_smoke.py`` (vocab 32768, d_model 1024, 8 layers,
@@ -33,7 +35,9 @@ from seed 0):
    ZERO_STEP1_TOL and after step 2 within ZERO_STEP2_TOL, as
    ``|a - b| / |b|``; each rank's AdamW moments a quarter of the model.
    Printed: the parameter with the largest gap after each step, its
-   elements that moved apart most, and the step-1 gradients' gap;
+   elements that moved apart most, and the step-1 gradients' gap.  The
+   batches are ``chip_smoke.py``'s from seed 8, and from each seed of
+   ``--zero1-seeds`` where it is given;
 4. Adasum over ``{"dp": 4}``: each rank's step-0 flagship gradient (fp32,
    its own seed's batch) through ``allreduce(op=Adasum)``, whose rounds are
    ``ppermute`` exchanges between the cards, against ``adasum_loopback`` on
@@ -221,14 +225,14 @@ def _apart(torch, name, got, want, grads, k=3):
     return rows, n_apart, n_all
 
 
-def run_zero1(hvd, torch, cfg, dev, say, bad):
+def run_zero1(hvd, torch, cfg, dev, say, bad, seed=8):
     from horovod_tpu_torch.ops import collective as C
     from horovod_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh({"dp": RANKS})
     dp, i = mesh.axis("dp"), mesh.coords["dp"]
     rows = [(t[2 * i:2 * i + 2], y[2 * i:2 * i + 2])
-            for t, y in _batches(cfg, 2, dev, seed=8)]
+            for t, y in _batches(cfg, 2, dev, seed=seed)]
     out = {}
     for zero1 in (True, False):
         step_fn, init_fn = hvd.make_transformer_train_step(cfg, mesh=mesh,
@@ -248,6 +252,7 @@ def run_zero1(hvd, torch, cfg, dev, say, bad):
     (zl, zp, zg, zshare), (rl, rp, rg, rshare) = out[True], out[False]
     g0, g1 = _gaps(zg[0], rg[0]), _gaps(zg[1], rg[1])
     p1, p2 = _gaps(zp[0], rp[0]), _gaps(zp[1], rp[1])
+    say(f"zero1: batches of seed {seed}")
     say(f"zero1: losses {zl} against zero1=False {rl}; moments a rank "
         f"{zshare:.4f} of the model (replicated: {rshare:.4f})")
     say(f"zero1: largest |zero1 - replicated| / |replicated| by parameter: "
@@ -313,7 +318,7 @@ def run_adasum(hvd, torch, cfg, dev, say, bad):
             bad.append("Adasum over the ranks disagrees with the oracle")
 
 
-def _worker(rank, port, cpu, out_path):
+def _worker(rank, port, cpu, out_path, zero1_seeds):
     import torch
 
     import horovod_tpu_torch as hvd
@@ -344,7 +349,8 @@ def _worker(rank, port, cpu, out_path):
                                         {"pp": RANKS}, timed=True)
         run_pipeline(hvd, torch, cfg, dev, say, bad, {"dp": 2, "pp": 2},
                      timed=False)
-        run_zero1(hvd, torch, cfg, dev, say, bad)
+        for seed in zero1_seeds:
+            run_zero1(hvd, torch, cfg, dev, say, bad, seed)
         run_adasum(hvd, torch, cfg, dev, say, bad)
         # Every rank's failures reach rank 0.
         n_bad = hvd.allreduce(torch.tensor([float(len(bad))], device=dev),
@@ -370,14 +376,23 @@ def main() -> int:
     import torch
     import torch.multiprocessing as mp
 
-    cpu = "--cpu" in sys.argv[1:]
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--zero1-seeds", default="8",
+                    help="comma-separated seeds of ZeRO-1's batches")
+    args = ap.parse_args()
+    cpu = args.cpu
+    seeds = [int(s) for s in args.zero1_seeds.split(",")]
     if not cpu and torch.cuda.device_count() < RANKS:
         print(f"torch finds {torch.cuda.device_count()} CUDA devices; this "
               f"needs {RANKS}", file=sys.stderr)
         return 1
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "result.json")
-        mp.start_processes(_worker, args=(_free_port(), cpu, out_path),
+        mp.start_processes(_worker, args=(_free_port(), cpu, out_path,
+                                          seeds),
                            nprocs=RANKS, start_method="spawn", join=True)
         with open(out_path) as fh:
             result = json.load(fh)
