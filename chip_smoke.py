@@ -22,10 +22,11 @@ non-zero):
    (B 8, S 1024, H 16, D 64, bf16) in the variants a ring hop runs
    (``flash_attention_lse``: fp32 output, fp32 dO split into bf16 planes by
    the split kernel, nonzero dlse), causal (the self-block) and not (the
-   other hops), and at head dims 96 and 256 (B 2, S 1000, H 8, dlse, bf16)
-   on both routes.  fp32 q/k/v reach the forward, dQ and dK/dV as three
-   bf16 planes each (the split of q/k/v, and of dO); every split must match
-   its plain version bit for bit;
+   other hops), at an engine rank's rows of the flagship (B 4, S 1024, H
+   16, D 64, bf16, causal), and at head dims 96 and 256 (B 2, S 1000, H 8,
+   dlse, bf16) on both routes.  fp32 q/k/v reach the forward, dQ and dK/dV
+   as three bf16 planes each (the split of q/k/v, and of dO); every split
+   must match its plain version bit for bit;
 3. inside one ``hvd.init()`` (a one-rank NCCL group), first the ResNet-50
    slice: ``resnet50_config()`` at full width and depth (blocks 3, 4, 6, 3,
    width 64, 1000 classes, bf16), batch 32 of 224x224 images from a fixed
@@ -108,7 +109,26 @@ non-zero):
    times, the KV cache's bytes and the peak memory.  Serving runs no
    flash kernel (its attention is dense), so it adds no entry to the
    kernels JSON;
-6. the kernel checks of phase 2 again, and the times of the kernel, the
+6. the eager engine: this script starts the port's ``RendezvousServer``
+   and two ranks of itself (``--engine-rank R``), both on cuda:0 (NCCL
+   refuses two ranks on one card, so ``hvd.init(device=..., backend=
+   "gloo")``, and the gradients go through the engine, not the group).
+   Each makes the flagship from its own seed, ``broadcast_parameters``
+   makes rank 1's rank 0's (bit for bit, by digest), and each takes three
+   steps on its four of the eight rows of batches from seed 7: forward and
+   backward through the flash kernels (48 / 24 / 24 launches a rank), one
+   ``allreduce_async(grad, name=..., op=Average)`` per parameter, then
+   ``synchronize`` and AdamW(1e-3, wd 0.01).  Held against
+   ``make_transformer_train_step`` in this process on all eight rows from
+   the same weights: the step-0 loss (the ranks' mean), each averaged
+   step-0 gradient and each parameter after the steps (ENGINE_*_TOL); the
+   ranks' parameters equal bit for bit; steps 2-3 served from the response
+   cache (every tensor a hit); every fused response within the 64 MiB
+   threshold; bf16 and fp32 card tensors through the engine's allreduce,
+   allgather and broadcast back on cuda:0 with their CPU copies' bits.
+   Prints the step, enqueue and ``synchronize`` times, gradient bytes,
+   fused responses, effective GB/s, cache hits and flash launches;
+7. the kernel checks of phase 2 again, and the times of the kernel, the
    plain version and PyTorch's ``scaled_dot_product_attention`` as a
    yardstick (forward alone for the forward, backward alone for dQ and
    dK/dV; the port never calls it), each as its kernels' device time per
@@ -1958,6 +1978,381 @@ def run_mnist(hvd, dev):
 
 
 # {mangled kernel name: registers a thread}, from the build's ptxas report.
+# The eager-engine phase: two ranks (child processes of this script, both
+# on cuda:0) train the flagship through the engine, held against the
+# one-process step on all of the batch's rows.  ENGINE_LOSS_TOL holds the
+# step-0 loss (the mean of the ranks' losses on four rows each) against the
+# one-process loss on eight, ENGINE_GRAD_TOL each parameter's averaged
+# step-0 gradient and ENGINE_PARAM_TOL each parameter after the steps, as
+# |got - want| / |want|.  The first H100 run read 0.0, 2.350e-03 and
+# 8.730e-03 (PERF.md); each bound is about twice that (for the loss, two
+# fp32 ulps of it).  Four rows' sums and eight rows' differ in the order of
+# the fp32 sums and the bf16 roundings they feed; AdamW's first updates
+# are about the learning rate times sign(g) whatever |g| is, so an element
+# whose gradient is near zero moves by up to twice that between the two.
+ENGINE_RANKS = 2
+ENGINE_STEPS = 3
+ENGINE_LOSS_TOL = 2e-6
+ENGINE_GRAD_TOL = 5e-3
+ENGINE_PARAM_TOL = 2e-2
+# The engine's fusion threshold (HVD_FUSION_THRESHOLD's default).
+ENGINE_FUSION_BYTES = 64 * 1024 * 1024
+ENGINE_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _greedy_groups(sizes, threshold):
+    """How many fused responses the engine's fusion makes of tensors of
+    ``sizes`` bytes that all become ready in one cycle: consecutive
+    tensors while their sum stays within ``threshold``."""
+    n, acc = 0, None
+    for b in sizes:
+        if acc is not None and acc + b <= threshold:
+            acc += b
+        else:
+            n, acc = n + 1, b
+    return n
+
+
+def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S):
+    """The eager engine on the card: ENGINE_RANKS ranks of this script
+    (``--engine-rank R``) bootstrap a ``PyEngine`` through the port's
+    ``RendezvousServer`` and train the flagship (``cfg``: by default the
+    full-width flagship) for ENGINE_STEPS steps, each rank on its rows of
+    the batch, the gradients averaged by one ``allreduce_async`` per
+    parameter; held against ``make_transformer_train_step`` in this process
+    on all the rows, from the same weights."""
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch.runner.http_server import RendezvousServer
+
+    cfg = cfg or _flagship_cfg(tfm)
+    B = 8
+    batches = _token_batches(dev, ENGINE_STEPS, B=B, S=cfg.max_seq_len,
+                             vocab=cfg.vocab_size, seed=7)
+    # The one-process step on all the rows, from seed 0's weights.
+    hvd.init(device=dev)
+    try:
+        step_fn, init_fn = hvd.make_transformer_train_step(cfg, device=dev)
+        state = init_fn(0)
+        for s, (tokens, targets) in enumerate(batches):
+            state, loss = step_fn(state, tokens, targets)
+            if s == 0:
+                ref_loss = float(loss)
+                ref_grads = {n: p.grad.detach().clone()
+                             for n, p in state.model.named_parameters()}
+        ref_params = {n: p.detach().clone()
+                      for n, p in state.model.named_parameters()}
+        del state, step_fn, init_fn
+    finally:
+        hvd.shutdown()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fields = {f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cfg)}
+        fields["compute_dtype"] = str(cfg.compute_dtype).split(".")[1]
+        with open(os.path.join(tmp, "config.json"), "w") as fh:
+            json.dump({"cfg": fields, "device": str(dev), "rows": B,
+                       "steps": ENGINE_STEPS, "store_port": _free_port()},
+                      fh)
+        server = RendezvousServer("127.0.0.1")
+        port = server.start()
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("HVD_", "MASTER_"))}
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for r in range(ENGINE_RANKS):
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--engine-rank", str(r), tmp],
+                    env=dict(env, HVD_RANK=str(r),
+                             HVD_SIZE=str(ENGINE_RANKS),
+                             HVD_LOCAL_RANK=str(r),
+                             HVD_LOCAL_SIZE=str(ENGINE_RANKS),
+                             HVD_RENDEZVOUS_ADDR="127.0.0.1",
+                             HVD_RENDEZVOUS_PORT=str(port)),
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            deadline = time.monotonic() + timeout
+            outs = []
+            for p in procs:
+                try:
+                    out, _ = p.communicate(
+                        timeout=max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    for q in procs:
+                        q.kill()
+                    out, _ = p.communicate()
+                    out += f"\n(killed after {timeout} s)"
+                outs.append((p.returncode, out))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            server.stop()
+        wall = time.perf_counter() - t0
+        for r, (code, out) in enumerate(outs):
+            for line in out.splitlines():
+                print(f"engine rank {r}: {line}")
+        failed = [r for r, (code, _) in enumerate(outs) if code != 0]
+        if failed:
+            raise AssertionError(f"engine: rank(s) {failed} failed")
+        ranks = []
+        for r in range(ENGINE_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        got = torch.load(os.path.join(tmp, "rank0.pt"))
+
+    failures = []
+    loss_gap = abs(ranks[0]["loss0_mean"] - ref_loss)
+    grad_gaps = {n: float((got["grads0"][n].to(dev) - g).norm()
+                          / g.norm().clamp_min(1e-30))
+                 for n, g in ref_grads.items()}
+    param_gaps = {n: float((got["params"][n].to(dev) - p).norm()
+                           / p.norm().clamp_min(1e-30))
+                  for n, p in ref_params.items()}
+    wg = max(grad_gaps, key=grad_gaps.get)
+    wp = max(param_gaps, key=param_gaps.get)
+    print(f"engine: {ENGINE_RANKS} ranks on {dev} through the port's "
+          f"RendezvousServer and PyEngine, {wall:.1f} s wall; step-0 loss "
+          f"(the ranks' mean) {ranks[0]['loss0_mean']!r} against one "
+          f"process on all {B} rows {ref_loss!r}: gap {loss_gap:.3e} (tol "
+          f"{ENGINE_LOSS_TOL}); largest |g - g_one| / |g_one| of the "
+          f"averaged step-0 gradients {grad_gaps[wg]:.3e} ({wg}; tol "
+          f"{ENGINE_GRAD_TOL}); largest |p - p_one| / |p_one| after "
+          f"{ENGINE_STEPS} steps {param_gaps[wp]:.3e} ({wp}; tol "
+          f"{ENGINE_PARAM_TOL})")
+    if not loss_gap <= ENGINE_LOSS_TOL:
+        failures.append("the step-0 loss")
+    if not grad_gaps[wg] <= ENGINE_GRAD_TOL:
+        failures.append("the averaged step-0 gradients")
+    if not param_gaps[wp] <= ENGINE_PARAM_TOL:
+        failures.append(f"the parameters after {ENGINE_STEPS} steps")
+    want_launches = {"fwd": 2 * cfg.n_layers * ENGINE_STEPS,
+                     "dq": cfg.n_layers * ENGINE_STEPS,
+                     "dkv": cfg.n_layers * ENGINE_STEPS, "split": 0}
+    for r, res in enumerate(ranks):
+        steps = res["steps"]
+        gbs = [round(s["grad_bytes"] / (s["enqueue_ms"] + s["sync_ms"])
+                     / 1e6, 3) for s in steps]
+        print(f"engine rank {r}: step ms "
+              f"{[round(s['ms'], 1) for s in steps]}, median "
+              f"{statistics.median(s['ms'] for s in steps):.1f}; enqueue "
+              f"(the gradients' copies to the host) ms "
+              f"{[round(s['enqueue_ms'], 1) for s in steps]}; in "
+              f"synchronize ms {[round(s['sync_ms'], 1) for s in steps]}; "
+              f"gradient bytes a step {steps[0]['grad_bytes']}; fused "
+              f"responses {[s['responses'] for s in steps]} (the 64 MiB "
+              f"threshold's grouping of all {res['n_params']} tensors at "
+              f"once: {res['greedy_groups']}), largest "
+              f"{max(s['largest_response'] for s in steps)} bytes; "
+              f"effective GB/s (gradient bytes / time in enqueue and "
+              f"synchronize) {gbs}; "
+              f"cache hits {[s['cache']['hits'] for s in steps]}, misses "
+              f"{[s['cache']['misses'] for s in steps]}; flash launches "
+              f"{res['launches']}")
+        if not res["bcast_bits_equal"]:
+            failures.append(f"rank {r}: broadcast_parameters' weights are "
+                            "not rank 0's bit for bit")
+        if not res["params_equal_across_ranks"]:
+            failures.append(f"rank {r}: the ranks' parameters differ "
+                            f"after {ENGINE_STEPS} steps")
+        if not res["card_tensors_equal"]:
+            failures.append(f"rank {r}: card tensors through the engine "
+                            f"differ from their CPU copies: "
+                            f"{res['card_tensors']}")
+        hits = [s["cache"]["hits"] for s in steps]
+        misses = [s["cache"]["misses"] for s in steps]
+        n = res["n_params"]
+        if hits != [0] + [n] * (ENGINE_STEPS - 1) or \
+                misses != [n] + [0] * (ENGINE_STEPS - 1):
+            failures.append(f"rank {r}: cache hits {hits} and misses "
+                            f"{misses}, not every tensor cached after "
+                            "step 0")
+        for s in steps:
+            if s["fused_tensors"] != n or \
+                    s["responses"] < res["greedy_groups"] or \
+                    not s["within_threshold"]:
+                failures.append(f"rank {r}: step {s['step']}'s fused "
+                                "responses break the 64 MiB grouping")
+        if dev.type == "cuda" and res["launches"] != want_launches:
+            failures.append(f"rank {r}: flash launches {res['launches']} "
+                            f"!= {want_launches}")
+        if not all(math.isfinite(s["loss"]) for s in steps):
+            failures.append(f"rank {r}: a loss is not finite")
+    print(f"engine: on {card}; {ranks[0]['bcast_ms']:.1f} ms to broadcast "
+          f"the parameters ({ranks[0]['param_bytes']} bytes) from rank 0")
+    if failures:
+        raise AssertionError("engine: " + "; ".join(failures))
+    return ranks
+
+
+def engine_rank(rank: int, tmp: str) -> int:
+    """One rank of the engine phase (``--engine-rank``): its own seed's
+    weights, made rank 0's by ``broadcast_parameters``; ENGINE_STEPS steps
+    on its rows of the batches, one ``allreduce_async`` (Average) per
+    parameter's gradient; then card tensors through the engine against
+    their CPU copies.  Writes its readings to ``<tmp>/rank<r>.json`` (and
+    rank 0 its averaged step-0 gradients and last parameters to
+    ``rank0.pt``)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.integrity.audit import fingerprint
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.train import default_optimizer
+
+    with open(os.path.join(tmp, "config.json")) as fh:
+        conf = json.load(fh)
+    fields = dict(conf["cfg"])
+    fields["compute_dtype"] = getattr(torch, fields["compute_dtype"])
+    cfg = tfm.TransformerConfig(**fields)
+    dev = torch.device(conf["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cpu":
+        torch.set_num_threads(2)
+    # Both ranks share one card, and NCCL refuses two ranks on one card:
+    # init is asked for the device by name (not cuda:<local_rank>) and for
+    # a gloo process group, which nothing here uses; the gradients go
+    # through the eager engine, which needs no torch.distributed group.
+    hvd.init(device=dev, backend="gloo",
+             init_method=f"tcp://127.0.0.1:{conf['store_port']}")
+    try:
+        eng = basics._engine()
+        size = hvd.size()
+        model = tfm.init(rank, cfg, device=dev)  # rank 1: another seed
+        names = [n for n, _ in model.named_parameters()]
+        own = np.array([fingerprint(model.state_dict())[0]],
+                       np.uint64).view(np.int64)
+        rank0_digest = hvd.broadcast(own, root_rank=0, name="digest.seed")
+        _sync_dev(torch, dev)
+        t0 = time.perf_counter()
+        synced = hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        model.load_state_dict(synced)
+        _sync_dev(torch, dev)
+        bcast_ms = (time.perf_counter() - t0) * 1e3
+        mine = np.array([fingerprint(model.state_dict())[0]],
+                        np.uint64).view(np.int64)
+        bcast_equal = bool(mine[0] == rank0_digest[0])
+        del synced
+
+        rows = slice(rank * conf["rows"] // size,
+                     (rank + 1) * conf["rows"] // size)
+        batches = _token_batches(dev, conf["steps"], B=conf["rows"],
+                                 S=cfg.max_seq_len, vocab=cfg.vocab_size,
+                                 seed=7)
+        opt = default_optimizer(model.parameters())
+        sizes = [p.numel() * 4 for p in model.parameters()]
+        greedy = _greedy_groups(sizes, eng.fusion_threshold)
+        eng.response_log = []
+        steps, grads0 = [], None
+        fa.reset_launch_counts()
+        for s, (tokens, targets) in enumerate(batches):
+            before = hvd.cache_stats()
+            _sync_dev(torch, dev)
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = tfm.loss_fn(model, tokens[rows], targets[rows])
+            loss.backward()
+            mark = len(eng.response_log)
+            t1 = time.perf_counter()
+            handles = [hvd.allreduce_async(p.grad, name=n, op=hvd.Average)
+                       for n, p in model.named_parameters()]
+            t2 = time.perf_counter()
+            for (n, p), h in zip(model.named_parameters(), handles):
+                p.grad = hvd.synchronize(h)
+            t3 = time.perf_counter()
+            if s == 0:
+                grads0 = {n: p.grad.detach().to("cpu", copy=True)
+                          for n, p in model.named_parameters()}
+            opt.step()
+            _sync_dev(torch, dev)
+            t4 = time.perf_counter()
+            log = [e for e in eng.response_log[mark:]
+                   if e[0] == "ALLREDUCE"]
+            after = hvd.cache_stats()
+            steps.append(dict(
+                step=s, loss=float(loss.detach()), ms=(t4 - t0) * 1e3,
+                backward_ms=(t1 - t0) * 1e3, enqueue_ms=(t2 - t1) * 1e3,
+                sync_ms=(t3 - t2) * 1e3, grad_bytes=sum(sizes),
+                responses=len(log), fused_tensors=sum(e[1] for e in log),
+                largest_response=max(e[2] for e in log),
+                within_threshold=all(e[1] == 1 or
+                                     e[2] <= eng.fusion_threshold
+                                     for e in log),
+                cache={k: after[k] - before[k] for k in ("hits",
+                                                         "misses")}))
+        launches = dict(fa.launches)
+        eng.response_log = None
+        loss0 = hvd.allreduce(torch.tensor([steps[0]["loss"]]),
+                              op=hvd.Average, name="loss0")
+        digest = np.array([fingerprint(model.state_dict())[0]],
+                          np.uint64).view(np.int64)
+        digests = hvd.allgather(digest, name="digest.final")
+
+        # Card tensors through the engine against their CPU copies: the
+        # same op on the same values, so the same bits, on the card.
+        gen = torch.Generator().manual_seed(100 + rank)
+        card = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn(4097, generator=gen) * 3).to(dt)
+            xd = x.to(dev)
+            tag = str(dt).split(".")[1]
+            for op, fn in (
+                    ("allreduce", lambda t, nm: hvd.allreduce(
+                        t, op=hvd.Sum, name=nm)),
+                    ("allgather", lambda t, nm: hvd.allgather(t, name=nm)),
+                    ("broadcast", lambda t, nm: hvd.broadcast(
+                        t, root_rank=size - 1, name=nm))):
+                got = fn(xd, f"card.{op}.{tag}")
+                want = fn(x, f"host.{op}.{tag}")
+                bits = torch.int32 if dt == torch.float32 else torch.int16
+                card[f"{op}.{tag}"] = bool(
+                    got.device == dev and got.dtype == dt and
+                    torch.equal(got.cpu().view(bits), want.view(bits)))
+        res = dict(
+            rank=rank, steps=steps, launches=launches,
+            n_params=len(names), greedy_groups=greedy,
+            loss0_mean=float(loss0[0]), bcast_ms=bcast_ms,
+            param_bytes=sum(sizes), bcast_bits_equal=bcast_equal,
+            params_equal_across_ranks=bool(len(set(digests.tolist()))
+                                           == 1),
+            card_tensors=card, card_tensors_equal=all(card.values()))
+        if rank == 0:
+            torch.save({"grads0": grads0,
+                        "params": {n: p.detach().cpu()
+                                   for n, p in model.named_parameters()}},
+                       os.path.join(tmp, "rank0.pt"))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        hvd.shutdown()
+    return 0
+
+
+def _sync_dev(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 REGISTERS = {}
 
 
@@ -1996,6 +2391,8 @@ def _ptxas_report(log):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--engine-rank"]:  # a rank of the engine phase
+        return engine_rank(int(sys.argv[2]), sys.argv[3])
     t_start = time.perf_counter()
     import torch
 
@@ -2050,7 +2447,10 @@ def main() -> int:
                   (2, 1000, 8, 256, torch.bfloat16, False, True))
     # The pipelined flagship's microbatch: B 8 / PP_MICRO rows.
     micro = (8 // PP_MICRO, 1024, 16, 64, torch.bfloat16, True, False)
-    for shape in shapes + (f32_flagship, micro) + dim_shapes:
+    # An engine-phase rank's rows: B 8 / ENGINE_RANKS.
+    engine_rows = (8 // ENGINE_RANKS, 1024, 16, 64, torch.bfloat16, True,
+                   False)
+    for shape in shapes + (f32_flagship, micro, engine_rows) + dim_shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False)
     for shape in tuple(ring_shapes.values()) + (shapes[2],) + dim_shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False, lse_route=True)
@@ -2094,6 +2494,8 @@ def main() -> int:
     sp_run = run_sp(fa, ra, dev, card)
     torch.cuda.empty_cache()
     run_serve(tfm, dev, card)
+    torch.cuda.empty_cache()
+    run_engine(hvd, tfm, fa, dev, card)
     torch.cuda.empty_cache()
 
     # Timed after the slice, so that no profiler has run before the steps

@@ -15,9 +15,20 @@ by host.  (The JAX package derives them the same way from explicit
 arguments, but defaults them to 0 and 1 when only ``HVD_SIZE`` is set.)
 
 The device is ``cuda:<local_rank>`` with the NCCL backend unless the caller
-passes ``device="cpu"``, which selects gloo.  A one-rank job still creates a
-real one-rank process group (over an in-process ``HashStore``), so its
-gradient allreduce is a real collective launch.
+passes ``device="cpu"``, which selects gloo (``backend=`` overrides the
+choice).  A one-rank job still creates a real one-rank process group (over
+an in-process ``HashStore``), so its gradient allreduce is a real
+collective launch.
+
+Beside the process group, ``init`` starts the eager engine
+(``runtime_py.py``) that the classic API (``hvd.allreduce``,
+``hvd.broadcast_parameters``, ...) runs on: a ``SingleProcessEngine`` at
+size 1, and at size > 1 a ``PyEngine`` that bootstraps through the
+launcher's rendezvous (``HVD_RENDEZVOUS_ADDR``/``HVD_RENDEZVOUS_PORT``).
+Without a rendezvous a multi-rank ``init`` starts no engine (the compiled
+regime needs none), and an eager op then raises
+:class:`EngineUnavailableError`.  ``shutdown`` stops the engine before it
+destroys the process group.
 """
 
 from __future__ import annotations
@@ -32,8 +43,22 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.common.types import NoCudaDeviceError, \
     NotInitializedError
+from horovod_tpu_torch.utils import env as env_util
 
 _lock = threading.Lock()
+
+
+class EngineUnavailableError(RuntimeError):
+    """An eager op ran in a multi-rank job that ``init`` started without
+    the launcher's rendezvous, so no eager engine runs."""
+
+    def __init__(self, size: int):
+        super().__init__(
+            f"the eager engine is not running: this {size}-rank job was "
+            f"initialized without a rendezvous; set "
+            f"{env_util.RENDEZVOUS_ADDR} and {env_util.RENDEZVOUS_PORT} "
+            f"(the launcher does) before hvd.init(), or use the mesh-axis "
+            f"collectives of horovod_tpu_torch.ops.collective")
 
 
 @dataclass(frozen=True)
@@ -45,9 +70,11 @@ class _World:
     cross_rank: int
     cross_size: int
     device: torch.device
+    group: bool = True  # a torch.distributed process group was formed
 
 
 _world: Optional[_World] = None
+_engine_obj = None  # the eager engine, or None
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -103,16 +130,38 @@ def resolve_device(device: Union[str, torch.device, None],
     return _device(device, _discover(None, None, None, None)[2], what)
 
 
+def _start_engine(r, s, lr, ls, cr, cs):
+    """The eager engine for this rank: ``SingleProcessEngine`` at size 1,
+    ``PyEngine`` through the launcher's rendezvous at size > 1, None
+    without one."""
+    from horovod_tpu_torch import runtime_py
+
+    if s == 1:
+        return runtime_py.SingleProcessEngine()
+    addr = os.environ.get(env_util.RENDEZVOUS_ADDR, "")
+    port = os.environ.get(env_util.RENDEZVOUS_PORT, "")
+    if not addr or not port:
+        return None
+    return runtime_py.PyEngine(r, s, lr, ls, cr, cs, addr, int(port))
+
+
 def init(rank: Optional[int] = None, size: Optional[int] = None,
          local_rank: Optional[int] = None, local_size: Optional[int] = None,
          *, device: Union[str, torch.device, None] = None,
-         init_method: Optional[str] = None) -> None:
+         init_method: Optional[str] = None,
+         backend: Optional[str] = None) -> None:
     """Initialize the runtime for this process.  Idempotent.
 
     ``init_method`` is passed to ``torch.distributed.init_process_group``
     for a multi-rank job (default ``env://``: ``MASTER_ADDR`` and
-    ``MASTER_PORT``)."""
-    global _world
+    ``MASTER_PORT``).  ``backend`` overrides the process group's backend
+    (NCCL on a card, gloo on the CPU): ranks that share one card, which
+    NCCL refuses, pass ``device="cuda:0", backend="gloo"`` and run their
+    collectives through the eager engine.  ``backend="none"`` forms no
+    process group at all, only the engine: a port rank in a gang with JAX
+    ranks, which have no torch process group to join, passes it (the
+    mesh-axis collectives then have no group to run on)."""
+    global _world, _engine_obj
     with _lock:
         if _world is not None:
             return
@@ -120,24 +169,44 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
         dev = _device(device, lr, "hvd.init()")
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-        if s == 1 and init_method is None:
+        if backend is None:
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+        group = backend != "none"
+        if group and s == 1 and init_method is None:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1)
-        else:
+        elif group:
             dist.init_process_group(backend,
                                     init_method=init_method or "env://",
                                     rank=r, world_size=s)
-        _world = _World(r, s, lr, ls, cr, cs, dev)
+        try:
+            _engine_obj = _start_engine(r, s, lr, ls, cr, cs)
+        except BaseException:
+            if group:
+                dist.destroy_process_group()
+            raise
+        _world = _World(r, s, lr, ls, cr, cs, dev, group)
 
 
 def shutdown() -> None:
-    """Tear down the process group."""
-    global _world
+    """Stop the eager engine (a negotiated stop at size > 1), then tear
+    down the process group."""
+    global _world, _engine_obj
     with _lock:
-        if _world is not None:
+        if _engine_obj is not None:
+            _engine_obj.shutdown()
+            _engine_obj = None
+        if _world is not None and _world.group:
             dist.destroy_process_group()
         _world = None
+
+
+def _engine():
+    """The running eager engine; raises a named error without one."""
+    w = _w()
+    if _engine_obj is None:
+        raise EngineUnavailableError(w.size)
+    return _engine_obj
 
 
 def is_initialized() -> bool:
@@ -179,3 +248,52 @@ def cross_size() -> int:
 def device() -> torch.device:
     """The device this rank's collectives and entry points run on."""
     return _w().device
+
+
+def is_homogeneous() -> bool:
+    """True when every host runs the same number of processes."""
+    w = _w()
+    return w.size % w.local_size == 0 and \
+        w.size // w.local_size == w.cross_size
+
+
+def cache_stats() -> dict:
+    """The eager engine's response-cache counters (hits, misses,
+    evictions, size, capacity)."""
+    return _engine().cache_stats()
+
+
+def nccl_built() -> bool:
+    """True where this torch has NCCL (the compiled regime's backend on
+    the card)."""
+    return dist.is_nccl_available()
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def mpi_built() -> bool:
+    return dist.is_mpi_available()
+
+
+def cuda_built() -> bool:
+    """True where this torch was built with CUDA."""
+    return torch.version.cuda is not None
+
+
+def rocm_built() -> bool:
+    return getattr(torch.version, "hip", None) is not None
+
+
+def xla_built() -> bool:
+    """The port runs no XLA."""
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    return False

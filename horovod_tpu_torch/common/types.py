@@ -2,15 +2,23 @@
 
 The port's copy of what it needs from ``horovod_tpu/common/types.py``
 (``DataType`` and ``ReduceOp``, with the same values, the dtype
-mappings, and the errors of the audit and the rendezvous KV:
+mappings, the errors of the audit and the rendezvous KV:
 ``RanksFailedError``, ``ReplicaDivergenceError`` and ``FencedError``, with
-the same messages and attributes); the port imports nothing of the JAX
-package.
+the same messages and attributes, and the eager engine's messages:
+``RequestType``, ``ResponseType``, ``StatusType``, ``Status``,
+``TensorShape``, ``Request`` and ``Response``, with the same enum values
+and fields, which ``common/wire.py`` puts on the wire byte for byte as the
+JAX package does); the port imports nothing of the JAX package.
+
+Left out until their features are ported (ROADMAP Queue 1, item 5):
+``CollectiveTimeoutError`` (deadlines and abort).
 """
 
 from __future__ import annotations
 
 import enum
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -179,3 +187,147 @@ class FencedError(RuntimeError):
             f"{self.stale_epoch} but the gang re-formed at epoch "
             f"{self.current_epoch}; this process was evicted and has no "
             f"seat in the new world — exit instead of corrupting it")
+
+
+class RequestType(enum.IntEnum):
+    ALLREDUCE = 0
+    ALLGATHER = 1
+    BROADCAST = 2
+    JOIN = 3
+    ALLTOALL = 4
+    BARRIER = 5
+    REDUCESCATTER = 6
+
+
+class ResponseType(enum.IntEnum):
+    ALLREDUCE = 0
+    ALLGATHER = 1
+    BROADCAST = 2
+    JOIN = 3
+    ALLTOALL = 4
+    BARRIER = 5
+    REDUCESCATTER = 6
+    ERROR = 7
+    # The coordinator's eviction of dead ranks (heartbeats, which the port
+    # does not run yet); numbered so that the codec decodes every value.
+    EVICT = 8
+
+
+class StatusType(enum.IntEnum):
+    OK = 0
+    UNKNOWN_ERROR = 1
+    PRECONDITION_ERROR = 2
+    ABORTED = 3
+    INVALID_ARGUMENT = 4
+    IN_PROGRESS = 5
+
+
+@dataclass
+class Status:
+    """An operation's outcome, delivered to its handle.  ``exc``, when set,
+    is raised by ``HandleManager.wait`` in place of a ``RuntimeError``
+    carrying ``reason``; it is never serialized."""
+
+    type: StatusType = StatusType.OK
+    reason: str = ""
+    exc: Optional[BaseException] = None
+
+    @staticmethod
+    def ok() -> "Status":
+        return Status(StatusType.OK)
+
+    @staticmethod
+    def aborted(reason: str) -> "Status":
+        return Status(StatusType.ABORTED, reason)
+
+    @staticmethod
+    def precondition_error(reason: str) -> "Status":
+        return Status(StatusType.PRECONDITION_ERROR, reason)
+
+    @staticmethod
+    def invalid_argument(reason: str) -> "Status":
+        return Status(StatusType.INVALID_ARGUMENT, reason)
+
+    @staticmethod
+    def unknown_error(reason: str) -> "Status":
+        return Status(StatusType.UNKNOWN_ERROR, reason)
+
+    @staticmethod
+    def in_progress() -> "Status":
+        return Status(StatusType.IN_PROGRESS)
+
+    def ok_(self) -> bool:
+        return self.type == StatusType.OK
+
+    def in_progress_(self) -> bool:
+        return self.type == StatusType.IN_PROGRESS
+
+
+@dataclass(frozen=True)
+class TensorShape:
+    """An immutable shape: its dims and their product."""
+
+    dims: tuple
+
+    def __init__(self, dims: Sequence[int] = ()):
+        object.__setattr__(self, "dims", tuple(int(d) for d in dims))
+
+    @property
+    def num_elements(self) -> int:
+        n = 1
+        for d in self.dims:
+            n *= d
+        return n
+
+    @property
+    def rank(self) -> int:
+        return len(self.dims)
+
+    def __str__(self) -> str:
+        return "[" + ", ".join(str(d) for d in self.dims) + "]"
+
+
+@dataclass
+class Request:
+    """What one rank wants to do with one named tensor.  A process set is
+    its id (0 = the global set) and its member count."""
+
+    request_rank: int = 0
+    request_type: RequestType = RequestType.ALLREDUCE
+    tensor_type: DataType = DataType.FLOAT32
+    tensor_name: str = ""
+    root_rank: int = -1
+    device: str = "cpu"
+    tensor_shape: TensorShape = field(default_factory=TensorShape)
+    reduce_op: ReduceOp = ReduceOp.SUM
+    prescale_factor: float = 1.0
+    postscale_factor: float = 1.0
+    process_set_id: int = 0
+    process_set_size: int = 0
+
+
+@dataclass
+class Response:
+    """What every rank must now execute, in the same order everywhere.
+    More than one name means the entries were fused into one collective.
+
+    ``tensor_sizes`` holds, for an allreduce, each fused tensor's element
+    count; for an allgather, the first dimension of every rank's tensor in
+    rank order; for a broadcast, the root rank.  ``tensor_shapes`` holds
+    an allreduce's (and a reducescatter's) negotiated dims, so that every
+    rank, a joined one included, caches the same parameters."""
+
+    response_type: ResponseType = ResponseType.ERROR
+    tensor_names: List[str] = field(default_factory=list)
+    error_message: str = ""
+    devices: List[str] = field(default_factory=list)
+    tensor_type: DataType = DataType.FLOAT32
+    tensor_sizes: List[int] = field(default_factory=list)
+    reduce_op: ReduceOp = ReduceOp.SUM
+    prescale_factor: float = 1.0
+    postscale_factor: float = 1.0
+    tensor_shapes: List[TensorShape] = field(default_factory=list)
+    process_set_id: int = 0
+
+    def add_tensor_name(self, name: str) -> None:
+        self.tensor_names.append(name)

@@ -6,6 +6,27 @@ from __future__ import annotations
 
 import os
 
+# The launcher's rendezvous (the KV server the eager engine bootstraps
+# through) and the engine's startup budget.
+RENDEZVOUS_ADDR = "HVD_RENDEZVOUS_ADDR"
+RENDEZVOUS_PORT = "HVD_RENDEZVOUS_PORT"
+START_TIMEOUT = "HVD_START_TIMEOUT"
+RDV_SCOPE = "HVD_RDV_SCOPE"
+NIC = "HVD_NIC"
+# The eager engine (runtime_py.py): fusion threshold in bytes, background
+# cycle in ms, response-cache entries, the ring hop's receive segment
+# (0 = whole chunks), socket buffer sizes (0 = the kernel's), and the
+# stall inspector.
+FUSION_THRESHOLD = "HVD_FUSION_THRESHOLD"
+CYCLE_TIME = "HVD_CYCLE_TIME"
+CACHE_CAPACITY = "HVD_CACHE_CAPACITY"
+RING_SEGMENT_BYTES = "HVD_RING_SEGMENT_BYTES"
+SOCK_BUF_BYTES = "HVD_SOCK_BUF_BYTES"
+SEND_WAIT_CAP_S = "HVD_SEND_WAIT_CAP_S"
+STALL_CHECK_DISABLE = "HVD_STALL_CHECK_DISABLE"
+STALL_CHECK_TIME = "HVD_STALL_CHECK_TIME_SECONDS"
+STALL_SHUTDOWN_TIME = "HVD_STALL_SHUTDOWN_TIME_SECONDS"
+
 # The non-finite gradient guard (integrity/nonfinite.py).
 NONFINITE_POLICY = "HVD_NONFINITE_POLICY"
 NONFINITE_LIMIT = "HVD_NONFINITE_LIMIT"
@@ -33,6 +54,13 @@ SERVE_MAX_BATCH = "HVD_SERVE_MAX_BATCH"
 SERVE_MAX_QUEUE = "HVD_SERVE_MAX_QUEUE"
 
 
+def get_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
 def get_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return int(v) if v not in (None, "") else default
@@ -45,6 +73,27 @@ def get_float(name: str, default: float) -> float:
 
 def get_str(name: str, default: str = "") -> str:
     return os.environ.get(name, default)
+
+
+def fusion_threshold_bytes() -> int:
+    """Default 64 MiB, like the reference."""
+    return get_int(FUSION_THRESHOLD, 64 * 1024 * 1024)
+
+
+def cycle_time_ms() -> float:
+    """The background loop's cadence; default 5 ms."""
+    return get_float(CYCLE_TIME, 5.0)
+
+
+def ring_segment_bytes() -> int:
+    """Ring-hop receive segment; 0 (default) disables segmentation."""
+    return max(0, get_int(RING_SEGMENT_BYTES, 0))
+
+
+def send_wait_cap_s() -> float:
+    """Hard cap on any one wait for a send to leave, always on, so that a
+    dead sender thread never hangs a hop silently."""
+    return get_float(SEND_WAIT_CAP_S, 300.0)
 
 
 def serve_port() -> int:

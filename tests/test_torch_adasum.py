@@ -77,18 +77,18 @@ def _worker(rank, size, store, out_dir):
             for tag, arr in (("x", x), ("zero", zero)):
                 for dt in ("float32", "bfloat16"):
                     t = torch.tensor(arr[rank]).to(getattr(torch, dt))
-                    y = hvd.allreduce(t, op=ReduceOp.ADASUM, axis=axis)
+                    y = C.allreduce(t, op=ReduceOp.ADASUM, axis=axis)
                     out[f"{name}.{tag}.{dt}"] = y.float().numpy()
         world = make_mesh({"dp": 4}).axis("dp")
         t = torch.tensor(x[rank])
-        scaled = hvd.allreduce(t, op=ReduceOp.ADASUM, axis=world,
-                               prescale_factor=3.0, postscale_factor=0.5)
+        scaled = C.allreduce(t, op=ReduceOp.ADASUM, axis=world,
+                             prescale_factor=3.0, postscale_factor=0.5)
         out["scaled_equal"] = np.array(torch.equal(
-            scaled, hvd.allreduce(t, op=ReduceOp.ADASUM, axis=world)))
+            scaled, C.allreduce(t, op=ReduceOp.ADASUM, axis=world)))
         ts = [torch.tensor(grouped[0][rank]), _bf16(grouped[1][rank]),
               torch.tensor(grouped[2][rank])]
-        for i, y in enumerate(hvd.grouped_allreduce(ts, op=ReduceOp.ADASUM,
-                                                    axis=world)):
+        for i, y in enumerate(C.grouped_allreduce(ts, op=ReduceOp.ADASUM,
+                                                  axis=world)):
             out[f"grouped.{i}"] = y.float().numpy()
         ps = {k: torch.nn.Parameter(torch.tensor(v))
               for k, v in params.items()}

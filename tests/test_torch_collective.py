@@ -15,6 +15,7 @@ import torch.multiprocessing as mp
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common.types import ReduceOp
+from horovod_tpu_torch.ops import collective as C
 
 
 def _spawn_gang(fn, nprocs, args, timeout=120.0):
@@ -61,22 +62,22 @@ def _collective_worker(rank, size, store, out_dir):
         x = torch.tensor(_rank_input(rank))
         for op in OPS:
             for pre, post in SCALES:
-                y = hvd.allreduce(x, op=op, prescale_factor=pre,
-                                  postscale_factor=post)
+                y = C.allreduce(x, op=op, prescale_factor=pre,
+                                postscale_factor=post)
                 out[f"ar.{op.name}.{pre}.{post}"] = _np(y)
-        out["ar.int.SUM"] = _np(hvd.allreduce(
+        out["ar.int.SUM"] = _np(C.allreduce(
             torch.arange(4, dtype=torch.int32) * (rank + 1), op=hvd.Sum))
         for wire in (torch.float8_e4m3fn, torch.float8_e5m2):
-            out[f"ar.{wire}"] = _np(hvd.allreduce(x.to(wire), op=hvd.Sum))
+            out[f"ar.{wire}"] = _np(C.allreduce(x.to(wire), op=hvd.Sum))
         leaves = _leaves(rank)
-        grouped = hvd.grouped_allreduce(leaves, op=hvd.Sum)
+        grouped = C.grouped_allreduce(leaves, op=hvd.Sum)
         for i, (g, leaf) in enumerate(zip(grouped, leaves)):
             assert g.dtype == leaf.dtype and g.shape == leaf.shape
             out[f"grouped.{i}"] = _np(g)
-            out[f"single.{i}"] = _np(hvd.allreduce(leaf, op=hvd.Sum))
-        out["bcast"] = _np(hvd.broadcast(x, root_rank=1))
-        out["gather"] = _np(hvd.allgather(x))
-        hvd.barrier()
+            out[f"single.{i}"] = _np(C.allreduce(leaf, op=hvd.Sum))
+        out["bcast"] = _np(C.broadcast(x, root_rank=1))
+        out["gather"] = _np(C.allgather(x))
+        C.barrier()
         out["input"] = _np(x)
         np.savez(f"{out_dir}/rank{rank}.npz", **out)
     finally:
@@ -151,12 +152,12 @@ def test_adasum_raises_and_uninitialized_raises():
     x = torch.ones(2)
     hvd.shutdown()
     with pytest.raises(ValueError, match="init"):
-        hvd.allreduce(x)
+        C.allreduce(x)
     with pytest.raises(ValueError, match="init"):
-        hvd.allreduce(x, op=hvd.Adasum)
+        C.allreduce(x, op=hvd.Adasum)
     hvd.init(device="cpu")
     try:
-        assert torch.equal(hvd.allreduce(x, op=hvd.Adasum), x)
+        assert torch.equal(C.allreduce(x, op=hvd.Adasum), x)
     finally:
         hvd.shutdown()
 

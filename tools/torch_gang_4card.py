@@ -42,7 +42,12 @@ from seed 0):
    its own seed's batch) through ``allreduce(op=Adasum)``, whose rounds are
    ``ppermute`` exchanges between the cards, against ``adasum_loopback`` on
    the four gradients gathered to every rank (within ADASUM_GAP) and, on
-   rank 0, against the float64 oracle (within ``chip_smoke.ADASUM_TOL``).
+   rank 0, against the float64 oracle (within ``chip_smoke.ADASUM_TOL``);
+5. the MoE flagship (8 experts, capacity 1.25) over ``{"ep": 2, "tp":
+   2}``, and the flagship with ring attention over ``{"dp": 2, "sp": 2}``:
+   three steps each against the one-process step on the same global
+   batches, whose losses must agree within LOSS_TOL at step 0 and
+   STEP_LOSS_TOL after.
 
 The configuration, the batches (``chip_smoke._token_batches``: the input
 pipeline) and the tolerances the two scripts share come from
@@ -296,7 +301,7 @@ def run_adasum(hvd, torch, cfg, dev, say, bad):
     for _ in range(2):  # the first call also sets up NCCL's connections
         _sync(torch, dev)
         t0 = time.perf_counter()
-        got = hvd.allreduce(x, op=hvd.Adasum, axis=axis)
+        got = C.allreduce(x, op=hvd.Adasum, axis=axis)
         _sync(torch, dev)
         ms.append((time.perf_counter() - t0) * 1e3)
     xs = C.allgather(x[None], axis=axis)
@@ -316,6 +321,51 @@ def run_adasum(hvd, torch, cfg, dev, say, bad):
             f"{smoke.ADASUM_TOL})")
         if rel > smoke.ADASUM_TOL:
             bad.append("Adasum over the ranks disagrees with the oracle")
+
+
+def run_mesh(hvd, torch, cfg, dev, say, bad, axes):
+    """``make_transformer_train_step`` over ``axes`` against the
+    one-process step (no mesh) on the same global batches: three steps'
+    losses.  ``{"ep": 2, "tp": 2}`` runs the MoE flagship (8 experts,
+    capacity 1.25: four experts a rank, heads and d_ff split in two), every
+    rank on the whole batch; ``{"dp": 2, "sp": 2}`` runs ring attention,
+    each rank on its ``P('dp', 'sp')`` slice (four rows, half the
+    sequence)."""
+    import dataclasses
+
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+
+    tag = " x ".join(f"{k} {v}" for k, v in axes.items())
+    if "ep" in axes:
+        cfg = dataclasses.replace(cfg, n_experts=8, capacity_factor=1.25)
+    else:
+        cfg = dataclasses.replace(cfg, attn_impl="ring")
+    data = _batches(cfg, 3, dev)
+    mesh = make_mesh(axes)
+    dp, i = mesh.shape.get("dp", 1), mesh.coords.get("dp", 0)
+    sp, j = mesh.shape.get("sp", 1), mesh.coords.get("sp", 0)
+
+    def local(batches):  # this rank's P('dp', 'sp') slice of each batch
+        b = batches[0][0].shape[0] // dp
+        s = batches[0][0].shape[1] // sp
+        return [(t[i * b:(i + 1) * b, j * s:(j + 1) * s],
+                 y[i * b:(i + 1) * b, j * s:(j + 1) * s])
+                for t, y in batches]
+
+    gang_step, gang_init = hvd.make_transformer_train_step(cfg, mesh=mesh)
+    one_step, one_init = hvd.make_transformer_train_step(
+        dataclasses.replace(cfg, attn_impl="flash"))
+    # The one-process step's optimizer reduces over every rank, which all
+    # hold the same model and batch: the mean is each rank's own gradient.
+    _, one_losses, _ = _steps(one_step, one_init(0), data, torch, dev)
+    _, losses, _ = _steps(gang_step, gang_init(0), local(data), torch, dev)
+    diffs = [abs(a - b) for a, b in zip(losses, one_losses)]
+    say(f"mesh ({tag}): gang losses {losses}; one process {one_losses}; "
+        f"|gang - one process| {[f'{d:.3e}' for d in diffs]} (tol "
+        f"{smoke.LOSS_TOL} at step 0, {smoke.STEP_LOSS_TOL} after)")
+    if diffs[0] > smoke.LOSS_TOL or max(diffs[1:]) > smoke.STEP_LOSS_TOL \
+            or not all(math.isfinite(x) for x in losses):
+        bad.append(f"the step over {tag} disagrees with one process")
 
 
 def _worker(rank, port, cpu, out_path, zero1_seeds):
@@ -352,9 +402,13 @@ def _worker(rank, port, cpu, out_path, zero1_seeds):
         for seed in zero1_seeds:
             run_zero1(hvd, torch, cfg, dev, say, bad, seed)
         run_adasum(hvd, torch, cfg, dev, say, bad)
+        run_mesh(hvd, torch, cfg, dev, say, bad, {"ep": 2, "tp": 2})
+        run_mesh(hvd, torch, cfg, dev, say, bad, {"dp": 2, "sp": 2})
         # Every rank's failures reach rank 0.
-        n_bad = hvd.allreduce(torch.tensor([float(len(bad))], device=dev),
-                              op=hvd.Sum)
+        from horovod_tpu_torch.ops import collective as C
+
+        n_bad = C.allreduce(torch.tensor([float(len(bad))], device=dev),
+                            op=hvd.Sum)
         if rank == 0:
             with open(out_path, "w") as fh:
                 json.dump({"failures": bad, "ranks_failing": float(n_bad[0]),
