@@ -125,10 +125,21 @@ non-zero):
    ranks' parameters equal bit for bit; steps 2-3 served from the response
    cache (every tensor a hit); every fused response within the 64 MiB
    threshold; bf16 and fp32 card tensors through the engine's allreduce,
-   allgather and broadcast back on cuda:0 with their CPU copies' bits.
-   Prints the step, enqueue and ``synchronize`` times, gradient bytes,
-   fused responses, effective GB/s, cache hits and flash launches;
-7. the kernel checks of phase 2 again, and the times of the kernel, the
+   allgather and broadcast back on cuda:0 with their CPU copies' bits;
+   the two ranks' pair on the shm ring (they share the host).  Prints the
+   step, enqueue and ``synchronize`` times, gradient bytes, fused
+   responses, effective GB/s, cache hits, flash launches and each rank's
+   link media;
+7. the engine's data plane: four ranks of this script
+   (``--dataplane-rank R``) on cuda:0 as two virtual nodes of two, with
+   the hierarchical allreduce and allgather, the recovery ladder and the
+   timeline on, node 1 under ``HVD_SHM_DISABLE`` (see DP_RANKS): seeded
+   card tensors at the flagship's widths through allreduce, a ragged
+   allgather and broadcasts, against every rank's inputs rebuilt from the
+   seeds, then again under fault plans with the first pass's bits; rank
+   0's timeline parsed and checked.  Prints the media, each pass's time
+   and GB/s and the ladder's retries and failovers;
+8. the kernel checks of phase 2 again, and the times of the kernel, the
    plain version and PyTorch's ``scaled_dot_product_attention`` as a
    yardstick (forward alone for the forward, backward alone for dQ and
    dK/dV; the port never calls it), each as its kernels' device time per
@@ -258,11 +269,17 @@ SP_TOL = {"ring": 8e-3, "ulysses": 1.1e-2}
 F32_LOSS_TOL = 2e-6
 F32_GRAD_TOL = 5e-5
 # The pipelined flagship: loopback_pipeline's P stages of L/P layers each,
-# M microbatches of B/M rows.  Its step-0 loss and gradients are held
-# against the unpipelined flagship step's with LOSS_TOL and GRAD_TOL, its
-# later losses with STEP_LOSS_TOL: the same weights and batches, the same
-# bf16 residual stream, the kernels at the microbatch's shape.
+# M microbatches of B/M rows.  Its step-0 loss is held against the
+# unpipelined flagship step's with LOSS_TOL, its later losses with
+# STEP_LOSS_TOL, and its step-0 gradients with PP_GRAD_TOL: the same
+# weights and batches, the same bf16 residual stream, the same kernels
+# (at the microbatch's shape), so the gradients differ only by the order
+# of the microbatches' bf16 sums.  PP_GRAD_TOL is its own bound, about
+# twice the largest gap an H100 read (2.35e-3, in every block matrix, in
+# each run that printed it; PERF.md): GRAD_TOL, 20 times that reading, is
+# the flash-against-dense bound.
 PP_STAGES, PP_MICRO = 4, 4
+PP_GRAD_TOL = 5e-3
 # Adasum over four virtual ranks' step-0 flagship gradients (fp32, 168 M
 # elements each) against the float64 oracle, as |got - want| / |want|.
 # Each round sums three fp32 dot products over the whole vector: with
@@ -1176,13 +1193,13 @@ def run_pipeline(hvd, tfm, fa, dev, card):
           f"{STEP_LOSS_TOL} after)")
     print("pp: step-0 gradient gap to the unpipelined step, largest over "
           "layers: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
-          + f" (tol {GRAD_TOL})")
+          + f" (tol {PP_GRAD_TOL})")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         bad.append(f"losses not finite and falling: {losses}")
     if diffs[0] > LOSS_TOL or max(diffs[1:]) > STEP_LOSS_TOL:
         bad.append("losses disagree with the unpipelined step")
-    if max(gaps.values()) > GRAD_TOL:
+    if max(gaps.values()) > PP_GRAD_TOL:
         bad.append("step-0 gradients disagree with the unpipelined step")
     per = PP_STAGES * PP_MICRO * (cfg.n_layers // PP_STAGES)
     want = {"fwd": 2 * per * steps, "dq": per * steps, "dkv": per * steps,
@@ -2021,6 +2038,52 @@ def _greedy_groups(sizes, threshold):
     return n
 
 
+def _spawn_ranks(flag, n, tmp, env_of, timeout, what):
+    """Run ``n`` ranks of this script (``flag R tmp``) against the port's
+    ``RendezvousServer``; returns each rank's (exit code, output), killing
+    every rank past ``timeout``."""
+    from horovod_tpu_torch.runner.http_server import RendezvousServer
+
+    server = RendezvousServer("127.0.0.1")
+    port = server.start()
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("HVD_", "MASTER_", "HOROVOD_"))}
+    procs, outs = [], []
+    try:
+        for r in range(n):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, str(r),
+                 tmp],
+                env=dict(base, HVD_RENDEZVOUS_ADDR="127.0.0.1",
+                         HVD_RENDEZVOUS_PORT=str(port), **env_of(r)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            try:
+                out, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                out, _ = p.communicate()
+                out += f"\n(killed after {timeout} s)"
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        server.stop()
+    for r, (code, out) in enumerate(outs):
+        for line in out.splitlines():
+            print(f"{what} rank {r}: {line}")
+    failed = [r for r, (code, _) in enumerate(outs) if code != 0]
+    if failed:
+        raise AssertionError(f"{what}: rank(s) {failed} failed")
+    return outs
+
+
 def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S):
     """The eager engine on the card: ENGINE_RANKS ranks of this script
     (``--engine-rank R``) bootstrap a ``PyEngine`` through the port's
@@ -2032,8 +2095,6 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S):
     import tempfile
 
     import torch
-
-    from horovod_tpu_torch.runner.http_server import RendezvousServer
 
     cfg = cfg or _flagship_cfg(tfm)
     B = 8
@@ -2066,50 +2127,12 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S):
             json.dump({"cfg": fields, "device": str(dev), "rows": B,
                        "steps": ENGINE_STEPS, "store_port": _free_port()},
                       fh)
-        server = RendezvousServer("127.0.0.1")
-        port = server.start()
-        env = {k: v for k, v in os.environ.items()
-               if not k.startswith(("HVD_", "MASTER_"))}
-        procs = []
         t0 = time.perf_counter()
-        try:
-            for r in range(ENGINE_RANKS):
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--engine-rank", str(r), tmp],
-                    env=dict(env, HVD_RANK=str(r),
-                             HVD_SIZE=str(ENGINE_RANKS),
-                             HVD_LOCAL_RANK=str(r),
-                             HVD_LOCAL_SIZE=str(ENGINE_RANKS),
-                             HVD_RENDEZVOUS_ADDR="127.0.0.1",
-                             HVD_RENDEZVOUS_PORT=str(port)),
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True))
-            deadline = time.monotonic() + timeout
-            outs = []
-            for p in procs:
-                try:
-                    out, _ = p.communicate(
-                        timeout=max(1.0, deadline - time.monotonic()))
-                except subprocess.TimeoutExpired:
-                    for q in procs:
-                        q.kill()
-                    out, _ = p.communicate()
-                    out += f"\n(killed after {timeout} s)"
-                outs.append((p.returncode, out))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            server.stop()
+        _spawn_ranks("--engine-rank", ENGINE_RANKS, tmp, lambda r: dict(
+            HVD_RANK=str(r), HVD_SIZE=str(ENGINE_RANKS),
+            HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(ENGINE_RANKS)),
+            timeout, "engine")
         wall = time.perf_counter() - t0
-        for r, (code, out) in enumerate(outs):
-            for line in out.splitlines():
-                print(f"engine rank {r}: {line}")
-        failed = [r for r, (code, _) in enumerate(outs) if code != 0]
-        if failed:
-            raise AssertionError(f"engine: rank(s) {failed} failed")
         ranks = []
         for r in range(ENGINE_RANKS):
             with open(os.path.join(tmp, f"rank{r}.json")) as fh:
@@ -2193,6 +2216,10 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S):
                             f"!= {want_launches}")
         if not all(math.isfinite(s["loss"]) for s in steps):
             failures.append(f"rank {r}: a loss is not finite")
+        print(f"engine rank {r}: link media by peer {res['media']}")
+        if set(res["media"].values()) != {"shm"}:
+            failures.append(f"rank {r}: a same-host pair is not on the "
+                            f"shm ring: {res['media']}")
     print(f"engine: on {card}; {ranks[0]['bcast_ms']:.1f} ms to broadcast "
           f"the parameters ({ranks[0]['param_bytes']} bytes) from rank 0")
     if failures:
@@ -2302,6 +2329,7 @@ def engine_rank(rank: int, tmp: str) -> int:
                                                          "misses")}))
         launches = dict(fa.launches)
         eng.response_log = None
+        media = eng.transport_media()
         loss0 = hvd.allreduce(torch.tensor([steps[0]["loss"]]),
                               op=hvd.Average, name="loss0")
         digest = np.array([fingerprint(model.state_dict())[0]],
@@ -2335,7 +2363,8 @@ def engine_rank(rank: int, tmp: str) -> int:
             param_bytes=sum(sizes), bcast_bits_equal=bcast_equal,
             params_equal_across_ranks=bool(len(set(digests.tolist()))
                                            == 1),
-            card_tensors=card, card_tensors_equal=all(card.values()))
+            card_tensors=card, card_tensors_equal=all(card.values()),
+            media={str(p): m for p, m in media.items()})
         if rank == 0:
             torch.save({"grads0": grads0,
                         "params": {n: p.detach().cpu()
@@ -2345,6 +2374,356 @@ def engine_rank(rank: int, tmp: str) -> int:
             json.dump(res, fh)
     finally:
         hvd.shutdown()
+    return 0
+
+
+# The data-plane phase: DP_RANKS ranks of this script (``--dataplane-rank
+# R``), all on one card, as two virtual nodes of two ranks
+# (HVD_LOCAL_*/HVD_CROSS_*) with the hierarchical allreduce and allgather,
+# the recovery ladder (HVD_WIRE_CRC=1) and the timeline on, and ranks 2-3
+# under HVD_SHM_DISABLE: node 0's pair runs over shm, every other pair
+# over TCP.  Each rank makes seeded card tensors at the flagship's widths
+# (one block's gradient shapes and the embedding, in fp32 and in bf16,
+# one int32 tensor) and runs allreduce (Sum and Average), a ragged
+# allgather and broadcasts twice: clean, then under DP_PLANS.  Each rank
+# rebuilds every rank's inputs from the seeds: the int32 allreduce, the
+# allgather and the broadcasts are held to them bit for bit, and each fp32
+# and bf16 allreduce element to the float64 sum of the inputs within
+# DP_TOL times the sum of the inputs' magnitudes.  The hierarchical
+# allreduce of 2 x 2 ranks rounds each element twice (once after the local
+# hop, once after the cross hop; an Average's division by 4 is exact), so
+# each element is within 2u of the exact sum's magnitudes, u the unit
+# roundoff (2^-24 fp32, 2^-8 bf16, whose hop adds in fp32 and rounds back
+# to bf16); DP_TOL is twice that.  The faulted pass must give the clean
+# pass's bits on every rank: the ladder heals in place.
+DP_RANKS = 4
+DP_TOL = {"float32": 4 * 2.0 ** -24, "bfloat16": 4 * 2.0 ** -8}
+DP_TIMEOUT_S = 300
+# Pass 2's fault plans, by rank: rank 0 loses its shm ring to rank 1 once
+# (the pair fails over to TCP) and corrupts two of its data writes to rank
+# 2; rank 2 resets its socket to rank 0 once (rank 0 re-dials); ranks 1-3
+# corrupt two writes each on a TCP link.  So rank 0 heals a link to rank
+# 1 (TRANSPORT_FAILOVER, HOP_RETRY "failover") and replays to rank 2
+# (HOP_RETRY "corrupt" and "reset"), all on its timeline.
+DP_PLANS = {
+    0: [{"site": "shm.lost", "kind": "error", "after": 10, "times": 1},
+        {"site": "sock.corrupt", "kind": "corrupt", "match": "2",
+         "after": 2, "times": 2}],
+    1: [{"site": "sock.corrupt", "kind": "corrupt", "match": "3",
+         "after": 2, "times": 2}],
+    2: [{"site": "sock.reset", "kind": "error", "match": "0", "after": 3,
+         "times": 1},
+        {"site": "sock.corrupt", "kind": "corrupt", "match": "3",
+         "after": 2, "times": 2}],
+    3: [{"site": "sock.corrupt", "kind": "corrupt", "match": "2",
+         "after": 2, "times": 2}],
+}
+DP_RANK0_HEALS = {("TRANSPORT_FAILOVER", 1, None), ("HOP_RETRY", 1, "failover"),
+                  ("HOP_RETRY", 2, "corrupt"), ("HOP_RETRY", 2, "reset")}
+
+
+def _dp_env(rank, tmp):
+    env = dict(HVD_RANK=str(rank), HVD_SIZE=str(DP_RANKS),
+               HVD_LOCAL_RANK=str(rank % 2), HVD_LOCAL_SIZE="2",
+               HVD_CROSS_RANK=str(rank // 2), HVD_CROSS_SIZE="2",
+               HVD_HIERARCHICAL_ALLREDUCE="1",
+               HVD_HIERARCHICAL_ALLGATHER="1", HVD_WIRE_CRC="1",
+               HVD_TIMELINE=os.path.join(tmp, "timeline.json"),
+               HVD_TIMELINE_MARK_CYCLES="1")
+    if rank >= 2:
+        env["HVD_SHM_DISABLE"] = "1"
+    return env
+
+
+def run_dataplane(tfm, dev, card, cfg=None, timeout=DP_TIMEOUT_S):
+    """The data-plane phase (see DP_RANKS): spawns the ranks, then holds
+    their reports to each other (every result's digest equal on every
+    rank, the faulted pass's equal to the clean pass's, the media, the
+    fired faults) and rank 0's timeline to Chrome-tracing JSON with the
+    negotiations, the cycle marks and the ladder's instants."""
+    import tempfile
+
+    cfg = cfg or _flagship_cfg(tfm)
+    with tempfile.TemporaryDirectory() as tmp:
+        fields = {f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cfg)}
+        fields["compute_dtype"] = str(cfg.compute_dtype).split(".")[1]
+        with open(os.path.join(tmp, "config.json"), "w") as fh:
+            json.dump({"cfg": fields, "device": str(dev)}, fh)
+        t0 = time.perf_counter()
+        _spawn_ranks("--dataplane-rank", DP_RANKS, tmp,
+                     lambda r: _dp_env(r, tmp), timeout, "dataplane")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        with open(os.path.join(tmp, "timeline.json")) as fh:
+            timeline = json.load(fh)  # fails unless it is whole JSON
+
+    failures = []
+    for r, res in enumerate(ranks):
+        if not res["checks_ok"]:
+            failures.append(f"rank {r}: {res['bad']}")
+        if res["digests"]["p1"] != ranks[0]["digests"]["p1"]:
+            failures.append(f"rank {r}: the clean pass's results differ "
+                            "from rank 0's")
+        if res["digests"]["p2"] != res["digests"]["p1"]:
+            bad = [k for k in res["digests"]["p1"]
+                   if res["digests"]["p2"].get(k) != res["digests"]["p1"][k]]
+            failures.append(f"rank {r}: the faulted pass's results differ "
+                            f"from the clean pass's: {bad[:5]}")
+        want1 = {str(p): "shm" if {r, p} == {0, 1} else "tcp"
+                 for p in range(DP_RANKS) if p != r}
+        want2 = {str(p): "tcp" for p in range(DP_RANKS) if p != r}
+        print(f"dataplane rank {r}: link media by peer, clean pass "
+              f"{res['media']['p1']}, after the faulted pass "
+              f"{res['media']['p2']}; hierarchical (allreduce, allgather, "
+              f"topology) {res['hierarchical']}; faults fired "
+              f"{res['fired']} of {[f['times'] for f in DP_PLANS[r]]}; "
+              + "; ".join(f"{k} {res['seconds'][k]:.3f} s, "
+                          f"{res['bytes'] / res['seconds'][k] / 1e9:.3f} "
+                          "GB/s" for k in ("p1", "p2"))
+              + f" ({res['bytes']} input bytes a pass); worst |got - "
+              f"exact| / (sum |x|) {res['worst']}")
+        if res["media"]["p1"] != want1 or res["media"]["p2"] != want2:
+            failures.append(f"rank {r}: link media {res['media']}, want "
+                            f"{want1} then {want2}")
+        if res["hierarchical"] != [True, True, True]:
+            failures.append(f"rank {r}: the hierarchical data plane is "
+                            f"off: {res['hierarchical']}")
+        if res["fired"] != [f["times"] for f in DP_PLANS[r]]:
+            failures.append(f"rank {r}: faults fired {res['fired']}")
+
+    names = {e["tid"]: e["args"]["name"] for e in timeline
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    lanes = {}
+    instants = []
+    for e in timeline:
+        if not e or e.get("ph") == "M":
+            continue
+        if e["tid"] == 0:
+            instants.append(e)
+        else:
+            lanes.setdefault(names[e["tid"]], []).append(
+                (e["ph"], e.get("name")))
+    reduced = ranks[0]["allreduced"]
+    no_negotiation = [n for n in reduced
+                      if ("B", "NEGOTIATE_ALLREDUCE") not in lanes.get(n, [])]
+    starts = sum(lane.count(("B", "ALLREDUCE")) for lane in lanes.values())
+    stray = [n for n, lane in lanes.items()
+             if ("B", "ALLREDUCE") in lane and n not in reduced]
+    heals = {(e["name"], e["args"]["peer"], e["args"].get("cause"))
+             for e in instants
+             if e.get("name") in ("HOP_RETRY", "TRANSPORT_FAILOVER")}
+    retries = {}
+    for e in instants:
+        if e.get("name") == "HOP_RETRY":
+            key = f"peer {e['args']['peer']} {e['args']['cause']}"
+            retries[key] = retries.get(key, 0) + 1
+    failovers = [e["args"]["peer"] for e in instants
+                 if e.get("name") == "TRANSPORT_FAILOVER"]
+    cycles = sum(1 for e in instants if e.get("name") == "CYCLE_START")
+    print(f"dataplane: {DP_RANKS} ranks on {dev} ({card}), {wall:.1f} s "
+          f"wall; rank 0's timeline: {len(timeline)} events, {cycles} "
+          f"CYCLE_START, {len(reduced)} allreduced names, "
+          f"{starts} ALLREDUCE starts for {ranks[0]['allreduce_responses']} "
+          f"allreduce responses; ladder instants: HOP_RETRY {retries}, "
+          f"TRANSPORT_FAILOVER to peers {failovers}")
+    if no_negotiation:
+        failures.append(f"timeline: no NEGOTIATE_ALLREDUCE for "
+                        f"{no_negotiation[:5]}")
+    if starts != ranks[0]["allreduce_responses"] or stray:
+        failures.append(f"timeline: {starts} ALLREDUCE starts ({stray[:5]} "
+                        f"on other lanes) for "
+                        f"{ranks[0]['allreduce_responses']} responses")
+    if not cycles:
+        failures.append("timeline: no CYCLE_START")
+    if not DP_RANK0_HEALS <= heals:
+        failures.append(f"timeline: ladder instants {sorted(heals, key=str)}"
+                        f" lack {sorted(DP_RANK0_HEALS - heals, key=str)}")
+    if failures:
+        raise AssertionError("dataplane: " + "; ".join(failures))
+    return ranks
+
+
+def _dp_tensor(torch, dev, key, shape, dtype):
+    """One seeded input: normal values (fp32 and bf16), or integers in
+    [-1000, 1000) (int32), made on ``dev`` from a seed of ``key``."""
+    import zlib
+
+    gen = torch.Generator(device=dev).manual_seed(
+        zlib.crc32(repr(key).encode()))
+    if dtype == torch.int32:
+        return torch.randint(-1000, 1000, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def dataplane_rank(rank: int, tmp: str) -> int:
+    """One rank of the data-plane phase (``--dataplane-rank``); writes its
+    report to ``<tmp>/rank<r>.json``."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.common import fault_injection as fi
+    from horovod_tpu_torch.models import transformer as tfm
+
+    with open(os.path.join(tmp, "config.json")) as fh:
+        conf = json.load(fh)
+    fields = dict(conf["cfg"])
+    fields["compute_dtype"] = getattr(torch, fields["compute_dtype"])
+    fields["n_layers"] = 1
+    cfg = tfm.TransformerConfig(**fields)
+    dev = torch.device(conf["device"])
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    # The flagship's gradient shapes: one block's and the embedding's.
+    shapes = [(n, tuple(p.shape)) for n, p in
+              tfm.init(0, cfg, device=dev).named_parameters()]
+    d = cfg.d_model
+    # One int32 tensor at the widest block matrix's shape; ragged
+    # allgather blocks of (r + 1) * 256 rows of d_model.
+    int_shape = max((s for _, s in shapes if len(s) == 2 and
+                     s[0] != cfg.vocab_size), key=lambda s: s[0] * s[1])
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    hvd.init(device=dev, backend="none")
+    size = hvd.size()
+    res = {"rank": rank, "digests": {}, "media": {}, "seconds": {},
+           "bad": [], "worst": {}}
+    try:
+        eng = basics._engine_obj
+        res["hierarchical"] = [bool(eng.hierarchical_allreduce),
+                               bool(eng.hierarchical_allgather),
+                               bool(eng.hierarchical_topology_ok())]
+
+        def inputs(r):
+            out = {}
+            for n, s in shapes:
+                for dt in (f32, bf16):
+                    out[(n, dt)] = _dp_tensor(torch, dev, ("g", n, dt, r),
+                                              s, dt)
+            out[("int", i32)] = _dp_tensor(torch, dev, ("i", r), int_shape,
+                                           i32)
+            for dt in (f32, bf16, i32):
+                out[("ag", dt)] = _dp_tensor(torch, dev, ("ag", dt, r),
+                                             ((r + 1) * 256, d), dt)
+                out[("bc", dt)] = _dp_tensor(torch, dev, ("bc", dt, r),
+                                             (4 * d, d), dt)
+            return out
+
+        mine = inputs(rank)
+        # The bytes of this rank's inputs to one pass's collectives.
+        res["bytes"] = 0
+
+        def run_pass(tag):
+            nbytes = 0
+            handles = {}
+            # By type and op, so that fusion can merge consecutive
+            # responses.
+            for dt, op in ((f32, "Sum"), (f32, "Average"), (bf16, "Sum"),
+                           (bf16, "Average"), (i32, "Sum")):
+                for (n, t_dt), t in mine.items():
+                    if t_dt != dt or n in ("ag", "bc"):
+                        continue
+                    handles[(n, str(dt), op)] = hvd.allreduce_async(
+                        t, name=f"{tag}.ar.{n}.{dt}.{op}",
+                        op=getattr(hvd, op))
+                    nbytes += t.numel() * t.element_size()
+            out = {k: hvd.synchronize(h) for k, h in handles.items()}
+            for dt in (f32, bf16, i32):
+                out[("ag", str(dt))] = hvd.allgather(
+                    mine[("ag", dt)], name=f"{tag}.ag.{dt}")
+                nbytes += mine[("ag", dt)].numel() * \
+                    mine[("ag", dt)].element_size()
+                for root in (0, size - 1):
+                    out[("bc", str(dt), root)] = hvd.broadcast(
+                        mine[("bc", dt)], root_rank=root,
+                        name=f"{tag}.bc.{dt}.{root}")
+                    nbytes += mine[("bc", dt)].numel() * \
+                        mine[("bc", dt)].element_size()
+            res["bytes"] = nbytes
+            return out
+
+        def digest(t):
+            return hashlib.sha256(t.detach().contiguous().cpu().reshape(-1)
+                                  .view(torch.uint8).numpy()).hexdigest()
+
+        eng.response_log = []
+        _sync_dev(torch, dev)
+        t0 = time.perf_counter()
+        got = run_pass("p1")
+        _sync_dev(torch, dev)
+        res["seconds"]["p1"] = time.perf_counter() - t0
+        res["allreduced"] = [f"{tag}.ar.{k[0]}.{k[1]}.{k[2]}" for k in got
+                             if k[0] != "bc" and len(k) == 3
+                             for tag in ("p1", "p2")]
+        res["media"]["p1"] = {str(p): m for p, m in
+                              eng.transport_media().items()}
+        res["digests"]["p1"] = {repr(k): digest(v) for k, v in got.items()}
+
+        # Every rank's inputs, rebuilt from the seeds, for the checks.
+        others = [mine if r == rank else inputs(r) for r in range(size)]
+        for (n, dt), t in mine.items():
+            if n in ("ag", "bc"):
+                continue
+            if dt == i32:
+                want = sum(o[(n, dt)].long() for o in others).to(i32)
+                if not torch.equal(got[(n, str(dt), "Sum")], want):
+                    res["bad"].append(f"int32 allreduce {n}")
+                continue
+            exact = sum(o[(n, dt)].double() for o in others)
+            mag = sum(o[(n, dt)].double().abs() for o in others)
+            tol = DP_TOL[str(dt).split(".")[1]]
+            for op, div in (("Sum", 1), ("Average", size)):
+                g = got[(n, str(dt), op)]
+                if g.dtype != dt or g.device != t.device:
+                    res["bad"].append(f"{n} {dt} {op}: {g.dtype} on "
+                                      f"{g.device}")
+                    continue
+                err = ((g.double() - exact / div).abs()
+                       / (mag / div).clamp_min(1e-300))
+                worst = float(err.max())
+                key = f"{str(dt).split('.')[1]} {op}"
+                res["worst"][key] = max(res["worst"].get(key, 0.0), worst)
+                if not worst <= tol:
+                    res["bad"].append(f"{n} {dt} {op}: {worst:.3e} of "
+                                      f"sum |x| > {tol:.3e}")
+        for dt in (f32, bf16, i32):
+            want = torch.cat([o[("ag", dt)] for o in others])
+            if not torch.equal(got[("ag", str(dt))], want):
+                res["bad"].append(f"allgather {dt}")
+            for root in (0, size - 1):
+                if not torch.equal(got[("bc", str(dt), root)],
+                                   others[root][("bc", dt)]):
+                    res["bad"].append(f"broadcast {dt} from {root}")
+        del others, got
+
+        fi.configure({"seed": rank, "faults": DP_PLANS[rank]})
+        _sync_dev(torch, dev)
+        t0 = time.perf_counter()
+        got = run_pass("p2")
+        _sync_dev(torch, dev)
+        res["seconds"]["p2"] = time.perf_counter() - t0
+        res["fired"] = [f.fired for f in fi._PLAN.faults]
+        fi.clear()
+        # Both passes' responses: one ALLREDUCE start on the timeline each.
+        res["allreduce_responses"] = sum(
+            1 for e in eng.response_log if e[0] == "ALLREDUCE")
+        eng.response_log = None
+        res["media"]["p2"] = {str(p): m for p, m in
+                              eng.transport_media().items()}
+        res["digests"]["p2"] = {repr(k): digest(v) for k, v in got.items()}
+        res["checks_ok"] = not res["bad"]
+    finally:
+        fi.clear()
+        hvd.shutdown()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
     return 0
 
 
@@ -2393,6 +2772,8 @@ def _ptxas_report(log):
 def main() -> int:
     if sys.argv[1:2] == ["--engine-rank"]:  # a rank of the engine phase
         return engine_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--dataplane-rank"]:  # a data-plane phase rank
+        return dataplane_rank(int(sys.argv[2]), sys.argv[3])
     t_start = time.perf_counter()
     import torch
 
@@ -2496,6 +2877,8 @@ def main() -> int:
     run_serve(tfm, dev, card)
     torch.cuda.empty_cache()
     run_engine(hvd, tfm, fa, dev, card)
+    torch.cuda.empty_cache()
+    run_dataplane(tfm, dev, card)
     torch.cuda.empty_cache()
 
     # Timed after the slice, so that no profiler has run before the steps

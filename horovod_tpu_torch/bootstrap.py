@@ -12,9 +12,11 @@ JAX package's keys and handshake (each dialed socket starts with
 ``i32 rank, i32 channel``: 0 data, 1 control), so that port ranks and JAX
 ranks bootstrap into one mesh.
 
-Left out until their features are ported (ROADMAP Queue 1, item 5):
-``keep_listener`` (the recovery ladder's re-dials), ``tree`` (the
-control tree's links) and the ``bootstrap.*`` fault sites.
+The ``bootstrap.start`` (entry) and ``bootstrap.accept`` (each accepted
+dial) fault sites fire where the JAX package fires them.
+
+Left out until the control tree is ported (ROADMAP Queue 1, item 5.4):
+``tree`` (the sub-coordinators' links).
 """
 
 from __future__ import annotations
@@ -25,24 +27,35 @@ import struct
 import threading
 from typing import Dict, Optional, Tuple
 
+from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.utils import env as env_util
 from horovod_tpu_torch.utils import socketutil as su
 
 
-def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int):
-    """Returns ``(data, ctrl_sock, ctrl_socks)``:
+def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int,
+                   keep_listener: bool = False):
+    """Returns ``(data, ctrl_sock, ctrl_socks, kv, prefix)``:
 
     * ``data``: peer rank -> connected data socket (full mesh),
     * ``ctrl_sock``: a worker's connection to the coordinator (None on
       rank 0),
     * ``ctrl_socks``: the coordinator's per-worker sockets (empty off
-      rank 0).
+      rank 0),
+    * ``kv`` / ``prefix``: the rendezvous client and key namespace, for the
+      transport pairing after the mesh (``utils/transport.py``).
 
-    The host record published for transport selection is the port's
-    TCP-only token (``utils/transport.py``)."""
+    The host record published for transport selection is the host's
+    fingerprint, or ``tcp-only-<rank>`` under ``HVD_SHM_DISABLE``.
+
+    ``keep_listener=True`` (the recovery ladder, ``HVD_WIRE_CRC=1``)
+    appends ``(peers, listener)`` instead of closing the listener:
+    ``peers`` maps rank -> advertised ``(host, port)``, and the listener
+    stays open for reconnect re-dials for the life of the gang
+    (``utils/ladder.py``'s ``ReconnectListener``)."""
     from horovod_tpu_torch.runner.http_client import KVClient
     from horovod_tpu_torch.utils import transport as tpt
 
+    _fi.fire("bootstrap.start", str(rank))
     start_timeout = env_util.get_float(env_util.START_TIMEOUT, 120.0)
     kv = KVClient(rdv_addr, rdv_port)
     listener = su.listen_on()
@@ -87,6 +100,7 @@ def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int):
     def _accept_loop():
         for _ in range(n_accept):
             s, _addr = listener.accept()
+            _fi.fire("bootstrap.accept", str(rank))
             s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             hdr = su.recv_exact(s, 8)
             peer_rank, chan = struct.unpack("<ii", hdr)
@@ -113,5 +127,7 @@ def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int):
             data[peer_rank] = s
         else:
             ctrl_socks[peer_rank] = s
+    if keep_listener:
+        return data, ctrl_sock, ctrl_socks, kv, prefix, peers, listener
     listener.close()
-    return data, ctrl_sock, ctrl_socks
+    return data, ctrl_sock, ctrl_socks, kv, prefix

@@ -35,16 +35,23 @@ The epoch trailer is the sender's membership epoch; a frame without it
 decodes as epoch 0.  ``has_params`` carries the autotuner's knob broadcast,
 which a worker applies before the same frame's cached hits.
 
+The recovery ladder's framing (``utils/ladder.py``) is here too: the
+8-byte CRC trailer of a data frame (``u32 seq, u32 crc32``, the CRC over
+the payload then the packed seq), the NACK (``u32 expected seq``) and the
+RESUME/FAILOVER payload (``i32 rank, u32 expected seq, u32 epoch``), and
+:class:`WireCorruptionError`.
+
 Left out until their features are ported (ROADMAP Queue 1, item 5): the
-abort report, probe ack and verdict frames (deadlines and abort), the
-clock ping and pong (the trace), the blackbox pull, the tree frames (the
-control tree), the fence, and the recovery ladder's CRC trailer with
-``WireCorruptionError``.
+abort report, probe ack and verdict frames (5.3, deadlines and abort), the
+clock ping and pong and the blackbox pull (5.5, the trace and the flight
+recorder), the tree frames (5.4, the control tree), the fence and the
+serving delta (5.7).
 """
 
 from __future__ import annotations
 
 import struct
+import zlib
 from typing import List, Optional, Tuple
 
 from horovod_tpu_torch.common.types import (
@@ -284,3 +291,64 @@ def decode_response_list(data: bytes) -> Tuple[
     if off + 4 <= len(data):  # a frame without the trailer stops here
         (epoch,) = struct.unpack_from("<I", data, off)
     return out, bool(shutdown), hits, resend, params, epoch
+
+
+# -- the recovery ladder's framing --------------------------------------
+
+_TRAILER = struct.Struct("<II")
+TRAILER_BYTES = _TRAILER.size
+
+
+class WireCorruptionError(ConnectionError):
+    """A data frame failed CRC validation, or the ladder exhausted its
+    retransmit, reconnect or failover budget healing a link.  Carries the
+    peer rank and the hop phase, as ``ops.cpu_backend.HopTimeout`` does,
+    and the ``cause`` (corrupt, reset or failover)."""
+
+    def __init__(self, peer: int, cause: str):
+        super().__init__(
+            f"data-plane link to rank {peer} is corrupt past the "
+            f"recovery ladder ({cause})")
+        self.peer = int(peer)
+        self.phase = "recv"
+        self.cause = cause
+
+
+def data_crc(payload, seq: int) -> int:
+    """CRC-32 (zlib's polynomial) over the payload bytes then the packed
+    seq: covering the seq binds the checksum to the frame's place in the
+    stream, so that a stale replayed frame never validates."""
+    crc = zlib.crc32(payload)
+    return zlib.crc32(struct.pack("<I", seq & 0xFFFFFFFF), crc)
+
+
+def pack_trailer(payload, seq: int) -> bytes:
+    return _TRAILER.pack(seq & 0xFFFFFFFF, data_crc(payload, seq))
+
+
+def split_trailer(frame: memoryview) -> Tuple[memoryview, int, int]:
+    """``(payload view, seq, crc)`` of a trailered data frame; the caller
+    checks ``crc == data_crc(payload, seq)``."""
+    if len(frame) < TRAILER_BYTES:
+        raise ValueError("data frame shorter than its CRC trailer")
+    body = frame[:-TRAILER_BYTES]
+    seq, crc = _TRAILER.unpack(frame[-TRAILER_BYTES:])
+    return body, seq, crc
+
+
+def encode_nack(expected_seq: int) -> bytes:
+    return struct.pack("<I", expected_seq & 0xFFFFFFFF)
+
+
+def decode_nack(data: bytes) -> int:
+    return struct.unpack_from("<I", data, 0)[0]
+
+
+def encode_resume(rank: int, expected_seq: int, epoch: int = 0) -> bytes:
+    """RESUME (after a reconnect) and FAILOVER (shm to TCP) payload: who
+    speaks, the next data seq they expect, and their membership epoch."""
+    return struct.pack("<iII", rank, expected_seq & 0xFFFFFFFF, epoch)
+
+
+def decode_resume(data: bytes) -> Tuple[int, int, int]:
+    return struct.unpack_from("<iII", data, 0)

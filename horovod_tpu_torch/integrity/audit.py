@@ -25,9 +25,13 @@ as the numpy array of its values would be (bf16 by the name
 ``"bfloat16"``); any other leaf (a Python number, a string) as
 ``np.asarray`` of it, as the JAX package does.
 
-Engine hooks left out until the port has the eager engine: the
-``state.bitflip`` fault-injection site, the ``DIVERGENCE_DETECTED``
-timeline event and the flight recorder's note and dump.
+A divergence records a ``DIVERGENCE_DETECTED`` instant on the engine's
+timeline (``utils/timeline.py``) before the raise.  The ``state.bitflip``
+fault site (a ``corrupt`` fault, in :func:`fingerprint`) flips one bit of
+the first audited leaf's bytes, as bad memory would.
+
+Left out until the flight recorder is ported (ROADMAP Queue 1, item 5.5):
+its note and dump at a divergence.
 """
 
 from __future__ import annotations
@@ -40,9 +44,11 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch import basics
+from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.common.types import ReplicaDivergenceError
 from horovod_tpu_torch.ops import collective as C
 from horovod_tpu_torch.utils import env as env_util
+from horovod_tpu_torch.utils import timeline as timeline_mod
 
 
 def _digest8(chunks) -> int:
@@ -76,14 +82,24 @@ def _leaf_chunks(leaf):
             arr.tobytes()]
 
 
-def fingerprint(tree) -> Tuple[int, List[Tuple[str, int]]]:
+def fingerprint(tree, _detail: str = "") -> Tuple[int, List[Tuple[str, int]]]:
     """``(folded, [(leaf_path, digest), ...])`` over a tree's leaves.
 
     Digests cover dtype, shape and raw bytes, so a dtype drift and a value
     drift are equally visible; the fold is a sha256 over the per-leaf
     digests, so any single-leaf change moves it."""
-    per_leaf = [(path, _digest8(_leaf_chunks(leaf)))
-                for path, leaf in _leaves(tree)]
+    flip = _fi.should_corrupt("state.bitflip", _detail)
+    per_leaf = []
+    for path, leaf in _leaves(tree):
+        chunks = _leaf_chunks(leaf)
+        if flip and len(chunks[2]):
+            # The injected silent corruption: one bit of the first
+            # audited leaf.
+            raw = bytearray(chunks[2])
+            raw[0] ^= 0x01
+            chunks[2] = bytes(raw)
+            flip = False
+        per_leaf.append((path, _digest8(chunks)))
     folded = _digest8([d.to_bytes(8, "little") for _, d in per_leaf])
     return folded, per_leaf
 
@@ -109,7 +125,7 @@ def audit_replicas(tree) -> int:
     folded digest (equal on every rank), or raises
     :class:`ReplicaDivergenceError` naming the deviant ranks and the first
     leaf that diverged.  At one rank it is trivially clean."""
-    folded, per_leaf = fingerprint(tree)
+    folded, per_leaf = fingerprint(tree, _detail="integrity.audit")
     # The wire has no uint64: int64 bit patterns.
     local = np.array([folded] + [d for _, d in per_leaf],
                      dtype=np.uint64).view(np.int64)
@@ -127,6 +143,9 @@ def audit_replicas(tree) -> int:
             leaf_path = per_leaf[j - 1][0]
             break
     digests = {r: f"{int(mat[r, 0]):016x}" for r in range(size)}
+    timeline_mod.engine_event(
+        timeline_mod.DIVERGENCE_DETECTED, ranks=deviants,
+        leaf=leaf_path, digests=digests)
     raise ReplicaDivergenceError(deviants, leaf_path, digests)
 
 

@@ -25,10 +25,13 @@ The policy comes from ``HVD_NONFINITE_POLICY`` unless passed explicitly to
 :class:`~horovod_tpu_torch.parallel.optimizer.DistributedOptimizer`.  The
 port is eager, so every policy, ``raise`` included, works with any axis.
 Agreed steps are counted in process-global counters (:func:`counters`) and
-on the guard itself.  The JAX package's ``NONFINITE_SKIP`` timeline event,
-``hvd_nonfinite_skips_total`` telemetry counter and ``grad.nonfinite``
-fault-injection site belong to the eager engine, which the port has not
-ported yet.
+on the guard itself; a skipped step records a ``NONFINITE_SKIP`` instant on
+the engine's timeline (``utils/timeline.py``).  The ``grad.nonfinite``
+fault site (a ``corrupt`` fault, detail: the guard's call serial) fills
+this rank's first floating gradient with NaN before the check.
+
+Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the
+``hvd_nonfinite_skips_total`` counter.
 """
 
 from __future__ import annotations
@@ -38,9 +41,11 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.common.types import ReduceOp
 from horovod_tpu_torch.ops import collective as C
 from horovod_tpu_torch.utils import env as env_util
+from horovod_tpu_torch.utils import timeline as timeline_mod
 
 POLICIES = ("off", "skip", "zero", "raise")
 
@@ -110,6 +115,16 @@ def _local_flag(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack(bad).any().to(torch.int32).reshape(1)
 
 
+def _poison_first_float(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The ``grad.nonfinite`` fault: NaN-fill this rank's first floating
+    gradient (what a bad kernel or an overflowed loss scale produces)."""
+    for i, g in enumerate(grads):
+        if g.is_floating_point():
+            grads[i] = torch.full_like(g, float("nan"))
+            break
+    return grads
+
+
 class NonFiniteGuard:
     """The guard; one instance per optimizer (or shared).
 
@@ -130,10 +145,14 @@ class NonFiniteGuard:
         self.nonfinite_steps = 0   # steps the ranks agreed were bad
         self.skipped = 0           # steps actually dropped
         self.consecutive = 0       # current agreed-bad run length
+        self._serial = 0           # intercept calls, the fault's detail
 
     def intercept(self, grads: Sequence[torch.Tensor], axis=None
                   ) -> Tuple[List[torch.Tensor], bool]:
         grads = list(grads)
+        self._serial += 1
+        if _fi.should_corrupt("grad.nonfinite", str(self._serial)):
+            grads = _poison_first_float(grads)
         agreed = C.allreduce(_local_flag(grads), op=ReduceOp.MAX, axis=axis)
         if int(agreed.item()) == 0:
             self.consecutive = 0
@@ -146,6 +165,9 @@ class NonFiniteGuard:
                     if g.is_floating_point() else g for g in grads], False
         self.skipped += 1
         _bump("skipped")
+        timeline_mod.engine_event(
+            timeline_mod.NONFINITE_SKIP, serial=self._serial,
+            policy=self.policy, consecutive=self.consecutive)
         if self.policy == "raise" and self.consecutive >= self.limit:
             raise NonFiniteGradientError(self.consecutive, self.limit)
         return grads, True

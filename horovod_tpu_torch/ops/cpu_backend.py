@@ -7,9 +7,16 @@ rank in one gang compute the same bits:
   persistent fusion buffer in place; 16- and 8-bit floats reduce in fp32
   and round back at every hop (``common/floats.py`` gives the rounding of
   ``ml_dtypes``, which the port does not use);
+* hierarchical allreduce (``HVD_HIERARCHICAL_ALLREDUCE``, at a block
+  topology): a node-local ring reduce-scatter, a cross-node ring allreduce
+  of the owned slice, a node-local ring allgather (Horovod's
+  ``NCCLHierarchicalAllreduce``: only 1/local_size of the bytes crosses
+  nodes);
 * Adasum: recursive distance-doubling partner exchange in float64
   (``ops/adasum.py``), at power-of-two world sizes;
-* allgather: ragged ring allgatherv over the negotiated first dims;
+* allgather: ragged ring allgatherv over the negotiated first dims; with
+  ``HVD_HIERARCHICAL_ALLGATHER`` at a block topology, a node-local ring,
+  a ring of the nodes' leaders, and each leader's fan-out to its node;
 * reducescatter: the ring's reduce-scatter walk shifted by one rank, on
   dim-0 row chunks;
 * broadcast: a star from the root; alltoall: size-1 rounds of pairwise
@@ -23,12 +30,15 @@ Arrays are numpy in their storage type (``uint16`` for bfloat16, ``uint8``
 for fp8; ``common/floats.py``); the response's ``tensor_type`` says what
 they hold.
 
-Left out until their features are ported (ROADMAP Queue 1, item 5): the
-hierarchical allreduce and allgather (the timeline and hierarchical data
-plane), collective deadlines (``HVD_COLLECTIVE_TIMEOUT``: every receive
-here blocks; only the always-on send-wait cap raises :class:`HopTimeout`),
-eviction's shrunken groups, the recovery ladder's ``WireCorruptionError``,
-and the trace spans and telemetry of the hops.
+The links are the engine's transports (``utils/transport.py``: TCP or a
+same-host shm ring; ``utils/ladder.py`` under ``HVD_WIRE_CRC``, whose
+exhausted link raises ``WireCorruptionError`` out of a hop).
+
+Left out until their features are ported (ROADMAP Queue 1, item 5):
+collective deadlines (5.3, ``HVD_COLLECTIVE_TIMEOUT``: every receive here
+blocks; only the always-on send-wait cap raises :class:`HopTimeout`),
+eviction's shrunken groups (5.3), and the trace spans and telemetry of the
+hops (5.5).
 """
 
 from __future__ import annotations
@@ -223,6 +233,64 @@ def _ring_allreduce_group(engine, flat: np.ndarray, op: ReduceOp,
     return flat
 
 
+def _local_group(engine):
+    L = engine.local_size
+    return [engine.cross_rank * L + i for i in range(L)]
+
+
+def _cross_group(engine):
+    L = engine.local_size
+    return [k * L + engine.local_rank for k in range(engine.cross_size)]
+
+
+def hierarchical_allreduce_flat(engine, flat: np.ndarray, op: ReduceOp,
+                                dt: DataType) -> np.ndarray:
+    """Two-level allreduce: node-local ring reduce-scatter, cross-node ring
+    allreduce of the owned 1/local_size slice, node-local ring allgather.
+    Needs the launcher's block rank layout, which
+    ``engine.hierarchical_topology_ok()`` checks before dispatching here.
+    In place on ``flat``, as :func:`_ring_allreduce_group` is."""
+    L = engine.local_size
+    li = engine.local_rank
+    local = _local_group(engine)
+    right_rank = local[(li + 1) % L]
+    left_rank = local[(li - 1) % L]
+    right = _transport(engine, right_rank)
+    left = _transport(engine, left_rank)
+    bounds = _chunk_bounds(flat.size, L)
+    max_chunk = max(bounds[i + 1] - bounds[i] for i in range(L))
+    fb = engine._fusion_buf
+    hop = fb.hop_view(max_chunk, flat.dtype)
+    hop_mv = memoryview(hop.view(np.uint8))
+    seg = _segment_elems(engine, flat.dtype.itemsize)
+
+    # Phase 1: node-local ring reduce-scatter.
+    for step in range(L - 1):
+        send_idx = (li - step) % L
+        recv_idx = (li - step - 1) % L
+        ticket = right.send(flat[bounds[send_idx]:bounds[send_idx + 1]])
+        _recv_combine(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]],
+                      hop, hop_mv, op, dt, seg, fb)
+        _wait_send(right, ticket, right_rank)
+
+    # Phase 2: cross-node ring allreduce of the owned, fully node-reduced
+    # chunk, in place on its slice of the fusion buffer.
+    own = (li + 1) % L
+    own_slice = flat[bounds[own]:bounds[own + 1]]
+    if own_slice.size:
+        _ring_allreduce_group(engine, own_slice, op, dt,
+                              _cross_group(engine), engine.cross_rank)
+
+    # Phase 3: node-local ring allgather.
+    for step in range(L - 1):
+        send_idx = (li + 1 - step) % L
+        recv_idx = (li - step) % L
+        ticket = right.send(flat[bounds[send_idx]:bounds[send_idx + 1]])
+        _recv_into(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]])
+        _wait_send(right, ticket, right_rank)
+    return flat
+
+
 def _adasum_flat(engine, flat: np.ndarray, dt: DataType) -> np.ndarray:
     """Adasum by recursive distance-doubling partner exchange in float64;
     power-of-two world sizes only."""
@@ -282,8 +350,13 @@ def allreduce(engine, entries, resp: Response):
         fused = False
 
     group, me = resp_group(engine, resp)
+    # The JAX package's dispatch chain: Adasum, then the hierarchical
+    # allreduce, then the flat ring.
     if op == ReduceOp.ADASUM and not resp.process_set_id:
         reduced = _adasum_flat(engine, flat, dt)
+    elif (not resp.process_set_id and engine.hierarchical_allreduce
+          and engine.hierarchical_topology_ok()):
+        reduced = hierarchical_allreduce_flat(engine, flat, op, dt)
     else:
         reduced = _ring_allreduce_group(engine, flat, op, dt, group, me)
     fused = fused and reduced is flat
@@ -309,7 +382,77 @@ def allreduce(engine, entries, resp: Response):
     return fb.unpack(reduced, entries)
 
 
+def _allgather_hierarchical(engine, entries, resp: Response):
+    """Two-level allgatherv (Horovod's ``MPIHierarchicalAllgather`` role):
+    a node-local ragged ring, a ring of the nodes' leaders (local rank 0)
+    over the node blocks, and each leader's fan-out of the full buffer to
+    its node.  The block rank layout makes node blocks contiguous in rank
+    order, so the output is the flat ring's."""
+    L, li = engine.local_size, engine.local_rank
+    C = engine.cross_size
+    local = _local_group(engine)
+    dtype = floats.storage_dtype(resp.tensor_type)
+    results = []
+    for e in entries:
+        rest_shape = e.array.shape[1:] if e.array.ndim > 0 else ()
+        first_dims = resp.tensor_sizes
+
+        # Phase 1: node-local ragged ring allgatherv (raw bytes).
+        blocks: List[Optional[bytes]] = [None] * L
+        blocks[li] = np.ascontiguousarray(e.array).tobytes()
+        right_rank = local[(li + 1) % L]
+        left_rank = local[(li - 1) % L]
+        right = _transport(engine, right_rank)
+        left = _transport(engine, left_rank)
+        for step in range(L - 1):
+            send_idx = (li - step) % L
+            recv_idx = (li - step - 1) % L
+            ticket = right.send(blocks[send_idx])
+            blocks[recv_idx] = _recv(left)
+            _wait_send(right, ticket, right_rank)
+        node_block = b"".join(blocks)
+
+        if li == 0:
+            # Phase 2: the leaders' ragged ring allgatherv of node blocks.
+            me = engine.cross_rank
+            nblocks: List[Optional[bytes]] = [None] * C
+            nblocks[me] = node_block
+            if C > 1:
+                nright_rank = ((me + 1) % C) * L
+                nleft_rank = ((me - 1) % C) * L
+                nright = _transport(engine, nright_rank)
+                nleft = _transport(engine, nleft_rank)
+                for step in range(C - 1):
+                    send_idx = (me - step) % C
+                    recv_idx = (me - step - 1) % C
+                    ticket = nright.send(nblocks[send_idx])
+                    nblocks[recv_idx] = _recv(nleft)
+                    _wait_send(nright, ticket, nright_rank)
+            full = b"".join(nblocks)
+            # Phase 3: fan the full buffer out to the rest of the node.
+            tickets = [(r, _transport(engine, r),
+                        _transport(engine, r).send(full))
+                       for r in local[1:]]
+            for r, s, ticket in tickets:
+                _wait_send(s, ticket, r)
+        else:
+            full = _recv(_transport(engine, local[0]))
+
+        arr = np.frombuffer(full, dtype=dtype).copy()
+        results.append(arr.reshape((sum(first_dims),) + rest_shape))
+    return results
+
+
 def allgather(engine, entries, resp: Response):
+    """Ragged allgatherv, one entry per response: the hierarchical path
+    under the JAX package's conditions, else the flat ring."""
+    if (not resp.process_set_id and engine.hierarchical_allgather
+            and engine.hierarchical_topology_ok()):
+        return _allgather_hierarchical(engine, entries, resp)
+    return _allgather_flat(engine, entries, resp)
+
+
+def _allgather_flat(engine, entries, resp: Response):
     """Ragged ring allgatherv, one entry per response.  For a process set
     the ring walks the member list (``resp.tensor_sizes`` is in member
     order)."""

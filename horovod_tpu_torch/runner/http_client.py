@@ -15,8 +15,12 @@ failure.  Writes under ``elastic/`` carry the process's membership epoch
 (``HVD_ELASTIC_EPOCH``), and the server's 409 for a stale one raises
 :class:`~horovod_tpu_torch.common.types.FencedError`.
 
-Engine hooks left out until the port has the eager engine: the ``kv.*``
-fault-injection sites, the retry counter and the flight recorder's note.
+Every attempt of a request fires its fault site (``kv.put`` or
+``kv.get``, with the key as detail) before it goes out, so that an
+injected fault rides the retries.
+
+Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the retry
+counter and the flight recorder's note.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import urllib.request
 import zlib
 from typing import List, Optional, Tuple
 
+from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.common.retry import retry_call
 from horovod_tpu_torch.common.types import FencedError
 from horovod_tpu_torch.runner import secret as secret_mod
@@ -125,9 +130,13 @@ class KVClient:
                 self.secret, method, path, body or b""))
         return req
 
-    def _with_retry(self, fn, key: str):
+    def _with_retry(self, fn, site: str, key: str):
+        def attempt():
+            _fi.fire(site, key)
+            return fn()
+
         return retry_call(
-            fn, attempts=self.attempts,
+            attempt, attempts=self.attempts,
             base_delay=self.retry_base, max_delay=self.retry_max,
             is_retryable=_retryable,
             on_retry=lambda attempt, exc: self._rotate_endpoint(),
@@ -165,7 +174,7 @@ class KVClient:
                 self._raise_if_fenced(e, key)
                 raise
 
-        self._with_retry(go, key)
+        self._with_retry(go, "kv.put", key)
 
     def get(self, key: str) -> Optional[str]:
         b = self.get_bytes(key)
@@ -182,7 +191,7 @@ class KVClient:
                     return None
                 raise
 
-        return self._with_retry(go, key)
+        return self._with_retry(go, "kv.get", key)
 
     def wait_get(self, key: str, timeout: float = 60.0,
                  interval: float = 0.05) -> str:

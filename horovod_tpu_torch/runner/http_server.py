@@ -12,12 +12,14 @@ refused with 403.  A mutation of an ``elastic/*`` key may carry
 the newest epoch of each elastic namespace and answers an older write with
 409, so that a zombie rank cannot corrupt a re-formed gang's state.
 
+The ``kv.server.request`` fault site turns a request into a 503, the
+retryable shed of a loaded or restarting server.
+
 Left out until their features are ported: write-through mirroring to
-standbys, the ``/kvsync`` catch-up, the command line and the launcher's
-direct reads (ROADMAP Queue 1, item 6, the periphery), ``/kvlist/`` (the
-elastic driver's roster, item 5.7), the ``kv.server.request`` and
-``kv.mirror`` fault sites (item 5.6) and the fenced-writes counter (item
-5.5).
+standbys with its ``kv.mirror`` fault site, the ``/kvsync`` catch-up, the
+command line and the launcher's direct reads (ROADMAP Queue 1, item 6,
+the periphery), ``/kvlist/`` (the elastic driver's roster, item 5.7) and
+the fenced-writes counter (item 5.5).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
 
+from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.runner import secret as secret_mod
 
 # A writer's membership epoch on elastic/* mutations.
@@ -37,6 +40,16 @@ class _Handler(BaseHTTPRequestHandler):
 
     def log_message(self, fmt, *args):  # silence request logging
         pass
+
+    def _chaos_unavailable(self) -> bool:
+        """The ``kv.server.request`` fault site: an injected fault answers
+        this request with a 503."""
+        try:
+            _fi.fire("kv.server.request", f"{self.command} {self.path}")
+        except _fi.InjectedFault:
+            self._reply(503)
+            return True
+        return False
 
     def _store(self) -> Dict[str, bytes]:
         return self.server.kv_store  # type: ignore[attr-defined]
@@ -87,6 +100,8 @@ class _Handler(BaseHTTPRequestHandler):
             else None
 
     def do_GET(self):
+        if self._chaos_unavailable():
+            return
         if self.path == "/health":
             self._reply(200, b"ok")
             return
@@ -108,6 +123,10 @@ class _Handler(BaseHTTPRequestHandler):
         key = self._key()
         n = int(self.headers.get("Content-Length", "0"))
         body = self.rfile.read(n)
+        # After the body's read, so that a 503 leaves the keep-alive
+        # stream framed.
+        if self._chaos_unavailable():
+            return
         if not self._authorized(body):
             self._reply(403)
             return
@@ -119,6 +138,8 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(200)
 
     def do_DELETE(self):
+        if self._chaos_unavailable():
+            return
         if not self._authorized():
             self._reply(403)
             return

@@ -18,23 +18,33 @@ so that port ranks and JAX ``PyEngine`` ranks (``HVD_TPU_CORE=py``) form
 one gang.  The port plans the flat star: a JAX rank in a gang with port
 ranks runs with ``HVD_CTRL_TREE=0``.
 
-Left out until their features are ported, in the order of ROADMAP Queue 1,
-item 5 (setting a knob that turns one on raises ``NotImplementedError``
+The data plane: same-host peers pair over a shm ring unless
+``HVD_SHM_DISABLE``, the others over TCP (``utils/transport.py``); with
+``HVD_WIRE_CRC=1`` every pair is a self-healing ``LadderLink``
+(``utils/ladder.py``) and the bootstrap listener stays open for its
+re-dials.  ``HVD_HIERARCHICAL_ALLREDUCE``/``ALLGATHER`` turn on the
+two-level collectives at a block topology
+(:meth:`PyEngine.hierarchical_topology_ok`).  ``HVD_TIMELINE`` makes rank
+0 write a Chrome-tracing timeline (``utils/timeline.py``), and
+``HOROVOD_FAULT_PLAN`` arms the fault sites (``common/fault_injection.py``;
+``engine.cycle``, ``ctrl.worker.send`` and ``ctrl.coord.send`` here).
+
+Left out until their features are ported, by their items of ROADMAP Queue
+1, item 5 (setting a knob that turns one on raises ``NotImplementedError``
 at ``init()``, so that a port rank never runs another protocol quietly):
 
-1. the timeline (``HVD_TIMELINE``) and the hierarchical data plane
-   (``HVD_HIERARCHICAL_ALLREDUCE``/``ALLGATHER``);
-2. the shm transport (the port pairs over TCP) and the recovery ladder
-   (``HVD_WIRE_CRC``);
-3. heartbeats, eviction and ``EVICT`` (``HVD_HEARTBEAT_TIMEOUT``),
-   collective deadlines, abort and replay (``HVD_COLLECTIVE_TIMEOUT``);
-4. the control tree (``HVD_CTRL_TREE`` is not read: the star is flat);
-5. the autotuner (``HVD_AUTOTUNE``), telemetry (``HVD_METRICS*``,
-   ``HVD_STRAGGLER_WARN_MS``), the trace (``HVD_TRACE``) with its clock
-   pings, and the flight recorder;
-6. fault injection (``HOROVOD_FAULT_PLAN``);
-7. elastic membership epochs (``HVD_ELASTIC_EPOCH``: every frame carries
-   epoch 0), then the serving loop's ``serve_broadcast``/``serve_recv``.
+* 5.3: heartbeats, eviction and ``EVICT`` (``HVD_HEARTBEAT_TIMEOUT``),
+  collective deadlines, abort and replay (``HVD_COLLECTIVE_TIMEOUT``;
+  until then a ``WireCorruptionError`` fails its collective on this rank,
+  with no gang-wide agreement);
+* 5.4: the control tree (``HVD_CTRL_TREE`` is not read: the star is
+  flat);
+* 5.5: the autotuner (``HVD_AUTOTUNE``), telemetry (``HVD_METRICS*``,
+  ``HVD_STRAGGLER_WARN_MS``), the trace (``HVD_TRACE``) with its clock
+  pings, and the flight recorder;
+* 5.7: elastic membership epochs (``HVD_ELASTIC_EPOCH``: every frame
+  carries epoch 0), then the serving loop's
+  ``serve_broadcast``/``serve_recv``.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.common import floats
 from horovod_tpu_torch.common import response_cache as rcache
 from horovod_tpu_torch.common import wire
@@ -65,6 +76,7 @@ from horovod_tpu_torch.common.types import (
 )
 from horovod_tpu_torch.utils import env as env_util
 from horovod_tpu_torch.utils import socketutil as su
+from horovod_tpu_torch.utils import timeline as timeline_mod
 
 _OP_NAMES = {
     RequestType.ALLREDUCE: "ALLREDUCE",
@@ -80,12 +92,6 @@ _OP_NAMES = {
 # when it is on: "bool" true, "positive" > 0, "set" non-empty; the
 # ROADMAP Queue 1 item that brings it).
 _LEFT_OUT = (
-    ("HVD_TIMELINE", "set", "5.1, the timeline"),
-    ("HVD_HIERARCHICAL_ALLREDUCE", "bool",
-     "5.1, the hierarchical data plane"),
-    ("HVD_HIERARCHICAL_ALLGATHER", "bool",
-     "5.1, the hierarchical data plane"),
-    ("HVD_WIRE_CRC", "bool", "5.2, the recovery ladder"),
     ("HVD_HEARTBEAT_TIMEOUT", "positive", "5.3, heartbeats"),
     ("HOROVOD_HEARTBEAT_TIMEOUT", "positive", "5.3, heartbeats"),
     ("HVD_COLLECTIVE_TIMEOUT", "positive",
@@ -96,7 +102,6 @@ _LEFT_OUT = (
     ("HVD_METRICS_FILE", "set", "5.5, telemetry"),
     ("HVD_STRAGGLER_WARN_MS", "positive", "5.5, telemetry"),
     ("HVD_TRACE", "bool", "5.5, the trace"),
-    ("HOROVOD_FAULT_PLAN", "set", "5.6, fault injection"),
     ("HVD_ELASTIC_EPOCH", "set", "5.7, elastic"),
 )
 
@@ -262,11 +267,17 @@ class SingleProcessEngine(_EngineBase):
 
     def __init__(self):
         super().__init__(0, 1, 0, 1, 0, 1)
+        self.timeline = timeline_mod.from_env(0)
 
     def shutdown(self):
-        pass
+        self.timeline.shutdown()
 
-    def _finish(self, result):
+    def _finish(self, name, op_name, result):
+        self.timeline.negotiate_start(name, op_name)
+        self.timeline.negotiate_rank_ready(name, 0)
+        self.timeline.negotiate_end(name)
+        self.timeline.start(name, op_name)
+        self.timeline.end(name)
         h = self.handles.allocate()
         self.handles.mark_done(h, Status.ok(), result)
         return h
@@ -285,16 +296,17 @@ class SingleProcessEngine(_EngineBase):
                                prescale * postscale)
         else:
             out = out.copy()
-        return self._finish(out)
+        return self._finish(name, "ALLREDUCE", out)
 
     def allgather_async(self, name, array, process_set=None, dtype=None):
         self._check_ps(process_set)
-        return self._finish(np.asarray(array).copy())
+        return self._finish(name, "ALLGATHER", np.asarray(array).copy())
 
     def reducescatter_async(self, name, array, op=ReduceOp.SUM,
                             process_set=None, dtype=None):
         self._check_ps(process_set)
-        return self._finish(np.asarray(array).copy())
+        return self._finish(name, "REDUCESCATTER",
+                            np.asarray(array).copy())
 
     def broadcast_async(self, name, array, root_rank=0, process_set=None,
                         dtype=None):
@@ -302,7 +314,7 @@ class SingleProcessEngine(_EngineBase):
         if root_rank != 0:
             raise ValueError(
                 f"broadcast root rank {root_rank} out of range for size 1")
-        return self._finish(np.asarray(array).copy())
+        return self._finish(name, "BROADCAST", np.asarray(array).copy())
 
     def alltoall_async(self, name, array, splits=None, process_set=None,
                        dtype=None):
@@ -315,7 +327,7 @@ class SingleProcessEngine(_EngineBase):
                     "alltoall needs one split per participant (1)")
             if sum(splits) != (arr.shape[0] if arr.ndim else 0):
                 raise ValueError("splits must sum to dim 0")
-        return self._finish(arr.copy())
+        return self._finish(name, "ALLTOALL", arr.copy())
 
     def barrier(self, process_set=None):
         self._check_ps(process_set)
@@ -344,6 +356,7 @@ class PyEngine(_EngineBase):
         super().__init__(rank, size, local_rank, local_size,
                          cross_rank, cross_size)
         self.log = logging.getLogger(f"horovod_tpu_torch[{rank}]")
+        self.timeline = timeline_mod.from_env(rank)
         self.cycle_time = env_util.cycle_time_ms() / 1e3
         self.fusion_threshold = env_util.fusion_threshold_bytes()
         self.ring_segment_bytes = env_util.ring_segment_bytes()
@@ -353,6 +366,12 @@ class PyEngine(_EngineBase):
             env_util.STALL_SHUTDOWN_TIME, 0.0)
         self.stall_check_disable = env_util.get_bool(
             env_util.STALL_CHECK_DISABLE, False)
+        # The two-level data plane, effective only at a block topology
+        # (hierarchical_topology_ok).
+        self.hierarchical_allreduce = env_util.get_bool(
+            env_util.HIERARCHICAL_ALLREDUCE, False)
+        self.hierarchical_allgather = env_util.get_bool(
+            env_util.HIERARCHICAL_ALLGATHER, False)
         self.epoch = 0
         # When a list, every executed response appends (type, tensors,
         # bytes, from_cache) to it: the card's engine phase reads it.
@@ -393,7 +412,11 @@ class PyEngine(_EngineBase):
         self._resend_uncached: set = set()
         self._hit_ranks: Dict[str, set] = {}
 
-        self._bootstrap(rdv_addr, rdv_port)
+        try:
+            self._bootstrap(rdv_addr, rdv_port)
+        except BaseException:
+            self.timeline.shutdown()
+            raise
         self._bg = threading.Thread(
             target=self._background_loop, name="hvd-background", daemon=True)
         self._bg.start()
@@ -407,10 +430,34 @@ class PyEngine(_EngineBase):
         from horovod_tpu_torch.ops.fusion_buffer import FusionBuffer
         from horovod_tpu_torch.utils import transport as tpt
 
-        self._data, self._ctrl_sock, self._ctrl_socks = bootstrap_mesh(
-            self.rank, self.size, rdv_addr, rdv_port)
-        self._transports = tpt.build_transports(self._data)
-        self._senders = {r: t.sender for r, t in self._transports.items()}
+        # The recovery ladder keeps the bootstrap listener open for
+        # re-dials, and remembers every peer's address.
+        ladder_on = env_util.wire_crc()
+        self._reconnect_listener = None
+        if ladder_on:
+            (self._data, self._ctrl_sock, self._ctrl_socks, kv, kv_prefix,
+             mesh_peers, mesh_listener) = bootstrap_mesh(
+                self.rank, self.size, rdv_addr, rdv_port,
+                keep_listener=True)
+            from horovod_tpu_torch.utils import ladder
+
+            self._transports, self._reconnect_listener = \
+                ladder.build_ladder_links(
+                    self.rank, self.size, self._data, kv, kv_prefix,
+                    mesh_peers, mesh_listener, epoch=self.epoch)
+            # Ladder links own their sender threads.
+            self._senders = {}
+        else:
+            (self._data, self._ctrl_sock, self._ctrl_socks, kv,
+             kv_prefix) = bootstrap_mesh(self.rank, self.size, rdv_addr,
+                                         rdv_port)
+            self._transports = tpt.build_transports(
+                self.rank, self.size, self._data, kv, kv_prefix)
+            # A shm transport's sender thread lives inside it: one sender
+            # thread a peer either way.
+            self._senders = {r: t.sender
+                             for r, t in self._transports.items()
+                             if t.kind == "tcp"}
         self._fusion_buf = FusionBuffer()
         self._response_inbox: List[bytes] = []
         self._response_lock = threading.Lock()
@@ -596,9 +643,26 @@ class PyEngine(_EngineBase):
         self._loop_exited.wait(timeout=10)
         self._shutdown_flag.set()
         self._bg.join(timeout=10)
-        # Stop the senders first (they drain while the sockets are open),
-        # then close the sockets, which also unblocks a sender stuck
-        # writing to a dead peer, then join.
+        self.timeline.shutdown()
+        # The ladder's listener first, so that no re-dial lands on a dying
+        # link; then the shm transports and ladder links (each drains,
+        # breaks a writer spinning on a dead peer's full ring, joins its
+        # threads and unmaps its segment, whose name was unlinked at
+        # pairing); then the senders (they drain while the sockets are
+        # open); then the sockets, which also unblocks a sender stuck
+        # writing to a dead peer; then the joins.
+        if self._reconnect_listener is not None:
+            try:
+                self._reconnect_listener.close()
+            except Exception:
+                pass
+        transports = list(self._transports.values())
+        for t in transports:
+            if t.kind != "tcp":
+                try:
+                    t.close(timeout=2.0)
+                except Exception:
+                    pass
         senders = list(self._senders.values())
         for snd in senders:
             try:
@@ -616,7 +680,17 @@ class PyEngine(_EngineBase):
                 pass
         for snd in senders:
             snd.thread.join(timeout=2.0)
+        for t in transports:
+            try:
+                t.join(timeout=2.0)
+            except Exception:
+                pass
         self._transports = {}
+
+    def transport_media(self) -> Dict[int, str]:
+        """Peer rank -> what carries that pair's bytes now: ``"shm"`` or
+        ``"tcp"`` (a ladder link reports its current mode)."""
+        return {r: t.medium for r, t in sorted(self._transports.items())}
 
     # ------------------------------------------------------------------
     # background loop
@@ -626,6 +700,7 @@ class PyEngine(_EngineBase):
         try:
             while not self._shutdown_flag.is_set():
                 t0 = time.monotonic()
+                self.timeline.mark_cycle_start()
                 if not self._run_loop_once():
                     break
                 dt = time.monotonic() - t0
@@ -655,6 +730,7 @@ class PyEngine(_EngineBase):
             self.handles.mark_done(jh, Status.ok(), None)
 
     def _run_loop_once(self) -> bool:
+        _fi.fire("engine.cycle", str(self.rank))
         with self._queue_lock:
             msgs = self._request_queue
             self._request_queue = []
@@ -734,6 +810,7 @@ class PyEngine(_EngineBase):
                                                cache_hits=hit_events,
                                                epoch=self.epoch)
             try:
+                _fi.fire("ctrl.worker.send", str(self.rank))
                 with self._ctrl_send_lock:
                     su.send_frame(self._ctrl_sock, su.TAG_REQUEST_LIST,
                                   payload)
@@ -779,18 +856,25 @@ class PyEngine(_EngineBase):
 
     def _apply_params(self, params) -> None:
         """A coordinator's knob broadcast.  The port's coordinator sends
-        none (no autotuner); a JAX coordinator's may reach a port worker,
-        but its hierarchical flags must stay off."""
+        none (no autotuner); a JAX coordinator's may reach a port
+        worker."""
         fusion, cycle_s, cache_on, hier_ar, hier_ag = params[:5]
-        if hier_ar or hier_ag:
-            raise NotImplementedError(
-                "the coordinator turned on the hierarchical data plane, "
-                "which the port does not run (ROADMAP Queue 1, item 5.1)")
         self.fusion_threshold = fusion
         self.cycle_time = cycle_s
         self._cache_classify_enabled = cache_on
+        self.hierarchical_allreduce = hier_ar
+        self.hierarchical_allgather = hier_ag
         if len(params) > 5:
             self.ring_segment_bytes = params[5]
+
+    def hierarchical_topology_ok(self) -> bool:
+        """True when the two-level data plane can run: a real local/cross
+        split in the launcher's block rank layout."""
+        from horovod_tpu_torch.runner.discovery import block_topology_ok
+
+        return block_topology_ok(self.rank, self.size, self.local_rank,
+                                 self.local_size, self.cross_rank,
+                                 self.cross_size)
 
     # -- coordinator ----------------------------------------------------
 
@@ -811,6 +895,16 @@ class PyEngine(_EngineBase):
                         if nm not in ready:
                             ready.append(nm)
                 return
+            if self.timeline.enabled:
+                # Start on the first request for this key: a process set
+                # may not hold rank 0, and an End without a Start breaks
+                # the trace.
+                key = _MessageTable.key_of(req)
+                if key not in self._msg_table.entries:
+                    self.timeline.negotiate_start(
+                        req.tensor_name, _OP_NAMES[req.request_type])
+                self.timeline.negotiate_rank_ready(
+                    req.tensor_name, req.request_rank)
             if self._msg_table.increment(req, len(self._joined_ranks)):
                 ready.append(_MessageTable.key_of(req))
 
@@ -852,6 +946,8 @@ class PyEngine(_EngineBase):
         for key in ready:
             reqs = self._msg_table.pop(key)
             name = reqs[0].tensor_name  # the key may be set-scoped
+            if self.timeline.enabled:
+                self.timeline.negotiate_end(name)
             hit_ranks = self._hit_ranks.pop(key, set())
             contributors = {r.request_rank for r in reqs}
             ent_pos = -1
@@ -890,6 +986,7 @@ class PyEngine(_EngineBase):
                             hit_positions=hit_positions, epoch=self.epoch)
                     payload = shared
                 try:
+                    _fi.fire("ctrl.coord.send", str(r))
                     with self._ctrl_send_lock:
                         su.send_frame(s, su.TAG_RESPONSE_LIST, payload)
                 except (ConnectionError, OSError):
@@ -1155,6 +1252,8 @@ class PyEngine(_EngineBase):
             self._cache.put(resp)
 
         entries = self._get_entries(resp)
+        op_name = resp.response_type.name
+        self.timeline.start(resp.tensor_names[0], op_name)
         if self.response_log is not None:
             self.response_log.append(
                 (resp.response_type.name, len(entries),
@@ -1177,10 +1276,14 @@ class PyEngine(_EngineBase):
                 raise RuntimeError(f"bad response type {resp.response_type}")
             status = Status.ok()
         except Exception as e:
-            self.log.error("collective %s failed: %r",
-                           resp.response_type.name, e)
+            # A WireCorruptionError (the ladder exhausted every rung on a
+            # link) lands here too: with no collective deadline (the port
+            # has none yet) it is the collective's error on this rank, as
+            # in the JAX engine.
+            self.log.error("collective %s failed: %r", op_name, e)
             results = [None] * len(entries)
             status = Status.unknown_error(str(e))
+        self.timeline.end(resp.tensor_names[0])
         for e, res in zip(entries, results):
             self._release_name(e.name)
             if e.handle >= 0:

@@ -16,8 +16,10 @@ to back off), a malformed body 400, and a request that outlives
 ``timeout_s`` 504 (the request itself stays admitted).  A follower whose
 leader is unknown or unreachable answers 503 too.
 
-Engine hooks left out until the port has the eager engine: the
-``serve.admit`` fault-injection site and the request counters.
+The ``serve.admit`` fault site turns a request into a 503 shed.
+
+Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the
+request counters.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
+from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.serving.scheduler import QueueFull, Scheduler
 
 
@@ -39,6 +42,16 @@ class _Handler(BaseHTTPRequestHandler):
 
     def log_message(self, fmt, *args):  # silence request logging
         pass
+
+    def _chaos_unavailable(self) -> bool:
+        """The ``serve.admit`` fault site: an injected fault sheds this
+        request with a 503."""
+        try:
+            _fi.fire("serve.admit", f"{self.command} {self.path}")
+        except _fi.InjectedFault:
+            self._send(503, b"", "text/plain")
+            return True
+        return False
 
     def _send(self, code: int, body: bytes, ctype: str) -> None:
         self.send_response(code)
@@ -52,6 +65,8 @@ class _Handler(BaseHTTPRequestHandler):
                    "application/json")
 
     def do_GET(self):
+        if self._chaos_unavailable():
+            return
         if self.path == "/health":
             self._send(200, b"ok", "text/plain")
             return
@@ -70,6 +85,8 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(404, b"", "text/plain")
 
     def do_POST(self):
+        if self._chaos_unavailable():
+            return
         if self.path != "/generate":
             self._send(404, b"", "text/plain")
             return

@@ -27,8 +27,15 @@ loads but is not what was written (a torn write, bit rot):
   its manifest and falls back, newest first, past any that fail, raising
   :class:`CheckpointVerifyError` only when none verifies.
 
-Not ported yet: the ``CKPT_VERIFY_FAIL`` timeline event and the
-``ckpt.corrupt`` fault-injection site, which belong to the eager engine.
+A checkpoint that fails verification on restore records a
+``CKPT_VERIFY_FAIL`` instant on the engine's timeline
+(``utils/timeline.py``).  The ``ckpt.corrupt`` fault site (a ``corrupt``
+fault, detail: the sealed directory) flips one byte in the middle of the
+largest file right after the manifest is sealed: the torn write that
+verification exists to catch.
+
+Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the
+verification counters and the flight recorder's note.
 """
 
 from __future__ import annotations
@@ -45,7 +52,9 @@ import torch
 from torch.utils import _pytree
 
 from horovod_tpu_torch import basics
+from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.utils import env as env_util
+from horovod_tpu_torch.utils import timeline as timeline_mod
 
 logger = logging.getLogger("horovod_tpu_torch.checkpoint")
 
@@ -225,6 +234,25 @@ def list_steps(root: str) -> List[Tuple[int, str]]:
     return sorted(out, reverse=True)
 
 
+def _corrupt_one_file(ckpt_dir: str) -> None:
+    """The ``ckpt.corrupt`` fault: flip one byte in the middle of the
+    largest file, after the manifest was sealed."""
+    rels = _walk_files(ckpt_dir)
+    if not rels:
+        return
+    target = max(rels, key=lambda r: os.path.getsize(
+        os.path.join(ckpt_dir, r)))
+    full = os.path.join(ckpt_dir, target)
+    size = os.path.getsize(full)
+    if size == 0:
+        return
+    with open(full, "r+b") as fh:
+        fh.seek(size // 2)
+        b = fh.read(1)
+        fh.seek(size // 2)
+        fh.write(bytes([b[0] ^ 0xFF]))
+
+
 def _prune(root: str, keep: int) -> None:
     for _, d in list_steps(root)[keep:]:
         shutil.rmtree(d, ignore_errors=True)
@@ -283,6 +311,8 @@ def save_verified(root: str, tree: Any, *, step: int,
         os.rename(tmp, final)
         _write_manifest(final, step,
                         env_util.get_int(env_util.ELASTIC_EPOCH, 0))
+        if _fi.should_corrupt("ckpt.corrupt", final):
+            _corrupt_one_file(final)
         _prune(root, keep)
     if collective:
         _gang_barrier()  # the sealed dir is visible on every rank's return
@@ -293,7 +323,8 @@ def restore_verified(root: str, template: Optional[Any] = None, *,
                      mesh=None) -> Tuple[Any, int]:
     """Newest-first verified restore: ``(tree, step)`` from the newest
     checkpoint whose manifest checks out, falling back past any that do not
-    (each fallback logs a warning).  Raises ``FileNotFoundError`` with no
+    (each fallback logs a warning and records ``CKPT_VERIFY_FAIL`` on the
+    timeline).  Raises ``FileNotFoundError`` with no
     candidates at all, :class:`CheckpointVerifyError` when none verify."""
     candidates = list_steps(root)
     if not candidates:
@@ -304,6 +335,8 @@ def restore_verified(root: str, template: Optional[Any] = None, *,
         if not ok:
             logger.warning("checkpoint %s failed verification (%s); "
                            "falling back to the next newest", d, reason)
+            timeline_mod.engine_event(
+                timeline_mod.CKPT_VERIFY_FAIL, path=d, reason=reason)
             failures.append((d, reason))
             continue
         return restore(d, template, mesh=mesh), step

@@ -26,6 +26,36 @@ SEND_WAIT_CAP_S = "HVD_SEND_WAIT_CAP_S"
 STALL_CHECK_DISABLE = "HVD_STALL_CHECK_DISABLE"
 STALL_CHECK_TIME = "HVD_STALL_CHECK_TIME_SECONDS"
 STALL_SHUTDOWN_TIME = "HVD_STALL_SHUTDOWN_TIME_SECONDS"
+# The two-level data plane (ops/cpu_backend.py): a node-local ring, a
+# cross-node ring over the owned slice, and a node-local allgather.
+# Effective only at a block topology (runtime_py.hierarchical_topology_ok).
+HIERARCHICAL_ALLREDUCE = "HVD_HIERARCHICAL_ALLREDUCE"
+HIERARCHICAL_ALLGATHER = "HVD_HIERARCHICAL_ALLGATHER"
+# The Chrome-tracing timeline (utils/timeline.py): the file rank 0
+# writes, and a CYCLE_START instant per background cycle.
+TIMELINE = "HVD_TIMELINE"
+TIMELINE_MARK_CYCLES = "HVD_TIMELINE_MARK_CYCLES"
+# The same-host shm transport (utils/transport.py).  SHM_DISABLE forces
+# every peer link onto TCP; SLOT_BYTES and SLOTS size each directed ring
+# (per peer pair: two rings of SLOTS slots of SLOT_BYTES payload each,
+# floors 4096 bytes and 2 slots); SPIN is the hot-spin count before a
+# wait starts yielding, SLEEP_US the ceiling of its micro-sleeps.
+SHM_DISABLE = "HVD_SHM_DISABLE"
+SHM_SLOT_BYTES = "HVD_SHM_SLOT_BYTES"
+SHM_SLOTS = "HVD_SHM_SLOTS"
+SHM_SPIN = "HVD_SHM_SPIN"
+SHM_SLEEP_US = "HVD_SHM_SLEEP_US"
+# The recovery ladder (utils/ladder.py).  WIRE_CRC=1 arms it: every data
+# frame gains a CRC-32 and sequence trailer, a corrupt frame is NACKed and
+# retransmitted (at most HOP_RETRIES times in a row a link), a dropped data
+# socket is re-dialed for up to RECONNECT_TIMEOUT_S, and a faulted shm
+# ring demotes its pair to TCP in place.  LADDER_RETAIN bounds each link's
+# replay buffer, in frames.  Off (default): the plain framing, no new
+# threads.
+WIRE_CRC = "HVD_WIRE_CRC"
+HOP_RETRIES = "HVD_HOP_RETRIES"
+RECONNECT_TIMEOUT_S = "HVD_RECONNECT_TIMEOUT_S"
+LADDER_RETAIN = "HVD_LADDER_RETAIN"
 
 # The non-finite gradient guard (integrity/nonfinite.py).
 NONFINITE_POLICY = "HVD_NONFINITE_POLICY"
@@ -88,6 +118,58 @@ def cycle_time_ms() -> float:
 def ring_segment_bytes() -> int:
     """Ring-hop receive segment; 0 (default) disables segmentation."""
     return max(0, get_int(RING_SEGMENT_BYTES, 0))
+
+
+def shm_disabled() -> bool:
+    """True when the same-host shm transport is forced off: every peer
+    link is TCP."""
+    return get_bool(SHM_DISABLE, False)
+
+
+def shm_slot_bytes() -> int:
+    """Payload bytes per shm ring slot; floor 4096."""
+    return max(4096, get_int(SHM_SLOT_BYTES, 256 * 1024))
+
+
+def shm_slots() -> int:
+    """Slots per directed shm ring; floor 2 (the writer fills one while
+    the reader drains another)."""
+    return max(2, get_int(SHM_SLOTS, 16))
+
+
+def shm_spin() -> int:
+    """Hot-spin iterations before a shm wait starts yielding: 64 where a
+    spare core can run the peer meanwhile, 0 on a single core."""
+    cpus = os.cpu_count() or 1
+    return max(0, get_int(SHM_SPIN, 64 if cpus > 1 else 0))
+
+
+def shm_sleep_us() -> int:
+    """Ceiling of a shm wait's escalating micro-sleeps, in microseconds;
+    default 200, floor 10."""
+    return max(10, get_int(SHM_SLEEP_US, 200))
+
+
+def wire_crc() -> bool:
+    """True when the recovery ladder is armed (default off)."""
+    return get_bool(WIRE_CRC, False)
+
+
+def hop_retries() -> int:
+    """A link's NACK-retransmit budget (consecutive failures) before it
+    is declared corrupt; floor 0."""
+    return max(0, get_int(HOP_RETRIES, 8))
+
+
+def reconnect_timeout_s() -> float:
+    """How long one dropped data socket may take to re-dial or
+    re-accept; floor 0.1 s."""
+    return max(0.1, get_float(RECONNECT_TIMEOUT_S, 20.0))
+
+
+def ladder_retain() -> int:
+    """Retained sent frames per link (the replay buffer); floor 2."""
+    return max(2, get_int(LADDER_RETAIN, 32))
 
 
 def send_wait_cap_s() -> float:

@@ -9,10 +9,13 @@ payload with one scatter-gather ``sendmsg``, :func:`recv_exact_into` and
 :class:`PeerSender` is one persistent sender thread per peer socket, fed
 by a queue, so that a ring hop overlaps its send with its receive.
 
-Left out until fault injection is ported (ROADMAP Queue 1, item 5): the
-``sock.*`` fault sites.  Tags the port does not send yet (the abort,
-serving, ladder, clock, blackbox and tree frames) keep their numbers here
-as the JAX package reserves them.
+The ``sock.send`` (every frame send), ``sock.recv`` (every exact
+receive), ``sock.connect`` (every dial) and ``sock.halfopen`` (the sender
+thread's send) fault sites fire where the JAX package fires them.  The
+recovery ladder's tags (``TAG_NACK``, ``TAG_RESUME``, ``TAG_FAILOVER``)
+ride the data links themselves, never the control star.  Tags the port
+does not send yet (the abort, serving, clock, blackbox and tree frames)
+keep their numbers here as the JAX package reserves them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import struct
 import threading
 import time
 from typing import Optional, Tuple
+
+from horovod_tpu_torch.common import fault_injection as _fi
 
 HEADER = struct.Struct("<BI")
 
@@ -51,6 +56,7 @@ TAG_FENCE = 21
 
 
 def send_frame(sock: socket.socket, tag: int, payload: bytes) -> None:
+    _fi.fire("sock.send", str(tag))
     sock.sendall(HEADER.pack(tag, len(payload)) + payload)
 
 
@@ -78,7 +84,9 @@ def send_frame_zc(sock: socket.socket, tag: int, payload) -> None:
     """Scatter-gather frame send: header and payload go to the kernel as
     one ``sendmsg`` (falling back to two ``sendall``s), with the payload
     read directly from the caller's buffer — zero copies in user space.
+    Fires the ``sock.send`` site, as :func:`send_frame` does.
     """
+    _fi.fire("sock.send", str(tag))
     view = _as_byte_view(payload)
     header = HEADER.pack(tag, len(view))
     if not len(view):
@@ -124,10 +132,13 @@ def recv_exact_into(sock: socket.socket, view: memoryview,
     ``deadline`` is an absolute ``time.monotonic()`` timestamp; when
     set, every ``recv_into`` runs under ``settimeout(remaining)`` and a
     :class:`TimeoutError` is raised once the deadline passes.  When
-    ``None`` (the default, and the only value the port passes until
-    deadlines are ported) there are no clock reads and no ``settimeout``
-    calls: it blocks until the bytes arrive or the peer closes.
+    ``None`` (the default, and what the collectives pass until deadlines
+    are ported; the ladder's handshakes pass one) there are no clock reads
+    and no ``settimeout`` calls: it blocks until the bytes arrive or the
+    peer closes.  Fires the
+    ``sock.recv`` site once a call.
     """
+    _fi.fire("sock.recv")
     got = 0
     n = len(view)
     if deadline is None:
@@ -305,6 +316,9 @@ class PeerSender:
                 seq, tag, payload = self._deque.popleft()
             try:
                 if self._exc is None:
+                    # A peer whose outbound path silently blackholes:
+                    # "halfopen" blocks here, then surfaces at wait().
+                    _fi.fire("sock.halfopen", str(tag))
                     send_frame_zc(self._sock, tag, payload)
             except BaseException as e:  # surface at wait()
                 with self._cv:
@@ -348,6 +362,7 @@ def connect_retry(host: str, port: int, timeout: float = 30.0,
             # Per-attempt dial timeout: the 5 s cap, shrunk to whatever
             # is left on the overall deadline near expiry — a negative
             # or zero timeout must never reach create_connection.
+            _fi.fire("sock.connect", f"{host}:{port}")
             s = socket.create_connection(
                 (host, port), timeout=min(5.0, remaining))
             configure_data_socket(s)

@@ -10,12 +10,17 @@ size and rendezvous come from ``HVD_*`` as the launcher sets them.  Every
 case (comma-separated in ``<cases>``) runs on seeded inputs that are the
 same bits in both packages, and the worker writes each result as
 ``(dtype name, shape, bytes)`` to ``<out_dir>/rank<r>.pkl``, with
-``SCENARIO_OK <case>`` on stdout per case that ran.  A port rank passes
+``SCENARIO_OK <case>`` on stdout per case that ran, and the media of its
+links and the fault plan's fired counts to ``<out_dir>/rank<r>.links.json``
+(the timeline, the ladder and the fault plan come from ``HVD_TIMELINE``,
+``HVD_WIRE_CRC`` and ``HOROVOD_FAULT_PLAN`` as the caller sets them).  A
+port rank passes
 torch tensors (numpy for the integer cases, whose results the JAX package
 returns in numpy's promoted type); a JAX rank passes numpy arrays
 (``ml_dtypes`` for bfloat16 and fp8).  The port rank imports no JAX.
 """
 
+import json
 import os
 import pickle
 import sys
@@ -285,8 +290,91 @@ def case_adasum(rank, size):
                hvd.allreduce(t, op=hvd.Adasum, name=f"ada.{dtype}"))
 
 
+# A tensor name that a hand-written JSON emitter would break on.
+HOSTILE = 'we"ird\\na\nme {}],\u00e9'
+
+
+def case_timeline_ops(rank, size):
+    """A few ops for the timeline, the hostile name among them; repeated,
+    so that the cached path records too."""
+    for step in range(2):
+        for name in ("tl.a", HOSTILE):
+            record("timeline_ops", (step, name), hvd.allreduce(
+                tensor(np.arange(6, dtype=np.float32) + rank, "float32"),
+                op=hvd.Sum, name=name))
+        record("timeline_ops", (step, "ag"), hvd.allgather(
+            tensor(np.ones((rank + 1, 2), np.float32), "float32"),
+            name="tl.ag"))
+        record("timeline_ops", (step, "bc"), hvd.broadcast(
+            tensor(np.full(3, float(rank), np.float32), "float32"),
+            root_rank=1, name="tl.bc"))
+    hvd.barrier()
+
+
+def case_instants(rank, size):
+    """The integrity modules' timeline instants: a skipped step of the
+    guard, a divergent audit, a checkpoint that fails verification."""
+    import json as _json
+
+    if PKG == "jax":
+        from horovod_tpu.integrity.audit import audit_replicas
+        from horovod_tpu.integrity.nonfinite import NonFiniteGuard
+        from horovod_tpu.utils import checkpoint as ckpt
+        grads = [np.array([1.0, np.nan if rank == 1 else 2.0], np.float32)]
+        tree = {"w": np.full(3, float(rank == 1), np.float32)}
+    else:
+        from horovod_tpu_torch.integrity.audit import audit_replicas
+        from horovod_tpu_torch.integrity.nonfinite import NonFiniteGuard
+        from horovod_tpu_torch.utils import checkpoint as ckpt
+        grads = [torch.tensor([1.0, float("nan") if rank == 1 else 2.0])]
+        tree = {"w": np.full(3, float(rank == 1), np.float32)}
+    _, skip = NonFiniteGuard(policy="skip").intercept(grads)
+    record("instants", "skip", np.asarray([skip], np.bool_))
+    try:
+        audit_replicas(tree)
+    except Exception as e:  # ReplicaDivergenceError in both packages
+        record("instants", "diverged", np.frombuffer(
+            type(e).__name__.encode(), np.uint8))
+    if rank == 0:
+        root = os.path.join(sys.argv[3], f"ckpt{rank}")
+        step = os.path.join(root, "step_1")
+        os.makedirs(step, exist_ok=True)
+        with open(os.path.join(step, "data.bin"), "wb") as fh:
+            fh.write(b"written")
+        with open(ckpt.manifest_path(step), "w") as fh:
+            _json.dump({"format": 1, "step": 1, "epoch": 0, "files": {
+                "data.bin": {"sha256": "0" * 64, "bytes": 7}}}, fh)
+        try:
+            ckpt.restore_verified(root)
+        except ckpt.CheckpointVerifyError:
+            record("instants", "ckpt", np.ones(1, np.int32))
+
+
 CASES = {n[len("case_"):]: f for n, f in globals().items()
          if n.startswith("case_")}
+
+
+def links():
+    """This rank's link media by peer and its fault plan's fired counts."""
+    if PKG == "jax":
+        from horovod_tpu import basics as b
+        from horovod_tpu.common import fault_injection as f
+        eng = b._runtime
+        media = {p: getattr(t, "_mode", t.kind)
+                 for p, t in getattr(eng, "_transports", {}).items()}
+    else:
+        from horovod_tpu_torch import basics as b
+        from horovod_tpu_torch.common import fault_injection as f
+        eng = b._engine_obj
+        media = eng.transport_media() if hasattr(eng, "transport_media") \
+            else {}
+    fired = [x.fired for x in f._PLAN.faults] if f._PLAN else []
+    hier = [bool(getattr(eng, "hierarchical_allreduce", False)),
+            bool(getattr(eng, "hierarchical_allgather", False)),
+            bool(eng.hierarchical_topology_ok())
+            if hasattr(eng, "hierarchical_topology_ok") else False]
+    return {"media": {str(p): m for p, m in media.items()}, "fired": fired,
+            "hierarchical": hier}
 
 
 def main():
@@ -309,6 +397,8 @@ def main():
                   flush=True)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(RESULTS, f)
+    with open(os.path.join(out_dir, f"rank{rank}.links.json"), "w") as f:
+        json.dump(links(), f)
     hvd.shutdown()
     return 1 if failed else 0
 
