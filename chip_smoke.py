@@ -139,7 +139,21 @@ non-zero):
    seeds, then again under fault plans with the first pass's bits; rank
    0's timeline parsed and checked.  Prints the media, each pass's time
    and GB/s and the ladder's retries and failovers;
-8. the kernel checks of phase 2 again, and the times of the kernel, the
+8. the engine's self-healing control plane (``--liveness-rank R``, see
+   LV_LAYERS): the flagship at full width and two layers, each rank on
+   two rows, one ``allreduce_async(Average)`` per gradient.  Gang A, four
+   ranks as two nodes of two with heartbeats, a 10 s deadline and the
+   control tree: rank 2 (host 1's sub-coordinator) killed after step 1,
+   rank 3 re-parented (``SUBCOORD_REPARENT``), step 2 over the survivors
+   and held against their gradients recomputed here, step 3's submission
+   raising ``RanksFailedError([2])``.  Gang B, three ranks on shm with the
+   deadline: rank 2 stalled at step 1, ``CollectiveTimeoutError([2])`` on
+   both survivors within twice the deadline, ``COLLECTIVE_ABORT``, the
+   retained batch bit for bit, no shm segment left.  Then phase 6 again
+   with those knobs on.  Prints the step medians, kill to eviction and
+   stall to error.  The ranks' flash kernels run at B 2, the pipelined
+   microbatch's shape, which phase 2 checks;
+9. the kernel checks of phase 2 again, and the times of the kernel, the
    plain version and PyTorch's ``scaled_dot_product_attention`` as a
    yardstick (forward alone for the forward, backward alone for dQ and
    dK/dV; the port never calls it), each as its kernels' device time per
@@ -376,6 +390,18 @@ def _device_ms(fn, reps=20, warmup=3, tries=3):
     return None
 
 
+def _device_ms_bounded(fn, bound_ms, tries=3):
+    """``_device_ms``, taken again while it reads below ``bound_ms``, the
+    least time the card can take for the work: a reading below it means
+    the profiler dropped some of the window's kernel records.  None when
+    every try did (or saw nothing): not measured by the profiler."""
+    for _ in range(tries):
+        ms = _device_ms(fn)
+        if ms is not None and ms >= bound_ms:
+            return ms
+    return None
+
+
 def _bound(kernel, B, S, H, D, dtype, causal, has_dlse, peaks,
            lse_route=False, cuda_cores=False):
     """Least time for the kernel's work: max(FLOPs / peak, bytes / rate),
@@ -558,18 +584,21 @@ def check_kernels(fa, B, S, H, D, dtype, causal, with_dlse, peaks, dev,
                                lambda: fa._split_qkv_plain(q, k, v), None)
     out = {}
     for kname, (kern, plain, lib) in timing.items():
-        ms, plain_ms = _device_ms(kern), _device_ms(plain)
-        lib_ms = None if lib is None else _device_ms(lib)
+        # The kernel, its plain version and the library call do the same
+        # work, so one bound holds all three readings.
+        bound_ms, bound_by = _bound(kname, B, S, H, D, dtype, causal,
+                                    with_dlse, peaks, lse_route)
+        ms = _device_ms_bounded(kern, bound_ms)
+        plain_ms = _device_ms_bounded(plain, bound_ms)
+        lib_ms = None if lib is None else _device_ms_bounded(lib, bound_ms)
         event_ms = _time_ms(kern)
-        # Where the profiler saw no device time, the events' time stands
-        # in (it counts the host's gaps as well).
+        # Where the profiler gave no reading, the events' time stands in
+        # (it counts the host's gaps as well).
         timed_by = "events" if ms is None else "device"
         ms = event_ms if ms is None else ms
         plain_ms = _time_ms(plain) if plain_ms is None else plain_ms
         if lib is not None and lib_ms is None:
             lib_ms = _time_ms(lib)
-        bound_ms, bound_by = _bound(kname, B, S, H, D, dtype, causal,
-                                    with_dlse, peaks, lse_route)
         lib_txt = ("" if lib is None else
                    f"  sdpa{'' if kname == 'fwd' else ' bwd'} {lib_ms:.4f} ms")
         old = {}
@@ -2038,10 +2067,14 @@ def _greedy_groups(sizes, threshold):
     return n
 
 
-def _spawn_ranks(flag, n, tmp, env_of, timeout, what):
+def _spawn_ranks(flag, n, tmp, env_of, timeout, what, expect=None,
+                 stalled=(), pids=None):
     """Run ``n`` ranks of this script (``flag R tmp``) against the port's
     ``RendezvousServer``; returns each rank's (exit code, output), killing
-    every rank past ``timeout``."""
+    every rank past ``timeout``.  A rank must exit with ``expect[r]``
+    (default 0); a ``stalled`` rank must still run when the others have
+    exited, and is killed then.  ``pids``, a list, gets the ranks'
+    process ids."""
     from horovod_tpu_torch.runner.http_server import RendezvousServer
 
     server = RendezvousServer("127.0.0.1")
@@ -2059,7 +2092,14 @@ def _spawn_ranks(flag, n, tmp, env_of, timeout, what):
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
         deadline = time.monotonic() + timeout
-        for p in procs:
+        outs = [None] * n
+        wedged = []
+        for r in [r for r in range(n) if r not in stalled] + list(stalled):
+            p = procs[r]
+            if r in stalled:
+                if p.poll() is None:
+                    wedged.append(r)
+                p.kill()
             try:
                 out, _ = p.communicate(
                     timeout=max(1.0, deadline - time.monotonic()))
@@ -2068,7 +2108,7 @@ def _spawn_ranks(flag, n, tmp, env_of, timeout, what):
                     q.kill()
                 out, _ = p.communicate()
                 out += f"\n(killed after {timeout} s)"
-            outs.append((p.returncode, out))
+            outs[r] = (p.returncode, out)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2078,20 +2118,27 @@ def _spawn_ranks(flag, n, tmp, env_of, timeout, what):
     for r, (code, out) in enumerate(outs):
         for line in out.splitlines():
             print(f"{what} rank {r}: {line}")
-    failed = [r for r, (code, _) in enumerate(outs) if code != 0]
+    failed = [r for r, (code, _) in enumerate(outs)
+              if r not in stalled and code != (expect or {}).get(r, 0)]
+    failed += [r for r in stalled if r not in wedged]
     if failed:
         raise AssertionError(f"{what}: rank(s) {failed} failed")
+    if pids is not None:
+        pids.extend(p.pid for p in procs)
     return outs
 
 
-def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S):
+def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
+               knobs=None):
     """The eager engine on the card: ENGINE_RANKS ranks of this script
     (``--engine-rank R``) bootstrap a ``PyEngine`` through the port's
     ``RendezvousServer`` and train the flagship (``cfg``: by default the
     full-width flagship) for ENGINE_STEPS steps, each rank on its rows of
     the batch, the gradients averaged by one ``allreduce_async`` per
     parameter; held against ``make_transformer_train_step`` in this process
-    on all the rows, from the same weights."""
+    on all the rows, from the same weights.  ``knobs``: more variables for
+    the ranks (the liveness phase's rerun with its knobs on)."""
+    what = "engine" if not knobs else "engine (knobs on)"
     import tempfile
 
     import torch
@@ -2130,8 +2177,8 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S):
         t0 = time.perf_counter()
         _spawn_ranks("--engine-rank", ENGINE_RANKS, tmp, lambda r: dict(
             HVD_RANK=str(r), HVD_SIZE=str(ENGINE_RANKS),
-            HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(ENGINE_RANKS)),
-            timeout, "engine")
+            HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(ENGINE_RANKS),
+            **(knobs or {})), timeout, what)
         wall = time.perf_counter() - t0
         ranks = []
         for r in range(ENGINE_RANKS):
@@ -2149,7 +2196,7 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S):
                   for n, p in ref_params.items()}
     wg = max(grad_gaps, key=grad_gaps.get)
     wp = max(param_gaps, key=param_gaps.get)
-    print(f"engine: {ENGINE_RANKS} ranks on {dev} through the port's "
+    print(f"{what}: {ENGINE_RANKS} ranks on {dev} through the port's "
           f"RendezvousServer and PyEngine, {wall:.1f} s wall; step-0 loss "
           f"(the ranks' mean) {ranks[0]['loss0_mean']!r} against one "
           f"process on all {B} rows {ref_loss!r}: gap {loss_gap:.3e} (tol "
@@ -2171,7 +2218,7 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S):
         steps = res["steps"]
         gbs = [round(s["grad_bytes"] / (s["enqueue_ms"] + s["sync_ms"])
                      / 1e6, 3) for s in steps]
-        print(f"engine rank {r}: step ms "
+        print(f"{what} rank {r}: step ms "
               f"{[round(s['ms'], 1) for s in steps]}, median "
               f"{statistics.median(s['ms'] for s in steps):.1f}; enqueue "
               f"(the gradients' copies to the host) ms "
@@ -2216,14 +2263,14 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S):
                             f"!= {want_launches}")
         if not all(math.isfinite(s["loss"]) for s in steps):
             failures.append(f"rank {r}: a loss is not finite")
-        print(f"engine rank {r}: link media by peer {res['media']}")
+        print(f"{what} rank {r}: link media by peer {res['media']}")
         if set(res["media"].values()) != {"shm"}:
             failures.append(f"rank {r}: a same-host pair is not on the "
                             f"shm ring: {res['media']}")
-    print(f"engine: on {card}; {ranks[0]['bcast_ms']:.1f} ms to broadcast "
+    print(f"{what}: on {card}; {ranks[0]['bcast_ms']:.1f} ms to broadcast "
           f"the parameters ({ranks[0]['param_bytes']} bytes) from rank 0")
     if failures:
-        raise AssertionError("engine: " + "; ".join(failures))
+        raise AssertionError(f"{what}: " + "; ".join(failures))
     return ranks
 
 
@@ -2727,6 +2774,372 @@ def dataplane_rank(rank: int, tmp: str) -> int:
     return 0
 
 
+# The liveness phase: the flagship's gradient gang through the engine with
+# its self-healing knobs on, killed and stalled.  Gang A: LV_A_RANKS ranks
+# of this script (``--liveness-rank R``) on the card as two virtual nodes
+# of two (node 0's pair on shm, every other pair on TCP, as the data-plane
+# phase), with heartbeats (2.0 s, every 0.25 s), a 10 s collective
+# deadline and the control tree (the default: rank 2 folds rank 3's
+# control frames).  Rank 2 is killed at ``train.step`` after step 1, once
+# the survivors have submitted step 2 (each writes a marker file when it
+# has): rank 3 re-parents to the root, the in-flight step 2 completes over
+# {0, 1, 3} and step 3's submission raises RanksFailedError([2]).  Gang B:
+# LV_B_RANKS ranks on one node over the shm ring with the 10 s deadline;
+# rank 2 stalls its next shm receive at step 1, and both survivors raise
+# CollectiveTimeoutError([2]) within twice the deadline of the step's
+# submission.  Both gangs run the flagship at its full width and
+# LV_LAYERS layers, each rank on LV_ROWS rows of batches from seed 7, no
+# optimizer (every step's gradients at the initial weights), one
+# allreduce_async(Average) per gradient.  ENGINE_GRAD_TOL holds the step-0
+# average against the one-process gradient on all the rows, and the
+# step-2 average against the mean of the three survivors' gradients
+# recomputed here (the engine's arithmetic over the survivor group: the
+# average divides by three).
+LV_LAYERS = 2
+LV_ROWS = 2
+LV_A_RANKS = 4
+LV_A_STEPS = 4
+LV_A_VICTIM = 2
+LV_B_RANKS = 3
+LV_B_STEPS = 2
+LV_B_VICTIM = 2
+LV_DEADLINE_S = 10.0
+LV_KNOBS = {"HVD_HEARTBEAT_TIMEOUT": "2.0", "HVD_HEARTBEAT_INTERVAL": "0.25",
+            "HVD_COLLECTIVE_TIMEOUT": str(LV_DEADLINE_S)}
+LV_TIMEOUT_S = 240
+
+
+def _lv_env(gang, rank, tmp):
+    env = dict(LV_KNOBS, HVD_RANK=str(rank))
+    if gang == "A":
+        env.update(HVD_SIZE=str(LV_A_RANKS), HVD_LOCAL_RANK=str(rank % 2),
+                   HVD_LOCAL_SIZE="2", HVD_CROSS_RANK=str(rank // 2),
+                   HVD_CROSS_SIZE="2")
+        if rank >= 2:
+            env["HVD_SHM_DISABLE"] = "1"
+        if rank == LV_A_VICTIM:
+            env["HOROVOD_FAULT_PLAN"] = json.dumps({"faults": [
+                {"site": "train.step", "kind": "kill", "after": 2}]})
+    else:
+        env.update(HVD_SIZE=str(LV_B_RANKS), HVD_LOCAL_RANK=str(rank),
+                   HVD_LOCAL_SIZE=str(LV_B_RANKS))
+    if rank == 0:
+        env["HVD_TIMELINE"] = os.path.join(tmp, f"timeline{gang}.json")
+    return env
+
+
+def _lv_grads(tfm, model, tokens, targets, rows):
+    """The flagship's gradients on ``rows`` of a batch, by name."""
+    model.zero_grad(set_to_none=True)
+    tfm.loss_fn(model, tokens[rows], targets[rows]).backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _lv_gap(got, want):
+    """The largest |got - want| / |want| over the parameters, and where."""
+    gaps = {n: float((got[n].to(w.device).double() - w.double()).norm()
+                     / w.double().norm().clamp_min(1e-30))
+            for n, w in want.items()}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def run_liveness(tfm, dev, card, cfg=None, timeout=LV_TIMEOUT_S):
+    """The liveness phase (see LV_LAYERS): gang A, gang B, then checks of
+    their reports, rank 0's timelines, the survivors' gradients against
+    this process's and the leftover shm segments."""
+    import glob
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    cfg = cfg or _flagship_cfg(tfm)
+    cfg = dataclasses.replace(cfg, n_layers=LV_LAYERS)
+    failures = []
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fields = {f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cfg)}
+        fields["compute_dtype"] = str(cfg.compute_dtype).split(".")[1]
+        pids = {}
+        for gang, n, steps, expect, stalled in (
+                ("A", LV_A_RANKS, LV_A_STEPS, {LV_A_VICTIM: 137}, ()),
+                ("B", LV_B_RANKS, LV_B_STEPS, None, (LV_B_VICTIM,))):
+            with open(os.path.join(tmp, "config.json"), "w") as fh:
+                json.dump({"cfg": fields, "device": str(dev), "gang": gang,
+                           "steps": steps}, fh)
+            t0 = time.perf_counter()
+            pids[gang] = []
+            _spawn_ranks("--liveness-rank", n, tmp,
+                         lambda r, g=gang: _lv_env(g, r, tmp), timeout,
+                         f"liveness {gang}", expect=expect, stalled=stalled,
+                         pids=pids[gang])
+            rep[gang] = {"wall": time.perf_counter() - t0}
+            for r in range(n):
+                path = os.path.join(tmp, f"{gang}{r}.json")
+                if os.path.exists(path):
+                    with open(path) as fh:
+                        rep[gang][r] = json.load(fh)
+            with open(os.path.join(tmp, f"timeline{gang}.json")) as fh:
+                rep[gang]["timeline"] = fh.read()
+            if gang == "A":
+                got = torch.load(os.path.join(tmp, "A0.pt"))
+            else:
+                rep[gang]["stall_at"] = float(open(os.path.join(
+                    tmp, "B_stall_at")).read())
+        rep["A"]["kill_at"] = float(open(os.path.join(
+            tmp, "A_kill_at")).read())
+        leftover = [f for g in pids.values() for pid in g
+                    for f in glob.glob(f"/dev/shm/hvd-shm-{pid}-*")]
+
+    a, b = rep["A"], rep["B"]
+    survivors = [r for r in range(LV_A_RANKS) if r != LV_A_VICTIM]
+    # Gang A: digests, markers, the tree, the timeline.
+    for s in (0, 1):
+        if len({a[r]["digests"][s] for r in range(LV_A_RANKS)}) != 1:
+            failures.append(f"A: step {s}'s averages differ across ranks")
+    if len({a[r]["digests"][2] for r in survivors}) != 1:
+        failures.append("A: step 2's averages differ across the survivors")
+    for r in survivors:
+        if a[r]["failed"] != [[LV_A_VICTIM], 3]:
+            failures.append(f"A rank {r}: RanksFailedError "
+                            f"{a[r]['failed']}, want [[2], 3]")
+    for gang, r in [("A", r) for r in survivors] + [("B", 0), ("B", 1)]:
+        launches = rep[gang][r]["launches"]
+        if dev.type == "cuda" and not all(launches[k] > 0
+                                          for k in ("fwd", "dq", "dkv")):
+            failures.append(f"{gang} rank {r}: flash launches {launches}")
+    if a[3]["tree"] != [LV_A_VICTIM, True] or a[0]["reparented"] != [3]:
+        failures.append(f"A: rank 3's tree {a[3]['tree']}, the root's "
+                        f"adopted {a[0]['reparented']}")
+    if "SUBCOORD_REPARENT" not in a["timeline"]:
+        failures.append("A: no SUBCOORD_REPARENT on rank 0's timeline")
+    if "COLLECTIVE_ABORT" in a["timeline"]:
+        failures.append("A: a COLLECTIVE_ABORT on rank 0's timeline")
+    # Gang A's gradients against this process's.
+    model = tfm.init(0, cfg, device=dev)
+    batches = _token_batches(dev, LV_A_STEPS, B=LV_A_RANKS * LV_ROWS,
+                             S=cfg.max_seq_len, vocab=cfg.vocab_size,
+                             seed=7)
+    want0 = _lv_grads(tfm, model, *batches[0],
+                      slice(0, LV_A_RANKS * LV_ROWS))
+    gap0 = _lv_gap(got["grads0"], want0)
+    del want0
+    want2 = None
+    for r in survivors:
+        g = _lv_grads(tfm, model, *batches[2],
+                      slice(r * LV_ROWS, (r + 1) * LV_ROWS))
+        want2 = {n: x.double() for n, x in g.items()} if want2 is None \
+            else {n: want2[n] + g[n].double() for n in want2}
+    want2 = {n: x / len(survivors) for n, x in want2.items()}
+    gap2 = _lv_gap(got["grads2"], want2)
+    del model, want2, got
+    if not gap0[0] <= ENGINE_GRAD_TOL:
+        failures.append(f"A: step-0 average {gap0} from the one-process "
+                        "gradient")
+    if not gap2[0] <= ENGINE_GRAD_TOL:
+        failures.append(f"A: step-2 average {gap2} from the survivors' mean")
+    evict_s = a[0]["evict_at"] - a["kill_at"]
+    first = [a[r]["step_ms"][0] for r in range(LV_A_RANKS)]
+    full = [a[r]["step_ms"][1] for r in range(LV_A_RANKS)]
+    print(f"liveness A: {LV_A_RANKS} ranks, d_model {cfg.d_model}, "
+          f"{cfg.n_layers} layers, on {card}; {a['wall']:.1f} s wall; step "
+          f"ms of the full gang: step 0 (the ranks' first) "
+          f"{[round(x, 1) for x in first]}, step 1 "
+          f"{[round(x, 1) for x in full]}, median "
+          f"{statistics.median(full):.1f}; step 2 over {survivors} ms "
+          f"{[round(a[r]['step_ms'][2], 1) for r in survivors]}; kill to "
+          f"eviction {evict_s:.3f} s; media {a[0]['media']} / "
+          f"{a[3]['media']}; rank 3's parent {a[3]['tree'][0]}, orphaned "
+          f"{a[3]['tree'][1]}; the root adopted {a[0]['reparented']}; "
+          f"RanksFailedError {a[0]['failed'][0]} at step "
+          f"{a[0]['failed'][1]}; step-0 gap {gap0[0]:.3e} ({gap0[1]}), "
+          f"step-2 gap {gap2[0]:.3e} ({gap2[1]}), tol {ENGINE_GRAD_TOL}; "
+          f"flash launches a rank {a[0]['launches']}")
+    # Gang B.
+    errs = []
+    for r in range(LV_B_RANKS):
+        if r == LV_B_VICTIM:
+            continue
+        res = b[r]
+        errs.append(res["cte_at"])
+        if res["cte"] is None or res["cte"][0] != [LV_B_VICTIM]:
+            failures.append(f"B rank {r}: CollectiveTimeoutError "
+                            f"{res['cte']}")
+        elif not res["cte"][2] < 2 * LV_DEADLINE_S:
+            failures.append(f"B rank {r}: the error {res['cte'][2]:.3f} s "
+                            f"after the submission, past 2 x the deadline")
+        if not (res["retained"] and res["retained_ok"]):
+            failures.append(f"B rank {r}: retained batch of "
+                            f"{res['retained']}, bits equal "
+                            f"{res['retained_ok']}")
+        if res["media"] != {str(p): "shm" for p in range(LV_B_RANKS)
+                            if p != r}:
+            failures.append(f"B rank {r}: media {res['media']}")
+    if "COLLECTIVE_ABORT" not in b["timeline"]:
+        failures.append("B: no COLLECTIVE_ABORT on rank 0's timeline")
+    if leftover:
+        failures.append(f"shm segments left: {leftover}")
+    stall_s = max(errs) - b["stall_at"] if errs else float("nan")
+    print(f"liveness B: {LV_B_RANKS} ranks on shm, d_model {cfg.d_model}, "
+          f"{cfg.n_layers} layers, on {card}; {b['wall']:.1f} s wall; step "
+          f"0 ms "
+          f"{[round(b[r]['step_ms'][0], 1) for r in range(LV_B_RANKS)]}; "
+          f"CollectiveTimeoutError {b[0]['cte'][0] if b[0]['cte'] else None}"
+          f" on {b[0]['cte'][1] if b[0]['cte'] else None}, "
+          f"{[b[r]['cte'][2] if b[r]['cte'] else None for r in (0, 1)]} s "
+          f"after the step's submission (deadline {LV_DEADLINE_S} s); the "
+          f"victim's stall to the last survivor's error {stall_s:.3f} s; "
+          f"retained {[b[r]['retained'] for r in (0, 1)]} tensors, bits "
+          f"equal {[b[r]['retained_ok'] for r in (0, 1)]}; no shm segment "
+          f"left: {not leftover}; flash launches a survivor "
+          f"{b[0]['launches']}")
+    if failures:
+        raise AssertionError("liveness: " + "; ".join(failures))
+    print(f"liveness: phase wall {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}")
+    return rep
+
+
+def liveness_rank(rank: int, tmp: str) -> int:
+    """One rank of the liveness phase (``--liveness-rank``); writes its
+    report to ``<tmp>/<gang><r>.json`` (gang A's rank 0 also its step-0
+    and step-2 averages to ``A0.pt``)."""
+    import hashlib
+    import threading
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.common import fault_injection as fi
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.runtime_py import take_retained_batch
+
+    with open(os.path.join(tmp, "config.json")) as fh:
+        conf = json.load(fh)
+    fields = dict(conf["cfg"])
+    fields["compute_dtype"] = getattr(torch, fields["compute_dtype"])
+    cfg = tfm.TransformerConfig(**fields)
+    dev = torch.device(conf["device"])
+    gang = conf["gang"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    hvd.init(device=dev, backend="none")
+    size = hvd.size()
+    res = {"rank": rank, "digests": [], "step_ms": [], "failed": None,
+           "cte": None}
+    saved = {}
+    try:
+        eng = basics._engine_obj
+        res["media"] = {str(p): m for p, m in
+                        eng.transport_media().items()}
+        if rank == 0:
+            # When the root first counts a rank out (gang A's eviction).
+            res["evict_at"] = None
+
+            def watch():
+                while res["evict_at"] is None and not eng._closed:
+                    if eng._evicted_ranks:
+                        res["evict_at"] = time.time()
+                    time.sleep(0.002)
+
+            threading.Thread(target=watch, daemon=True).start()
+        model = tfm.init(0, cfg, device=dev)
+        rows = slice(rank * LV_ROWS, (rank + 1) * LV_ROWS)
+        batches = _token_batches(dev, conf["steps"], B=size * LV_ROWS,
+                                 S=cfg.max_seq_len, vocab=cfg.vocab_size,
+                                 seed=7)
+        stalls = gang == "B" and rank == LV_B_VICTIM
+        dies = gang == "A" and rank == LV_A_VICTIM
+        report = os.path.join(tmp, f"{gang}{rank}.json")
+
+        def write_report():
+            res["launches"] = dict(fa.launches)
+            res["tree"] = [eng._tree_parent, eng._tree_orphaned]
+            res["reparented"] = sorted(eng._reparented_ranks)
+            with open(report, "w") as fh:
+                json.dump(res, fh)
+
+        fa.reset_launch_counts()
+        for s, (tokens, targets) in enumerate(batches):
+            _sync_dev(torch, dev)
+            t0 = time.perf_counter()
+            grads = _lv_grads(tfm, model, tokens, targets, rows)
+            if dies and s == 2:
+                # Die once every survivor has submitted step 2, and its
+                # frames have had a second to reach the root.
+                want = [os.path.join(tmp, f"A_sub2_{r}")
+                        for r in range(size) if r != rank]
+                t_wait = time.monotonic() + 60
+                while not all(map(os.path.exists, want)) and \
+                        time.monotonic() < t_wait:
+                    time.sleep(0.01)
+                time.sleep(1.0)
+                with open(os.path.join(tmp, "A_kill_at"), "w") as fh:
+                    fh.write(repr(time.time()))
+            fi.fire("train.step", str(s))
+            host = {n: g.cpu() for n, g in grads.items()} \
+                if gang == "B" and s == 1 else {}
+            if stalls and s == 1:
+                with open(os.path.join(tmp, "B_stall_at"), "w") as fh:
+                    fh.write(repr(time.time()))
+                fi.configure({"faults": [{"site": "shm.stall",
+                                          "kind": "stall",
+                                          "stall_s": 600}]})
+            t_sub = time.monotonic()
+            try:
+                handles = [hvd.allreduce_async(g, name=f"{n}.s{s}",
+                                               op=hvd.Average)
+                           for n, g in grads.items()]
+                with open(os.path.join(tmp, f"{gang}_sub{s}_{rank}"),
+                          "w"):
+                    pass
+                avg = {n: hvd.synchronize(h)
+                       for n, h in zip(grads, handles)}
+            except hvd.CollectiveTimeoutError as e:
+                res["cte_at"] = time.time()
+                res["cte"] = [e.ranks, e.tensor_name,
+                              time.monotonic() - t_sub]
+                batch = take_retained_batch() or []
+                want = {f"{n}.s{s}": x.numpy().tobytes()
+                        for n, x in host.items()}
+                res["retained"] = len(batch)
+                res["retained_ok"] = all(
+                    want.get(it["name"]) == np.asarray(
+                        it["array"]).tobytes() for it in batch)
+                write_report()
+                # The links may still hold the aborted collective's frames
+                # (elastic would re-form the gang): stop here, after
+                # closing rank 0's timeline.
+                eng.timeline.shutdown()
+                os._exit(0)
+            except hvd.RanksFailedError as e:
+                res["failed"] = [e.ranks, s]
+                break
+            _sync_dev(torch, dev)
+            res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            h = hashlib.sha256()
+            for n in grads:
+                h.update(avg[n].cpu().numpy().tobytes())
+            res["digests"].append(h.hexdigest())
+            if gang == "A" and rank == 0 and s in (0, 2):
+                saved[f"grads{s}"] = {n: x.cpu() for n, x in avg.items()}
+            write_report()
+        if saved:
+            torch.save(saved, os.path.join(tmp, "A0.pt"))
+        write_report()
+    finally:
+        fi.clear()
+        hvd.shutdown()
+    return 0
+
+
 def _sync_dev(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -2774,6 +3187,8 @@ def main() -> int:
         return engine_rank(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--dataplane-rank"]:  # a data-plane phase rank
         return dataplane_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--liveness-rank"]:  # a liveness phase rank
+        return liveness_rank(int(sys.argv[2]), sys.argv[3])
     t_start = time.perf_counter()
     import torch
 
@@ -2879,6 +3294,10 @@ def main() -> int:
     run_engine(hvd, tfm, fa, dev, card)
     torch.cuda.empty_cache()
     run_dataplane(tfm, dev, card)
+    torch.cuda.empty_cache()
+    run_liveness(tfm, dev, card)
+    torch.cuda.empty_cache()
+    run_engine(hvd, tfm, fa, dev, card, knobs=LV_KNOBS)
     torch.cuda.empty_cache()
 
     # Timed after the slice, so that no profiler has run before the steps

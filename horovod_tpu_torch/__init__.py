@@ -18,7 +18,8 @@ from horovod_tpu_torch.basics import (cache_stats, cross_rank, cross_size,
                                       mpi_enabled, mpi_threads_supported,
                                       nccl_built, rank, rocm_built,
                                       shutdown, size, xla_built)
-from horovod_tpu_torch.common.types import (RanksFailedError, ReduceOp,
+from horovod_tpu_torch.common.types import (CollectiveTimeoutError,
+                                            RanksFailedError, ReduceOp,
                                             ReplicaDivergenceError)
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.eager import (allgather, allgather_async,
@@ -62,7 +63,8 @@ __all__ = [
     "synchronize", "cache_stats", "is_homogeneous", "nccl_built",
     "gloo_built", "mpi_built", "cuda_built", "rocm_built", "xla_built",
     "mpi_enabled", "mpi_threads_supported", "ProcessSet",
-    "RanksFailedError", "ReplicaDivergenceError", "Compression",
+    "RanksFailedError", "CollectiveTimeoutError", "ReplicaDivergenceError",
+    "Compression",
     "DistributedOptimizer", "allreduce_gradients", "distributed_grad",
     "distributed_value_and_grad", "flash_attention",
     "flash_attention_lse", "TrainState", "make_transformer_train_step",

@@ -4,19 +4,18 @@
 Builds the TCP topology the engine runs on:
 
 * a full **data mesh** (one socket per peer pair) for the ring data plane,
-* a **control star** (worker -> rank 0) for the request/response protocol.
+* a **control star** (worker -> rank 0) for the request/response protocol,
+* on a control tree (``runtime_py.PyEngine._plan_tree``), one more link
+  from each child to its host's sub-coordinator, on channel 2.
 
 Rank addresses rendezvous through the launcher's HTTP KV store, over the
 port's :class:`~horovod_tpu_torch.runner.http_client.KVClient`, with the
 JAX package's keys and handshake (each dialed socket starts with
-``i32 rank, i32 channel``: 0 data, 1 control), so that port ranks and JAX
-ranks bootstrap into one mesh.
+``i32 rank, i32 channel``: 0 data, 1 control, 2 tree), so that port ranks
+and JAX ranks bootstrap into one mesh.
 
 The ``bootstrap.start`` (entry) and ``bootstrap.accept`` (each accepted
 dial) fault sites fire where the JAX package fires them.
-
-Left out until the control tree is ported (ROADMAP Queue 1, item 5.4):
-``tree`` (the sub-coordinators' links).
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ from horovod_tpu_torch.utils import socketutil as su
 
 
 def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int,
-                   keep_listener: bool = False):
+                   keep_listener: bool = False, tree: Optional[dict] = None):
     """Returns ``(data, ctrl_sock, ctrl_socks, kv, prefix)``:
 
     * ``data``: peer rank -> connected data socket (full mesh),
@@ -51,7 +50,14 @@ def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int,
     appends ``(peers, listener)`` instead of closing the listener:
     ``peers`` maps rank -> advertised ``(host, port)``, and the listener
     stays open for reconnect re-dials for the life of the gang
-    (``utils/ladder.py``'s ``ReconnectListener``)."""
+    (``utils/ladder.py``'s ``ReconnectListener``).
+
+    ``tree`` (the control tree) is an in/out dict: in, ``parent`` (this
+    rank's sub-coordinator, or None) and ``children`` (the ranks it
+    folds); out, it gains ``parent_sock`` (a child's link up, or None) and
+    ``child_socks`` (a sub-coordinator's rank -> socket).  Every rank keeps
+    its direct control link besides, so that an orphan of a dead
+    sub-coordinator falls back to the star without dialing."""
     from horovod_tpu_torch.runner.http_client import KVClient
     from horovod_tpu_torch.utils import transport as tpt
 
@@ -92,9 +98,13 @@ def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int,
     ctrl_sock: Optional[socket.socket] = None
     ctrl_socks: Dict[int, socket.socket] = {}
 
+    tree_parent = tree.get("parent") if tree else None
+    tree_children = list(tree.get("children") or []) if tree else []
+
     n_accept = size - 1 - rank
     if rank == 0:
         n_accept += size - 1  # control connections
+    n_accept += len(tree_children)  # tree links
     accept_results: Dict[Tuple[int, int], socket.socket] = {}
 
     def _accept_loop():
@@ -117,16 +127,26 @@ def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int,
         s = su.connect_retry(*peers[0], timeout=start_timeout)
         s.sendall(struct.pack("<ii", rank, 1))
         ctrl_sock = s
+    if tree_parent is not None:
+        s = su.connect_retry(*peers[tree_parent], timeout=start_timeout)
+        s.sendall(struct.pack("<ii", rank, 2))
+        tree["parent_sock"] = s
 
     acceptor.join(timeout=start_timeout * 1.5)
     if acceptor.is_alive():
         listener.close()
         raise ConnectionError("timed out waiting for peer connections")
+    tree_child_socks: Dict[int, socket.socket] = {}
     for (peer_rank, chan), s in accept_results.items():
         if chan == 0:
             data[peer_rank] = s
+        elif chan == 2:
+            tree_child_socks[peer_rank] = s
         else:
             ctrl_socks[peer_rank] = s
+    if tree is not None:
+        tree.setdefault("parent_sock", None)
+        tree["child_socks"] = tree_child_socks
     if keep_listener:
         return data, ctrl_sock, ctrl_socks, kv, prefix, peers, listener
     listener.close()

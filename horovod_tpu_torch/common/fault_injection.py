@@ -48,7 +48,6 @@ Fault fields:
 
 Sites the port does not fire yet, because their modules wait (ROADMAP
 Queue 1, item 5): ``kv.mirror`` and ``kv.delete`` (the KV mirroring),
-``ctrl.subcoord.send`` and ``ctrl.reparent`` (5.4, the control tree),
 ``metrics.server.request``, ``agg.scrape``, ``trace.emit`` and
 ``blackbox.dump`` (5.5, telemetry), and ``serve.step`` (5.7, the serving
 loop).  A plan may still name them; they never fire.
@@ -82,6 +81,10 @@ KNOWN_SITES = {
     "engine.cycle": "PyEngine background cycle",
     "ctrl.worker.send": "worker->coordinator control send",
     "ctrl.coord.send": "coordinator->worker control send",
+    "ctrl.subcoord.send": "sub-coordinator control forward (TREE_UP "
+                          "aggregate to root / routed frame to a child)",
+    "ctrl.reparent": "orphaned child's TAG_REPARENT adoption back to "
+                     "the root after its sub-coordinator died",
     "sock.stall": "data-plane ring-hop receive (hang simulation)",
     "sock.halfopen": "persistent sender thread send (half-open sim)",
     "sock.corrupt": "flip one wire byte of a ladder data frame (CRC)",

@@ -3,15 +3,13 @@
 The port's copy of what it needs from ``horovod_tpu/common/types.py``
 (``DataType`` and ``ReduceOp``, with the same values, the dtype
 mappings, the errors of the audit and the rendezvous KV:
-``RanksFailedError``, ``ReplicaDivergenceError`` and ``FencedError``, with
-the same messages and attributes, and the eager engine's messages:
+``RanksFailedError``, ``ReplicaDivergenceError``, ``CollectiveTimeoutError``
+and ``FencedError``, with the same messages and attributes, and the eager
+engine's messages:
 ``RequestType``, ``ResponseType``, ``StatusType``, ``Status``,
 ``TensorShape``, ``Request`` and ``Response``, with the same enum values
 and fields, which ``common/wire.py`` puts on the wire byte for byte as the
 JAX package does); the port imports nothing of the JAX package.
-
-Left out until their features are ported (ROADMAP Queue 1, item 5):
-``CollectiveTimeoutError`` (deadlines and abort).
 """
 
 from __future__ import annotations
@@ -161,6 +159,32 @@ class ReplicaDivergenceError(RanksFailedError):
             f"the replicated parameters no longer bit-match across the "
             f"gang — evict the deviant rank(s) and restore survivors "
             f"from the last commit/checkpoint",)
+
+
+class CollectiveTimeoutError(RanksFailedError):
+    """A collective blew past ``HVD_COLLECTIVE_TIMEOUT`` and the gang
+    agreed to abort it.
+
+    The rank that timed out reports the peer it was blocked on to the
+    coordinator over the control channel; the coordinator probes the gang
+    and broadcasts a verdict naming the wedged rank(s), so that every
+    survivor raises this same error for the same step.  A
+    :class:`RanksFailedError` whose ``.ranks`` are the wedged ranks, with
+    ``.tensor_name`` (the aborted collective's first tensor) and
+    ``.timeout_s``."""
+
+    def __init__(self, ranks, tensor_name: str = "",
+                 timeout_s: float = 0.0):
+        self.tensor_name = tensor_name
+        self.timeout_s = float(timeout_s)
+        RuntimeError.__init__(self)  # skip RanksFailedError's message
+        self.ranks = sorted(int(r) for r in ranks)
+        detail = f" during {tensor_name!r}" if tensor_name else ""
+        self.args = (
+            f"collective timed out after {self.timeout_s:g}s{detail}: "
+            f"the gang agreed rank(s) {self.ranks} are wedged (hung, "
+            f"not dead — heartbeats alone cannot catch this); evict "
+            f"the wedged rank(s) and replay the aborted batch",)
 
 
 class FencedError(RuntimeError):

@@ -41,11 +41,20 @@ the payload then the packed seq), the NACK (``u32 expected seq``) and the
 RESUME/FAILOVER payload (``i32 rank, u32 expected seq, u32 epoch``), and
 :class:`WireCorruptionError`.
 
+The abort agreement's payloads (``TAG_ABORT_REPORT``, ``TAG_PROBE_ACK``,
+``TAG_ABORT_VERDICT``) and the control tree's (``TAG_TREE_UP``,
+``TAG_TREE_DOWN``, ``TAG_REPARENT``)::
+
+  AbortReport  := varstr tensor_name, i32 suspect_rank, u32 epoch
+  ProbeAck     := u8 busy, f64 busy_seconds, u32 epoch
+  AbortVerdict := varstr tensor_name, u32 n, i32 ranks[n], u32 epoch
+  TreeUp   := u32 epoch, u32 n, { i32 rank, u8 tag, u32 len, bytes }[n]
+  TreeDown := i32 target_rank (-1 = every child), u8 tag, u32 len, bytes
+  Reparent := i32 rank, i32 old_parent, u32 epoch
+
 Left out until their features are ported (ROADMAP Queue 1, item 5): the
-abort report, probe ack and verdict frames (5.3, deadlines and abort), the
 clock ping and pong and the blackbox pull (5.5, the trace and the flight
-recorder), the tree frames (5.4, the control tree), the fence and the
-serving delta (5.7).
+recorder), the fence and the serving delta (5.7).
 """
 
 from __future__ import annotations
@@ -352,3 +361,107 @@ def encode_resume(rank: int, expected_seq: int, epoch: int = 0) -> bytes:
 
 def decode_resume(data: bytes) -> Tuple[int, int, int]:
     return struct.unpack_from("<iII", data, 0)
+
+
+# -- the collective-abort agreement -------------------------------------
+
+
+def encode_abort_report(tensor_name: str, suspect_rank: int,
+                        epoch: int = 0) -> bytes:
+    """Worker -> coordinator: a hop of ``tensor_name``'s collective blew
+    its deadline, blocked on ``suspect_rank`` (-1 = unknown)."""
+    buf = bytearray()
+    _pack_str(buf, tensor_name)
+    buf += struct.pack("<iI", suspect_rank, epoch)
+    return bytes(buf)
+
+
+def decode_abort_report(data: bytes) -> Tuple[str, int, int]:
+    name, off = _unpack_str(data, 0)
+    suspect, epoch = struct.unpack_from("<iI", data, off)
+    return name, suspect, epoch
+
+
+def encode_probe_ack(busy: bool, busy_seconds: float,
+                     epoch: int = 0) -> bytes:
+    """Worker -> coordinator: whether a collective is running on this rank
+    now (``busy``), and for how long."""
+    return struct.pack("<BdI", 1 if busy else 0, busy_seconds, epoch)
+
+
+def decode_probe_ack(data: bytes) -> Tuple[bool, float, int]:
+    busy, busy_seconds, epoch = struct.unpack_from("<BdI", data, 0)
+    return bool(busy), busy_seconds, epoch
+
+
+def encode_abort_verdict(tensor_name: str, ranks,
+                         epoch: int = 0) -> bytes:
+    """Coordinator -> workers: the ranks the gang agreed are wedged in the
+    collective of ``tensor_name`` (sorted)."""
+    buf = bytearray()
+    _pack_str(buf, tensor_name)
+    ranks = sorted(int(r) for r in ranks)
+    buf += struct.pack("<I", len(ranks))
+    for r in ranks:
+        buf += struct.pack("<i", r)
+    buf += struct.pack("<I", epoch)
+    return bytes(buf)
+
+
+def decode_abort_verdict(data: bytes) -> Tuple[str, List[int], int]:
+    name, off = _unpack_str(data, 0)
+    (n,) = struct.unpack_from("<I", data, off)
+    off += 4
+    ranks = list(struct.unpack_from(f"<{n}i", data, off))
+    (epoch,) = struct.unpack_from("<I", data, off + 4 * n)
+    return name, ranks, epoch
+
+
+# -- the control tree -----------------------------------------------------
+
+
+def encode_tree_up(entries, epoch: int = 0) -> bytes:
+    """Sub-coordinator -> root: its children's frames and its own,
+    ``entries`` = [(rank, tag, payload)], each dispatched at the root as
+    if it had come on that rank's own control socket."""
+    buf = bytearray(struct.pack("<II", epoch, len(entries)))
+    for rank, tag, payload in entries:
+        buf += struct.pack("<iBI", rank, tag, len(payload))
+        buf += payload
+    return bytes(buf)
+
+
+def decode_tree_up(data: bytes):
+    """Returns ``(entries, epoch)``, entries = [(rank, tag, payload)]."""
+    epoch, n = struct.unpack_from("<II", data, 0)
+    off = 8
+    entries = []
+    for _ in range(n):
+        rank, tag, plen = struct.unpack_from("<iBI", data, off)
+        off += 9
+        entries.append((rank, tag, bytes(data[off:off + plen])))
+        off += plen
+    return entries, epoch
+
+
+def encode_tree_down(target_rank: int, tag: int, payload: bytes) -> bytes:
+    """Root -> sub-coordinator: forward ``(tag, payload)`` to
+    ``target_rank`` (-1 = every child)."""
+    return struct.pack("<iBI", target_rank, tag, len(payload)) + payload
+
+
+def decode_tree_down(data: bytes):
+    """Returns ``(target_rank, tag, payload)``."""
+    target, tag, plen = struct.unpack_from("<iBI", data, 0)
+    return target, tag, bytes(data[9:9 + plen])
+
+
+def encode_reparent(rank: int, old_parent: int, epoch: int = 0) -> bytes:
+    """Orphaned child -> root: sub-coordinator ``old_parent`` died; take
+    this rank's control frames directly from now on."""
+    return struct.pack("<iiI", rank, old_parent, epoch)
+
+
+def decode_reparent(data: bytes):
+    """Returns ``(rank, old_parent, epoch)``."""
+    return struct.unpack_from("<iiI", data, 0)

@@ -34,15 +34,25 @@ The links are the engine's transports (``utils/transport.py``: TCP or a
 same-host shm ring; ``utils/ladder.py`` under ``HVD_WIRE_CRC``, whose
 exhausted link raises ``WireCorruptionError`` out of a hop).
 
-Left out until their features are ported (ROADMAP Queue 1, item 5):
-collective deadlines (5.3, ``HVD_COLLECTIVE_TIMEOUT``: every receive here
-blocks; only the always-on send-wait cap raises :class:`HopTimeout`),
-eviction's shrunken groups (5.3), and the trace spans and telemetry of the
-hops (5.5).
+Deadlines: with ``HVD_COLLECTIVE_TIMEOUT`` on, each collective gets one
+absolute deadline (:func:`_deadline`), and every hop's send ticket,
+receive and data header honour it; a hop past it raises
+:class:`HopTimeout` naming the peer it was blocked on, which the engine
+turns into the gang-wide abort.  With the knob off the receives block
+with no clock read, and only the always-on send-wait cap
+(``HVD_SEND_WAIT_CAP_S``) raises :class:`HopTimeout`.
+
+Eviction: ranks the coordinator evicted (``engine._evicted_ranks``) drop
+out of the global group (:func:`resp_group`), and Adasum and the
+hierarchical paths step aside for the flat ring once any rank is evicted.
+
+Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the trace
+spans and the telemetry of the hops.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -67,15 +77,37 @@ class HopTimeout(TimeoutError):
         self.phase = phase
 
 
-def _wait_send(sender, ticket: int, peer: int) -> None:
-    """``wait(ticket)`` with the always-on ``HVD_SEND_WAIT_CAP_S`` cap, so
-    that a dead sender thread never hangs a hop silently."""
+def _deadline(engine) -> Optional[float]:
+    """The absolute ``time.monotonic()`` deadline of a collective starting
+    now, or ``None`` when ``HVD_COLLECTIVE_TIMEOUT`` is off (an engine
+    without the knob's attribute included)."""
+    t = float(getattr(engine, "collective_timeout", 0.0) or 0.0)
+    return (time.monotonic() + t) if t > 0 else None
+
+
+def _wait_send(sender, ticket: int, deadline: Optional[float],
+               peer: int) -> None:
+    """``wait(ticket)`` with a timeout always set: what is left of the
+    collective's deadline, else the always-on ``HVD_SEND_WAIT_CAP_S`` cap,
+    so that a dead sender thread never hangs a hop silently."""
+    if deadline is None:
+        cap = max(0.001, env_util.send_wait_cap_s())
+    else:
+        cap = max(0.001, deadline - time.monotonic())
     try:
-        sender.wait(ticket, max(0.001, env_util.send_wait_cap_s()))
+        sender.wait(ticket, cap)
     except HopTimeout:
         raise
     except TimeoutError:
         raise HopTimeout(peer, "send") from None
+
+
+def _recv_exact_hop(tr: tpt.Transport, view: memoryview,
+                    deadline: Optional[float], peer: int) -> None:
+    try:
+        tr.recv_exact_into(view, deadline)
+    except TimeoutError:
+        raise HopTimeout(peer, "recv") from None
 
 
 def _transport(engine, rank: int) -> tpt.Transport:
@@ -91,29 +123,38 @@ def _segment_elems(engine, itemsize: int) -> int:
     return max(1, seg // itemsize)
 
 
-def _recv(tr: tpt.Transport) -> bytes:
-    tag, payload = tr.recv_frame()
+def _recv(tr: tpt.Transport, deadline: Optional[float] = None,
+          peer: int = -1) -> bytes:
+    try:
+        tag, payload = tr.recv_frame(deadline)
+    except TimeoutError:
+        raise HopTimeout(peer, "recv") from None
     if tag != su.TAG_DATA:
         raise ConnectionError(f"expected data frame, got tag {tag}")
     return payload
 
 
-def _recv_data_header(tr: tpt.Transport) -> int:
-    tag, nbytes = tr.recv_frame_header()
+def _recv_data_header(tr: tpt.Transport, deadline: Optional[float] = None,
+                      peer: int = -1) -> int:
+    try:
+        tag, nbytes = tr.recv_frame_header(deadline)
+    except TimeoutError:
+        raise HopTimeout(peer, "recv") from None
     if tag != su.TAG_DATA:
         raise ConnectionError(f"expected data frame, got tag {tag}")
     return nbytes
 
 
-def _recv_into(tr: tpt.Transport, dst: np.ndarray) -> None:
+def _recv_into(tr: tpt.Transport, dst: np.ndarray,
+               deadline: Optional[float] = None, peer: int = -1) -> None:
     """Receive one data frame straight into ``dst`` (contiguous view)."""
-    nbytes = _recv_data_header(tr)
+    nbytes = _recv_data_header(tr, deadline, peer)
     if nbytes != dst.nbytes:
         raise ConnectionError(
             f"ring hop size mismatch: got {nbytes} bytes, expected "
             f"{dst.nbytes}")
     if nbytes:
-        tr.recv_exact_into(memoryview(dst.view(np.uint8)))
+        _recv_exact_hop(tr, memoryview(dst.view(np.uint8)), deadline, peer)
 
 
 def _combine_out(a: np.ndarray, b: np.ndarray, out: np.ndarray,
@@ -161,10 +202,11 @@ def _combine_into(incoming: np.ndarray, mine: np.ndarray, op: ReduceOp,
 
 def _recv_combine(tr: tpt.Transport, mine: np.ndarray, hop: np.ndarray,
                   hop_mv: memoryview, op: ReduceOp, dt: DataType, seg: int,
-                  fb: FusionBuffer) -> None:
+                  fb: FusionBuffer, deadline: Optional[float] = None,
+                  peer: int = -1) -> None:
     """Receive one hop's chunk and reduce it into ``mine`` in place, in
     ``seg``-element slices when ``seg`` > 0."""
-    nbytes = _recv_data_header(tr)
+    nbytes = _recv_data_header(tr, deadline, peer)
     n = mine.size
     isz = mine.itemsize
     if nbytes != n * isz:
@@ -174,13 +216,14 @@ def _recv_combine(tr: tpt.Transport, mine: np.ndarray, hop: np.ndarray,
     if n == 0:
         return
     if seg <= 0 or seg >= n:
-        tr.recv_exact_into(hop_mv[:nbytes])
+        _recv_exact_hop(tr, hop_mv[:nbytes], deadline, peer)
         _combine_into(hop[:n], mine, op, dt, fb)
         return
     done = 0
     while done < n:
         k = min(seg, n - done)
-        tr.recv_exact_into(hop_mv[done * isz:(done + k) * isz])
+        _recv_exact_hop(tr, hop_mv[done * isz:(done + k) * isz], deadline,
+                        peer)
         _combine_into(hop[done:done + k], mine[done:done + k], op, dt, fb)
         done += k
 
@@ -195,7 +238,8 @@ def _chunk_bounds(n: int, parts: int) -> List[int]:
 
 
 def _ring_allreduce_group(engine, flat: np.ndarray, op: ReduceOp,
-                          dt: DataType, group, me: int) -> np.ndarray:
+                          dt: DataType, group, me: int,
+                          deadline: Optional[float] = None) -> np.ndarray:
     """Ring allreduce over ``group`` (global ranks); ``me`` is this rank's
     index in it.  In place on ``flat`` (scratch), which it returns.  Each
     step's send chunk and receive chunk are disjoint, so the sender thread
@@ -220,16 +264,17 @@ def _ring_allreduce_group(engine, flat: np.ndarray, op: ReduceOp,
         recv_idx = (me - step - 1) % size
         ticket = right.send(flat[bounds[send_idx]:bounds[send_idx + 1]])
         _recv_combine(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]],
-                      hop, hop_mv, op, dt, seg, fb)
-        _wait_send(right, ticket, right_rank)
+                      hop, hop_mv, op, dt, seg, fb, deadline, left_rank)
+        _wait_send(right, ticket, deadline, right_rank)
 
     # Phase 2: ring allgather of the reduced chunks, straight into place.
     for step in range(size - 1):
         send_idx = (me + 1 - step) % size
         recv_idx = (me - step) % size
         ticket = right.send(flat[bounds[send_idx]:bounds[send_idx + 1]])
-        _recv_into(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]])
-        _wait_send(right, ticket, right_rank)
+        _recv_into(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]],
+                   deadline, left_rank)
+        _wait_send(right, ticket, deadline, right_rank)
     return flat
 
 
@@ -244,7 +289,9 @@ def _cross_group(engine):
 
 
 def hierarchical_allreduce_flat(engine, flat: np.ndarray, op: ReduceOp,
-                                dt: DataType) -> np.ndarray:
+                                dt: DataType,
+                                deadline: Optional[float] = None
+                                ) -> np.ndarray:
     """Two-level allreduce: node-local ring reduce-scatter, cross-node ring
     allreduce of the owned 1/local_size slice, node-local ring allgather.
     Needs the launcher's block rank layout, which
@@ -270,8 +317,8 @@ def hierarchical_allreduce_flat(engine, flat: np.ndarray, op: ReduceOp,
         recv_idx = (li - step - 1) % L
         ticket = right.send(flat[bounds[send_idx]:bounds[send_idx + 1]])
         _recv_combine(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]],
-                      hop, hop_mv, op, dt, seg, fb)
-        _wait_send(right, ticket, right_rank)
+                      hop, hop_mv, op, dt, seg, fb, deadline, left_rank)
+        _wait_send(right, ticket, deadline, right_rank)
 
     # Phase 2: cross-node ring allreduce of the owned, fully node-reduced
     # chunk, in place on its slice of the fusion buffer.
@@ -279,19 +326,22 @@ def hierarchical_allreduce_flat(engine, flat: np.ndarray, op: ReduceOp,
     own_slice = flat[bounds[own]:bounds[own + 1]]
     if own_slice.size:
         _ring_allreduce_group(engine, own_slice, op, dt,
-                              _cross_group(engine), engine.cross_rank)
+                              _cross_group(engine), engine.cross_rank,
+                              deadline)
 
     # Phase 3: node-local ring allgather.
     for step in range(L - 1):
         send_idx = (li + 1 - step) % L
         recv_idx = (li - step) % L
         ticket = right.send(flat[bounds[send_idx]:bounds[send_idx + 1]])
-        _recv_into(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]])
-        _wait_send(right, ticket, right_rank)
+        _recv_into(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]],
+                   deadline, left_rank)
+        _wait_send(right, ticket, deadline, right_rank)
     return flat
 
 
-def _adasum_flat(engine, flat: np.ndarray, dt: DataType) -> np.ndarray:
+def _adasum_flat(engine, flat: np.ndarray, dt: DataType,
+                 deadline: Optional[float] = None) -> np.ndarray:
     """Adasum by recursive distance-doubling partner exchange in float64;
     power-of-two world sizes only."""
     size, rank = engine.size, engine.rank
@@ -307,8 +357,9 @@ def _adasum_flat(engine, flat: np.ndarray, dt: DataType) -> np.ndarray:
         partner = rank ^ k
         tr = _transport(engine, partner)
         ticket = tr.send(acc)
-        other = np.frombuffer(_recv(tr), dtype=np.float64).copy()
-        _wait_send(tr, ticket, partner)
+        other = np.frombuffer(_recv(tr, deadline, partner),
+                              dtype=np.float64).copy()
+        _wait_send(tr, ticket, deadline, partner)
         if rank < partner:
             acc = adasum_pair_numpy(acc, other)
         else:
@@ -319,12 +370,18 @@ def _adasum_flat(engine, flat: np.ndarray, dt: DataType) -> np.ndarray:
 
 def resp_group(engine, resp: Response):
     """(member global ranks, my index) for a response: the world for the
-    global set, the registered members for a process set."""
+    global set, less the ranks the coordinator evicted (every survivor
+    filters alike, so the ring closes without them), or the registered
+    members for a process set."""
     if resp.process_set_id:
         from horovod_tpu_torch import process_sets
 
         members = process_sets.ranks_of(resp.process_set_id)
         return members, members.index(engine.rank)
+    evicted = getattr(engine, "_evicted_ranks", None)
+    if evicted:
+        group = [r for r in range(engine.size) if r not in evicted]
+        return group, group.index(engine.rank)
     return list(range(engine.size)), engine.rank
 
 
@@ -350,15 +407,21 @@ def allreduce(engine, entries, resp: Response):
         fused = False
 
     group, me = resp_group(engine, resp)
+    deadline = _deadline(engine)
+    evicted = bool(getattr(engine, "_evicted_ranks", None))
     # The JAX package's dispatch chain: Adasum, then the hierarchical
-    # allreduce, then the flat ring.
-    if op == ReduceOp.ADASUM and not resp.process_set_id:
-        reduced = _adasum_flat(engine, flat, dt)
-    elif (not resp.process_set_id and engine.hierarchical_allreduce
+    # allreduce, then the flat ring; the first two assume the whole world,
+    # so they step aside once a rank is evicted.
+    if op == ReduceOp.ADASUM and not resp.process_set_id and not evicted:
+        reduced = _adasum_flat(engine, flat, dt, deadline)
+    elif (not resp.process_set_id and not evicted
+          and engine.hierarchical_allreduce
           and engine.hierarchical_topology_ok()):
-        reduced = hierarchical_allreduce_flat(engine, flat, op, dt)
+        reduced = hierarchical_allreduce_flat(engine, flat, op, dt,
+                                              deadline)
     else:
-        reduced = _ring_allreduce_group(engine, flat, op, dt, group, me)
+        reduced = _ring_allreduce_group(engine, flat, op, dt, group, me,
+                                        deadline)
     fused = fused and reduced is flat
 
     if op == ReduceOp.AVERAGE:
@@ -392,6 +455,7 @@ def _allgather_hierarchical(engine, entries, resp: Response):
     C = engine.cross_size
     local = _local_group(engine)
     dtype = floats.storage_dtype(resp.tensor_type)
+    dl = _deadline(engine)
     results = []
     for e in entries:
         rest_shape = e.array.shape[1:] if e.array.ndim > 0 else ()
@@ -408,8 +472,8 @@ def _allgather_hierarchical(engine, entries, resp: Response):
             send_idx = (li - step) % L
             recv_idx = (li - step - 1) % L
             ticket = right.send(blocks[send_idx])
-            blocks[recv_idx] = _recv(left)
-            _wait_send(right, ticket, right_rank)
+            blocks[recv_idx] = _recv(left, dl, left_rank)
+            _wait_send(right, ticket, dl, right_rank)
         node_block = b"".join(blocks)
 
         if li == 0:
@@ -426,17 +490,17 @@ def _allgather_hierarchical(engine, entries, resp: Response):
                     send_idx = (me - step) % C
                     recv_idx = (me - step - 1) % C
                     ticket = nright.send(nblocks[send_idx])
-                    nblocks[recv_idx] = _recv(nleft)
-                    _wait_send(nright, ticket, nright_rank)
+                    nblocks[recv_idx] = _recv(nleft, dl, nleft_rank)
+                    _wait_send(nright, ticket, dl, nright_rank)
             full = b"".join(nblocks)
             # Phase 3: fan the full buffer out to the rest of the node.
             tickets = [(r, _transport(engine, r),
                         _transport(engine, r).send(full))
                        for r in local[1:]]
             for r, s, ticket in tickets:
-                _wait_send(s, ticket, r)
+                _wait_send(s, ticket, dl, r)
         else:
-            full = _recv(_transport(engine, local[0]))
+            full = _recv(_transport(engine, local[0]), dl, local[0])
 
         arr = np.frombuffer(full, dtype=dtype).copy()
         results.append(arr.reshape((sum(first_dims),) + rest_shape))
@@ -445,8 +509,11 @@ def _allgather_hierarchical(engine, entries, resp: Response):
 
 def allgather(engine, entries, resp: Response):
     """Ragged allgatherv, one entry per response: the hierarchical path
-    under the JAX package's conditions, else the flat ring."""
-    if (not resp.process_set_id and engine.hierarchical_allgather
+    under the JAX package's conditions (no rank evicted among them), else
+    the flat ring."""
+    if (not resp.process_set_id
+            and not getattr(engine, "_evicted_ranks", None)
+            and engine.hierarchical_allgather
             and engine.hierarchical_topology_ok()):
         return _allgather_hierarchical(engine, entries, resp)
     return _allgather_flat(engine, entries, resp)
@@ -459,9 +526,14 @@ def _allgather_flat(engine, entries, resp: Response):
     group, me = resp_group(engine, resp)
     size = len(group)
     dtype = floats.storage_dtype(resp.tensor_type)
+    dl = _deadline(engine)
     results = []
     for e in entries:
         first_dims = resp.tensor_sizes
+        if not resp.process_set_id and len(first_dims) != size:
+            # The global set's sizes are in world-rank order; after an
+            # eviction the group is smaller: keep the members' slots.
+            first_dims = [first_dims[r] for r in group]
         rest_shape = e.array.shape[1:] if e.array.ndim > 0 else ()
         blocks: List[Optional[np.ndarray]] = [None] * size
         blocks[me] = np.ascontiguousarray(e.array)
@@ -474,8 +546,8 @@ def _allgather_flat(engine, entries, resp: Response):
                 send_idx = (me - step) % size
                 recv_idx = (me - step - 1) % size
                 ticket = right.send(blocks[send_idx])
-                payload = _recv(left)
-                _wait_send(right, ticket, right_rank)
+                payload = _recv(left, dl, left_rank)
+                _wait_send(right, ticket, dl, right_rank)
                 blk = np.frombuffer(payload, dtype=dtype)
                 blocks[recv_idx] = blk.reshape(
                     (first_dims[recv_idx],) + rest_shape)
@@ -496,6 +568,7 @@ def reducescatter(engine, entries, resp: Response):
     op = resp.reduce_op
     dt = resp.tensor_type
     dtype = floats.storage_dtype(dt)
+    dl = _deadline(engine)
     results = []
     for e in entries:
         arr = np.ascontiguousarray(e.array).astype(dtype, copy=False)
@@ -515,9 +588,10 @@ def reducescatter(engine, entries, resp: Response):
             send_idx = (me - 1 - step) % size
             recv_idx = (me - 2 - step) % size
             ticket = right.send(chunks[send_idx])
-            incoming = np.frombuffer(_recv(left), dtype=dtype).reshape(
+            incoming = np.frombuffer(
+                _recv(left, dl, left_rank), dtype=dtype).reshape(
                 (bounds[recv_idx + 1] - bounds[recv_idx],) + rest).copy()
-            _wait_send(right, ticket, right_rank)
+            _wait_send(right, ticket, dl, right_rank)
             chunks[recv_idx] = _combine(incoming, chunks[recv_idx], op, dt)
         out = chunks[me]
         if op == ReduceOp.AVERAGE:
@@ -533,6 +607,7 @@ def broadcast(engine, entries, resp: Response):
     group, _me = resp_group(engine, resp)
     rank = engine.rank
     dtype = floats.storage_dtype(resp.tensor_type)
+    dl = _deadline(engine)
     results = []
     for e in entries:
         root = int(resp.tensor_sizes[0]) if resp.tensor_sizes \
@@ -546,10 +621,10 @@ def broadcast(engine, entries, resp: Response):
                         _transport(engine, r).send(payload))
                        for r in group if r != root]
             for r, s, ticket in tickets:
-                _wait_send(s, ticket, r)
+                _wait_send(s, ticket, dl, r)
             results.append(e.array.copy())
         else:
-            payload = _recv(_transport(engine, root))
+            payload = _recv(_transport(engine, root), dl, root)
             arr = np.frombuffer(payload, dtype=dtype).copy()
             results.append(arr.reshape(e.array.shape))
     return results
@@ -561,6 +636,7 @@ def alltoall(engine, entries, resp: Response):
     group, rank = resp_group(engine, resp)
     size = len(group)
     dtype = floats.storage_dtype(resp.tensor_type)
+    dl = _deadline(engine)
     results = []
     for e in entries:
         splits = e.splits
@@ -582,8 +658,8 @@ def alltoall(engine, entries, resp: Response):
             src = (rank - step) % size
             sender = _transport(engine, group[dst])
             ticket = sender.send(my_blocks[dst])
-            payload = _recv(_transport(engine, group[src]))
-            _wait_send(sender, ticket, group[dst])
+            payload = _recv(_transport(engine, group[src]), dl, group[src])
+            _wait_send(sender, ticket, dl, group[dst])
             blk = np.frombuffer(payload, dtype=dtype)
             if rest_shape:
                 blk = blk.reshape((-1,) + rest_shape)
@@ -598,4 +674,4 @@ def alltoall(engine, entries, resp: Response):
 def barrier(engine, resp: Response) -> None:
     group, me = resp_group(engine, resp)
     _ring_allreduce_group(engine, np.zeros(1, np.int32), ReduceOp.SUM,
-                          DataType.INT32, group, me)
+                          DataType.INT32, group, me, _deadline(engine))

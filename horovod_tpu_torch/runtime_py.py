@@ -15,8 +15,43 @@ stops in the same cycle.
 The frames (``common/wire.py``), the bootstrap (``bootstrap.py``), the
 cache's positions and the data plane's arithmetic are the JAX package's,
 so that port ranks and JAX ``PyEngine`` ranks (``HVD_TPU_CORE=py``) form
-one gang.  The port plans the flat star: a JAX rank in a gang with port
-ranks runs with ``HVD_CTRL_TREE=0``.
+one gang.
+
+The control plane heals itself, each part under its knob:
+
+* liveness (``HVD_HEARTBEAT_TIMEOUT``, alias ``HOROVOD_HEARTBEAT_TIMEOUT``):
+  an idle worker sends ``TAG_HEARTBEAT`` every ``HVD_HEARTBEAT_INTERVAL``
+  seconds, any frame counts as proof of life, and the coordinator evicts a
+  rank silent past the timeout or whose control link dropped.  Evicted
+  ranks become joined ranks, so that the in-flight step completes over the
+  survivors (an ``EVICT`` response heads that cycle's list), and the next
+  submission raises ``RanksFailedError``.  A collective that completed on
+  the coordinator is proof of life of its whole group as well: no frame
+  of theirs can flow while their background threads run it;
+* collective deadlines (``HVD_COLLECTIVE_TIMEOUT``): every hop honours
+  the collective's deadline (``ops/cpu_backend.py``); a rank whose hop
+  blows it reports the peer it was blocked on (``TAG_ABORT_REPORT``), the
+  coordinator probes the gang (``TAG_PROBE``, answered from each worker's
+  receive thread with how long its collective has run), rules which ranks
+  are wedged, and broadcasts ``TAG_ABORT_VERDICT``, so that every survivor
+  fails the step with the same ``CollectiveTimeoutError``.  A
+  ``WireCorruptionError`` (the ladder's last rung) takes the same road.
+  The aborted allreduce's inputs are kept (:func:`take_retained_batch`);
+  replaying them is elastic's, which waits for item 5.7.  Until a gang is
+  re-formed its links may still hold the aborted collective's frames, so
+  the survivors stop after the error, as the JAX package's elastic
+  wrapper makes them;
+* the control tree (``HVD_CTRL_TREE``, default on; ``HVD_CTRL_FANOUT``): on
+  a multi-host block topology the lowest local rank of every host but the
+  root's folds its host's request and heartbeat frames into one
+  ``TAG_TREE_UP``, the root routes probes down through ``TAG_TREE_DOWN``,
+  and a child whose sub-coordinator died adopts itself to the root with
+  ``TAG_REPARENT`` over the direct link every rank keeps
+  (``SUBCOORD_REPARENT`` on the timeline).  A single-host gang plans no
+  tree.
+
+With every one of these knobs off (or on one host) the frames and threads
+are the engine's core's.
 
 The data plane: same-host peers pair over a shm ring unless
 ``HVD_SHM_DISABLE``, the others over TCP (``utils/transport.py``); with
@@ -27,23 +62,20 @@ two-level collectives at a block topology
 (:meth:`PyEngine.hierarchical_topology_ok`).  ``HVD_TIMELINE`` makes rank
 0 write a Chrome-tracing timeline (``utils/timeline.py``), and
 ``HOROVOD_FAULT_PLAN`` arms the fault sites (``common/fault_injection.py``;
-``engine.cycle``, ``ctrl.worker.send`` and ``ctrl.coord.send`` here).
+``engine.cycle``, ``ctrl.worker.send``, ``ctrl.coord.send``,
+``ctrl.subcoord.send`` and ``ctrl.reparent`` here).
 
 Left out until their features are ported, by their items of ROADMAP Queue
 1, item 5 (setting a knob that turns one on raises ``NotImplementedError``
 at ``init()``, so that a port rank never runs another protocol quietly):
 
-* 5.3: heartbeats, eviction and ``EVICT`` (``HVD_HEARTBEAT_TIMEOUT``),
-  collective deadlines, abort and replay (``HVD_COLLECTIVE_TIMEOUT``;
-  until then a ``WireCorruptionError`` fails its collective on this rank,
-  with no gang-wide agreement);
-* 5.4: the control tree (``HVD_CTRL_TREE`` is not read: the star is
-  flat);
 * 5.5: the autotuner (``HVD_AUTOTUNE``), telemetry (``HVD_METRICS*``,
-  ``HVD_STRAGGLER_WARN_MS``), the trace (``HVD_TRACE``) with its clock
-  pings, and the flight recorder;
+  ``HVD_STRAGGLER_WARN_MS``; the heartbeat-miss, eviction and abort
+  counters among them), the trace (``HVD_TRACE``) with its clock pings,
+  and the flight recorder with its post-verdict pull;
 * 5.7: elastic membership epochs (``HVD_ELASTIC_EPOCH``: every frame
-  carries epoch 0), then the serving loop's
+  carries epoch 0), the fence (``TAG_FENCE``), the quorum, the replay of
+  a retained batch, then the serving loop's
   ``serve_broadcast``/``serve_recv``.
 """
 
@@ -64,13 +96,16 @@ from horovod_tpu_torch.common import floats
 from horovod_tpu_torch.common import response_cache as rcache
 from horovod_tpu_torch.common import wire
 from horovod_tpu_torch.common.types import (
+    CollectiveTimeoutError,
     DataType,
+    RanksFailedError,
     ReduceOp,
     Request,
     RequestType,
     Response,
     ResponseType,
     Status,
+    StatusType,
     TensorShape,
     dtype_from_numpy,
 )
@@ -92,10 +127,6 @@ _OP_NAMES = {
 # when it is on: "bool" true, "positive" > 0, "set" non-empty; the
 # ROADMAP Queue 1 item that brings it).
 _LEFT_OUT = (
-    ("HVD_HEARTBEAT_TIMEOUT", "positive", "5.3, heartbeats"),
-    ("HOROVOD_HEARTBEAT_TIMEOUT", "positive", "5.3, heartbeats"),
-    ("HVD_COLLECTIVE_TIMEOUT", "positive",
-     "5.3, deadlines, abort and replay"),
     ("HVD_AUTOTUNE", "bool", "5.5, autotune"),
     ("HVD_METRICS", "bool", "5.5, telemetry"),
     ("HVD_METRICS_PORT", "set", "5.5, telemetry"),
@@ -124,8 +155,36 @@ def check_left_out_knobs() -> None:
                 f"it, gang-wide, to run the engine's core")
 
 
+# The retention of an aborted batch: when the gang aborts an allreduce
+# (CollectiveTimeoutError), each survivor keeps copies of its original
+# inputs here (the ring works on the fusion buffer, never on the entries'
+# arrays).  Module-level, so that it outlives the engine: a replay tears
+# the engine down and builds a new one (elastic's, ROADMAP Queue 1, item
+# 5.7).
+_replay_lock = threading.Lock()
+_replay_batch: Optional[List[dict]] = None
+
+
+def retain_aborted_batch(batch: List[dict]) -> None:
+    global _replay_batch
+    with _replay_lock:
+        _replay_batch = batch
+
+
+def take_retained_batch() -> Optional[List[dict]]:
+    """Pop the retained aborted batch (None when nothing was aborted).
+    Each item: {name, array (a copy of the input), op, prescale,
+    postscale}."""
+    global _replay_batch
+    with _replay_lock:
+        batch, _replay_batch = _replay_batch, None
+    return batch
+
+
 class HandleManager:
-    """Async handle table."""
+    """Async handle table.  A failed status raises its typed exception
+    (``Status.exc``, a ``CollectiveTimeoutError`` for instance) where it
+    has one."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -402,8 +461,53 @@ class PyEngine(_EngineBase):
         self._joined_ranks: set = set()
         self._ctrl_inbox: list = []
         self._ctrl_lock = threading.Lock()
+        # Control sends leave the background thread and, for probe acks and
+        # routed frames, the receive threads: one lock keeps frames whole.
         self._ctrl_send_lock = threading.Lock()
         self._last_stall_check = time.monotonic()
+
+        # The control tree, planned from the block topology before the
+        # bootstrap, which dials its links.
+        self.ctrl_fanout = env_util.ctrl_fanout()
+        self._tree_parent, self._tree_children, self._rank_route = \
+            self._plan_tree()
+        self._tree_parent_sock = None      # a child's link up
+        self._tree_child_socks: Dict[int, socket.socket] = {}
+        self._tree_up_buf: List[tuple] = []  # a sub-coordinator's backlog
+        self._tree_up_lock = threading.Lock()
+        self._tree_orphaned = False        # a child whose parent died
+        # A child's last request payloads sent up the tree, resent after a
+        # re-parent: the dead parent may not have relayed them (the
+        # coordinator ignores a rank's second tick for a name).
+        self._tree_unacked: List[bytes] = []
+        self._reparented_ranks: set = set()  # the root's adopted orphans
+
+        # Liveness (off at timeout 0: no heartbeat frames, no clock reads
+        # on the receive threads).
+        self.heartbeat_timeout = env_util.heartbeat_timeout_s()
+        self.heartbeat_interval = env_util.heartbeat_interval_s(
+            self.heartbeat_timeout)
+        self._evicted_ranks: set = set()      # every rank
+        self._ranks_failed: List[int] = []    # raised at the next enqueue
+        self._conn_lost: set = set()          # the root's dropped links
+        self._last_seen: Dict[int, float] = {}
+        self._last_send = time.monotonic()
+
+        # Collective deadlines and the abort agreement (off at 0).
+        self.collective_timeout = env_util.collective_timeout_s()
+        self.collective_probe_timeout = env_util.collective_probe_timeout_s(
+            self.collective_timeout)
+        self._abort_inbox: List[tuple] = []   # the root's reports and acks
+        self._abort_lock = threading.Lock()
+        # A worker's verdict, handed from its receive thread to its
+        # background thread.
+        self._abort_verdict: Optional[tuple] = None
+        self._abort_cv = threading.Condition(self._abort_lock)
+        # The busy marker a probe ack reads: when the running collective
+        # started (0.0 = idle), kept only with the deadline knob on.
+        self._in_collective_since = 0.0
+        # The root's last verdict, resent to a rank that reports late.
+        self._last_verdict: Optional[tuple] = None
 
         # Response cache; touched only on the background thread.
         self._cache = rcache.ResponseCache(
@@ -422,6 +526,42 @@ class PyEngine(_EngineBase):
         self._bg.start()
 
     # ------------------------------------------------------------------
+    # the control tree
+    # ------------------------------------------------------------------
+
+    def _plan_tree(self):
+        """``(parent, children, route)`` of the two-level control tree:
+        ``parent`` is this rank's sub-coordinator (None: it talks to the
+        root directly, as the root, the sub-coordinators, the root's host
+        and a fan-out's overflow do), ``children`` the ranks this
+        sub-coordinator folds, ``route`` the root's map child ->
+        sub-coordinator.  Empty on one host, on a non-block layout and
+        under ``HVD_CTRL_TREE=0``: the flat star."""
+        none = (None, [], {})
+        if self.size <= 1 or self.local_size <= 1 or self.cross_size <= 1:
+            return none
+        if not env_util.ctrl_tree_on():
+            return none
+        if not self.hierarchical_topology_ok():
+            return none
+        fanout = self.ctrl_fanout
+        parent, children, route = None, [], {}
+        ls = self.local_size
+        for host in range(1, self.cross_size):
+            sub = host * ls
+            if sub >= self.size:
+                break
+            members = list(range(sub + 1, min((host + 1) * ls, self.size)))
+            folded = members if fanout <= 0 else members[:fanout]
+            for c in folded:
+                route[c] = sub
+                if c == self.rank:
+                    parent = sub
+            if self.rank == sub:
+                children = folded
+        return parent, children, route
+
+    # ------------------------------------------------------------------
     # bootstrap: rendezvous + socket meshes
     # ------------------------------------------------------------------
 
@@ -434,11 +574,13 @@ class PyEngine(_EngineBase):
         # re-dials, and remembers every peer's address.
         ladder_on = env_util.wire_crc()
         self._reconnect_listener = None
+        tree = {"parent": self._tree_parent,
+                "children": self._tree_children}
         if ladder_on:
             (self._data, self._ctrl_sock, self._ctrl_socks, kv, kv_prefix,
              mesh_peers, mesh_listener) = bootstrap_mesh(
                 self.rank, self.size, rdv_addr, rdv_port,
-                keep_listener=True)
+                keep_listener=True, tree=tree)
             from horovod_tpu_torch.utils import ladder
 
             self._transports, self._reconnect_listener = \
@@ -450,7 +592,7 @@ class PyEngine(_EngineBase):
         else:
             (self._data, self._ctrl_sock, self._ctrl_socks, kv,
              kv_prefix) = bootstrap_mesh(self.rank, self.size, rdv_addr,
-                                         rdv_port)
+                                         rdv_port, tree=tree)
             self._transports = tpt.build_transports(
                 self.rank, self.size, self._data, kv, kv_prefix)
             # A shm transport's sender thread lives inside it: one sender
@@ -458,38 +600,80 @@ class PyEngine(_EngineBase):
             self._senders = {r: t.sender
                              for r, t in self._transports.items()
                              if t.kind == "tcp"}
+        self._tree_parent_sock = tree.get("parent_sock")
+        self._tree_child_socks = tree.get("child_socks") or {}
         self._fusion_buf = FusionBuffer()
         self._response_inbox: List[bytes] = []
         self._response_lock = threading.Lock()
         self._response_cv = threading.Condition(self._response_lock)
         if self.rank == 0:
+            now = time.monotonic()
+            self._last_seen = {r: now for r in self._ctrl_socks}
             for r, s in self._ctrl_socks.items():
                 threading.Thread(target=self._ctrl_recv_loop,
                                  args=(r, s), daemon=True).start()
         else:
             threading.Thread(target=self._worker_recv_loop,
                              daemon=True).start()
+            if self._tree_parent_sock is not None:
+                threading.Thread(target=self._tree_parent_recv_loop,
+                                 daemon=True).start()
+            for r, s in self._tree_child_socks.items():
+                threading.Thread(target=self._tree_child_recv_loop,
+                                 args=(r, s), daemon=True).start()
 
     def _ctrl_recv_loop(self, peer_rank: int, sock: socket.socket) -> None:
         try:
             while not self._shutdown_flag.is_set():
                 tag, payload = su.recv_frame(sock)
-                if tag == su.TAG_REQUEST_LIST:
-                    with self._ctrl_lock:
-                        self._ctrl_inbox.append((peer_rank, payload))
-                # Other tags belong to features the port leaves out, whose
-                # knobs must be off gang-wide.
+                self._dispatch_ctrl_frame(peer_rank, tag, payload)
         except (ConnectionError, OSError):
-            pass
+            # EOF or reset: a dead rank, acted on only with liveness on.
+            self._conn_lost.add(peer_rank)
+
+    def _dispatch_ctrl_frame(self, peer_rank: int, tag: int,
+                             payload: bytes) -> None:
+        """The root's dispatch of one control frame, from a rank's own
+        socket or unfolded from a ``TAG_TREE_UP`` (``peer_rank`` is then
+        the entry's origin)."""
+        if self.heartbeat_timeout > 0:
+            # Any frame is proof of life; TAG_HEARTBEAT carries nothing
+            # else.
+            self._last_seen[peer_rank] = time.monotonic()
+        if tag == su.TAG_REQUEST_LIST:
+            with self._ctrl_lock:
+                self._ctrl_inbox.append((peer_rank, payload))
+        elif tag == su.TAG_TREE_UP:
+            entries, _epoch = wire.decode_tree_up(payload)
+            for origin, etag, epayload in entries:
+                self._dispatch_ctrl_frame(origin, etag, epayload)
+        elif tag == su.TAG_REPARENT:
+            _rank, old_parent, _epoch = wire.decode_reparent(payload)
+            self._note_reparent(peer_rank, old_parent)
+        elif tag in (su.TAG_ABORT_REPORT, su.TAG_PROBE_ACK):
+            with self._abort_lock:
+                self._abort_inbox.append((peer_rank, tag, payload))
+        # Other tags belong to features the port leaves out, whose knobs
+        # must be off gang-wide.
+
+    def _note_reparent(self, rank: int, old_parent: int) -> None:
+        """Root: an orphan of a dead sub-coordinator adopted itself to the
+        star.  Only the dead parent is evicted; the orphan keeps its seat
+        and its collectives ride on."""
+        self._reparented_ranks.add(rank)
+        self._rank_route.pop(rank, None)
+        self.log.warning(
+            "rank %d re-parented to the root (sub-coordinator %d died)",
+            rank, old_parent)
+        if self.timeline.enabled:
+            self.timeline.instant(timeline_mod.SUBCOORD_REPARENT,
+                                  rank=rank, old_parent=old_parent)
 
     def _worker_recv_loop(self) -> None:
         try:
             while not self._shutdown_flag.is_set():
                 tag, payload = su.recv_frame(self._ctrl_sock)
-                if tag == su.TAG_RESPONSE_LIST:
-                    with self._response_cv:
-                        self._response_inbox.append(payload)
-                        self._response_cv.notify_all()
+                self._dispatch_worker_frame(tag, payload)
         except (ConnectionError, OSError):
             # Coordinator EOF: expected during a negotiated shutdown;
             # otherwise the next worker cycle drains any shutdown frame
@@ -498,11 +682,115 @@ class PyEngine(_EngineBase):
                     or self._shutdown_requested.is_set() or self._closed):
                 self._ctrl_conn_lost = True
 
+    def _dispatch_worker_frame(self, tag: int, payload: bytes) -> None:
+        """A worker's dispatch of one root frame, from its direct socket
+        or forwarded down by its sub-coordinator.  Replies go up the
+        direct socket, which stays live while a sub-coordinator dies."""
+        if tag == su.TAG_TREE_DOWN:
+            # A sub-coordinator: forward a root frame to one child or all.
+            target, itag, ipayload = wire.decode_tree_down(payload)
+            for r, s in list(self._tree_child_socks.items()):
+                if target != -1 and r != target:
+                    continue
+                try:
+                    _fi.fire("ctrl.subcoord.send", str(r))
+                    with self._ctrl_send_lock:
+                        su.send_frame(s, itag, ipayload)
+                except (ConnectionError, OSError):
+                    pass  # the root's liveness owns the eviction
+            return
+        if tag == su.TAG_RESPONSE_LIST:
+            with self._response_cv:
+                self._response_inbox.append(payload)
+                self._response_cv.notify_all()
+        elif tag == su.TAG_PROBE:
+            # Answered from this thread: the background thread may be the
+            # one wedged in the data plane.
+            since = self._in_collective_since
+            busy_s = (time.monotonic() - since) if since else 0.0
+            ack = wire.encode_probe_ack(since > 0.0, busy_s, self.epoch)
+            try:
+                with self._ctrl_send_lock:
+                    su.send_frame(self._ctrl_sock, su.TAG_PROBE_ACK, ack)
+            except (ConnectionError, OSError):
+                pass
+        elif tag == su.TAG_ABORT_VERDICT:
+            vname, vranks, vepoch = wire.decode_abort_verdict(payload)
+            if vepoch != self.epoch:
+                return
+            with self._abort_cv:
+                self._abort_verdict = (vname, vranks)
+                self._abort_cv.notify_all()
+
+    # -- the control tree's links -----------------------------------------
+    #
+    # A child sends its request and heartbeat frames to its host's
+    # sub-coordinator, which folds them with its own into one TAG_TREE_UP
+    # each cycle.  Responses always ride the direct star: nothing that
+    # cannot be resent transits the tree.
+
+    def _tree_parent_recv_loop(self) -> None:
+        """A child: frames its sub-coordinator forwards down (routed
+        probes).  EOF here makes it re-parent: its direct link to the root
+        is still up."""
+        sock = self._tree_parent_sock
+        try:
+            while not self._shutdown_flag.is_set():
+                tag, payload = su.recv_frame(sock)
+                self._dispatch_worker_frame(tag, payload)
+        except (ConnectionError, OSError):
+            if not (self._shutdown_flag.is_set()
+                    or self._shutdown_requested.is_set() or self._closed):
+                self._reparent_to_root()
+
+    def _tree_child_recv_loop(self, child: int,
+                              sock: socket.socket) -> None:
+        """A sub-coordinator: buffer a child's frames for the next
+        ``TAG_TREE_UP``.  A child's EOF is the root's to act on (its
+        heartbeat timeout)."""
+        try:
+            while not self._shutdown_flag.is_set():
+                tag, payload = su.recv_frame(sock)
+                with self._tree_up_lock:
+                    self._tree_up_buf.append((child, tag, payload))
+        except (ConnectionError, OSError):
+            pass
+
+    def _reparent_to_root(self) -> None:
+        """A child of a dead sub-coordinator: announce ``TAG_REPARENT`` on
+        the direct link and resend the request payloads the parent may not
+        have relayed.  From here on this rank speaks the flat star."""
+        with self._ctrl_send_lock:
+            if self._tree_orphaned or self._tree_parent is None:
+                return
+            self._tree_orphaned = True
+        old = self._tree_parent
+        self.log.warning(
+            "sub-coordinator %d unreachable; re-parenting to the root", old)
+        try:
+            _fi.fire("ctrl.reparent", str(self.rank))
+            with self._ctrl_send_lock:
+                su.send_frame(self._ctrl_sock, su.TAG_REPARENT,
+                              wire.encode_reparent(self.rank, old,
+                                                   self.epoch))
+                for payload in list(self._tree_unacked):
+                    su.send_frame(self._ctrl_sock, su.TAG_REQUEST_LIST,
+                                  payload)
+            self._last_send = time.monotonic()
+        except (ConnectionError, OSError):
+            # The direct link is gone too: a dead hub, which the lost-
+            # coordinator abort owns.
+            self._ctrl_conn_lost = True
+
     # ------------------------------------------------------------------
     # enqueue API (framework-thread side)
     # ------------------------------------------------------------------
 
     def _enqueue(self, entry: TensorTableEntry) -> int:
+        if self._ranks_failed:
+            # The in-flight steps completed over the survivors; the next
+            # submission is where the training loop can react.
+            raise RanksFailedError(self._ranks_failed)
         if self._aborted or self._shutdown_flag.is_set() \
                 or self._shutdown_requested.is_set():
             raise RuntimeError("horovod_tpu_torch runtime has been shut down")
@@ -673,6 +961,11 @@ class PyEngine(_EngineBase):
         socks = list(self._data.values()) + list(self._ctrl_socks.values())
         if self._ctrl_sock is not None:
             socks.append(self._ctrl_sock)
+        # The tree's links too: closing them ends their receive threads
+        # (``_closed`` keeps that EOF from reading as a dead parent).
+        socks += list(self._tree_child_socks.values())
+        if self._tree_parent_sock is not None:
+            socks.append(self._tree_parent_sock)
         for s in socks:
             try:
                 s.close()
@@ -800,23 +1093,78 @@ class PyEngine(_EngineBase):
 
     # -- worker ---------------------------------------------------------
 
+    def _uplink(self) -> Optional[socket.socket]:
+        """A child's link to its live sub-coordinator, else None."""
+        if self._tree_parent is not None and not self._tree_orphaned:
+            return self._tree_parent_sock
+        return None
+
     def _worker_cycle(self, msgs: List[Request]) -> bool:
         requests, hit_events = self._classify(msgs)
         want_shutdown = self._shutdown_requested.is_set()
         send_failed = False
+        # A sub-coordinator folds what its children sent since the last
+        # cycle, and its own frame, into one TAG_TREE_UP.
+        tree_entries: List[tuple] = []
+        if self._tree_child_socks:
+            with self._tree_up_lock:
+                tree_entries = self._tree_up_buf
+                self._tree_up_buf = []
         if requests or hit_events or want_shutdown:
             payload = wire.encode_request_list(requests,
                                                shutdown=want_shutdown,
                                                cache_hits=hit_events,
                                                epoch=self.epoch)
+            if self._tree_child_socks:
+                tree_entries.append(
+                    (self.rank, su.TAG_REQUEST_LIST, payload))
+            else:
+                up = self._uplink()
+                try:
+                    _fi.fire("ctrl.worker.send", str(self.rank))
+                    with self._ctrl_send_lock:
+                        su.send_frame(up or self._ctrl_sock,
+                                      su.TAG_REQUEST_LIST, payload)
+                    if up is not None:
+                        self._tree_unacked.append(payload)
+                        del self._tree_unacked[:-8]
+                    self._last_send = time.monotonic()
+                except (ConnectionError, OSError):
+                    if up is not None:
+                        # A dead sub-coordinator, not a dead hub: adopt
+                        # this rank to the star, which resends this frame.
+                        self._tree_unacked.append(payload)
+                        del self._tree_unacked[:-8]
+                        self._reparent_to_root()
+                    else:
+                        # The coordinator may have closed right after its
+                        # shutdown frame; the receiver may hold it already.
+                        send_failed = True
+        elif self.heartbeat_timeout > 0 and \
+                time.monotonic() - self._last_send >= self.heartbeat_interval:
+            # Idle past the cadence: prove liveness.  A lost coordinator
+            # shows in the receive thread, not here.
+            if self._tree_child_socks:
+                tree_entries.append((self.rank, su.TAG_HEARTBEAT, b""))
+            else:
+                up = self._uplink()
+                try:
+                    with self._ctrl_send_lock:
+                        su.send_frame(up or self._ctrl_sock,
+                                      su.TAG_HEARTBEAT, b"")
+                except (ConnectionError, OSError):
+                    if up is not None:
+                        self._reparent_to_root()
+            self._last_send = time.monotonic()
+        if tree_entries:
+            up_payload = wire.encode_tree_up(tree_entries, epoch=self.epoch)
             try:
-                _fi.fire("ctrl.worker.send", str(self.rank))
+                _fi.fire("ctrl.subcoord.send", str(self.rank))
                 with self._ctrl_send_lock:
-                    su.send_frame(self._ctrl_sock, su.TAG_REQUEST_LIST,
-                                  payload)
+                    su.send_frame(self._ctrl_sock, su.TAG_TREE_UP,
+                                  up_payload)
+                self._last_send = time.monotonic()
             except (ConnectionError, OSError):
-                # The coordinator may have closed right after its shutdown
-                # frame; the receiver may hold it already.
                 send_failed = True
         with self._response_lock:
             inbox = self._response_inbox
@@ -941,6 +1289,18 @@ class PyEngine(_EngineBase):
             for name, pos in peer_hits:
                 _absorb_hit(name, pos, peer)
 
+        # A worker's hop deadline fired while this rank runs its cycles:
+        # rule on the abort now.
+        if self.collective_timeout > 0:
+            self._drain_abort_reports()
+
+        # Liveness: evict the ranks silent past the timeout or whose link
+        # dropped, as joined ranks, so that the survivors complete what is
+        # in flight.
+        dead = self._check_dead_ranks()
+        if dead and not shutdown:
+            self._evict_ranks(dead, ready)
+
         responses: List[Response] = []
         hit_positions: List[int] = []
         for key in ready:
@@ -951,7 +1311,10 @@ class PyEngine(_EngineBase):
             hit_ranks = self._hit_ranks.pop(key, set())
             contributors = {r.request_rank for r in reqs}
             ent_pos = -1
-            if hit_ranks >= contributors:
+            # An eviction's cycle ships whole responses: a worker runs the
+            # cached hits before the response list, so a hit would run
+            # over the old group before the EVICT.
+            if not dead and hit_ranks >= contributors:
                 # Every contributor hit, so every request came from the
                 # same cache entry: the response is the cached one.
                 ent_pos = self._cache.position_of(name)
@@ -960,11 +1323,19 @@ class PyEngine(_EngineBase):
             else:
                 responses.append(self._construct_response(name, reqs))
 
+        if dead and not shutdown:
+            # First in the list: every rank applies the eviction before
+            # it runs a collective the eviction made ready.
+            responses.insert(0, Response(
+                response_type=ResponseType.EVICT,
+                tensor_sizes=sorted(dead)))
+
         if len(self._joined_ranks) == self.size:
             responses.append(Response(
                 response_type=ResponseType.JOIN,
                 tensor_sizes=[self._last_joined_rank]))
-            self._joined_ranks = set()
+            # Evicted ranks never un-join.
+            self._joined_ranks = set(self._evicted_ranks)
 
         if not self.stall_check_disable:
             shutdown = self._check_stalls() or shutdown
@@ -998,6 +1369,300 @@ class PyEngine(_EngineBase):
                 self._shutdown_flag.set()
                 return False
         return True
+
+    def _check_dead_ranks(self) -> List[int]:
+        """Ranks whose control link dropped or that have been silent past
+        the heartbeat timeout; empty with liveness off."""
+        if self.heartbeat_timeout <= 0:
+            return []
+        now = time.monotonic()
+        dead = []
+        for r, t in self._last_seen.items():
+            if r in self._evicted_ranks:
+                continue
+            if r in self._conn_lost or now - t > self.heartbeat_timeout:
+                dead.append(r)
+        # A dying sub-coordinator takes its children's uplink with it: a
+        # child still routed through a parent that is dead this round gets
+        # a whole timeout to re-parent, and only the parent is evicted.
+        if dead and self._rank_route:
+            dead_set = set(dead)
+            for child, parent in list(self._rank_route.items()):
+                if parent in dead_set and child in dead_set:
+                    dead.remove(child)
+                    self._last_seen[child] = now
+                    self._conn_lost.discard(child)
+        return dead
+
+    def _evict_ranks(self, dead: List[int], ready: List[str]) -> None:
+        """Make ``dead`` joined for good: drop their queued requests and
+        rescan readiness, so that the survivors complete the in-flight
+        negotiation with the dead ranks counted out."""
+        for r in dead:
+            self.log.error(
+                "rank %d unresponsive (%s); evicting from the job", r,
+                "connection lost" if r in self._conn_lost
+                else f"no heartbeat for {self.heartbeat_timeout:.1f}s")
+            self._evicted_ranks.add(r)
+            self._joined_ranks.add(r)
+        self._prune_evicted(ready)
+
+    def _prune_evicted(self, ready: Optional[List[str]] = None) -> None:
+        """Drop the evicted ranks' requests from the message table; a name
+        only they had announced goes, and one that every survivor has
+        announced becomes ready (with ``ready``)."""
+        for nm, lst in list(self._msg_table.entries.items()):
+            lst[:] = [q for q in lst
+                      if q.request_rank not in self._evicted_ranks]
+            if not lst:
+                self._msg_table.pop(nm)
+                self._hit_ranks.pop(nm, None)
+                if ready is not None and nm in ready:
+                    ready.remove(nm)
+            elif ready is not None and lst[0].process_set_id == 0 and \
+                    len(lst) == self.size - len(self._joined_ranks) and \
+                    nm not in ready:
+                ready.append(nm)
+
+    # -- the collective-abort agreement -------------------------------------
+    #
+    # Heartbeats catch dead ranks; these frames catch hung ones.  A rank
+    # whose hop blows HVD_COLLECTIVE_TIMEOUT reports the peer it was
+    # blocked on (TAG_ABORT_REPORT); the coordinator probes the gang
+    # (TAG_PROBE / TAG_PROBE_ACK, answered from the receive threads, which
+    # stay responsive while a background thread is wedged), rules which
+    # ranks are stuck, and broadcasts TAG_ABORT_VERDICT, so that every
+    # survivor raises the same CollectiveTimeoutError for the same step.
+
+    def _drain_abort_reports(self) -> None:
+        """The coordinator, between cycles (not blocked in a collective
+        itself): act on the hop-timeout reports that came meanwhile."""
+        with self._abort_lock:
+            if not self._abort_inbox:
+                return
+            inbox, self._abort_inbox = self._abort_inbox, []
+        reports: Dict[int, int] = {}
+        name = ""
+        for peer, tag, payload in inbox:
+            if tag != su.TAG_ABORT_REPORT:
+                continue  # a stray ack of a finished probe round
+            nm, suspect, epoch = wire.decode_abort_report(payload)
+            if epoch != self.epoch:
+                continue
+            if self._last_verdict is not None and \
+                    self._last_verdict[0] == nm:
+                # Ruled already: this rank's deadline fired after the
+                # broadcast.
+                self._send_verdict_to(peer)
+                continue
+            reports[peer] = suspect
+            name = nm
+        if reports:
+            self._coordinate_abort(name, reports)
+
+    def _send_verdict_to(self, rank: int) -> None:
+        vname, vranks = self._last_verdict
+        sock = self._ctrl_socks.get(rank)
+        if sock is None:
+            return
+        try:
+            with self._ctrl_send_lock:
+                su.send_frame(
+                    sock, su.TAG_ABORT_VERDICT,
+                    wire.encode_abort_verdict(vname, vranks, self.epoch))
+        except (ConnectionError, OSError):
+            pass
+
+    def _send_probes(self, live: List[int]) -> None:
+        for r in live:
+            # A rank under a live sub-coordinator gets its probe routed
+            # down the tree; its ack comes back on its direct link.
+            parent = self._rank_route.get(r)
+            if parent is not None and parent in self._ctrl_socks \
+                    and parent not in self._evicted_ranks \
+                    and parent not in self._conn_lost:
+                down = wire.encode_tree_down(r, su.TAG_PROBE, b"")
+                try:
+                    with self._ctrl_send_lock:
+                        su.send_frame(self._ctrl_socks[parent],
+                                      su.TAG_TREE_DOWN, down)
+                    continue
+                except (ConnectionError, OSError):
+                    pass
+            try:
+                with self._ctrl_send_lock:
+                    su.send_frame(self._ctrl_socks[r], su.TAG_PROBE, b"")
+            except (ConnectionError, OSError):
+                pass
+
+    def _coordinate_abort(self, name: str,
+                          reports: Dict[int, int]) -> List[int]:
+        """Probe the gang, rule which ranks are wedged, broadcast and apply
+        the verdict; returns the wedged ranks.  On the coordinator's
+        background thread, from :meth:`_drain_abort_reports` or from its
+        own hop timeout.  ``reports``: reporter -> the peer it blamed."""
+        t0 = time.monotonic()
+        self.log.error(
+            "collective %r blew its %gs deadline (reported by rank(s) "
+            "%s); probing the gang", name, self.collective_timeout,
+            sorted(reports))
+        live = [r for r in self._ctrl_socks if r not in self._evicted_ranks]
+        acks: Dict[int, tuple] = {}
+        self._send_probes(live)
+        deadline = t0 + max(0.1, self.collective_probe_timeout)
+        last_probe = t0
+        while time.monotonic() < deadline:
+            with self._abort_lock:
+                inbox, self._abort_inbox = self._abort_inbox, []
+            for peer, tag, payload in inbox:
+                if tag == su.TAG_PROBE_ACK:
+                    busy, busy_s, ep = wire.decode_probe_ack(payload)
+                    if ep == self.epoch:
+                        acks[peer] = (busy, busy_s)
+                elif tag == su.TAG_ABORT_REPORT:
+                    _nm, suspect, ep = wire.decode_abort_report(payload)
+                    if ep == self.epoch:
+                        reports[peer] = suspect
+            # Every live worker has reported a timeout of its own (a
+            # victim of the hang, not its cause) or acked idle: nothing
+            # more to learn from the window.
+            if all(r in reports or (r in acks and not acks[r][0])
+                   for r in live):
+                break
+            now = time.monotonic()
+            if now - last_probe >= 0.25:
+                self._send_probes(live)  # refresh the busy durations
+                last_probe = now
+            time.sleep(0.02)
+
+        # A live rank is wedged when it reported no timeout of its own and
+        # its last word was "busy", or silence: every healthy rank's own
+        # deadline fires within about one timeout of the first.
+        wedged = sorted(r for r in live
+                        if r not in reports and (r not in acks
+                                                 or acks[r][0]))
+        if not wedged:
+            # Nobody provably stuck (the hang healed, or the victim died
+            # with its socket): the most-blamed suspect, non-reporters
+            # first, ties to the lowest rank.
+            blame: Dict[int, int] = {}
+            for suspect in reports.values():
+                if suspect >= 0 and suspect not in reports:
+                    blame[suspect] = blame.get(suspect, 0) + 1
+            if not blame:
+                for suspect in reports.values():
+                    if suspect >= 0:
+                        blame[suspect] = blame.get(suspect, 0) + 1
+            if blame:
+                top = max(blame.values())
+                wedged = [min(r for r, n in blame.items() if n == top)]
+
+        payload = wire.encode_abort_verdict(name, wedged, self.epoch)
+        self._last_verdict = (name, wedged)
+        for r in live:
+            try:
+                with self._ctrl_send_lock:
+                    su.send_frame(self._ctrl_socks[r],
+                                  su.TAG_ABORT_VERDICT, payload)
+            except (ConnectionError, OSError):
+                pass
+        self._apply_abort_verdict(name, wedged, t0)
+        return wedged
+
+    def _report_and_await_verdict(self, name: str,
+                                  suspect: int) -> Optional[List[int]]:
+        """A worker's half of the agreement: report the hop timeout, then
+        wait (on the background thread: the collective is dead anyway) for
+        the verdict.  None: no verdict in time, the coordinator is wedged
+        or lost."""
+        with self._abort_cv:
+            if self._abort_verdict is not None:
+                # The broadcast came while this rank was still blocked.
+                ranks = self._abort_verdict[1]
+                self._abort_verdict = None
+                return ranks
+        try:
+            with self._ctrl_send_lock:
+                su.send_frame(
+                    self._ctrl_sock, su.TAG_ABORT_REPORT,
+                    wire.encode_abort_report(name, suspect, self.epoch))
+        except (ConnectionError, OSError):
+            return None
+        # The worst case: the coordinator starts probing only after its own
+        # hop deadline (one timeout), then runs a whole probe window.
+        deadline = time.monotonic() + max(
+            2.0 * self.collective_timeout,
+            self.collective_timeout + 2.0 * self.collective_probe_timeout)
+        with self._abort_cv:
+            while self._abort_verdict is None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return None
+                self._abort_cv.wait(remaining)
+            ranks = self._abort_verdict[1]
+            self._abort_verdict = None
+        return ranks
+
+    def _apply_abort_verdict(self, name: str, ranks: List[int],
+                             t0: float) -> None:
+        """Record and apply an agreed abort: the timeline's record, and
+        the eviction, so that the next submission raises on every
+        survivor."""
+        elapsed = time.monotonic() - t0
+        if self.timeline.enabled:
+            self.timeline.instant(
+                timeline_mod.COLLECTIVE_ABORT, ranks=list(ranks),
+                tensor=name, abort_ms=round(elapsed * 1e3, 3))
+        self.log.error(
+            "gang verdict: rank(s) %s wedged during %r; aborting the "
+            "collective (%.0f ms after the local timeout)", ranks, name,
+            elapsed * 1e3)
+        self._evicted_ranks.update(ranks)
+        self._ranks_failed = sorted(set(self._ranks_failed) | set(ranks))
+        if self.rank == 0:
+            # A heartbeat eviction's pruning, so that the cycles after the
+            # abort cannot wait on the wedged ranks.
+            self._joined_ranks.update(ranks)
+            self._prune_evicted()
+
+    def _retain_for_replay(self, resp: Response,
+                           entries: List[TensorTableEntry]) -> None:
+        """Keep copies of an aborted allreduce's original inputs."""
+        if resp.response_type != ResponseType.ALLREDUCE:
+            return
+        batch = [
+            {"name": e.name, "array": np.array(e.array, copy=True),
+             "op": resp.reduce_op, "prescale": resp.prescale_factor,
+             "postscale": resp.postscale_factor}
+            for e in entries if e.handle >= 0]
+        if batch:
+            retain_aborted_batch(batch)
+
+    def _collective_abort(self, resp: Response,
+                          entries: List[TensorTableEntry],
+                          hop: Exception) -> Status:
+        """A hop deadline fired here: run the gang-wide agreement and build
+        the typed status every survivor shares."""
+        name = resp.tensor_names[0]
+        suspect = int(getattr(hop, "peer", -1))
+        if self.rank == 0:
+            wedged = self._coordinate_abort(name, {0: suspect})
+        else:
+            t0 = time.monotonic()
+            wedged = self._report_and_await_verdict(name, suspect)
+            if wedged is None:
+                reason = ("collective timed out and no abort verdict "
+                          "arrived: coordinator wedged or lost")
+                self._abort(reason)
+                return Status.aborted(reason)
+            if self.rank in wedged:
+                # Ruled wedged ourselves: the gang moved on without us.
+                raise RuntimeError(
+                    "evicted by the coordinator (collective timeout)")
+            self._apply_abort_verdict(name, wedged, t0)
+        self._retain_for_replay(resp, entries)
+        err = CollectiveTimeoutError(wedged, name, self.collective_timeout)
+        return Status(StatusType.ABORTED, str(err), err)
 
     def _check_stalls(self) -> bool:
         """Warn about tensors some ranks have submitted and others not for
@@ -1228,9 +1893,18 @@ class PyEngine(_EngineBase):
             return
 
         if resp.response_type == ResponseType.EVICT:
-            raise NotImplementedError(
-                "the coordinator evicted ranks (heartbeats), which the port "
-                "does not run (ROADMAP Queue 1, item 5.3)")
+            ranks = [int(x) for x in resp.tensor_sizes]
+            if self.rank in ranks:
+                # Declared dead (a long pause): the gang has moved on
+                # without this rank; stop before desyncing it.
+                raise RuntimeError(
+                    "evicted by the coordinator (missed heartbeats)")
+            self._evicted_ranks.update(ranks)
+            self._ranks_failed = sorted(set(self._ranks_failed) | set(ranks))
+            self.log.error(
+                "rank(s) %s evicted; completing in-flight collectives on "
+                "the survivors", ranks)
+            return
 
         if resp.response_type == ResponseType.ERROR:
             for nm in resp.tensor_names:
@@ -1258,6 +1932,11 @@ class PyEngine(_EngineBase):
             self.response_log.append(
                 (resp.response_type.name, len(entries),
                  sum(int(e.array.nbytes) for e in entries), from_cache))
+        deadline_on = self.collective_timeout > 0
+        if deadline_on:
+            # The busy marker a probe ack reads while this thread is
+            # blocked in the ring.
+            self._in_collective_since = time.monotonic()
         try:
             if resp.response_type == ResponseType.ALLREDUCE:
                 results = cpu_backend.allreduce(self, entries, resp)
@@ -1275,14 +1954,31 @@ class PyEngine(_EngineBase):
             else:
                 raise RuntimeError(f"bad response type {resp.response_type}")
             status = Status.ok()
+        except (cpu_backend.HopTimeout, wire.WireCorruptionError) as e:
+            # A hop past its deadline, or a link the ladder gave up on:
+            # with deadlines on, the gang-wide agreement; without, the
+            # collective's error on this rank (the send-wait cap tripped,
+            # or the corruption).
+            results = [None] * len(entries)
+            if deadline_on:
+                self._in_collective_since = 0.0
+                status = self._collective_abort(resp, entries, e)
+            else:
+                self.log.error("collective %s failed: %r", op_name, e)
+                status = Status.unknown_error(str(e))
         except Exception as e:
-            # A WireCorruptionError (the ladder exhausted every rung on a
-            # link) lands here too: with no collective deadline (the port
-            # has none yet) it is the collective's error on this rank, as
-            # in the JAX engine.
             self.log.error("collective %s failed: %r", op_name, e)
             results = [None] * len(entries)
             status = Status.unknown_error(str(e))
+        if deadline_on:
+            self._in_collective_since = 0.0
+        if self.rank == 0 and self.heartbeat_timeout > 0 and status.ok_():
+            # The collective's whole group was alive through it, though
+            # no frame of theirs could flow while they ran it.
+            now = time.monotonic()
+            for r in cpu_backend.resp_group(self, resp)[0]:
+                if r in self._last_seen:
+                    self._last_seen[r] = now
         self.timeline.end(resp.tensor_names[0])
         for e, res in zip(entries, results):
             self._release_name(e.name)

@@ -56,6 +56,23 @@ WIRE_CRC = "HVD_WIRE_CRC"
 HOP_RETRIES = "HVD_HOP_RETRIES"
 RECONNECT_TIMEOUT_S = "HVD_RECONNECT_TIMEOUT_S"
 LADDER_RETAIN = "HVD_LADDER_RETAIN"
+# Liveness (runtime_py.py): a worker silent past HEARTBEAT_TIMEOUT seconds
+# is evicted (0 = off; HOROVOD_HEARTBEAT_TIMEOUT is its alias), and an idle
+# worker proves it is alive every HEARTBEAT_INTERVAL seconds.
+HEARTBEAT_TIMEOUT = "HVD_HEARTBEAT_TIMEOUT"
+HEARTBEAT_INTERVAL = "HVD_HEARTBEAT_INTERVAL"
+# Collective deadlines (ops/cpu_backend.py, runtime_py.py): every eager
+# collective's hops get COLLECTIVE_TIMEOUT seconds (0 = off: they block),
+# and a local timeout starts the gang-wide abort agreement, whose probe
+# round waits COLLECTIVE_PROBE_TIMEOUT seconds for acks.
+COLLECTIVE_TIMEOUT = "HVD_COLLECTIVE_TIMEOUT"
+COLLECTIVE_PROBE_TIMEOUT = "HVD_COLLECTIVE_PROBE_TIMEOUT"
+# The control tree (runtime_py.py): on a multi-host block topology the
+# lowest local rank of each host but the root's folds its host's control
+# frames (CTRL_TREE, default on); CTRL_FANOUT caps its children (0 = the
+# whole host; the rest talk to the root directly).
+CTRL_TREE = "HVD_CTRL_TREE"
+CTRL_FANOUT = "HVD_CTRL_FANOUT"
 
 # The non-finite gradient guard (integrity/nonfinite.py).
 NONFINITE_POLICY = "HVD_NONFINITE_POLICY"
@@ -170,6 +187,39 @@ def reconnect_timeout_s() -> float:
 def ladder_retain() -> int:
     """Retained sent frames per link (the replay buffer); floor 2."""
     return max(2, get_int(LADDER_RETAIN, 32))
+
+
+def heartbeat_timeout_s() -> float:
+    """Seconds of silence after which the coordinator evicts a worker; 0
+    (default) turns liveness off.  ``HOROVOD_HEARTBEAT_TIMEOUT`` is read
+    when ``HVD_HEARTBEAT_TIMEOUT`` is unset."""
+    return get_float(HEARTBEAT_TIMEOUT,
+                     get_float("HOROVOD_HEARTBEAT_TIMEOUT", 0.0))
+
+
+def heartbeat_interval_s(timeout: float) -> float:
+    """An idle worker's heartbeat cadence; default max(0.05, timeout / 4)."""
+    return get_float(HEARTBEAT_INTERVAL, max(0.05, timeout / 4.0))
+
+
+def collective_timeout_s() -> float:
+    """Per-collective deadline in seconds; 0 (default) = no deadline."""
+    return max(0.0, get_float(COLLECTIVE_TIMEOUT, 0.0))
+
+
+def collective_probe_timeout_s(timeout: float) -> float:
+    """The abort agreement's probe window; default max(0.5, timeout / 2)."""
+    return get_float(COLLECTIVE_PROBE_TIMEOUT, max(0.5, timeout / 2.0))
+
+
+def ctrl_fanout() -> int:
+    """Children a sub-coordinator folds; 0 (default) = its whole host."""
+    return max(0, get_int(CTRL_FANOUT, 0))
+
+
+def ctrl_tree_on() -> bool:
+    """The control tree's switch (default on)."""
+    return get_bool(CTRL_TREE, True)
 
 
 def send_wait_cap_s() -> float:

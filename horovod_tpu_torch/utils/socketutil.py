@@ -13,9 +13,13 @@ The ``sock.send`` (every frame send), ``sock.recv`` (every exact
 receive), ``sock.connect`` (every dial) and ``sock.halfopen`` (the sender
 thread's send) fault sites fire where the JAX package fires them.  The
 recovery ladder's tags (``TAG_NACK``, ``TAG_RESUME``, ``TAG_FAILOVER``)
-ride the data links themselves, never the control star.  Tags the port
-does not send yet (the abort, serving, clock, blackbox and tree frames)
-keep their numbers here as the JAX package reserves them.
+ride the data links themselves, never the control star.  The liveness
+(``TAG_HEARTBEAT``), abort-agreement (``TAG_ABORT_REPORT``, ``TAG_PROBE``,
+``TAG_PROBE_ACK``, ``TAG_ABORT_VERDICT``) and control-tree
+(``TAG_TREE_UP``, ``TAG_TREE_DOWN``, ``TAG_REPARENT``) frames ride the
+control star, each only while its knob is on.  Tags the port does not send
+yet (the serving, clock, blackbox and fence frames) keep their numbers here
+as the JAX package reserves them.
 """
 
 from __future__ import annotations
@@ -132,11 +136,10 @@ def recv_exact_into(sock: socket.socket, view: memoryview,
     ``deadline`` is an absolute ``time.monotonic()`` timestamp; when
     set, every ``recv_into`` runs under ``settimeout(remaining)`` and a
     :class:`TimeoutError` is raised once the deadline passes.  When
-    ``None`` (the default, and what the collectives pass until deadlines
-    are ported; the ladder's handshakes pass one) there are no clock reads
-    and no ``settimeout`` calls: it blocks until the bytes arrive or the
-    peer closes.  Fires the
-    ``sock.recv`` site once a call.
+    ``None`` (the default, and what the collectives pass with
+    ``HVD_COLLECTIVE_TIMEOUT`` off) there are no clock reads and no
+    ``settimeout`` calls: it blocks until the bytes arrive or the peer
+    closes.  Fires the ``sock.recv`` site once a call.
     """
     _fi.fire("sock.recv")
     got = 0

@@ -4,7 +4,8 @@
 Rank 0 writes a ``chrome://tracing`` JSON stream of per-tensor phases:
 ``NEGOTIATE_<OP>`` with a ``RANK_<r>_READY`` tick per rank, the top-level
 op, and instants on the process lane (the recovery ladder's
-``HOP_RETRY``/``TRANSPORT_FAILOVER``, the integrity modules'
+``HOP_RETRY``/``TRANSPORT_FAILOVER``, the engine's ``COLLECTIVE_ABORT``
+and ``SUBCOORD_REPARENT``, the integrity modules'
 ``NONFINITE_SKIP``/``DIVERGENCE_DETECTED``/``CKPT_VERIFY_FAIL``).  Enabled by
 ``HVD_TIMELINE=<path>``; ``HVD_TIMELINE_MARK_CYCLES=1`` adds a
 ``CYCLE_START`` instant per background cycle.  The hot path only enqueues;
@@ -53,6 +54,14 @@ CKPT_VERIFY_FAIL = "CKPT_VERIFY_FAIL"
 # Both are instants on the rank that healed.
 HOP_RETRY = "HOP_RETRY"
 TRANSPORT_FAILOVER = "TRANSPORT_FAILOVER"
+
+# The engine's self-healing records (runtime_py.py): the gang agreed to
+# abort a collective that blew HVD_COLLECTIVE_TIMEOUT (args: the wedged
+# ranks, the tensor, the agreement's milliseconds), and a child of a dead
+# sub-coordinator re-attached to the root (args: the child and the dead
+# parent).
+COLLECTIVE_ABORT = "COLLECTIVE_ABORT"
+SUBCOORD_REPARENT = "SUBCOORD_REPARENT"
 
 # Events are flushed when the queue runs dry, or every _FLUSH_EVERY events
 # in a burst.

@@ -7,8 +7,8 @@ each gang against its own ``RendezvousServer``):
 
 * a port gang of 3 and a JAX gang of 3 (``HVD_TPU_CORE=py``) on the same
   seeded inputs: every case's results must be the same bits on every rank;
-* a mixed gang of 2 (rank 0 a JAX ``PyEngine``, rank 1 the port, with
-  ``HVD_CTRL_TREE=0``) and a JAX gang of 2: the mixed gang completes every
+* a mixed gang of 2 (rank 0 a JAX ``PyEngine``, rank 1 the port) and a
+  JAX gang of 2: the mixed gang completes every
   case, Adasum included (a power of two), with the JAX gang's bits;
 * the same mixed gang with the recovery ladder on (``HVD_WIRE_CRC=1``),
   each rank under a fault plan that loses its shm ring once and then
@@ -30,8 +30,9 @@ join.  Each case is its own test over the module's gangs.
 Every knob that turns on a feature the port leaves out raises
 ``NotImplementedError`` at ``init()``; those tests start no gang.  The
 knobs of the features ported since (the timeline, the hierarchical data
-plane, the ladder, the fault plan) turn their feature on instead: rank 1
-through ``hvd.init()`` and rank 0 a ``PyEngine`` on a thread.
+plane, the ladder, the fault plan, liveness, deadlines and the control
+tree) turn their feature on instead: rank 1 through ``hvd.init()`` and
+rank 0 a ``PyEngine`` on a thread.
 """
 
 import importlib
@@ -86,7 +87,7 @@ def _start(pkgs, cases, out_dir, extra_env=None):
                    HVD_CROSS_RANK="0", HVD_CROSS_SIZE="1",
                    HVD_RENDEZVOUS_ADDR="127.0.0.1",
                    HVD_RENDEZVOUS_PORT=str(port), HVD_TPU_CORE="py",
-                   HVD_CTRL_TREE="0", JAX_PLATFORMS="cpu")
+                   JAX_PLATFORMS="cpu")
         if extra_env is not None:
             env.update(extra_env(rank) if callable(extra_env)
                        else extra_env)
@@ -225,7 +226,9 @@ def test_gangs_exit_cleanly(gangs):
 # feature on (checked by _ported_knob_is_on).
 PORTED_KNOBS = ("HVD_TIMELINE", "HVD_HIERARCHICAL_ALLREDUCE",
                 "HVD_HIERARCHICAL_ALLGATHER", "HVD_WIRE_CRC",
-                "HOROVOD_FAULT_PLAN")
+                "HOROVOD_FAULT_PLAN", "HVD_HEARTBEAT_TIMEOUT",
+                "HOROVOD_HEARTBEAT_TIMEOUT", "HVD_COLLECTIVE_TIMEOUT",
+                "HVD_CTRL_TREE", "HVD_CTRL_FANOUT")
 
 
 def _ported_knob_is_on(monkeypatch, tmp_path, knob, value):
@@ -269,6 +272,17 @@ def _ported_knob_is_on(monkeypatch, tmp_path, knob, value):
                 assert all(isinstance(tr, LadderLink)
                            for tr in eng._transports.values())
                 assert eng._reconnect_listener is not None
+        elif knob.endswith("HEARTBEAT_TIMEOUT"):
+            assert eng0.heartbeat_timeout == eng1.heartbeat_timeout == \
+                float(value)
+        elif knob == "HVD_COLLECTIVE_TIMEOUT":
+            assert eng0.collective_timeout == eng1.collective_timeout == \
+                float(value)
+        elif knob == "HVD_CTRL_FANOUT":
+            assert eng0.ctrl_fanout == eng1.ctrl_fanout == int(value)
+        elif knob == "HVD_CTRL_TREE":
+            # One host: the tree is planned and empty, the flat star.
+            assert (eng1._tree_parent, eng1._tree_children) == (None, [])
         else:
             assert fi.active()
     finally:
@@ -295,6 +309,8 @@ def _ported_knob_is_on(monkeypatch, tmp_path, knob, value):
     ("HVD_HEARTBEAT_TIMEOUT", "2.0"),
     ("HOROVOD_HEARTBEAT_TIMEOUT", "2.0"),
     ("HVD_COLLECTIVE_TIMEOUT", "5"),
+    ("HVD_CTRL_TREE", "1"),
+    ("HVD_CTRL_FANOUT", "1"),
     ("HVD_AUTOTUNE", "1"),
     ("HVD_METRICS", "1"),
     ("HVD_METRICS_PORT", "9100"),

@@ -4,8 +4,9 @@ own ``RendezvousServer``).
 
 Two waves of at most six processes:
 
-* a port gang of 4 and a JAX gang of 4 (``HVD_CTRL_TREE=0``) as two
-  virtual nodes of two ranks (``HVD_LOCAL_*``/``HVD_CROSS_*``) with
+* a port gang of 4 and a JAX gang of 4 as two virtual nodes of two ranks
+  (``HVD_LOCAL_*``/``HVD_CROSS_*``; the control tree on, so rank 2 folds
+  rank 3's control frames) with
   ``HVD_HIERARCHICAL_ALLREDUCE=1`` and ``HVD_HIERARCHICAL_ALLGATHER=1``;
   ranks 2-3 run with ``HVD_SHM_DISABLE=1``, so node 0's pair is shm and
   every other pair TCP.  Every case gives the JAX gang's bits;
@@ -104,6 +105,9 @@ def test_hierarchical_gangs_pair_node0_over_shm(gangs):
             # Both flags on and the block topology recognized: the cases
             # ran the two-level collectives.
             assert link["hierarchical"] == [True, True, True], (name, rank)
+            # The control tree: rank 2 is host 1's sub-coordinator.
+            assert link["tree"] == {2: [None, [3]], 3: [2, []]}.get(
+                rank, [None, []]), (name, rank, link)
 
 
 @pytest.mark.timeout(240)

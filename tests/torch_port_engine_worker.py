@@ -11,7 +11,8 @@ case (comma-separated in ``<cases>``) runs on seeded inputs that are the
 same bits in both packages, and the worker writes each result as
 ``(dtype name, shape, bytes)`` to ``<out_dir>/rank<r>.pkl``, with
 ``SCENARIO_OK <case>`` on stdout per case that ran, and the media of its
-links and the fault plan's fired counts to ``<out_dir>/rank<r>.links.json``
+links, the fault plan's fired counts and its control tree to
+``<out_dir>/rank<r>.links.json``
 (the timeline, the ladder and the fault plan come from ``HVD_TIMELINE``,
 ``HVD_WIRE_CRC`` and ``HOROVOD_FAULT_PLAN`` as the caller sets them).  A
 port rank passes
@@ -373,8 +374,11 @@ def links():
             bool(getattr(eng, "hierarchical_allgather", False)),
             bool(eng.hierarchical_topology_ok())
             if hasattr(eng, "hierarchical_topology_ok") else False]
+    # The control tree this rank planned: (parent, children).
+    tree = [getattr(eng, "_tree_parent", None),
+            list(getattr(eng, "_tree_children", []))]
     return {"media": {str(p): m for p, m in media.items()}, "fired": fired,
-            "hierarchical": hier}
+            "hierarchical": hier, "tree": tree}
 
 
 def main():
