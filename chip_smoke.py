@@ -106,7 +106,10 @@ non-zero):
    at every step, bit for bit; ``prefill_request``'s logits are held to the
    last position of ``apply`` with dense attention.  Prints TTFT, the
    decode step at eight live slots, one profiled decode step, prefill
-   times, the KV cache's bytes and the peak memory.  Serving runs no
+   times, the KV cache's bytes and the peak memory.  The telemetry
+   registry is on: ``hvd_serve_requests_total{status="ok"}`` must count
+   the 16 requests, and ``Scheduler.stats()`` gives TTFT's p50 and p99
+   from its histogram beside the host clock's.  Serving runs no
    flash kernel (its attention is dense), so it adds no entry to the
    kernels JSON;
 6. the eager engine: this script starts the port's ``RendezvousServer``
@@ -129,7 +132,21 @@ non-zero):
    the two ranks' pair on the shm ring (they share the host).  Prints the
    step, enqueue and ``synchronize`` times, gradient bytes, fused
    responses, effective GB/s, cache hits, flash launches and each rank's
-   link media;
+   link media.  Then the telemetry phase (see TEL_STEPS): the same two
+   ranks for TEL_STEPS steps with the autotuner, the metrics (debug
+   servers, flushers, rank 0's gang fold), the trace and the flight
+   recorder on; the same gradient and parameter checks, and: the autotune
+   log ends in its ``final`` row, a broadcast changed the knobs mid-run,
+   the tuner settled two steps before the last and every rank's knobs are
+   the settled ones; rank 0's ``/gang/metrics.json`` has no stale rank and
+   its ``hvd_collectives_total`` of the gradients' fp32 allreduces equals
+   the sum of the ranks' own snapshots and the gradients x steps x ranks;
+   ``hvd_ring_hop_seconds`` has samples; both trace files parse, rank 1's
+   has clock records and the same seq names the same collective on both;
+   no recorder dump.  Prints each rank's per-step span sums (negotiate,
+   pack, hop recv, reduce and send wait, unpack, callback) beside its
+   ``synchronize`` time, and the step medians against the engine
+   phase's;
 7. the engine's data plane: four ranks of this script
    (``--dataplane-rank R``) on cuda:0 as two virtual nodes of two, with
    the hierarchical allreduce and allgather, the recovery ladder and the
@@ -149,8 +166,11 @@ non-zero):
    raising ``RanksFailedError([2])``.  Gang B, three ranks on shm with the
    deadline: rank 2 stalled at step 1, ``CollectiveTimeoutError([2])`` on
    both survivors within twice the deadline, ``COLLECTIVE_ABORT``, the
-   retained batch bit for bit, no shm segment left.  Then phase 6 again
-   with those knobs on.  Prints the step medians, kill to eviction and
+   retained batch bit for bit, no shm segment left.  The flight recorder
+   and the metrics' flusher are on in both: gang A's survivors each dump
+   (``ranks_failed``) and the root counts one eviction; gang B's survivors
+   dump ``collective_timeout``, the root's verdict note names rank 2 and
+   it pulled rank 2's ring.  Then phase 6 again with those knobs on.  Prints the step medians, kill to eviction and
    stall to error.  The ranks' flash kernels run at B 2, the pipelined
    microbatch's shape, which phase 2 checks;
 9. the kernel checks of phase 2 again, and the times of the kernel, the
@@ -1578,6 +1598,12 @@ def run_serve(tfm, dev, card):
     for s in range(SERVE_SLOTS):
         engine.clear(s)
 
+    # The telemetry registry on: the front door's and the scheduler's
+    # request counters, gauges and TTFT histogram.
+    from horovod_tpu_torch.telemetry import registry as tmx
+
+    tmx.configure(False)
+    tmx.configure(True)
     sched = Scheduler(max_batch=SERVE_SLOTS, max_queue=64,
                       cache_len=SERVE_CACHE)
     door = FrontDoor(sched, host="127.0.0.1", port=0, timeout_s=600.0)
@@ -1609,6 +1635,13 @@ def run_serve(tfm, dev, card):
     door.stop()
     if err:
         raise err[0]
+    served = tmx.snapshot()["counters"]
+    sstats = sched.stats()
+    tmx.configure(False)
+    n_ok = served.get('hvd_serve_requests_total{status="ok"}')
+    if n_ok != SERVE_CLIENTS or "ttft_p99_ms" not in sstats:
+        raise AssertionError(f"serve: hvd_serve_requests_total {served}, "
+                             f"stats {sstats}, want {SERVE_CLIENTS} ok")
     bad = []
     for i, ((p, m), r) in enumerate(zip(reqs, replies)):
         if r is None or r[0] != 200 or len(r[1].get("tokens", ())) != m:
@@ -1691,7 +1724,11 @@ def run_serve(tfm, dev, card):
           f"{serve_s:.2f} s ({tokens / serve_s:.1f} tokens/s), "
           f"{len(steps)} decode steps; TTFT p50 "
           f"{np.percentile(ttft, 50):.2f} ms, p99 "
-          f"{np.percentile(ttft, 99):.2f} ms; {card}")
+          f"{np.percentile(ttft, 99):.2f} ms (host clock); "
+          f"Scheduler.stats() from the TTFT histogram (log2 buckets' upper "
+          f"bounds): p50 {sstats['ttft_p50_ms']} ms, p99 "
+          f"{sstats['ttft_p99_ms']} ms; hvd_serve_requests_total "
+          f"{ {k: v for k, v in served.items() if 'serve' in k} }; {card}")
     print(f"serve: decode step at {SERVE_SLOTS} live slots: median "
           f"{step_ms:.3f} ms over {len(full)} steps "
           f"({SERVE_SLOTS / step_ms * 1e3:.1f} tokens/s); with no server "
@@ -2046,6 +2083,157 @@ ENGINE_FUSION_BYTES = 64 * 1024 * 1024
 ENGINE_TIMEOUT_S = 600
 
 
+# The telemetry phase: the engine phase's two ranks train the flagship for
+# TEL_STEPS steps with every observability knob on: the autotuner (warmup 1,
+# TEL_SAMPLES samples of TEL_SAMPLE_S each, then it settles; its log in the
+# phase's directory), the metrics (each rank's debug server, its JSONL
+# flusher and KV publication every second, rank 0's gang fold every half
+# second), the trace (both ranks' span files, clock pings every 20 cycles)
+# and the flight recorder.  After the steps both ranks wait TEL_SETTLE_S
+# (flushes and folds land), record their own snapshots, and rank 0 scrapes
+# its /gang/metrics.json.
+# On an NVIDIA H100 80GB HBM3 at 700 W ten steps read a parameter gap of
+# 1.787e-2 against the one-process step (ENGINE_PARAM_TOL 2e-2 was set from
+# three steps; AdamW carries the bf16 forward's rounding further each
+# step): eight keep the tolerance's margin and still leave the tuner,
+# settled in step 3 there, five steps.
+TEL_STEPS = 8
+TEL_SAMPLES = 5
+TEL_SAMPLE_S = 0.3
+TEL_SETTLE_S = 2.5
+
+
+def _tel_env(tmp, sample_s):
+    return {"HVD_AUTOTUNE": "1", "HVD_AUTOTUNE_WARMUP_SAMPLES": "1",
+            "HVD_AUTOTUNE_MAX_SAMPLES": str(TEL_SAMPLES),
+            "HVD_AUTOTUNE_SAMPLE_DURATION_SECONDS": str(sample_s),
+            "HVD_AUTOTUNE_LOG": os.path.join(tmp, "autotune.csv"),
+            # Rank 1 binds the next port; if it is taken, that rank runs
+            # without a server (a warning) and the fold still reads the KV.
+            "HVD_METRICS_PORT": str(_free_port()),
+            "HVD_METRICS_INTERVAL": "1", "HVD_AGG_INTERVAL": "0.5",
+            "HVD_TRACE": "1", "HVD_TRACE_DIR": os.path.join(tmp, "trace"),
+            "HVD_TRACE_CLOCK_SYNC_CYCLES": "20"}
+
+
+def _trace_spans(path):
+    clocks, spans = [], []
+    with open(path) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            if rec["k"] == "clock":
+                clocks.append(rec)
+            elif rec["k"] == "span":
+                spans.append(rec)
+    return clocks, spans
+
+
+def _telemetry_checks(tmp, ranks, steps, failures, card):
+    """The telemetry phase's checks of what the ranks wrote (see
+    TEL_STEPS): the autotuner's log and knobs, the gang fold against the
+    ranks' own snapshots, the trace files and their per-step breakdown of
+    ``synchronize``, and no recorder dump."""
+    import csv
+
+    n = ranks[0]["n_params"]
+    # -- the autotuner
+    with open(os.path.join(tmp, "autotune.csv")) as fh:
+        rows = list(csv.reader(fh))
+    final = rows[-1]
+    print(f"telemetry: autotune log ({len(rows) - 2} samples): " + " | "
+          .join(",".join(r) for r in rows[1:]))
+    if final[0] != "final":
+        failures.append(f"the autotune log ends in {final}, not its final "
+                        "row")
+    else:
+        want = (int(final[2]), float(final[3]), int(final[4]),
+                int(final[7]))
+        for r, res in enumerate(ranks):
+            k = res["knobs"]
+            got = (k["fusion_threshold"], round(k["cycle_time"] * 1e3, 3),
+                   int(k["cache"]), k["ring_segment_bytes"])
+            print(f"telemetry rank {r}: knobs after the steps (fusion "
+                  f"bytes, cycle ms, cache, segment bytes) {got}; the "
+                  f"settled row {want}; by step "
+                  f"{[tuple(x) for x in res['knobs_by_step']]}")
+            if got != want:
+                failures.append(f"rank {r}: knobs {got} != the settled "
+                                f"{want}")
+            if len({tuple(x) for x in res["knobs_by_step"]}) < 2:
+                failures.append(f"rank {r}: no broadcast changed a knob "
+                                "during the steps")
+        done = [i for i, d in enumerate(ranks[0]["tuner_done"]) if d]
+        print(f"telemetry: the tuner settled in step "
+              f"{done[0] if done else None} of {steps}")
+        if not done or done[0] > steps - 3:
+            failures.append(f"the tuner settled in step "
+                            f"{done[0] if done else None}, not two steps "
+                            f"before the last ({steps - 1})")
+    # -- the metrics: the gang fold against the ranks' own snapshots
+    view = ranks[0]["gang_view"]
+    key = 'hvd_collectives_total{op="allreduce",dtype="float32"}'
+    own = [res["snapshot"]["counters"].get(key, 0) for res in ranks]
+    folded = view["counters"].get(key, 0)
+    hop = {k: h["count"] for k, h in view["histograms"].items()
+           if k.startswith("hvd_ring_hop_seconds")}
+    print(f"telemetry: rank 0's /gang/metrics.json: stale ranks "
+          f"{view['stale_ranks']}, {key} {folded} (the ranks' own "
+          f"{own}; {n} gradients x {steps} steps x {len(ranks)} ranks = "
+          f"{n * steps * len(ranks)}), hvd_ring_hop_seconds samples {hop}, "
+          f"p50/p99 of the collectives' latency "
+          f"{[round(1e3 * h[q], 3) for k, h in view['histograms'].items() if k.startswith('hvd_collective_latency') for q in ('p50', 'p99')]}"
+          f" ms")
+    if view["stale_ranks"]:
+        failures.append(f"the gang fold's stale ranks {view['stale_ranks']}")
+    if not folded == sum(own) == n * steps * len(ranks):
+        failures.append(f"the fold's {key} {folded}, the ranks' {own}, "
+                        f"want {n * steps * len(ranks)}")
+    if not hop or not all(hop.values()):
+        failures.append(f"hvd_ring_hop_seconds has no samples: {hop}")
+    # -- the trace
+    seqs = {}
+    for r, res in enumerate(ranks):
+        clocks, spans = _trace_spans(os.path.join(
+            tmp, "trace", f"trace_rank{r}.jsonl"))
+        if r > 0 and not clocks:
+            failures.append(f"rank {r}'s trace has no clock record")
+        seqs[r] = {s["seq"]: s["name"] for s in spans
+                   if s["ph"] == "collective"}
+        per = {k: [] for k in ("negotiate", "pack", "hop.recv",
+                               "hop.reduce", "hop.send_wait", "unpack",
+                               "callback")}
+        for st in res["steps"]:
+            lo, hi = st["t_enq_ns"], st["t_sync_ns"]
+            tot = dict.fromkeys(per, 0)
+            for s in spans:
+                if not lo <= s["t0"] <= hi:
+                    continue
+                if s["ph"] == "hop":
+                    tot["hop.recv"] += s["recv_ns"]
+                    tot["hop.reduce"] += s["reduce_ns"]
+                    tot["hop.send_wait"] += s["send_wait_ns"]
+                elif s["ph"] in tot:
+                    tot[s["ph"]] += s["t1"] - s["t0"]
+            for k in per:
+                per[k].append(tot[k] / 1e6)
+        sync = statistics.median(st["sync_ms"] for st in res["steps"])
+        med = {k: round(statistics.median(v), 1) for k, v in per.items()}
+        hops = med["hop.recv"] + med["hop.reduce"] + med["hop.send_wait"]
+        print(f"telemetry rank {r}: a step's span sums, medians over "
+              f"{steps} steps (ms): {med}; the shm ring's hops "
+              f"{hops:.1f} ms of the step's synchronize {sync:.1f} ms "
+              f"({100 * hops / sync:.0f}%), clock records {len(clocks)}"
+              f"{', offsets (ns) ' + str([c['offset_ns'] for c in clocks[:5]]) if r else ''}; "
+              f"{card}")
+    if seqs[0] != seqs[1] or not seqs[0]:
+        failures.append("the ranks' traces name other collectives under "
+                        "one seq, or none")
+    # -- the flight recorder: a clean run dumps nothing
+    bb = os.path.join(tmp, "blackbox")
+    if os.path.isdir(bb) and os.listdir(bb):
+        failures.append(f"the clean run dumped {os.listdir(bb)}")
+
+
 def _free_port() -> int:
     import socket
 
@@ -2081,6 +2269,9 @@ def _spawn_ranks(flag, n, tmp, env_of, timeout, what, expect=None,
     port = server.start()
     base = {k: v for k, v in os.environ.items()
             if not k.startswith(("HVD_", "MASTER_", "HOROVOD_"))}
+    # The flight recorder is on in every rank: its dumps go under ``tmp``
+    # unless the phase names another directory.
+    base["HVD_BLACKBOX_DIR"] = os.path.join(tmp, "blackbox")
     procs, outs = [], []
     try:
         for r in range(n):
@@ -2129,23 +2320,30 @@ def _spawn_ranks(flag, n, tmp, env_of, timeout, what, expect=None,
 
 
 def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
-               knobs=None):
+               knobs=None, steps=ENGINE_STEPS, telemetry=False,
+               tel_sample_s=None):
     """The eager engine on the card: ENGINE_RANKS ranks of this script
     (``--engine-rank R``) bootstrap a ``PyEngine`` through the port's
     ``RendezvousServer`` and train the flagship (``cfg``: by default the
-    full-width flagship) for ENGINE_STEPS steps, each rank on its rows of
-    the batch, the gradients averaged by one ``allreduce_async`` per
+    full-width flagship) for ``steps`` steps, each rank on its rows of the
+    batch, the gradients averaged by one ``allreduce_async`` per
     parameter; held against ``make_transformer_train_step`` in this process
     on all the rows, from the same weights.  ``knobs``: more variables for
-    the ranks (the liveness phase's rerun with its knobs on)."""
-    what = "engine" if not knobs else "engine (knobs on)"
+    the ranks (the liveness phase's rerun with its knobs on).
+    ``telemetry``: the telemetry phase (see TEL_STEPS): the autotuner, the
+    metrics with their server, flusher and gang fold, and the trace on,
+    with their checks (:func:`_telemetry_checks`) in place of the default
+    knobs' cache and fusion checks; ``tel_sample_s`` overrides the tuner's
+    sample."""
+    what = "telemetry" if telemetry else \
+        "engine" if not knobs else "engine (knobs on)"
     import tempfile
 
     import torch
 
     cfg = cfg or _flagship_cfg(tfm)
     B = 8
-    batches = _token_batches(dev, ENGINE_STEPS, B=B, S=cfg.max_seq_len,
+    batches = _token_batches(dev, steps, B=B, S=cfg.max_seq_len,
                              vocab=cfg.vocab_size, seed=7)
     # The one-process step on all the rows, from seed 0's weights.
     hvd.init(device=dev)
@@ -2172,21 +2370,27 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
         fields["compute_dtype"] = str(cfg.compute_dtype).split(".")[1]
         with open(os.path.join(tmp, "config.json"), "w") as fh:
             json.dump({"cfg": fields, "device": str(dev), "rows": B,
-                       "steps": ENGINE_STEPS, "store_port": _free_port()},
-                      fh)
+                       "steps": steps, "store_port": _free_port(),
+                       "telemetry": telemetry}, fh)
+        env = dict(knobs or {})
+        if telemetry:
+            env.update(_tel_env(tmp, tel_sample_s or TEL_SAMPLE_S))
         t0 = time.perf_counter()
         _spawn_ranks("--engine-rank", ENGINE_RANKS, tmp, lambda r: dict(
-            HVD_RANK=str(r), HVD_SIZE=str(ENGINE_RANKS),
+            env, HVD_RANK=str(r), HVD_SIZE=str(ENGINE_RANKS),
             HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(ENGINE_RANKS),
-            **(knobs or {})), timeout, what)
+            **({"HVD_METRICS_FILE": os.path.join(tmp, f"metrics{r}.jsonl")}
+               if telemetry else {})), timeout, what)
         wall = time.perf_counter() - t0
         ranks = []
         for r in range(ENGINE_RANKS):
             with open(os.path.join(tmp, f"rank{r}.json")) as fh:
                 ranks.append(json.load(fh))
         got = torch.load(os.path.join(tmp, "rank0.pt"))
+        failures = []
+        if telemetry:
+            _telemetry_checks(tmp, ranks, steps, failures, card)
 
-    failures = []
     loss_gap = abs(ranks[0]["loss0_mean"] - ref_loss)
     grad_gaps = {n: float((got["grads0"][n].to(dev) - g).norm()
                           / g.norm().clamp_min(1e-30))
@@ -2203,65 +2407,67 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
           f"{ENGINE_LOSS_TOL}); largest |g - g_one| / |g_one| of the "
           f"averaged step-0 gradients {grad_gaps[wg]:.3e} ({wg}; tol "
           f"{ENGINE_GRAD_TOL}); largest |p - p_one| / |p_one| after "
-          f"{ENGINE_STEPS} steps {param_gaps[wp]:.3e} ({wp}; tol "
+          f"{steps} steps {param_gaps[wp]:.3e} ({wp}; tol "
           f"{ENGINE_PARAM_TOL})")
     if not loss_gap <= ENGINE_LOSS_TOL:
         failures.append("the step-0 loss")
     if not grad_gaps[wg] <= ENGINE_GRAD_TOL:
         failures.append("the averaged step-0 gradients")
     if not param_gaps[wp] <= ENGINE_PARAM_TOL:
-        failures.append(f"the parameters after {ENGINE_STEPS} steps")
-    want_launches = {"fwd": 2 * cfg.n_layers * ENGINE_STEPS,
-                     "dq": cfg.n_layers * ENGINE_STEPS,
-                     "dkv": cfg.n_layers * ENGINE_STEPS, "split": 0}
+        failures.append(f"the parameters after {steps} steps")
+    want_launches = {"fwd": 2 * cfg.n_layers * steps,
+                     "dq": cfg.n_layers * steps,
+                     "dkv": cfg.n_layers * steps, "split": 0}
     for r, res in enumerate(ranks):
-        steps = res["steps"]
+        rsteps = res["steps"]
         gbs = [round(s["grad_bytes"] / (s["enqueue_ms"] + s["sync_ms"])
-                     / 1e6, 3) for s in steps]
+                     / 1e6, 3) for s in rsteps]
         print(f"{what} rank {r}: step ms "
-              f"{[round(s['ms'], 1) for s in steps]}, median "
-              f"{statistics.median(s['ms'] for s in steps):.1f}; enqueue "
+              f"{[round(s['ms'], 1) for s in rsteps]}, median "
+              f"{statistics.median(s['ms'] for s in rsteps):.1f}; enqueue "
               f"(the gradients' copies to the host) ms "
-              f"{[round(s['enqueue_ms'], 1) for s in steps]}; in "
-              f"synchronize ms {[round(s['sync_ms'], 1) for s in steps]}; "
-              f"gradient bytes a step {steps[0]['grad_bytes']}; fused "
-              f"responses {[s['responses'] for s in steps]} (the 64 MiB "
+              f"{[round(s['enqueue_ms'], 1) for s in rsteps]}; in "
+              f"synchronize ms {[round(s['sync_ms'], 1) for s in rsteps]}; "
+              f"gradient bytes a step {rsteps[0]['grad_bytes']}; fused "
+              f"responses {[s['responses'] for s in rsteps]} (the 64 MiB "
               f"threshold's grouping of all {res['n_params']} tensors at "
               f"once: {res['greedy_groups']}), largest "
-              f"{max(s['largest_response'] for s in steps)} bytes; "
+              f"{max(s['largest_response'] for s in rsteps)} bytes; "
               f"effective GB/s (gradient bytes / time in enqueue and "
               f"synchronize) {gbs}; "
-              f"cache hits {[s['cache']['hits'] for s in steps]}, misses "
-              f"{[s['cache']['misses'] for s in steps]}; flash launches "
+              f"cache hits {[s['cache']['hits'] for s in rsteps]}, misses "
+              f"{[s['cache']['misses'] for s in rsteps]}; flash launches "
               f"{res['launches']}")
         if not res["bcast_bits_equal"]:
             failures.append(f"rank {r}: broadcast_parameters' weights are "
                             "not rank 0's bit for bit")
         if not res["params_equal_across_ranks"]:
             failures.append(f"rank {r}: the ranks' parameters differ "
-                            f"after {ENGINE_STEPS} steps")
+                            f"after {steps} steps")
         if not res["card_tensors_equal"]:
             failures.append(f"rank {r}: card tensors through the engine "
                             f"differ from their CPU copies: "
                             f"{res['card_tensors']}")
-        hits = [s["cache"]["hits"] for s in steps]
-        misses = [s["cache"]["misses"] for s in steps]
+        hits = [s["cache"]["hits"] for s in rsteps]
+        misses = [s["cache"]["misses"] for s in rsteps]
         n = res["n_params"]
-        if hits != [0] + [n] * (ENGINE_STEPS - 1) or \
-                misses != [n] + [0] * (ENGINE_STEPS - 1):
+        # The tuner moves the cache switch and the fusion threshold: these
+        # are the default knobs' checks.
+        if not telemetry and (hits != [0] + [n] * (steps - 1) or
+                              misses != [n] + [0] * (steps - 1)):
             failures.append(f"rank {r}: cache hits {hits} and misses "
                             f"{misses}, not every tensor cached after "
                             "step 0")
-        for s in steps:
-            if s["fused_tensors"] != n or \
-                    s["responses"] < res["greedy_groups"] or \
-                    not s["within_threshold"]:
+        for s in rsteps:
+            if s["fused_tensors"] != n or (not telemetry and (
+                    s["responses"] < res["greedy_groups"] or
+                    not s["within_threshold"])):
                 failures.append(f"rank {r}: step {s['step']}'s fused "
                                 "responses break the 64 MiB grouping")
         if dev.type == "cuda" and res["launches"] != want_launches:
             failures.append(f"rank {r}: flash launches {res['launches']} "
                             f"!= {want_launches}")
-        if not all(math.isfinite(s["loss"]) for s in steps):
+        if not all(math.isfinite(s["loss"]) for s in rsteps):
             failures.append(f"rank {r}: a loss is not finite")
         print(f"{what} rank {r}: link media by peer {res['media']}")
         if set(res["media"].values()) != {"shm"}:
@@ -2338,6 +2544,7 @@ def engine_rank(rank: int, tmp: str) -> int:
         greedy = _greedy_groups(sizes, eng.fusion_threshold)
         eng.response_log = []
         steps, grads0 = [], None
+        knobs_by_step, tuner_done = [], []
         fa.reset_launch_counts()
         for s, (tokens, targets) in enumerate(batches):
             before = hvd.cache_stats()
@@ -2348,12 +2555,14 @@ def engine_rank(rank: int, tmp: str) -> int:
             loss.backward()
             mark = len(eng.response_log)
             t1 = time.perf_counter()
+            t_enq_ns = time.monotonic_ns()
             handles = [hvd.allreduce_async(p.grad, name=n, op=hvd.Average)
                        for n, p in model.named_parameters()]
             t2 = time.perf_counter()
             for (n, p), h in zip(model.named_parameters(), handles):
                 p.grad = hvd.synchronize(h)
             t3 = time.perf_counter()
+            t_sync_ns = time.monotonic_ns()
             if s == 0:
                 grads0 = {n: p.grad.detach().to("cpu", copy=True)
                           for n, p in model.named_parameters()}
@@ -2373,7 +2582,12 @@ def engine_rank(rank: int, tmp: str) -> int:
                                      e[2] <= eng.fusion_threshold
                                      for e in log),
                 cache={k: after[k] - before[k] for k in ("hits",
-                                                         "misses")}))
+                                                         "misses")},
+                t_enq_ns=t_enq_ns, t_sync_ns=t_sync_ns))
+            knobs_by_step.append(_engine_knobs(eng))
+            tuner_done.append(bool(eng._pm is not None and eng._pm.done))
+        tel = _telemetry_readings(hvd, eng) if conf.get("telemetry") \
+            else {}
         launches = dict(fa.launches)
         eng.response_log = None
         media = eng.transport_media()
@@ -2411,7 +2625,8 @@ def engine_rank(rank: int, tmp: str) -> int:
             params_equal_across_ranks=bool(len(set(digests.tolist()))
                                            == 1),
             card_tensors=card, card_tensors_equal=all(card.values()),
-            media={str(p): m for p, m in media.items()})
+            media={str(p): m for p, m in media.items()},
+            knobs_by_step=knobs_by_step, tuner_done=tuner_done, **tel)
         if rank == 0:
             torch.save({"grads0": grads0,
                         "params": {n: p.detach().cpu()
@@ -2422,6 +2637,36 @@ def engine_rank(rank: int, tmp: str) -> int:
     finally:
         hvd.shutdown()
     return 0
+
+
+def _engine_knobs(eng):
+    """(fusion bytes, cycle ms to 3 places as the autotune log writes it,
+    cache switch, ring segment bytes) of a running engine."""
+    return [int(eng.fusion_threshold), round(eng.cycle_time * 1e3, 3),
+            int(bool(eng._cache_classify_enabled)),
+            int(eng.ring_segment_bytes)]
+
+
+def _telemetry_readings(hvd, eng):
+    """The telemetry phase, after the steps: a barrier, TEL_SETTLE_S for
+    the last flushes and folds, this rank's own snapshot and the engine's
+    knobs, and on rank 0 its /gang/metrics.json; a last barrier keeps both
+    ranks up until rank 0 has read it."""
+    import urllib.request
+
+    hvd.barrier()
+    time.sleep(TEL_SETTLE_S)
+    k = _engine_knobs(eng)
+    out = {"snapshot": hvd.metrics_snapshot(),
+           "knobs": {"fusion_threshold": k[0], "cycle_time": eng.cycle_time,
+                     "cache": k[2], "ring_segment_bytes": k[3]}}
+    if hvd.rank() == 0:
+        url = (f"http://127.0.0.1:{os.environ['HVD_METRICS_PORT']}"
+               "/gang/metrics.json")
+        with urllib.request.urlopen(url, timeout=30) as r:
+            out["gang_view"] = json.loads(r.read().decode())
+    hvd.barrier()
+    return out
 
 
 # The data-plane phase: DP_RANKS ranks of this script (``--dataplane-rank
@@ -2810,7 +3055,12 @@ LV_TIMEOUT_S = 240
 
 
 def _lv_env(gang, rank, tmp):
-    env = dict(LV_KNOBS, HVD_RANK=str(rank))
+    # The flight recorder's dumps and each rank's metrics (the registry on
+    # through its JSONL flusher) under the phase's directory.
+    env = dict(LV_KNOBS, HVD_RANK=str(rank),
+               HVD_BLACKBOX_DIR=os.path.join(tmp, f"blackbox{gang}"),
+               HVD_METRICS_FILE=os.path.join(tmp,
+                                             f"metrics{gang}{rank}.jsonl"))
     if gang == "A":
         env.update(HVD_SIZE=str(LV_A_RANKS), HVD_LOCAL_RANK=str(rank % 2),
                    HVD_LOCAL_SIZE="2", HVD_CROSS_RANK=str(rank // 2),
@@ -2888,6 +3138,14 @@ def run_liveness(tfm, dev, card, cfg=None, timeout=LV_TIMEOUT_S):
             else:
                 rep[gang]["stall_at"] = float(open(os.path.join(
                     tmp, "B_stall_at")).read())
+            rep[gang]["dumps"] = _lv_dumps(os.path.join(tmp,
+                                                        f"blackbox{gang}"))
+            if gang == "A":
+                # The root's last flush (at its shutdown; gang B's
+                # survivors stop with os._exit, before any).
+                with open(os.path.join(tmp, "metricsA0.jsonl")) as fh:
+                    rep[gang]["root_metrics"] = json.loads(
+                        fh.read().splitlines()[-1])
         rep["A"]["kill_at"] = float(open(os.path.join(
             tmp, "A_kill_at")).read())
         leftover = [f for g in pids.values() for pid in g
@@ -2917,6 +3175,23 @@ def run_liveness(tfm, dev, card, cfg=None, timeout=LV_TIMEOUT_S):
         failures.append("A: no SUBCOORD_REPARENT on rank 0's timeline")
     if "COLLECTIVE_ABORT" in a["timeline"]:
         failures.append("A: a COLLECTIVE_ABORT on rank 0's timeline")
+    # Gang A's flight recorder: each survivor's dump, the root's counters.
+    evictions = a["root_metrics"]["counters"].get("hvd_evictions_total")
+    for r in survivors:
+        doc = a["dumps"].get(f"blackbox_rank{r}.json")
+        if not doc or doc["schema"] != "hvd-blackbox-v1" or \
+                doc["reason"] != "ranks_failed":
+            failures.append(f"A rank {r}: dump {doc and doc['reason']}")
+    if evictions != 1:
+        failures.append(f"A: the root's hvd_evictions_total {evictions}")
+    print(f"liveness A: dumps {sorted(a['dumps'])} (reasons "
+          f"{[d['reason'] for _, d in sorted(a['dumps'].items())]}, "
+          f"{[len(d['events']) for _, d in sorted(a['dumps'].items())]} "
+          f"events), the root's hvd_evictions_total {evictions}, "
+          f"hvd_heartbeat_misses_total "
+          f"{a['root_metrics']['counters'].get('hvd_heartbeat_misses_total')}"
+          f", hvd_subcoord_reparents_total "
+          f"{a['root_metrics']['counters'].get('hvd_subcoord_reparents_total')}")
     # Gang A's gradients against this process's.
     model = tfm.init(0, cfg, device=dev)
     batches = _token_batches(dev, LV_A_STEPS, B=LV_A_RANKS * LV_ROWS,
@@ -2979,6 +3254,28 @@ def run_liveness(tfm, dev, card, cfg=None, timeout=LV_TIMEOUT_S):
             failures.append(f"B rank {r}: media {res['media']}")
     if "COLLECTIVE_ABORT" not in b["timeline"]:
         failures.append("B: no COLLECTIVE_ABORT on rank 0's timeline")
+    # Gang B's flight recorder: the survivors' dumps, the stalled rank's
+    # ring pulled by the coordinator, the verdict naming it.
+    for r in range(LV_B_RANKS):
+        if r == LV_B_VICTIM:
+            continue
+        doc = b["dumps"].get(f"blackbox_rank{r}.json")
+        if not doc or doc["reason"] != "collective_timeout":
+            failures.append(f"B rank {r}: dump {doc and doc['reason']}")
+    pulled = b["dumps"].get(f"blackbox_rank{LV_B_VICTIM}.pulled.json")
+    if not pulled or pulled["reason"] != "coordinator_pull" or \
+            not (pulled.get("in_flight") or {}).get("name"):
+        failures.append(f"B: the coordinator's pull of rank "
+                        f"{LV_B_VICTIM}: {pulled and pulled['reason']}")
+    verdicts = [e.get("ranks") for e in
+                b["dumps"].get("blackbox_rank0.json", {}).get("events", [])
+                if e["kind"] == "abort.verdict"]
+    if verdicts != [[LV_B_VICTIM]]:
+        failures.append(f"B: the root's verdict notes {verdicts}")
+    print(f"liveness B: dumps {sorted(b['dumps'])}, the root's verdict "
+          f"notes {verdicts}, the pulled ring's in-flight collective "
+          f"{pulled and pulled.get('in_flight')}, its events "
+          f"{pulled and len(pulled['events'])}")
     if leftover:
         failures.append(f"shm segments left: {leftover}")
     stall_s = max(errs) - b["stall_at"] if errs else float("nan")
@@ -3000,6 +3297,15 @@ def run_liveness(tfm, dev, card, cfg=None, timeout=LV_TIMEOUT_S):
     print(f"liveness: phase wall {time.perf_counter() - t_phase:.1f} s on "
           f"{card}")
     return rep
+
+
+def _lv_dumps(d):
+    """The recorder's dumps in ``d`` by file name."""
+    out = {}
+    for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+        with open(os.path.join(d, name)) as fh:
+            out[name] = json.load(fh)
+    return out
 
 
 def liveness_rank(rank: int, tmp: str) -> int:
@@ -3291,8 +3597,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_serve(tfm, dev, card)
     torch.cuda.empty_cache()
-    run_engine(hvd, tfm, fa, dev, card)
+    plain = run_engine(hvd, tfm, fa, dev, card)
     torch.cuda.empty_cache()
+    tel = run_engine(hvd, tfm, fa, dev, card, steps=TEL_STEPS,
+                     telemetry=True)
+    torch.cuda.empty_cache()
+    for r in range(ENGINE_RANKS):
+        print(f"telemetry rank {r}: step median with every knob on "
+              f"{statistics.median(s['ms'] for s in tel[r]['steps']):.1f} "
+              f"ms, synchronize "
+              f"{statistics.median(s['sync_ms'] for s in tel[r]['steps']):.1f}"
+              f" ms, against the engine phase's "
+              f"{statistics.median(s['ms'] for s in plain[r]['steps']):.1f}"
+              f" ms and "
+              f"{statistics.median(s['sync_ms'] for s in plain[r]['steps']):.1f}"
+              f" ms; {card}")
     run_dataplane(tfm, dev, card)
     torch.cuda.empty_cache()
     run_liveness(tfm, dev, card)

@@ -14,7 +14,8 @@ from horovod_tpu_torch import data  # noqa: F401  (sampling + prefetch)
 from horovod_tpu_torch.basics import (cache_stats, cross_rank, cross_size,
                                       cuda_built, device, gloo_built, init,
                                       is_homogeneous, is_initialized,
-                                      local_rank, local_size, mpi_built,
+                                      local_rank, local_size,
+                                      metrics_snapshot, mpi_built,
                                       mpi_enabled, mpi_threads_supported,
                                       nccl_built, rank, rocm_built,
                                       shutdown, size, xla_built)
@@ -60,7 +61,7 @@ __all__ = [
     "broadcast", "broadcast_async", "broadcast_object",
     "broadcast_parameters", "alltoall", "alltoall_async", "reducescatter",
     "reducescatter_async", "sparse_allreduce", "barrier", "join", "poll",
-    "synchronize", "cache_stats", "is_homogeneous", "nccl_built",
+    "synchronize", "cache_stats", "metrics_snapshot", "is_homogeneous", "nccl_built",
     "gloo_built", "mpi_built", "cuda_built", "rocm_built", "xla_built",
     "mpi_enabled", "mpi_threads_supported", "ProcessSet",
     "RanksFailedError", "CollectiveTimeoutError", "ReplicaDivergenceError",

@@ -186,6 +186,12 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
                 dist.destroy_process_group()
             raise
         _world = _World(r, s, lr, ls, cr, cs, dev, group)
+        # The engines start telemetry themselves; this idempotent call
+        # covers a rank with no engine, so that the eager layer's metrics
+        # still count.
+        from horovod_tpu_torch import telemetry
+
+        telemetry.init_from_env(r, lr or 0, size=s)
 
 
 def shutdown() -> None:
@@ -199,6 +205,11 @@ def shutdown() -> None:
         if _world is not None and _world.group:
             dist.destroy_process_group()
         _world = None
+    # The metrics server and flusher stop (a final flush included); the
+    # registry keeps its series, as the JAX package's does.
+    from horovod_tpu_torch import telemetry
+
+    telemetry.stop()
 
 
 def _engine():
@@ -261,6 +272,16 @@ def cache_stats() -> dict:
     """The eager engine's response-cache counters (hits, misses,
     evictions, size, capacity)."""
     return _engine().cache_stats()
+
+
+def metrics_snapshot() -> dict:
+    """This rank's telemetry registry as JSON-able data (``{"counters":
+    ..., "gauges": ..., "histograms": ...}``, Prometheus-style series
+    keys), or ``{}`` with telemetry off.  Process-global: the counters
+    outlive an engine."""
+    from horovod_tpu_torch import telemetry
+
+    return telemetry.snapshot()
 
 
 def nccl_built() -> bool:

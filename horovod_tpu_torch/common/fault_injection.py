@@ -47,10 +47,9 @@ Fault fields:
   ``ctrl.worker.send`` convention) stands for the root, rank 0.
 
 Sites the port does not fire yet, because their modules wait (ROADMAP
-Queue 1, item 5): ``kv.mirror`` and ``kv.delete`` (the KV mirroring),
-``metrics.server.request``, ``agg.scrape``, ``trace.emit`` and
-``blackbox.dump`` (5.5, telemetry), and ``serve.step`` (5.7, the serving
-loop).  A plan may still name them; they never fire.
+Queue 1): ``kv.mirror`` and ``kv.delete`` (the KV mirroring, item 6), and
+``serve.step`` (the serving loop, item 5.7).  A plan may still name them;
+they never fire.
 """
 
 from __future__ import annotations
@@ -76,6 +75,9 @@ KNOWN_SITES = {
     "kv.put": "rendezvous KV client put",
     "kv.get": "rendezvous KV client get",
     "kv.server.request": "rendezvous server request handling",
+    "metrics.server.request": "metrics debug-server request handling",
+    "agg.scrape": "gang aggregator per-rank snapshot read (KV entry + "
+                  "HTTP scrape fallback; detail = the rank)",
     "bootstrap.start": "worker bootstrap entry",
     "bootstrap.accept": "mesh listener accept loop",
     "engine.cycle": "PyEngine background cycle",
@@ -92,6 +94,10 @@ KNOWN_SITES = {
     "shm.lost": "shm ring faults mid-gang (reader gone / attach lost)",
     "shm.stall": "data-plane shm ring receive (hang simulation)",
     "shm.attach": "shm segment attach during transport pairing",
+    "trace.emit": "trace span-file write (a dropped/failed write must "
+                  "never affect training)",
+    "blackbox.dump": "flight-recorder dump at a terminal failure (a "
+                     "failed dump must never mask the original error)",
     "train.step": "user-level per-step site (training scripts)",
     "serve.admit": "serving front-door admission (HTTP 503 shedding)",
     # data plane (should_corrupt)

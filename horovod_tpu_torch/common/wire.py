@@ -52,9 +52,16 @@ The abort agreement's payloads (``TAG_ABORT_REPORT``, ``TAG_PROBE_ACK``,
   TreeDown := i32 target_rank (-1 = every child), u8 tag, u32 len, bytes
   Reparent := i32 rank, i32 old_parent, u32 epoch
 
-Left out until their features are ported (ROADMAP Queue 1, item 5): the
-clock ping and pong and the blackbox pull (5.5, the trace and the flight
-recorder), the fence and the serving delta (5.7).
+The trace's clock sync (``TAG_CLOCK_PING``/``TAG_CLOCK_PONG``) and the
+flight recorder's pull (``TAG_BLACKBOX``/``TAG_BLACKBOX_DUMP``)::
+
+  ClockPing     := i64 t0_ns, u32 epoch
+  ClockPong     := i64 t0_ns, i64 t_coord_ns, u32 epoch
+  BlackboxReq   := u32 epoch
+  BlackboxDump  := i32 rank, u32 epoch, u32 len, bytes (UTF-8 JSON)
+
+Left out until elastic is ported (ROADMAP Queue 1, item 5.7): the fence
+and the serving delta.
 """
 
 from __future__ import annotations
@@ -465,3 +472,53 @@ def encode_reparent(rank: int, old_parent: int, epoch: int = 0) -> bytes:
 def decode_reparent(data: bytes):
     """Returns ``(rank, old_parent, epoch)``."""
     return struct.unpack_from("<iiI", data, 0)
+
+
+# -- the trace's clock sync ----------------------------------------------
+
+
+def encode_clock_ping(t0_ns: int, epoch: int = 0) -> bytes:
+    """Worker -> coordinator: this rank's monotonic clock, now."""
+    return struct.pack("<qI", t0_ns, epoch)
+
+
+def decode_clock_ping(data: bytes) -> Tuple[int, int]:
+    t0_ns, epoch = struct.unpack_from("<qI", data, 0)
+    return t0_ns, epoch
+
+
+def encode_clock_pong(t0_ns: int, t_coord_ns: int,
+                      epoch: int = 0) -> bytes:
+    """Coordinator -> worker: the ping's t0 echoed, and the coordinator's
+    monotonic clock when it answered."""
+    return struct.pack("<qqI", t0_ns, t_coord_ns, epoch)
+
+
+def decode_clock_pong(data: bytes) -> Tuple[int, int, int]:
+    t0_ns, t_coord_ns, epoch = struct.unpack_from("<qqI", data, 0)
+    return t0_ns, t_coord_ns, epoch
+
+
+# -- the flight recorder's pull ------------------------------------------
+
+
+def encode_blackbox_request(epoch: int = 0) -> bytes:
+    """Coordinator -> worker (TAG_BLACKBOX): send me your recorder's ring,
+    after an abort verdict."""
+    return struct.pack("<I", epoch)
+
+
+def decode_blackbox_request(data: bytes) -> int:
+    (epoch,) = struct.unpack_from("<I", data, 0)
+    return epoch
+
+
+def encode_blackbox_dump(rank: int, epoch: int, blob: bytes) -> bytes:
+    """Worker -> coordinator (TAG_BLACKBOX_DUMP): the dump document, the
+    bytes ``blackbox_rank<r>.json`` would hold."""
+    return struct.pack("<iII", rank, epoch, len(blob)) + blob
+
+
+def decode_blackbox_dump(data: bytes) -> Tuple[int, int, bytes]:
+    rank, epoch, n = struct.unpack_from("<iII", data, 0)
+    return rank, epoch, bytes(data[12:12 + n])

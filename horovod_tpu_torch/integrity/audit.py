@@ -26,12 +26,10 @@ as the numpy array of its values would be (bf16 by the name
 ``np.asarray`` of it, as the JAX package does.
 
 A divergence records a ``DIVERGENCE_DETECTED`` instant on the engine's
-timeline (``utils/timeline.py``) before the raise.  The ``state.bitflip``
+timeline (``utils/timeline.py``), notes ``replica.divergence`` on the
+flight recorder and dumps it, before the raise.  The ``state.bitflip``
 fault site (a ``corrupt`` fault, in :func:`fingerprint`) flips one bit of
 the first audited leaf's bytes, as bad memory would.
-
-Left out until the flight recorder is ported (ROADMAP Queue 1, item 5.5):
-its note and dump at a divergence.
 """
 
 from __future__ import annotations
@@ -47,6 +45,7 @@ from horovod_tpu_torch import basics
 from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.common.types import ReplicaDivergenceError
 from horovod_tpu_torch.ops import collective as C
+from horovod_tpu_torch.telemetry import blackbox as _bb
 from horovod_tpu_torch.utils import env as env_util
 from horovod_tpu_torch.utils import timeline as timeline_mod
 
@@ -146,6 +145,11 @@ def audit_replicas(tree) -> int:
     timeline_mod.engine_event(
         timeline_mod.DIVERGENCE_DETECTED, ranks=deviants,
         leaf=leaf_path, digests=digests)
+    # A terminal event: dump the recorder before the raise, so that the
+    # postmortem names the deviant ranks and the leaf.
+    _bb.note("replica.divergence", 0, ranks=deviants, leaf=leaf_path)
+    _bb.dump("replica_divergence",
+             f"deviants={deviants} leaf={leaf_path}")
     raise ReplicaDivergenceError(deviants, leaf_path, digests)
 
 

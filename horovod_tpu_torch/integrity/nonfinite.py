@@ -28,10 +28,8 @@ Agreed steps are counted in process-global counters (:func:`counters`) and
 on the guard itself; a skipped step records a ``NONFINITE_SKIP`` instant on
 the engine's timeline (``utils/timeline.py``).  The ``grad.nonfinite``
 fault site (a ``corrupt`` fault, detail: the guard's call serial) fills
-this rank's first floating gradient with NaN before the check.
-
-Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the
-``hvd_nonfinite_skips_total`` counter.
+this rank's first floating gradient with NaN before the check.  A skipped
+step adds one to ``hvd_nonfinite_skips_total``.
 """
 
 from __future__ import annotations
@@ -44,6 +42,7 @@ import torch
 from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.common.types import ReduceOp
 from horovod_tpu_torch.ops import collective as C
+from horovod_tpu_torch.telemetry import registry as _tmx
 from horovod_tpu_torch.utils import env as env_util
 from horovod_tpu_torch.utils import timeline as timeline_mod
 
@@ -165,6 +164,7 @@ class NonFiniteGuard:
                     if g.is_floating_point() else g for g in grads], False
         self.skipped += 1
         _bump("skipped")
+        _tmx.inc_counter("hvd_nonfinite_skips_total")
         timeline_mod.engine_event(
             timeline_mod.NONFINITE_SKIP, serial=self._serial,
             policy=self.policy, consecutive=self.consecutive)

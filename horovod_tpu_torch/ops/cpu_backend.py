@@ -46,8 +46,12 @@ Eviction: ranks the coordinator evicted (``engine._evicted_ranks``) drop
 out of the global group (:func:`resp_group`), and Adasum and the
 hierarchical paths step aside for the flat ring once any rank is evicted.
 
-Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the trace
-spans and the telemetry of the hops.
+Observability (``telemetry/``): with the registry on, every ring hop
+observes ``hvd_ring_hop_seconds`` by phase; with the trace on, every hop
+(the flat ring's, and the hierarchical paths' node-local and cross-node
+rings) writes a ``hop`` span with its ``recv_ns``, ``reduce_ns`` and
+``send_wait_ns``, and an allreduce its ``pack`` and ``unpack`` spans.  Off,
+a hop reads no clock and allocates nothing more.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ import numpy as np
 from horovod_tpu_torch.common import floats
 from horovod_tpu_torch.common.types import DataType, ReduceOp, Response
 from horovod_tpu_torch.ops.fusion_buffer import FusionBuffer
+from horovod_tpu_torch.telemetry import registry as _tmx
 from horovod_tpu_torch.utils import env as env_util
 from horovod_tpu_torch.utils import socketutil as su
 from horovod_tpu_torch.utils import transport as tpt
@@ -203,9 +208,11 @@ def _combine_into(incoming: np.ndarray, mine: np.ndarray, op: ReduceOp,
 def _recv_combine(tr: tpt.Transport, mine: np.ndarray, hop: np.ndarray,
                   hop_mv: memoryview, op: ReduceOp, dt: DataType, seg: int,
                   fb: FusionBuffer, deadline: Optional[float] = None,
-                  peer: int = -1) -> None:
+                  peer: int = -1, reduce_ns: Optional[list] = None) -> None:
     """Receive one hop's chunk and reduce it into ``mine`` in place, in
-    ``seg``-element slices when ``seg`` > 0."""
+    ``seg``-element slices when ``seg`` > 0.  ``reduce_ns`` (the trace's,
+    None off) is a one-element accumulator of the reduction's time, which
+    separates it from the wait on the wire."""
     nbytes = _recv_data_header(tr, deadline, peer)
     n = mine.size
     isz = mine.itemsize
@@ -217,14 +224,26 @@ def _recv_combine(tr: tpt.Transport, mine: np.ndarray, hop: np.ndarray,
         return
     if seg <= 0 or seg >= n:
         _recv_exact_hop(tr, hop_mv[:nbytes], deadline, peer)
-        _combine_into(hop[:n], mine, op, dt, fb)
+        if reduce_ns is None:
+            _combine_into(hop[:n], mine, op, dt, fb)
+        else:
+            r0 = time.monotonic_ns()
+            _combine_into(hop[:n], mine, op, dt, fb)
+            reduce_ns[0] += time.monotonic_ns() - r0
         return
     done = 0
     while done < n:
         k = min(seg, n - done)
         _recv_exact_hop(tr, hop_mv[done * isz:(done + k) * isz], deadline,
                         peer)
-        _combine_into(hop[done:done + k], mine[done:done + k], op, dt, fb)
+        if reduce_ns is None:
+            _combine_into(hop[done:done + k], mine[done:done + k], op, dt,
+                          fb)
+        else:
+            r0 = time.monotonic_ns()
+            _combine_into(hop[done:done + k], mine[done:done + k], op, dt,
+                          fb)
+            reduce_ns[0] += time.monotonic_ns() - r0
         done += k
 
 
@@ -235,6 +254,25 @@ def _chunk_bounds(n: int, parts: int) -> List[int]:
     for i in range(parts):
         bounds.append(bounds[-1] + base + (1 if i < rem else 0))
     return bounds
+
+
+def _hop_done(engine, ring: str, step: int, peer: int, tp: str,
+              t0: float, tr0: int, tr1: int, rns: Optional[list]) -> None:
+    """One hop's telemetry: ``hvd_ring_hop_seconds`` (``t0`` is its
+    ``perf_counter`` start, 0.0 with the registry off) and the trace's
+    ``hop`` span (``tr0`` its start, ``tr1`` the end of its receive)."""
+    if t0:
+        _tmx.observe("hvd_ring_hop_seconds", time.perf_counter() - t0,
+                     (ring,))
+    tracer = getattr(engine, "_tracer", None)
+    if tracer is not None:
+        tr2 = time.monotonic_ns()
+        red = rns[0] if rns is not None else 0
+        tracer.span("hop", tr0, tr2, ring=ring, hop=step, peer=peer, tp=tp,
+                    recv_ns=tr1 - tr0 - red, reduce_ns=red,
+                    send_wait_ns=tr2 - tr1)
+        if rns is not None:
+            rns[0] = 0
 
 
 def _ring_allreduce_group(engine, flat: np.ndarray, op: ReduceOp,
@@ -257,24 +295,42 @@ def _ring_allreduce_group(engine, flat: np.ndarray, op: ReduceOp,
     hop = fb.hop_view(max_chunk, flat.dtype)
     hop_mv = memoryview(hop.view(np.uint8))
     seg = _segment_elems(engine, flat.dtype.itemsize)
+    timed = _tmx.enabled()
+    traced = getattr(engine, "_tracer", None) is not None
+    # The trace's reduce-time accumulator; None keeps the untraced hop
+    # allocation-free.
+    rns = [0] if traced else None
 
     # Phase 1: ring reduce-scatter.
     for step in range(size - 1):
+        t0 = time.perf_counter() if timed else 0.0
+        tr0 = time.monotonic_ns() if traced else 0
         send_idx = (me - step) % size
         recv_idx = (me - step - 1) % size
         ticket = right.send(flat[bounds[send_idx]:bounds[send_idx + 1]])
         _recv_combine(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]],
-                      hop, hop_mv, op, dt, seg, fb, deadline, left_rank)
+                      hop, hop_mv, op, dt, seg, fb, deadline, left_rank,
+                      reduce_ns=rns)
+        tr1 = time.monotonic_ns() if traced else 0
         _wait_send(right, ticket, deadline, right_rank)
+        if timed or traced:
+            _hop_done(engine, "reduce_scatter", step, left_rank, left.kind,
+                      t0, tr0, tr1, rns)
 
     # Phase 2: ring allgather of the reduced chunks, straight into place.
     for step in range(size - 1):
+        t0 = time.perf_counter() if timed else 0.0
+        tr0 = time.monotonic_ns() if traced else 0
         send_idx = (me + 1 - step) % size
         recv_idx = (me - step) % size
         ticket = right.send(flat[bounds[send_idx]:bounds[send_idx + 1]])
         _recv_into(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]],
                    deadline, left_rank)
+        tr1 = time.monotonic_ns() if traced else 0
         _wait_send(right, ticket, deadline, right_rank)
+        if timed or traced:
+            _hop_done(engine, "allgather", step, left_rank, left.kind,
+                      t0, tr0, tr1, None)
     return flat
 
 
@@ -310,15 +366,25 @@ def hierarchical_allreduce_flat(engine, flat: np.ndarray, op: ReduceOp,
     hop = fb.hop_view(max_chunk, flat.dtype)
     hop_mv = memoryview(hop.view(np.uint8))
     seg = _segment_elems(engine, flat.dtype.itemsize)
+    timed = _tmx.enabled()
+    traced = getattr(engine, "_tracer", None) is not None
+    rns = [0] if traced else None
 
     # Phase 1: node-local ring reduce-scatter.
     for step in range(L - 1):
+        t0 = time.perf_counter() if timed else 0.0
+        tr0 = time.monotonic_ns() if traced else 0
         send_idx = (li - step) % L
         recv_idx = (li - step - 1) % L
         ticket = right.send(flat[bounds[send_idx]:bounds[send_idx + 1]])
         _recv_combine(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]],
-                      hop, hop_mv, op, dt, seg, fb, deadline, left_rank)
+                      hop, hop_mv, op, dt, seg, fb, deadline, left_rank,
+                      reduce_ns=rns)
+        tr1 = time.monotonic_ns() if traced else 0
         _wait_send(right, ticket, deadline, right_rank)
+        if timed or traced:
+            _hop_done(engine, "reduce_scatter", step, left_rank, left.kind,
+                      t0, tr0, tr1, rns)
 
     # Phase 2: cross-node ring allreduce of the owned, fully node-reduced
     # chunk, in place on its slice of the fusion buffer.
@@ -331,12 +397,18 @@ def hierarchical_allreduce_flat(engine, flat: np.ndarray, op: ReduceOp,
 
     # Phase 3: node-local ring allgather.
     for step in range(L - 1):
+        t0 = time.perf_counter() if timed else 0.0
+        tr0 = time.monotonic_ns() if traced else 0
         send_idx = (li + 1 - step) % L
         recv_idx = (li - step) % L
         ticket = right.send(flat[bounds[send_idx]:bounds[send_idx + 1]])
         _recv_into(left, flat[bounds[recv_idx]:bounds[recv_idx + 1]],
                    deadline, left_rank)
+        tr1 = time.monotonic_ns() if traced else 0
         _wait_send(right, ticket, deadline, right_rank)
+        if timed or traced:
+            _hop_done(engine, "allgather", step, left_rank, left.kind,
+                      t0, tr0, tr1, None)
     return flat
 
 
@@ -396,7 +468,12 @@ def allreduce(engine, entries, resp: Response):
     dtype = floats.storage_dtype(dt)
     narrow = floats.needs_f32_math(dt)
     fb = engine._fusion_buf
+    tracer = getattr(engine, "_tracer", None)
+    tp0 = time.monotonic_ns() if tracer is not None else 0
     flat = fb.pack(entries, dtype)
+    if tracer is not None:
+        tracer.span("pack", tp0, time.monotonic_ns(),
+                    tensors=len(entries), nbytes=int(flat.nbytes))
     fused = True
     if resp.prescale_factor != 1.0:
         if narrow:
@@ -442,7 +519,12 @@ def allreduce(engine, entries, resp: Response):
         fused = False
     if fused:
         reduced = reduced.copy()
-    return fb.unpack(reduced, entries)
+    tu0 = time.monotonic_ns() if tracer is not None else 0
+    out = fb.unpack(reduced, entries)
+    if tracer is not None:
+        tracer.span("unpack", tu0, time.monotonic_ns(),
+                    tensors=len(entries))
+    return out
 
 
 def _allgather_hierarchical(engine, entries, resp: Response):

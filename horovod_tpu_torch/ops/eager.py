@@ -20,16 +20,24 @@ The mesh-axis collectives of the compiled regime are in
 ``horovod_tpu_torch.ops.collective``, where the JAX package keeps theirs
 (``horovod_tpu.ops.collective``).
 
-Left out until their features are ported: the in-graph bridge (``jit``
+With the registry on (``telemetry/``), every collective counts
+``hvd_collectives_total`` and observes ``hvd_collective_bytes`` at enqueue,
+and ``hvd_collective_latency_seconds`` from its enqueue to its
+``synchronize``, a CUDA tensor's too (its copy to the host is done by
+then), each labelled by op and by the dtype's numpy name (``"bfloat16"``,
+never ``"torch.bfloat16"``), so that port and JAX ranks fold into one
+series.
+
+Left out until its feature is ported: the in-graph bridge (``jit``
 dispatch; ROADMAP Queue 1, item 6, the torch analog is collectives as
-custom ops under ``torch.compile``) and the per-collective telemetry
-(item 5.5).
+custom ops under ``torch.compile``).
 """
 
 from __future__ import annotations
 
 import pickle
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -40,7 +48,9 @@ from horovod_tpu_torch.common import floats
 from horovod_tpu_torch.common.types import (DataType, ReduceOp,
                                             dtype_from_numpy,
                                             dtype_from_torch,
+                                            dtype_to_numpy_name,
                                             dtype_to_torch)
+from horovod_tpu_torch.telemetry import registry as _tmx
 
 _counter_lock = threading.Lock()
 _op_counters: Dict[str, int] = {}
@@ -121,6 +131,29 @@ def _register(handle: int, fn: Callable) -> int:
     return handle
 
 
+def _timed_post(kind: str, arr: np.ndarray, dt: Optional[DataType],
+                post: Optional[Callable]) -> Optional[Callable]:
+    """The per-collective telemetry: the count and input bytes at enqueue,
+    the latency when ``synchronize`` runs the handle's postprocess.  With
+    the registry off this returns ``post`` itself: the labels and the
+    closure, the allocating part, exist only behind ``enabled()``.
+    ``dt`` is the wire type where the array alone does not say it."""
+    if not _tmx.enabled():
+        return post
+    labels = (kind, dtype_to_numpy_name(dt) if dt is not None
+              else str(arr.dtype))
+    _tmx.inc_counter("hvd_collectives_total", labels=labels)
+    _tmx.observe("hvd_collective_bytes", arr.nbytes, labels=labels)
+    t0 = time.monotonic()
+
+    def timed(raw):
+        _tmx.observe("hvd_collective_latency_seconds",
+                     time.monotonic() - t0, labels=labels)
+        return post(raw) if post is not None else raw
+
+    return timed
+
+
 def poll(handle: int) -> bool:
     return basics._engine().poll(handle)
 
@@ -186,7 +219,7 @@ def allreduce_async(tensor, average: Optional[bool] = None,
             raw = _np_decompress(raw, wire, ctx)
         return restore(raw)
 
-    return _register(h, post)
+    return _register(h, _timed_post("allreduce", comp_arr, wire, post))
 
 
 def allreduce(tensor, average: Optional[bool] = None,
@@ -220,7 +253,7 @@ def allgather_async(tensor, name: Optional[str] = None,
     h = basics._engine().allgather_async(
         _auto_name("allgather", name), arr, process_set=process_set,
         dtype=dt)
-    return _register(h, restore)
+    return _register(h, _timed_post("allgather", arr, dt, restore))
 
 
 def allgather(tensor, name: Optional[str] = None, process_set=None):
@@ -268,7 +301,7 @@ def reducescatter_async(tensor, average: Optional[bool] = None,
     h = basics._engine().reducescatter_async(
         _auto_name("reducescatter", name), arr, op=rop,
         process_set=process_set, dtype=dt)
-    return _register(h, restore)
+    return _register(h, _timed_post("reducescatter", arr, dt, restore))
 
 
 def reducescatter(tensor, average: Optional[bool] = None,
@@ -284,7 +317,7 @@ def broadcast_async(tensor, root_rank: int = 0,
     h = basics._engine().broadcast_async(
         _auto_name("broadcast", name), arr, root_rank=root_rank,
         process_set=process_set, dtype=dt)
-    return _register(h, restore)
+    return _register(h, _timed_post("broadcast", arr, dt, restore))
 
 
 def broadcast(tensor, root_rank: int = 0, name: Optional[str] = None,
@@ -308,7 +341,7 @@ def alltoall_async(tensor, splits=None, name: Optional[str] = None,
             return restore(data), recv_splits
         return restore(raw)
 
-    return _register(h, post)
+    return _register(h, _timed_post("alltoall", arr, dt, post))
 
 
 def alltoall(tensor, splits=None, name: Optional[str] = None,

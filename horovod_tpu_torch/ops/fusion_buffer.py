@@ -14,13 +14,15 @@ Four regions, grown geometrically and never shrunk:
 Storage is ``uint8``, viewed per collective as its numpy storage type (the
 port keeps bf16 as ``uint16`` and fp8 as ``uint8``; ``common/floats.py``).
 
-Left out until telemetry is ported (ROADMAP Queue 1, item 5): the
-``hvd_dataplane_alloc_bytes`` counter.
+Every growth adds its bytes to ``hvd_dataplane_alloc_bytes``, which stays
+flat in the steady state.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from horovod_tpu_torch.telemetry import registry as _tmx
 
 _MIN_BYTES = 1024
 
@@ -45,7 +47,9 @@ class FusionBuffer:
     def _ensure_u8(self, buf: np.ndarray, nbytes: int) -> np.ndarray:
         if buf.nbytes >= nbytes:
             return buf
-        return np.empty(self._capacity(nbytes, buf.nbytes), np.uint8)
+        cap = self._capacity(nbytes, buf.nbytes)
+        _tmx.inc_counter("hvd_dataplane_alloc_bytes", cap)
+        return np.empty(cap, np.uint8)
 
     def data_view(self, n: int, dtype) -> np.ndarray:
         """Flat ``n``-element view of the fusion buffer as ``dtype``."""
@@ -63,6 +67,7 @@ class FusionBuffer:
         """Two ``n``-element fp32 scratch arrays (incoming, accumulator)."""
         if self._f32a.size < n:
             cap = self._capacity(n * 4, self._f32a.nbytes) // 4
+            _tmx.inc_counter("hvd_dataplane_alloc_bytes", cap * 8)
             self._f32a = np.empty(cap, np.float32)
             self._f32b = np.empty(cap, np.float32)
         return self._f32a[:n], self._f32b[:n]

@@ -19,8 +19,8 @@ Every attempt of a request fires its fault site (``kv.put`` or
 ``kv.get``, with the key as detail) before it goes out, so that an
 injected fault rides the retries.
 
-Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the retry
-counter and the flight recorder's note.
+Each retry adds one to ``hvd_kv_retries_total`` and notes ``kv.retry`` on
+the flight recorder.
 """
 
 from __future__ import annotations
@@ -38,11 +38,20 @@ from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.common.retry import retry_call
 from horovod_tpu_torch.common.types import FencedError
 from horovod_tpu_torch.runner import secret as secret_mod
+from horovod_tpu_torch.telemetry import blackbox as _bb
+from horovod_tpu_torch.telemetry import registry as _tmx
 from horovod_tpu_torch.utils import env as env_util
 
 # The rendezvous server's membership-epoch header
 # (``horovod_tpu/runner/http_server.py``).
 EPOCH_HEADER = "X-HVD-Epoch"
+
+
+def _count_retry(attempt_index: int, exc: BaseException) -> None:
+    # A None check apiece when telemetry and the recorder are off.
+    _tmx.inc_counter("hvd_kv_retries_total")
+    _bb.note("kv.retry", 0, attempt=int(attempt_index),
+             error=type(exc).__name__)
 
 
 def _retryable(e: BaseException) -> bool:
@@ -130,6 +139,12 @@ class KVClient:
                 self.secret, method, path, body or b""))
         return req
 
+    def _on_retry(self, attempt_index: int, exc: BaseException) -> None:
+        """Before each backoff: count the retry, and send the next attempt
+        to the next endpoint (a no-op for a one-address client)."""
+        _count_retry(attempt_index, exc)
+        self._rotate_endpoint()
+
     def _with_retry(self, fn, site: str, key: str):
         def attempt():
             _fi.fire(site, key)
@@ -139,7 +154,7 @@ class KVClient:
             attempt, attempts=self.attempts,
             base_delay=self.retry_base, max_delay=self.retry_max,
             is_retryable=_retryable,
-            on_retry=lambda attempt, exc: self._rotate_endpoint(),
+            on_retry=self._on_retry,
             seed=zlib.crc32(key.encode("utf-8")))
 
     def _raise_if_fenced(self, e: urllib.error.HTTPError,

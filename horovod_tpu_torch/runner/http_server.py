@@ -19,7 +19,9 @@ Left out until their features are ported: write-through mirroring to
 standbys with its ``kv.mirror`` fault site, the ``/kvsync`` catch-up, the
 command line and the launcher's direct reads (ROADMAP Queue 1, item 6,
 the periphery), ``/kvlist/`` (the elastic driver's roster, item 5.7) and
-the fenced-writes counter (item 5.5).
+the fenced-writes counter ``hvd_fenced_writes_total``, which counts the
+fence's rejections (item 5.7; the registry declares it, nothing in the
+port increments it yet).
 """
 
 from __future__ import annotations

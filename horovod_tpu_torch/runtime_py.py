@@ -53,6 +53,30 @@ The control plane heals itself, each part under its knob:
 With every one of these knobs off (or on one host) the frames and threads
 are the engine's core's.
 
+Observability and tuning (``telemetry/``, ``autotune/``), the JAX engine's
+hooks at the same sites:
+
+* telemetry (``HVD_METRICS``, ``HVD_METRICS_PORT``, ``HVD_METRICS_FILE``):
+  the cycle, queue-depth, negotiation, fusion and cache series, the
+  liveness and abort counters, and on the coordinator the straggler
+  detector (``HVD_STRAGGLER_WARN_MS``: a ``STRAGGLER`` timeline record when
+  one rank is consistently last);
+* the trace (``HVD_TRACE``): every rank writes ``negotiate``, ``pack``,
+  ``hop``, ``unpack``, ``callback`` and ``collective`` spans under one
+  collective seq, and a worker pings the coordinator's clock
+  (``TAG_CLOCK_PING``, answered from the coordinator's receive thread);
+* the flight recorder (on unless ``HVD_BLACKBOX=0``): collective begin and
+  end, evictions, verdicts, corruption and aborts go into its ring, a
+  terminal failure dumps it, and after an abort verdict the coordinator
+  pulls the live workers' rings (``TAG_BLACKBOX``);
+* the autotuner (``HVD_AUTOTUNE``): rank 0 scores each cycle's allreduced
+  bytes and broadcasts new knobs in the next response list, which every
+  rank, the coordinator included, applies before that frame's cached hits.
+
+With the metrics, the trace and the autotuner off, each hook is one global
+load and a ``None`` check: no thread, no clock read, no allocation, and the
+same wire bytes.
+
 The data plane: same-host peers pair over a shm ring unless
 ``HVD_SHM_DISABLE``, the others over TCP (``utils/transport.py``); with
 ``HVD_WIRE_CRC=1`` every pair is a self-healing ``LadderLink``
@@ -65,18 +89,12 @@ two-level collectives at a block topology
 ``engine.cycle``, ``ctrl.worker.send``, ``ctrl.coord.send``,
 ``ctrl.subcoord.send`` and ``ctrl.reparent`` here).
 
-Left out until their features are ported, by their items of ROADMAP Queue
-1, item 5 (setting a knob that turns one on raises ``NotImplementedError``
-at ``init()``, so that a port rank never runs another protocol quietly):
-
-* 5.5: the autotuner (``HVD_AUTOTUNE``), telemetry (``HVD_METRICS*``,
-  ``HVD_STRAGGLER_WARN_MS``; the heartbeat-miss, eviction and abort
-  counters among them), the trace (``HVD_TRACE``) with its clock pings,
-  and the flight recorder with its post-verdict pull;
-* 5.7: elastic membership epochs (``HVD_ELASTIC_EPOCH``: every frame
-  carries epoch 0), the fence (``TAG_FENCE``), the quorum, the replay of
-  a retained batch, then the serving loop's
-  ``serve_broadcast``/``serve_recv``.
+Left out until elastic is ported (ROADMAP Queue 1, item 5.7; setting
+``HVD_ELASTIC_EPOCH`` raises ``NotImplementedError`` at ``init()``, so that
+a port rank never runs another protocol quietly): membership epochs
+(every frame carries epoch 0), the fence (``TAG_FENCE``), the quorum, the
+replay of a retained batch, the elastic series of the registry, then the
+serving loop's ``serve_broadcast``/``serve_recv``.
 """
 
 from __future__ import annotations
@@ -91,6 +109,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from horovod_tpu_torch import telemetry as _telemetry
 from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.common import floats
 from horovod_tpu_torch.common import response_cache as rcache
@@ -109,6 +128,9 @@ from horovod_tpu_torch.common.types import (
     TensorShape,
     dtype_from_numpy,
 )
+from horovod_tpu_torch.telemetry import blackbox as blackbox_mod
+from horovod_tpu_torch.telemetry import registry as _tmx
+from horovod_tpu_torch.telemetry import trace as trace_mod
 from horovod_tpu_torch.utils import env as env_util
 from horovod_tpu_torch.utils import socketutil as su
 from horovod_tpu_torch.utils import timeline as timeline_mod
@@ -127,12 +149,6 @@ _OP_NAMES = {
 # when it is on: "bool" true, "positive" > 0, "set" non-empty; the
 # ROADMAP Queue 1 item that brings it).
 _LEFT_OUT = (
-    ("HVD_AUTOTUNE", "bool", "5.5, autotune"),
-    ("HVD_METRICS", "bool", "5.5, telemetry"),
-    ("HVD_METRICS_PORT", "set", "5.5, telemetry"),
-    ("HVD_METRICS_FILE", "set", "5.5, telemetry"),
-    ("HVD_STRAGGLER_WARN_MS", "positive", "5.5, telemetry"),
-    ("HVD_TRACE", "bool", "5.5, the trace"),
     ("HVD_ELASTIC_EPOCH", "set", "5.7, elastic"),
 )
 
@@ -233,7 +249,8 @@ class HandleManager:
 @dataclass
 class TensorTableEntry:
     """One enqueued tensor awaiting its collective: its numpy host copy
-    (in the storage type of ``request.tensor_type``)."""
+    (in the storage type of ``request.tensor_type``).  ``enqueue_ns`` is
+    its enqueue's monotonic clock, read only with the trace on (0 off)."""
 
     name: str
     array: np.ndarray
@@ -241,6 +258,7 @@ class TensorTableEntry:
     request: Request
     root_rank: int = -1
     splits: Optional[List[int]] = None
+    enqueue_ns: int = 0
 
 
 class _MessageTable:
@@ -327,6 +345,8 @@ class SingleProcessEngine(_EngineBase):
     def __init__(self):
         super().__init__(0, 1, 0, 1, 0, 1)
         self.timeline = timeline_mod.from_env(0)
+        _telemetry.init_from_env(0, 0)
+        self._tracer = None  # the trace needs a gang
 
     def shutdown(self):
         self.timeline.shutdown()
@@ -436,6 +456,35 @@ class PyEngine(_EngineBase):
         # bytes, from_cache) to it: the card's engine phase reads it.
         self.response_log: Optional[list] = None
 
+        # Telemetry: the hooks cost a None check when it is off; call
+        # sites whose arguments allocate guard on this flag.  The
+        # straggler detector is the coordinator's: it folds the ready
+        # ticks it sees into a skew histogram.
+        self._metrics_on = _telemetry.init_from_env(rank, local_rank,
+                                                    size=size)
+        self._straggler = None
+        if self._metrics_on and rank == 0:
+            self._straggler = _telemetry.StragglerDetector(
+                env_util.get_float(env_util.STRAGGLER_WARN_MS, 0.0), size)
+
+        # The gang-wide trace: every rank's spans; None with HVD_TRACE
+        # unset, and every hot-path hook is then a None check.
+        self._tracer = trace_mod.from_env(rank)
+        self._clock_sync_cycles = env_util.trace_clock_sync_cycles()
+        self._clock_ping_countdown = 0  # 0 = ping on the next cycle
+        if self._tracer is not None and rank == 0:
+            # The coordinator's clock is the gang's axis: offset 0.
+            self._tracer.clock(0, 0)
+
+        # The always-on flight recorder, process-global so that its ring
+        # outlives the engine; every terminal failure below dumps it.
+        self._blackbox = blackbox_mod.from_env(rank, epoch=self.epoch)
+        self._blackbox_seq = 0
+        if self._blackbox is not None:
+            self._blackbox.note("engine.init", 0,
+                                {"rank": rank, "size": size,
+                                 "epoch": self.epoch})
+
         # request queue (tensor queue) + tensor table
         self._queue_lock = threading.Lock()
         self._request_queue: List[Request] = []
@@ -508,6 +557,10 @@ class PyEngine(_EngineBase):
         self._in_collective_since = 0.0
         # The root's last verdict, resent to a rank that reports late.
         self._last_verdict: Optional[tuple] = None
+        # The root's pulled flight-recorder rings (TAG_BLACKBOX_DUMP),
+        # captured by its receive threads after a verdict.
+        self._blackbox_inbox: List[tuple] = []
+        self._blackbox_lock = threading.Lock()
 
         # Response cache; touched only on the background thread.
         self._cache = rcache.ResponseCache(
@@ -516,10 +569,23 @@ class PyEngine(_EngineBase):
         self._resend_uncached: set = set()
         self._hit_ranks: Dict[str, set] = {}
 
+        # The autotuner, the coordinator's alone: it tunes and broadcasts.
+        self._pm = None
+        if rank == 0:
+            from horovod_tpu_torch.autotune import ParameterManager
+
+            self._pm = ParameterManager.from_env(
+                self.fusion_threshold, self.cycle_time,
+                self.hierarchical_allreduce, self.hierarchical_allgather,
+                hierarchical_ok=self.hierarchical_topology_ok(),
+                ring_segment_bytes=self.ring_segment_bytes)
+        self._pending_params = None
+
         try:
             self._bootstrap(rdv_addr, rdv_port)
         except BaseException:
             self.timeline.shutdown()
+            trace_mod.release(self._tracer)
             raise
         self._bg = threading.Thread(
             target=self._background_loop, name="hvd-background", daemon=True)
@@ -653,8 +719,25 @@ class PyEngine(_EngineBase):
         elif tag in (su.TAG_ABORT_REPORT, su.TAG_PROBE_ACK):
             with self._abort_lock:
                 self._abort_inbox.append((peer_rank, tag, payload))
-        # Other tags belong to features the port leaves out, whose knobs
-        # must be off gang-wide.
+        elif tag == su.TAG_CLOCK_PING:
+            # The trace's clock sync: echo the worker's t0 with our clock,
+            # from this thread, so that the estimate never waits on a busy
+            # background cycle.  Pings ride the worker's direct socket.
+            t0_ns, pepoch = wire.decode_clock_ping(payload)
+            pong = wire.encode_clock_pong(t0_ns, time.monotonic_ns(),
+                                          pepoch)
+            sock = self._ctrl_socks.get(peer_rank)
+            if sock is not None:
+                try:
+                    with self._ctrl_send_lock:
+                        su.send_frame(sock, su.TAG_CLOCK_PONG, pong)
+                except (ConnectionError, OSError):
+                    pass  # the liveness owns the eviction
+        elif tag == su.TAG_BLACKBOX_DUMP:
+            # A worker's recorder ring, answering the post-verdict pull.
+            with self._blackbox_lock:
+                self._blackbox_inbox.append((peer_rank, payload))
+        # Other tags belong to elastic, whose knob must be off gang-wide.
 
     def _note_reparent(self, rank: int, old_parent: int) -> None:
         """Root: an orphan of a dead sub-coordinator adopted itself to the
@@ -665,6 +748,9 @@ class PyEngine(_EngineBase):
         self.log.warning(
             "rank %d re-parented to the root (sub-coordinator %d died)",
             rank, old_parent)
+        _tmx.inc_counter("hvd_subcoord_reparents_total")
+        blackbox_mod.note("subcoord.reparent", time.monotonic_ns(),
+                          rank=rank, old_parent=old_parent, epoch=self.epoch)
         if self.timeline.enabled:
             self.timeline.instant(timeline_mod.SUBCOORD_REPARENT,
                                   rank=rank, old_parent=old_parent)
@@ -721,6 +807,33 @@ class PyEngine(_EngineBase):
             with self._abort_cv:
                 self._abort_verdict = (vname, vranks)
                 self._abort_cv.notify_all()
+        elif tag == su.TAG_CLOCK_PONG:
+            # The midpoint method: the offset maps this rank's monotonic
+            # clock onto rank 0's.
+            t1_ns = time.monotonic_ns()
+            t0_ns, tc_ns, pepoch = wire.decode_clock_pong(payload)
+            tr = self._tracer
+            if tr is not None and pepoch == self.epoch:
+                offset_ns = tc_ns - (t0_ns + t1_ns) // 2
+                tr.clock(offset_ns, t1_ns - t0_ns)
+                blackbox_mod.note_clock_offset(offset_ns)
+                if self._metrics_on:
+                    _tmx.set_gauge("hvd_trace_clock_skew_seconds",
+                                   offset_ns / 1e9)
+        elif tag == su.TAG_BLACKBOX:
+            # The coordinator pulls our recorder's ring after a verdict:
+            # answered from this thread, since the background thread may
+            # be the wedged party.
+            bb = blackbox_mod.get()
+            if bb is not None:
+                reply = wire.encode_blackbox_dump(
+                    self.rank, self.epoch, bb.dump_bytes("coordinator_pull"))
+                try:
+                    with self._ctrl_send_lock:
+                        su.send_frame(self._ctrl_sock,
+                                      su.TAG_BLACKBOX_DUMP, reply)
+                except (ConnectionError, OSError):
+                    pass
 
     # -- the control tree's links -----------------------------------------
     #
@@ -777,6 +890,10 @@ class PyEngine(_EngineBase):
                     su.send_frame(self._ctrl_sock, su.TAG_REQUEST_LIST,
                                   payload)
             self._last_send = time.monotonic()
+            _tmx.inc_counter("hvd_subcoord_reparents_total")
+            blackbox_mod.note("subcoord.reparent", time.monotonic_ns(),
+                              rank=self.rank, old_parent=old,
+                              epoch=self.epoch)
         except (ConnectionError, OSError):
             # The direct link is gone too: a dead hub, which the lost-
             # coordinator abort owns.
@@ -795,6 +912,8 @@ class PyEngine(_EngineBase):
                 or self._shutdown_requested.is_set():
             raise RuntimeError("horovod_tpu_torch runtime has been shut down")
         self._claim_name(entry.name)
+        if self._tracer is not None:
+            entry.enqueue_ns = time.monotonic_ns()
         with self._queue_lock:
             self._table[entry.name] = entry
             self._request_queue.append(entry.request)
@@ -932,6 +1051,8 @@ class PyEngine(_EngineBase):
         self._shutdown_flag.set()
         self._bg.join(timeout=10)
         self.timeline.shutdown()
+        trace_mod.release(self._tracer)
+        self._tracer = None
         # The ladder's listener first, so that no re-dial lands on a dying
         # link; then the shm transports and ladder links (each drains,
         # breaks a writer spinning on a dead peer's full ring, joins its
@@ -997,6 +1118,12 @@ class PyEngine(_EngineBase):
                 if not self._run_loop_once():
                     break
                 dt = time.monotonic() - t0
+                _tmx.inc_counter("hvd_cycles_total")
+                _tmx.observe("hvd_cycle_duration_seconds", dt)
+                if self.rank == 0:
+                    # The root's coordination cost, keyed by gang size.
+                    _tmx.observe("hvd_ctrl_cycle_seconds", dt,
+                                 labels=(str(self.size),))
                 if dt < self.cycle_time:
                     time.sleep(self.cycle_time - dt)
         except Exception as e:  # deliver the failure to pending handles
@@ -1027,6 +1154,7 @@ class PyEngine(_EngineBase):
         with self._queue_lock:
             msgs = self._request_queue
             self._request_queue = []
+        _tmx.set_gauge("hvd_queue_depth", len(msgs))
         if self.rank == 0:
             return self._coordinator_cycle(msgs)
         return self._worker_cycle(msgs)
@@ -1037,6 +1165,7 @@ class PyEngine(_EngineBase):
         """Split popped requests into (uncached requests, hit events)."""
         requests: List[Request] = []
         hits: List[tuple] = []
+        misses = 0
         for req in msgs:
             if req.tensor_name in self._resend_uncached:
                 self._resend_uncached.discard(req.tensor_name)
@@ -1050,6 +1179,11 @@ class PyEngine(_EngineBase):
                 hits.append((req.tensor_name, pos))
             else:
                 requests.append(req)
+                misses += 1
+        if hits:
+            _tmx.inc_counter("hvd_cache_hits_total", len(hits))
+        if misses:
+            _tmx.inc_counter("hvd_cache_misses_total", misses)
         return requests, hits
 
     def _execute_cached_hits(self, hit_positions: List[int]) -> None:
@@ -1099,7 +1233,25 @@ class PyEngine(_EngineBase):
             return self._tree_parent_sock
         return None
 
+    def _maybe_clock_ping(self) -> None:
+        """The trace's clock sync: a ping on the direct control socket at
+        the first cycle and every ``HVD_TRACE_CLOCK_SYNC_CYCLES`` cycles."""
+        n = self._clock_ping_countdown
+        if n > 0:
+            self._clock_ping_countdown = n - 1
+            return
+        self._clock_ping_countdown = self._clock_sync_cycles
+        try:
+            ping = wire.encode_clock_ping(time.monotonic_ns(), self.epoch)
+            with self._ctrl_send_lock:
+                su.send_frame(self._ctrl_sock, su.TAG_CLOCK_PING, ping)
+            self._last_send = time.monotonic()
+        except (ConnectionError, OSError):
+            pass  # a dead hub shows in the receive thread
+
     def _worker_cycle(self, msgs: List[Request]) -> bool:
+        if self._tracer is not None:
+            self._maybe_clock_ping()
         requests, hit_events = self._classify(msgs)
         want_shutdown = self._shutdown_requested.is_set()
         send_failed = False
@@ -1203,9 +1355,9 @@ class PyEngine(_EngineBase):
         return True
 
     def _apply_params(self, params) -> None:
-        """A coordinator's knob broadcast.  The port's coordinator sends
-        none (no autotuner); a JAX coordinator's may reach a port
-        worker."""
+        """The autotuner's knob broadcast (a port or a JAX coordinator's),
+        applied before the frame's cached hits are fused.  A 5-tuple
+        keeps the local ring segment."""
         fusion, cycle_s, cache_on, hier_ar, hier_ag = params[:5]
         self.fusion_threshold = fusion
         self.cycle_time = cycle_s
@@ -1253,6 +1405,9 @@ class PyEngine(_EngineBase):
                         req.tensor_name, _OP_NAMES[req.request_type])
                 self.timeline.negotiate_rank_ready(
                     req.tensor_name, req.request_rank)
+            if self._straggler is not None:
+                self._straggler.note_ready(
+                    _MessageTable.key_of(req), req.request_rank)
             if self._msg_table.increment(req, len(self._joined_ranks)):
                 ready.append(_MessageTable.key_of(req))
 
@@ -1304,10 +1459,19 @@ class PyEngine(_EngineBase):
         responses: List[Response] = []
         hit_positions: List[int] = []
         for key in ready:
+            t_first = self._msg_table.first_seen.get(key) \
+                if self._metrics_on else None
             reqs = self._msg_table.pop(key)
             name = reqs[0].tensor_name  # the key may be set-scoped
             if self.timeline.enabled:
                 self.timeline.negotiate_end(name)
+            if t_first is not None:
+                _tmx.observe("hvd_negotiation_seconds",
+                             time.monotonic() - t_first)
+            if self._straggler is not None:
+                lagger = self._straggler.note_complete(key)
+                if lagger is not None:
+                    self._emit_straggler(name, *lagger)
             hit_ranks = self._hit_ranks.pop(key, set())
             contributors = {r.request_rank for r in reqs}
             ent_pos = -1
@@ -1340,8 +1504,27 @@ class PyEngine(_EngineBase):
         if not self.stall_check_disable:
             shutdown = self._check_stalls() or shutdown
 
-        if responses or hit_positions or resend_by_rank or shutdown:
+        tuned = self._pending_params
+        if responses or hit_positions or resend_by_rank or shutdown \
+                or tuned is not None:
             fused = self._fuse_responses(responses)
+            if self._metrics_on:
+                for resp in fused:
+                    if resp.tensor_names and resp.tensor_type is not None:
+                        _tmx.observe(
+                            "hvd_fused_bytes",
+                            sum(resp.tensor_sizes)
+                            * resp.tensor_type.itemsize)
+                        _tmx.observe("hvd_fused_tensors",
+                                     len(resp.tensor_names))
+            params = None
+            if tuned is not None:
+                params = (tuned.fusion_threshold, tuned.cycle_time_s,
+                          tuned.cache_enabled,
+                          tuned.hierarchical_allreduce,
+                          tuned.hierarchical_allgather,
+                          tuned.ring_segment_bytes)
+                self._pending_params = None
             shared = None
             for r, s in self._ctrl_socks.items():
                 resend = resend_by_rank.get(r, [])
@@ -1349,12 +1532,13 @@ class PyEngine(_EngineBase):
                     payload = wire.encode_response_list(
                         fused, shutdown=shutdown,
                         hit_positions=hit_positions, resend_names=resend,
-                        epoch=self.epoch)
+                        params=params, epoch=self.epoch)
                 else:
                     if shared is None:
                         shared = wire.encode_response_list(
                             fused, shutdown=shutdown,
-                            hit_positions=hit_positions, epoch=self.epoch)
+                            hit_positions=hit_positions, params=params,
+                            epoch=self.epoch)
                     payload = shared
                 try:
                     _fi.fire("ctrl.coord.send", str(r))
@@ -1362,9 +1546,26 @@ class PyEngine(_EngineBase):
                         su.send_frame(s, su.TAG_RESPONSE_LIST, payload)
                 except (ConnectionError, OSError):
                     pass
+            if params is not None:
+                # The workers' order: the knobs before this frame's hits.
+                self._apply_params(params)
             self._execute_cached_hits(hit_positions)
             for resp in fused:
                 self._perform_operation(resp)
+            if self._pm is not None and not self._pm.done:
+                # The tuner's score: this cycle's allreduced bytes, the
+                # cached hits' included.
+                nbytes = sum(
+                    sum(r.tensor_sizes) * r.tensor_type.itemsize
+                    for r in fused
+                    if r.response_type == ResponseType.ALLREDUCE)
+                nbytes += sum(
+                    c.tensor_sizes[0] * c.tensor_type.itemsize
+                    for c in map(self._cache.get_by_position, hit_positions)
+                    if c is not None)
+                new = self._pm.record_bytes(nbytes)
+                if new is not None:
+                    self._pending_params = new
             if shutdown:
                 self._shutdown_flag.set()
                 return False
@@ -1403,6 +1604,11 @@ class PyEngine(_EngineBase):
                 "rank %d unresponsive (%s); evicting from the job", r,
                 "connection lost" if r in self._conn_lost
                 else f"no heartbeat for {self.heartbeat_timeout:.1f}s")
+            if r not in self._conn_lost:
+                _tmx.inc_counter("hvd_heartbeat_misses_total")
+            _tmx.inc_counter("hvd_evictions_total")
+            blackbox_mod.note("heartbeat.miss", time.monotonic_ns(),
+                              rank=r, conn_lost=bool(r in self._conn_lost))
             self._evicted_ranks.add(r)
             self._joined_ranks.add(r)
         self._prune_evicted(ready)
@@ -1417,12 +1623,30 @@ class PyEngine(_EngineBase):
             if not lst:
                 self._msg_table.pop(nm)
                 self._hit_ranks.pop(nm, None)
+                if self._straggler is not None:
+                    self._straggler.forget(nm)
                 if ready is not None and nm in ready:
                     ready.remove(nm)
             elif ready is not None and lst[0].process_set_id == 0 and \
                     len(lst) == self.size - len(self._joined_ranks) and \
                     nm not in ready:
                 ready.append(nm)
+
+    def _emit_straggler(self, name: str, lag_rank: int,
+                        skew_s: float) -> None:
+        """The straggler detector tripped: one rank was last to negotiate
+        for several tensors in a row by more than
+        ``HVD_STRAGGLER_WARN_MS``.  The detector re-arms, so the records
+        are throttled."""
+        self.log.warning(
+            "straggler: rank %d consistently last to negotiate "
+            "(skew %.1f ms on %s)", lag_rank, skew_s * 1e3, name)
+        if self.timeline.enabled:
+            self.timeline.instant(
+                timeline_mod.STRAGGLER, rank=lag_rank,
+                skew_ms=round(skew_s * 1e3, 3), tensor=name)
+        blackbox_mod.note("straggler", 0, rank=lag_rank,
+                          skew_ms=round(skew_s * 1e3, 3), name=name)
 
     # -- the collective-abort agreement -------------------------------------
     #
@@ -1567,7 +1791,57 @@ class PyEngine(_EngineBase):
             except (ConnectionError, OSError):
                 pass
         self._apply_abort_verdict(name, wedged, t0)
+        # Archive the evidence: pull every live rank's recorder ring, the
+        # wedged ones' too (their receive threads still answer), so that
+        # one dump directory survives a rank whose own write never lands.
+        self._pull_blackbox_dumps(live)
         return wedged
+
+    def _pull_blackbox_dumps(self, ranks: List[int],
+                             wait_s: float = 1.0) -> None:
+        """The coordinator: ask ``ranks`` for their recorder rings
+        (``TAG_BLACKBOX``) and write what arrives within ``wait_s`` as
+        ``blackbox_rank<r>.pulled.json`` in our ``HVD_BLACKBOX_DIR``.
+        Best effort; never raises."""
+        bb = blackbox_mod.get()
+        if bb is None or not ranks:
+            return
+        req = wire.encode_blackbox_request(self.epoch)
+        asked = []
+        for r in ranks:
+            sock = self._ctrl_socks.get(r)
+            if sock is None:
+                continue
+            try:
+                with self._ctrl_send_lock:
+                    su.send_frame(sock, su.TAG_BLACKBOX, req)
+                asked.append(r)
+            except (ConnectionError, OSError):
+                pass
+        got: set = set()
+        deadline = time.monotonic() + wait_s
+        while len(got) < len(asked) and time.monotonic() < deadline:
+            with self._blackbox_lock:
+                inbox, self._blackbox_inbox = self._blackbox_inbox, []
+            for peer, payload in inbox:
+                try:
+                    drank, _depoch, blob = wire.decode_blackbox_dump(payload)
+                    os.makedirs(bb.dir, exist_ok=True)
+                    path = os.path.join(
+                        bb.dir, f"blackbox_rank{drank}.pulled.json")
+                    tmp = f"{path}.tmp.{os.getpid()}"
+                    with open(tmp, "wb") as fh:
+                        fh.write(blob)
+                    os.replace(tmp, path)
+                except Exception:
+                    pass
+                got.add(peer)
+            if len(got) < len(asked):
+                time.sleep(0.02)
+        if asked:
+            self.log.info(
+                "flight-recorder archive: pulled %d/%d worker dumps into %s",
+                len(got), len(asked), bb.dir)
 
     def _report_and_await_verdict(self, name: str,
                                   suspect: int) -> Optional[List[int]]:
@@ -1609,6 +1883,8 @@ class PyEngine(_EngineBase):
         the eviction, so that the next submission raises on every
         survivor."""
         elapsed = time.monotonic() - t0
+        _tmx.inc_counter("hvd_collective_timeouts_total")
+        _tmx.observe("hvd_collective_abort_seconds", elapsed)
         if self.timeline.enabled:
             self.timeline.instant(
                 timeline_mod.COLLECTIVE_ABORT, ranks=list(ranks),
@@ -1617,6 +1893,13 @@ class PyEngine(_EngineBase):
             "gang verdict: rank(s) %s wedged during %r; aborting the "
             "collective (%.0f ms after the local timeout)", ranks, name,
             elapsed * 1e3)
+        # A terminal event: note the verdict and dump the recorder (a
+        # failure path, where a clock read is free).
+        blackbox_mod.note("abort.verdict", time.monotonic_ns(),
+                          ranks=list(ranks), name=name,
+                          abort_ms=round(elapsed * 1e3, 3))
+        blackbox_mod.dump("collective_timeout",
+                          f"wedged={list(ranks)} name={name}")
         self._evicted_ranks.update(ranks)
         self._ranks_failed = sorted(set(self._ranks_failed) | set(ranks))
         if self.rank == 0:
@@ -1645,6 +1928,11 @@ class PyEngine(_EngineBase):
         the typed status every survivor shares."""
         name = resp.tensor_names[0]
         suspect = int(getattr(hop, "peer", -1))
+        # The blame edge: whom this rank was blocked on when its deadline
+        # fired, from which the postmortem finds the first cause.
+        blackbox_mod.note("collective.timeout", time.monotonic_ns(),
+                          name=name, peer=suspect,
+                          phase=str(getattr(hop, "phase", "recv")))
         if self.rank == 0:
             wedged = self._coordinate_abort(name, {0: suspect})
         else:
@@ -1684,6 +1972,7 @@ class PyEngine(_EngineBase):
                 self.log.warning(
                     "Stalled tensor %s: ready on ranks %s, waiting on %s "
                     "for %.0fs", name, have, missing, waited)
+                _tmx.inc_counter("hvd_stall_warnings_total")
                 if self.stall_shutdown_s > 0 and \
                         waited > self.stall_shutdown_s:
                     self.log.error(
@@ -1894,9 +2183,12 @@ class PyEngine(_EngineBase):
 
         if resp.response_type == ResponseType.EVICT:
             ranks = [int(x) for x in resp.tensor_sizes]
+            blackbox_mod.note("evict", time.monotonic_ns(), ranks=ranks)
             if self.rank in ranks:
                 # Declared dead (a long pause): the gang has moved on
                 # without this rank; stop before desyncing it.
+                blackbox_mod.dump("evicted",
+                                  "declared dead by the coordinator")
                 raise RuntimeError(
                     "evicted by the coordinator (missed heartbeats)")
             self._evicted_ranks.update(ranks)
@@ -1904,6 +2196,7 @@ class PyEngine(_EngineBase):
             self.log.error(
                 "rank(s) %s evicted; completing in-flight collectives on "
                 "the survivors", ranks)
+            blackbox_mod.dump("ranks_failed", f"evicted={ranks}")
             return
 
         if resp.response_type == ResponseType.ERROR:
@@ -1932,11 +2225,37 @@ class PyEngine(_EngineBase):
             self.response_log.append(
                 (resp.response_type.name, len(entries),
                  sum(int(e.array.nbytes) for e in entries), from_cache))
+        tracer = self._tracer
+        if tracer is not None:
+            # One seq per executed response: responses run in the same
+            # order on every rank, so the seqs agree with no wire traffic.
+            seq = tracer.begin_collective()
+            t_exec0 = time.monotonic_ns()
+            first_enq = min((e.enqueue_ns for e in entries
+                             if e.handle >= 0), default=0)
+            if first_enq:
+                # The first local enqueue to the execution.
+                tracer.span("negotiate", first_enq, t_exec0, seq=seq,
+                            name=resp.tensor_names[0], op=op_name,
+                            tensors=len(entries))
         deadline_on = self.collective_timeout > 0
         if deadline_on:
             # The busy marker a probe ack reads while this thread is
             # blocked in the ring.
             self._in_collective_since = time.monotonic()
+        bb = self._blackbox
+        if bb is not None:
+            # The recorder's begin record, stamped with a clock an enabled
+            # layer already read (the trace's or the deadline's), else 0.
+            self._blackbox_seq += 1
+            bb_t0 = (t_exec0 if tracer is not None
+                     else int(self._in_collective_since * 1e9)
+                     if deadline_on else 0)
+            peer = (self.rank - 1) % self.size
+            tp = getattr(self._transports.get(peer), "kind", "")
+            bb.collective_begin(
+                bb_t0, self._blackbox_seq, resp.tensor_names[0], op_name,
+                sum(e.array.nbytes for e in entries), peer, tp)
         try:
             if resp.response_type == ResponseType.ALLREDUCE:
                 results = cpu_backend.allreduce(self, entries, resp)
@@ -1960,12 +2279,19 @@ class PyEngine(_EngineBase):
             # collective's error on this rank (the send-wait cap tripped,
             # or the corruption).
             results = [None] * len(entries)
+            corrupt = isinstance(e, wire.WireCorruptionError)
+            if corrupt:
+                blackbox_mod.note("wire.corruption", time.monotonic_ns(),
+                                  peer=int(getattr(e, "peer", -1)),
+                                  cause=str(getattr(e, "cause", "")))
             if deadline_on:
                 self._in_collective_since = 0.0
                 status = self._collective_abort(resp, entries, e)
             else:
                 self.log.error("collective %s failed: %r", op_name, e)
                 status = Status.unknown_error(str(e))
+                if corrupt:
+                    blackbox_mod.dump("wire_corruption", str(e))
         except Exception as e:
             self.log.error("collective %s failed: %r", op_name, e)
             results = [None] * len(entries)
@@ -1979,11 +2305,26 @@ class PyEngine(_EngineBase):
             for r in cpu_backend.resp_group(self, resp)[0]:
                 if r in self._last_seen:
                     self._last_seen[r] = now
+        if bb is not None:
+            # The end record closes the in-flight marker; untimed when the
+            # collective succeeded.
+            bb.collective_end(0 if status.ok_() else time.monotonic_ns(),
+                              self._blackbox_seq, status.ok_())
         self.timeline.end(resp.tensor_names[0])
+        if tracer is not None:
+            t_cb0 = time.monotonic_ns()
         for e, res in zip(entries, results):
             self._release_name(e.name)
             if e.handle >= 0:
                 self.handles.mark_done(e.handle, status, res)
+        if tracer is not None:
+            t_end = time.monotonic_ns()
+            tracer.span("callback", t_cb0, t_end, seq=seq,
+                        tensors=len(entries))
+            # The envelope of pack, hops, unpack and callback.
+            tracer.span("collective", t_exec0, t_end, seq=seq,
+                        name=resp.tensor_names[0], op=op_name,
+                        ok=status.ok_())
 
     def cache_stats(self) -> Dict[str, int]:
         return self._cache.stats()
@@ -1991,4 +2332,5 @@ class PyEngine(_EngineBase):
     def _abort(self, reason: str) -> None:
         self._aborted = True
         self._abort_reason = reason
+        blackbox_mod.dump("engine_abort", reason)
         self._shutdown_flag.set()

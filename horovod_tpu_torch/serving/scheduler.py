@@ -13,11 +13,11 @@ Thread-safety: handler threads and the serving-loop thread share one
 lock; completion is signalled per-request through an Event the handler
 blocks on.
 
-Engine hooks left out until the port has the eager engine and its
-telemetry: the queue-depth, occupancy and staleness gauges, the request
-counters and the TTFT histogram, so :meth:`Scheduler.stats` has no
-``*_p50_ms``/``*_p99_ms`` rollups (the JAX package's, with telemetry
-off).  The serving loop (``loop.py``) waits for the engine too.
+Telemetry: the queue-depth, occupancy and staleness gauges, the request
+counters by status and the TTFT histogram, from which :meth:`stats` gives
+``ttft_p50_ms``/``ttft_p99_ms`` with the registry on.  The decode step's
+histogram (``step_*``) is the serving loop's (``loop.py``), which waits
+for elastic (ROADMAP Queue 1, item 5.7).
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ import threading
 import time
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
+
+from horovod_tpu_torch.telemetry import registry as _tmx
 
 # Completed requests kept around for join-by-id (a client re-POSTing an
 # id after a leader fail-over must get the finished answer, not a
@@ -119,6 +121,7 @@ class Scheduler:
             req = Request(req_id or f"r{next(self._ids)}",
                           list(prompt), max_new)
             self._queue.append(req)
+            _tmx.set_gauge("hvd_serve_queue_depth", len(self._queue))
         return req
 
     # -- leader fail-over (promoted rank) -------------------------------
@@ -142,6 +145,11 @@ class Scheduler:
                 req.attempts = 1
                 self._queue.append(req)
                 adopted += 1
+            if adopted:
+                _tmx.set_gauge("hvd_serve_queue_depth", len(self._queue))
+        for _ in range(adopted):
+            _tmx.inc_counter("hvd_serve_requests_total",
+                             labels=("replayed",))
         return adopted
 
     # -- serving-loop side ---------------------------------------------
@@ -159,6 +167,10 @@ class Scheduler:
                 req.attempts += 1
                 self._slots[slot] = req
                 out.append((slot, req))
+            if out:
+                _tmx.set_gauge("hvd_serve_queue_depth", len(self._queue))
+                _tmx.set_gauge("hvd_serve_batch_occupancy",
+                               self.active_count())
         return out
 
     def on_token(self, slot: int, token: int) -> Request:
@@ -169,6 +181,8 @@ class Scheduler:
             assert req is not None, f"token for empty slot {slot}"
             if not req.tokens:
                 req.t_first_token = time.monotonic()
+                _tmx.observe("hvd_serve_ttft_seconds",
+                             req.t_first_token - req.t_submit)
             req.tokens.append(token)
         return req
 
@@ -182,6 +196,9 @@ class Scheduler:
             self._recent[req.id] = req
             while len(self._recent) > _RECENT_CAP:
                 self._recent.popitem(last=False)
+            _tmx.set_gauge("hvd_serve_batch_occupancy",
+                           self.active_count())
+        _tmx.inc_counter("hvd_serve_requests_total", labels=("ok",))
         req.done.set()
 
     def requeue_inflight(self) -> int:
@@ -197,6 +214,12 @@ class Scheduler:
                 req.slot = None
                 self._queue.appendleft(req)
             self._slots = [None] * self.max_batch
+            if inflight:
+                _tmx.set_gauge("hvd_serve_queue_depth", len(self._queue))
+                _tmx.set_gauge("hvd_serve_batch_occupancy", 0)
+        for _ in inflight:
+            _tmx.inc_counter("hvd_serve_requests_total",
+                             labels=("replayed",))
         return len(inflight)
 
     def fail_all(self, reason: str) -> None:
@@ -248,4 +271,21 @@ class Scheduler:
                     if self._last_step_t else 0.0,
                 "oldest_queued_age_s": round(now - oldest, 3),
             }
+        _tmx.set_gauge("hvd_serve_last_step_age_seconds",
+                       out["last_step_age_s"])
+        _tmx.set_gauge("hvd_serve_oldest_queued_age_seconds",
+                       out["oldest_queued_age_s"])
+        # SLO rollups from the registry's serve histograms (the same
+        # bucket math the gang aggregator uses), when telemetry is on.
+        if _tmx.enabled():
+            hists = _tmx.snapshot().get("histograms", {})
+            for metric, key in (("hvd_serve_ttft_seconds", "ttft"),
+                                ("hvd_serve_token_latency_seconds",
+                                 "step")):
+                h = hists.get(metric)
+                if h and h.get("count"):
+                    out[f"{key}_p50_ms"] = round(
+                        1e3 * _tmx.histogram_quantile(h, 0.50), 3)
+                    out[f"{key}_p99_ms"] = round(
+                        1e3 * _tmx.histogram_quantile(h, 0.99), 3)
         return out

@@ -16,10 +16,9 @@ to back off), a malformed body 400, and a request that outlives
 ``timeout_s`` 504 (the request itself stays admitted).  A follower whose
 leader is unknown or unreachable answers 503 too.
 
-The ``serve.admit`` fault site turns a request into a 503 shed.
-
-Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the
-request counters.
+The ``serve.admit`` fault site turns a request into a 503 shed.  Every
+shed, bad or failed request adds one to ``hvd_serve_requests_total`` by
+status (a completed one is counted by the scheduler as ``ok``).
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from typing import Callable, Optional
 
 from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.serving.scheduler import QueueFull, Scheduler
+from horovod_tpu_torch.telemetry import registry as _tmx
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -49,6 +49,8 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             _fi.fire("serve.admit", f"{self.command} {self.path}")
         except _fi.InjectedFault:
+            _tmx.inc_counter("hvd_serve_requests_total",
+                             labels=("shed",))
             self._send(503, b"", "text/plain")
             return True
         return False
@@ -105,21 +107,31 @@ class _Handler(BaseHTTPRequestHandler):
                                        or not req_id):
                 raise ValueError("id must be a non-empty string")
         except (ValueError, KeyError, TypeError, json.JSONDecodeError):
+            _tmx.inc_counter("hvd_serve_requests_total",
+                             labels=("error",))
             self._send_json(400, {"error": "bad request body"})
             return
         try:
             req = scheduler.submit(prompt, max_new, req_id=req_id)
         except QueueFull as e:
+            _tmx.inc_counter("hvd_serve_requests_total",
+                             labels=("shed",))
             self._send_json(503, {"error": str(e)})
             return
         except ValueError as e:
+            _tmx.inc_counter("hvd_serve_requests_total",
+                             labels=("error",))
             self._send_json(400, {"error": str(e)})
             return
         if not req.done.wait(self.door.timeout_s):
+            _tmx.inc_counter("hvd_serve_requests_total",
+                             labels=("error",))
             self._send_json(504, {"error": "request timed out",
                                   "id": req.id})
             return
         if req.error is not None:
+            _tmx.inc_counter("hvd_serve_requests_total",
+                             labels=("error",))
             self._send_json(500, {"error": req.error, "id": req.id})
             return
         now = time.monotonic()
@@ -165,6 +177,7 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             except (urllib.error.URLError, ConnectionError, OSError):
                 continue
+        _tmx.inc_counter("hvd_serve_requests_total", labels=("shed",))
         self._send_json(503, {"error": "serving leader unreachable; "
                                        "retry after re-election"})
 

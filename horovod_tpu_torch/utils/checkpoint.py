@@ -33,9 +33,6 @@ A checkpoint that fails verification on restore records a
 fault, detail: the sealed directory) flips one byte in the middle of the
 largest file right after the manifest is sealed: the torn write that
 verification exists to catch.
-
-Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the
-verification counters and the flight recorder's note.
 """
 
 from __future__ import annotations

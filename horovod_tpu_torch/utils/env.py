@@ -99,6 +99,55 @@ KV_ADDRS = "HVD_KV_ADDRS"
 SERVE_PORT = "HVD_SERVE_PORT"
 SERVE_MAX_BATCH = "HVD_SERVE_MAX_BATCH"
 SERVE_MAX_QUEUE = "HVD_SERVE_MAX_QUEUE"
+# The autotuner (autotune/): rank 0 tunes the engine's knobs by Bayesian
+# optimization, scored by allreduced bytes a second, and broadcasts them in
+# the response list.  A knob pinned in the environment is not tuned.  LOG
+# is the CSV of samples; WARMUP_SAMPLES are discarded, MAX_SAMPLES scored
+# before it settles, each over SAMPLE_DURATION_SECONDS.
+AUTOTUNE = "HVD_AUTOTUNE"
+AUTOTUNE_LOG = "HVD_AUTOTUNE_LOG"
+AUTOTUNE_WARMUP_SAMPLES = "HVD_AUTOTUNE_WARMUP_SAMPLES"
+AUTOTUNE_MAX_SAMPLES = "HVD_AUTOTUNE_MAX_SAMPLES"
+AUTOTUNE_SAMPLE_DURATION = "HVD_AUTOTUNE_SAMPLE_DURATION_SECONDS"
+# Telemetry (telemetry/).  METRICS turns the registry on by itself; a PORT
+# or FILE turns it on too.  PORT is the per-rank debug server's base port
+# (bound at PORT + local_rank; 0 binds an ephemeral one), FILE the JSONL
+# flush destination, written every INTERVAL seconds; STRAGGLER_WARN_MS is
+# the consistent-last-rank skew past which the coordinator writes a
+# STRAGGLER record.
+METRICS = "HVD_METRICS"
+METRICS_PORT = "HVD_METRICS_PORT"
+METRICS_FILE = "HVD_METRICS_FILE"
+METRICS_INTERVAL = "HVD_METRICS_INTERVAL"
+STRAGGLER_WARN_MS = "HVD_STRAGGLER_WARN_MS"
+# The gang fold and its alerts (telemetry/aggregate.py): AGG_INTERVAL paces
+# rank 0's fold of every rank's snapshot; the ALERT knobs tune the EWMA
+# rules: the baseline's smoothing, the folds before a rule may fire, the
+# throughput fraction that is a collapse, the straggler skew's growth
+# multiple and floor, the growth multiples of the queue depth and of the
+# retry rate, and the serving p99 ceiling in ms (0 = off).
+AGG_INTERVAL = "HVD_AGG_INTERVAL"
+ALERT_EWMA_ALPHA = "HVD_ALERT_EWMA_ALPHA"
+ALERT_WARMUP = "HVD_ALERT_WARMUP"
+ALERT_COLLAPSE_FRAC = "HVD_ALERT_COLLAPSE_FRAC"
+ALERT_SKEW_FACTOR = "HVD_ALERT_SKEW_FACTOR"
+ALERT_SKEW_FLOOR_MS = "HVD_ALERT_SKEW_FLOOR_MS"
+ALERT_QUEUE_FACTOR = "HVD_ALERT_QUEUE_FACTOR"
+ALERT_RETRY_FACTOR = "HVD_ALERT_RETRY_FACTOR"
+ALERT_SERVE_P99_MS = "HVD_ALERT_SERVE_P99_MS"
+# The gang-wide trace (telemetry/trace.py): TRACE=1 makes every rank write
+# its spans to ``trace_rank<r>.jsonl`` under TRACE_DIR (default the working
+# directory); a worker pings the coordinator's clock at its first cycle and
+# every TRACE_CLOCK_SYNC_CYCLES cycles after.
+TRACE = "HVD_TRACE"
+TRACE_DIR = "HVD_TRACE_DIR"
+TRACE_CLOCK_SYNC_CYCLES = "HVD_TRACE_CLOCK_SYNC_CYCLES"
+# The flight recorder (telemetry/blackbox.py), on by default: each rank
+# keeps its last BLACKBOX_EVENTS events and dumps ``blackbox_rank<r>.json``
+# into BLACKBOX_DIR at a terminal failure; BLACKBOX=0 turns it off.
+BLACKBOX = "HVD_BLACKBOX"
+BLACKBOX_EVENTS = "HVD_BLACKBOX_EVENTS"
+BLACKBOX_DIR = "HVD_BLACKBOX_DIR"
 
 
 def get_bool(name: str, default: bool = False) -> bool:
@@ -242,3 +291,81 @@ def serve_max_queue() -> int:
     """Admission queue bound (beyond it, /generate sheds with a 503);
     floor 1."""
     return max(1, get_int(SERVE_MAX_QUEUE, 64))
+
+
+def trace_enabled() -> bool:
+    """True when the gang-wide trace is on: every rank writes spans."""
+    return get_bool(TRACE, False)
+
+
+def trace_dir() -> str:
+    """Directory of the per-rank ``trace_rank<r>.jsonl`` span files."""
+    return get_str(TRACE_DIR, ".") or "."
+
+
+def trace_clock_sync_cycles() -> int:
+    """A worker's clock-ping cadence in background cycles (floor 1); the
+    first ping goes out on the first cycle."""
+    return max(1, get_int(TRACE_CLOCK_SYNC_CYCLES, 200))
+
+
+def blackbox_enabled() -> bool:
+    """True unless HVD_BLACKBOX=0: the flight recorder is always on."""
+    return get_bool(BLACKBOX, True)
+
+
+def blackbox_events() -> int:
+    """The recorder's ring capacity in events; floor 16."""
+    return max(16, get_int(BLACKBOX_EVENTS, 512))
+
+
+def blackbox_dir() -> str:
+    """Directory the ``blackbox_rank<r>.json`` dumps land in."""
+    return get_str(BLACKBOX_DIR, "hvd_blackbox") or "hvd_blackbox"
+
+
+def agg_interval_s() -> float:
+    """The gang fold's cadence on rank 0; floor 0.05 s."""
+    return max(0.05, get_float(AGG_INTERVAL, 2.0))
+
+
+def alert_ewma_alpha() -> float:
+    """The baselines' EWMA smoothing factor, clamped to [0.01, 1]."""
+    return min(1.0, max(0.01, get_float(ALERT_EWMA_ALPHA, 0.3)))
+
+
+def alert_warmup() -> int:
+    """Folds a rule's baseline observes before it may fire; floor 1."""
+    return max(1, get_int(ALERT_WARMUP, 3))
+
+
+def alert_collapse_frac() -> float:
+    """throughput_collapse fires below this fraction of the baseline;
+    clamped to [0.01, 0.99]."""
+    return min(0.99, max(0.01, get_float(ALERT_COLLAPSE_FRAC, 0.5)))
+
+
+def alert_skew_factor() -> float:
+    """straggler_skew's growth multiple over a rank's baseline; floor 1."""
+    return max(1.0, get_float(ALERT_SKEW_FACTOR, 3.0))
+
+
+def alert_skew_floor_ms() -> float:
+    """The straggler skew below which growth never fires, in ms."""
+    return max(0.0, get_float(ALERT_SKEW_FLOOR_MS, 50.0))
+
+
+def alert_queue_factor() -> float:
+    """queue_growth's multiple over the queue-depth baseline; floor 1."""
+    return max(1.0, get_float(ALERT_QUEUE_FACTOR, 3.0))
+
+
+def alert_retry_factor() -> float:
+    """retry_spike's multiple over the retries-a-fold baseline; floor 1."""
+    return max(1.0, get_float(ALERT_RETRY_FACTOR, 3.0))
+
+
+def alert_serve_p99_ms() -> float:
+    """serve_p99_breach's ceiling on the decode step's p99, in ms; 0
+    (default) turns the rule off."""
+    return max(0.0, get_float(ALERT_SERVE_P99_MS, 0.0))

@@ -53,10 +53,12 @@ that healed.  Fault sites: ``sock.corrupt`` and ``sock.reset`` (TCP data
 writes), ``shm.lost`` (ring reads and writes), ``shm.stall`` and
 ``sock.stall`` (receives).
 
-Left out until telemetry is ported (ROADMAP Queue 1, item 5.5): the
-``hvd_hop_retries_total``, ``hvd_peer_reconnects_total`` and
-``hvd_transport_failovers_total`` counters, the flight recorder's notes
-and the trace's spans.
+Observability (``telemetry/``): ``hvd_transport_bytes_total`` by the
+link's current mode, ``hvd_hop_retries_total`` by cause,
+``hvd_peer_reconnects_total`` and ``hvd_transport_failovers_total``; the
+flight recorder notes each rung it climbs (``ladder.retry``,
+``ladder.reconnect``, ``ladder.failover``), and the trace writes a
+``hop.retry`` span and a ``transport.failover`` instant.
 """
 
 from __future__ import annotations
@@ -71,6 +73,9 @@ from typing import Dict, Optional, Tuple
 
 from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.common import wire
+from horovod_tpu_torch.telemetry import blackbox as _bb
+from horovod_tpu_torch.telemetry import registry as _tmx
+from horovod_tpu_torch.telemetry import trace as _trace
 from horovod_tpu_torch.utils import env as env_util
 from horovod_tpu_torch.utils import socketutil as su
 from horovod_tpu_torch.utils import timeline as _tl
@@ -238,6 +243,10 @@ class LadderLink(tpt.Transport):
     def send(self, payload, tag: int = su.TAG_DATA) -> int:
         if tag != su.TAG_DATA:
             raise ValueError("ladder links carry only data frames")
+        if _tmx.enabled():
+            _tmx.inc_counter("hvd_transport_bytes_total",
+                             float(tpt._payload_nbytes(payload)),
+                             (self._mode,))
         with self._snd_cv:
             if self._poison is not None:
                 raise self._poison_exc()
@@ -315,12 +324,20 @@ class LadderLink(tpt.Transport):
             self._set_poison(wire.WireCorruptionError(self.peer, cause))
             return
         frames = [f for s, f in self._retain if s >= expected]
+        _tmx.inc_counter("hvd_hop_retries_total", 1.0, (cause,))
         _tl.engine_event(_tl.HOP_RETRY, peer=self.peer, cause=cause,
                          expected=int(expected), frames=len(frames))
+        # Untimed on the recorder: a rung is rare enough for ring order.
+        _bb.note("ladder.retry", 0, peer=self.peer, cause=cause,
+                 frames=len(frames))
+        t0 = time.monotonic_ns() if _trace.active() else 0
         for f in frames:
             if self._closing or self._poison is not None:
                 return
             self._write_wire(f)
+        if t0:
+            _trace.emit("hop.retry", t0, time.monotonic_ns(),
+                        peer=self.peer, cause=cause, frames=len(frames))
 
     def _write_ctrl(self, tag: int, payload: bytes) -> None:
         """NACKs (TCP rung only).  A write failure here means the socket
@@ -615,6 +632,8 @@ class LadderLink(tpt.Transport):
             self._sock_gen += 1
             self._snd_q.appendleft(("replay", int(pexp), "reset"))
             self._snd_cv.notify_all()
+        _tmx.inc_counter("hvd_peer_reconnects_total")
+        _bb.note("ladder.reconnect", 0, peer=self.peer)
         return True
 
     # -- shm watcher / failover -------------------------------------------
@@ -676,8 +695,11 @@ class LadderLink(tpt.Transport):
             self._snd_cv.notify_all()
         with self._rcv_cv:
             self._rcv_cv.notify_all()
+        _tmx.inc_counter("hvd_transport_failovers_total")
+        _bb.note("ladder.failover", 0, peer=self.peer)
         _tl.engine_event(_tl.TRANSPORT_FAILOVER, peer=self.peer,
                          rank=self.rank)
+        _trace.emit_instant("transport.failover", peer=self.peer, tp="tcp")
         self._fo_done.set()
 
     def _shm_fault(self, exc: BaseException) -> None:

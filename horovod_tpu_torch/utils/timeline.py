@@ -5,7 +5,8 @@ Rank 0 writes a ``chrome://tracing`` JSON stream of per-tensor phases:
 ``NEGOTIATE_<OP>`` with a ``RANK_<r>_READY`` tick per rank, the top-level
 op, and instants on the process lane (the recovery ladder's
 ``HOP_RETRY``/``TRANSPORT_FAILOVER``, the engine's ``COLLECTIVE_ABORT``
-and ``SUBCOORD_REPARENT``, the integrity modules'
+and ``SUBCOORD_REPARENT``, the telemetry's ``STRAGGLER`` and ``ALERT``, the
+integrity modules'
 ``NONFINITE_SKIP``/``DIVERGENCE_DETECTED``/``CKPT_VERIFY_FAIL``).  Enabled by
 ``HVD_TIMELINE=<path>``; ``HVD_TIMELINE_MARK_CYCLES=1`` adds a
 ``CYCLE_START`` instant per background cycle.  The hot path only enqueues;
@@ -62,6 +63,13 @@ TRANSPORT_FAILOVER = "TRANSPORT_FAILOVER"
 # parent).
 COLLECTIVE_ABORT = "COLLECTIVE_ABORT"
 SUBCOORD_REPARENT = "SUBCOORD_REPARENT"
+
+# The telemetry records (telemetry/): one rank was consistently last to
+# negotiate (args: the rank, its skew in ms, the tensor), and the gang
+# fold's anomaly engine tripped a rule (args: the rule, the rank, the value
+# and its baseline).
+STRAGGLER = "STRAGGLER"
+ALERT = "ALERT"
 
 # Events are flushed when the queue runs dry, or every _FLUSH_EVERY events
 # in a burst.

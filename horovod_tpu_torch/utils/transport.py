@@ -48,9 +48,10 @@ Pairing (:func:`build_transports`), leak-proof by construction:
 4. a failed create or attach is acked as such, and both sides use TCP over
    the mesh socket they already hold.
 
-Left out until telemetry and the trace are ported (ROADMAP Queue 1, item
-5.5): the ``hvd_transport_bytes_total`` counter and the trace's
-``transport.map`` instants.
+Observability (``telemetry/``): every send adds its payload bytes to
+``hvd_transport_bytes_total`` by transport (``tcp`` or ``shm``) with the
+registry on, and with the trace on the pairing writes one
+``transport.map`` instant a peer.
 """
 
 from __future__ import annotations
@@ -65,8 +66,15 @@ import uuid
 from typing import Dict, Optional, Tuple
 
 from horovod_tpu_torch.common import fault_injection as _fi
+from horovod_tpu_torch.telemetry import registry as _tmx
+from horovod_tpu_torch.telemetry import trace as _trace
 from horovod_tpu_torch.utils import env as env_util
 from horovod_tpu_torch.utils import socketutil as su
+
+
+def _payload_nbytes(payload) -> int:
+    n = getattr(payload, "nbytes", None)
+    return n if n is not None else len(payload)
 
 
 class Transport:
@@ -128,6 +136,9 @@ class TcpTransport(Transport):
             sock, name=f"hvd-send-{peer}")
 
     def send(self, payload, tag: int = su.TAG_DATA) -> int:
+        if _tmx.enabled():
+            _tmx.inc_counter("hvd_transport_bytes_total",
+                             float(_payload_nbytes(payload)), ("tcp",))
         return self.sender.send(payload, tag)
 
     def wait(self, seq: int, timeout: Optional[float] = None) -> None:
@@ -443,6 +454,9 @@ class ShmRingTransport(Transport):
     # -- send side ------------------------------------------------------
 
     def send(self, payload, tag: int = su.TAG_DATA) -> int:
+        if _tmx.enabled():
+            _tmx.inc_counter("hvd_transport_bytes_total",
+                             float(_payload_nbytes(payload)), ("shm",))
         with self._cv:
             if self._closing:
                 raise ConnectionError("sender is closed")
@@ -659,6 +673,11 @@ def build_transports(rank: int, size: int, data: Dict[int, socket.socket],
             else:
                 kv.put(ack_key, "ok")
                 transports[r] = shm_factory(sock, seg, False, r)
+    if _trace.active():
+        # Each peer's medium, so that a merged trace can attribute the
+        # hops' latencies to what carried them.
+        for r, t in sorted(transports.items()):
+            _trace.emit_instant("transport.map", peer=r, tp=t.kind)
     return transports
 
 

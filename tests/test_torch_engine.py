@@ -30,15 +30,16 @@ join.  Each case is its own test over the module's gangs.
 Every knob that turns on a feature the port leaves out raises
 ``NotImplementedError`` at ``init()``; those tests start no gang.  The
 knobs of the features ported since (the timeline, the hierarchical data
-plane, the ladder, the fault plan, liveness, deadlines and the control
-tree) turn their feature on instead: rank 1 through ``hvd.init()`` and
-rank 0 a ``PyEngine`` on a thread.
+plane, the ladder, the fault plan, liveness, deadlines, the control tree,
+the autotuner, telemetry and the trace) turn their feature on instead:
+rank 1 through ``hvd.init()`` and rank 0 a ``PyEngine`` on a thread.
 """
 
 import importlib
 import json
 import os
 import pickle
+import socket
 import subprocess
 import sys
 import threading
@@ -228,15 +229,36 @@ PORTED_KNOBS = ("HVD_TIMELINE", "HVD_HIERARCHICAL_ALLREDUCE",
                 "HVD_HIERARCHICAL_ALLGATHER", "HVD_WIRE_CRC",
                 "HOROVOD_FAULT_PLAN", "HVD_HEARTBEAT_TIMEOUT",
                 "HOROVOD_HEARTBEAT_TIMEOUT", "HVD_COLLECTIVE_TIMEOUT",
-                "HVD_CTRL_TREE", "HVD_CTRL_FANOUT")
+                "HVD_CTRL_TREE", "HVD_CTRL_FANOUT", "HVD_AUTOTUNE",
+                "HVD_METRICS", "HVD_METRICS_PORT", "HVD_METRICS_FILE",
+                "HVD_STRAGGLER_WARN_MS", "HVD_TRACE")
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
 
 
 def _ported_knob_is_on(monkeypatch, tmp_path, knob, value):
     """Rank 1 through ``hvd.init()`` and rank 0 a ``PyEngine`` on a thread,
     against a live rendezvous, with ``knob`` set on both: ``init()`` does
     not raise, the knob's feature is on, and an allreduce runs."""
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.telemetry import registry as tmx
+    from horovod_tpu_torch.telemetry import trace as trace_mod
+
     if knob == "HVD_TIMELINE":
         value = str(tmp_path / "timeline.json")
+    elif knob == "HVD_METRICS_PORT":
+        value = str(_free_port())  # the server binds it (local rank 0)
+    elif knob == "HVD_METRICS_FILE":
+        value = str(tmp_path / "metrics.jsonl")
+    elif knob == "HVD_TRACE":
+        monkeypatch.setenv("HVD_TRACE_DIR", str(tmp_path))
+    telemetry.reset()
     monkeypatch.setenv(knob, value)
     if knob == "HOROVOD_FAULT_PLAN":
         importlib.reload(fi)  # the plan is read at import
@@ -283,6 +305,24 @@ def _ported_knob_is_on(monkeypatch, tmp_path, knob, value):
         elif knob == "HVD_CTRL_TREE":
             # One host: the tree is planned and empty, the flat star.
             assert (eng1._tree_parent, eng1._tree_children) == (None, [])
+        elif knob == "HVD_AUTOTUNE":
+            # The coordinator tunes; a worker applies its broadcasts.
+            assert eng0._pm is not None and eng1._pm is None
+        elif knob in ("HVD_METRICS", "HVD_METRICS_PORT",
+                      "HVD_METRICS_FILE"):
+            assert tmx.enabled() and eng0._metrics_on and eng1._metrics_on
+            snap = hvd.metrics_snapshot()
+            assert snap["counters"][
+                'hvd_collectives_total{op="allreduce",dtype="float32"}'] \
+                == 1
+            if knob == "HVD_METRICS_PORT":
+                assert telemetry.server_port() == int(value)
+        elif knob == "HVD_STRAGGLER_WARN_MS":
+            # Alone it turns nothing on, as in the JAX package: the
+            # detector needs the registry.
+            assert not tmx.enabled() and eng0._straggler is None
+        elif knob == "HVD_TRACE":
+            assert eng0._tracer is not None and eng1._tracer is not None
         else:
             assert fi.active()
     finally:
@@ -294,6 +334,18 @@ def _ported_knob_is_on(monkeypatch, tmp_path, knob, value):
         t.join(5)
         server.stop()
         fi.clear()
+        telemetry.reset()
+        trace_mod.reset()
+    if knob == "HVD_METRICS_FILE":
+        recs = [json.loads(line) for line in
+                (tmp_path / "metrics.jsonl").read_text().splitlines()]
+        assert {r["rank"] for r in recs} <= {0, 1} and recs
+    if knob == "HVD_TRACE":
+        for r in (0, 1):
+            kinds = {json.loads(line)["k"] for line in
+                     (tmp_path / f"trace_rank{r}.jsonl").read_text()
+                     .splitlines()}
+            assert {"meta", "clock", "span"} <= kinds, (r, kinds)
     if knob == "HVD_TIMELINE":
         events = json.loads((tmp_path / "timeline.json").read_text())
         assert ("B", "NEGOTIATE_ALLREDUCE") in {

@@ -10,6 +10,10 @@ every field (``match``, ``times``, ``after``, ``prob`` under the plan's
 ``seed``, ``groups``).  Also: ``random_schedule`` gives the JAX dicts,
 ``partition`` follows ``HVD_RANK``, ``fire`` does nothing with no plan,
 and every site literal the port's code fires is in its ``known_sites()``.
+The telemetry's sites fire where the JAX package's do
+(``metrics.server.request``, ``agg.scrape``, ``trace.emit``,
+``blackbox.dump``), and at ``init()`` only ``HVD_ELASTIC_EPOCH`` of the
+left-out knobs still raises.
 """
 
 import json
@@ -198,3 +202,58 @@ def test_every_fired_site_is_known():
     # one of the JAX package's sites.
     assert {s for _, s in found} == set(known) - {"train.step"}
     assert set(known) <= set(jfi.known_sites())
+
+
+def test_telemetry_sites_fire(tmp_path):
+    """Each telemetry site fires and degrades as in the JAX package: the
+    debug server sheds with a 503, the fold marks the rank stale, a span
+    batch is dropped and a dump returns None, none of them raising."""
+    import urllib.error
+    import urllib.request
+
+    from horovod_tpu_torch.telemetry import aggregate, blackbox, registry
+    from horovod_tpu_torch.telemetry import server, trace
+
+    sites = ("metrics.server.request", "agg.scrape", "trace.emit",
+             "blackbox.dump")
+    fi.configure({"faults": [{"site": s, "kind": "error"} for s in sites]})
+    registry.configure(True)
+    try:
+        srv = server.MetricsServer(host="127.0.0.1", port=0)
+        port = srv.start()
+        try:
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                       timeout=5)
+            assert ei.value.code == 503
+        finally:
+            srv.stop()
+        agg = aggregate.GangAggregator(2, kv=None, interval_s=999.0)
+        assert agg.poll_once(now=1.0)["stale_ranks"] == [0, 1]
+        tr = trace.Tracer(0, str(tmp_path / "t.jsonl"))
+        tr.close()
+        assert (tmp_path / "t.jsonl").read_text() == ""
+        bb = blackbox.Blackbox(0, 16, str(tmp_path / "bb"))
+        assert bb.dump("engine_abort") is None
+        fired = {f.site: f.fired for f in fi._PLAN.faults}
+        assert all(fired[s] >= 1 for s in sites), fired
+    finally:
+        registry.configure(False)
+
+
+def test_only_the_elastic_knob_is_left_out(monkeypatch):
+    from horovod_tpu_torch import runtime_py
+
+    assert [k for k, _, _ in runtime_py._LEFT_OUT] == ["HVD_ELASTIC_EPOCH"]
+    for k in ("HVD_AUTOTUNE", "HVD_METRICS", "HVD_TRACE",
+              "HVD_STRAGGLER_WARN_MS", "HVD_METRICS_PORT",
+              "HVD_METRICS_FILE", "HVD_ELASTIC_EPOCH"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in (("HVD_AUTOTUNE", "1"), ("HVD_METRICS", "1"),
+                 ("HVD_METRICS_PORT", "0"), ("HVD_METRICS_FILE", "/x"),
+                 ("HVD_STRAGGLER_WARN_MS", "50"), ("HVD_TRACE", "1")):
+        monkeypatch.setenv(k, v)
+    runtime_py.check_left_out_knobs()  # these knobs no longer raise
+    monkeypatch.setenv("HVD_ELASTIC_EPOCH", "1")
+    with pytest.raises(NotImplementedError, match="HVD_ELASTIC_EPOCH"):
+        runtime_py.check_left_out_knobs()

@@ -10,6 +10,8 @@ package's.
   ``stats()`` under the same sequence of puts, classifications and
   touches.
 * The process-set ids (a hash of the member ranks) are the JAX package's.
+* The trace's clock ping and pong and the flight recorder's pull request
+  and dump (tags 14-17) are byte for byte the JAX package's, both ways.
 """
 
 import numpy as np
@@ -193,3 +195,26 @@ def test_process_set_ids_are_the_jax_packages():
         j = jps.ProcessSet(ranks)
         assert p.process_set_id == j.process_set_id
         assert pps.ranks_of(p.process_set_id) == sorted(set(ranks))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_clock_and_blackbox_codecs_are_byte_identical(seed):
+    rng = np.random.default_rng(seed)
+    t0 = int(rng.integers(-2**62, 2**62))
+    tc = int(rng.integers(0, 2**62))
+    epoch = int(rng.integers(0, 2**32))
+    rank = int(rng.integers(-1, 1024))
+    blob = bytes(rng.integers(0, 256, int(rng.integers(0, 300)),
+                              dtype=np.uint8))
+    for enc, dec, args in (
+            ("encode_clock_ping", "decode_clock_ping", (t0, epoch)),
+            ("encode_clock_pong", "decode_clock_pong", (t0, tc, epoch)),
+            ("encode_blackbox_request", "decode_blackbox_request", (epoch,)),
+            ("encode_blackbox_dump", "decode_blackbox_dump",
+             (rank, epoch, blob))):
+        frame = getattr(pw, enc)(*args)
+        assert frame == getattr(jw, enc)(*args)
+        want = args if len(args) > 1 else args[0]
+        assert getattr(pw, dec)(frame) == getattr(jw, dec)(frame) == want
+    assert (pw.encode_clock_ping(5) == jw.encode_clock_ping(5)
+            and pw.decode_clock_ping(pw.encode_clock_ping(5)) == (5, 0))

@@ -351,6 +351,105 @@ def case_instants(rank, size):
             record("instants", "ckpt", np.ones(1, np.int32))
 
 
+def _engine():
+    if PKG == "jax":
+        from horovod_tpu import basics as b
+        return b._runtime
+    from horovod_tpu_torch import basics as b
+    return b._engine_obj
+
+
+def _knobs(eng):
+    return [float(eng.fusion_threshold), float(eng.cycle_time),
+            float(bool(eng._cache_classify_enabled)),
+            float(eng.ring_segment_bytes),
+            float(bool(eng.hierarchical_allreduce)),
+            float(bool(eng.hierarchical_allgather))]
+
+
+def case_autotune(rank, size):
+    """Steps of integer-valued fp32 allreduces (any fusion or segment gives
+    the same bits) while rank 0's tuner (``HVD_AUTOTUNE``) runs; every step
+    ends with a broadcast of rank 0's "settled" flag, so that the ranks stop
+    at the same step, two steps after the tuner settled (its final knobs
+    ride the frame after).  Records a CRC of every result, the step count,
+    every rank's knobs and rank 0's settled knobs."""
+    eng = _engine()
+    crc, settled_at, step = 0, -1, 0
+    for step in range(4000):
+        hs = [hvd.allreduce_async(
+            tensor(np.full((512 * (i + 1),), rank + step % 7 + i,
+                           np.float32), "float32"),
+            name=f"tune.{i}", op=hvd.Sum) for i in range(6)]
+        for h in hs:
+            crc = zlib.crc32(canon(hvd.synchronize(h))[2], crc)
+        pm = getattr(eng, "_pm", None)
+        flag = np.array([1 if pm is not None and pm.done else 0], np.int32)
+        flag = np.asarray(hvd.broadcast(flag, 0, name="tune.settled"))
+        if flag[0] and settled_at < 0:
+            settled_at = step
+        if settled_at >= 0 and step >= settled_at + 2:
+            break
+    record("autotune", "crc", np.array([crc, step, settled_at], np.int64))
+    record("autotune", "knobs", np.array(_knobs(eng), np.float64))
+    pm = getattr(eng, "_pm", None)
+    if pm is not None:
+        c = pm.current
+        record("autotune", "final", np.array(
+            [float(c.fusion_threshold), float(c.cycle_time_s),
+             float(c.cache_enabled), float(c.ring_segment_bytes),
+             float(c.hierarchical_allreduce),
+             float(c.hierarchical_allgather), float(pm.done)], np.float64))
+
+
+def case_metrics(rank, size):
+    """A scripted workload for the telemetry gangs (``HVD_METRICS_FILE``):
+    three steps of two allreduces (fp32, bf16), an allgather and a
+    broadcast, under fixed names, so that the steps after the first hit
+    the response cache."""
+    for step in range(3):
+        for i, dtype in enumerate(("float32", "bfloat16")):
+            x = values(("m", step, i, rank), (32,), dtype, specials=False)
+            record("metrics", (step, i), hvd.allreduce(
+                tensor(x, dtype), op=hvd.Sum, name=f"m.ar.{i}"))
+        x = values(("m.ag", step, rank), (4, 3), "float32", specials=False)
+        record("metrics", (step, "ag"),
+               hvd.allgather(tensor(x, "float32"), name="m.ag"))
+        x = values(("m.bc", step, rank), (5,), "float32", specials=False)
+        record("metrics", (step, "bc"),
+               hvd.broadcast(tensor(x, "float32"), 0, name="m.bc"))
+
+
+def case_gang_view(rank, size):
+    """The metrics workload, then (``HVD_METRICS_PORT``, the flusher and
+    rank 0's gang fold on, at short intervals) a barrier and a pause of
+    several flushes and folds; each rank writes its own registry snapshot
+    to ``<out_dir>/snap<r>.json``, rank 0 its ``/gang/metrics.json``,
+    ``/gang/health`` and ``/gang/metrics`` to ``gang_view.json``, and a
+    last barrier keeps every rank up until then."""
+    import time
+    import urllib.request
+
+    case_metrics(rank, size)
+    hvd.barrier()
+    time.sleep(1.5)
+    out_dir = sys.argv[3]
+    with open(os.path.join(out_dir, f"snap{rank}.json"), "w") as f:
+        json.dump(hvd.metrics_snapshot(), f)
+    if rank == 0:
+        base = f"http://127.0.0.1:{os.environ['HVD_METRICS_PORT']}"
+        doc = {}
+        for path in ("/gang/metrics.json", "/gang/health"):
+            with urllib.request.urlopen(base + path, timeout=10) as r:
+                doc[path] = json.loads(r.read().decode())
+        with urllib.request.urlopen(base + "/gang/metrics",
+                                    timeout=10) as r:
+            doc["/gang/metrics"] = r.read().decode()
+        with open(os.path.join(out_dir, "gang_view.json"), "w") as f:
+            json.dump(doc, f)
+    hvd.barrier()
+
+
 CASES = {n[len("case_"):]: f for n, f in globals().items()
          if n.startswith("case_")}
 
