@@ -23,7 +23,8 @@ non-zero):
    (``flash_attention_lse``: fp32 output, fp32 dO split into bf16 planes by
    the split kernel, nonzero dlse), causal (the self-block) and not (the
    other hops), at an engine rank's rows of the flagship (B 4, S 1024, H
-   16, D 64, bf16, causal), and at head dims 96 and 256 (B 2, S 1000, H 8,
+   16, D 64, bf16, causal), at an elastic rank's after the shrink (B 3),
+   and at head dims 96 and 256 (B 2, S 1000, H 8,
    dlse, bf16) on both routes.  fp32 q/k/v reach the forward, dQ and dK/dV
    as three bf16 planes each (the split of q/k/v, and of dO); every split
    must match its plain version bit for bit;
@@ -179,14 +180,39 @@ non-zero):
    dK/dV; the port never calls it), each as its kernels' device time per
    call under ``torch.profiler``, and the kernel also between CUDA events,
    which counts the host's gaps.  This comes after the slice, so that the
-   steps are timed before any profiler has run.
+   steps are timed before any profiler has run;
+10. elastic training (``--elastic-rank R``, see EL_ROWS; it runs after the
+   liveness phase and its rerun, before 9): the flagship's gradient gang
+   under ``@hvd.elastic.run`` with ``TorchState(model, optimizer,
+   step=0)``, each step's six rows from seed 7 re-partitioned over the
+   gang by a reset callback.  E1, at full depth: three ranks, rank 0 (the
+   hub) killed after the first uncommitted step; the survivors re-form at
+   epoch 1 as two (old rank 1 leads), roll back to the commit (digests
+   equal the commit's), re-sync and finish; one failover and one re-form
+   counted, ``ELASTIC_REFORM`` and ``LEADER_FAILOVER`` on the new rank
+   0's timeline.  E2, at LV_LAYERS layers on the shm ring with the 10 s
+   deadline: rank 2 stalled at step 1, ``CollectiveTimeoutError([2])`` on
+   both survivors, the re-form, the aborted batch replayed (bit for bit
+   the survivors' retained inputs averaged as the engine averages two
+   ranks, the inputs recomputed here from the step-1 weights and the
+   rows), no shm segment left.  E3, at LV_LAYERS layers: a joiner started
+   after step 1 grows the gang from two to three at the next commit, its
+   synced state rank 0's by digest.  Every gang: the survivors' final
+   parameters bit for bit equal and within EL_PARAM_TOL[gang] of the
+   one-process trajectory, each step's averaged gradients against the
+   one-process gradient at the ranks' parameters.  Prints, beside the
+   card, each survivor's time from the failure to the first step of the
+   new epoch (detection, re-form, ``state.sync()`` with its bytes and
+   GB/s, replay, the first step) and the step medians before and after.
 
 The ``kernels`` JSON lists the flagship's three kernels, the same three
 with their launches in the MoE flagship's run (``flash_<kernel>_moe``: its
 attention is the flagship's), the same three at the pipelined flagship's
 microbatch (B 2, S 1024, H 16, D 64, bf16, causal; checked in phase 2)
-with their launches in its run (``flash_<kernel>_pp``), the ring hop's six
-variants
+with their launches in its run (``flash_<kernel>_pp``), the same three at
+an elastic rank's rows after the shrink (B 3; checked in phase 2) with
+their launches in the elastic gangs' steps (``flash_<kernel>_elastic``),
+the ring hop's six variants
 (``flash_<kernel>_ring_self`` and ``_ring_hop``) and the ring hop's dO
 split (``flash_split_do``), then the fp32 kernels
 (``flash_<kernel>_fp32``, ``flash_split_qkv_fp32``,
@@ -2092,12 +2118,16 @@ ENGINE_TIMEOUT_S = 600
 # and the flight recorder.  After the steps both ranks wait TEL_SETTLE_S
 # (flushes and folds land), record their own snapshots, and rank 0 scrapes
 # its /gang/metrics.json.
-# On an NVIDIA H100 80GB HBM3 at 700 W ten steps read a parameter gap of
-# 1.787e-2 against the one-process step (ENGINE_PARAM_TOL 2e-2 was set from
-# three steps; AdamW carries the bf16 forward's rounding further each
-# step): eight keep the tolerance's margin and still leave the tuner,
-# settled in step 3 there, five steps.
-TEL_STEPS = 8
+# Each step's averaged gradient is held to ENGINE_GRAD_TOL against the
+# one-process gradient on all the rows at the ranks' own parameters (bit
+# for bit the same on both ranks), computed on rank 0 before its update:
+# the gradients stay right at every step, and the parameters drift from
+# the one-process trajectory only as AdamW carries the fp32 sums' order
+# forward.  So a longer trajectory gets its own parameter bound, about
+# twice a reading: ten steps read 1.787e-2 on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PR 15's chip run 1), against ENGINE_PARAM_TOL's three steps.
+TEL_STEPS = 10
+TEL_PARAM_TOL = 3.6e-2
 TEL_SAMPLES = 5
 TEL_SAMPLE_S = 0.3
 TEL_SETTLE_S = 2.5
@@ -2256,13 +2286,14 @@ def _greedy_groups(sizes, threshold):
 
 
 def _spawn_ranks(flag, n, tmp, env_of, timeout, what, expect=None,
-                 stalled=(), pids=None):
+                 stalled=(), pids=None, late=None):
     """Run ``n`` ranks of this script (``flag R tmp``) against the port's
     ``RendezvousServer``; returns each rank's (exit code, output), killing
     every rank past ``timeout``.  A rank must exit with ``expect[r]``
     (default 0); a ``stalled`` rank must still run when the others have
     exited, and is killed then.  ``pids``, a list, gets the ranks'
-    process ids."""
+    process ids.  ``late``: {rank: path}, a rank that starts once the
+    file ``path`` exists (an elastic joiner)."""
     from horovod_tpu_torch.runner.http_server import RendezvousServer
 
     server = RendezvousServer("127.0.0.1")
@@ -2273,16 +2304,24 @@ def _spawn_ranks(flag, n, tmp, env_of, timeout, what, expect=None,
     # unless the phase names another directory.
     base["HVD_BLACKBOX_DIR"] = os.path.join(tmp, "blackbox")
     procs, outs = [], []
+    late = late or {}
+
+    def start(r):
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, str(r), tmp],
+            env=dict(base, HVD_RENDEZVOUS_ADDR="127.0.0.1",
+                     HVD_RENDEZVOUS_PORT=str(port), **env_of(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
     try:
-        for r in range(n):
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), flag, str(r),
-                 tmp],
-                env=dict(base, HVD_RENDEZVOUS_ADDR="127.0.0.1",
-                         HVD_RENDEZVOUS_PORT=str(port), **env_of(r)),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
         deadline = time.monotonic() + timeout
+        procs = [None if r in late else start(r) for r in range(n)]
+        for r, path in sorted(late.items()):
+            while not os.path.exists(path) and \
+                    time.monotonic() < deadline and \
+                    all(p is None or p.poll() is None for p in procs):
+                time.sleep(0.02)
+            procs[r] = start(r)
         outs = [None] * n
         wedged = []
         for r in [r for r in range(n) if r not in stalled] + list(stalled):
@@ -2302,7 +2341,7 @@ def _spawn_ranks(flag, n, tmp, env_of, timeout, what, expect=None,
             outs[r] = (p.returncode, out)
     finally:
         for p in procs:
-            if p.poll() is None:
+            if p is not None and p.poll() is None:
                 p.kill()
                 p.wait()
         server.stop()
@@ -2371,7 +2410,8 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
         with open(os.path.join(tmp, "config.json"), "w") as fh:
             json.dump({"cfg": fields, "device": str(dev), "rows": B,
                        "steps": steps, "store_port": _free_port(),
-                       "telemetry": telemetry}, fh)
+                       "telemetry": telemetry, "grad_check": telemetry},
+                      fh)
         env = dict(knobs or {})
         if telemetry:
             env.update(_tel_env(tmp, tel_sample_s or TEL_SAMPLE_S))
@@ -2400,6 +2440,7 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
                   for n, p in ref_params.items()}
     wg = max(grad_gaps, key=grad_gaps.get)
     wp = max(param_gaps, key=param_gaps.get)
+    param_tol = TEL_PARAM_TOL if telemetry else ENGINE_PARAM_TOL
     print(f"{what}: {ENGINE_RANKS} ranks on {dev} through the port's "
           f"RendezvousServer and PyEngine, {wall:.1f} s wall; step-0 loss "
           f"(the ranks' mean) {ranks[0]['loss0_mean']!r} against one "
@@ -2407,14 +2448,23 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
           f"{ENGINE_LOSS_TOL}); largest |g - g_one| / |g_one| of the "
           f"averaged step-0 gradients {grad_gaps[wg]:.3e} ({wg}; tol "
           f"{ENGINE_GRAD_TOL}); largest |p - p_one| / |p_one| after "
-          f"{steps} steps {param_gaps[wp]:.3e} ({wp}; tol "
-          f"{ENGINE_PARAM_TOL})")
+          f"{steps} steps {param_gaps[wp]:.3e} ({wp}; tol {param_tol}); "
+          f"{card}")
     if not loss_gap <= ENGINE_LOSS_TOL:
         failures.append("the step-0 loss")
     if not grad_gaps[wg] <= ENGINE_GRAD_TOL:
         failures.append("the averaged step-0 gradients")
-    if not param_gaps[wp] <= ENGINE_PARAM_TOL:
+    if not param_gaps[wp] <= param_tol:
         failures.append(f"the parameters after {steps} steps")
+    if telemetry:
+        gaps = ranks[0]["grad_gaps"]
+        print(f"{what}: each step's averaged gradients against the "
+              f"one-process gradient at the ranks' parameters, largest "
+              f"|g - g_one| / |g_one| by step "
+              f"{[f'{g[1]:.3e}' for g in gaps]} (tol {ENGINE_GRAD_TOL})")
+        if len(gaps) != steps or not all(g[1] <= ENGINE_GRAD_TOL
+                                         for g in gaps):
+            failures.append(f"a step's averaged gradients: {gaps}")
     want_launches = {"fwd": 2 * cfg.n_layers * steps,
                      "dq": cfg.n_layers * steps,
                      "dkv": cfg.n_layers * steps, "split": 0}
@@ -2545,6 +2595,7 @@ def engine_rank(rank: int, tmp: str) -> int:
         eng.response_log = []
         steps, grads0 = [], None
         knobs_by_step, tuner_done = [], []
+        grad_gaps, check_launches = [], {k: 0 for k in fa.launches}
         fa.reset_launch_counts()
         for s, (tokens, targets) in enumerate(batches):
             before = hvd.cache_stats()
@@ -2566,9 +2617,17 @@ def engine_rank(rank: int, tmp: str) -> int:
             if s == 0:
                 grads0 = {n: p.grad.detach().to("cpu", copy=True)
                           for n, p in model.named_parameters()}
+            check_s = 0.0
+            if conf.get("grad_check") and rank == 0:
+                # Not part of the step: its time and launches come off.
+                tc = time.perf_counter()
+                gap = _one_process_gap(tfm, model, tokens, targets,
+                                       check_launches)
+                grad_gaps.append([s, *gap])
+                check_s = time.perf_counter() - tc
             opt.step()
             _sync_dev(torch, dev)
-            t4 = time.perf_counter()
+            t4 = time.perf_counter() - check_s
             log = [e for e in eng.response_log[mark:]
                    if e[0] == "ALLREDUCE"]
             after = hvd.cache_stats()
@@ -2588,7 +2647,7 @@ def engine_rank(rank: int, tmp: str) -> int:
             tuner_done.append(bool(eng._pm is not None and eng._pm.done))
         tel = _telemetry_readings(hvd, eng) if conf.get("telemetry") \
             else {}
-        launches = dict(fa.launches)
+        launches = {k: n - check_launches[k] for k, n in fa.launches.items()}
         eng.response_log = None
         media = eng.transport_media()
         loss0 = hvd.allreduce(torch.tensor([steps[0]["loss"]]),
@@ -2626,7 +2685,8 @@ def engine_rank(rank: int, tmp: str) -> int:
                                            == 1),
             card_tensors=card, card_tensors_equal=all(card.values()),
             media={str(p): m for p, m in media.items()},
-            knobs_by_step=knobs_by_step, tuner_done=tuner_done, **tel)
+            knobs_by_step=knobs_by_step, tuner_done=tuner_done,
+            grad_gaps=grad_gaps, **tel)
         if rank == 0:
             torch.save({"grads0": grads0,
                         "params": {n: p.detach().cpu()
@@ -2637,6 +2697,31 @@ def engine_rank(rank: int, tmp: str) -> int:
     finally:
         hvd.shutdown()
     return 0
+
+
+def _one_process_gap(tfm, model, tokens, targets, launches_taken):
+    """The largest |g - g_one| / |g_one| of the model's gradients (the
+    gang's averages, in ``.grad``) against the one-process gradient on all
+    of ``tokens`` at its current parameters, and where.  The flash
+    launches it makes are added to ``launches_taken``."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    before = dict(fa.launches)
+    params = dict(model.named_parameters())
+    loss = tfm.loss_fn(model, tokens, targets)
+    ones = torch.autograd.grad(loss, list(params.values()),
+                               allow_unused=True)
+    gaps = {}
+    for (n, p), g in zip(params.items(), ones):
+        g = torch.zeros_like(p) if g is None else g
+        gaps[n] = float((p.grad.double() - g.double()).norm()
+                        / g.double().norm().clamp_min(1e-30))
+    for k, n in fa.launches.items():
+        launches_taken[k] += n - before[k]
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
 
 
 def _engine_knobs(eng):
@@ -3446,6 +3531,587 @@ def liveness_rank(rank: int, tmp: str) -> int:
     return 0
 
 
+# The elastic phase: the flagship's gradient gang under @hvd.elastic.run,
+# shrunk, stalled and grown on the card.  Each gang runs ranks of this
+# script (``--elastic-rank R``) on the card with ``hvd.init(device=dev,
+# backend="none")`` and ``TorchState(model, optimizer, step=0)``: the
+# flagship from seed 0's weights, AdamW(1e-3, wd 0.01), one
+# allreduce_async(Average) per gradient, EL_STEPS steps.  Each step's global
+# batch is EL_ROWS rows of batches from seed 7; a reset callback
+# re-partitions them over the gang (2 rows a rank at size 3, 3 at size 2),
+# so that the one-process trajectory on all the rows is the reference at
+# any size, and a failure must give a run without one's parameters.  Each
+# step's averaged gradients are held to ENGINE_GRAD_TOL against the
+# one-process gradient at the ranks' own parameters (on rank 0, before its
+# update), the final parameters to EL_PARAM_TOL against the one-process
+# trajectory.  The gangs (heartbeats 2.0 s every 0.25 s, a membership
+# check every 0.05 s):
+#
+# * E1, at full depth: three ranks on TCP, a commit every 2 steps; rank 0,
+#   the hub, is killed at ``train.step`` after step 2, the first uncommitted
+#   one.  The survivors re-form at epoch 1 as two ranks (old rank 1 leads),
+#   roll back to the commit (the model and optimizer digests equal the
+#   commit's), re-sync from the new rank 0 and finish.
+# * E2, at LV_LAYERS layers: three ranks on the shm ring with the 10 s
+#   deadline, a commit every step; rank 2 stalls its shm receive at step 1.
+#   Both survivors raise CollectiveTimeoutError([2]), re-form as two ranks
+#   and replay the retained batch: each gradient's replay must equal, bit
+#   for bit, the survivors' retained inputs summed and halved as the engine
+#   averages two ranks.  No hvd-shm segment of the gang's pids is left.
+# * E3, at LV_LAYERS layers: two ranks on TCP, a commit every step; a third
+#   process starts with HVD_ELASTIC_JOINER=1 once rank 0 has finished step
+#   1, and the two wait at step 2 until it has announced itself, so that
+#   all three interrupt at the next commit and re-form at size 3; the
+#   joiner's synced state must equal rank 0's, by digest.
+#
+# ENGINE_GRAD_TOL holds the steps at size 2, whose ranks' token counts
+# are the one process's over a power of two, as the engine phase's: the
+# bf16 roundings of the loss's 1/tokens scale then agree.  At size 3 (two
+# rows a rank against six) they do not, and the bf16 backward differs by
+# more: on the CPU at d_model 256 the gap read 8.9e-3 at size 3 against
+# 2.4e-3 at size 2 (1.0e-6 and 9.8e-8 in fp32).  So size 3 gets its own
+# bound, about twice the largest card reading, 1.920e-2 (E3's last step;
+# E2's size-3 step read 1.051e-2; size 2 read 2.350e-3-2.378e-3).  The
+# parameters after six steps, each gang its own trajectory, read 6.774e-2
+# (E1: its first two steps at size 3, which AdamW's first, sign-like
+# updates carry furthest), 1.242e-2 (E2: one) and 4.667e-3 (E3: four,
+# after two at size 2); each gang's bound is about twice its reading.  All
+# on an NVIDIA H100 80GB HBM3 at 700.00 W.
+EL_ROWS = 6
+EL_STEPS = 6
+EL_GRAD_TOL_3 = 4e-2
+EL_PARAM_TOL = {"E1": 0.14, "E2": 2.5e-2, "E3": 1e-2}
+EL_KNOBS = {"HVD_HEARTBEAT_TIMEOUT": "2.0", "HVD_HEARTBEAT_INTERVAL": "0.25",
+            "HVD_ELASTIC_CHECK_INTERVAL_S": "0.05", "HVD_ELASTIC_EPOCH": "0"}
+EL_GANGS = {  # ranks, commit every, depth (None: the flagship's), shm
+    "E1": (3, 2, None, False),
+    "E2": (3, 1, LV_LAYERS, True),
+    "E3": (3, 1, LV_LAYERS, False),
+}
+EL_E1_VICTIM = 0
+EL_E2_VICTIM = 2
+EL_E3_JOINER = 2
+EL_TIMEOUT_S = 300
+
+
+def _el_env(gang, rank, tmp):
+    n, _, _, shm = EL_GANGS[gang]
+    env = dict(EL_KNOBS, HVD_RANK=str(rank), HVD_SIZE=str(n),
+               HVD_LOCAL_RANK=str(rank), HVD_LOCAL_SIZE=str(n),
+               HVD_ELASTIC_UID=f"uid-{rank}", HVD_ELASTIC_MIN_NP="2",
+               HVD_ELASTIC_MAX_NP="3",
+               HVD_BLACKBOX_DIR=os.path.join(tmp, f"blackbox{gang}"),
+               HVD_TIMELINE=os.path.join(tmp, f"timeline{gang}.json"))
+    if not shm:
+        env["HVD_SHM_DISABLE"] = "1"
+    if gang == "E1" and rank == EL_E1_VICTIM:
+        env["HOROVOD_FAULT_PLAN"] = json.dumps({"faults": [
+            {"site": "train.step", "kind": "kill", "after": 2}]})
+    if gang == "E2":
+        env["HVD_COLLECTIVE_TIMEOUT"] = str(LV_DEADLINE_S)
+    if gang == "E3":
+        if rank == EL_E3_JOINER:
+            env["HVD_ELASTIC_JOINER"] = "1"
+        else:
+            env["HVD_SIZE"] = "2"
+    return env
+
+
+def _el_tensors(model, opt):
+    """The model's and the optimizer's state tensors, in a fixed order."""
+    import torch
+
+    out = [t for _, t in sorted(model.state_dict().items())]
+    for _, st in sorted(opt.state_dict()["state"].items()):
+        out += [st[k] for k in sorted(st) if isinstance(st[k], torch.Tensor)]
+    return out
+
+
+def _el_digest(model, opt):
+    """A digest of the model's and the optimizer's state, bit by bit: a
+    position-weighted checksum of each tensor's bits (as int32, int16 or
+    bytes), taken on its device in chunks, folded by sha256."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in _el_tensors(model, opt):
+        x = t.detach().contiguous().reshape(-1)
+        x = x.view({4: torch.int32, 2: torch.int16}.get(x.element_size(),
+                                                         torch.uint8))
+        for i in range(0, x.numel(), 1 << 24):
+            y = x[i:i + (1 << 24)].to(torch.int64)
+            w = torch.arange(i + 1, i + 1 + y.numel(), device=y.device,
+                             dtype=torch.int64) % 1000003
+            h.update(repr((int((y * w).sum()), int(y.sum()),
+                           y.numel())).encode())
+    return h.hexdigest()[:16]
+
+
+def _el_ref(tfm, cfg, dev, steps):
+    """The one-process trajectory on all EL_ROWS rows: the parameters
+    after ``steps`` steps from seed 0's weights."""
+    import horovod_tpu_torch as hvd
+
+    batches = _token_batches(dev, steps, B=EL_ROWS, S=cfg.max_seq_len,
+                             vocab=cfg.vocab_size, seed=7)
+    hvd.init(device=dev)
+    try:
+        step_fn, init_fn = hvd.make_transformer_train_step(cfg, device=dev)
+        state = init_fn(0)
+        for tokens, targets in batches:
+            state, _ = step_fn(state, tokens, targets)
+        return {n: p.detach().clone()
+                for n, p in state.model.named_parameters()}
+    finally:
+        hvd.shutdown()
+
+
+def _el_span(rep, t_fail):
+    """The re-form's parts on one survivor, in seconds: failure (the kill,
+    stall or announcement) to the error in the training function, to the
+    reset callback (the re-form: teardown, the world, init), the sync, to
+    the function's re-entry (the replay), to the first step's end."""
+    first = next(s for s in rep["steps"] if s["epoch"] == 1)
+    sync = rep["syncs"][-1]
+    entry = rep["entries"][-1]["t"]
+    return dict(detect=rep["detect"] - t_fail,
+                reform=rep["resets"][-1]["t"] - rep["detect"],
+                sync=sync["t1"] - sync["t0"], sync_bytes=sync["bytes"],
+                sync_gbs=sync["bytes"] / max(sync["t1"] - sync["t0"], 1e-9)
+                / 1e9,
+                replay=entry - sync["t1"], first_step=first["t1"] - entry,
+                total=first["t1"] - t_fail)
+
+
+def _el_medians(rep):
+    """The step medians (ms) before and after the re-form, the process's
+    first step (its warm-up) left out."""
+    out = []
+    for epoch in (0, 1):
+        ms = [s["ms"] for s in rep["steps"][1:] if s["epoch"] == epoch]
+        out.append(round(statistics.median(ms), 1) if ms else None)
+    return out
+
+
+def run_elastic(tfm, fa, dev, card, cfg=None, timeout=EL_TIMEOUT_S):
+    """The elastic phase (see EL_ROWS): E1, E2 and E3, then their checks
+    against this process's trajectories and recomputed gradients."""
+    import glob
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    full = cfg or _flagship_cfg(tfm)
+    failures = []
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pids = {}
+        for gang, (n, commit, depth, _) in EL_GANGS.items():
+            gcfg = full if depth is None else dataclasses.replace(
+                full, n_layers=depth)
+            fields = {f.name: getattr(gcfg, f.name)
+                      for f in dataclasses.fields(gcfg)}
+            fields["compute_dtype"] = str(gcfg.compute_dtype).split(".")[1]
+            with open(os.path.join(tmp, "config.json"), "w") as fh:
+                json.dump({"cfg": fields, "device": str(dev), "gang": gang,
+                           "commit": commit}, fh)
+            t0 = time.perf_counter()
+            pids[gang] = []
+            _spawn_ranks(
+                "--elastic-rank", n, tmp,
+                lambda r, g=gang: _el_env(g, r, tmp), timeout,
+                f"elastic {gang}",
+                expect={EL_E1_VICTIM: 137} if gang == "E1" else None,
+                stalled=(EL_E2_VICTIM,) if gang == "E2" else (),
+                late={EL_E3_JOINER: os.path.join(tmp, "E3_step1")}
+                if gang == "E3" else None,
+                pids=pids[gang])
+            rep[gang] = {"wall": time.perf_counter() - t0, "cfg": gcfg}
+            for r in range(n):
+                path = os.path.join(tmp, f"{gang}{r}.json")
+                if os.path.exists(path):
+                    with open(path) as fh:
+                        rep[gang][r] = json.load(fh)
+            with open(os.path.join(tmp, f"timeline{gang}.json")) as fh:
+                rep[gang]["timeline"] = fh.read()
+            rep[gang]["final"] = torch.load(
+                os.path.join(tmp, f"{gang}_final.pt"))
+            for name in ("kill_at", "stall_at"):
+                path = os.path.join(tmp, f"{gang}_{name}")
+                if os.path.exists(path):
+                    with open(path) as fh:
+                        rep[gang][name] = float(fh.read())
+            if gang == "E2":
+                rep[gang]["inputs"] = {r: torch.load(os.path.join(
+                    tmp, f"E2_in{r}.pt")) for r in (0, 1)}
+                rep[gang]["replay"] = torch.load(os.path.join(
+                    tmp, "E2_replay.pt"))
+                rep[gang]["p1"] = torch.load(os.path.join(tmp, "E2_p1.pt"))
+        leftover = [f for pid in pids["E2"]
+                    for f in glob.glob(f"/dev/shm/hvd-shm-{pid}-*")]
+
+    refs = {}
+    for gang in EL_GANGS:
+        g = rep[gang]
+        depth = g["cfg"].n_layers
+        if depth not in refs:
+            refs[depth] = _el_ref(tfm, g["cfg"], dev, EL_STEPS)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        survivors = [r for r in range(EL_GANGS[gang][0])
+                     if not (gang == "E1" and r == EL_E1_VICTIM)
+                     and not (gang == "E2" and r == EL_E2_VICTIM)]
+        gap = _lv_gap(g["final"], refs[depth])
+        finals = {g[r]["final_digest"] for r in survivors}
+        print(f"elastic {gang}: {len(survivors)} ranks finished, d_model "
+              f"{g['cfg'].d_model}, {depth} layers, on {card}; "
+              f"{g['wall']:.1f} s wall; final digests {sorted(finals)}; "
+              f"largest |p - p_one| / |p_one| after {EL_STEPS} steps "
+              f"{gap[0]:.3e} ({gap[1]}; tol {EL_PARAM_TOL[gang]})")
+        if len(finals) != 1:
+            failures.append(f"{gang}: the survivors' parameters differ")
+        if not gap[0] <= EL_PARAM_TOL[gang]:
+            failures.append(f"{gang}: the parameters {gap} from the "
+                            "one-process trajectory")
+        for r in survivors:
+            res = g[r]
+            if res["grad_gaps"]:
+                rows = [(x[0], x[1], x[2], f"{x[3]:.3e}")
+                        for x in res["grad_gaps"]]
+                print(f"elastic {gang} rank {r}: each step's averaged "
+                      f"gradients against the one-process gradient (step, "
+                      f"epoch, size, gap) {rows} (tol {ENGINE_GRAD_TOL} at "
+                      f"size 2, {EL_GRAD_TOL_3} at size 3)")
+            for x in res["grad_gaps"]:
+                tol = ENGINE_GRAD_TOL if x[2] == 2 else EL_GRAD_TOL_3
+                if not x[3] <= tol:
+                    failures.append(f"{gang} rank {r}: step {x[0]}'s "
+                                    f"averaged gradients {x[3]:.3e} away "
+                                    f"({x[4]}; tol {tol})")
+            if [s["step"] for s in res["steps"] if s["epoch"] == 1][-1:] \
+                    != [EL_STEPS - 1]:
+                failures.append(f"{gang} rank {r}: did not finish at "
+                                "epoch 1")
+            if dev.type == "cuda" and not all(
+                    res["launches"][k] > 0 for k in ("fwd", "dq", "dkv")):
+                failures.append(f"{gang} rank {r}: flash launches "
+                                f"{res['launches']}")
+        # Every step of epoch 1 was checked on its rank 0.
+        checked = sorted({x[0] for r in survivors
+                          for x in g[r]["grad_gaps"] if x[1] == 1})
+        if checked != list(range(checked[0] if checked else 0, EL_STEPS)) \
+                or not checked:
+            failures.append(f"{gang}: epoch 1's steps checked {checked}")
+
+    # E1: leader failover at full depth.
+    e1 = rep["E1"]
+    s1 = [r for r in range(3) if r != EL_E1_VICTIM]
+    for r in s1:
+        res = e1[r]
+        commit = dict((c[0], c[1]) for c in res["commits"])
+        if res["restored"] != [commit.get(2)]:
+            failures.append(f"E1 rank {r}: restored digest "
+                            f"{res['restored']} != the step-2 commit's "
+                            f"{commit.get(2)}")
+        if res["counters"] != {"hvd_elastic_reforms_total": 1,
+                               "hvd_leader_failovers_total": 1}:
+            failures.append(f"E1 rank {r}: counters {res['counters']}")
+    for rec in ("ELASTIC_REFORM", "LEADER_FAILOVER"):
+        if rec not in e1["timeline"]:
+            failures.append(f"E1: no {rec} on the new rank 0's timeline")
+    spans = {r: _el_span(e1[r], e1["kill_at"]) for r in s1}
+    _el_print("E1", "the kill of rank 0", spans,
+              {r: _el_medians(e1[r]) for r in s1}, card)
+
+    # E2: stall, abort, replay.
+    e2 = rep["E2"]
+    s2 = [r for r in range(3) if r != EL_E2_VICTIM]
+    for r in s2:
+        cte = e2[r]["cte"]
+        if not cte or cte[0] != [EL_E2_VICTIM]:
+            failures.append(f"E2 rank {r}: CollectiveTimeoutError {cte}")
+    ins, replay = e2["inputs"], e2["replay"]
+    half = torch.tensor(0.5, dtype=torch.float32)
+    bits = {n: torch.equal(replay[n], (ins[0][n] + ins[1][n]) * half)
+            for n in replay if n in ins[0]}
+    # The same inputs recomputed here from the weights the survivors held
+    # at step 1 and seed 7's rows.
+    model = tfm.init(0, e2["cfg"], device=dev)
+    model.load_state_dict({n: t.to(dev) for n, t in e2["p1"].items()})
+    tokens, targets = _token_batches(dev, EL_STEPS, B=EL_ROWS,
+                                     S=e2["cfg"].max_seq_len,
+                                     vocab=e2["cfg"].vocab_size, seed=7)[1]
+    again = [_lv_grads(tfm, model, tokens, targets,
+                       slice(r * EL_ROWS // 3, (r + 1) * EL_ROWS // 3))
+             for r in s2]
+    same_bits = all(torch.equal(again[i][n].cpu(), ins[r][n])
+                    for i, r in enumerate(s2) for n in ins[r])
+    regap = max(_lv_gap(ins[r], {n: x for n, x in again[i].items()})[0]
+                for i, r in enumerate(s2))
+    del model, again
+    if not all(bits.values()):
+        failures.append(f"E2: replayed tensors not the retained inputs' "
+                        f"average bit for bit: "
+                        f"{[n for n, b in bits.items() if not b]}")
+    if not replay or not set(replay) <= set(ins[0]):
+        failures.append(f"E2: the replay {sorted(replay)} is not of the "
+                        "retained inputs")
+    if not regap <= ENGINE_GRAD_TOL:
+        failures.append(f"E2: the retained inputs {regap:.3e} from their "
+                        "recomputation")
+    if leftover:
+        failures.append(f"E2: shm segments left: {leftover}")
+    print(f"elastic E2: CollectiveTimeoutError {e2[0]['cte'][0]} on "
+          f"{e2[0]['cte'][1]}, {[round(e2[r]['cte'][2], 3) for r in s2]} s "
+          f"after the step's submission (deadline {LV_DEADLINE_S} s); "
+          f"{len(replay)} of the step's {len(ins[0])} gradients replayed "
+          f"(the aborted one and those failed after it), each equal bit "
+          f"for bit to the "
+          f"survivors' retained inputs averaged as the engine averages two "
+          f"ranks: {all(bits.values())}; the inputs recomputed here from "
+          f"the step-1 weights and seed 7's rows: bit for bit {same_bits}, "
+          f"largest gap {regap:.3e}; no shm segment left: {not leftover}")
+    spans = {r: _el_span(e2[r], e2["stall_at"]) for r in s2}
+    _el_print("E2", "the stall of rank 2", spans,
+              {r: _el_medians(e2[r]) for r in s2}, card)
+
+    # E3: the joiner.
+    e3 = rep["E3"]
+    j = e3[EL_E3_JOINER]
+    joined = j["entries"][0]["digest"]
+    leader = next(e["digest"] for e in e3[0]["entries"] if e["size"] == 3)
+    if joined != leader:
+        failures.append(f"E3: the joiner's synced state {joined} is not "
+                        f"rank 0's {leader}")
+    spans = {r: _el_span(e3[r], e3[r].get("notified", e3[r]["detect"]))
+             for r in (0, 1)}
+    print(f"elastic E3: the joiner started "
+          f"{j['t_start'] - e3[0]['step1_at']:.3f} s after rank 0's step "
+          f"1, announced itself "
+          f"{e3[0].get('notified', e3[0]['detect']) - j['t_start']:.3f} s "
+          f"after its start, ran its first step "
+          f"{j['steps'][0]['t1'] - j['t_start']:.3f} s after its start; "
+          f"its synced digest {joined} equals rank 0's {leader}: "
+          f"{joined == leader}")
+    _el_print("E3", "the joiner's announcement", spans,
+              {r: _el_medians(e3[r]) for r in (0, 1, EL_E3_JOINER)}, card)
+    launches = {k: sum(rep[g][r]["launches"][k] for g in EL_GANGS
+                       for r in range(3) if isinstance(rep[g].get(r), dict))
+                for k in ("fwd", "dq", "dkv")}
+    if failures:
+        raise AssertionError("elastic: " + "; ".join(failures))
+    print(f"elastic: phase wall {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}; flash launches of the gangs' steps {launches}")
+    return launches
+
+
+def _el_print(gang, what, spans, medians, card):
+    for r, sp in spans.items():
+        print(f"elastic {gang} rank {r}: from {what} to the first step of "
+              f"epoch 1 {sp['total']:.3f} s: detection {sp['detect']:.3f} "
+              f"s, re-form {sp['reform']:.3f} s, state.sync() "
+              f"{sp['sync']:.3f} s ({sp['sync_bytes']} bytes, "
+              f"{sp['sync_gbs']:.3f} GB/s), replay {sp['replay']:.3f} s, "
+              f"first step {sp['first_step']:.3f} s; {card}")
+    print(f"elastic {gang}: step medians (ms) before / after the re-form, "
+          f"by rank, each process's first step left out: {medians}")
+
+
+def elastic_rank(rank: int, tmp: str) -> int:
+    """One rank of the elastic phase (``--elastic-rank``); writes its
+    report to ``<tmp>/<gang><r>.json`` (the new rank 0 its final
+    parameters to ``<gang>_final.pt``; E2's survivors their step-1
+    gradients, rank 0 its step-1 weights and the replay)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import fault_injection as fi
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.train import default_optimizer
+    from horovod_tpu_torch.runner.http_client import KVClient
+    from horovod_tpu_torch.telemetry import registry
+
+    t_start = time.time()
+    with open(os.path.join(tmp, "config.json")) as fh:
+        conf = json.load(fh)
+    fields = dict(conf["cfg"])
+    fields["compute_dtype"] = getattr(torch, fields["compute_dtype"])
+    cfg = tfm.TransformerConfig(**fields)
+    dev = torch.device(conf["device"])
+    gang = conf["gang"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    registry.configure(True)
+    joiner = os.environ.get("HVD_ELASTIC_JOINER") == "1"
+    if not joiner:
+        hvd.init(device=dev, backend="none")
+    res = {"rank": rank, "t_start": t_start, "steps": [], "syncs": [],
+           "restored": [], "commits": [], "resets": [], "entries": [],
+           "grad_gaps": [], "detect": None, "cte": None}
+
+    def epoch():
+        return int(os.environ.get("HVD_ELASTIC_EPOCH", "0"))
+
+    model = tfm.init(0, cfg, device=dev)
+    opt = default_optimizer(model.parameters())
+    batches = _token_batches(dev, EL_STEPS, B=EL_ROWS, S=cfg.max_seq_len,
+                             vocab=cfg.vocab_size, seed=7)
+    part = {}
+    check_launches = {k: 0 for k in fa.launches}
+
+    def repartition():
+        r, n = hvd.rank(), hvd.size()
+        part["rows"] = slice(r * EL_ROWS // n, (r + 1) * EL_ROWS // n)
+        res["resets"].append({"t": time.time(), "size": n})
+
+    class _State(hvd.elastic.TorchState):
+        def commit(self):
+            self.save()
+            res["commits"].append([self.step, _el_digest(model, opt)])
+            self.check_host_updates()
+
+        def restore(self):
+            super().restore()
+            res["restored"].append(_el_digest(model, opt))
+
+        def sync(self, root=0):
+            _sync_dev(torch, dev)
+            t0 = time.time()
+            super().sync(root)
+            _sync_dev(torch, dev)
+            res["syncs"].append({"t0": t0, "t1": time.time(), "bytes": sum(
+                t.numel() * t.element_size()
+                for t in _el_tensors(model, opt))})
+
+    state = _State(model, opt, step=0)
+    state.register_reset_callbacks([repartition])
+    kv = KVClient(os.environ["HVD_RENDEZVOUS_ADDR"],
+                  int(os.environ["HVD_RENDEZVOUS_PORT"]))
+    notify_key = "elastic/notify"
+    if os.environ.get("HVD_ELASTIC_SCOPE_BASE"):
+        notify_key = f"{os.environ['HVD_ELASTIC_SCOPE_BASE']}/{notify_key}"
+
+    @hvd.elastic.run(device=dev)
+    def train(state):
+        if "rows" not in part:
+            repartition()
+        res["entries"].append({"t": time.time(), "step": state.step,
+                               "size": hvd.size(), "rank": hvd.rank(),
+                               "digest": _el_digest(model, opt)})
+        replayed = hvd.elastic.last_replay_results()
+        if replayed and hvd.rank() == 0 and "replayed" not in res:
+            res["replayed"] = len(replayed)
+            torch.save({n: torch.as_tensor(np.asarray(x))
+                        for n, x in replayed.items()},
+                       os.path.join(tmp, "E2_replay.pt"))
+        try:
+            _el_steps(state)
+        except Exception:
+            # The failure's first sight in the training function.
+            if res["detect"] is None:
+                res["detect"] = time.time()
+            raise
+
+    def _el_steps(state):
+        while state.step < EL_STEPS:
+            s = state.step
+            if gang == "E3" and s == 2 and hvd.size() == 2:
+                # Wait for the joiner's announcement, then commit: every
+                # rank sees it at the same check, and all interrupt.
+                while not kv.get(notify_key):
+                    time.sleep(0.01)
+                res["notified"] = time.time()
+                time.sleep(0.1)
+                state.commit()
+            tokens, targets = batches[s]
+            rows = part["rows"]
+            _sync_dev(torch, dev)
+            t0 = time.time()
+            try:
+                opt.zero_grad(set_to_none=True)
+                tfm.loss_fn(model, tokens[rows], targets[rows]).backward()
+                grads = {n: p.grad for n, p in model.named_parameters()}
+                if gang == "E2" and s == 1 and hvd.size() == 3:
+                    if rank == EL_E2_VICTIM:
+                        with open(os.path.join(tmp, "E2_stall_at"),
+                                  "w") as fh:
+                            fh.write(repr(time.time()))
+                        fi.configure({"faults": [{"site": "shm.stall",
+                                                  "kind": "stall",
+                                                  "stall_s": 600}]})
+                    else:
+                        torch.save({n: g.cpu() for n, g in grads.items()},
+                                   os.path.join(tmp, f"E2_in{rank}.pt"))
+                        if rank == 0:
+                            torch.save({n: p.detach().cpu() for n, p in
+                                        model.named_parameters()},
+                                       os.path.join(tmp, "E2_p1.pt"))
+                t_sub = time.monotonic()
+                handles = [hvd.allreduce_async(g, name=n, op=hvd.Average)
+                           for n, g in grads.items()]
+                avg = {n: hvd.synchronize(h) for n, h in
+                       zip(grads, handles)}
+            except hvd.CollectiveTimeoutError as e:
+                res["cte"] = [e.ranks, e.tensor_name,
+                              time.monotonic() - t_sub]
+                raise
+            for n, p in model.named_parameters():
+                p.grad = avg[n]
+            check_s = 0.0
+            if hvd.rank() == 0:
+                tc = time.time()
+                gap = _one_process_gap(tfm, model, tokens, targets,
+                                       check_launches)
+                res["grad_gaps"].append([s, epoch(), hvd.size(), *gap])
+                check_s = time.time() - tc
+            opt.step()
+            _sync_dev(torch, dev)
+            t1 = time.time()
+            res["steps"].append({"step": s, "epoch": epoch(),
+                                 "size": hvd.size(),
+                                 "ms": (t1 - t0 - check_s) * 1e3,
+                                 "t1": t1})
+            if gang == "E1" and rank == EL_E1_VICTIM and s == 2:
+                with open(os.path.join(tmp, "E1_kill_at"), "w") as fh:
+                    fh.write(repr(time.time()))
+            fi.fire("train.step", str(s))
+            state.step += 1
+            if state.step % conf["commit"] == 0:
+                state.commit()
+            if gang == "E3" and rank == 0 and s == 1:
+                res["step1_at"] = time.time()
+                with open(os.path.join(tmp, "E3_step1"), "w"):
+                    pass
+
+    fa.reset_launch_counts()
+    try:
+        train(state)
+        res["final_digest"] = _el_digest(model, opt)
+        snap = hvd.metrics_snapshot().get("counters", {})
+        res["counters"] = {k: int(snap.get(k, 0)) for k in (
+            "hvd_elastic_reforms_total", "hvd_leader_failovers_total")}
+        res["launches"] = {k: n - check_launches[k]
+                           for k, n in fa.launches.items()}
+        res["epoch"] = epoch()
+        if hvd.rank() == 0:
+            torch.save({n: p.detach().cpu()
+                        for n, p in model.named_parameters()},
+                       os.path.join(tmp, f"{gang}_final.pt"))
+        with open(os.path.join(tmp, f"{gang}{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        fi.clear()
+        hvd.shutdown()
+    return 0
+
+
 def _sync_dev(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -3495,6 +4161,8 @@ def main() -> int:
         return dataplane_rank(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--liveness-rank"]:  # a liveness phase rank
         return liveness_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--elastic-rank"]:  # an elastic phase rank
+        return elastic_rank(int(sys.argv[2]), sys.argv[3])
     t_start = time.perf_counter()
     import torch
 
@@ -3552,7 +4220,10 @@ def main() -> int:
     # An engine-phase rank's rows: B 8 / ENGINE_RANKS.
     engine_rows = (8 // ENGINE_RANKS, 1024, 16, 64, torch.bfloat16, True,
                    False)
-    for shape in shapes + (f32_flagship, micro, engine_rows) + dim_shapes:
+    # An elastic rank's rows after a shrink to two: EL_ROWS / 2.
+    elastic_rows = (EL_ROWS // 2, 1024, 16, 64, torch.bfloat16, True, False)
+    for shape in shapes + (f32_flagship, micro, engine_rows,
+                           elastic_rows) + dim_shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False)
     for shape in tuple(ring_shapes.values()) + (shapes[2],) + dim_shapes:
         check_kernels(fa, *shape, peaks, dev, timed=False, lse_route=True)
@@ -3618,6 +4289,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_engine(hvd, tfm, fa, dev, card, knobs=LV_KNOBS)
     torch.cuda.empty_cache()
+    el_counts = run_elastic(tfm, fa, dev, card)
+    torch.cuda.empty_cache()
 
     # Timed after the slice, so that no profiler has run before the steps
     # are timed.
@@ -3639,6 +4312,7 @@ def main() -> int:
     print(f"pp: attention kernels {pp_attn:.2f} ms of the {pp_ms:.2f} ms "
           f"step (each kernel's microbatch time x its launches per step)")
 
+    el = check_kernels(fa, *elastic_rows, peaks, dev)
     f32 = check_kernels(fa, *f32_flagship, peaks, dev)
     for shape in dim_shapes:
         check_kernels(fa, *shape, peaks, dev)
@@ -3670,6 +4344,12 @@ def main() -> int:
     kernels += [dict(name=f"flash_{k}_pp", route="cuda",
                      source=SOURCE, replaces=REPLACES[k],
                      launches=pp_counts[k], **mb[k])
+                for k in ("fwd", "dq", "dkv")]
+    # The elastic ranks' kernels at a rank's rows after the shrink (B 3),
+    # with their launches in the elastic phase's steps (every rank's).
+    kernels += [dict(name=f"flash_{k}_elastic", route="cuda",
+                     source=SOURCE, replaces=REPLACES[k],
+                     launches=el_counts[k], **el[k])
                 for k in ("fwd", "dq", "dkv")]
     # The ring hop's variants, with their launches in the causal ring run.
     for c, tag in ((True, "self"), (False, "hop")):

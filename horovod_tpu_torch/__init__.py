@@ -11,6 +11,7 @@ The port imports ``torch`` and never ``jax`` or the JAX package.
 """
 
 from horovod_tpu_torch import data  # noqa: F401  (sampling + prefetch)
+from horovod_tpu_torch import elastic  # noqa: F401  (hvd.elastic.run, ...)
 from horovod_tpu_torch.basics import (cache_stats, cross_rank, cross_size,
                                       cuda_built, device, gloo_built, init,
                                       is_homogeneous, is_initialized,
@@ -70,5 +71,5 @@ __all__ = [
     "distributed_value_and_grad", "flash_attention",
     "flash_attention_lse", "TrainState", "make_transformer_train_step",
     "ResNetState", "make_resnet_train_step", "make_resnet_train_step_hvd",
-    "make_mnist_train_step", "init_torch_distributed",
+    "make_mnist_train_step", "init_torch_distributed", "elastic",
 ]

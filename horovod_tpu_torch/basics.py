@@ -29,6 +29,13 @@ Without a rendezvous a multi-rank ``init`` starts no engine (the compiled
 regime needs none), and an eager op then raises
 :class:`EngineUnavailableError`.  ``shutdown`` stops the engine before it
 destroys the process group.
+
+``init`` after ``shutdown`` in one process builds a new runtime from the
+environment as it stands then: an elastic re-form (``elastic/run.py``)
+rewrites ``HVD_RANK``/``HVD_SIZE``/``HVD_RDV_SCOPE``/``HVD_ELASTIC_EPOCH``
+and re-initializes with the first incarnation's device and no process
+group.  :func:`engine_abort_reason` tells the elastic wrapper why the
+running engine aborted.
 """
 
 from __future__ import annotations
@@ -222,6 +229,21 @@ def _engine():
 
 def is_initialized() -> bool:
     return _world is not None
+
+
+def has_process_group() -> bool:
+    """True when ``init`` formed a ``torch.distributed`` process group
+    (every backend but ``"none"``)."""
+    return _w().group
+
+
+def engine_abort_reason() -> Optional[str]:
+    """Why the running eager engine aborted (a worker's lost coordinator
+    reads ``"lost connection to coordinator"``), or None while it runs."""
+    eng = _engine_obj
+    if eng is not None and getattr(eng, "_aborted", False):
+        return getattr(eng, "_abort_reason", None) or "aborted"
+    return None
 
 
 def _w() -> _World:

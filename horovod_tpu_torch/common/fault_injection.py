@@ -47,9 +47,8 @@ Fault fields:
   ``ctrl.worker.send`` convention) stands for the root, rank 0.
 
 Sites the port does not fire yet, because their modules wait (ROADMAP
-Queue 1): ``kv.mirror`` and ``kv.delete`` (the KV mirroring, item 6), and
-``serve.step`` (the serving loop, item 5.7).  A plan may still name them;
-they never fire.
+Queue 1): ``kv.mirror`` (the KV mirroring, item 6) and ``serve.step`` (the
+serving loop, item 4).  A plan may still name them; they never fire.
 """
 
 from __future__ import annotations
@@ -74,6 +73,9 @@ KNOWN_SITES = {
     "sock.connect": "mesh bootstrap connect",
     "kv.put": "rendezvous KV client put",
     "kv.get": "rendezvous KV client get",
+    "kv.list": "rendezvous KV client prefix list (the elastic leader's "
+               "pending joiners)",
+    "kv.delete": "rendezvous KV client delete",
     "kv.server.request": "rendezvous server request handling",
     "metrics.server.request": "metrics debug-server request handling",
     "agg.scrape": "gang aggregator per-rank snapshot read (KV entry + "

@@ -60,8 +60,13 @@ flight recorder's pull (``TAG_BLACKBOX``/``TAG_BLACKBOX_DUMP``)::
   BlackboxReq   := u32 epoch
   BlackboxDump  := i32 rank, u32 epoch, u32 len, bytes (UTF-8 JSON)
 
-Left out until elastic is ported (ROADMAP Queue 1, item 5.7): the fence
-and the serving delta.
+The epoch fence (``TAG_FENCE``, the coordinator's answer to a request
+frame from another membership epoch)::
+
+  Fence         := u32 stale_epoch, u32 current_epoch
+
+Left out until the serving loop is ported (ROADMAP Queue 1, item 4): the
+serving delta.
 """
 
 from __future__ import annotations
@@ -522,3 +527,17 @@ def encode_blackbox_dump(rank: int, epoch: int, blob: bytes) -> bytes:
 def decode_blackbox_dump(data: bytes) -> Tuple[int, int, bytes]:
     rank, epoch, n = struct.unpack_from("<iII", data, 0)
     return rank, epoch, bytes(data[12:12 + n])
+
+
+# -- the epoch fence -----------------------------------------------------
+
+
+def encode_fence(stale_epoch: int, current_epoch: int) -> bytes:
+    """Coordinator -> a sender whose control frame carried another
+    membership epoch: the gang re-formed without it; it must exit."""
+    return struct.pack("<II", stale_epoch, current_epoch)
+
+
+def decode_fence(data: bytes) -> Tuple[int, int]:
+    """Returns ``(stale_epoch, current_epoch)``."""
+    return struct.unpack_from("<II", data, 0)

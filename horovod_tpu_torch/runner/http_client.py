@@ -1,7 +1,7 @@
 """KV client for the launcher's rendezvous server: the port's copy of
 ``horovod_tpu/runner/http_client.py`` (``parse_kv_addrs`` and
-``KVClient``'s ``put``, ``get``, ``get_bytes``, ``wait_get`` and
-``local_address``).
+``KVClient``'s ``put``, ``get``, ``get_bytes``, ``list``, ``delete``,
+``wait_get`` and ``local_address``).
 
 Requests carry an HMAC of method, path and body under the job's secret
 (``HVD_SECRET_KEY``, which the launcher hands its workers), so the port's
@@ -11,13 +11,13 @@ attempts, each bounded by ``HVD_KV_TIMEOUT``); a 5xx or a connection error
 is retried, a 4xx is not (a 404 is the "not there yet" answer that
 ``wait_get`` polls on).  ``HVD_KV_ADDRS`` (``host:port,host:port``, primary
 first) makes the client rotate to the next endpoint on each retryable
-failure.  Writes under ``elastic/`` carry the process's membership epoch
-(``HVD_ELASTIC_EPOCH``), and the server's 409 for a stale one raises
-:class:`~horovod_tpu_torch.common.types.FencedError`.
+failure.  Writes and deletes under ``elastic/`` carry the process's
+membership epoch (``HVD_ELASTIC_EPOCH``), and the server's 409 for a stale
+one raises :class:`~horovod_tpu_torch.common.types.FencedError`.
 
-Every attempt of a request fires its fault site (``kv.put`` or
-``kv.get``, with the key as detail) before it goes out, so that an
-injected fault rides the retries.
+Every attempt of a request fires its fault site (``kv.put``, ``kv.get``,
+``kv.list`` or ``kv.delete``, with the key as detail) before it goes out,
+so that an injected fault rides the retries.
 
 Each retry adds one to ``hvd_kv_retries_total`` and notes ``kv.retry`` on
 the flight recorder.
@@ -124,13 +124,14 @@ class KVClient:
     def _url(self, path: str) -> str:
         return f"http://{self.host}:{self.port}{path}"
 
-    def _request(self, key: str, method: str, body: Optional[bytes] = None):
-        path = f"/kv/{key}"
+    def _request(self, key: str, method: str, body: Optional[bytes] = None,
+                 endpoint: str = "/kv/"):
+        path = f"{endpoint}{key}"
         req = urllib.request.Request(self._url(path), data=body,
                                      method=method)
-        if method == "PUT" and "elastic/" in key:
-            # Stamp elastic writes with this process's membership epoch,
-            # so that a stale one is refused with a 409.
+        if method in ("PUT", "DELETE") and "elastic/" in key:
+            # Stamp elastic mutations with this process's membership
+            # epoch, so that a stale one is refused with a 409.
             epoch = os.environ.get(env_util.ELASTIC_EPOCH, "")
             if epoch:
                 req.add_header(EPOCH_HEADER, epoch)
@@ -207,6 +208,30 @@ class KVClient:
                 raise
 
         return self._with_retry(go, "kv.get", key)
+
+    def list(self, prefix: str) -> list:
+        """Keys currently stored under ``prefix``, sorted."""
+        def go():
+            with urllib.request.urlopen(
+                    self._request(prefix, "GET", endpoint="/kvlist/"),
+                    timeout=self.timeout) as r:
+                body = r.read().decode("utf-8")
+            return body.split("\n") if body else []
+
+        return self._with_retry(go, "kv.list", prefix)
+
+    def delete(self, key: str) -> None:
+        def go():
+            try:
+                with urllib.request.urlopen(
+                        self._request(key, "DELETE"),
+                        timeout=self.timeout):
+                    pass
+            except urllib.error.HTTPError as e:
+                self._raise_if_fenced(e, key)
+                raise
+
+        self._with_retry(go, "kv.delete", key)
 
     def wait_get(self, key: str, timeout: float = 60.0,
                  interval: float = 0.05) -> str:

@@ -3,14 +3,17 @@
 addresses through.
 
 Protocol: ``PUT /kv/<key>`` stores the body; ``GET /kv/<key>`` returns it
-or 404; ``DELETE /kv/<key>`` removes it; ``GET /health`` returns ``ok``.
+or 404; ``DELETE /kv/<key>`` removes it; ``GET /kvlist/<prefix>`` returns
+the keys under a prefix, sorted, one a line (the elastic leader's list of
+pending joiners); ``GET /health`` returns ``ok``.
 
 When the server holds a job secret, every ``/kv/`` request must carry a
 valid ``X-HVD-Auth: HMAC-SHA256(method, path, body)`` header, or it is
 refused with 403.  A mutation of an ``elastic/*`` key may carry
 ``X-HVD-Epoch: <n>``, the writer's membership epoch: the server remembers
 the newest epoch of each elastic namespace and answers an older write with
-409, so that a zombie rank cannot corrupt a re-formed gang's state.
+409, so that a zombie rank cannot corrupt a re-formed gang's state; each
+such rejection adds one to ``hvd_fenced_writes_total``.
 
 The ``kv.server.request`` fault site turns a request into a 503, the
 retryable shed of a loaded or restarting server.
@@ -18,10 +21,7 @@ retryable shed of a loaded or restarting server.
 Left out until their features are ported: write-through mirroring to
 standbys with its ``kv.mirror`` fault site, the ``/kvsync`` catch-up, the
 command line and the launcher's direct reads (ROADMAP Queue 1, item 6,
-the periphery), ``/kvlist/`` (the elastic driver's roster, item 5.7) and
-the fenced-writes counter ``hvd_fenced_writes_total``, which counts the
-fence's rejections (item 5.7; the registry declares it, nothing in the
-port increments it yet).
+the periphery).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from typing import Dict, Optional
 
 from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.runner import secret as secret_mod
+from horovod_tpu_torch.telemetry import registry as _tmx
 
 # A writer's membership epoch on elastic/* mutations.
 EPOCH_HEADER = "X-HVD-Epoch"
@@ -93,6 +94,7 @@ class _Handler(BaseHTTPRequestHandler):
             if not stale:
                 srv.kv_epochs[scope] = epoch  # type: ignore
         if stale:
+            _tmx.inc_counter("hvd_fenced_writes_total")
             self._reply(409, (f"fenced: epoch {epoch} is stale, the gang "
                               f"re-formed at epoch {newest}").encode())
         return stale
@@ -109,6 +111,13 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if not self._authorized():
             self._reply(403)
+            return
+        if self.path.startswith("/kvlist/"):
+            prefix = self.path[len("/kvlist/"):]
+            with self.server.kv_lock:  # type: ignore[attr-defined]
+                keys = sorted(k for k in self._store()
+                              if k.startswith(prefix))
+            self._reply(200, "\n".join(keys).encode("utf-8"))
             return
         key = self._key()
         with self.server.kv_lock:  # type: ignore[attr-defined]

@@ -36,11 +36,12 @@ The control plane heals itself, each part under its knob:
   are wedged, and broadcasts ``TAG_ABORT_VERDICT``, so that every survivor
   fails the step with the same ``CollectiveTimeoutError``.  A
   ``WireCorruptionError`` (the ladder's last rung) takes the same road.
-  The aborted allreduce's inputs are kept (:func:`take_retained_batch`);
-  replaying them is elastic's, which waits for item 5.7.  Until a gang is
-  re-formed its links may still hold the aborted collective's frames, so
-  the survivors stop after the error, as the JAX package's elastic
-  wrapper makes them;
+  The aborted allreduce's inputs are kept (:func:`take_retained_batch`),
+  and ``@hvd.elastic.run`` replays them over the re-formed gang.  Until a
+  gang is re-formed its links may still hold the aborted collective's
+  frames, so every later collective of the incarnation fails with the
+  same error without touching them (an allreduce's inputs join the
+  retained batch), and a survivor re-forms (or stops);
 * the control tree (``HVD_CTRL_TREE``, default on; ``HVD_CTRL_FANOUT``): on
   a multi-host block topology the lowest local rank of every host but the
   root's folds its host's request and heartbeat frames into one
@@ -89,11 +90,17 @@ two-level collectives at a block topology
 ``engine.cycle``, ``ctrl.worker.send``, ``ctrl.coord.send``,
 ``ctrl.subcoord.send`` and ``ctrl.reparent`` here).
 
-Left out until elastic is ported (ROADMAP Queue 1, item 5.7; setting
-``HVD_ELASTIC_EPOCH`` raises ``NotImplementedError`` at ``init()``, so that
-a port rank never runs another protocol quietly): membership epochs
-(every frame carries epoch 0), the fence (``TAG_FENCE``), the quorum, the
-replay of a retained batch, the elastic series of the registry, then the
+Membership epochs (``elastic/``): the engine's epoch is
+``HVD_ELASTIC_EPOCH`` (0 unset), stamped on every list frame.  A worker
+drops a response frame of another epoch; the coordinator answers a request
+frame of another epoch with ``TAG_FENCE`` (counted in
+``hvd_fenced_writes_total``, noted ``epoch.fence`` on the recorder), and
+the fenced worker's next cycle aborts with the typed ``FencedError``,
+which its next submission and its pending handles raise: a rank the gang
+re-formed without exits instead of corrupting it.  Rank 0's timeline
+records ``ELASTIC_EPOCH_<n>`` at a nonzero epoch.
+
+Left out until the serving loop is ported (ROADMAP Queue 1, item 4): the
 serving loop's ``serve_broadcast``/``serve_recv``.
 """
 
@@ -117,6 +124,7 @@ from horovod_tpu_torch.common import wire
 from horovod_tpu_torch.common.types import (
     CollectiveTimeoutError,
     DataType,
+    FencedError,
     RanksFailedError,
     ReduceOp,
     Request,
@@ -147,10 +155,8 @@ _OP_NAMES = {
 
 # Knobs that turn on a feature the port has not ported yet: (variable,
 # when it is on: "bool" true, "positive" > 0, "set" non-empty; the
-# ROADMAP Queue 1 item that brings it).
-_LEFT_OUT = (
-    ("HVD_ELASTIC_EPOCH", "set", "5.7, elastic"),
-)
+# ROADMAP Queue 1 item that brings it).  Every engine knob is ported.
+_LEFT_OUT: tuple = ()
 
 
 def check_left_out_knobs() -> None:
@@ -174,9 +180,8 @@ def check_left_out_knobs() -> None:
 # The retention of an aborted batch: when the gang aborts an allreduce
 # (CollectiveTimeoutError), each survivor keeps copies of its original
 # inputs here (the ring works on the fusion buffer, never on the entries'
-# arrays).  Module-level, so that it outlives the engine: a replay tears
-# the engine down and builds a new one (elastic's, ROADMAP Queue 1, item
-# 5.7).
+# arrays).  Module-level, so that it outlives the engine: elastic's replay
+# tears the engine down and replays them on the next one.
 _replay_lock = threading.Lock()
 _replay_batch: Optional[List[dict]] = None
 
@@ -451,7 +456,10 @@ class PyEngine(_EngineBase):
             env_util.HIERARCHICAL_ALLREDUCE, False)
         self.hierarchical_allgather = env_util.get_bool(
             env_util.HIERARCHICAL_ALLGATHER, False)
-        self.epoch = 0
+        # The elastic membership epoch, stamped on every list frame: a
+        # frame of another incarnation is dropped (worker) or fenced
+        # (coordinator), so that a zombie cannot touch this gang.
+        self.epoch = env_util.get_int(env_util.ELASTIC_EPOCH, 0)
         # When a list, every executed response appends (type, tensors,
         # bytes, from_cache) to it: the card's engine phase reads it.
         self.response_log: Optional[list] = None
@@ -463,9 +471,12 @@ class PyEngine(_EngineBase):
         self._metrics_on = _telemetry.init_from_env(rank, local_rank,
                                                     size=size)
         self._straggler = None
-        if self._metrics_on and rank == 0:
-            self._straggler = _telemetry.StragglerDetector(
-                env_util.get_float(env_util.STRAGGLER_WARN_MS, 0.0), size)
+        if self._metrics_on:
+            _tmx.set_gauge("hvd_elastic_epoch", self.epoch)
+            if rank == 0:
+                self._straggler = _telemetry.StragglerDetector(
+                    env_util.get_float(env_util.STRAGGLER_WARN_MS, 0.0),
+                    size)
 
         # The gang-wide trace: every rank's spans; None with HVD_TRACE
         # unset, and every hot-path hook is then a None check.
@@ -503,7 +514,9 @@ class PyEngine(_EngineBase):
         self._closed = False
         self._aborted = False
         self._abort_reason = None
+        self._abort_exc = None  # a typed abort (FencedError)
         self._ctrl_conn_lost = False
+        self._fenced: Optional[tuple] = None  # a worker's TAG_FENCE
 
         # coordinator state
         self._msg_table = _MessageTable(size) if rank == 0 else None
@@ -557,6 +570,11 @@ class PyEngine(_EngineBase):
         self._in_collective_since = 0.0
         # The root's last verdict, resent to a rank that reports late.
         self._last_verdict: Optional[tuple] = None
+        # After an agreed abort: its error, which every later collective of
+        # this incarnation fails with (the links may hold the aborted
+        # one's frames), and the inputs retained for the replay.
+        self._collective_err: Optional[CollectiveTimeoutError] = None
+        self._retained: List[dict] = []
         # The root's pulled flight-recorder rings (TAG_BLACKBOX_DUMP),
         # captured by its receive threads after a verdict.
         self._blackbox_inbox: List[tuple] = []
@@ -587,6 +605,9 @@ class PyEngine(_EngineBase):
             self.timeline.shutdown()
             trace_mod.release(self._tracer)
             raise
+        if self.epoch and self.timeline.enabled:
+            self.timeline.elastic_event(f"ELASTIC_EPOCH_{self.epoch}",
+                                        size=self.size)
         self._bg = threading.Thread(
             target=self._background_loop, name="hvd-background", daemon=True)
         self._bg.start()
@@ -737,7 +758,6 @@ class PyEngine(_EngineBase):
             # A worker's recorder ring, answering the post-verdict pull.
             with self._blackbox_lock:
                 self._blackbox_inbox.append((peer_rank, payload))
-        # Other tags belong to elastic, whose knob must be off gang-wide.
 
     def _note_reparent(self, rank: int, old_parent: int) -> None:
         """Root: an orphan of a dead sub-coordinator adopted itself to the
@@ -784,6 +804,11 @@ class PyEngine(_EngineBase):
                         su.send_frame(s, itag, ipayload)
                 except (ConnectionError, OSError):
                     pass  # the root's liveness owns the eviction
+            return
+        if tag == su.TAG_FENCE:
+            # The coordinator is at another membership epoch and this rank
+            # has no seat there: the next worker cycle raises FencedError.
+            self._fenced = wire.decode_fence(payload)
             return
         if tag == su.TAG_RESPONSE_LIST:
             with self._response_cv:
@@ -908,6 +933,10 @@ class PyEngine(_EngineBase):
             # The in-flight steps completed over the survivors; the next
             # submission is where the training loop can react.
             raise RanksFailedError(self._ranks_failed)
+        if self._abort_exc is not None:
+            # A typed abort (FencedError): the class is the signal, which
+            # the elastic wrapper lets through (a fenced rank exits).
+            raise self._abort_exc
         if self._aborted or self._shutdown_flag.is_set() \
                 or self._shutdown_requested.is_set():
             raise RuntimeError("horovod_tpu_torch runtime has been shut down")
@@ -1141,8 +1170,10 @@ class PyEngine(_EngineBase):
             self._table.clear()
             self._request_queue.clear()
             jh, self._join_handle = self._join_handle, None
-        status = Status.aborted(
-            self._abort_reason or "Horovod has been shut down.")
+        status = Status(StatusType.ABORTED, self._abort_reason,
+                        self._abort_exc) if self._abort_exc is not None \
+            else Status.aborted(
+                self._abort_reason or "Horovod has been shut down.")
         for e in entries:
             self._release_name(e.name)
             self.handles.mark_done(e.handle, status, None)
@@ -1250,6 +1281,13 @@ class PyEngine(_EngineBase):
             pass  # a dead hub shows in the receive thread
 
     def _worker_cycle(self, msgs: List[Request]) -> bool:
+        if self._fenced is not None:
+            # The coordinator fenced this rank (TAG_FENCE): deliver the
+            # typed error and stop before another frame of ours goes out.
+            stale, current = self._fenced
+            exc = FencedError("control", stale, current)
+            self._abort(str(exc), exc=exc)
+            return False
         if self._tracer is not None:
             self._maybe_clock_ping()
         requests, hit_events = self._classify(msgs)
@@ -1350,6 +1388,12 @@ class PyEngine(_EngineBase):
                 if decoded[1] and decoded[5] == self.epoch:
                     self._shutdown_flag.set()
                     return False
+            if want_shutdown:
+                # This rank is stopping itself: a hub that closed first is
+                # the end of a clean teardown, not a lost coordinator (an
+                # abort would dump the recorder and read as a dead hub).
+                self._shutdown_flag.set()
+                return False
             self._abort("lost connection to coordinator")
             return False
         return True
@@ -1434,9 +1478,25 @@ class PyEngine(_EngineBase):
             reqs, peer_shutdown, peer_hits, peer_epoch = \
                 wire.decode_request_list(payload)
             if peer_epoch != self.epoch:
+                # A zombie of another incarnation: its requests must not
+                # touch the message table.  Tell it why (TAG_FENCE), so
+                # that it raises FencedError and exits.
                 self.log.warning(
                     "rejecting request frame from rank %d at epoch %d "
                     "(ours: %d)", peer, peer_epoch, self.epoch)
+                _tmx.inc_counter("hvd_fenced_writes_total")
+                blackbox_mod.note("epoch.fence", time.monotonic_ns(),
+                                  rank=peer, stale_epoch=peer_epoch,
+                                  epoch=self.epoch)
+                fsock = self._ctrl_socks.get(peer)
+                if fsock is not None:
+                    try:
+                        with self._ctrl_send_lock:
+                            su.send_frame(
+                                fsock, su.TAG_FENCE,
+                                wire.encode_fence(peer_epoch, self.epoch))
+                    except (ConnectionError, OSError):
+                        pass
                 continue
             shutdown = shutdown or peer_shutdown
             for req in reqs:
@@ -1910,7 +1970,8 @@ class PyEngine(_EngineBase):
 
     def _retain_for_replay(self, resp: Response,
                            entries: List[TensorTableEntry]) -> None:
-        """Keep copies of an aborted allreduce's original inputs."""
+        """Keep copies of an aborted allreduce's original inputs, beside
+        those of the collectives failed after it."""
         if resp.response_type != ResponseType.ALLREDUCE:
             return
         batch = [
@@ -1919,7 +1980,8 @@ class PyEngine(_EngineBase):
              "postscale": resp.postscale_factor}
             for e in entries if e.handle >= 0]
         if batch:
-            retain_aborted_batch(batch)
+            self._retained += batch
+            retain_aborted_batch(list(self._retained))
 
     def _collective_abort(self, resp: Response,
                           entries: List[TensorTableEntry],
@@ -1950,6 +2012,7 @@ class PyEngine(_EngineBase):
             self._apply_abort_verdict(name, wedged, t0)
         self._retain_for_replay(resp, entries)
         err = CollectiveTimeoutError(wedged, name, self.collective_timeout)
+        self._collective_err = err
         return Status(StatusType.ABORTED, str(err), err)
 
     def _check_stalls(self) -> bool:
@@ -2257,6 +2320,8 @@ class PyEngine(_EngineBase):
                 bb_t0, self._blackbox_seq, resp.tensor_names[0], op_name,
                 sum(e.array.nbytes for e in entries), peer, tp)
         try:
+            if self._collective_err is not None:
+                raise self._collective_err
             if resp.response_type == ResponseType.ALLREDUCE:
                 results = cpu_backend.allreduce(self, entries, resp)
             elif resp.response_type == ResponseType.ALLGATHER:
@@ -2273,6 +2338,15 @@ class PyEngine(_EngineBase):
             else:
                 raise RuntimeError(f"bad response type {resp.response_type}")
             status = Status.ok()
+        except CollectiveTimeoutError as e:
+            # An earlier collective of this incarnation was aborted: its
+            # frames may still sit on the links, so nothing runs on them
+            # again.  Every survivor runs the same responses in the same
+            # order, so all fail the same ones with the same error, and an
+            # allreduce's inputs join the retained batch.
+            results = [None] * len(entries)
+            status = Status(StatusType.ABORTED, str(e), e)
+            self._retain_for_replay(resp, entries)
         except (cpu_backend.HopTimeout, wire.WireCorruptionError) as e:
             # A hop past its deadline, or a link the ladder gave up on:
             # with deadlines on, the gang-wide agreement; without, the
@@ -2329,8 +2403,14 @@ class PyEngine(_EngineBase):
     def cache_stats(self) -> Dict[str, int]:
         return self._cache.stats()
 
-    def _abort(self, reason: str) -> None:
+    def _abort(self, reason: str,
+               exc: Optional[BaseException] = None) -> None:
         self._aborted = True
+        # Read by the elastic wrapper: a worker's lost-coordinator abort is
+        # a failure of rank 0, which re-forms the gang.
         self._abort_reason = reason
+        # A typed abort keeps its class up to the training loop: the
+        # pending handles and the next submission raise this object.
+        self._abort_exc = exc
         blackbox_mod.dump("engine_abort", reason)
         self._shutdown_flag.set()

@@ -16,8 +16,8 @@ blocks on.
 Telemetry: the queue-depth, occupancy and staleness gauges, the request
 counters by status and the TTFT histogram, from which :meth:`stats` gives
 ``ttft_p50_ms``/``ttft_p99_ms`` with the registry on.  The decode step's
-histogram (``step_*``) is the serving loop's (``loop.py``), which waits
-for elastic (ROADMAP Queue 1, item 5.7).
+histogram (``step_*``) is the serving loop's (``loop.py``, ROADMAP
+Queue 1, item 4).
 """
 
 from __future__ import annotations

@@ -14,10 +14,10 @@ flusher but keeps the registry counting — an elastic re-form
 re-initializes the engine in the same process and the counters must
 span it.  ``reset`` (tests) drops everything.
 
-The elastic series (``hvd_elastic_epoch``, ``hvd_elastic_reforms_total``,
-``hvd_fenced_writes_total``, ``hvd_leader_failovers_total``) stay declared
-and wait for elastic (ROADMAP Queue 1, item 5.7): nothing in the port
-increments them yet.
+The elastic series: the engine sets ``hvd_elastic_epoch`` at each
+incarnation; ``elastic/run.py`` counts ``hvd_elastic_reforms_total`` and
+``hvd_leader_failovers_total``; the coordinator's control-frame fence and
+the rendezvous server's 409 count ``hvd_fenced_writes_total``.
 
 Enablement: ``HVD_METRICS`` truthy, or either ``HVD_METRICS_PORT`` /
 ``HVD_METRICS_FILE`` set.  When none are, the instrumentation hooks are

@@ -17,10 +17,10 @@ Design goals, in order:
    ``KNOWN_METRICS`` before use — an undeclared name raises when the
    registry is on.  The port declares exactly the JAX package's series
    (tests/test_torch_telemetry.py holds the two tables equal), which
-   docs/metrics.md documents.  Four of them belong to elastic (ROADMAP
-   Queue 1, item 5.7) and nothing in the port increments them yet:
-   ``hvd_elastic_epoch``, ``hvd_elastic_reforms_total``,
-   ``hvd_fenced_writes_total`` and ``hvd_leader_failovers_total``.
+   docs/metrics.md documents, the four elastic series
+   (``hvd_elastic_epoch``, ``hvd_elastic_reforms_total``,
+   ``hvd_fenced_writes_total``, ``hvd_leader_failovers_total``)
+   included.
 3. **One lock, fixed buckets.**  A single ``threading.Lock`` guards all
    series (contention is negligible next to the socket work the
    instrumented paths do).  Histograms use fixed log2 bucket bounds

@@ -80,11 +80,27 @@ NONFINITE_LIMIT = "HVD_NONFINITE_LIMIT"
 # The replica-divergence audit's pace, in steps; 0 = off
 # (integrity/audit.py).
 AUDIT_INTERVAL = "HVD_AUDIT_INTERVAL"
-# Verified checkpoints (utils/checkpoint.py): how many to keep, and the
-# elastic membership epoch written into each manifest (and stamped on the
-# KV client's elastic writes).
+# Verified checkpoints (utils/checkpoint.py): how many to keep.
 CKPT_KEEP = "HVD_CKPT_KEEP"
+# Elastic training (elastic/).  EPOCH is the gang's membership incarnation
+# (stamped on every wire list frame, written into each checkpoint manifest
+# and on the KV client's elastic writes); MIN_NP/MAX_NP bound the re-formed
+# world; JOINER marks a late worker that waits for an epoch assignment
+# instead of bootstrapping at rank 0; UID is a stable worker identity
+# across incarnations; the two intervals pace the commit-time membership
+# check and the discovery driver's poll.  HOST_DISCOVERY_SCRIPT prints one
+# ``hostname[:slots]`` a line.  QUORUM gates a re-form on a strict majority
+# of the last-committed roster (default on): a partition's minority stops
+# with PARTITION_MINORITY instead of re-forming a split-brain sibling gang.
 ELASTIC_EPOCH = "HVD_ELASTIC_EPOCH"
+ELASTIC_MIN_NP = "HVD_ELASTIC_MIN_NP"
+ELASTIC_MAX_NP = "HVD_ELASTIC_MAX_NP"
+ELASTIC_JOINER = "HVD_ELASTIC_JOINER"
+ELASTIC_UID = "HVD_ELASTIC_UID"
+ELASTIC_CHECK_INTERVAL_S = "HVD_ELASTIC_CHECK_INTERVAL_S"
+ELASTIC_DISCOVERY_INTERVAL_S = "HVD_ELASTIC_DISCOVERY_INTERVAL_S"
+HOST_DISCOVERY_SCRIPT = "HVD_HOST_DISCOVERY_SCRIPT"
+QUORUM = "HVD_QUORUM"
 # The rendezvous KV client's retry policy (runner/http_client.py), and its
 # ordered endpoint list "host:port,host:port" (primary first; unset = the
 # single HVD_RENDEZVOUS_ADDR/PORT).
@@ -269,6 +285,11 @@ def ctrl_fanout() -> int:
 def ctrl_tree_on() -> bool:
     """The control tree's switch (default on)."""
     return get_bool(CTRL_TREE, True)
+
+
+def quorum_on() -> bool:
+    """The elastic re-form's majority gate (default on)."""
+    return get_bool(QUORUM, True)
 
 
 def send_wait_cap_s() -> float:

@@ -7,20 +7,26 @@ op, and instants on the process lane (the recovery ladder's
 ``HOP_RETRY``/``TRANSPORT_FAILOVER``, the engine's ``COLLECTIVE_ABORT``
 and ``SUBCOORD_REPARENT``, the telemetry's ``STRAGGLER`` and ``ALERT``, the
 integrity modules'
-``NONFINITE_SKIP``/``DIVERGENCE_DETECTED``/``CKPT_VERIFY_FAIL``).  Enabled by
-``HVD_TIMELINE=<path>``; ``HVD_TIMELINE_MARK_CYCLES=1`` adds a
+``NONFINITE_SKIP``/``DIVERGENCE_DETECTED``/``CKPT_VERIFY_FAIL``, and
+elastic's ``ELASTIC_EPOCH_<n>``, ``ELASTIC_RESET``, ``ELASTIC_REFORM``,
+``ELASTIC_REPLAY``, ``LEADER_FAILOVER`` and ``PARTITION_MINORITY``).
+Enabled by ``HVD_TIMELINE=<path>``; ``HVD_TIMELINE_MARK_CYCLES=1`` adds a
 ``CYCLE_START`` instant per background cycle.  The hot path only enqueues;
 a writer thread formats and flushes, and a clean shutdown closes the array
 with a ``{}]`` footer, so that the file is valid JSON.  The events are the
 JAX package's, field for field.
 
-Left out until elastic is ported (ROADMAP Queue 1, item 5.7): re-attaching
-one file across an elastic engine's incarnations (``from_env``'s
-``HVD_ELASTIC_EPOCH`` branch, the persistent mode and ``elastic_event``).
+Under elastic (``HVD_ELASTIC_EPOCH`` set) the timeline is persistent: it
+is opened for appending, an engine's shutdown leaves it open, and the next
+incarnation's engine in the same process re-attaches to it, so that one
+file spans the incarnations on one time axis, and a rank promoted to rank
+0 by a re-form appends to the file its predecessor wrote.  The process's
+exit closes it (:func:`close_live`).
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import queue
 import threading
@@ -63,6 +69,9 @@ TRANSPORT_FAILOVER = "TRANSPORT_FAILOVER"
 # parent).
 COLLECTIVE_ABORT = "COLLECTIVE_ABORT"
 SUBCOORD_REPARENT = "SUBCOORD_REPARENT"
+# This side of a membership split holds no strict majority of the
+# last-committed roster, so it stops instead of re-forming (elastic/).
+PARTITION_MINORITY = "PARTITION_MINORITY"
 
 # The telemetry records (telemetry/): one rank was consistently last to
 # negotiate (args: the rank, its skew in ms, the tensor), and the gang
@@ -81,6 +90,11 @@ _FLUSH_EVERY = 64
 MONO_ANCHOR_NS = time.monotonic_ns()
 WALL_ANCHOR_NS = time.time_ns()
 
+# Live persistent timelines by path, re-attached across elastic
+# incarnations in one process.
+_live: dict = {}
+_live_lock = threading.Lock()
+
 
 class Timeline:
     """A process's timeline; a no-op unless :meth:`initialize` is called
@@ -93,15 +107,21 @@ class Timeline:
         self._start_ns = 0
         self._tensor_tids = {}
         self._mark_cycles = False
+        self._persistent = False  # outlives its engine (elastic)
 
     @property
     def enabled(self) -> bool:
         return self._q is not None
 
-    def initialize(self, filename: str, mark_cycles: bool = False) -> None:
+    def initialize(self, filename: str, mark_cycles: bool = False,
+                   persistent: bool = False) -> None:
         if self.enabled or not filename:
             return
-        self._f = open(filename, "w")
+        self._persistent = persistent
+        # A persistent timeline appends: after a re-form the new rank 0 may
+        # be a process that never wrote the file, and "w" would erase the
+        # history before the re-form.
+        self._f = open(filename, "a" if persistent else "w")
         self._f.write("[\n")
         self._start_ns = MONO_ANCHOR_NS
         self._mark_cycles = mark_cycles
@@ -113,8 +133,13 @@ class Timeline:
                      wall_ns=WALL_ANCHOR_NS)
 
     def shutdown(self) -> None:
-        if not self.enabled:
+        if not self.enabled or self._persistent:
+            # An elastic engine's shutdown is not the end: the next
+            # incarnation re-attaches (events are flushed as they drain).
             return
+        self._close()
+
+    def _close(self) -> None:
         self._q.put(None)
         self._writer.join(timeout=5)
         try:
@@ -180,6 +205,9 @@ class Timeline:
         no tensor."""
         self._emit("i", name, "", args=args or None)
 
+    # The JAX package's name for elastic's records; the same event.
+    elastic_event = instant
+
     # -- writer thread ---------------------------------------------------
 
     def _drain(self) -> None:
@@ -219,10 +247,33 @@ def engine_event(name: str, **args) -> None:
 
 
 def from_env(rank: int) -> Timeline:
-    """The timeline ``HVD_TIMELINE`` asks for: written on rank 0 only."""
-    t = Timeline()
+    """The timeline ``HVD_TIMELINE`` asks for: written on rank 0 only;
+    under elastic, the process's live one for that path."""
     path = env_util.get_str(env_util.TIMELINE, "")
+    mark = env_util.get_str(env_util.TIMELINE_MARK_CYCLES, "0") in (
+        "1", "true")
+    if path and rank == 0 and env_util.get_str(env_util.ELASTIC_EPOCH, ""):
+        with _live_lock:
+            t = _live.get(path)
+            if t is None or not t.enabled:
+                t = Timeline()
+                t.initialize(path, mark_cycles=mark, persistent=True)
+                _live[path] = t
+        return t
+    t = Timeline()
     if path and rank == 0:
-        t.initialize(path, mark_cycles=env_util.get_str(
-            env_util.TIMELINE_MARK_CYCLES, "0") in ("1", "true"))
+        t.initialize(path, mark_cycles=mark)
     return t
+
+
+def close_live() -> None:
+    """Close every live persistent timeline with its footer (at the
+    process's exit), so that each file is valid JSON."""
+    with _live_lock:
+        live = [t for t in _live.values() if t.enabled]
+        _live.clear()
+    for t in live:
+        t._close()
+
+
+atexit.register(close_live)

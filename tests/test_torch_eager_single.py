@@ -119,7 +119,7 @@ def test_other_collectives_match_jax(both):
     assert port.barrier() is None and jax.barrier() is None
 
 
-def test_handles_poll_and_auto_names(both):
+def test_handles_poll_and_auto_names(both, monkeypatch):
     port, jax = both
     from horovod_tpu.ops import eager as jeager
 
@@ -130,7 +130,10 @@ def test_handles_poll_and_auto_names(both):
     assert _canon(port.synchronize(hp)) == _canon(jax.synchronize(hj))
     with pytest.raises(ValueError, match="unknown handle"):
         port.poll(hp)
-    # The same sequence of unnamed calls gives the same names.
+    # The same sequence of unnamed calls gives the same names, from the
+    # same counts: the counters are per process, and a JAX test file run
+    # earlier in this process may have advanced the JAX package's alone.
+    monkeypatch.setattr(peager, "_op_counters", dict(jeager._op_counters))
     for kind in ("allreduce", "allgather", "broadcast_object"):
         assert peager._auto_name(kind, None) == \
             jeager._auto_name(kind, None)

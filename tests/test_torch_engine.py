@@ -28,11 +28,13 @@ rank, after which the engine works; response-cache hits on repeated steps;
 join.  Each case is its own test over the module's gangs.
 
 Every knob that turns on a feature the port leaves out raises
-``NotImplementedError`` at ``init()``; those tests start no gang.  The
-knobs of the features ported since (the timeline, the hierarchical data
-plane, the ladder, the fault plan, liveness, deadlines, the control tree,
-the autotuner, telemetry and the trace) turn their feature on instead:
-rank 1 through ``hvd.init()`` and rank 0 a ``PyEngine`` on a thread.
+``NotImplementedError`` at ``init()``; those tests start no gang (none is
+left out now).  The knobs of the features ported since (the timeline, the
+hierarchical data plane, the ladder, the fault plan, liveness, deadlines,
+the control tree, the autotuner, telemetry, the trace and the elastic
+epoch) turn their feature on instead: rank 1 through ``hvd.init()`` and
+rank 0 a ``PyEngine`` on a thread.  A clean two-rank teardown of that
+kind writes no flight-recorder dump.
 """
 
 import importlib
@@ -231,7 +233,7 @@ PORTED_KNOBS = ("HVD_TIMELINE", "HVD_HIERARCHICAL_ALLREDUCE",
                 "HOROVOD_HEARTBEAT_TIMEOUT", "HVD_COLLECTIVE_TIMEOUT",
                 "HVD_CTRL_TREE", "HVD_CTRL_FANOUT", "HVD_AUTOTUNE",
                 "HVD_METRICS", "HVD_METRICS_PORT", "HVD_METRICS_FILE",
-                "HVD_STRAGGLER_WARN_MS", "HVD_TRACE")
+                "HVD_STRAGGLER_WARN_MS", "HVD_TRACE", "HVD_ELASTIC_EPOCH")
 
 
 def _free_port() -> int:
@@ -260,6 +262,17 @@ def _ported_knob_is_on(monkeypatch, tmp_path, knob, value):
         monkeypatch.setenv("HVD_TRACE_DIR", str(tmp_path))
     telemetry.reset()
     monkeypatch.setenv(knob, value)
+    epochs = []
+    if knob == "HVD_ELASTIC_EPOCH":
+        # Every list frame either rank encodes, by its epoch.
+        from horovod_tpu_torch.common import wire
+
+        for fn in ("encode_request_list", "encode_response_list"):
+            def spy(*a, _fn=getattr(wire, fn), **kw):
+                epochs.append(kw.get("epoch", 0))
+                return _fn(*a, **kw)
+
+            monkeypatch.setattr(wire, fn, spy)
     if knob == "HOROVOD_FAULT_PLAN":
         importlib.reload(fi)  # the plan is read at import
     server = RendezvousServer("127.0.0.1")
@@ -323,6 +336,10 @@ def _ported_knob_is_on(monkeypatch, tmp_path, knob, value):
             assert not tmx.enabled() and eng0._straggler is None
         elif knob == "HVD_TRACE":
             assert eng0._tracer is not None and eng1._tracer is not None
+        elif knob == "HVD_ELASTIC_EPOCH":
+            # A gang at epoch 1 negotiates, every frame at epoch 1.
+            assert eng0.epoch == eng1.epoch == int(value)
+            assert epochs and set(epochs) == {int(value)}, epochs
         else:
             assert fi.active()
     finally:
@@ -380,6 +397,8 @@ def test_left_out_knob_raises_at_init(monkeypatch, tmp_path, knob, value):
     for k in list(os.environ):
         if k.startswith("HVD_"):
             monkeypatch.delenv(k)
+    # A recorder dump lands in the test's directory, not the checkout.
+    monkeypatch.setenv("HVD_BLACKBOX_DIR", str(tmp_path / "blackbox"))
     monkeypatch.delenv("HOROVOD_FAULT_PLAN", raising=False)
     monkeypatch.setenv("HVD_RANK", "1")
     monkeypatch.setenv("HVD_SIZE", "2")
@@ -394,3 +413,55 @@ def test_left_out_knob_raises_at_init(monkeypatch, tmp_path, knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         hvd.init(device="cpu", backend="none")
     assert not hvd.is_initialized()
+
+
+@pytest.mark.timeout(120)
+def test_clean_two_rank_teardown_writes_no_dump(monkeypatch, tmp_path):
+    """Two engines in this process (rank 0 on a thread) run an allreduce
+    and shut down at once, as ``_ported_knob_is_on`` does, ten times: no
+    engine aborts and the flight recorder dumps nothing.  A clean teardown
+    that read as a lost coordinator would make the elastic wrapper see a
+    dead hub."""
+    from horovod_tpu_torch.telemetry import blackbox
+
+    for k in list(os.environ):
+        if k.startswith("HVD_"):
+            monkeypatch.delenv(k)
+    dump_dir = tmp_path / "blackbox"
+    monkeypatch.setenv("HVD_BLACKBOX_DIR", str(dump_dir))
+    hvd.shutdown()
+    x = np.arange(4, dtype=np.float32)
+    try:
+        for i in range(10):
+            server = RendezvousServer("127.0.0.1")
+            port = server.start()
+            engs = {}
+
+            def start(r):
+                engs[r] = runtime_py.PyEngine(r, 2, r, 2, 0, 1,
+                                              "127.0.0.1", port)
+
+            threads = [threading.Thread(target=start, args=(r,))
+                       for r in (0, 1)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60)
+            try:
+                hs = [engs[r].allreduce_async(f"td.{i}", x, op=hvd.Sum)
+                      for r in (0, 1)]
+                for r, h in zip((0, 1), hs):
+                    np.testing.assert_array_equal(engs[r].synchronize(h),
+                                                  2 * x)
+            finally:
+                stop = threading.Thread(target=engs[0].shutdown)
+                stop.start()
+                engs[1].shutdown()
+                stop.join(30)
+                server.stop()
+            for r in (0, 1):
+                assert not engs[r]._aborted, (i, r, engs[r]._abort_reason)
+    finally:
+        blackbox.reset()
+    assert not dump_dir.exists() or not os.listdir(dump_dir), \
+        os.listdir(dump_dir)

@@ -12,8 +12,8 @@ every field (``match``, ``times``, ``after``, ``prob`` under the plan's
 and every site literal the port's code fires is in its ``known_sites()``.
 The telemetry's sites fire where the JAX package's do
 (``metrics.server.request``, ``agg.scrape``, ``trace.emit``,
-``blackbox.dump``), and at ``init()`` only ``HVD_ELASTIC_EPOCH`` of the
-left-out knobs still raises.
+``blackbox.dump``), and at ``init()`` no knob is left out any more (the
+elastic epoch was the last).
 """
 
 import json
@@ -175,14 +175,14 @@ def test_no_plan_fire_does_nothing(monkeypatch, _clean):
     assert _clean["port"] == []
 
 
-def _fired_literals():
-    """(file, site) for every site literal the port passes to ``fire`` or
-    ``should_corrupt`` (the KV client passes its sites through
+def _fired_literals(package="horovod_tpu_torch"):
+    """(file, site) for every site literal ``package`` passes to ``fire``
+    or ``should_corrupt`` (the KV client passes its sites through
     ``_with_retry``)."""
     pat = re.compile(r"""(?:\bfire\(|should_corrupt\(|_with_retry\(\w+,)"""
                      r"""\s*["']([a-z_.]+)["']""")
     found = []
-    root = os.path.join(REPO, "horovod_tpu_torch")
+    root = os.path.join(REPO, package)
     for dirpath, _dirs, files in os.walk(root):
         for name in files:
             if name.endswith(".py"):
@@ -199,9 +199,12 @@ def test_every_fired_site_is_known():
     unknown = [(f, s) for f, s in found if s not in known]
     assert not unknown, unknown
     # Every known site but the user-level one is fired somewhere, and is
-    # one of the JAX package's sites.
+    # one of the JAX package's sites: in its registry, or fired by it
+    # (its KV client fires ``kv.list``, which its registry does not list).
     assert {s for _, s in found} == set(known) - {"train.step"}
-    assert set(known) <= set(jfi.known_sites())
+    jax_sites = set(jfi.known_sites()) | {
+        s for _, s in _fired_literals("horovod_tpu")}
+    assert set(known) <= jax_sites
 
 
 def test_telemetry_sites_fire(tmp_path):
@@ -242,18 +245,18 @@ def test_telemetry_sites_fire(tmp_path):
 
 
 def test_only_the_elastic_knob_is_left_out(monkeypatch):
+    """The elastic knob was the last one left out: since elastic is
+    ported, none is, and no knob raises."""
     from horovod_tpu_torch import runtime_py
 
-    assert [k for k, _, _ in runtime_py._LEFT_OUT] == ["HVD_ELASTIC_EPOCH"]
+    assert list(runtime_py._LEFT_OUT) == []
     for k in ("HVD_AUTOTUNE", "HVD_METRICS", "HVD_TRACE",
               "HVD_STRAGGLER_WARN_MS", "HVD_METRICS_PORT",
               "HVD_METRICS_FILE", "HVD_ELASTIC_EPOCH"):
         monkeypatch.delenv(k, raising=False)
     for k, v in (("HVD_AUTOTUNE", "1"), ("HVD_METRICS", "1"),
                  ("HVD_METRICS_PORT", "0"), ("HVD_METRICS_FILE", "/x"),
-                 ("HVD_STRAGGLER_WARN_MS", "50"), ("HVD_TRACE", "1")):
+                 ("HVD_STRAGGLER_WARN_MS", "50"), ("HVD_TRACE", "1"),
+                 ("HVD_ELASTIC_EPOCH", "1")):
         monkeypatch.setenv(k, v)
-    runtime_py.check_left_out_knobs()  # these knobs no longer raise
-    monkeypatch.setenv("HVD_ELASTIC_EPOCH", "1")
-    with pytest.raises(NotImplementedError, match="HVD_ELASTIC_EPOCH"):
-        runtime_py.check_left_out_knobs()
+    runtime_py.check_left_out_knobs()  # none of these raises

@@ -12,6 +12,7 @@ package's.
 * The process-set ids (a hash of the member ranks) are the JAX package's.
 * The trace's clock ping and pong and the flight recorder's pull request
   and dump (tags 14-17) are byte for byte the JAX package's, both ways.
+* So is the epoch fence (tag 21).
 """
 
 import numpy as np
@@ -218,3 +219,13 @@ def test_clock_and_blackbox_codecs_are_byte_identical(seed):
         assert getattr(pw, dec)(frame) == getattr(jw, dec)(frame) == want
     assert (pw.encode_clock_ping(5) == jw.encode_clock_ping(5)
             and pw.decode_clock_ping(pw.encode_clock_ping(5)) == (5, 0))
+
+
+@pytest.mark.parametrize("stale,current", [
+    (0, 1), (1, 3), (7, 2), (0, 0), (2 ** 32 - 1, 5)])
+def test_fence_codec_is_byte_identical(stale, current):
+    blob = pw.encode_fence(stale, current)
+    assert blob == jw.encode_fence(stale, current)
+    assert pw.decode_fence(jw.encode_fence(stale, current)) == \
+        (stale, current)
+    assert jw.decode_fence(blob) == (stale, current)

@@ -28,6 +28,14 @@ submission) and ``RETAINED <n> <ok>`` (whether the retained batch holds
 their own step-1 inputs bit for bit), then exit 0 at once (the links may
 hold the aborted collective's frames).  The victim of a stall never exits
 by itself: the caller kills it.
+
+``fence_stale_epoch`` is ``tests/chaos_worker.py``'s: the caller starts the
+ranks at different ``HVD_ELASTIC_EPOCH`` values; the stale rank's first
+request frame draws ``TAG_FENCE`` and its allreduce raises the typed
+``FencedError`` (``FENCED rank=<r> stale=<e> current=<e>``), while the
+coordinator prints ``SURVIVED rank=0 sum=<v> fences=<n>`` or
+``RANKS_FAILED <json> fences=<n>`` (its recorder's ``epoch.fence``
+notes).
 """
 
 import json
@@ -49,8 +57,9 @@ if PKG == "jax":
     import horovod_tpu as hvd
     from horovod_tpu import basics
     from horovod_tpu.common import fault_injection as fi
-    from horovod_tpu.common.types import CollectiveTimeoutError
+    from horovod_tpu.common.types import CollectiveTimeoutError, FencedError
     from horovod_tpu.ops import eager
+    from horovod_tpu.telemetry import blackbox as bb
     from horovod_tpu.runtime_py import take_retained_batch
 
     def engine():
@@ -66,8 +75,10 @@ else:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import basics
     from horovod_tpu_torch.common import fault_injection as fi
-    from horovod_tpu_torch.common.types import CollectiveTimeoutError
+    from horovod_tpu_torch.common.types import (CollectiveTimeoutError,
+                                                FencedError)
     from horovod_tpu_torch.runtime_py import take_retained_batch
+    from horovod_tpu_torch.telemetry import blackbox as bb
 
     torch.set_num_threads(1)
 
@@ -160,7 +171,35 @@ def scenario_stall_steps():
     os._exit(3)
 
 
+def scenario_fence_stale_epoch():
+    def fences():
+        snap = bb.get().snapshot() if bb.active() else {}
+        return sum(1 for ev in snap.get("events", [])
+                   if ev.get("kind") == "epoch.fence")
+
+    rank = hvd.rank()
+    try:
+        out = hvd.allreduce(np.ones(4, np.float32), op=hvd.Sum,
+                            name="fence.step")
+        # Only the coordinator gets here: it fenced the stale frame,
+        # evicted the zombie on heartbeat silence and completed the step
+        # alone.  No epoch.fence note means the fence never fired (3).
+        n = fences()
+        print(f"SURVIVED rank={rank} sum={float(np.asarray(out)[0])} "
+              f"fences={n}", flush=True)
+        os._exit(0 if n else 3)
+    except FencedError as e:
+        print(f"FENCED rank={rank} stale={e.stale_epoch} "
+              f"current={e.current_epoch}", flush=True)
+        os._exit(0)
+    except hvd.RanksFailedError as e:
+        print(f"RANKS_FAILED {json.dumps(e.ranks)} fences={fences()}",
+              flush=True)
+        os._exit(0)
+
+
 SCENARIOS = {
+    "fence_stale_epoch": scenario_fence_stale_epoch,
     "train_steps": scenario_train_steps,
     "tree_subcoord_steps": scenario_tree_subcoord_steps,
     "stall_steps": scenario_stall_steps,
