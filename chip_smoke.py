@@ -203,7 +203,24 @@ non-zero):
    one-process gradient at the ranks' parameters.  Prints, beside the
    card, each survivor's time from the failure to the first step of the
    new epoch (detection, re-form, ``state.sync()`` with its bytes and
-   GB/s, replay, the first step) and the step medians before and after.
+   GB/s, replay, the first step) and the step medians before and after;
+11. the serving gang (``--serve-gang-rank``, see SG_RANKS; right after the
+   serve phase): ``python -m horovod_tpu_torch.runner.run -np 3 --min-np 2
+   --kv-standbys 1 --serve-max-batch 8`` starts three ranks of this
+   script, each a ``ServingLoop`` over the flagship (seed 0, bf16, 8
+   slots, cache 1024) on cuda:0 with no process group.  A: the serve
+   phase's 16 requests at once, half through the followers' doors (which
+   forward), every reply 200 with ``attempts == 1``.  B: eight of them
+   under ids, rank 0 SIGKILLed once rank 1's slot table is full, the
+   clients re-POSTing to rank 1's door: every reply 200 with ``attempts >
+   1``, ``LEADER_FAILOVER`` naming rank 0 on rank 1's timeline, the
+   survivors DONE and the launcher's exit 0 (two workers finished).  Every
+   token of A and B equals ``DecodeEngine``'s alone on its prompt, bit for
+   bit.  Prints, beside the card, TTFT, the lockstep step (the leader's
+   ``hvd_serve_token_latency_seconds``) against the one-process decode
+   step, the confirm allreduce a step, the failover by part (detection,
+   re-form, the engine rebuilt, replay to the first token) and each
+   rank's peak memory.  Serving runs no flash kernel.
 
 The ``kernels`` JSON lists the flagship's three kernels, the same three
 with their launches in the MoE flagship's run (``flash_<kernel>_moe``: its
@@ -1769,6 +1786,403 @@ def run_serve(tfm, dev, card):
           f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held "
           f"before; oracles {oracle_s:.1f} s; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
+    return step_ms
+
+
+# The serving gang (phase 11): SG_RANKS ranks of this script
+# (``--serve-gang-rank``) started by the port's launcher, every rank a
+# ``ServingLoop`` over the flagship (SERVE_SLOTS slots, cache SERVE_CACHE)
+# on the one card with no process group (NCCL refuses two ranks on one
+# card).  A: the serve phase's SERVE_CLIENTS requests posted at once, the
+# even ones to rank 0's door and the odd ones to the followers', which
+# forward.  B: SG_B_REQUESTS of the same prompts under ids, rank 0
+# SIGKILLed once every slot is live in the followers' slot tables, the
+# clients re-POSTing to rank 1's door.  SG_START_S bounds the launch up to
+# every door open; SG_TIMEOUT_S the whole gang, launch to exit.
+SG_RANKS, SG_MIN_NP, SG_B_REQUESTS = 3, 2, 8
+SG_START_S, SG_TIMEOUT_S = 180, 420
+SG_KNOBS = {"HVD_COLLECTIVE_PROBE_TIMEOUT": "0.5",
+            "HVD_KV_RETRY_BASE_S": "0.02"}
+
+
+def _sg_write(path, text):
+    with open(path + ".tmp", "w") as fh:
+        fh.write(text)
+    os.replace(path + ".tmp", path)
+
+
+def _sg_wait(path, launcher, deadline, what):
+    """Wait for ``path`` while the launcher runs; its text."""
+    while time.monotonic() < deadline:
+        if os.path.exists(path):
+            with open(path) as fh:
+                return fh.read()
+        if launcher.poll() is not None:
+            raise AssertionError(f"serve gang: the launcher exited "
+                                 f"({launcher.returncode}) before {what}")
+        time.sleep(0.01)
+    raise AssertionError(f"serve gang: no {what} within the time limit")
+
+
+def _sg_client(ports, body, out, i, deadline):
+    """POST ``body`` to ``ports[0]``; after a refused, broken or non-200
+    answer re-POST it to ``ports[-1]`` until a 200 or ``deadline``;
+    ``out[i]`` = (status or None, the reply or the error)."""
+    import http.client
+
+    port = ports[0]
+    while time.monotonic() < deadline:
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            c.request("POST", "/generate", json.dumps(body))
+            r = c.getresponse()
+            out[i] = (r.status, json.loads(r.read() or b"{}"))
+            if r.status == 200:
+                return
+        except (OSError, http.client.HTTPException, ValueError) as e:
+            out[i] = (None, repr(e))
+        finally:
+            c.close()
+        port = ports[-1]
+        time.sleep(0.1)
+
+
+def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
+                   timeout=SG_TIMEOUT_S):
+    """The serving gang (see SG_RANKS): ``python -m
+    horovod_tpu_torch.runner.run -np 3 --min-np 2 --kv-standbys 1
+    --serve-max-batch 8`` over ranks of this script.  Checks: every reply
+    of A is 200 with ``attempts == 1``; every request of B completes at
+    rank 1's door with ``attempts > 1``; the tokens of both are, bit for
+    bit, ``DecodeEngine``'s alone on each prompt (computed here after the
+    gang); rank 1's timeline has ``LEADER_FAILOVER`` naming rank 0; the
+    survivors print DONE and the launcher exits 0.  Prints TTFT, the
+    lockstep step against the one-process decode step, the confirm
+    allreduce, the failover by part and each rank's peak memory."""
+    import signal
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.serving import DecodeEngine
+
+    t_phase = time.perf_counter()
+    cfg = cfg or _flagship_cfg(tfm)
+    cache = min(SERVE_CACHE, cfg.max_seq_len)
+    rs = np.random.RandomState(SERVE_SEED)
+    reqs = []
+    for _ in range(SERVE_CLIENTS):
+        # The serve phase's draws at the flagship's cache (a narrower
+        # rehearsal config shrinks them to fit).
+        n = int(rs.randint(32, min(513, cache // 2 + 1)))
+        new = int(rs.randint(min(64, cache // 4), min(257, cache // 2 + 1)))
+        reqs.append((rs.randint(0, cfg.vocab_size, n).tolist(), new))
+    assert all(len(pr) + m <= cache for pr, m in reqs)
+    tmp = tempfile.mkdtemp(prefix="hvd-serve-gang-")
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["compute_dtype"] = str(cfg.compute_dtype).split(".")[1]
+    with open(os.path.join(tmp, "config.json"), "w") as fh:
+        json.dump({"cfg": fields, "device": str(dev), "cache": cache}, fh)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HVD_", "MASTER_", "HOROVOD_"))}
+    env.update(SG_KNOBS, HVD_BLACKBOX_DIR=os.path.join(tmp, "blackbox"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.run",
+           "-np", str(SG_RANKS), "--min-np", str(SG_MIN_NP),
+           "--kv-standbys", "1", "--serve-max-batch", str(SERVE_SLOTS),
+           "--collective-timeout", "5", "--no-shm", "--",
+           sys.executable, os.path.abspath(__file__), "--serve-gang-rank",
+           tmp]
+    print(f"serve gang: {' '.join(cmd[1:])}")
+    p = os.path.join
+    launcher, log_out, log_err = None, None, None
+    a_out, b_out = [None] * len(reqs), [None] * SG_B_REQUESTS
+    t0 = time.monotonic()
+    try:
+        log_out = open(p(tmp, "launcher.out"), "w")
+        log_err = open(p(tmp, "launcher.err"), "w")
+        launcher = subprocess.Popen(cmd, env=env, cwd=tmp, stdout=log_out,
+                                    stderr=log_err)
+        deadline = t0 + timeout
+        start_by = min(deadline, t0 + SG_START_S)
+        ports = [int(_sg_wait(p(tmp, f"port{r}"), launcher, start_by,
+                              f"rank {r}'s door")) for r in range(SG_RANKS)]
+        _sg_wait(p(tmp, "leader0"), launcher, start_by,
+                 "the leader's address in the KV store")
+        t_up = time.monotonic() - t0
+
+        # A: every request at once, half through the followers' doors.
+        clients = [threading.Thread(target=_post, args=(
+            ports[0] if i % 2 == 0 else ports[1 + (i // 2) % 2],
+            {"prompt": pr, "max_new_tokens": m}, a_out, i), daemon=True)
+            for i, (pr, m) in enumerate(reqs)]
+        ta = time.monotonic()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=max(1.0, deadline - time.monotonic()))
+        a_s = time.monotonic() - ta
+        _sg_write(p(tmp, "dumpA"), "1")
+        for r in range(SG_RANKS):
+            _sg_wait(p(tmp, f"A{r}.json"), launcher, deadline,
+                     f"rank {r}'s report of A")
+
+        # B: every slot live in the followers' tables, then rank 0 killed.
+        b_reqs = [(f"B{i}", reqs[i][0], reqs[i][1])
+                  for i in range(SG_B_REQUESTS)]
+        clients = [threading.Thread(target=_sg_client, args=(
+            [ports[0], ports[1]], {"id": rid, "prompt": pr,
+                                   "max_new_tokens": m}, b_out, i,
+            deadline), daemon=True) for i, (rid, pr, m) in enumerate(b_reqs)]
+        for c in clients:
+            c.start()
+        _sg_wait(p(tmp, "shadow_full1"), launcher, deadline,
+                 "every slot live in rank 1's slot table")
+        pid0 = int(_sg_wait(p(tmp, "pid0"), launcher, deadline, "pid0"))
+        t_kill = time.time()
+        os.kill(pid0, signal.SIGKILL)
+        _sg_write(p(tmp, "kill_at"), repr(t_kill))
+        for c in clients:
+            c.join(timeout=max(1.0, deadline - time.monotonic()))
+        _sg_write(p(tmp, "stop"), "1")
+        try:
+            launcher.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        wall = time.monotonic() - t0
+    finally:
+        for r in range(SG_RANKS):
+            try:
+                with open(p(tmp, f"pid{r}")) as fh:
+                    os.kill(int(fh.read()), signal.SIGKILL)
+            except (OSError, ValueError):
+                pass
+        if launcher is not None and launcher.poll() is None:
+            launcher.kill()
+            launcher.wait()
+        for fh in (log_out, log_err):
+            if fh is not None:
+                fh.close()
+    reports = {}
+    for name in [f"A{r}" for r in range(SG_RANKS)] + ["final1", "final2"]:
+        if os.path.exists(p(tmp, f"{name}.json")):
+            with open(p(tmp, f"{name}.json")) as fh:
+                reports[name] = json.load(fh)
+    with open(p(tmp, "launcher.out")) as fh:
+        out = fh.read()
+    with open(p(tmp, "launcher.err")) as fh:
+        err = fh.read()
+    timeline = ""
+    if os.path.exists(p(tmp, "timeline1.json")):
+        with open(p(tmp, "timeline1.json")) as fh:
+            timeline = fh.read()
+    shutil.rmtree(tmp, ignore_errors=True)
+    for line in (out + err).splitlines():
+        print(f"serve gang: {line}")
+
+    bad = []
+    if launcher.returncode != 0:
+        bad.append(f"the launcher exited {launcher.returncode}")
+    for r in (1, 2):
+        if f"[{r}]<stdout>: DONE" not in out:
+            bad.append(f"survivor rank {r} did not finish")
+    for i, r in enumerate(a_out):
+        if r is None or r[0] != 200 or r[1].get("attempts") != 1 or \
+                len(r[1].get("tokens", ())) != reqs[i][1]:
+            bad.append(f"A request {i}: reply {str(r)[:160]}")
+    for i, r in enumerate(b_out):
+        if r is None or r[0] != 200 or not r[1].get("attempts", 0) > 1:
+            bad.append(f"B request {i}: reply {str(r)[:160]}")
+    recs = [json.loads(ln.rstrip().rstrip(","))
+            for ln in timeline.splitlines() if "LEADER_FAILOVER" in ln]
+    if not any(0 in ((rec.get("args") or {}).get("failed") or [])
+               for rec in recs):
+        bad.append("rank 1's timeline has no LEADER_FAILOVER naming rank 0")
+    _fail_if(bad, "serve gang")
+
+    # The tokens against DecodeEngine alone on each prompt.
+    t_or = time.perf_counter()
+    model = tfm.init(0, cfg, device=dev)
+    engine = DecodeEngine(model, cfg, max_batch=SERVE_SLOTS,
+                          cache_len=cache, device=dev)
+    alone = [_engine_alone(engine, pr, m)[0] for pr, m in reqs]
+    del engine, model
+    for i, r in enumerate(a_out):
+        if r[1]["tokens"] != alone[i]:
+            bad.append(f"A request {i}: tokens differ from DecodeEngine's "
+                       f"alone")
+    for i, r in enumerate(b_out):
+        if r[1]["tokens"] != alone[i]:
+            bad.append(f"B request {i}: tokens differ from DecodeEngine's "
+                       f"alone")
+    oracle_s = time.perf_counter() - t_or
+    _fail_if(bad, "serve gang")
+
+    lead = reports["A0"]
+    ttft = sorted(r[1]["ttft_ms"] for r in a_out)
+    tokens = sum(m for _, m in reqs)
+    lat = [1e3 * v for v in lead["latency_s"]]
+    conf_ms = lead["confirm_ms"]
+    print(f"serve gang: {SG_RANKS} ranks launched, every door open and the "
+          f"leader published in {t_up:.2f} s; A: {len(reqs)} requests, "
+          f"{tokens} tokens in {a_s:.2f} s ({tokens / a_s:.1f} tokens/s), "
+          f"TTFT p50 {np.percentile(ttft, 50):.2f} ms, p99 "
+          f"{np.percentile(ttft, 99):.2f} ms (host clock); {card}")
+    print(f"serve gang: lockstep step (the leader's "
+          f"hvd_serve_token_latency_seconds, {len(lat)} steps, prefills "
+          f"included): median {statistics.median(lat):.3f} ms, p99 "
+          f"{np.percentile(lat, 99):.3f} ms; the one-process decode step at "
+          f"{SERVE_SLOTS} live slots "
+          + (f"{step_alone_ms:.3f} ms" if step_alone_ms else "not measured")
+          + f"; the confirm allreduce (__serve.confirm, {len(conf_ms)} "
+          f"steps): median {statistics.median(conf_ms):.3f} ms, p99 "
+          f"{np.percentile(conf_ms, 99):.3f} ms a step; {card}")
+    f1 = reports["final1"]
+    t_kill = f1["kill_at"]
+    t_fail = f1["failed"][0][0]
+    t_epoch = f1["epochs"][1][0]
+    t_engine = f1["engine_built"][1]
+    t_first = f1["first_token_after"]
+    print(f"serve gang: failover, SIGKILL of rank 0 to rank 1's first token "
+          f"after {1e3 * (t_first - t_kill):.1f} ms: detection "
+          f"{1e3 * (t_fail - t_kill):.1f} ms, re-form (teardown, the new "
+          f"world, re-init, state sync) {1e3 * (t_epoch - t_fail):.1f} ms, "
+          f"DecodeEngine rebuilt {1e3 * (t_engine - t_epoch):.1f} ms, replay "
+          f"to the first token (publish, the frame, {SG_B_REQUESTS} "
+          f"prefills) {1e3 * (t_first - t_engine):.1f} ms; rank 1 failed "
+          f"with {f1['failed'][0][1]}; {card}")
+    peaks = {r: reports[f"A{r}"]["peak_bytes"] for r in range(SG_RANKS)}
+    peaks.update({f"{r} (end)": reports[f"final{r}"]["peak_bytes"]
+                  for r in (1, 2)})
+    print("serve gang: peak memory per rank "
+          + ", ".join(f"rank {r} " + (f"{v / 2**30:.2f} GiB" if v is not None
+                                      else "not measured (CPU)")
+                      for r, v in peaks.items())
+          + f"; oracles {oracle_s:.1f} s; gang {wall:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+
+
+def serve_gang_rank(tmp: str) -> int:
+    """One rank of the serving gang (``--serve-gang-rank``), started by the
+    port's launcher.  Writes ``pid<r>`` and ``port<r>`` (its door), the
+    leader ``leader<epoch>`` once it published its address; a report
+    ``A<r>.json`` when ``dumpA`` appears and ``final<r>.json`` at the end;
+    rank 1 ``shadow_full1`` once B fills its slot table.  The leader stops
+    the loop when ``stop`` appears."""
+    import threading
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.serving import ServingLoop
+    from horovod_tpu_torch.serving import loop as loop_mod
+
+    p = os.path.join
+    rank = int(os.environ["HVD_RANK"])  # the launch rank, kept
+    os.environ["HVD_TIMELINE"] = p(tmp, f"timeline{rank}.json")
+    _sg_write(p(tmp, f"pid{rank}"), str(os.getpid()))
+    with open(p(tmp, "config.json")) as fh:
+        conf = json.load(fh)
+    fields = dict(conf["cfg"])
+    fields["compute_dtype"] = getattr(torch, fields["compute_dtype"])
+    cfg = tfm.TransformerConfig(**fields)
+    dev = torch.device(conf["device"])
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = tfm.init(0, cfg, device=dev)
+    rec = {"rank": rank, "latency_s": [], "confirm_ms": [], "epochs": [],
+           "engine_built": [], "failed": [], "first_token_after": None}
+
+    def report(name):
+        if os.path.exists(p(tmp, "kill_at")):
+            with open(p(tmp, "kill_at")) as fh:
+                rec["kill_at"] = float(fh.read())
+        rec["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                             if dev.type == "cuda" else None)
+        _sg_write(p(tmp, f"{name}{rank}.json"), json.dumps(rec))
+
+    observe = loop_mod._tmx.observe
+
+    def observed(name, value, *args, **kw):
+        # The leader's lockstep step, each value as the registry gets it.
+        if name == "hvd_serve_token_latency_seconds":
+            rec["latency_s"].append(value)
+        return observe(name, value, *args, **kw)
+
+    loop_mod._tmx.observe = observed
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    class Loop(ServingLoop):
+        def _epoch_body(self, state):
+            rec["epochs"].append((time.time(), hvd.rank()))
+            try:
+                return super()._epoch_body(state)
+            except BaseException as e:
+                rec["failed"].append((time.time(), repr(e)[:160]))
+                raise
+
+        def _make_engine(self):
+            engine = super()._make_engine()
+            sync()
+            rec["engine_built"].append(time.time())
+            return engine
+
+        def _publish_leader(self):
+            super()._publish_leader()
+            _sg_write(p(tmp, f"leader{len(rec['epochs']) - 1}"),
+                      self._known_leader)
+
+        def _apply_frame(self, frame, eng, engine, *, rank0):
+            done = super()._apply_frame(frame, eng, engine, rank0=rank0)
+            if rank == 1 and len(self._slots) == self.max_batch and \
+                    os.path.exists(p(tmp, "dumpA")) and \
+                    not os.path.exists(p(tmp, "shadow_full1")):
+                _sg_write(p(tmp, "shadow_full1"), "1")
+            return done
+
+        def _emit(self, slot, token, engine, rank0):
+            if len(rec["epochs"]) > 1 and rec["first_token_after"] is None:
+                rec["first_token_after"] = time.time()
+            super()._emit(slot, token, engine, rank0)
+
+        def _confirm(self, toks):
+            t0 = time.perf_counter()
+            super()._confirm(toks)
+            rec["confirm_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    loop = Loop(model, cfg, device=dev, port=0, host="127.0.0.1",
+                cache_len=conf["cache"], request_timeout_s=300.0,
+                on_ready=lambda port: _sg_write(p(tmp, f"port{rank}"),
+                                                str(port)))
+
+    def watch():
+        dumped = False
+        while True:
+            if not dumped and os.path.exists(p(tmp, "dumpA")):
+                report("A")
+                dumped = True
+            if os.path.exists(p(tmp, "stop")) and loop.scheduler is not None:
+                loop.stop()
+                return
+            time.sleep(0.01)
+
+    threading.Thread(target=watch, daemon=True).start()
+    print(f"serve gang rank {rank}: pid {os.getpid()} on {dev}", flush=True)
+    loop.run()
+    print("DONE", flush=True)
+    report("final")
+    hvd.shutdown()
+    return 0
 
 
 def run_audit(hvd, tfm, make_mesh, dev, card):
@@ -4163,6 +4577,8 @@ def main() -> int:
         return liveness_rank(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--elastic-rank"]:  # an elastic phase rank
         return elastic_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--serve-gang-rank"]:  # a serving gang's rank
+        return serve_gang_rank(sys.argv[2])
     t_start = time.perf_counter()
     import torch
 
@@ -4266,7 +4682,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     sp_run = run_sp(fa, ra, dev, card)
     torch.cuda.empty_cache()
-    run_serve(tfm, dev, card)
+    serve_step_ms = run_serve(tfm, dev, card)
+    torch.cuda.empty_cache()
+    run_serve_gang(tfm, dev, card, step_alone_ms=serve_step_ms)
     torch.cuda.empty_cache()
     plain = run_engine(hvd, tfm, fa, dev, card)
     torch.cuda.empty_cache()

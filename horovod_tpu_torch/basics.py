@@ -6,7 +6,9 @@ discovery, in order:
 1. explicit ``init(rank=..., size=...)`` arguments;
 2. ``HVD_RANK/HVD_SIZE/HVD_LOCAL_RANK/HVD_LOCAL_SIZE`` from the launcher;
 3. torchrun's ``RANK/WORLD_SIZE/LOCAL_RANK/LOCAL_WORLD_SIZE``;
-4. a single process (rank 0 of 1).
+4. an MPI-style launcher's variables (``runner/discovery.py``: Open MPI,
+   IBM JSM, PMIx, PMI, Slurm), as under ``hvdrun --launcher mpirun``;
+5. a single process (rank 0 of 1).
 
 The cross rank and size (which host, of how many) are
 ``HVD_CROSS_RANK/HVD_CROSS_SIZE`` where the launcher sets them, else
@@ -102,6 +104,17 @@ def _discover(rank, size, local_rank, local_size):
                 if local_size is None:
                     local_size = _env_int(ls_var)
                 break
+    if size is None:
+        # An MPI-style launcher's variables (hvdrun --launcher mpirun or
+        # jsrun, srun): its own cross split, as the launcher laid it out.
+        from horovod_tpu_torch.runner import discovery
+
+        topo = discovery.discover()
+        if topo is not None:
+            return (topo.rank, topo.size,
+                    topo.local_rank if local_rank is None else local_rank,
+                    topo.local_size if local_size is None else local_size,
+                    topo.cross_rank, topo.cross_size)
     if size is None:
         rank, size = 0, 1
     if rank is None:

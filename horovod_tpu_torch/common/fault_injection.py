@@ -45,10 +45,6 @@ Fault fields:
 * ``groups``: for ``partition``, two lists of ranks.  This process's rank
   is ``HVD_RANK``; a ``detail`` naming this rank itself (the
   ``ctrl.worker.send`` convention) stands for the root, rank 0.
-
-Sites the port does not fire yet, because their modules wait (ROADMAP
-Queue 1): ``kv.mirror`` (the KV mirroring, item 6) and ``serve.step`` (the
-serving loop, item 4).  A plan may still name them; they never fire.
 """
 
 from __future__ import annotations
@@ -77,6 +73,7 @@ KNOWN_SITES = {
                "pending joiners)",
     "kv.delete": "rendezvous KV client delete",
     "kv.server.request": "rendezvous server request handling",
+    "kv.mirror": "rendezvous primary->standby write-through mirroring",
     "metrics.server.request": "metrics debug-server request handling",
     "agg.scrape": "gang aggregator per-rank snapshot read (KV entry + "
                   "HTTP scrape fallback; detail = the rank)",
@@ -102,6 +99,7 @@ KNOWN_SITES = {
                      "failed dump must never mask the original error)",
     "train.step": "user-level per-step site (training scripts)",
     "serve.admit": "serving front-door admission (HTTP 503 shedding)",
+    "serve.step": "serving decode step, every rank (stall/delay sim)",
     # data plane (should_corrupt)
     "grad.nonfinite": "poison local gradients with NaN (the guard)",
     "state.bitflip": "flip one bit of the audited replica state",

@@ -65,8 +65,16 @@ frame from another membership epoch)::
 
   Fence         := u32 stale_epoch, u32 current_epoch
 
-Left out until the serving loop is ported (ROADMAP Queue 1, item 4): the
-serving delta.
+The serving loop's batch delta (``TAG_SERVE``, rank 0 to every rank, one
+frame per decode step)::
+
+  ServeDelta := u64 seq, u8 stop, u32 n,
+                { u32 slot, u32 max_new, varstr request_id,
+                  u32 plen, u32 prompt[plen] }[n],
+                u32 epoch, [ varstr leader_addr ]  # optional trailer
+
+Retirements are not carried: greedy decode is deterministic, so every rank
+retires the same slot at the same token on its own.
 """
 
 from __future__ import annotations
@@ -541,3 +549,54 @@ def encode_fence(stale_epoch: int, current_epoch: int) -> bytes:
 def decode_fence(data: bytes) -> Tuple[int, int]:
     """Returns ``(stale_epoch, current_epoch)``."""
     return struct.unpack_from("<II", data, 0)
+
+
+# -- the serving loop's batch delta (TAG_SERVE) ----------------------------
+
+
+def encode_serve_delta(seq: int, stop: bool, admissions,
+                       epoch: int = 0, leader_addr: str = "") -> bytes:
+    """Rank 0 -> every rank: step ``seq``'s batch delta.  ``admissions``
+    holds ``(slot, request_id, max_new_tokens, prompt_tokens)``;
+    ``leader_addr`` (the leader's front door, ``host:port``, "" unknown)
+    rides after the epoch, where a decoder that stops at the epoch never
+    reads it."""
+    buf = bytearray()
+    buf += struct.pack("<QBI", seq, 1 if stop else 0, len(admissions))
+    for slot, req_id, max_new, prompt in admissions:
+        buf += struct.pack("<II", slot, max_new)
+        _pack_str(buf, req_id)
+        prompt = [int(t) for t in prompt]
+        buf += struct.pack(f"<I{len(prompt)}I", len(prompt), *prompt)
+    buf += struct.pack("<I", epoch)
+    _pack_str(buf, leader_addr)
+    return bytes(buf)
+
+
+def decode_serve_delta(data: bytes):
+    """Returns ``(seq, stop, admissions, epoch)``, each admission as
+    ``(slot, request_id, max_new_tokens, prompt list)``."""
+    return decode_serve_delta_ex(data)[:4]
+
+
+def decode_serve_delta_ex(data: bytes):
+    """Returns ``(seq, stop, admissions, epoch, leader_addr)``; a frame
+    without the trailer gives ``""``."""
+    seq, stop, n = struct.unpack_from("<QBI", data, 0)
+    off = struct.calcsize("<QBI")
+    admissions = []
+    for _ in range(n):
+        slot, max_new = struct.unpack_from("<II", data, off)
+        off += 8
+        req_id, off = _unpack_str(data, off)
+        (plen,) = struct.unpack_from("<I", data, off)
+        off += 4
+        prompt = list(struct.unpack_from(f"<{plen}I", data, off))
+        off += 4 * plen
+        admissions.append((slot, req_id, max_new, prompt))
+    (epoch,) = struct.unpack_from("<I", data, off)
+    off += 4
+    leader_addr = ""
+    if off < len(data):
+        leader_addr, off = _unpack_str(data, off)
+    return seq, bool(stop), admissions, epoch, leader_addr

@@ -5,7 +5,8 @@ addresses through.
 Protocol: ``PUT /kv/<key>`` stores the body; ``GET /kv/<key>`` returns it
 or 404; ``DELETE /kv/<key>`` removes it; ``GET /kvlist/<prefix>`` returns
 the keys under a prefix, sorted, one a line (the elastic leader's list of
-pending joiners); ``GET /health`` returns ``ok``.
+pending joiners); ``GET /health`` returns ``ok``; ``GET /kvsync`` returns
+the whole store as JSON (base64 values), from which a standby catches up.
 
 When the server holds a job secret, every ``/kv/`` request must carry a
 valid ``X-HVD-Auth: HMAC-SHA256(method, path, body)`` header, or it is
@@ -15,20 +16,28 @@ the newest epoch of each elastic namespace and answers an older write with
 409, so that a zombie rank cannot corrupt a re-formed gang's state; each
 such rejection adds one to ``hvd_fenced_writes_total``.
 
+Replication: a server constructed with ``mirrors=[(host, port), ...]``
+forwards every accepted ``PUT``/``DELETE`` to each mirror over the same
+signed protocol, its epoch header included, so that a standby fences as
+the primary does (the ``kv.mirror`` fault site drops a forward; a failed
+forward is dropped, and a restarted standby repairs itself from
+``/kvsync``).  Clients fail over down ``HVD_KV_ADDRS`` (``http_client``).
+``python -m horovod_tpu_torch.runner.http_server`` runs a primary or a
+standby as a process of its own.
+
 The ``kv.server.request`` fault site turns a request into a 503, the
 retryable shed of a loaded or restarting server.
-
-Left out until their features are ported: write-through mirroring to
-standbys with its ``kv.mirror`` fault site, the ``/kvsync`` catch-up, the
-command line and the launcher's direct reads (ROADMAP Queue 1, item 6,
-the periphery).
 """
 
 from __future__ import annotations
 
+import base64
+import json
+import sys
 import threading
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from horovod_tpu_torch.common import fault_injection as _fi
 from horovod_tpu_torch.runner import secret as secret_mod
@@ -112,6 +121,13 @@ class _Handler(BaseHTTPRequestHandler):
         if not self._authorized():
             self._reply(403)
             return
+        if self.path == "/kvsync":
+            # The whole store for a standby's catch-up: {key: b64(value)}.
+            with self.server.kv_lock:  # type: ignore[attr-defined]
+                snap = {k: base64.b64encode(v).decode("ascii")
+                        for k, v in self._store().items()}
+            self._reply(200, json.dumps(snap).encode("utf-8"))
+            return
         if self.path.startswith("/kvlist/"):
             prefix = self.path[len("/kvlist/"):]
             with self.server.kv_lock:  # type: ignore[attr-defined]
@@ -146,6 +162,8 @@ class _Handler(BaseHTTPRequestHandler):
         if key:
             with self.server.kv_lock:  # type: ignore[attr-defined]
                 self._store()[key] = body
+            self.server.mirror_write(  # type: ignore[attr-defined]
+                "PUT", key, body, epoch=self.headers.get(EPOCH_HEADER))
         self._reply(200)
 
     def do_DELETE(self):
@@ -159,31 +177,75 @@ class _Handler(BaseHTTPRequestHandler):
             return
         with self.server.kv_lock:  # type: ignore[attr-defined]
             self._store().pop(key, None)
+        if key:
+            self.server.mirror_write(  # type: ignore[attr-defined]
+                "DELETE", key, None, epoch=self.headers.get(EPOCH_HEADER))
         self._reply(200)
 
 
 class _KVServer(ThreadingHTTPServer):
+    """A threaded HTTP server that mirrors its writes to standbys."""
+
     daemon_threads = True
+
+    kv_store: Dict[str, bytes]
+    kv_lock: threading.Lock
+    kv_secret: Optional[str]
+    kv_mirrors: List[Tuple[str, int]]
+    kv_mirror_timeout: float
+    kv_epochs: Dict[str, int]  # elastic namespace -> newest epoch seen
+
+    def mirror_write(self, method: str, key: str, body: Optional[bytes],
+                     epoch: Optional[str] = None) -> None:
+        """Forward an accepted mutation to every standby.  Best effort: a
+        dead or slow mirror costs one short timeout, never the request."""
+        for host, port in self.kv_mirrors:
+            try:
+                _fi.fire("kv.mirror", f"{method} {key} -> {host}:{port}")
+                path = f"/kv/{key}"
+                req = urllib.request.Request(
+                    f"http://{host}:{port}{path}", data=body, method=method)
+                if epoch is not None:
+                    # A standby fences as the primary does: a zombie that
+                    # fails over after a 409 gets the same answer there.
+                    req.add_header(EPOCH_HEADER, epoch)
+                if self.kv_secret is not None:
+                    req.add_header(secret_mod.HEADER, secret_mod.sign(
+                        self.kv_secret, method, path, body or b""))
+                with urllib.request.urlopen(req,
+                                            timeout=self.kv_mirror_timeout):
+                    pass
+            except Exception:
+                # Unreachable or dropped: the write stands on this server.
+                pass
 
 
 class RendezvousServer:
     """Threaded KV server; ``start()`` returns the bound port.
 
     ``secret``: when given, requests must be HMAC-signed; ``None`` (the
-    default) keeps the store open, for loopback fixtures."""
+    default) keeps the store open, for loopback fixtures.  ``mirrors``:
+    ``(host, port)`` standbys that get a copy of every PUT and DELETE."""
 
     def __init__(self, host: str = "0.0.0.0", port: int = 0,
-                 secret: Optional[str] = None):
+                 secret: Optional[str] = None,
+                 mirrors: Optional[Sequence[Tuple[str, int]]] = None,
+                 mirror_timeout: float = 2.0):
         self._httpd = _KVServer((host, port), _Handler)
         self._httpd.kv_store = {}
         self._httpd.kv_epochs = {}
         self._httpd.kv_lock = threading.Lock()
         self._httpd.kv_secret = secret
+        self._httpd.kv_mirrors = [(h, int(p)) for h, p in (mirrors or [])]
+        self._httpd.kv_mirror_timeout = mirror_timeout
         self._thread: Optional[threading.Thread] = None
 
     @property
     def port(self) -> int:
         return self._httpd.server_address[1]
+
+    def set_mirrors(self, mirrors: Sequence[Tuple[str, int]]) -> None:
+        self._httpd.kv_mirrors = [(h, int(p)) for h, p in mirrors]
 
     def start(self, name: str = "hvd-rendezvous") -> int:
         self._thread = threading.Thread(
@@ -196,3 +258,84 @@ class RendezvousServer:
         if self._thread:
             self._thread.join(timeout=5)
         self._httpd.server_close()
+
+    def get(self, key: str) -> Optional[bytes]:
+        """A direct read, for the launcher's own process (the function
+        mode's results)."""
+        with self._httpd.kv_lock:
+            return self._httpd.kv_store.get(key)
+
+    def sync_from(self, host: str, port: int, timeout: float = 5.0) -> bool:
+        """A standby's catch-up: replace this store with the source's
+        ``/kvsync`` snapshot.  False, leaving the store as it was, when the
+        source is unreachable (a standby started before its primary begins
+        empty and fills through the mirroring)."""
+        path = "/kvsync"
+        req = urllib.request.Request(f"http://{host}:{port}{path}",
+                                     method="GET")
+        secret = self._httpd.kv_secret
+        if secret is not None:
+            req.add_header(secret_mod.HEADER,
+                           secret_mod.sign(secret, "GET", path, b""))
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                snap = json.loads(r.read().decode("utf-8"))
+        except Exception:
+            return False
+        store = {k: base64.b64decode(v) for k, v in snap.items()}
+        with self._httpd.kv_lock:
+            self._httpd.kv_store.clear()
+            self._httpd.kv_store.update(store)
+        return True
+
+
+def _main(argv: Optional[List[str]] = None) -> int:
+    """A rendezvous KV server as a process of its own (``python -m
+    horovod_tpu_torch.runner.http_server``): a primary or a standby that an
+    operator, or a test, can kill.  The secret is ``HVD_SECRET_KEY`` when
+    set."""
+    import argparse
+    import os
+    import signal
+
+    from horovod_tpu_torch.runner.http_client import parse_kv_addrs
+
+    parser = argparse.ArgumentParser(
+        prog="horovod_tpu_torch.runner.http_server",
+        description="Standalone rendezvous KV server (primary or standby).")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=0)
+    parser.add_argument("--port-file", default="",
+                        help="write the bound port here (atomic rename)")
+    parser.add_argument("--mirror", action="append", default=[],
+                        metavar="HOST:PORT",
+                        help="standby to write-through mirror to "
+                             "(repeatable)")
+    parser.add_argument("--sync-from", default="", metavar="HOST:PORT",
+                        help="catch up from this server's /kvsync at start")
+    args = parser.parse_args(argv)
+
+    mirrors = [parse_kv_addrs(m)[0] for m in args.mirror]
+    secret = os.environ.get(secret_mod.ENV_VAR) or None
+    server = RendezvousServer(host=args.host, port=args.port,
+                              secret=secret, mirrors=mirrors)
+    if args.sync_from:
+        src = parse_kv_addrs(args.sync_from)[0]
+        server.sync_from(src[0], src[1])
+    port = server.start(name="hvd-kv-main")
+    if args.port_file:
+        with open(args.port_file + ".tmp", "w") as f:
+            f.write(str(port))
+        os.replace(args.port_file + ".tmp", args.port_file)
+    print(f"KV {args.host}:{port}", flush=True)
+
+    done = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: done.set())
+    signal.signal(signal.SIGINT, lambda *_: done.set())
+    done.wait()
+    server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(_main())

@@ -100,8 +100,16 @@ which its next submission and its pending handles raise: a rank the gang
 re-formed without exits instead of corrupting it.  Rank 0's timeline
 records ``ELASTIC_EPOCH_<n>`` at a nonzero epoch.
 
-Left out until the serving loop is ported (ROADMAP Queue 1, item 4): the
-serving loop's ``serve_broadcast``/``serve_recv``.
+The serving loop's channel (``serving/loop.py``): rank 0's
+``serve_broadcast`` pushes one ``TAG_SERVE`` frame (``wire``'s serve delta)
+to every live worker and into its own inbox, and every rank's
+``serve_recv`` takes the next frame.  A loop parked in ``serve_recv`` wakes
+on an abort, a fence, a lost coordinator and a shutdown; after an eviction
+``serve_recv`` raises ``RanksFailedError``, so that the loop re-forms as a
+failed collective does.  Each engine object has its own inbox, so that a
+re-formed gang (a new engine) starts with an empty one.  A
+``SingleProcessEngine`` has the same pair: its broadcast is a local
+enqueue.
 """
 
 from __future__ import annotations
@@ -352,9 +360,39 @@ class SingleProcessEngine(_EngineBase):
         self.timeline = timeline_mod.from_env(0)
         _telemetry.init_from_env(0, 0)
         self._tracer = None  # the trace needs a gang
+        # The serving loop's channel: a broadcast to a gang of one is a
+        # local enqueue, so that the loop's drive and apply run unchanged.
+        self.epoch = 0
+        self._aborted = False
+        self._serve_inbox: List[bytes] = []
+        self._serve_cv = threading.Condition()
+        self._shutdown_requested = threading.Event()
+        self._shutdown_flag = threading.Event()
 
     def shutdown(self):
+        self._shutdown_flag.set()
+        with self._serve_cv:
+            self._serve_cv.notify_all()
         self.timeline.shutdown()
+
+    def serve_broadcast(self, payload: bytes) -> None:
+        with self._serve_cv:
+            self._serve_inbox.append(payload)
+            self._serve_cv.notify_all()
+
+    def serve_recv(self, timeout: float) -> Optional[bytes]:
+        deadline = time.monotonic() + timeout
+        with self._serve_cv:
+            while True:
+                if self._serve_inbox:
+                    return self._serve_inbox.pop(0)
+                if self._shutdown_flag.is_set() \
+                        or self._shutdown_requested.is_set():
+                    return None
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return None
+                self._serve_cv.wait(min(0.05, remaining))
 
     def _finish(self, name, op_name, result):
         self.timeline.negotiate_start(name, op_name)
@@ -524,8 +562,13 @@ class PyEngine(_EngineBase):
         self._ctrl_inbox: list = []
         self._ctrl_lock = threading.Lock()
         # Control sends leave the background thread and, for probe acks and
-        # routed frames, the receive threads: one lock keeps frames whole.
+        # routed frames, the receive threads, and on the coordinator the
+        # serving loop's thread (TAG_SERVE): one lock keeps frames whole.
         self._ctrl_send_lock = threading.Lock()
+        # The serving loop's inbox (TAG_SERVE frames; the coordinator
+        # delivers its own directly), drained by serve_recv().
+        self._serve_inbox: List[bytes] = []
+        self._serve_cv = threading.Condition()
         self._last_stall_check = time.monotonic()
 
         # The control tree, planned from the block topology before the
@@ -787,6 +830,13 @@ class PyEngine(_EngineBase):
             if not (self._shutdown_flag.is_set()
                     or self._shutdown_requested.is_set() or self._closed):
                 self._ctrl_conn_lost = True
+                # The abort fires from the next worker cycle; wake a
+                # serving loop parked in serve_recv now.
+                self._wake_serve()
+
+    def _wake_serve(self) -> None:
+        with self._serve_cv:
+            self._serve_cv.notify_all()
 
     def _dispatch_worker_frame(self, tag: int, payload: bytes) -> None:
         """A worker's dispatch of one root frame, from its direct socket
@@ -809,6 +859,7 @@ class PyEngine(_EngineBase):
             # The coordinator is at another membership epoch and this rank
             # has no seat there: the next worker cycle raises FencedError.
             self._fenced = wire.decode_fence(payload)
+            self._wake_serve()
             return
         if tag == su.TAG_RESPONSE_LIST:
             with self._response_cv:
@@ -832,6 +883,10 @@ class PyEngine(_EngineBase):
             with self._abort_cv:
                 self._abort_verdict = (vname, vranks)
                 self._abort_cv.notify_all()
+        elif tag == su.TAG_SERVE:
+            with self._serve_cv:
+                self._serve_inbox.append(payload)
+                self._serve_cv.notify_all()
         elif tag == su.TAG_CLOCK_PONG:
             # The midpoint method: the offset maps this rank's monotonic
             # clock onto rank 0's.
@@ -923,6 +978,49 @@ class PyEngine(_EngineBase):
             # The direct link is gone too: a dead hub, which the lost-
             # coordinator abort owns.
             self._ctrl_conn_lost = True
+            self._wake_serve()
+
+    # -- the serving loop's channel (serving/loop.py) ----------------------
+
+    def serve_broadcast(self, payload: bytes) -> None:
+        """The coordinator: push one serve-delta frame to every live
+        worker and into its own inbox.  Called from the serving loop's
+        thread, hence the control send lock."""
+        if self.rank != 0:
+            raise RuntimeError("serve_broadcast is coordinator-only")
+        for r, s in self._ctrl_socks.items():
+            if r in self._evicted_ranks:
+                continue
+            try:
+                with self._ctrl_send_lock:
+                    su.send_frame(s, su.TAG_SERVE, payload)
+            except (ConnectionError, OSError):
+                pass  # the liveness machinery owns the eviction
+        with self._serve_cv:
+            self._serve_inbox.append(payload)
+            self._serve_cv.notify_all()
+
+    def serve_recv(self, timeout: float) -> Optional[bytes]:
+        """The next serve-delta frame, waiting up to ``timeout`` s.  None
+        on a timeout, an abort or a local shutdown; raises
+        ``RanksFailedError`` once peers were evicted, so that the serving
+        loop re-forms as a failed collective does."""
+        deadline = time.monotonic() + timeout
+        with self._serve_cv:
+            while True:
+                if self._serve_inbox:
+                    return self._serve_inbox.pop(0)
+                if self._ranks_failed:
+                    raise RanksFailedError(self._ranks_failed)
+                if self._aborted or self._shutdown_flag.is_set() \
+                        or self._shutdown_requested.is_set():
+                    return None
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return None
+                # Short slices: a frame notifies, but an abort or a
+                # shutdown must wake this thread too.
+                self._serve_cv.wait(min(0.05, remaining))
 
     # ------------------------------------------------------------------
     # enqueue API (framework-thread side)
@@ -1076,6 +1174,7 @@ class PyEngine(_EngineBase):
             return
         self._closed = True
         self._shutdown_requested.set()
+        self._wake_serve()
         self._loop_exited.wait(timeout=10)
         self._shutdown_flag.set()
         self._bg.join(timeout=10)
@@ -2414,3 +2513,4 @@ class PyEngine(_EngineBase):
         self._abort_exc = exc
         blackbox_mod.dump("engine_abort", reason)
         self._shutdown_flag.set()
+        self._wake_serve()

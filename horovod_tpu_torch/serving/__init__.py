@@ -7,16 +7,24 @@
   them at their token budget.
 * :class:`DecodeEngine` (decode.py) holds the slot-batched KV caches and
   steps the flagship transformer's decode (models/transformer.py).
+* :class:`ServingLoop` (loop.py) runs on every rank of a gang: rank 0
+  broadcasts each step's batch delta over the eager engine's control
+  channel (``TAG_SERVE``), so that every rank steps its ``DecodeEngine`` in
+  lockstep; each step ends in a token-agreement allreduce; after a rank's
+  failure the gang re-forms in process (``@hvd.elastic.run``) and replays
+  the in-flight requests from their prompts, and when rank 0 dies the
+  lowest survivor takes the lead with the slot table the frames gave it.
 
-One process serves by stepping the engine in a loop of its own: take the
-scheduler's admissions, prefill each, one ``step()``, ``on_token`` for
-every live slot, ``complete`` where a request has its tokens (the order of
-the JAX package's ``ServingLoop``).  ``ServingLoop``, which drives a gang in
-lockstep through the eager engine's control channel, waits for the eager
-engine's port.
+Served by a launched gang::
+
+    python -m horovod_tpu_torch.runner.run -np 3 --min-np 2 --serve-max-batch 8 -- python serve.py
+
+where ``serve.py`` builds the model and calls ``ServingLoop(model,
+cfg).run()``.
 """
 
 from horovod_tpu_torch.serving.decode import DecodeEngine
+from horovod_tpu_torch.serving.loop import ServingLoop
 from horovod_tpu_torch.serving.scheduler import QueueFull, Request, Scheduler
 from horovod_tpu_torch.serving.server import FrontDoor
 
@@ -26,4 +34,5 @@ __all__ = [
     "QueueFull",
     "Request",
     "Scheduler",
+    "ServingLoop",
 ]

@@ -15,9 +15,8 @@ blocks on.
 
 Telemetry: the queue-depth, occupancy and staleness gauges, the request
 counters by status and the TTFT histogram, from which :meth:`stats` gives
-``ttft_p50_ms``/``ttft_p99_ms`` with the registry on.  The decode step's
-histogram (``step_*``) is the serving loop's (``loop.py``, ROADMAP
-Queue 1, item 4).
+``ttft_p50_ms``/``ttft_p99_ms`` with the registry on, and ``step_*`` from
+the serving loop's decode-step histogram (``loop.py``).
 """
 
 from __future__ import annotations

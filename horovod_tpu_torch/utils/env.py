@@ -109,6 +109,13 @@ KV_TIMEOUT = "HVD_KV_TIMEOUT"
 KV_RETRY_BASE_S = "HVD_KV_RETRY_BASE_S"
 KV_RETRY_MAX_S = "HVD_KV_RETRY_MAX_S"
 KV_ADDRS = "HVD_KV_ADDRS"
+# The launcher's host blacklist (hvdrun --max-restarts and elastic jobs): a
+# host whose workers failed THRESHOLD times inside COOLDOWN_S is skipped on
+# a relaunch.
+BLACKLIST_THRESHOLD = "HVD_BLACKLIST_THRESHOLD"
+BLACKLIST_COOLDOWN_S = "HVD_BLACKLIST_COOLDOWN_S"
+# hvdrun --adasum-mode, passed through to the workers.
+ADASUM_MODE = "HVD_ADASUM_MODE"
 # Inference serving (serving/): the front door's port (0 = ephemeral), the
 # continuous-batching decode slots, and the admission queue's bound (a full
 # queue sheds with HTTP 503).

@@ -408,12 +408,13 @@ def _driver_trace(driver_cls, blacklist_cls):
 
 def test_elastic_driver_epochs_and_blacklist_match_jax():
     from horovod_tpu.elastic.driver import ElasticDriver as J
-    from horovod_tpu.runner.hosts import HostBlacklist
+    from horovod_tpu.runner.hosts import HostBlacklist as JB
 
     from horovod_tpu_torch.elastic import ElasticDriver as P
+    from horovod_tpu_torch.runner.hosts import HostBlacklist as PB
 
-    got = _driver_trace(P, HostBlacklist)
-    assert got == _driver_trace(J, HostBlacklist)
+    got = _driver_trace(P, PB)
+    assert got == _driver_trace(J, JB)
     assert got == ([(1, {"a": 1}), (2, 3), (3, {"a": 1})],
                    [(1, ["a"], []), (2, ["b"], []), (3, [], ["b"])])
 

@@ -2,7 +2,8 @@
 rendezvous KV client (``runner/http_client.py``), on the CPU.
 
 * The JAX package's launcher (``python -m horovod_tpu.runner.run -np 2``)
-  runs two port workers (``tests/torch_port_multihost_worker.py``): each
+  and the port's (``python -m horovod_tpu_torch.runner.run -np 2``) each
+  run two port workers (``tests/torch_port_multihost_worker.py``): each
   calls ``init_torch_distributed()``, which publishes or learns the store's
   address on the launcher's KV with the launcher's job secret, then forms a
   gloo group and allreduces.
@@ -39,9 +40,12 @@ def _clean_env():
 
 
 @pytest.mark.timeout(200)
-def test_launcher_gang_forms_through_the_kv():
+@pytest.mark.parametrize("launcher", ["horovod_tpu", "horovod_tpu_torch"])
+def test_launcher_gang_forms_through_the_kv(launcher):
+    """Port workers under the JAX package's launcher and under the
+    port's."""
     proc = subprocess.run(
-        [sys.executable, "-m", "horovod_tpu.runner.run", "-np", "2", "--",
+        [sys.executable, "-m", f"{launcher}.runner.run", "-np", "2", "--",
          sys.executable, WORKER],
         env=_clean_env(), cwd=REPO, capture_output=True, text=True,
         timeout=180)

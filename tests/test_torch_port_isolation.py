@@ -185,3 +185,38 @@ def test_multihost_gang_without_device_raises(no_cuda, monkeypatch):
         assert not hvd.is_initialized()
     finally:
         srv.stop()
+
+
+def test_serving_loop_run_without_device_raises(no_cuda, monkeypatch):
+    """``ServingLoop``'s default device is the card: ``run()`` on a box
+    with none raises before it initializes or binds anything."""
+    from horovod_tpu_torch.serving import ServingLoop
+
+    for k in ("HVD_RANK", "HVD_SIZE", "HVD_RENDEZVOUS_ADDR"):
+        monkeypatch.delenv(k, raising=False)
+    cfg = tfm.TransformerConfig(vocab_size=16, d_model=16, n_layers=1,
+                                n_heads=2, d_ff=16, max_seq_len=8)
+    loop = ServingLoop(tfm.init(0, cfg, device="cpu"), cfg, max_batch=2,
+                       port=0, host="127.0.0.1")
+    with pytest.raises(NoCudaDeviceError, match="ServingLoop"):
+        loop.run()
+    assert not hvd.is_initialized()
+    assert loop._door is None
+
+
+def test_launcher_import_loads_no_jax_or_cloudpickle():
+    """The launcher's modules import neither JAX nor ``cloudpickle``
+    (imported only when the function mode runs; the card's machine has
+    none)."""
+    code = (
+        "import sys\n"
+        "import horovod_tpu_torch.runner.run\n"
+        "import horovod_tpu_torch.runner.launch\n"
+        "import horovod_tpu_torch.runner.run_task\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'horovod_tpu',\n"
+        "                                    'cloudpickle')))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
