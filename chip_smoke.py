@@ -1796,13 +1796,13 @@ def run_serve(tfm, dev, card):
 # card).  A: the serve phase's SERVE_CLIENTS requests posted at once, the
 # even ones to rank 0's door and the odd ones to the followers', which
 # forward.  B: SG_B_REQUESTS of the same prompts under ids, rank 0
-# SIGKILLed once every slot is live in the followers' slot tables, the
-# clients re-POSTing to rank 1's door.  SG_START_S bounds the launch up to
-# every door open; SG_TIMEOUT_S the whole gang, launch to exit.
+# SIGKILLed once every slot is live on every rank, the clients re-POSTing
+# to rank 1's door.  SG_START_S bounds the launch up to every door open;
+# SG_TIMEOUT_S the whole gang, launch to exit.  The engine's knobs are the
+# launcher's defaults; HVD_TRACE is on, and the step, confirm and failover
+# times come from the ranks' trace files (each process its own directory).
 SG_RANKS, SG_MIN_NP, SG_B_REQUESTS = 3, 2, 8
 SG_START_S, SG_TIMEOUT_S = 180, 420
-SG_KNOBS = {"HVD_COLLECTIVE_PROBE_TIMEOUT": "0.5",
-            "HVD_KV_RETRY_BASE_S": "0.02"}
 
 
 def _sg_write(path, text):
@@ -1822,6 +1822,34 @@ def _sg_wait(path, launcher, deadline, what):
                                  f"({launcher.returncode}) before {what}")
         time.sleep(0.01)
     raise AssertionError(f"serve gang: no {what} within the time limit")
+
+
+def _sg_all_live(port, launcher, deadline):
+    """Wait until the leader's ``/stats`` shows every slot active and then
+    a step that ended after that reading.  That step's confirm allreduce
+    needs every rank to have applied the frame that admitted the last of
+    them, so every rank's slot table is full."""
+    import urllib.request
+
+    seen = None
+    while time.monotonic() < deadline:
+        if launcher.poll() is not None:
+            raise AssertionError(f"serve gang: the launcher exited "
+                                 f"({launcher.returncode}) before every "
+                                 f"slot was live")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=10) as r:
+            st = json.loads(r.read())
+        now = time.monotonic()
+        if seen is None:
+            if st["active"] == SERVE_SLOTS:
+                seen = now
+        elif st["last_step_age_s"] and \
+                now - st["last_step_age_s"] > seen + 0.002:
+            return
+        time.sleep(0.005)
+    raise AssertionError("serve gang: not every slot live within the time "
+                         "limit")
 
 
 def _sg_client(ports, body, out, i, deadline):
@@ -1845,6 +1873,26 @@ def _sg_client(ports, body, out, i, deadline):
             c.close()
         port = ports[-1]
         time.sleep(0.1)
+
+
+def _sg_spans(d):
+    """The spans of the trace files under ``d`` (one process's), by phase,
+    each list in order of start; a line that a SIGKILL cut is skipped."""
+    import glob
+
+    spans = {}
+    for fn in sorted(glob.glob(os.path.join(d, "*.jsonl"))):
+        with open(fn) as fh:
+            for line in fh:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if rec.get("k") == "span":
+                    spans.setdefault(rec["ph"], []).append(rec)
+    for v in spans.values():
+        v.sort(key=lambda r: r["t0"])
+    return spans
 
 
 def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
@@ -1888,15 +1936,14 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
         json.dump({"cfg": fields, "device": str(dev), "cache": cache}, fh)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HVD_", "MASTER_", "HOROVOD_"))}
-    env.update(SG_KNOBS, HVD_BLACKBOX_DIR=os.path.join(tmp, "blackbox"))
+    env.update(HVD_TRACE="1", HVD_BLACKBOX_DIR=os.path.join(tmp, "blackbox"))
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.run",
            "-np", str(SG_RANKS), "--min-np", str(SG_MIN_NP),
            "--kv-standbys", "1", "--serve-max-batch", str(SERVE_SLOTS),
-           "--collective-timeout", "5", "--no-shm", "--",
-           sys.executable, os.path.abspath(__file__), "--serve-gang-rank",
-           tmp]
+           "--no-shm", "--", sys.executable, os.path.abspath(__file__),
+           "--serve-gang-rank", tmp]
     print(f"serve gang: {' '.join(cmd[1:])}")
     p = os.path.join
     launcher, log_out, log_err = None, None, None
@@ -1909,10 +1956,9 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
                                     stderr=log_err)
         deadline = t0 + timeout
         start_by = min(deadline, t0 + SG_START_S)
+        # Rank 0 writes its port once its address is in the KV store.
         ports = [int(_sg_wait(p(tmp, f"port{r}"), launcher, start_by,
                               f"rank {r}'s door")) for r in range(SG_RANKS)]
-        _sg_wait(p(tmp, "leader0"), launcher, start_by,
-                 "the leader's address in the KV store")
         t_up = time.monotonic() - t0
 
         # A: every request at once, half through the followers' doors.
@@ -1926,12 +1972,13 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
         for c in clients:
             c.join(timeout=max(1.0, deadline - time.monotonic()))
         a_s = time.monotonic() - ta
+        t_dump_ns = time.monotonic_ns()
         _sg_write(p(tmp, "dumpA"), "1")
         for r in range(SG_RANKS):
             _sg_wait(p(tmp, f"A{r}.json"), launcher, deadline,
                      f"rank {r}'s report of A")
 
-        # B: every slot live in the followers' tables, then rank 0 killed.
+        # B: every slot live on every rank, then rank 0 killed.
         b_reqs = [(f"B{i}", reqs[i][0], reqs[i][1])
                   for i in range(SG_B_REQUESTS)]
         clients = [threading.Thread(target=_sg_client, args=(
@@ -1940,12 +1987,10 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
             deadline), daemon=True) for i, (rid, pr, m) in enumerate(b_reqs)]
         for c in clients:
             c.start()
-        _sg_wait(p(tmp, "shadow_full1"), launcher, deadline,
-                 "every slot live in rank 1's slot table")
+        _sg_all_live(ports[0], launcher, deadline)
         pid0 = int(_sg_wait(p(tmp, "pid0"), launcher, deadline, "pid0"))
-        t_kill = time.time()
+        t_kill_ns = time.monotonic_ns()
         os.kill(pid0, signal.SIGKILL)
-        _sg_write(p(tmp, "kill_at"), repr(t_kill))
         for c in clients:
             c.join(timeout=max(1.0, deadline - time.monotonic()))
         _sg_write(p(tmp, "stop"), "1")
@@ -1980,6 +2025,7 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
     if os.path.exists(p(tmp, "timeline1.json")):
         with open(p(tmp, "timeline1.json")) as fh:
             timeline = fh.read()
+    spans0, spans1 = _sg_spans(p(tmp, "trace0")), _sg_spans(p(tmp, "trace1"))
     shutil.rmtree(tmp, ignore_errors=True)
     for line in (out + err).splitlines():
         print(f"serve gang: {line}")
@@ -1999,9 +2045,25 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
             bad.append(f"B request {i}: reply {str(r)[:160]}")
     recs = [json.loads(ln.rstrip().rstrip(","))
             for ln in timeline.splitlines() if "LEADER_FAILOVER" in ln]
-    if not any(0 in ((rec.get("args") or {}).get("failed") or [])
-               for rec in recs):
+    failover = [rec for rec in recs
+                if 0 in ((rec.get("args") or {}).get("failed") or [])]
+    if not failover:
         bad.append("rank 1's timeline has no LEADER_FAILOVER naming rank 0")
+    # The leader's steps of A, and rank 1's records of the failover.
+    lead = [s for s in spans0.get("serve.apply", ()) if s["t0"] < t_dump_ns]
+    conf = [s for s in spans0.get("serve.confirm", ())
+            if s["t0"] < t_dump_ns]
+    reform = [s for s in spans1.get("elastic.reform", ())
+              if s["t0"] > t_kill_ns][:1]
+    built = [s for s in spans1.get("serve.engine", ())
+             if reform and s["t0"] >= reform[0]["t1"]][:1]
+    after = [s for s in spans1.get("serve.apply", ())
+             if built and s["t0"] >= built[0]["t1"]][:1]
+    if not (lead and conf and reform and built and after):
+        bad.append(f"the traces lack spans: {len(lead)} serve.apply and "
+                   f"{len(conf)} serve.confirm of the leader in A, rank 1's "
+                   f"elastic.reform {len(reform)}, serve.engine {len(built)}"
+                   f" and serve.apply {len(after)} after the kill")
     _fail_if(bad, "serve gang")
 
     # The tokens against DecodeEngine alone on each prompt.
@@ -2022,39 +2084,38 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
     oracle_s = time.perf_counter() - t_or
     _fail_if(bad, "serve gang")
 
-    lead = reports["A0"]
+    def ms(t0_ns, t1_ns):
+        return (t1_ns - t0_ns) / 1e6
+
     ttft = sorted(r[1]["ttft_ms"] for r in a_out)
     tokens = sum(m for _, m in reqs)
-    lat = [1e3 * v for v in lead["latency_s"]]
-    conf_ms = lead["confirm_ms"]
+    lat = [ms(s["t0"], s["t1"]) for s in lead]
+    conf_ms = [ms(s["t0"], s["t1"]) for s in conf]
     print(f"serve gang: {SG_RANKS} ranks launched, every door open and the "
           f"leader published in {t_up:.2f} s; A: {len(reqs)} requests, "
           f"{tokens} tokens in {a_s:.2f} s ({tokens / a_s:.1f} tokens/s), "
           f"TTFT p50 {np.percentile(ttft, 50):.2f} ms, p99 "
           f"{np.percentile(ttft, 99):.2f} ms (host clock); {card}")
-    print(f"serve gang: lockstep step (the leader's "
-          f"hvd_serve_token_latency_seconds, {len(lat)} steps, prefills "
-          f"included): median {statistics.median(lat):.3f} ms, p99 "
+    print(f"serve gang: lockstep step (the leader's serve.apply spans, the "
+          f"window of hvd_serve_token_latency_seconds, {len(lat)} steps, "
+          f"prefills included): median {statistics.median(lat):.3f} ms, p99 "
           f"{np.percentile(lat, 99):.3f} ms; the one-process decode step at "
           f"{SERVE_SLOTS} live slots "
           + (f"{step_alone_ms:.3f} ms" if step_alone_ms else "not measured")
-          + f"; the confirm allreduce (__serve.confirm, {len(conf_ms)} "
-          f"steps): median {statistics.median(conf_ms):.3f} ms, p99 "
-          f"{np.percentile(conf_ms, 99):.3f} ms a step; {card}")
-    f1 = reports["final1"]
-    t_kill = f1["kill_at"]
-    t_fail = f1["failed"][0][0]
-    t_epoch = f1["epochs"][1][0]
-    t_engine = f1["engine_built"][1]
-    t_first = f1["first_token_after"]
-    print(f"serve gang: failover, SIGKILL of rank 0 to rank 1's first token "
-          f"after {1e3 * (t_first - t_kill):.1f} ms: detection "
-          f"{1e3 * (t_fail - t_kill):.1f} ms, re-form (teardown, the new "
-          f"world, re-init, state sync) {1e3 * (t_epoch - t_fail):.1f} ms, "
-          f"DecodeEngine rebuilt {1e3 * (t_engine - t_epoch):.1f} ms, replay "
-          f"to the first token (publish, the frame, {SG_B_REQUESTS} "
-          f"prefills) {1e3 * (t_first - t_engine):.1f} ms; rank 1 failed "
-          f"with {f1['failed'][0][1]}; {card}")
+          + f"; the confirm allreduce (the leader's serve.confirm spans, "
+          f"{len(conf_ms)} steps): median {statistics.median(conf_ms):.3f} "
+          f"ms, p99 {np.percentile(conf_ms, 99):.3f} ms a step; {card}")
+    rf, bl, af = reform[0], built[0], after[0]
+    print(f"serve gang: failover, SIGKILL of rank 0 to the end of rank 1's "
+          f"first step after {ms(t_kill_ns, af['t1']):.1f} ms: detection "
+          f"(to elastic.reform's start) {ms(t_kill_ns, rf['t0']):.1f} ms, "
+          f"re-form (elastic.reform: teardown, the new world, re-init) "
+          f"{ms(rf['t0'], rf['t1']):.1f} ms, to DecodeEngine rebuilt "
+          f"(state sync, serve.engine) {ms(rf['t1'], bl['t1']):.1f} ms of "
+          f"which the build {ms(bl['t0'], bl['t1']):.1f} ms, replay (publish,"
+          f" the frame, {af.get('admitted')} prefills and a step, the first "
+          f"serve.apply) {ms(bl['t1'], af['t1']):.1f} ms; rank 1's "
+          f"LEADER_FAILOVER {failover[0].get('args')}; {card}")
     peaks = {r: reports[f"A{r}"]["peak_bytes"] for r in range(SG_RANKS)}
     peaks.update({f"{r} (end)": reports[f"final{r}"]["peak_bytes"]
                   for r in (1, 2)})
@@ -2068,11 +2129,12 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
 
 def serve_gang_rank(tmp: str) -> int:
     """One rank of the serving gang (``--serve-gang-rank``), started by the
-    port's launcher.  Writes ``pid<r>`` and ``port<r>`` (its door), the
-    leader ``leader<epoch>`` once it published its address; a report
-    ``A<r>.json`` when ``dumpA`` appears and ``final<r>.json`` at the end;
-    rank 1 ``shadow_full1`` once B fills its slot table.  The leader stops
-    the loop when ``stop`` appears."""
+    port's launcher.  Writes ``pid<r>``, and ``port<r>`` once its door
+    listens (the leader's once its address is published); its timeline
+    and its trace go under ``tmp`` by launch rank.  When ``dumpA`` appears
+    it flushes its trace and reports its peak memory (``A<r>.json``), and
+    again at the end (``final<r>.json``).  The leader stops the loop when
+    ``stop`` appears."""
     import threading
 
     import torch
@@ -2081,11 +2143,12 @@ def serve_gang_rank(tmp: str) -> int:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.serving import ServingLoop
-    from horovod_tpu_torch.serving import loop as loop_mod
+    from horovod_tpu_torch.telemetry import trace
 
     p = os.path.join
     rank = int(os.environ["HVD_RANK"])  # the launch rank, kept
     os.environ["HVD_TIMELINE"] = p(tmp, f"timeline{rank}.json")
+    os.environ["HVD_TRACE_DIR"] = p(tmp, f"trace{rank}")
     _sg_write(p(tmp, f"pid{rank}"), str(os.getpid()))
     with open(p(tmp, "config.json")) as fh:
         conf = json.load(fh)
@@ -2097,78 +2160,25 @@ def serve_gang_rank(tmp: str) -> int:
         torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     model = tfm.init(0, cfg, device=dev)
-    rec = {"rank": rank, "latency_s": [], "confirm_ms": [], "epochs": [],
-           "engine_built": [], "failed": [], "first_token_after": None}
 
     def report(name):
-        if os.path.exists(p(tmp, "kill_at")):
-            with open(p(tmp, "kill_at")) as fh:
-                rec["kill_at"] = float(fh.read())
-        rec["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
-                             if dev.type == "cuda" else None)
-        _sg_write(p(tmp, f"{name}{rank}.json"), json.dumps(rec))
+        peak = (torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else None)
+        _sg_write(p(tmp, f"{name}{rank}.json"), json.dumps(
+            {"rank": rank, "peak_bytes": peak}))
 
-    observe = loop_mod._tmx.observe
-
-    def observed(name, value, *args, **kw):
-        # The leader's lockstep step, each value as the registry gets it.
-        if name == "hvd_serve_token_latency_seconds":
-            rec["latency_s"].append(value)
-        return observe(name, value, *args, **kw)
-
-    loop_mod._tmx.observe = observed
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    class Loop(ServingLoop):
-        def _epoch_body(self, state):
-            rec["epochs"].append((time.time(), hvd.rank()))
-            try:
-                return super()._epoch_body(state)
-            except BaseException as e:
-                rec["failed"].append((time.time(), repr(e)[:160]))
-                raise
-
-        def _make_engine(self):
-            engine = super()._make_engine()
-            sync()
-            rec["engine_built"].append(time.time())
-            return engine
-
-        def _publish_leader(self):
-            super()._publish_leader()
-            _sg_write(p(tmp, f"leader{len(rec['epochs']) - 1}"),
-                      self._known_leader)
-
-        def _apply_frame(self, frame, eng, engine, *, rank0):
-            done = super()._apply_frame(frame, eng, engine, rank0=rank0)
-            if rank == 1 and len(self._slots) == self.max_batch and \
-                    os.path.exists(p(tmp, "dumpA")) and \
-                    not os.path.exists(p(tmp, "shadow_full1")):
-                _sg_write(p(tmp, "shadow_full1"), "1")
-            return done
-
-        def _emit(self, slot, token, engine, rank0):
-            if len(rec["epochs"]) > 1 and rec["first_token_after"] is None:
-                rec["first_token_after"] = time.time()
-            super()._emit(slot, token, engine, rank0)
-
-        def _confirm(self, toks):
-            t0 = time.perf_counter()
-            super()._confirm(toks)
-            rec["confirm_ms"].append((time.perf_counter() - t0) * 1e3)
-
-    loop = Loop(model, cfg, device=dev, port=0, host="127.0.0.1",
-                cache_len=conf["cache"], request_timeout_s=300.0,
-                on_ready=lambda port: _sg_write(p(tmp, f"port{rank}"),
-                                                str(port)))
+    loop = ServingLoop(model, cfg, device=dev, port=0, host="127.0.0.1",
+                       cache_len=conf["cache"], request_timeout_s=300.0,
+                       on_ready=lambda port: _sg_write(p(tmp, f"port{rank}"),
+                                                       str(port)))
 
     def watch():
         dumped = False
         while True:
             if not dumped and os.path.exists(p(tmp, "dumpA")):
+                tr = trace.get()
+                if tr is not None:
+                    tr.flush()  # A's spans on disk before rank 0 dies
                 report("A")
                 dumped = True
             if os.path.exists(p(tmp, "stop")) and loop.scheduler is not None:

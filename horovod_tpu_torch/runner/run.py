@@ -272,7 +272,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-level", dest="log_level",
                    choices=["TRACE", "DEBUG", "INFO", "WARNING", "ERROR",
                             "FATAL"])
-    p.add_argument("--adasum-mode", dest="adasum_mode")
+    p.add_argument("--adasum-mode", dest="adasum_mode",
+                   help="accepted for the JAX launcher's flags and passed "
+                        "on as HVD_ADASUM_MODE, but it changes nothing: "
+                        "the port's Adasum (ops/adasum.py) has one mode; "
+                        "the launcher warns when it is given")
     p.add_argument("command", nargs=argparse.REMAINDER,
                    help="the training command to run on every slot")
     return p
@@ -366,6 +370,10 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
                   f"(got {val}); use --no-shm to disable the shm "
                   "transport entirely", file=sys.stderr)
             return 2
+    if args.adasum_mode is not None:
+        print(f"{PROG}: warning: --adasum-mode {args.adasum_mode!r} has no "
+              "effect: the port's Adasum has one mode and no module reads "
+              "HVD_ADASUM_MODE", file=sys.stderr)
     # Elastic flags: validate at parse time, before any rendezvous/ssh
     # side effects — a bad floor/ceiling or a missing discovery script
     # must fail in milliseconds, not mid-launch.
@@ -442,7 +450,7 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
         # Workers advertise on the named NIC too (the bootstrap reads
         # HVD_NIC), not just the launcher's rendezvous bind.
         env_extra["HVD_NIC"] = args.nics
-    multi_host = any(not _is_local(s.hostname) for s in slots)
+    multi_host = any(not is_local(s.hostname) for s in slots)
     if multi_host and args.launcher == "spawn":
         # Fail fast on unreachable hosts BEFORE starting the rendezvous
         # server or spawning anything, with repeat launches skipping the
@@ -455,7 +463,7 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
                 args.np, args.hosts or args.hostfile, args.ssh_port,
                 args.ssh_identity_file))
         remote = sorted({s.hostname for s in slots
-                         if not _is_local(s.hostname)})
+                         if not is_local(s.hostname)})
         ssh_check.check_hosts_ssh(
             remote, ssh_port=args.ssh_port,
             ssh_identity_file=args.ssh_identity_file, cache=fn_cache)
@@ -481,7 +489,7 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
             # on a pure-remote job, a same-named launcher NIC was never
             # validated, while the current addr demonstrably works (the
             # agents just used it).
-            if any(_is_local(s.hostname) for s in slots):
+            if any(is_local(s.hostname) for s in slots):
                 probe_addr = interface_address(common[0])
                 if probe_addr:
                     addr = probe_addr
@@ -659,10 +667,6 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
             sb.stop()
 
 
-def _is_local(hostname: str) -> bool:
-    return is_local(hostname)
-
-
 def probe_common_nics(hostnames: List[str], rdv_addr: str, rdv_port: int,
                       job_secret: str, *,
                       ssh_port: Optional[int] = None,
@@ -789,7 +793,7 @@ def run(
     port = server.start()
     payload = cloudpickle.dumps((fn, args, kwargs or {},
                                  None if device is None else str(device)))
-    multi_host = any(not _is_local(s.hostname) for s in slots)
+    multi_host = any(not is_local(s.hostname) for s in slots)
     addr = _routable_address() if multi_host else "127.0.0.1"
     kv = KVClient("127.0.0.1", port, secret=job_secret)
     kv.put("runfunc/fn", payload)

@@ -37,8 +37,9 @@ A rank that stalls outside the data plane (the ``serve.step`` fault site,
 kind ``stall``) never submits its allreduce, so the collective deadline
 cannot see it: the coordinator's stall warnings can.
 
-Records: the trace's ``serve.confirm`` and ``serve.apply`` spans, the
-flight recorder's ``serve.confirm`` note, the leader's
+Records: the trace's ``serve.engine`` (a ``DecodeEngine`` built),
+``serve.apply`` and ``serve.confirm`` spans, the flight recorder's
+``serve.confirm`` note, the leader's
 ``hvd_serve_token_latency_seconds`` histogram and ``Scheduler.note_step``
 (``/stats``' ``last_step_age_s``).
 
@@ -80,7 +81,9 @@ class ServingLoop:
     ``run()`` initializes (if needed), starts this rank's front door, and
     serves until ``stop()``, re-forming the gang in process after a rank's
     failure.  The knobs default from ``HVD_SERVE_*`` (``hvdrun
-    --serve-port/--serve-max-batch/--serve-max-queue``)."""
+    --serve-port/--serve-max-batch/--serve-max-queue``).  ``on_ready(port)``
+    is called once, when this rank's door listens; on the leader, after
+    its address is published too."""
 
     def __init__(self, model, cfg, *,
                  device=None,
@@ -89,7 +92,6 @@ class ServingLoop:
                  port: Optional[int] = None,
                  host: str = "0.0.0.0",
                  cache_len: Optional[int] = None,
-                 mesh=None,
                  eos_id: Optional[int] = None,
                  request_timeout_s: float = 120.0,
                  recv_timeout_s: float = 1.0,
@@ -103,7 +105,6 @@ class ServingLoop:
         self.port = env_util.serve_port() if port is None else port
         self.host = host
         self.cache_len = cache_len or cfg.max_seq_len
-        self.mesh = mesh
         self.eos_id = eos_id
         self.request_timeout_s = request_timeout_s
         self.recv_timeout_s = recv_timeout_s
@@ -159,11 +160,6 @@ class ServingLoop:
 
     # -- one gang incarnation -------------------------------------------
 
-    def _make_engine(self) -> DecodeEngine:
-        return DecodeEngine(self.model, self.cfg, max_batch=self.max_batch,
-                            cache_len=self.cache_len, mesh=self.mesh,
-                            device=self.device)
-
     def _epoch_body(self, state) -> None:
         from horovod_tpu_torch import basics
 
@@ -173,10 +169,19 @@ class ServingLoop:
                 "serving needs the eager engine: start the ranks through "
                 "the launcher's rendezvous (HVD_RENDEZVOUS_ADDR/PORT)")
         self._elastic_ctx = getattr(state, "_elastic_ctx", None)
+        tr = getattr(eng, "_tracer", None)
+        tb0 = time.monotonic_ns() if tr is not None else 0
         # The last incarnation's engine (its KV cache and cast matrices)
         # goes before this one's is allocated.
         self.engine = None
-        engine = self.engine = self._make_engine()
+        engine = self.engine = DecodeEngine(
+            self.model, self.cfg, max_batch=self.max_batch,
+            cache_len=self.cache_len, device=self.device)
+        if tr is not None:
+            # Host time: device work the build queued lands in the first
+            # serve.apply.
+            tr.span("serve.engine", tb0, time.monotonic_ns(),
+                    epoch=eng.epoch)
         # The previous incarnation's in-flight table survives the reset
         # here: on a promoted rank it seeds the fresh scheduler below.
         shadow = sorted(self._slots.items())
@@ -193,6 +198,7 @@ class ServingLoop:
                 log.info("promoted to serving leader: adopted %d "
                          "in-flight request(s) from the shadow slot table",
                          adopted)
+        first_door = self._door is None
         self._ensure_front_door(leader=leader)
         if leader:
             state.serve_generation += 1
@@ -202,6 +208,11 @@ class ServingLoop:
                          "in-flight request(s) from their prompts",
                          state.serve_generation, replayed)
             self._publish_leader()
+        if first_door and self.on_ready is not None:
+            # On the leader after its address is published: from here on
+            # every door of the gang forwards to it.
+            self.on_ready(self._door.port)
+        if leader:
             self._drive(eng, engine)
         else:
             self._follow(eng, engine)
@@ -222,8 +233,6 @@ class ServingLoop:
                 self.port = door_port
             log.info("serving front door listening on :%d (%s)", door_port,
                      "leader" if leader else "forwarding to the leader")
-            if self.on_ready is not None:
-                self.on_ready(door_port)
         elif leader and self._door.scheduler is None:
             self._door.scheduler = self.scheduler
             self.port = self._door.port

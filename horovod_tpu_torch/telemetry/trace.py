@@ -7,7 +7,8 @@ collective ran; this module records *where the time went on every rank*:
 one span stream per rank covering the full life of each fused collective
 — ``negotiate`` (enqueue to execution start), ``pack``,
 ``hop[i]{send_wait, recv, reduce}``, ``unpack``, ``callback`` — plus the
-serving lockstep steps (``serve.apply`` / ``serve.confirm``), elastic
+serving lockstep steps (``serve.apply`` / ``serve.confirm``, and
+``serve.engine`` per incarnation), elastic
 ``elastic.reform`` / ``elastic.replay``, and recovery-ladder
 ``hop.retry`` / ``transport.failover`` events, each tagged with (rank,
 collective seq, transport kind, peer).

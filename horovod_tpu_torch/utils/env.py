@@ -114,7 +114,8 @@ KV_ADDRS = "HVD_KV_ADDRS"
 # a relaunch.
 BLACKLIST_THRESHOLD = "HVD_BLACKLIST_THRESHOLD"
 BLACKLIST_COOLDOWN_S = "HVD_BLACKLIST_COOLDOWN_S"
-# hvdrun --adasum-mode, passed through to the workers.
+# hvdrun --adasum-mode, passed through to the workers for the JAX
+# launcher's flags; nothing in the port reads it (its Adasum has one mode).
 ADASUM_MODE = "HVD_ADASUM_MODE"
 # Inference serving (serving/): the front door's port (0 = ephemeral), the
 # continuous-batching decode slots, and the admission queue's bound (a full

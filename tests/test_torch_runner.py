@@ -231,6 +231,17 @@ def test_cli_validation_exit_2_matches_jax(case, capsys):
     assert flag in err and err.startswith("hvdrun-torch:"), err
 
 
+def test_cli_adasum_mode_warns_that_it_changes_nothing(capsys):
+    """``--adasum-mode`` is parsed (``env_from_args`` parity) but nothing
+    in the port reads it: the launcher says so before it launches."""
+    rc = prun.run_commandline(["-np", "2", "--adasum-mode", "gpu",
+                               "--min-np", "0", "python", "-c", "pass"])
+    assert rc == 2  # stopped by the --min-np check, after the warning
+    err = capsys.readouterr().err
+    assert "--adasum-mode 'gpu' has no effect" in err, err
+    assert "--adasum-mode" in prun.make_parser().format_help()
+
+
 def test_cli_mpirun_without_mpi_exits_2(capsys):
     if shutil.which("mpirun"):
         pytest.skip("mpirun is on PATH: the error path is not reachable")
