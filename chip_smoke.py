@@ -143,8 +143,9 @@ non-zero):
    its ``hvd_collectives_total`` of the gradients' fp32 allreduces equals
    the sum of the ranks' own snapshots and the gradients x steps x ranks;
    ``hvd_ring_hop_seconds`` has samples; both trace files parse, rank 1's
-   has clock records and the same seq names the same collective on both;
-   no recorder dump.  Prints each rank's per-step span sums (negotiate,
+   has clock records and the same seq names the same collective on both,
+   and the port's ``hvd_trace analyze_dir`` over them names the phases
+   these checks read; no recorder dump.  Prints each rank's per-step span sums (negotiate,
    pack, hop recv, reduce and send wait, unpack, callback) beside its
    ``synchronize`` time, and the step medians against the engine
    phase's;
@@ -171,7 +172,9 @@ non-zero):
    and the metrics' flusher are on in both: gang A's survivors each dump
    (``ranks_failed``) and the root counts one eviction; gang B's survivors
    dump ``collective_timeout``, the root's verdict note names rank 2 and
-   it pulled rank 2's ring.  Then phase 6 again with those knobs on.  Prints the step medians, kill to eviction and
+   it pulled rank 2's ring; the port's ``hvd_postmortem`` over each
+   gang's dumps names the killed and the stalled rank as the first cause.
+   Then phase 6 again with those knobs on.  Prints the step medians, kill to eviction and
    stall to error.  The ranks' flash kernels run at B 2, the pipelined
    microbatch's shape, which phase 2 checks;
 9. the kernel checks of phase 2 again, and the times of the kernel, the
@@ -220,7 +223,23 @@ non-zero):
    ``hvd_serve_token_latency_seconds``) against the one-process decode
    step, the confirm allreduce a step, the failover by part (detection,
    re-form, the engine rebuilt, replay to the first token) and each
-   rank's peak memory.  Serving runs no flash kernel.
+   rank's peak memory.  Serving runs no flash kernel;
+12. the torch-api phase (``--torch-api-rank R``, see TA_PARAM_TOL; right
+   after phase 6's first run): phase 6's two ranks train the flagship
+   through the classic front-end, ``import horovod_tpu_torch.torch as
+   hvd``.  Rank 0 from seed 0 and rank 1 from seed 1, made rank 0's bit
+   for bit (parameters and AdamW state, by digest) by
+   ``broadcast_parameters`` and ``broadcast_optimizer_state``; a
+   hook-driven ``DistributedOptimizer`` over ``torch.optim.AdamW``, the
+   allreduces fired during ``backward()``, three steps on four rows a rank,
+   against a one-process twin; one step of ``backward_passes_per_step=2``;
+   the Adasum delta optimizer at two layers against a float64 oracle; the
+   gradients' ``grouped_allreduce`` under ``torch.compile(fullgraph=True)``
+   (``ops/bridge.py``'s custom ops) bit for bit the eager one's, with no
+   graph break.  Prints, beside the card, the step median against phase
+   6's, the end of ``backward()`` to the end of ``step()``, kernel and
+   flash launches a step (one profiled step) and the compiled reduction's
+   ms against the eager one's.
 
 The ``kernels`` JSON lists the flagship's three kernels, the same three
 with their launches in the MoE flagship's run (``flash_<kernel>_moe``: its
@@ -229,6 +248,8 @@ microbatch (B 2, S 1024, H 16, D 64, bf16, causal; checked in phase 2)
 with their launches in its run (``flash_<kernel>_pp``), the same three at
 an elastic rank's rows after the shrink (B 3; checked in phase 2) with
 their launches in the elastic gangs' steps (``flash_<kernel>_elastic``),
+the same three at an engine rank's rows (B 4) with their launches in the
+torch-api phase's steps on rank 0 (``flash_<kernel>_torch_api``),
 the ring hop's six variants
 (``flash_<kernel>_ring_self`` and ``_ring_hop``) and the ring hop's dO
 split (``flash_split_do``), then the fp32 kernels
@@ -2682,6 +2703,21 @@ def _telemetry_checks(tmp, ranks, steps, failures, card):
     if seqs[0] != seqs[1] or not seqs[0]:
         failures.append("the ranks' traces name other collectives under "
                         "one seq, or none")
+    # -- the port's trace tool over the same files: the phases read above
+    from horovod_tpu_torch.tools import hvd_trace
+
+    rep = hvd_trace.analyze_dir(os.path.join(tmp, "trace"))
+    named = {} if rep is None else rep["phase_breakdown_ms"]
+    read = ("negotiate", "pack", "hop.recv", "hop.reduce", "hop.send_wait",
+            "unpack", "callback")
+    print(f"telemetry: hvd_trace analyze_dir (the port's tool) over the "
+          f"trace files: {rep and rep['num_ranks']} ranks, "
+          f"{rep and rep['num_collectives']} collectives, mean ms a "
+          f"collective a rank {named}; {card}")
+    if rep is None or rep["num_ranks"] != len(ranks) or \
+            sorted(named) != sorted(read) or not named["hop.recv"] > 0:
+        failures.append(f"the port's hvd_trace names {sorted(named)}, not "
+                        f"the phases the checks read {sorted(read)}")
     # -- the flight recorder: a clean run dumps nothing
     bb = os.path.join(tmp, "blackbox")
     if os.path.isdir(bb) and os.listdir(bb):
@@ -3606,11 +3642,15 @@ def _lv_gap(got, want):
 def run_liveness(tfm, dev, card, cfg=None, timeout=LV_TIMEOUT_S):
     """The liveness phase (see LV_LAYERS): gang A, gang B, then checks of
     their reports, rank 0's timelines, the survivors' gradients against
-    this process's and the leftover shm segments."""
+    this process's, the port's postmortem tool over each gang's
+    flight-recorder dumps (its first cause must be the killed or the
+    stalled rank) and the leftover shm segments."""
     import glob
     import tempfile
 
     import torch
+
+    from horovod_tpu_torch.tools import hvd_postmortem
 
     t_phase = time.perf_counter()
     cfg = cfg or _flagship_cfg(tfm)
@@ -3649,6 +3689,8 @@ def run_liveness(tfm, dev, card, cfg=None, timeout=LV_TIMEOUT_S):
                     tmp, "B_stall_at")).read())
             rep[gang]["dumps"] = _lv_dumps(os.path.join(tmp,
                                                         f"blackbox{gang}"))
+            rep[gang]["postmortem"] = hvd_postmortem.analyze(
+                os.path.join(tmp, f"blackbox{gang}"))
             if gang == "A":
                 # The root's last flush (at its shutdown; gang B's
                 # survivors stop with os._exit, before any).
@@ -3785,6 +3827,16 @@ def run_liveness(tfm, dev, card, cfg=None, timeout=LV_TIMEOUT_S):
           f"notes {verdicts}, the pulled ring's in-flight collective "
           f"{pulled and pulled.get('in_flight')}, its events "
           f"{pulled and len(pulled['events'])}")
+    for gang, victim in (("A", LV_A_VICTIM), ("B", LV_B_VICTIM)):
+        v = rep[gang]["postmortem"]
+        print(f"liveness {gang}: hvd_postmortem (the port's tool) over the "
+              f"dumps: first cause rank {v and v['first_cause']} (the "
+              f"{'killed' if gang == 'A' else 'stalled'} rank is {victim}),"
+              f" the gang's ruling {v and v['gang_ruled']}, doing "
+              f"{v and v['doing']}")
+        if not v or v["first_cause"] != victim:
+            failures.append(f"{gang}: the port's postmortem names rank "
+                            f"{v and v['first_cause']}, not {victim}")
     if leftover:
         failures.append(f"shm segments left: {leftover}")
     stall_s = max(errs) - b["stall_at"] if errs else float("nan")
@@ -4536,6 +4588,460 @@ def elastic_rank(rank: int, tmp: str) -> int:
     return 0
 
 
+# The torch-api phase: the engine phase's two ranks (ENGINE_RANKS, child
+# processes sharing cuda:0 through the port's RendezvousServer, with no
+# torch process group) train the full-width flagship through the classic
+# front-end, ``import horovod_tpu_torch.torch as hvd``: rank 0 from seed 0
+# and rank 1 from seed 1, made rank 0's bit for bit by
+# ``broadcast_parameters`` and ``broadcast_optimizer_state``; a hook-driven
+# ``DistributedOptimizer`` over ``torch.optim.AdamW(1e-3, wd 0.01)`` for
+# ENGINE_STEPS steps on four rows a rank of the engine phase's batches
+# (seed 7), its allreduces fired by post-accumulate hooks during
+# ``backward()``.  Held against a one-process twin on cuda:0 (seed 0,
+# AdamW on all eight rows, after the same zero-gradient step that
+# ``broadcast_optimizer_state`` makes on the root): the step-0 averaged
+# gradients within ENGINE_GRAD_TOL, the parameters after the steps within
+# TA_PARAM_TOL (|p - p_one| / |p_one|, the largest), the ranks equal bit for
+# bit.  Then: one step with ``backward_passes_per_step=2`` over two
+# half-batches (from seed 0, a fresh AdamW) against the twin's first step on
+# the same rows (TA_ACC_PARAM_TOL); the Adasum delta optimizer at two
+# layers, one step, with fusion off, against a float64 oracle of Adasum of
+# the two ranks' own deltas (each element within TA_ADASUM_ULPS fp32 ulps
+# of fp32(start + fp32(oracle)): the engine rounds its float64 result to
+# fp32 once and the optimizer adds it in fp32 once, so the two agree bit
+# for bit but where a float64 sum in another order rounds the other way);
+# and the
+# gradients' ``grouped_allreduce`` compiled with
+# ``torch.compile(fullgraph=True)`` (the custom ops of ``ops/bridge.py``)
+# against the eager grouped allreduce, bit for bit, with no graph break.
+# TA_PARAM_TOL and TA_ACC_PARAM_TOL are about twice the first H100 run's
+# readings, 7.488e-03 after three steps and 7.518e-03 after the
+# accumulated step (NVIDIA H100 80GB HBM3, 700.00 W; the twin's first
+# step reads the same AdamW sign effect as ENGINE_PARAM_TOL's).
+TA_PARAM_TOL = 1.5e-2
+TA_ACC_PARAM_TOL = 1.5e-2
+TA_ADASUM_ULPS = 1.0
+TA_TIMEOUT_S = 600
+
+
+def _ta_twin(tfm, cfg, dev, batches):
+    """The one-process twin: seed 0, AdamW after the root's zero-gradient
+    step (its parameters kept), ``len(batches)`` steps on all the rows.
+    Returns the step-0 gradients and the last parameters."""
+    import torch
+
+    model = tfm.init(0, cfg, device=dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=0.01)
+    kept = [p.detach().clone() for p in model.parameters()]
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    opt.step()
+    with torch.no_grad():
+        for p, k in zip(model.parameters(), kept):
+            p.copy_(k)
+    del kept
+    for s, (tokens, targets) in enumerate(batches):
+        opt.zero_grad(set_to_none=True)
+        tfm.loss_fn(model, tokens, targets).backward()
+        if s == 0:
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()}
+        opt.step()
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return grads, params
+
+
+def _rel_gaps(got, want, dev):
+    gaps = {n: float((got[n].to(dev) - w).norm()
+                     / w.norm().clamp_min(1e-30)) for n, w in want.items()}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def run_torch_api(hvd, tfm, fa, dev, card, engine=None,
+                  timeout=TA_TIMEOUT_S):
+    """The torch-api phase (see TA_PARAM_TOL): the twins here, the ranks
+    (``--torch-api-rank R``), then the checks; ``engine``, the engine
+    phase's reports, for its step medians.  Returns the flash launches of
+    rank 0's training steps."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    cfg = _flagship_cfg(tfm)
+    B = 8
+    batches = _token_batches(dev, ENGINE_STEPS, B=B, S=cfg.max_seq_len,
+                             vocab=cfg.vocab_size, seed=7)
+    ref_grads, ref_params = _ta_twin(tfm, cfg, dev, batches)
+    # The accumulation step's twin: a fresh AdamW, one step on all rows.
+    model = tfm.init(0, cfg, device=dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=0.01)
+    tfm.loss_fn(model, *batches[0]).backward()
+    opt.step()
+    acc_params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    twin_s = time.perf_counter() - t_phase
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fields = {f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cfg)}
+        fields["compute_dtype"] = str(cfg.compute_dtype).split(".")[1]
+        with open(os.path.join(tmp, "config.json"), "w") as fh:
+            json.dump({"cfg": fields, "device": str(dev), "rows": B,
+                       "steps": ENGINE_STEPS}, fh)
+        t0 = time.perf_counter()
+        _spawn_ranks("--torch-api-rank", ENGINE_RANKS, tmp, lambda r: dict(
+            HVD_RANK=str(r), HVD_SIZE=str(ENGINE_RANKS),
+            HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(ENGINE_RANKS)),
+            timeout, "torch-api")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(ENGINE_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        got = torch.load(os.path.join(tmp, "rank0.pt"))
+
+    failures = []
+    g_gap, g_where = _rel_gaps(got["grads0"], ref_grads, dev)
+    p_gap, p_where = _rel_gaps(got["params"], ref_params, dev)
+    ag_gap, ag_where = _rel_gaps(got["acc_grads"], ref_grads, dev)
+    ap_gap, ap_where = _rel_gaps(got["acc_params"], acc_params, dev)
+    r0 = ranks[0]
+    print(f"torch-api: {ENGINE_RANKS} ranks on {dev} through "
+          f"horovod_tpu_torch.torch (hook-driven DistributedOptimizer over "
+          f"AdamW), {wall:.1f} s wall, twins {twin_s:.1f} s; rank 1 started "
+          f"from other weights: {r0['started_apart']}; after "
+          f"broadcast_parameters and broadcast_optimizer_state "
+          f"({r0['bcast_ms']:.1f} ms) the parameters are rank 0's bit for "
+          f"bit: {[r['bcast_params_equal'] for r in ranks]}, the optimizer "
+          f"state: {[r['bcast_state_equal'] for r in ranks]}; largest "
+          f"|g - g_one| / |g_one| of the averaged step-0 gradients "
+          f"{g_gap:.3e} ({g_where}; tol {ENGINE_GRAD_TOL}); largest "
+          f"|p - p_one| / |p_one| after {ENGINE_STEPS} steps {p_gap:.3e} "
+          f"({p_where}; tol {TA_PARAM_TOL}); the ranks' parameters equal "
+          f"bit for bit: {[r['params_equal'] for r in ranks]}; {card}")
+    print(f"torch-api: backward_passes_per_step=2 over two half-batches: "
+          f"gradients {ag_gap:.3e} ({ag_where}; tol {ENGINE_GRAD_TOL}), "
+          f"parameters after the step {ap_gap:.3e} ({ap_where}; tol "
+          f"{TA_ACC_PARAM_TOL}) from the twin's first step on the same rows;"
+          f" ranks equal {[r['acc_equal'] for r in ranks]}")
+    print(f"torch-api: Adasum delta optimizer at {r0['adasum_layers']} "
+          f"layers, one step, fusion off: against the float64 oracle of "
+          f"Adasum of the ranks' own deltas rounded as the optimizer rounds "
+          f"(fp32(p0 + fp32(oracle))), the largest gap "
+          f"{r0['adasum_err']:.3f} fp32 ulps ({r0['adasum_where']}; tol "
+          f"{TA_ADASUM_ULPS}), {r0['adasum_off']} of "
+          f"{r0['adasum_elements']} elements not bit for bit; ranks equal "
+          f"{[r['adasum_equal'] for r in ranks]}")
+    print(f"torch-api: the gradients' grouped_allreduce under "
+          f"torch.compile(fullgraph=True): bit for bit the eager grouped "
+          f"allreduce's {[r['bridge_equal'] for r in ranks]}, on the card "
+          f"{[r['bridge_on_card'] for r in ranks]}, graph breaks "
+          f"{[r['graph_breaks'] for r in ranks]}; first call (compiling) "
+          f"{r0['bridge_first_ms']:.1f} ms, then compiled "
+          f"{r0['bridge_ms']:.1f} ms against eager {r0['eager_ms']:.1f} ms "
+          f"for {r0['grad_bytes']} bytes; {card}")
+    if not g_gap <= ENGINE_GRAD_TOL:
+        failures.append("the averaged step-0 gradients")
+    if not p_gap <= TA_PARAM_TOL:
+        failures.append(f"the parameters after {ENGINE_STEPS} steps")
+    if not ag_gap <= ENGINE_GRAD_TOL:
+        failures.append("the accumulated gradients")
+    if not ap_gap <= TA_ACC_PARAM_TOL:
+        failures.append("the parameters after the accumulated step")
+    if not r0["adasum_err"] <= TA_ADASUM_ULPS:
+        failures.append("the Adasum step against its oracle")
+    if not r0["started_apart"]:
+        failures.append("rank 1 started from rank 0's weights")
+    want_launches = {"fwd": 2 * cfg.n_layers * ENGINE_STEPS,
+                     "dq": cfg.n_layers * ENGINE_STEPS,
+                     "dkv": cfg.n_layers * ENGINE_STEPS, "split": 0}
+    for r, res in enumerate(ranks):
+        st = res["steps"]
+        med = statistics.median(s["ms"] for s in st)
+        tail = statistics.median(s["tail_ms"] for s in st)
+        eng = f"{statistics.median(s['ms'] for s in engine[r]['steps']):.1f}" \
+            if engine else "not measured"
+        print(f"torch-api rank {r}: step ms {[round(s['ms'], 1) for s in st]}"
+              f", median {med:.1f} against the engine phase's explicit "
+              f"per-parameter allreduce_async on the same rows {eng}; the end "
+              f"of backward() to the end of step() (the allreduce the hooks "
+              f"did not hide, and the update) "
+              f"{[round(s['tail_ms'], 1) for s in st]}, median {tail:.1f}; "
+              f"backward() {[round(s['backward_ms'], 1) for s in st]}; "
+              f"flash launches {res['launches']} "
+              f"({ {k: n / ENGINE_STEPS for k, n in res['launches'].items()} }"
+              f" a step); {card}")
+        for key, what in (("bcast_params_equal", "the broadcast parameters"),
+                          ("bcast_state_equal", "the broadcast state"),
+                          ("params_equal", "the trained parameters"),
+                          ("acc_equal", "the accumulated step's parameters"),
+                          ("adasum_equal", "the Adasum step's parameters"),
+                          ("bridge_equal", "the compiled reduction's bits"),
+                          ("bridge_on_card", "the compiled reduction's "
+                                             "device")):
+            if not res[key]:
+                failures.append(f"rank {r}: {what}")
+        if res["graph_breaks"]:
+            failures.append(f"rank {r}: {res['graph_breaks']} graph breaks")
+        if dev.type == "cuda" and res["launches"] != want_launches:
+            failures.append(f"rank {r}: flash launches {res['launches']} != "
+                            f"{want_launches}")
+        if not all(math.isfinite(s["loss"]) for s in st):
+            failures.append(f"rank {r}: a loss is not finite")
+    if "profile" in r0:
+        pr = r0["profile"]
+        print(f"torch-api profile (rank 0, one more step): kernels "
+              f"{pr['busy_ms']:.2f} ms in {pr['launches']} launches, of them "
+              f"flash {pr['flash']}; copies and sets {pr['copy_ms']:.2f} ms "
+              f"in {pr['copies']}; the profiled step took "
+              f"{pr['wall_ms']:.2f} ms; {card}")
+    print(f"torch-api: phase wall {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}")
+    if failures:
+        raise AssertionError("torch-api: " + "; ".join(failures))
+    return ranks[0]["launches"]
+
+
+def _ta_digest(tree):
+    import numpy as np
+
+    from horovod_tpu_torch.integrity.audit import fingerprint
+
+    return int(np.array([fingerprint(tree)[0]], np.uint64).view(np.int64)[0])
+
+
+def torch_api_rank(rank: int, tmp: str) -> int:
+    """One rank of the torch-api phase (``--torch-api-rank``): see
+    TA_PARAM_TOL.  Writes its readings to ``<tmp>/rank<r>.json`` and rank 0
+    its gradients and parameters to ``rank0.pt``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import bridge
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    with open(os.path.join(tmp, "config.json")) as fh:
+        conf = json.load(fh)
+    fields = dict(conf["cfg"])
+    fields["compute_dtype"] = getattr(torch, fields["compute_dtype"])
+    cfg = tfm.TransformerConfig(**fields)
+    dev = torch.device(conf["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The gradients go through the eager engine, which needs no
+    # torch.distributed group (NCCL refuses two ranks on one card).
+    hvd.init(device=dev, backend="none")
+    res, save = {"rank": rank}, {}
+    try:
+        size = hvd.size()
+        rows = slice(rank * conf["rows"] // size,
+                     (rank + 1) * conf["rows"] // size)
+
+        def adamw(params):
+            return torch.optim.AdamW(params, lr=1e-3, weight_decay=0.01)
+
+        def agree(value, name):
+            got = hvd.allgather(torch.tensor([value]), name=name)
+            return bool(len(set(got.tolist())) == 1)
+
+        def state_tree(opt):
+            return {f"{i}.{k}": v for i, st in opt.state_dict()["state"]
+                    .items() for k, v in st.items() if torch.is_tensor(v)}
+
+        # -- from unequal starts to rank 0's weights and state
+        model = tfm.init(rank, cfg, device=dev)  # rank 1: another seed
+        opt = hvd.DistributedOptimizer(
+            adamw(model.parameters()),
+            named_parameters=model.named_parameters())
+        res["started_apart"] = not agree(_ta_digest(model.state_dict()),
+                                         "ta.digest.seed")
+        _sync_dev(torch, dev)
+        t0 = time.perf_counter()
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        hvd.broadcast_optimizer_state(opt, root_rank=0)
+        _sync_dev(torch, dev)
+        res["bcast_ms"] = (time.perf_counter() - t0) * 1e3
+        res["bcast_params_equal"] = agree(_ta_digest(model.state_dict()),
+                                          "ta.digest.bcast")
+        res["bcast_state_equal"] = agree(_ta_digest(state_tree(opt)),
+                                         "ta.digest.state")
+
+        # -- the steps: the hooks fire the allreduces during backward()
+        batches = _token_batches(dev, conf["steps"], B=conf["rows"],
+                                 S=cfg.max_seq_len, vocab=cfg.vocab_size,
+                                 seed=7)
+        steps = []
+        fa.reset_launch_counts()
+        for s, (tokens, targets) in enumerate(batches):
+            _sync_dev(torch, dev)
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = tfm.loss_fn(model, tokens[rows], targets[rows])
+            loss.backward()
+            t1 = time.perf_counter()
+            opt.step()
+            _sync_dev(torch, dev)
+            t2 = time.perf_counter()
+            steps.append(dict(step=s, loss=float(loss.detach()),
+                              ms=(t2 - t0) * 1e3,
+                              backward_ms=(t1 - t0) * 1e3,
+                              tail_ms=(t2 - t1) * 1e3))
+            if s == 0:
+                save["grads0"] = {n: p.grad.detach().cpu()
+                                  for n, p in model.named_parameters()}
+        res["launches"] = dict(fa.launches)
+        res["steps"] = steps
+        res["params_equal"] = agree(_ta_digest(model.state_dict()),
+                                    "ta.digest.final")
+        save["params"] = {n: p.detach().cpu()
+                          for n, p in model.named_parameters()}
+
+        # -- one more step, profiled on rank 0: launches and busy time
+        def one_step():
+            opt.zero_grad(set_to_none=True)
+            tfm.loss_fn(model, batches[0][0][rows],
+                        batches[0][1][rows]).backward()
+            opt.step()
+
+        if rank == 0 and dev.type == "cuda":
+            t0 = time.perf_counter()
+            prof_rows = _profile_rows(one_step, reps=1, warmup=0)
+            copies = [e for e in prof_rows
+                      if e.key.startswith(("Memcpy", "Memset"))]
+            kernels = [e for e in prof_rows if e not in copies]
+            res["profile"] = dict(
+                wall_ms=(time.perf_counter() - t0) * 1e3,
+                busy_ms=sum(_dev_us(e) for e in kernels) / 1e3,
+                launches=sum(e.count for e in kernels),
+                copy_ms=sum(_dev_us(e) for e in copies) / 1e3,
+                copies=sum(e.count for e in copies),
+                flash=sum(e.count for e in kernels if re.search(
+                    r"\b(fwd|dq|dkv)(_wgmma)?_kernel<", e.key)))
+        else:
+            one_step()
+            _sync_dev(torch, dev)
+
+        # -- the bridge: the gradients' reduction compiled
+        from torch._dynamo.utils import counters
+
+        grads = [p.grad for p in model.parameters()]
+        reduce = torch.compile(lambda gs: bridge.grouped_allreduce(
+            gs, name="ta.bridge"), fullgraph=True)
+        _sync_dev(torch, dev)
+        t0 = time.perf_counter()
+        reduce(grads)
+        _sync_dev(torch, dev)
+        res["bridge_first_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        compiled = reduce(grads)
+        _sync_dev(torch, dev)
+        res["bridge_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        eager = hvd.grouped_allreduce(grads, name="ta.eager")
+        _sync_dev(torch, dev)
+        res["eager_ms"] = (time.perf_counter() - t0) * 1e3
+        res["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+        res["bridge_equal"] = all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(compiled, eager))
+        res["bridge_on_card"] = all(t.device == dev for t in compiled)
+        res["graph_breaks"] = sum(counters["graph_break"].values())
+        del grads, compiled, eager, reduce, opt, model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- gradients accumulated over two half-batches
+        model = tfm.init(0, cfg, device=dev)
+        opt = hvd.DistributedOptimizer(
+            adamw(model.parameters()),
+            named_parameters=model.named_parameters(),
+            backward_passes_per_step=2)
+        tokens, targets = batches[0]
+        half = (rows.stop - rows.start) // 2
+        opt.zero_grad(set_to_none=True)
+        for lo in (rows.start, rows.start + half):
+            part = slice(lo, lo + half)
+            (tfm.loss_fn(model, tokens[part], targets[part]) / 2).backward()
+        opt.step()
+        save["acc_grads"] = {n: p.grad.detach().cpu()
+                             for n, p in model.named_parameters()}
+        save["acc_params"] = {n: p.detach().cpu()
+                              for n, p in model.named_parameters()}
+        res["acc_equal"] = agree(_ta_digest(model.state_dict()),
+                                 "ta.digest.acc")
+        del opt, model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- Adasum: the delta optimizer at two layers, one step
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        eng = basics._engine()
+        threshold = eng.fusion_threshold
+        eng.fusion_threshold = 0  # one response a tensor: Adasum per tensor
+        try:
+            model = tfm.init(rank, cfg2, device=dev)
+            opt = hvd.DistributedOptimizer(
+                adamw(model.parameters()),
+                named_parameters=model.named_parameters(), op=hvd.Adasum)
+            start = {n: p.detach().clone()
+                     for n, p in model.named_parameters()}
+            tfm.loss_fn(model, tokens[rows], targets[rows]).backward()
+            # This rank's own delta: the same AdamW step on a copy.
+            local = copy.deepcopy(model)
+            plain = adamw(local.parameters())
+            for p, q in zip(model.parameters(), local.parameters()):
+                q.grad = p.grad.detach().clone()
+            plain.step()
+            opt.step()
+            worst, err, off = None, 0.0, 0
+            for (n, p), q in zip(model.named_parameters(),
+                                 local.parameters()):
+                both = hvd.allgather((q.detach() - start[n]).unsqueeze(0),
+                                     name=f"ta.adasum.{n}")
+                a = both[0].double().flatten()
+                b = both[1].double().flatten()
+                dot, an, bn = float(a @ b), float(a @ a), float(b @ b)
+                want = (1.0 - dot / (2.0 * an) if an > 0 else 1.0) * a + \
+                    (1.0 - dot / (2.0 * bn) if bn > 0 else 1.0) * b
+                # The engine rounds the float64 Adasum to fp32 once, and
+                # the optimizer adds it to the start in fp32 once: the
+                # oracle rounded the same way, in ulps of the result (a
+                # float64 sum in another order may round the other way).
+                got = p.detach().flatten()
+                sim = start[n].flatten() + want.float()
+                ulp = torch.nextafter(sim.abs(), torch.full_like(
+                    sim, math.inf)) - sim.abs()
+                e = float(((got - sim).abs() / ulp).max())
+                off += int((got != sim).sum())
+                if worst is None or e > err:
+                    worst, err = n, e
+            res["adasum_err"], res["adasum_where"] = err, worst
+            res["adasum_off"] = off
+            res["adasum_elements"] = sum(p.numel()
+                                         for p in model.parameters())
+            res["adasum_layers"] = cfg2.n_layers
+            res["adasum_equal"] = agree(_ta_digest(model.state_dict()),
+                                        "ta.digest.adasum")
+        finally:
+            eng.fusion_threshold = threshold
+        if rank == 0:
+            torch.save(save, os.path.join(tmp, "rank0.pt"))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        hvd.shutdown()
+    return 0
+
+
 def _sync_dev(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -4589,6 +5095,8 @@ def main() -> int:
         return elastic_rank(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--serve-gang-rank"]:  # a serving gang's rank
         return serve_gang_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--torch-api-rank"]:  # a torch-api phase rank
+        return torch_api_rank(int(sys.argv[2]), sys.argv[3])
     t_start = time.perf_counter()
     import torch
 
@@ -4698,6 +5206,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     plain = run_engine(hvd, tfm, fa, dev, card)
     torch.cuda.empty_cache()
+    ta_counts = run_torch_api(hvd, tfm, fa, dev, card, engine=plain)
+    torch.cuda.empty_cache()
     tel = run_engine(hvd, tfm, fa, dev, card, steps=TEL_STEPS,
                      telemetry=True)
     torch.cuda.empty_cache()
@@ -4741,6 +5251,7 @@ def main() -> int:
           f"step (each kernel's microbatch time x its launches per step)")
 
     el = check_kernels(fa, *elastic_rows, peaks, dev)
+    ta = check_kernels(fa, *engine_rows, peaks, dev)
     f32 = check_kernels(fa, *f32_flagship, peaks, dev)
     for shape in dim_shapes:
         check_kernels(fa, *shape, peaks, dev)
@@ -4778,6 +5289,12 @@ def main() -> int:
     kernels += [dict(name=f"flash_{k}_elastic", route="cuda",
                      source=SOURCE, replaces=REPLACES[k],
                      launches=el_counts[k], **el[k])
+                for k in ("fwd", "dq", "dkv")]
+    # The torch-api phase's kernels at an engine rank's rows (B 4), with
+    # their launches in rank 0's training steps.
+    kernels += [dict(name=f"flash_{k}_torch_api", route="cuda",
+                     source=SOURCE, replaces=REPLACES[k],
+                     launches=ta_counts[k], **ta[k])
                 for k in ("fwd", "dq", "dkv")]
     # The ring hop's variants, with their launches in the causal ring run.
     for c, tag in ((True, "self"), (False, "hop")):

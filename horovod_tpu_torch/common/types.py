@@ -9,7 +9,9 @@ engine's messages:
 ``RequestType``, ``ResponseType``, ``StatusType``, ``Status``,
 ``TensorShape``, ``Request`` and ``Response``, with the same enum values
 and fields, which ``common/wire.py`` puts on the wire byte for byte as the
-JAX package does); the port imports nothing of the JAX package.
+JAX package does); the port imports nothing of the JAX package.  torch is
+imported inside the dtype mappings only, so that the launcher, which
+reaches this module, starts without it.
 """
 
 from __future__ import annotations
@@ -17,8 +19,6 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
-
-import torch
 
 
 class DataType(enum.IntEnum):
@@ -43,43 +43,47 @@ class DataType(enum.IntEnum):
         return dtype_to_torch(self).itemsize
 
 
-_TORCH = {
-    DataType.UINT8: torch.uint8,
-    DataType.INT8: torch.int8,
-    DataType.UINT16: torch.uint16,
-    DataType.INT16: torch.int16,
-    DataType.INT32: torch.int32,
-    DataType.INT64: torch.int64,
-    DataType.FLOAT16: torch.float16,
-    DataType.FLOAT32: torch.float32,
-    DataType.FLOAT64: torch.float64,
-    DataType.BOOL: torch.bool,
-    DataType.BFLOAT16: torch.bfloat16,
-    DataType.FLOAT8_E4M3: torch.float8_e4m3fn,
-    DataType.FLOAT8_E5M2: torch.float8_e5m2,
+_TORCH_NAMES = {
+    DataType.UINT8: "uint8",
+    DataType.INT8: "int8",
+    DataType.UINT16: "uint16",
+    DataType.INT16: "int16",
+    DataType.INT32: "int32",
+    DataType.INT64: "int64",
+    DataType.FLOAT16: "float16",
+    DataType.FLOAT32: "float32",
+    DataType.FLOAT64: "float64",
+    DataType.BOOL: "bool",
+    DataType.BFLOAT16: "bfloat16",
+    DataType.FLOAT8_E4M3: "float8_e4m3fn",
+    DataType.FLOAT8_E5M2: "float8_e5m2",
 }
 
 
-def dtype_to_torch(dt: DataType) -> torch.dtype:
-    return _TORCH[dt]
+def dtype_to_torch(dt: DataType) -> "torch.dtype":
+    import torch
+
+    return getattr(torch, _TORCH_NAMES[dt])
 
 
-def dtype_from_torch(dtype: torch.dtype) -> DataType:
-    for k, v in _TORCH.items():
-        if v == dtype:
+def dtype_from_torch(dtype: "torch.dtype") -> DataType:
+    import torch
+
+    for k, name in _TORCH_NAMES.items():
+        if getattr(torch, name) == dtype:
             return k
     raise ValueError(f"horovod_tpu_torch does not support dtype {dtype}")
 
 
 def dtype_to_numpy_name(dt: DataType) -> str:
     """The numpy (and JAX) name of the type, e.g. ``"float8_e4m3fn"``."""
-    return str(_TORCH[dt]).split(".", 1)[1]
+    return _TORCH_NAMES[dt]
 
 
 def dtype_from_numpy(np_dtype) -> DataType:
     name = str(np_dtype)
-    for k in _TORCH:
-        if dtype_to_numpy_name(k) == name:
+    for k, v in _TORCH_NAMES.items():
+        if v == name:
             return k
     raise ValueError(f"horovod_tpu_torch does not support dtype {name!r}")
 

@@ -28,9 +28,10 @@ then), each labelled by op and by the dtype's numpy name (``"bfloat16"``,
 never ``"torch.bfloat16"``), so that port and JAX ranks fold into one
 series.
 
-Left out until its feature is ported: the in-graph bridge (``jit``
-dispatch; ROADMAP Queue 1, item 6, the torch analog is collectives as
-custom ops under ``torch.compile``).
+The same collectives inside a compiled program are the custom ops of
+``horovod_tpu_torch.ops.bridge`` (the JAX package's in-graph bridge),
+which ride this layer; the classic torch front-end's sync, async,
+in-place and autograd forms are ``horovod_tpu_torch.torch``.
 """
 
 from __future__ import annotations

@@ -1264,15 +1264,26 @@ class PyEngine(_EngineBase):
             self._loop_exited.set()
 
     def _drain_on_shutdown(self):
+        """Fail the handles still pending when the loop stops.  After an
+        eviction, a stop that is not an abort fails them with the
+        eviction's ``RanksFailedError``: a collective submitted before this
+        rank saw the ``EVICT`` is stranded when a survivor that saw it
+        first stops the gang to re-form, and ``@hvd.elastic.run`` must
+        re-form here too (the JAX package's engine fails it as a plain
+        shutdown).  An abort (a lost coordinator) keeps its reason."""
         with self._queue_lock:
             entries = list(self._table.values())
             self._table.clear()
             self._request_queue.clear()
             jh, self._join_handle = self._join_handle, None
-        status = Status(StatusType.ABORTED, self._abort_reason,
-                        self._abort_exc) if self._abort_exc is not None \
-            else Status.aborted(
-                self._abort_reason or "Horovod has been shut down.")
+        reason = self._abort_reason or "Horovod has been shut down."
+        if self._abort_exc is not None:
+            status = Status(StatusType.ABORTED, reason, self._abort_exc)
+        elif self._ranks_failed and not self._aborted:
+            status = Status(StatusType.ABORTED, reason,
+                            RanksFailedError(self._ranks_failed))
+        else:
+            status = Status.aborted(reason)
         for e in entries:
             self._release_name(e.name)
             self.handles.mark_done(e.handle, status, None)

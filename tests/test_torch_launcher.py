@@ -8,6 +8,7 @@ cases on the port).
 * fail fast: one rank exits 3, the launcher kills the other and fails;
 * ``--max-restarts``: a rank that fails on the first attempt is relaunched
   with the gang, and the job exits 0 (without the flag it fails);
+* the launcher starts without importing torch or numpy;
 * the function mode: ``run(fn, np=2, device="cpu")`` returns each rank's
   value, and a raising function's traceback;
 * elastic: ``--min-np 2`` with three ranks, rank 2 SIGKILLs itself after
@@ -133,11 +134,16 @@ def test_cli_fail_fast(tmp_path):
     assert "worker rank 1 exited with code 3" in res.stderr, res.stderr
 
 
-@pytest.mark.timeout(90)
+# Three rounds of interpreters start one after another here: the
+# launcher, then each attempt's ranks, which import torch.  Alone that
+# takes about 20 s, on a loaded machine a few times that, so each launch
+# gets the JAX twin's 120 s (tests/test_launcher_e2e.py).
+@pytest.mark.timeout(270)
 def test_cli_max_restarts_relaunches(tmp_path):
     env = _env(SENTINEL=str(tmp_path / "crashed_once"))
     res = _run_cli(tmp_path, CRASH_ONCE_WORKER, 2,
-                   flags=("--max-restarts", "2", "--no-shm"), env=env)
+                   flags=("--max-restarts", "2", "--no-shm"), env=env,
+                   timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "restarting the job (attempt 1/2)" in res.stderr, res.stderr
     for r in range(2):
@@ -145,8 +151,26 @@ def test_cli_max_restarts_relaunches(tmp_path):
     # Without restarts the same crash fails the job.
     os.remove(tmp_path / "crashed_once")
     res = _run_cli(tmp_path, CRASH_ONCE_WORKER, 2, flags=("--no-shm",),
-                   env=env)
+                   env=env, timeout=120)
     assert res.returncode != 0
+
+
+@pytest.mark.timeout(60)
+def test_launcher_starts_without_torch():
+    """The launcher, running a job, imports neither torch nor numpy: on a
+    loaded machine its start is otherwise a third of a restarted job's
+    wall time (the package's names load on first use)."""
+    code = ("import sys\n"
+            "sys.argv = ['hvdrun-torch', '-np', '2', '--no-shm', '--', "
+            "sys.executable, '-c', 'pass']\n"
+            "import horovod_tpu_torch.runner.run as run\n"
+            "try:\n    run.main()\nexcept SystemExit:\n    pass\n"
+            "print(sorted(m for m in ('torch', 'numpy') "
+            "if m in sys.modules))")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=50, env=_env(), cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
 
 
 @pytest.mark.timeout(60)
@@ -187,3 +211,50 @@ def test_cli_elastic_min_np_survives_a_killed_rank(tmp_path):
         assert "DONE size 2 epoch 1" in lines, lines
         steps = {ln.split()[1] for ln in lines if ln.startswith("STEP ")}
         assert steps == {str(i) for i in range(6)}, lines
+
+
+@pytest.mark.parametrize("failed, aborted", [([], False), ([2], False),
+                                             ([2], True)],
+                         ids=["clean", "evicted", "evicted-then-aborted"])
+def test_a_stranded_collective_fails_as_the_eviction(failed, aborted):
+    """The elastic case's race: a rank submits a collective before it has
+    seen the ``EVICT`` of a dead rank, a survivor that saw it first stops
+    the gang to re-form, and the stop strands the collective.  It must
+    fail with the eviction's ``RanksFailedError``, which
+    ``@hvd.elastic.run`` re-forms on, and not as a plain shutdown, which
+    it lets through (the rank then exited 1 and its peer waited for it in
+    the new epoch's rendezvous).  A stop with no eviction stays a plain
+    shutdown, and an abort (a lost coordinator) keeps its reason."""
+    import threading
+
+    import numpy as np
+
+    from horovod_tpu_torch import runtime_py
+    from horovod_tpu_torch.common.types import RanksFailedError
+
+    eng = object.__new__(runtime_py.PyEngine)
+    runtime_py._EngineBase.__init__(eng, 0, 3, 0, 3, 0, 1)
+    eng._queue_lock = threading.Lock()
+    eng._request_queue, eng._join_handle = [], None
+    eng._abort_exc = None
+    eng._aborted = aborted
+    eng._abort_reason = "lost connection to coordinator" if aborted \
+        else None
+    eng._ranks_failed = list(failed)
+    h = eng.handles.allocate()
+    eng._claim_name("commit")
+    eng._table = {"commit": runtime_py.TensorTableEntry(
+        name="commit", array=np.zeros(1, np.int32), handle=h,
+        request=None)}
+    eng._drain_on_shutdown()
+    want = RanksFailedError if failed and not aborted else RuntimeError
+    with pytest.raises(want) as info:
+        eng.handles.wait(h)
+    if want is RanksFailedError:
+        assert info.value.ranks == failed
+    else:
+        assert type(info.value) is RuntimeError
+        assert ("coordinator" if aborted else "shut down") in \
+            str(info.value)
+    assert not eng._pending_names
+

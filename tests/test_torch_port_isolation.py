@@ -61,7 +61,9 @@ def test_import_loads_no_jax_or_jax_package():
     assert "horovod_tpu_torch.models.mnist" in loaded
     for mod in ("ops.adasum", "parallel.pipeline", "data",
                 "utils.checkpoint", "integrity.audit", "parallel.multihost",
-                "runner.http_client", "serving.decode", "serving.server"):
+                "runner.http_client", "serving.decode", "serving.server",
+                "torch", "torch.mpi_ops", "torch.compression", "ops.bridge",
+                "tools.hvd_trace", "tools.hvd_postmortem", "tools.hvd_top"):
         assert f"horovod_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -85,6 +87,40 @@ def test_no_source_file_imports_jax_or_jax_package():
     assert bad == []
 
 
+def _reference_names(path):
+    """The public names a module of the JAX package binds at its top level
+    (read from its source, not imported)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+    return {n for n in names if not n.startswith("_")} - {"annotations"}
+
+
+@pytest.mark.parametrize("port_mod, ref", [
+    ("horovod_tpu_torch.torch", "horovod_tpu/torch/__init__.py"),
+    ("horovod_tpu_torch.torch.mpi_ops", "horovod_tpu/torch/mpi_ops.py"),
+    ("horovod_tpu_torch.torch.compression",
+     "horovod_tpu/torch/compression.py"),
+    ("horovod_tpu_torch.ops.bridge", "horovod_tpu/ops/bridge.py"),
+], ids=["torch", "mpi_ops", "compression", "bridge"])
+def test_classic_surface_has_the_reference_names(port_mod, ref):
+    """``import horovod_tpu_torch.torch as hvd`` is the whole classic API:
+    every public name the JAX package's module binds, the port's binds."""
+    import importlib
+
+    mod = importlib.import_module(port_mod)
+    # The reference's typing and module imports are not its API.
+    want = _reference_names(os.path.join(REPO, ref)) - {
+        "Optional", "np", "partial", "torch", "basics", "contextmanager",
+        "collections"}
+    assert sorted(n for n in want if not hasattr(mod, n)) == []
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -97,6 +133,14 @@ def test_init_without_device_raises_instead_of_using_cpu(no_cuda):
     with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
         hvd.init()
     assert not hvd.is_initialized()
+
+
+def test_classic_front_end_init_without_device_raises(no_cuda):
+    import horovod_tpu_torch.torch as hvd_torch
+
+    with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+        hvd_torch.init()
+    assert not hvd_torch.is_initialized()
 
 
 def test_model_init_without_device_raises(no_cuda):
