@@ -239,7 +239,24 @@ non-zero):
    graph break.  Prints, beside the card, the step median against phase
    6's, the end of ``backward()`` to the end of ``step()``, kernel and
    flash launches a step (one profiled step) and the compiled reduction's
-   ms against the eager one's.
+   ms against the eager one's;
+13. the native phase (``--engine-rank R`` with the default core, see
+   NATIVE_ROUTES; right after phase 12): the C++ core and the dispatcher
+   ops built from ``horovod_tpu_torch/csrc/`` on a thread beside the
+   kernels' nvcc at the start (the g++ version, the build seconds and
+   paths printed here), then phase 6's two ranks with
+   ``HVD_TPU_CORE`` unset: both must run ``NativeEngine`` with no
+   fallback reason, train the flagship three steps through
+   ``allreduce_async`` per parameter within phase 6's bounds, end with
+   equal parameters bit for bit, and reduce their step-0 gradients three
+   ways (the numpy route, ``torch.ops.hvd.allreduce_``,
+   ``hvd::grouped_allreduce`` under ``torch.compile(fullgraph=True)``) to
+   the same bits, with no graph break.  Prints, beside the card, the
+   step, enqueue and ``synchronize`` medians against phase 6's (the
+   Python engine, same call), and each route's time.  Every other phase
+   that spawns ranks pins ``HVD_TPU_CORE=py``: their subjects (shm rings,
+   the ladder, liveness, telemetry spans, the recorder, elastic, serving,
+   the front-end's fusion knob) are the Python engine's.
 
 The ``kernels`` JSON lists the flagship's three kernels, the same three
 with their launches in the MoE flagship's run (``flash_<kernel>_moe``: its
@@ -1957,7 +1974,10 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
         json.dump({"cfg": fields, "device": str(dev), "cache": cache}, fh)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HVD_", "MASTER_", "HOROVOD_"))}
-    env.update(HVD_TRACE="1", HVD_BLACKBOX_DIR=os.path.join(tmp, "blackbox"))
+    # The serve channel is the Python engine's (the launcher's elastic
+    # mode sets it too).
+    env.update(HVD_TRACE="1", HVD_TPU_CORE="py",
+               HVD_BLACKBOX_DIR=os.path.join(tmp, "blackbox"))
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.run",
@@ -2746,14 +2766,18 @@ def _greedy_groups(sizes, threshold):
 
 
 def _spawn_ranks(flag, n, tmp, env_of, timeout, what, expect=None,
-                 stalled=(), pids=None, late=None):
+                 stalled=(), pids=None, late=None, core="py"):
     """Run ``n`` ranks of this script (``flag R tmp``) against the port's
     ``RendezvousServer``; returns each rank's (exit code, output), killing
     every rank past ``timeout``.  A rank must exit with ``expect[r]``
     (default 0); a ``stalled`` rank must still run when the others have
     exited, and is killed then.  ``pids``, a list, gets the ranks'
     process ids.  ``late``: {rank: path}, a rank that starts once the
-    file ``path`` exists (an elastic joiner)."""
+    file ``path`` exists (an elastic joiner).  ``core``: the ranks'
+    ``HVD_TPU_CORE``; the phases whose subject is a Python-engine feature
+    (shm rings, the ladder, liveness, telemetry spans, the recorder,
+    elastic, the front-end's fusion knob) keep the default ``"py"``, and
+    None leaves ``hvd.init()`` its default, the native core."""
     from horovod_tpu_torch.runner.http_server import RendezvousServer
 
     server = RendezvousServer("127.0.0.1")
@@ -2763,6 +2787,8 @@ def _spawn_ranks(flag, n, tmp, env_of, timeout, what, expect=None,
     # The flight recorder is on in every rank: its dumps go under ``tmp``
     # unless the phase names another directory.
     base["HVD_BLACKBOX_DIR"] = os.path.join(tmp, "blackbox")
+    if core is not None:
+        base["HVD_TPU_CORE"] = core
     procs, outs = [], []
     late = late or {}
 
@@ -2818,9 +2844,44 @@ def _spawn_ranks(flag, n, tmp, env_of, timeout, what, expect=None,
     return outs
 
 
+# The one-process reference of run_engine, by (config, steps, device):
+# the phases that train the same steps share it.
+_ENGINE_REFS = {}
+
+
+def _engine_ref(hvd, cfg, dev, batches):
+    """The one-process step on all the rows, from seed 0's weights:
+    (step-0 loss, step-0 gradients, parameters after the steps), on the
+    host (the card's memory stays free for the ranks)."""
+    import torch
+
+    key = (repr(cfg), len(batches), str(dev))
+    if key in _ENGINE_REFS:
+        return _ENGINE_REFS[key]
+    hvd.init(device=dev)
+    try:
+        step_fn, init_fn = hvd.make_transformer_train_step(cfg, device=dev)
+        state = init_fn(0)
+        for s, (tokens, targets) in enumerate(batches):
+            state, loss = step_fn(state, tokens, targets)
+            if s == 0:
+                ref_loss = float(loss)
+                ref_grads = {n: p.grad.detach().cpu()
+                             for n, p in state.model.named_parameters()}
+        ref_params = {n: p.detach().cpu()
+                      for n, p in state.model.named_parameters()}
+        del state, step_fn, init_fn
+    finally:
+        hvd.shutdown()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    _ENGINE_REFS[key] = (ref_loss, ref_grads, ref_params)
+    return _ENGINE_REFS[key]
+
+
 def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
                knobs=None, steps=ENGINE_STEPS, telemetry=False,
-               tel_sample_s=None):
+               tel_sample_s=None, native=False):
     """The eager engine on the card: ENGINE_RANKS ranks of this script
     (``--engine-rank R``) bootstrap a ``PyEngine`` through the port's
     ``RendezvousServer`` and train the flagship (``cfg``: by default the
@@ -2833,8 +2894,11 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
     metrics with their server, flusher and gang fold, and the trace on,
     with their checks (:func:`_telemetry_checks`) in place of the default
     knobs' cache and fusion checks; ``tel_sample_s`` overrides the tuner's
-    sample."""
-    what = "telemetry" if telemetry else \
+    sample.  ``native``: the native phase (see NATIVE_ROUTES): the ranks
+    on ``hvd.init()``'s default core, which must be the native engine,
+    with the three routes' check in place of the Python engine's fusion
+    log and link media."""
+    what = "native" if native else "telemetry" if telemetry else \
         "engine" if not knobs else "engine (knobs on)"
     import tempfile
 
@@ -2844,24 +2908,7 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
     B = 8
     batches = _token_batches(dev, steps, B=B, S=cfg.max_seq_len,
                              vocab=cfg.vocab_size, seed=7)
-    # The one-process step on all the rows, from seed 0's weights.
-    hvd.init(device=dev)
-    try:
-        step_fn, init_fn = hvd.make_transformer_train_step(cfg, device=dev)
-        state = init_fn(0)
-        for s, (tokens, targets) in enumerate(batches):
-            state, loss = step_fn(state, tokens, targets)
-            if s == 0:
-                ref_loss = float(loss)
-                ref_grads = {n: p.grad.detach().clone()
-                             for n, p in state.model.named_parameters()}
-        ref_params = {n: p.detach().clone()
-                      for n, p in state.model.named_parameters()}
-        del state, step_fn, init_fn
-    finally:
-        hvd.shutdown()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    ref_loss, ref_grads, ref_params = _engine_ref(hvd, cfg, dev, batches)
 
     with tempfile.TemporaryDirectory() as tmp:
         fields = {f.name: getattr(cfg, f.name)
@@ -2870,8 +2917,8 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
         with open(os.path.join(tmp, "config.json"), "w") as fh:
             json.dump({"cfg": fields, "device": str(dev), "rows": B,
                        "steps": steps, "store_port": _free_port(),
-                       "telemetry": telemetry, "grad_check": telemetry},
-                      fh)
+                       "telemetry": telemetry, "grad_check": telemetry,
+                       "native": native}, fh)
         env = dict(knobs or {})
         if telemetry:
             env.update(_tel_env(tmp, tel_sample_s or TEL_SAMPLE_S))
@@ -2880,7 +2927,8 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
             env, HVD_RANK=str(r), HVD_SIZE=str(ENGINE_RANKS),
             HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(ENGINE_RANKS),
             **({"HVD_METRICS_FILE": os.path.join(tmp, f"metrics{r}.jsonl")}
-               if telemetry else {})), timeout, what)
+               if telemetry else {})), timeout, what,
+            core=None if native else "py")
         wall = time.perf_counter() - t0
         ranks = []
         for r in range(ENGINE_RANKS):
@@ -2892,17 +2940,19 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
             _telemetry_checks(tmp, ranks, steps, failures, card)
 
     loss_gap = abs(ranks[0]["loss0_mean"] - ref_loss)
-    grad_gaps = {n: float((got["grads0"][n].to(dev) - g).norm()
+    grad_gaps = {n: float((got["grads0"][n] - g).norm()
                           / g.norm().clamp_min(1e-30))
                  for n, g in ref_grads.items()}
-    param_gaps = {n: float((got["params"][n].to(dev) - p).norm()
+    param_gaps = {n: float((got["params"][n] - p).norm()
                            / p.norm().clamp_min(1e-30))
                   for n, p in ref_params.items()}
     wg = max(grad_gaps, key=grad_gaps.get)
     wp = max(param_gaps, key=param_gaps.get)
     param_tol = TEL_PARAM_TOL if telemetry else ENGINE_PARAM_TOL
+    engines = sorted({tuple(r["engine"]) for r in ranks})
     print(f"{what}: {ENGINE_RANKS} ranks on {dev} through the port's "
-          f"RendezvousServer and PyEngine, {wall:.1f} s wall; step-0 loss "
+          f"RendezvousServer and {'/'.join(e[0] for e in engines)}, "
+          f"{wall:.1f} s wall; step-0 loss "
           f"(the ranks' mean) {ranks[0]['loss0_mean']!r} against one "
           f"process on all {B} rows {ref_loss!r}: gap {loss_gap:.3e} (tol "
           f"{ENGINE_LOSS_TOL}); largest |g - g_one| / |g_one| of the "
@@ -2910,6 +2960,11 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
           f"{ENGINE_GRAD_TOL}); largest |p - p_one| / |p_one| after "
           f"{steps} steps {param_gaps[wp]:.3e} ({wp}; tol {param_tol}); "
           f"{card}")
+    want_engine = ("NativeEngine", None) if native else \
+        ("PyEngine", "HVD_TPU_CORE forces the Python engine")
+    if engines != [want_engine]:
+        failures.append(f"the ranks' engines and fallback reasons "
+                        f"{engines}, not {want_engine}")
     if not loss_gap <= ENGINE_LOSS_TOL:
         failures.append("the step-0 loss")
     if not grad_gaps[wg] <= ENGINE_GRAD_TOL:
@@ -2932,22 +2987,38 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
         rsteps = res["steps"]
         gbs = [round(s["grad_bytes"] / (s["enqueue_ms"] + s["sync_ms"])
                      / 1e6, 3) for s in rsteps]
-        print(f"{what} rank {r}: step ms "
-              f"{[round(s['ms'], 1) for s in rsteps]}, median "
-              f"{statistics.median(s['ms'] for s in rsteps):.1f}; enqueue "
-              f"(the gradients' copies to the host) ms "
-              f"{[round(s['enqueue_ms'], 1) for s in rsteps]}; in "
-              f"synchronize ms {[round(s['sync_ms'], 1) for s in rsteps]}; "
-              f"gradient bytes a step {rsteps[0]['grad_bytes']}; fused "
-              f"responses {[s['responses'] for s in rsteps]} (the 64 MiB "
-              f"threshold's grouping of all {res['n_params']} tensors at "
-              f"once: {res['greedy_groups']}), largest "
-              f"{max(s['largest_response'] for s in rsteps)} bytes; "
-              f"effective GB/s (gradient bytes / time in enqueue and "
-              f"synchronize) {gbs}; "
-              f"cache hits {[s['cache']['hits'] for s in rsteps]}, misses "
-              f"{[s['cache']['misses'] for s in rsteps]}; flash launches "
-              f"{res['launches']}")
+        if native:
+            # The core keeps no response log, and speaks TCP only.
+            print(f"{what} rank {r}: step ms "
+                  f"{[round(s['ms'], 1) for s in rsteps]}, median "
+                  f"{statistics.median(s['ms'] for s in rsteps):.1f}; "
+                  f"enqueue ms {[round(s['enqueue_ms'], 1) for s in rsteps]}"
+                  f"; in synchronize ms "
+                  f"{[round(s['sync_ms'], 1) for s in rsteps]}; gradient "
+                  f"bytes a step {rsteps[0]['grad_bytes']}; effective GB/s "
+                  f"{gbs}; cache hits "
+                  f"{[s['cache']['hits'] for s in rsteps]}, misses "
+                  f"{[s['cache']['misses'] for s in rsteps]}; flash "
+                  f"launches {res['launches']}")
+            _native_route_checks(what, r, res, failures)
+        else:
+            print(f"{what} rank {r}: step ms "
+                  f"{[round(s['ms'], 1) for s in rsteps]}, median "
+                  f"{statistics.median(s['ms'] for s in rsteps):.1f}; "
+                  f"enqueue (the gradients' copies to the host) ms "
+                  f"{[round(s['enqueue_ms'], 1) for s in rsteps]}; in "
+                  f"synchronize ms "
+                  f"{[round(s['sync_ms'], 1) for s in rsteps]}; gradient "
+                  f"bytes a step {rsteps[0]['grad_bytes']}; fused "
+                  f"responses {[s['responses'] for s in rsteps]} (the 64 "
+                  f"MiB threshold's grouping of all {res['n_params']} "
+                  f"tensors at once: {res['greedy_groups']}), largest "
+                  f"{max(s['largest_response'] for s in rsteps)} bytes; "
+                  f"effective GB/s (gradient bytes / time in enqueue and "
+                  f"synchronize) {gbs}; cache hits "
+                  f"{[s['cache']['hits'] for s in rsteps]}, misses "
+                  f"{[s['cache']['misses'] for s in rsteps]}; flash "
+                  f"launches {res['launches']}")
         if not res["bcast_bits_equal"]:
             failures.append(f"rank {r}: broadcast_parameters' weights are "
                             "not rank 0's bit for bit")
@@ -2968,7 +3039,7 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
             failures.append(f"rank {r}: cache hits {hits} and misses "
                             f"{misses}, not every tensor cached after "
                             "step 0")
-        for s in rsteps:
+        for s in rsteps if not native else ():
             if s["fused_tensors"] != n or (not telemetry and (
                     s["responses"] < res["greedy_groups"] or
                     not s["within_threshold"])):
@@ -2979,10 +3050,13 @@ def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
                             f"!= {want_launches}")
         if not all(math.isfinite(s["loss"]) for s in rsteps):
             failures.append(f"rank {r}: a loss is not finite")
+        if native:
+            continue
         print(f"{what} rank {r}: link media by peer {res['media']}")
-        if set(res["media"].values()) != {"shm"}:
-            failures.append(f"rank {r}: a same-host pair is not on the "
-                            f"shm ring: {res['media']}")
+        want_media = "tcp" if env.get("HVD_SHM_DISABLE") == "1" else "shm"
+        if set(res["media"].values()) != {want_media}:
+            failures.append(f"rank {r}: a same-host pair is not on "
+                            f"{want_media}: {res['media']}")
     print(f"{what}: on {card}; {ranks[0]['bcast_ms']:.1f} ms to broadcast "
           f"the parameters ({ranks[0]['param_bytes']} bytes) from rank 0")
     if failures:
@@ -3051,8 +3125,13 @@ def engine_rank(rank: int, tmp: str) -> int:
                                  seed=7)
         opt = default_optimizer(model.parameters())
         sizes = [p.numel() * 4 for p in model.parameters()]
-        greedy = _greedy_groups(sizes, eng.fusion_threshold)
-        eng.response_log = []
+        native = bool(conf.get("native"))
+        # The native core keeps no response log: its fusion is not read.
+        greedy = _greedy_groups(sizes, ENGINE_FUSION_BYTES if native
+                                else eng.fusion_threshold)
+        log = [] if native else None
+        if not native:
+            eng.response_log = log = []
         steps, grads0 = [], None
         knobs_by_step, tuner_done = [], []
         grad_gaps, check_launches = [], {k: 0 for k in fa.launches}
@@ -3064,7 +3143,7 @@ def engine_rank(rank: int, tmp: str) -> int:
             opt.zero_grad(set_to_none=True)
             loss = tfm.loss_fn(model, tokens[rows], targets[rows])
             loss.backward()
-            mark = len(eng.response_log)
+            mark = len(log)
             t1 = time.perf_counter()
             t_enq_ns = time.monotonic_ns()
             handles = [hvd.allreduce_async(p.grad, name=n, op=hvd.Average)
@@ -3088,28 +3167,33 @@ def engine_rank(rank: int, tmp: str) -> int:
             opt.step()
             _sync_dev(torch, dev)
             t4 = time.perf_counter() - check_s
-            log = [e for e in eng.response_log[mark:]
-                   if e[0] == "ALLREDUCE"]
+            fused = [e for e in log[mark:] if e[0] == "ALLREDUCE"]
             after = hvd.cache_stats()
             steps.append(dict(
                 step=s, loss=float(loss.detach()), ms=(t4 - t0) * 1e3,
                 backward_ms=(t1 - t0) * 1e3, enqueue_ms=(t2 - t1) * 1e3,
                 sync_ms=(t3 - t2) * 1e3, grad_bytes=sum(sizes),
-                responses=len(log), fused_tensors=sum(e[1] for e in log),
-                largest_response=max(e[2] for e in log),
-                within_threshold=all(e[1] == 1 or
-                                     e[2] <= eng.fusion_threshold
-                                     for e in log),
                 cache={k: after[k] - before[k] for k in ("hits",
                                                          "misses")},
                 t_enq_ns=t_enq_ns, t_sync_ns=t_sync_ns))
+            if native:
+                continue
+            steps[-1].update(
+                responses=len(fused),
+                fused_tensors=sum(e[1] for e in fused),
+                largest_response=max(e[2] for e in fused),
+                within_threshold=all(e[1] == 1 or
+                                     e[2] <= eng.fusion_threshold
+                                     for e in fused))
             knobs_by_step.append(_engine_knobs(eng))
             tuner_done.append(bool(eng._pm is not None and eng._pm.done))
         tel = _telemetry_readings(hvd, eng) if conf.get("telemetry") \
             else {}
         launches = {k: n - check_launches[k] for k, n in fa.launches.items()}
-        eng.response_log = None
-        media = eng.transport_media()
+        routes = _native_routes(hvd, grads0, names) if native else {}
+        media = {} if native else eng.transport_media()
+        if not native:
+            eng.response_log = None
         loss0 = hvd.allreduce(torch.tensor([steps[0]["loss"]]),
                               op=hvd.Average, name="loss0")
         digest = np.array([fingerprint(model.state_dict())[0]],
@@ -3146,7 +3230,10 @@ def engine_rank(rank: int, tmp: str) -> int:
             card_tensors=card, card_tensors_equal=all(card.values()),
             media={str(p): m for p, m in media.items()},
             knobs_by_step=knobs_by_step, tuner_done=tuner_done,
-            grad_gaps=grad_gaps, **tel)
+            grad_gaps=grad_gaps,
+            engine=[type(eng).__name__,
+                    getattr(eng, "native_fallback_reason", None)],
+            routes=routes, **tel)
         if rank == 0:
             torch.save({"grads0": grads0,
                         "params": {n: p.detach().cpu()
@@ -3157,6 +3244,176 @@ def engine_rank(rank: int, tmp: str) -> int:
     finally:
         hvd.shutdown()
     return 0
+
+
+# The native phase: the engine phase's ranks on hvd.init()'s default core,
+# the C++ engine (built by this process on a thread from the run's start:
+# the g++ version, each library's build seconds and path are printed),
+# held to the engine phase's
+# bounds against the one-process step, the ranks' parameters equal bit for
+# bit.  Then each rank reduces CPU copies of its step-0 gradients three
+# ways, with Average: the eager engine's numpy route (``allreduce_async``
+# per tensor), ``horovod_tpu_torch.torch.allreduce_`` (the dispatcher op
+# ``torch.ops.hvd.allreduce_``) and the bridge's grouped allreduce compiled
+# by ``torch.compile(fullgraph=True, backend="aot_eager")`` (the dispatcher
+# op ``hvd::grouped_allreduce``).  NATIVE_ROUTES names them; the three must
+# agree bit for bit, every dispatcher call must have gone through its op,
+# and the compiled step must have no graph break.
+NATIVE_ROUTES = ("numpy", "allreduce_", "bridge")
+
+
+def _native_routes(hvd, grads, names):
+    """The three routes of the native phase on ``grads`` (CPU tensors by
+    name, in ``names``' order): each route's results' digest, its time and
+    the dispatcher calls it made; the graph breaks of the compiled one."""
+    import hashlib
+
+    import torch
+    from torch._dynamo.utils import counters
+
+    import horovod_tpu_torch.torch as ht
+    from horovod_tpu_torch.ops import bridge
+    from horovod_tpu_torch.torch import _native_ops
+
+    xs = [grads[n].contiguous() for n in names]
+
+    def numpy_route():
+        hs = [hvd.allreduce_async(x, op=hvd.Average, name=f"route.np.{i}")
+              for i, x in enumerate(xs)]
+        return [hvd.synchronize(h) for h in hs]
+
+    def inplace_route():
+        outs = [x.clone() for x in xs]
+        for i, x in enumerate(outs):
+            ht.allreduce_(x, op=ht.Average, name=f"route.ip.{i}")
+        return outs
+
+    # aot_eager: the same trace (dynamo, fullgraph) with no code
+    # generation, whose compile the torch-api phase already times.
+    compiled = torch.compile(lambda gs: bridge.grouped_allreduce(
+        gs, name="route.bridge", op=hvd.Average), fullgraph=True,
+        backend="aot_eager")
+    counters.clear()
+    # The compile, with the op's first call: the route's time is the
+    # second call's.
+    t0 = time.perf_counter()
+    compiled(xs)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    out = {}
+    for route, fn in zip(NATIVE_ROUTES, (numpy_route, inplace_route,
+                                         lambda: compiled(xs))):
+        before = dict(_native_ops.dispatched)
+        t0 = time.perf_counter()
+        got = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        h = hashlib.sha256()
+        for t in got:
+            h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+        out[route] = dict(digest=h.hexdigest(), ms=ms, tensors=len(got),
+                          dispatched={k: v - before.get(k, 0) for k, v in
+                                      _native_ops.dispatched.items()
+                                      if v - before.get(k, 0)})
+    out["bridge"]["first_ms"] = first_ms
+    out["graph_breaks"] = sum(counters["graph_break"].values())
+    return out
+
+
+def _native_route_checks(what, r, res, failures):
+    routes = res["routes"]
+    n = res["n_params"]
+    print(f"{what} rank {r}: the step-0 gradients ({n} tensors) reduced "
+          f"three ways: " + "; ".join(
+              f"{k} {routes[k]['ms']:.1f} ms, digest "
+              f"{routes[k]['digest'][:16]}, dispatcher calls "
+              f"{routes[k]['dispatched']}" for k in NATIVE_ROUTES)
+          + f"; the compiled route's first call (its compile) "
+          f"{routes['bridge']['first_ms']:.1f} ms; graph breaks "
+          f"{routes['graph_breaks']}")
+    want = {"numpy": {}, "allreduce_": {"allreduce_": n},
+            "bridge": {"grouped_allreduce": 1}}
+    if len({routes[k]["digest"] for k in NATIVE_ROUTES}) != 1:
+        failures.append(f"rank {r}: the three routes' results differ")
+    for k in NATIVE_ROUTES:
+        if routes[k]["dispatched"] != want[k] or routes[k]["tensors"] != n:
+            failures.append(f"rank {r}: the {k} route made the dispatcher "
+                            f"calls {routes[k]['dispatched']}, not {want[k]}")
+    if routes["graph_breaks"] != 0:
+        failures.append(f"rank {r}: {routes['graph_breaks']} graph breaks")
+
+
+def start_native_build():
+    """Build the native core, then the dispatcher ops, on a thread (the
+    compilers at a lower priority), beside the kernels' nvcc at the start
+    of the run; :func:`run_native` joins it.  Returns the thread's
+    record."""
+    import threading
+
+    from horovod_tpu_torch.common import native_build
+    from horovod_tpu_torch.torch import _native_ops
+
+    rec = {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            rec["core"] = native_build.build_core()
+            flags, links, key = _native_ops._flags()
+            rec["ops"] = native_build.build_ops(_native_ops.SRC, flags,
+                                                links, key)
+        except Exception as e:  # reported by run_native
+            rec["error"] = e
+        rec["s"] = time.perf_counter() - t0
+
+    rec["thread"] = threading.Thread(target=build, daemon=True)
+    rec["thread"].start()
+    return rec
+
+
+def run_native(hvd, tfm, fa, dev, card, plain, cfg=None, tcp=None,
+               build=None):
+    """The native phase (see NATIVE_ROUTES): the build (``build``, the
+    record of :func:`start_native_build`, or here), then the ranks through
+    :func:`run_engine`; prints the step, enqueue and synchronize medians
+    beside ``plain``'s, the engine phase's reports (the Python engine,
+    same call), and ``tcp``'s where given (the Python engine under
+    ``HVD_SHM_DISABLE=1``)."""
+    from horovod_tpu_torch.common import native_build
+    from horovod_tpu_torch.torch import _native_ops
+
+    gxx = _sh([native_build.cxx(), "--version"]).splitlines()[0]
+    build = build or start_native_build()
+    t0 = time.perf_counter()
+    build["thread"].join()
+    waited = time.perf_counter() - t0
+    if "error" in build:
+        raise AssertionError(f"native: the build failed: {build['error']}")
+    ops = _native_ops.load()
+    built = native_build.build_seconds
+    print(f"native: build with {gxx} on a thread beside the run: the core "
+          f"{built.get(os.path.basename(build['core']), 0.0):.1f} s "
+          f"compiling -> {build['core']}; the dispatcher ops "
+          f"{built.get(os.path.basename(ops), 0.0):.1f} s compiling -> "
+          f"{ops}; {build['s']:.1f} s in all, {waited:.1f} s of it waited "
+          f"for here")
+    ranks = run_engine(hvd, tfm, fa, dev, card, cfg=cfg, native=True)
+    for r in range(ENGINE_RANKS):
+        def med(reports, k):
+            return statistics.median(s[k] for s in reports[r]["steps"])
+
+        for other, what in ((plain, "the Python engine (the engine "
+                                    "phase, this call)"),
+                            (tcp, "the Python engine over TCP (this "
+                                  "call)")):
+            if other is None:
+                continue
+            print(f"native rank {r}: medians on the native core / on "
+                  f"{what}: " + "; ".join(
+                      f"{label} {med(ranks, k):.1f} / {med(other, k):.1f} ms"
+                      for label, k in (("step", "ms"),
+                                       ("enqueue", "enqueue_ms"),
+                                       ("synchronize", "sync_ms")))
+                  + f"; {card}")
+    return ranks
 
 
 def _one_process_gap(tfm, model, tokens, targets, launches_taken):
@@ -5122,9 +5379,30 @@ def main() -> int:
           f"{peaks[1] / 1e12:g}, fp32 {peaks[2] / 1e12:g} TFLOP/s, "
           f"{peaks[3] / 1e12:g} TB/s")
 
+    # The native core builds with g++ while nvcc builds the kernels.
+    native_rec = start_native_build()
     t0 = time.perf_counter()
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}")
+    if sys.argv[1:2] == ["--native-only"]:
+        # The engine phase (over shm, then over TCP) and the native phase
+        # alone (phases 6 and 13), for a quick reading of the cores in one
+        # call.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        plain = run_engine(hvd, tfm, fa, dev, card)
+        torch.cuda.empty_cache()
+        # The Python engine over TCP too: the native core's medium.
+        tcp = run_engine(hvd, tfm, fa, dev, card,
+                         knobs={"HVD_SHM_DISABLE": "1"})
+        torch.cuda.empty_cache()
+        run_native(hvd, tfm, fa, dev, card, plain, tcp=tcp,
+                   build=native_rec)
+        print(f"chip_smoke: total wall time "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     if _build.build_log:
         _ptxas_report(_build.build_log)
     else:
@@ -5207,6 +5485,8 @@ def main() -> int:
     plain = run_engine(hvd, tfm, fa, dev, card)
     torch.cuda.empty_cache()
     ta_counts = run_torch_api(hvd, tfm, fa, dev, card, engine=plain)
+    torch.cuda.empty_cache()
+    run_native(hvd, tfm, fa, dev, card, plain, build=native_rec)
     torch.cuda.empty_cache()
     tel = run_engine(hvd, tfm, fa, dev, card, steps=TEL_STEPS,
                      telemetry=True)

@@ -22,11 +22,24 @@ choice).  A one-rank job still creates a real one-rank process group (over
 an in-process ``HashStore``), so its gradient allreduce is a real
 collective launch.
 
-Beside the process group, ``init`` starts the eager engine
-(``runtime_py.py``) that the classic API (``hvd.allreduce``,
-``hvd.broadcast_parameters``, ...) runs on: a ``SingleProcessEngine`` at
-size 1, and at size > 1 a ``PyEngine`` that bootstraps through the
-launcher's rendezvous (``HVD_RENDEZVOUS_ADDR``/``HVD_RENDEZVOUS_PORT``).
+Beside the process group, ``init`` starts the eager engine that the
+classic API (``hvd.allreduce``, ``hvd.broadcast_parameters``, ...) runs
+on: a ``SingleProcessEngine`` at size 1, and at size > 1 an engine that
+bootstraps through the launcher's rendezvous
+(``HVD_RENDEZVOUS_ADDR``/``HVD_RENDEZVOUS_PORT``), as the JAX package
+chooses it:
+
+* the native C++ core (``runtime_native.NativeEngine``, built at first
+  use from ``csrc/``) by default;
+* ``PyEngine`` (``runtime_py.py``) under ``HVD_TPU_CORE=py``, which
+  elastic jobs and serving set, or when the core cannot be had before the
+  bootstrap (no compiler, a failed build): ``native_fallback_reason`` on
+  the engine says why, and a warning is logged.  A failure after the mesh
+  is wired raises: the peers have already taken this rank's address;
+* under ``HVD_ELASTIC_EPOCH`` the native core is refused
+  (``NotImplementedError``) unless the Python engine is asked for: the
+  core has no in-process re-form.
+
 Without a rendezvous a multi-rank ``init`` starts no engine (the compiled
 regime needs none), and an eager op then raises
 :class:`EngineUnavailableError`.  ``shutdown`` stops the engine before it
@@ -151,10 +164,10 @@ def resolve_device(device: Union[str, torch.device, None],
 
 
 def _start_engine(r, s, lr, ls, cr, cs):
-    """The eager engine for this rank: ``SingleProcessEngine`` at size 1,
-    ``PyEngine`` through the launcher's rendezvous at size > 1, None
-    without one."""
-    from horovod_tpu_torch import runtime_py
+    """The eager engine for this rank: ``SingleProcessEngine`` at size 1;
+    at size > 1 through the launcher's rendezvous, the native engine or
+    ``PyEngine`` (see the module docstring); None without one."""
+    from horovod_tpu_torch import native, runtime_py
 
     if s == 1:
         return runtime_py.SingleProcessEngine()
@@ -162,7 +175,28 @@ def _start_engine(r, s, lr, ls, cr, cs):
     port = os.environ.get(env_util.RENDEZVOUS_PORT, "")
     if not addr or not port:
         return None
-    return runtime_py.PyEngine(r, s, lr, ls, cr, cs, addr, int(port))
+    try:
+        if os.environ.get(env_util.ELASTIC_EPOCH, "") and \
+                not native.forced_python():
+            raise NotImplementedError(
+                "elastic training (HVD_ELASTIC_EPOCH) is not supported by "
+                "the native engine; set HVD_TPU_CORE=py")
+        native.load()  # raises NativeUnavailable before any rendezvous
+    except native.NativeUnavailable as e:
+        # Only a failure before the bootstrap falls back: after it, the
+        # peers have this rank's address, and a second bootstrap under
+        # another engine would hang the gang.
+        eng = runtime_py.PyEngine(r, s, lr, ls, cr, cs, addr, int(port))
+        eng.native_fallback_reason = str(e)
+        from horovod_tpu_torch.utils.logging import get_logger
+
+        log = get_logger(r)
+        (log.info if native.forced_python() else log.warning)(
+            "running the Python engine: %s", e)
+        return eng
+    from horovod_tpu_torch.runtime_native import NativeEngine
+
+    return NativeEngine(r, s, lr, ls, cr, cs, addr, int(port))
 
 
 def init(rank: Optional[int] = None, size: Optional[int] = None,

@@ -32,7 +32,8 @@ from horovod_tpu_torch.utils import socketutil as su
 
 
 def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int,
-                   keep_listener: bool = False, tree: Optional[dict] = None):
+                   keep_listener: bool = False, tree: Optional[dict] = None,
+                   shm_capable: bool = True):
     """Returns ``(data, ctrl_sock, ctrl_socks, kv, prefix)``:
 
     * ``data``: peer rank -> connected data socket (full mesh),
@@ -44,7 +45,8 @@ def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int,
       transport pairing after the mesh (``utils/transport.py``).
 
     The host record published for transport selection is the host's
-    fingerprint, or ``tcp-only-<rank>`` under ``HVD_SHM_DISABLE``.
+    fingerprint, or ``tcp-only-<rank>`` under ``HVD_SHM_DISABLE`` and from
+    a rank with no shm ring (``shm_capable=False``: the native engine).
 
     ``keep_listener=True`` (the recovery ladder, ``HVD_WIRE_CRC=1``)
     appends ``(peers, listener)`` instead of closing the listener:
@@ -83,7 +85,7 @@ def bootstrap_mesh(rank: int, size: int, rdv_addr: str, rdv_port: int,
             my_host = None  # a NIC list from another host; fall back
     my_host = my_host or kv.local_address() or "127.0.0.1"
     kv.put(f"{prefix}addr/{rank}", f"{my_host}:{port}")
-    kv.put(f"{prefix}hostid/{rank}", tpt.host_record_value(rank))
+    kv.put(f"{prefix}hostid/{rank}", tpt.host_record_value(rank, shm_capable))
     peers = {}
     for i in range(size):
         if i == rank:

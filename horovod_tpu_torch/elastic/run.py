@@ -462,6 +462,10 @@ def run(func=None, *, device: Union[str, torch.device, None] = None):
             RanksFailedError,
         )
 
+        # The native engine has no in-process re-form: an elastic rank
+        # runs the Python engine (the launcher's elastic mode sets it
+        # too).
+        os.environ.setdefault("HVD_TPU_CORE", "py")
         # Frozen before a re-form rewrites HVD_RDV_SCOPE: every elastic
         # key and later scope derives from it, so that a relaunch (a new
         # scope) never reads a dead attempt's keys.

@@ -45,9 +45,13 @@ the mesh-axis collectives of ``horovod_tpu_torch.ops.collective`` (a
 batch of ranks inside one process would enqueue one tensor name many
 times).
 
-Left out until ROADMAP item 6.7: the native XLA FFI path of the JAX
-bridge (an FFI handler enqueuing straight into the C++ engine); the port
-has no C++ engine (not ported, ROADMAP item 6.7).
+On the native engine, the grouped allreduce of CPU tensors without
+compression runs the C++ core's dispatcher op ``hvd::grouped_allreduce``
+(``csrc/torch_ops.cc``; :func:`_native_eligible`), the body of the JAX
+bridge's XLA FFI handler: it copies each operand to its output, enqueues
+them all as ``<base>.<i>`` and waits on them all, with no Python between
+the enqueues.  It runs inside the custom op, so the compiled graph is the
+same on either path.  ``HVD_TORCH_NATIVE_OPS=0`` keeps the eager path.
 """
 
 from __future__ import annotations
@@ -182,12 +186,34 @@ def allreduce(x: torch.Tensor, name: Optional[str] = None,
 # grouped allreduce (fusion on the compiled path)
 
 
+def _native_eligible(xs: List[torch.Tensor],
+                     wire: Optional[torch.dtype]) -> bool:
+    """True when ``hvd::grouped_allreduce`` can take the group: no
+    compression (the eager layer casts on the host), CPU tensors of the
+    dtypes it takes, the native engine running."""
+    from horovod_tpu_torch.torch import _native_ops
+
+    return wire is None and all(
+        x.device.type == "cpu" and str(x.dtype) in
+        _native_ops.SUPPORTED_DTYPES for x in xs) and \
+        _native_ops.available()
+
+
 @torch.library.custom_op(f"{_NS}::grouped_allreduce", mutates_args=())
 def _grouped_op(xs: List[torch.Tensor], base: str, op: int,
                 wire: Optional[torch.dtype],
                 ps_id: int) -> List[torch.Tensor]:
     """Every tensor enqueued, then every one synchronized: the engine's
     controller sees the whole group outstanding and fuses it."""
+    if _native_eligible(xs, wire):
+        from horovod_tpu_torch.torch import _native_ops
+
+        ps_size = _set(ps_id).validate(basics.rank(), basics.size())[1] \
+            if ps_id else 0
+        _native_ops.dispatched["grouped_allreduce"] += 1
+        # single=0: the entries are named <base>.<i> as on the eager path.
+        return list(torch.ops.hvd.grouped_allreduce(
+            xs, base, op, 1.0, 1.0, ps_id, ps_size, 0))
     comp, ps = _compressor(wire), _set(ps_id)
     handles = [eager.allreduce_async(x, name=f"{base}.{i}", op=ReduceOp(op),
                                      compression=comp, process_set=ps)

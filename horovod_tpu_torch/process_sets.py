@@ -13,11 +13,11 @@ id.  Requests carry ``(id, size)`` and the coordinator waits for exactly
 the members.  Construct the set on every rank, members and non-members
 alike: non-members skip its responses, which reach every rank.  The
 subgroup rings walk the member list over the engine's full mesh.  The
+native engine keeps a registry of its own in the C++ core: a set
+constructed while it runs is registered there at once, and the engine
+copies the sets constructed before it started (:func:`snapshot`).  The
 compiled regime expresses subgroups as mesh axes instead
 (``parallel/mesh.py``).
-
-Left out: the native engine's registry hook (the port has no native
-engine; ROADMAP Queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -69,6 +69,13 @@ class ProcessSet:
                     "process_sets.reset() if the colliding set belongs "
                     "to a previous world that no longer exists.")
             _registry[self.process_set_id] = members
+        # The native engine's own registry (its coordinator and its skip
+        # path read it); NativeEngine copies the snapshot when it starts.
+        from horovod_tpu_torch import basics
+
+        eng = basics._engine_obj
+        if eng is not None and hasattr(eng, "register_process_set"):
+            eng.register_process_set(self.process_set_id, members)
 
     def size(self) -> int:
         return len(self.ranks)
@@ -105,6 +112,12 @@ def ranks_of(set_id: int) -> Optional[List[int]]:
         return None
     with _lock:
         return _registry.get(set_id)
+
+
+def snapshot() -> Dict[int, List[int]]:
+    """Every registered set, by id."""
+    with _lock:
+        return {k: list(v) for k, v in _registry.items()}
 
 
 def reset() -> None:

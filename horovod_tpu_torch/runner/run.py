@@ -53,14 +53,50 @@ PROG = "hvdrun-torch"
 def check_build() -> str:
     """The port's parts, each marked available or not: torch and its CUDA,
     the card, nvcc, the flash attention kernels (built, or buildable from
-    ``ops/csrc`` with nvcc), the Python engine.  The JAX package's native
-    core has no port yet, and its rows say so."""
+    ``ops/csrc`` with nvcc), the engines (the native core built, or
+    buildable from ``csrc/`` with the C++ compiler) and the native
+    components: the dispatcher ops and the SIMD wire codecs."""
+    import shutil
+
     import torch
 
+    from horovod_tpu_torch.common import native_build
     from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.torch import _native_ops
 
     def mark(v):
         return "X" if v else " "
+
+    def native_row(path, what):
+        if os.path.exists(path):
+            return True, f"built: {path}"
+        if compiler:
+            return True, (f"buildable from {native_build.CSRC_DIR} with "
+                          f"{compiler}")
+        return False, f"{what} not built, and no C++ compiler to build it"
+
+    compiler = shutil.which(native_build.cxx())
+    core_ok, core = native_row(native_build.core_path(), "the core")
+    ops_ok, ops = native_row(_native_ops.library_path(), "the library")
+    simd = False
+    if os.path.exists(native_build.core_path()):
+        try:
+            import ctypes
+
+            simd = bool(ctypes.CDLL(
+                native_build.core_path()).hvd_simd_available())
+        except OSError:
+            pass
+    else:
+        try:
+            with open("/proc/cpuinfo") as f:
+                flags = f.read()
+            simd = "avx2" in flags and "f16c" in flags
+        except OSError:
+            pass
+    simd_note = ""
+    if os.environ.get("HVD_NO_SIMD") == "1":
+        simd, simd_note = False, " (disabled by HVD_NO_SIMD=1)"
 
     cuda = torch.version.cuda
     card = torch.cuda.is_available()
@@ -93,12 +129,12 @@ Available Kernels:
 {kernels}
 
 Available Engines:
-    [ ] native C++ core: not ported (ROADMAP item 6.7)
+    [{mark(core_ok)}] native C++ core (the default): {core}
     [X] Python engine (wire-compatible with the JAX package's PyEngine)
 
 Available Native Components:
-    [ ] framework dispatcher ops: not ported (ROADMAP item 6.7)
-    [ ] SIMD wire codecs: not ported (ROADMAP item 6.7)"""
+    [{mark(ops_ok)}] PyTorch dispatcher ops (torch.ops.hvd.*): {ops}
+    [{mark(simd)}] SIMD wire codecs (AVX2 + F16C){simd_note}"""
 
 
 class _CheckBuildAction(argparse.Action):
@@ -559,6 +595,9 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
             env_extra[E.ELASTIC_MIN_NP] = str(min_np)
             env_extra[E.ELASTIC_MAX_NP] = str(max_np)
             env_extra[E.ELASTIC_EPOCH] = "0"
+            # The native engine has no in-process re-form: elastic jobs
+            # run the Python engine.
+            env_extra["HVD_TPU_CORE"] = "py"
             # The launcher owns the discovery loop (it must spawn joiner
             # processes on the new hosts); don't also start a notifier
             # driver inside rank 0 — joiners announce themselves.

@@ -494,6 +494,9 @@ class PyEngine(_EngineBase):
             env_util.HIERARCHICAL_ALLREDUCE, False)
         self.hierarchical_allgather = env_util.get_bool(
             env_util.HIERARCHICAL_ALLGATHER, False)
+        # Why ``hvd.init()`` started this engine and not the native one
+        # (set by ``basics``), or None.
+        self.native_fallback_reason = None
         # The elastic membership epoch, stamped on every list frame: a
         # frame of another incarnation is dropped (worker) or fenced
         # (coordinator), so that a zombie cannot touch this gang.

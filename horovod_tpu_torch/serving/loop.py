@@ -137,6 +137,8 @@ class ServingLoop:
         after a rank's failure (``@hvd.elastic.run``)."""
         from horovod_tpu_torch import basics, elastic
 
+        # The serve channel is the Python engine's.
+        os.environ.setdefault("HVD_TPU_CORE", "py")
         if not basics.is_initialized():
             basics.init(device=basics.resolve_device(
                 self.device, "ServingLoop"), backend="none")
@@ -164,10 +166,13 @@ class ServingLoop:
         from horovod_tpu_torch import basics
 
         eng = basics._engine_obj
-        if eng is None or not hasattr(eng, "serve_broadcast"):
+        if eng is None:
             raise RuntimeError(
                 "serving needs the eager engine: start the ranks through "
                 "the launcher's rendezvous (HVD_RENDEZVOUS_ADDR/PORT)")
+        if not hasattr(eng, "serve_broadcast"):
+            raise RuntimeError(
+                "serving requires the Python engine (HVD_TPU_CORE=py)")
         self._elastic_ctx = getattr(state, "_elastic_ctx", None)
         tr = getattr(eng, "_tracer", None)
         tb0 = time.monotonic_ns() if tr is not None else 0

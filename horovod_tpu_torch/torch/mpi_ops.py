@@ -23,10 +23,13 @@ in-place form then copies it into the caller's storage, so the result is
 the caller's tensor, on its device, with no host copy left as the result.
 Unlike the JAX front-end, bfloat16 and fp8 tensors are taken too.
 
-Left out until ROADMAP item 6.7: ``_native_dispatch`` and
-``torch/_native_ops.py``, which bind the C++ core's dispatcher ops
-(``csrc/torch_ops.cc``); where the reference dispatches to them, the
-port's ops run the eager engine (not ported, ROADMAP item 6.7).
+On the native engine, the sync allreduce (its autograd form and
+``allreduce_``), allgather and broadcast of a CPU tensor run the C++
+core's dispatcher ops (``torch.ops.hvd.*``, ``torch/_native_ops.py``)
+where the JAX front-end does (:func:`_native_dispatch`): the kernel
+enqueues the tensor's own storage, with no numpy round trip.  CUDA
+tensors keep the host copy above, as in the JAX package;
+``HVD_TORCH_NATIVE_OPS=0`` turns the dispatcher ops off.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from horovod_tpu_torch.ops.eager import (  # noqa: F401  (re-exported)
     poll,
     synchronize,
 )
+from horovod_tpu_torch.torch import _native_ops
 
 # Reference-named ReduceOp constants (mpi_ops.py re-exports these).
 Average = ReduceOp.AVERAGE
@@ -50,6 +54,22 @@ Adasum = ReduceOp.ADASUM
 Min = ReduceOp.MIN
 Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
+
+
+def _native_dispatch(tensor: torch.Tensor, process_set):
+    """(True, ps_id, ps_size) when the C++ core's dispatcher ops can serve
+    ``tensor``: a CPU tensor of a dtype they take, on the native engine;
+    else (False, 0, 0)."""
+    if tensor.device.type != "cpu" or \
+            str(tensor.dtype) not in _native_ops.SUPPORTED_DTYPES:
+        return False, 0, 0
+    if not _native_ops.available():
+        return False, 0, 0
+    ps_id, ps_size = 0, 0
+    if process_set is not None:
+        ps_id, ps_size = process_set.validate(basics.rank(),
+                                              basics.size())
+    return True, ps_id, ps_size
 
 
 def _then(handle: int, fn) -> int:
@@ -121,6 +141,16 @@ class _HorovodAllreduce(torch.autograd.Function):
         ctx.prescale = prescale
         ctx.postscale = postscale
         ctx.process_set = process_set
+        native, ps_id, ps_size = _native_dispatch(tensor, process_set)
+        if native:
+            # The backward comes back with name=None: draw from the
+            # counter the numpy path would.
+            nm = name if name is not None \
+                else _auto_name("torch.allreduce", None)
+            _native_ops.dispatched["allreduce"] += 1
+            return torch.ops.hvd.allreduce(
+                tensor, nm, int(_resolve_op(op, average)),
+                float(prescale), float(postscale), ps_id, ps_size)
         return synchronize(allreduce_async(tensor, average, name, op,
                                            prescale, postscale,
                                            process_set))
@@ -150,6 +180,16 @@ def allreduce(tensor, average=None, name=None, compression=None, op=None,
 def allreduce_(tensor, average=None, name=None, op=None,
                prescale_factor=1.0, postscale_factor=1.0,
                process_set=None) -> torch.Tensor:
+    native, ps_id, ps_size = _native_dispatch(tensor, process_set)
+    if native and tensor.is_contiguous():
+        # The in-place dispatcher op reduces in the caller's storage.
+        nm = name if name is not None \
+            else _auto_name("torch.allreduce", None)
+        _native_ops.dispatched["allreduce_"] += 1
+        return torch.ops.hvd.allreduce_(
+            tensor, nm, int(_resolve_op(op, average)),
+            float(prescale_factor), float(postscale_factor), ps_id,
+            ps_size)
     return synchronize(allreduce_async_(tensor, average, name, op,
                                         prescale_factor, postscale_factor,
                                         process_set))
@@ -189,6 +229,12 @@ class _HorovodAllgather(torch.autograd.Function):
     def forward(ctx, tensor, name, process_set=None):
         ctx.dim0 = tensor.shape[0] if tensor.dim() > 0 else 1
         ctx.process_set = process_set
+        native, ps_id, ps_size = _native_dispatch(tensor, process_set)
+        if native:
+            nm = name if name is not None \
+                else _auto_name("torch.allgather", None)
+            _native_ops.dispatched["allgather"] += 1
+            return torch.ops.hvd.allgather(tensor, nm, ps_id, ps_size)
         return synchronize(allgather_async(tensor, name, process_set))
 
     @staticmethod
@@ -259,6 +305,13 @@ class _HorovodBroadcast(torch.autograd.Function):
     def forward(ctx, tensor, root_rank, name, process_set=None):
         ctx.root_rank = root_rank
         ctx.process_set = process_set
+        native, ps_id, ps_size = _native_dispatch(tensor, process_set)
+        if native:
+            nm = name if name is not None \
+                else _auto_name("torch.broadcast", None)
+            _native_ops.dispatched["broadcast"] += 1
+            return torch.ops.hvd.broadcast(tensor, nm, int(root_rank),
+                                           ps_id, ps_size)
         return synchronize(broadcast_async(tensor, root_rank, name,
                                            process_set))
 

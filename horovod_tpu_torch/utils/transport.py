@@ -577,11 +577,13 @@ def host_fingerprint() -> str:
     return f"{socket.gethostname()}|{boot}"
 
 
-def host_record_value(rank: int) -> str:
+def host_record_value(rank: int, shm_capable: bool = True) -> str:
     """What a rank publishes under ``{prefix}hostid/{rank}``: the host's
-    fingerprint, or under ``HVD_SHM_DISABLE`` a rank-unique token, so that
-    both sides of every pair with it agree on TCP with no negotiation."""
-    if shm_enabled():
+    fingerprint, or a rank-unique token under ``HVD_SHM_DISABLE`` or from
+    a rank that speaks no shm ring (``shm_capable=False``: the native
+    engine), so that both sides of every pair with it agree on TCP with
+    no negotiation."""
+    if shm_capable and shm_enabled():
         return host_fingerprint()
     return f"tcp-only-{rank}"
 

@@ -400,6 +400,9 @@ def test_left_out_knob_raises_at_init(monkeypatch, tmp_path, knob, value):
     # A recorder dump lands in the test's directory, not the checkout.
     monkeypatch.setenv("HVD_BLACKBOX_DIR", str(tmp_path / "blackbox"))
     monkeypatch.delenv("HOROVOD_FAULT_PLAN", raising=False)
+    # The knobs' features are the Python engine's (rank 0 is a PyEngine
+    # on a thread): rank 1's init must start one too, not the native core.
+    monkeypatch.setenv("HVD_TPU_CORE", "py")
     monkeypatch.setenv("HVD_RANK", "1")
     monkeypatch.setenv("HVD_SIZE", "2")
     monkeypatch.setenv("HVD_RENDEZVOUS_ADDR", "127.0.0.1")

@@ -36,7 +36,9 @@ WORKER = textwrap.dedent("""\
     out = hvd.allreduce(torch.full((4,), float(r + 1)), name="t",
                         op=hvd.Sum)
     assert torch.equal(out, torch.full((4,), float(sum(range(1, n + 1))))), out
-    print(f"rank {r}/{n} ok local {hvd.local_rank()}/{hvd.local_size()}")
+    from horovod_tpu_torch import basics
+    print(f"rank {r}/{n} ok local {hvd.local_rank()}/{hvd.local_size()} "
+          f"on {type(basics._engine_obj).__name__}")
     hvd.shutdown()
 """)
 
@@ -123,8 +125,20 @@ def test_cli_allreduce_gang(tmp_path, np_):
     res = _run_cli(tmp_path, WORKER, np_, flags=("--no-shm",))
     assert res.returncode == 0, res.stdout + res.stderr
     for r in range(np_):
-        assert f"[{r}]<stdout>: rank {r}/{np_} ok local {r}/{np_}" in \
-            res.stdout, res.stdout
+        # The default core: the native engine, as in the JAX package.
+        assert f"[{r}]<stdout>: rank {r}/{np_} ok local {r}/{np_} on " \
+            f"NativeEngine" in res.stdout, res.stdout
+
+
+@pytest.mark.timeout(60)
+@pytest.mark.parametrize("np_", [2, 4])
+def test_cli_allreduce_gang_on_the_python_engine(tmp_path, np_):
+    res = _run_cli(tmp_path, WORKER, np_, flags=("--no-shm",),
+                   env=_env(HVD_TPU_CORE="py"))
+    assert res.returncode == 0, res.stdout + res.stderr
+    for r in range(np_):
+        assert f"[{r}]<stdout>: rank {r}/{np_} ok local {r}/{np_} on " \
+            f"PyEngine" in res.stdout, res.stdout
 
 
 @pytest.mark.timeout(60)

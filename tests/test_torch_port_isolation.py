@@ -63,7 +63,9 @@ def test_import_loads_no_jax_or_jax_package():
                 "utils.checkpoint", "integrity.audit", "parallel.multihost",
                 "runner.http_client", "serving.decode", "serving.server",
                 "torch", "torch.mpi_ops", "torch.compression", "ops.bridge",
-                "tools.hvd_trace", "tools.hvd_postmortem", "tools.hvd_top"):
+                "tools.hvd_trace", "tools.hvd_postmortem", "tools.hvd_top",
+                "native", "runtime_native", "common.native_build",
+                "torch._native_ops", "utils.logging", "utils.platform"):
         assert f"horovod_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -85,6 +87,63 @@ def test_no_source_file_imports_jax_or_jax_package():
             bad += [f"{path}:{node.lineno} {n}" for n in names
                     if _forbidden(n)]
     assert bad == []
+
+
+def test_native_sources_include_only_their_own_directory():
+    """The core's sources (``horovod_tpu_torch/csrc/``) include only each
+    other and system headers: nothing of the JAX package's ``csrc/``."""
+    import re
+
+    from horovod_tpu_torch.common import native_build
+
+    csrc = native_build.CSRC_DIR
+    assert csrc == os.path.join(PORT, "csrc")
+    files = sorted(os.listdir(csrc))
+    assert "ffi_bridge.cc" not in files and "tf_ops.cc" not in files
+    for f in files:
+        with open(os.path.join(csrc, f)) as fh:
+            for inc in re.findall(r'#include\s+"([^"]+)"', fh.read()):
+                assert "/" not in inc and inc in files, (f, inc)
+
+
+def test_native_build_reads_and_writes_only_its_directories(
+        tmp_path, monkeypatch):
+    """Every path the build's compiler commands name is under the port's
+    ``csrc/`` or the build directory (the dispatcher ops add torch's own
+    headers and libraries)."""
+    import torch
+
+    from horovod_tpu_torch.common import native_build
+    from horovod_tpu_torch.torch import _native_ops
+
+    cmds = []
+
+    def run(batch):
+        for cmd in batch:
+            cmds.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "w").close()
+
+    monkeypatch.setattr(native_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native_build, "_run", run)
+    monkeypatch.setattr(native_build, "build_seconds", {})
+    native_build.build_core()
+    flags, links, key = _native_ops._flags()
+    native_build.build_ops(_native_ops.SRC, flags, links, key)
+    torch_dir = os.path.dirname(torch.__file__)
+    allowed = (native_build.CSRC_DIR, str(tmp_path), torch_dir)
+    def path(arg):
+        for prefix in ("-I", "-L", "-Wl,-rpath,"):
+            if arg.startswith(prefix):
+                return arg[len(prefix):]
+        return arg
+
+    paths = [path(a) for cmd in cmds for a in cmd[1:] if "/" in a]
+    assert paths and all(p.startswith(allowed) for p in paths), paths
+    assert sum("-c" in c for c in cmds) == len(native_build.CORE_SOURCES)
+    # Nothing lands outside the build directory.
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [".native.lock", os.path.basename(native_build.core_path()),
+         os.path.basename(_native_ops.library_path())])
 
 
 def _reference_names(path):

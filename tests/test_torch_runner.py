@@ -786,8 +786,17 @@ def test_check_build_names_the_ports_parts(capsys):
     assert ("[X] NVIDIA card" if card else "[ ] NVIDIA card") in out
     assert "nvcc" in out and "flash attention" in out
     assert "[X] Python engine" in out
-    assert "[ ] native C++ core: not ported (ROADMAP item 6.7)" in out
+    # The native core and the dispatcher ops: built, or buildable from
+    # the port's own csrc/ with the C++ compiler this box has.
+    from horovod_tpu_torch.common import native_build
+
+    for row in ("native C++ core (the default)",
+                "PyTorch dispatcher ops (torch.ops.hvd.*)"):
+        line = next(x for x in out.splitlines() if row in x)
+        assert line.lstrip().startswith("[X]"), line
+        assert "built: " in line or native_build.CSRC_DIR in line, line
+    assert "SIMD wire codecs (AVX2 + F16C)" in out
+    assert "not ported" not in out
     # No row claims a part the port does not have.
     for absent in ("JAX", "TensorFlow", "XLA", "MXNet", "Keras"):
         assert f"] {absent}" not in out
-    assert "[X] native" not in out

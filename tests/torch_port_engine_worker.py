@@ -450,6 +450,67 @@ def case_gang_view(rank, size):
     hvd.barrier()
 
 
+def case_native_ops(rank, size):
+    """Port ranks on the native engine only: ``horovod_tpu_torch.torch``'s
+    dispatcher-op paths (the autograd allreduce, ``allreduce_``,
+    allgather, broadcast) and the bridge's grouped allreduce under
+    ``torch.compile(fullgraph=True)``, each beside the eager engine's
+    numpy route on the same values (``HVD_TORCH_NATIVE_OPS=0`` for that
+    call).  Records both routes' results, the dispatcher calls made (by
+    op) and the graph breaks."""
+    import horovod_tpu_torch.torch as ht
+    from horovod_tpu_torch.ops import bridge
+    from horovod_tpu_torch.torch import _native_ops
+
+    def numpy_route(fn):
+        os.environ["HVD_TORCH_NATIVE_OPS"] = "0"
+        try:
+            return fn()
+        finally:
+            del os.environ["HVD_TORCH_NATIVE_OPS"]
+
+    _native_ops.dispatched.clear()
+    for dtype in ("float32", "bfloat16", "float16", "int32",
+                  "float8_e4m3fn"):
+        x = values(("nat", dtype, rank), (5, 7), dtype)
+        op = ht.Sum
+        for route, call in (("native", lambda f: f()),
+                            ("numpy", numpy_route)):
+            t = tensor(x, dtype)
+            tag = f"{dtype}.{route}"
+            record("native_ops", (dtype, "allreduce", route), call(
+                lambda: ht.allreduce(t, name=f"nat.ar.{tag}", op=op)))
+            inplace = t.clone()
+            out = call(lambda: ht.allreduce_(inplace, name=f"nat.ip.{tag}",
+                                             op=op))
+            assert out is inplace
+            record("native_ops", (dtype, "allreduce_", route), inplace)
+            record("native_ops", (dtype, "allgather", route), call(
+                lambda: ht.allgather(t[:rank + 1], name=f"nat.ag.{tag}")))
+            record("native_ops", (dtype, "broadcast", route), call(
+                lambda: ht.broadcast(t, size - 1, name=f"nat.bc.{tag}")))
+    import torch._dynamo
+
+    torch._dynamo.reset()
+    torch._dynamo.utils.counters.clear()
+    step = torch.compile(
+        lambda a, b, c: bridge.grouped_allreduce(
+            [a, b, c], name="nat.grouped", op=hvd.Sum), fullgraph=True)
+    xs = [tensor(values(("natg", i, rank), (4, 3), dtype), dtype)
+          for i, dtype in enumerate(("float32", "bfloat16", "int32"))]
+    for i, y in enumerate(step(*xs)):
+        record("native_ops", ("grouped", i, "native"), y)
+    for i, y in enumerate(numpy_route(lambda: bridge.grouped_allreduce(
+            xs, name="nat.grouped.np", op=hvd.Sum))):
+        record("native_ops", ("grouped", i, "numpy"), y)
+    breaks = sum(torch._dynamo.utils.counters["graph_break"].values())
+    record("native_ops", "graph_breaks", np.asarray([breaks], np.int64))
+    record("native_ops", "dispatched", np.asarray(
+        [_native_ops.dispatched[k] for k in
+         ("allreduce", "allreduce_", "allgather", "broadcast",
+          "grouped_allreduce")], np.int64))
+
+
 CASES = {n[len("case_"):]: f for n, f in globals().items()
          if n.startswith("case_")}
 
@@ -477,7 +538,9 @@ def links():
     tree = [getattr(eng, "_tree_parent", None),
             list(getattr(eng, "_tree_children", []))]
     return {"media": {str(p): m for p, m in media.items()}, "fired": fired,
-            "hierarchical": hier, "tree": tree}
+            "hierarchical": hier, "tree": tree,
+            "engine": [type(eng).__name__,
+                       getattr(eng, "native_fallback_reason", None)]}
 
 
 def main():
