@@ -256,7 +256,21 @@ non-zero):
    Python engine, same call), and each route's time.  Every other phase
    that spawns ranks pins ``HVD_TPU_CORE=py``: their subjects (shm rings,
    the ladder, liveness, telemetry spans, the recorder, elastic, serving,
-   the front-end's fusion knob) are the Python engine's.
+   the front-end's fusion knob) are the Python engine's;
+14. the estimator phase (see EST_PARAM_TOL; after phase 10):
+   ``horovod_tpu_torch.spark.TorchEstimator.fit`` through the port's
+   launcher (``LocalBackend(2, device="cuda:0")``: two launched ranks of
+   ``runner/run_task.py`` sharing the card, the eager engine on its
+   default core, no process group) on ``tests/test_spark.py``'s model and
+   data (a ``Linear(6, 1)`` from seed 0 on 256 rows of a linear teacher,
+   SGD at 0.05, batch 32, four epochs, parquet shards in a local store),
+   and, at the same time, the same fit with ``device="cpu"``.  Each
+   rank's loss notes the device its inputs lie on; the card's ranks must
+   note cuda:0 only and the CPU's cpu only; the card's loss history must
+   fall to under half its first epoch's, and its fitted weights lie
+   within EST_PARAM_TOL of the CPU fit's.  Prints both fits' wall times
+   and the gap beside the card.  TensorFlow, Keras, MXNet and Spark are
+   not on the card's machine, so their front-ends have no phase.
 
 The ``kernels`` JSON lists the flagship's three kernels, the same three
 with their launches in the MoE flagship's run (``flash_<kernel>_moe``: its
@@ -2549,6 +2563,110 @@ def run_mnist(hvd, dev):
     print(f"mnist: losses {losses}; step times ms {times}")
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         raise AssertionError(f"mnist: losses not finite and falling: {losses}")
+
+
+# The estimator phase (14): the fitted weights of the two ranks on cuda:0
+# against the same fit's on the CPU, as the largest |got - want|.  The
+# first reading was 5.960e-08 (one float32 ulp of a weight between 0.5
+# and 1; the losses agree to the last digit in three epochs of four) on an
+# NVIDIA H100 80GB HBM3 at 700.00 W; the bound is about twice that.
+EST_PARAM_TOL = 1.2e-7
+EST_EPOCHS = 4
+
+
+def _est_fit(device, store, notes):
+    """``tests/test_spark.py``'s TorchEstimator fit through the port's
+    launcher on ``device``; each rank appends the device of its first
+    loss's inputs to the file ``notes``."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from horovod_tpu_torch.spark import LocalBackend, TorchEstimator
+
+    def noted_mse(pred, target):
+        if not getattr(noted_mse, "done", False):
+            noted_mse.done = True
+            with open(notes, "a") as fh:
+                fh.write(f"{os.getpid()} {pred.device} {target.device}\n")
+        return torch.nn.functional.mse_loss(pred, target)
+
+    rs = np.random.RandomState(3)
+    X = rs.randn(256, 6).astype(np.float32)
+    w = rs.randn(6, 1).astype(np.float32)
+    y = (X @ w).ravel()
+    df = pd.DataFrame({"features": list(X), "label": y})
+    torch.manual_seed(0)
+    model = torch.nn.Linear(6, 1)
+    est = TorchEstimator(
+        model, optimizer=torch.optim.SGD(model.parameters(), lr=0.05),
+        loss=noted_mse, feature_cols=["features"], label_cols=["label"],
+        batch_size=32, epochs=EST_EPOCHS, num_proc=2, store=store,
+        backend=LocalBackend(2, device=device), run_id=f"est-{device}")
+    t0 = time.perf_counter()
+    fitted = est.fit(df)
+    return fitted, time.perf_counter() - t0
+
+
+def run_estimator(card):
+    """Phase 14 (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+
+    from horovod_tpu_torch.spark.store import Store
+
+    import threading
+
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        store = Store.create(os.path.join(tmp, "store"))
+        fits, notes = {}, {}
+
+        def fit(device):
+            try:
+                fits[device] = _est_fit(device, store,
+                                        os.path.join(tmp, f"notes-{device}"))
+            except Exception as e:  # raised below, in this thread
+                fits[device] = e
+
+        # The two fits at once: each launches its own ranks.
+        threads = [threading.Thread(target=fit, args=(d,))
+                   for d in ("cuda:0", "cpu")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for device, got in fits.items():
+            if isinstance(got, Exception):
+                raise AssertionError(f"estimator: the {device} fit "
+                                     f"failed: {got!r}") from got
+            with open(os.path.join(tmp, f"notes-{device}")) as fh:
+                notes[device] = sorted(ln.split()[1:] for ln in fh)
+    (card_fit, card_s), (cpu_fit, cpu_s) = fits["cuda:0"], fits["cpu"]
+    want = {"cuda:0": [["cuda:0", "cuda:0"]] * 2,
+            "cpu": [["cpu", "cpu"]] * 2}
+    for device in fits:
+        if notes[device] != want[device]:
+            failures.append(f"estimator: the {device} fit's ranks noted "
+                            f"{notes[device]}")
+    hist = card_fit.history
+    if not (len(hist) == EST_EPOCHS and all(map(math.isfinite, hist))
+            and hist[-1] < 0.5 * hist[0]):
+        failures.append(f"estimator: the card's losses {hist} are not "
+                        "finite and falling under half")
+    gap = max(float(np.max(np.abs(a.numpy() - b.numpy())))
+              for a, b in zip(card_fit.getModel().state_dict().values(),
+                              cpu_fit.getModel().state_dict().values()))
+    if not gap <= EST_PARAM_TOL:
+        failures.append(f"estimator: the fitted weights are {gap:.3e} from "
+                        f"the CPU fit's (bound {EST_PARAM_TOL:g})")
+    print(f"estimator: TorchEstimator.fit on two ranks sharing cuda:0 "
+          f"{card_s:.1f} s, on the CPU {cpu_s:.1f} s at the same time (each "
+          f"launch and materialization included); losses {hist} against "
+          f"{cpu_fit.history}; fitted weights {gap:.3e} from the CPU "
+          f"fit's; {card}")
+    _fail_if(failures, "estimator")
 
 
 # {mangled kernel name: registers a thread}, from the build's ptxas report.
@@ -5379,6 +5497,11 @@ def main() -> int:
           f"{peaks[1] / 1e12:g}, fp32 {peaks[2] / 1e12:g} TFLOP/s, "
           f"{peaks[3] / 1e12:g} TB/s")
 
+    if sys.argv[1:2] == ["--estimator-only"]:
+        # The estimator phase alone (phase 14), for a quick reading.
+        run_estimator(card)
+        print(card)
+        return 0
     # The native core builds with g++ while nvcc builds the kernels.
     native_rec = start_native_build()
     t0 = time.perf_counter()
@@ -5509,6 +5632,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     el_counts = run_elastic(tfm, fa, dev, card)
     torch.cuda.empty_cache()
+    run_estimator(card)
 
     # Timed after the slice, so that no profiler has run before the steps
     # are timed.

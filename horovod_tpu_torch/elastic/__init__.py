@@ -5,8 +5,7 @@ in-process re-form of the gang.  The port of ``horovod_tpu.elastic``.
 :class:`State`; when a rank fails or the host set changes, the gang
 re-forms in process at the next membership epoch, the state rolls back to
 its last ``commit()`` and re-syncs from the new rank 0, and the function
-runs again.  ``KerasState`` waits for the Keras front-end (ROADMAP Queue
-1, item 6.4).
+runs again.  ``KerasState`` holds a Keras model's weights.
 """
 
 from horovod_tpu_torch.elastic.driver import (  # noqa: F401
@@ -21,6 +20,7 @@ from horovod_tpu_torch.elastic.run import (  # noqa: F401
     run,
 )
 from horovod_tpu_torch.elastic.state import (  # noqa: F401
+    KerasState,
     ObjectState,
     State,
     TorchState,

@@ -1,6 +1,6 @@
 """Elastic training state: commit, rollback and sync.  The port of
-``horovod_tpu/elastic/state.py`` (``State``, ``ObjectState`` and
-``TorchState``).
+``horovod_tpu/elastic/state.py`` (``State``, ``ObjectState``,
+``TorchState`` and ``KerasState``).
 
 What ``@hvd.elastic.run`` relies on:
 
@@ -20,17 +20,15 @@ What ``@hvd.elastic.run`` relies on:
 
 Snapshots copy numpy arrays and torch tensors (``clone()``, on their
 device); ``sync`` carries the state as the pickles of
-``broadcast_object``, the JAX package's names included.
-
-Left out: ``KerasState`` goes with the Keras front-end (ROADMAP Queue 1,
-item 6.4).
+``broadcast_object``, the JAX package's names included.  Nothing is left
+out.
 """
 
 from __future__ import annotations
 
 import copy
 import time
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -145,7 +143,26 @@ class ObjectState(State):
         self.save()
 
 
-class TorchState(State):
+class _ExtraKeywords:
+    """A state's extra keywords, an embedded :class:`ObjectState` in
+    ``_extra``, read and set as the state's own attributes (so that
+    ``state.step += 1`` is saved and restored)."""
+
+    def __getattr__(self, name):
+        extra = self.__dict__.get("_extra")
+        if extra is not None and name in extra._known:
+            return getattr(extra, name)
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        extra = self.__dict__.get("_extra")
+        if extra is not None and name in extra._known:
+            setattr(extra, name, value)
+        else:
+            super().__setattr__(name, value)
+
+
+class TorchState(_ExtraKeywords, State):
     """State over a torch ``model`` (an ``nn.Module``) and ``optimizer``;
     more keywords ride along as an embedded :class:`ObjectState`.
     ``restore`` and ``sync`` load into the live module and optimizer, so
@@ -160,18 +177,6 @@ class TorchState(State):
         self._saved_opt = None
         self.save()
 
-    def __getattr__(self, name):
-        extra = self.__dict__.get("_extra")
-        if extra is not None and name in extra._known:
-            return getattr(extra, name)
-        raise AttributeError(name)
-
-    def __setattr__(self, name, value):
-        extra = self.__dict__.get("_extra")
-        if extra is not None and name in extra._known:
-            setattr(extra, name, value)
-        else:
-            super().__setattr__(name, value)
 
     def save(self) -> None:
         if self.model is not None:
@@ -203,6 +208,51 @@ class TorchState(State):
                                         root_rank=root,
                                         name="elastic.torch.opt")
             self.optimizer.load_state_dict(sd)
+        if self._extra is not None:
+            self._extra.sync(root)
+        self.save()
+
+
+class KerasState(_ExtraKeywords, State):
+    """Elastic state over a Keras ``model`` (weights move as numpy via
+    ``get_weights``/``set_weights``); parity:
+    ``horovod/tensorflow/keras/elastic.py``.  Its extra keywords are set
+    through the state, as :class:`TorchState`'s are."""
+
+    def __init__(self, model=None, **kwargs):
+        if model is not None and not (hasattr(model, "get_weights")
+                                      and hasattr(model, "set_weights")):
+            raise TypeError(
+                "KerasState needs a model with get_weights/set_weights")
+        super().__init__()
+        self.model = model
+        self._extra = ObjectState(**kwargs) if kwargs else None
+        self._saved_weights: Optional[list] = None
+        self.save()
+
+
+    def save(self) -> None:
+        if self.model is not None:
+            self._saved_weights = [np.array(w)
+                                   for w in self.model.get_weights()]
+        if self._extra is not None:
+            self._extra.save()
+
+    def restore(self) -> None:
+        if self.model is not None and self._saved_weights is not None:
+            self.model.set_weights([w.copy()
+                                    for w in self._saved_weights])
+        if self._extra is not None:
+            self._extra.restore()
+
+    def sync(self, root: int = 0) -> None:
+        from horovod_tpu_torch.ops import eager
+
+        if self.model is not None:
+            weights = eager.broadcast_object(self.model.get_weights(),
+                                             root_rank=root,
+                                             name="elastic.keras.model")
+            self.model.set_weights(weights)
         if self._extra is not None:
             self._extra.sync(root)
         self.save()

@@ -377,7 +377,9 @@ def broadcast_object(obj, root_rank: int = 0,
     if payload is None:
         payload = np.zeros(int(n[0]), np.uint8)
     payload = broadcast(payload, root_rank, name=f"{name}.data")
-    return pickle.loads(payload.tobytes())
+    # Straight from the array's buffer: a copy of a large payload would
+    # hold the GIL, and with it this rank's heartbeats, for its length.
+    return pickle.loads(payload)
 
 
 def _flatten(tree) -> Tuple[list, Callable[[list], Any]]:

@@ -52,10 +52,14 @@ PROG = "hvdrun-torch"
 
 def check_build() -> str:
     """The port's parts, each marked available or not: torch and its CUDA,
+    the other frameworks (TensorFlow, Keras, MXNet: found, not imported),
     the card, nvcc, the flash attention kernels (built, or buildable from
     ``ops/csrc`` with nvcc), the engines (the native core built, or
     buildable from ``csrc/`` with the C++ compiler) and the native
-    components: the dispatcher ops and the SIMD wire codecs."""
+    components: the dispatcher ops, the TensorFlow custom kernels and the
+    SIMD wire codecs."""
+    import glob
+    import importlib.util
     import shutil
 
     import torch
@@ -75,9 +79,22 @@ def check_build() -> str:
                           f"{compiler}")
         return False, f"{what} not built, and no C++ compiler to build it"
 
+    def have(mod):
+        return importlib.util.find_spec(mod) is not None
+
     compiler = shutil.which(native_build.cxx())
     core_ok, core = native_row(native_build.core_path(), "the core")
     ops_ok, ops = native_row(_native_ops.library_path(), "the library")
+    # The TensorFlow kernels' library is named by a hash of TensorFlow's
+    # flags, which only importing TensorFlow (seconds) would give: any
+    # build of it counts.
+    tf_built = sorted(glob.glob(os.path.join(native_build.BUILD_DIR,
+                                             "libhvd_tf_ops_*.so")))
+    if not have("tensorflow"):
+        tf_ok, tf_ops = False, "TensorFlow is not installed"
+    else:
+        tf_ok, tf_ops = native_row(tf_built[-1] if tf_built else "",
+                                   "the library")
     simd = False
     if os.path.exists(native_build.core_path()):
         try:
@@ -119,6 +136,9 @@ def check_build() -> str:
 Available Frameworks:
     [X] PyTorch {torch.__version__}
     [{mark(cuda)}] CUDA {cuda or "(this torch is built for the CPU only)"}
+    [{mark(have("tensorflow"))}] TensorFlow
+    [{mark(have("keras"))}] Keras
+    [{mark(have("mxnet"))}] MXNet
 
 Available Devices:
     [{mark(card)}] NVIDIA card: {name}
@@ -134,6 +154,7 @@ Available Engines:
 
 Available Native Components:
     [{mark(ops_ok)}] PyTorch dispatcher ops (torch.ops.hvd.*): {ops}
+    [{mark(tf_ok)}] TensorFlow custom kernels (HvdAllreduce/...): {tf_ops}
     [{mark(simd)}] SIMD wire codecs (AVX2 + F16C){simd_note}"""
 
 

@@ -116,6 +116,7 @@ from __future__ import annotations
 
 import logging
 import os
+import select
 import socket
 import threading
 import time
@@ -600,6 +601,11 @@ class PyEngine(_EngineBase):
         self._conn_lost: set = set()          # the root's dropped links
         self._last_seen: Dict[int, float] = {}
         self._last_send = time.monotonic()
+        # A worker's collective in flight, and the data plane's receive
+        # count (socketutil.rx_chunks) at its start or its last beat: what
+        # _busy_heartbeat reads.
+        self._op_busy = False
+        self._hb_mark = 0
 
         # Collective deadlines and the abort agreement (off at 0).
         self.collective_timeout = env_util.collective_timeout_s()
@@ -822,8 +828,15 @@ class PyEngine(_EngineBase):
                                   rank=rank, old_parent=old_parent)
 
     def _worker_recv_loop(self) -> None:
+        # With liveness on, the loop wakes at half the heartbeat cadence
+        # between frames to beat for a busy background thread.
+        tick = self.heartbeat_interval / 2 if self.heartbeat_timeout > 0 \
+            else None
         try:
             while not self._shutdown_flag.is_set():
+                if tick is not None and not self._ctrl_readable(tick):
+                    self._busy_heartbeat()
+                    continue
                 tag, payload = su.recv_frame(self._ctrl_sock)
                 self._dispatch_worker_frame(tag, payload)
         except (ConnectionError, OSError):
@@ -1393,6 +1406,54 @@ class PyEngine(_EngineBase):
         except (ConnectionError, OSError):
             pass  # a dead hub shows in the receive thread
 
+    def _send_heartbeat(self) -> bool:
+        """One ``TAG_HEARTBEAT`` up this rank's control path (a
+        sub-coordinator's inside a ``TAG_TREE_UP``); False when the send
+        failed."""
+        try:
+            with self._ctrl_send_lock:
+                if self._tree_child_socks:
+                    su.send_frame(self._ctrl_sock, su.TAG_TREE_UP,
+                                  wire.encode_tree_up(
+                                      [(self.rank, su.TAG_HEARTBEAT, b"")],
+                                      epoch=self.epoch))
+                else:
+                    su.send_frame(self._uplink() or self._ctrl_sock,
+                                  su.TAG_HEARTBEAT, b"")
+            return True
+        except (ConnectionError, OSError):
+            return False
+
+    def _ctrl_readable(self, timeout: float) -> bool:
+        try:
+            return bool(select.select([self._ctrl_sock], [], [],
+                                      timeout)[0])
+        except ValueError:  # the socket was closed under the wait
+            raise ConnectionError("control socket closed") from None
+
+    def _busy_heartbeat(self) -> None:
+        """A worker's heartbeat while its background thread runs a
+        collective, which sends no control frame until it ends; called by
+        the worker's receive thread between frames.  The coordinator counts
+        a collective as proof of life only when its own part completes,
+        and a receiving rank may be busy long after that: a root's send
+        ends once the payload sits in the socket buffers, and the receiver
+        still reads, copies and hands it on.  A beat goes out at the
+        cadence only while the collective's bytes still arrive (the data
+        plane's receive count moved since the last beat), so that a rank
+        wedged in a receive stays silent and is evicted as before.  Idle,
+        the background loop beats itself.  A sub-coordinator's beat relays
+        none of its children's."""
+        if not self._op_busy or self._fenced is not None:
+            return
+        mark = su.rx_chunks
+        if mark == self._hb_mark or \
+                time.monotonic() - self._last_send < self.heartbeat_interval:
+            return
+        self._hb_mark = mark
+        if self._send_heartbeat():
+            self._last_send = time.monotonic()
+
     def _worker_cycle(self, msgs: List[Request]) -> bool:
         if self._fenced is not None:
             # The coordinator fenced this rank (TAG_FENCE): deliver the
@@ -1449,15 +1510,8 @@ class PyEngine(_EngineBase):
             # shows in the receive thread, not here.
             if self._tree_child_socks:
                 tree_entries.append((self.rank, su.TAG_HEARTBEAT, b""))
-            else:
-                up = self._uplink()
-                try:
-                    with self._ctrl_send_lock:
-                        su.send_frame(up or self._ctrl_sock,
-                                      su.TAG_HEARTBEAT, b"")
-                except (ConnectionError, OSError):
-                    if up is not None:
-                        self._reparent_to_root()
+            elif not self._send_heartbeat() and self._uplink() is not None:
+                self._reparent_to_root()
             self._last_send = time.monotonic()
         if tree_entries:
             up_payload = wire.encode_tree_up(tree_entries, epoch=self.epoch)
@@ -2419,6 +2473,8 @@ class PyEngine(_EngineBase):
             # The busy marker a probe ack reads while this thread is
             # blocked in the ring.
             self._in_collective_since = time.monotonic()
+        self._hb_mark = su.rx_chunks
+        self._op_busy = True
         bb = self._blackbox
         if bb is not None:
             # The recorder's begin record, stamped with a clock an enabled
@@ -2483,6 +2539,7 @@ class PyEngine(_EngineBase):
             self.log.error("collective %s failed: %r", op_name, e)
             results = [None] * len(entries)
             status = Status.unknown_error(str(e))
+        self._op_busy = False
         if deadline_on:
             self._in_collective_since = 0.0
         if self.rank == 0 and self.heartbeat_timeout > 0 and status.ok_():

@@ -20,6 +20,13 @@ ride the data links themselves, never the control star.  The liveness
 control star, each only while its knob is on.  Tags the port does not send
 yet (the serving, clock, blackbox and fence frames) keep their numbers here
 as the JAX package reserves them.
+
+:data:`rx_chunks` counts the chunks the data plane of this process has
+received (a socket's ``recv_into`` in a receive called with
+``count=True``, as the TCP transport calls them; a drained shm slot in
+``utils/transport.py``): a worker's control receive thread reads it to
+tell a collective whose bytes still arrive, for which it beats, from one
+that is wedged.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ import time
 from typing import Optional, Tuple
 
 from horovod_tpu_torch.common import fault_injection as _fi
+
+# Data-plane chunks received by this process (see the module docstring).
+rx_chunks = 0
 
 HEADER = struct.Struct("<BI")
 
@@ -116,19 +126,21 @@ def send_frame_zc(sock: socket.socket, tag: int, payload) -> None:
 
 
 def recv_exact(sock: socket.socket, n: int,
-               deadline: Optional[float] = None) -> bytes:
+               deadline: Optional[float] = None,
+               count: bool = False) -> bytes:
     """Receive exactly ``n`` bytes as a new ``bytes`` object.
 
     Implemented over one preallocated ``bytearray`` + ``recv_into`` — no
     per-chunk ``bytes`` objects and no trailing ``b"".join``.
     """
     buf = bytearray(n)
-    recv_exact_into(sock, memoryview(buf), deadline)
+    recv_exact_into(sock, memoryview(buf), deadline, count=count)
     return bytes(buf)
 
 
 def recv_exact_into(sock: socket.socket, view: memoryview,
-                    deadline: Optional[float] = None) -> None:
+                    deadline: Optional[float] = None,
+                    count: bool = False) -> None:
     """Fill ``view`` completely from the socket via ``recv_into``.
 
     The caller owns the buffer; nothing is allocated here.
@@ -139,8 +151,10 @@ def recv_exact_into(sock: socket.socket, view: memoryview,
     ``None`` (the default, and what the collectives pass with
     ``HVD_COLLECTIVE_TIMEOUT`` off) there are no clock reads and no
     ``settimeout`` calls: it blocks until the bytes arrive or the peer
-    closes.  Fires the ``sock.recv`` site once a call.
+    closes.  Fires the ``sock.recv`` site once a call.  ``count``: add
+    each chunk to :data:`rx_chunks` (the data plane's receives).
     """
+    global rx_chunks
     _fi.fire("sock.recv")
     got = 0
     n = len(view)
@@ -150,6 +164,7 @@ def recv_exact_into(sock: socket.socket, view: memoryview,
             if not r:
                 raise ConnectionError("peer closed connection")
             got += r
+            rx_chunks += count
         return
     try:
         while got < n:
@@ -164,6 +179,7 @@ def recv_exact_into(sock: socket.socket, view: memoryview,
             if not r:
                 raise ConnectionError("peer closed connection")
             got += r
+            rx_chunks += count
     finally:
         # Restore blocking mode; on the timeout path the socket is
         # poisoned (mid-frame) and the caller tears it down anyway.
@@ -173,11 +189,11 @@ def recv_exact_into(sock: socket.socket, view: memoryview,
             pass
 
 
-def recv_frame(sock: socket.socket,
-               deadline: Optional[float] = None) -> Tuple[int, bytes]:
-    hdr = recv_exact(sock, HEADER.size, deadline)
+def recv_frame(sock: socket.socket, deadline: Optional[float] = None,
+               count: bool = False) -> Tuple[int, bytes]:
+    hdr = recv_exact(sock, HEADER.size, deadline, count=count)
     tag, n = HEADER.unpack(hdr)
-    return tag, recv_exact(sock, n, deadline)
+    return tag, recv_exact(sock, n, deadline, count=count)
 
 
 def recv_frame_into(sock: socket.socket, view: memoryview,
@@ -195,13 +211,14 @@ def recv_frame_into(sock: socket.socket, view: memoryview,
 
 
 def recv_frame_header(sock: socket.socket,
-                      deadline: Optional[float] = None) -> Tuple[int, int]:
+                      deadline: Optional[float] = None,
+                      count: bool = False) -> Tuple[int, int]:
     """Read just the frame header: ``(tag, payload_len)``.  The caller
     then drains exactly ``payload_len`` bytes with
     :func:`recv_exact_into` — in one gulp or in segments (the segmented
     ring reads a hop in ``HVD_RING_SEGMENT_BYTES`` slices so each
     slice's reduction overlaps the next slice's receive)."""
-    hdr = recv_exact(sock, HEADER.size, deadline)
+    hdr = recv_exact(sock, HEADER.size, deadline, count=count)
     return HEADER.unpack(hdr)
 
 

@@ -147,17 +147,17 @@ class TcpTransport(Transport):
     def recv_frame(self,
                    deadline: Optional[float] = None) -> Tuple[int, bytes]:
         _fi.fire("sock.stall")
-        return su.recv_frame(self.sock, deadline)
+        return su.recv_frame(self.sock, deadline, count=True)
 
     def recv_frame_header(self,
                           deadline: Optional[float] = None
                           ) -> Tuple[int, int]:
         _fi.fire("sock.stall")
-        return su.recv_frame_header(self.sock, deadline)
+        return su.recv_frame_header(self.sock, deadline, count=True)
 
     def recv_exact_into(self, view: memoryview,
                         deadline: Optional[float] = None) -> None:
-        su.recv_exact_into(self.sock, view, deadline)
+        su.recv_exact_into(self.sock, view, deadline, count=True)
 
     def close(self, timeout: float = 5.0) -> None:
         self.sender.close(timeout)
@@ -413,6 +413,7 @@ class _RingReader:
             self._avail -= k
             if self._avail == 0:
                 # The slot is drained: hand it back to the writer.
+                su.rx_chunks += 1
                 self._rseq += 1
                 struct.pack_into("<Q", self._buf, self._r_off,
                                  self._rseq)

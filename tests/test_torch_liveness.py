@@ -11,7 +11,9 @@
   markers are the same in both), rank 2's control send dropped, and cut
   by a partition, in port gangs (it exits 17 as a lost coordinator, the
   survivors evict it), and a mixed gang whose JAX coordinator evicts a
-  killed port rank.
+  killed port rank; and two port gangs under a 1.0 s timeout, whose rank
+  2 receives a ``broadcast_object`` slowly (kept in the gang) or wedged
+  (evicted).
 
 ``_start``/``_finish`` are the gang helpers the timeout and control-tree
 files use too.
@@ -44,6 +46,22 @@ PARTITION_PLAN = json.dumps({"faults": [
     {"site": "ctrl.worker.send", "kind": "partition", "after": 2,
      "groups": [[0, 1], [2]]}]})
 GANG_TIMEOUT = 120.0
+# A short timeout against a broadcast_object that outlasts it on rank 2:
+# 8 MiB read in 64 KiB slices 50 ms apart (≈6.4 s; with 512 KiB socket
+# buffers the root's send ends with at most a few MiB, ≥1.6 s of reading,
+# still to go) and an unpickle of 1.5 s on every rank; or its payload's
+# receive wedged for 6 s.
+BUSY_ENV = {"HVD_HEARTBEAT_TIMEOUT": "1.0", "HVD_HEARTBEAT_INTERVAL": "0.1",
+            "HVD_SHM_DISABLE": "1", "HVD_SOCK_BUF_BYTES": str(512 << 10),
+            "BUSY_RANK": "2"}
+BUSY_STALL_S = 6.0
+BUSY_GANGS = {
+    "port_busy_slow": {"BUSY_MODE": "slow", "BUSY_MB": "8",
+                       "BUSY_UNPICKLE_S": "1.5"},
+    "port_busy_wedge": {"BUSY_MODE": "wedge", "BUSY_MB": "0.25",
+                        "BUSY_UNPICKLE_S": "0",
+                        "BUSY_STALL_S": str(BUSY_STALL_S)},
+}
 
 
 def _start(pkgs, scenario, cwd, local_size=None, base_env=None,
@@ -202,8 +220,14 @@ def gangs(tmp_path_factory):
     started = {name: _start(pkgs, "train_steps", str(root / name),
                             base_env=HEARTBEAT_ENV, rank_env=rank_env)
                for name, (pkgs, rank_env) in spec.items()}
+    for name, env in BUSY_GANGS.items():
+        started[name] = _start(["port"] * 3, "bcast_object_busy",
+                               str(root / name),
+                               base_env=dict(BUSY_ENV, **env))
     deadline = time.monotonic() + GANG_TIMEOUT
-    return {name: _finish(g, deadline) for name, g in started.items()}
+    return {name: _finish(g, deadline,
+                          stalled=(2,) if name == "port_busy_wedge" else ())
+            for name, g in started.items()}
 
 
 @pytest.mark.timeout(240)
@@ -253,3 +277,37 @@ def test_ctrl_fault_victim_exits_lost_and_is_evicted(gangs, name):
         assert "RANKS_FAILED [2]" in out, (rank, out)
         steps = _steps(out)
         assert steps and steps[-1][1] == 2.0, steps
+
+
+@pytest.mark.timeout(240)
+def test_busy_receiver_of_broadcast_object_is_not_evicted(gangs):
+    """Rank 2 still reads the root's object, then unpickles it, long after
+    the root's send has ended, past the heartbeat timeout: its control
+    receive thread beats for it while the bytes arrive, and every rank
+    gets the object and runs the allreduces after it."""
+    outs = gangs["port_busy_slow"]
+    digests = set()
+    for rank, (code, out) in enumerate(outs):
+        assert code == 0, (rank, out)
+        assert "RANKS_FAILED" not in out and "evicting" not in out, \
+            (rank, out)
+        m = re.search(r"BUSY_OK rank=%d digest=(\w+)" % rank, out)
+        assert m, (rank, out)
+        digests.add(m.group(1))
+    assert len(digests) == 1, digests
+
+
+@pytest.mark.timeout(240)
+def test_rank_wedged_in_a_receive_is_still_evicted(gangs):
+    """Rank 2's receive of the object's payload wedges (no bytes move):
+    no beat goes out for it, and the coordinator evicts it
+    within the timeout, long before the wedge ends; the survivors'
+    next allreduce raises RanksFailedError naming [2]."""
+    outs = gangs["port_busy_wedge"]
+    assert "BUSY_OK" not in outs[2][1], outs[2]
+    for rank in (0, 1):
+        code, out = outs[rank]
+        assert code == 0, (rank, out)
+        m = re.search(r"RANKS_FAILED \[2\] dt=([\d.]+)", out)
+        assert m, (rank, out)
+        assert float(m.group(1)) < BUSY_STALL_S / 2, (rank, out)

@@ -65,7 +65,10 @@ def test_import_loads_no_jax_or_jax_package():
                 "torch", "torch.mpi_ops", "torch.compression", "ops.bridge",
                 "tools.hvd_trace", "tools.hvd_postmortem", "tools.hvd_top",
                 "native", "runtime_native", "common.native_build",
-                "torch._native_ops", "utils.logging", "utils.platform"):
+                "torch._native_ops", "utils.logging", "utils.platform",
+                "tensorflow", "tensorflow._native_ops", "keras",
+                "keras.callbacks", "callbacks", "mxnet", "spark",
+                "spark.store", "spark.estimator"):
         assert f"horovod_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -91,7 +94,8 @@ def test_no_source_file_imports_jax_or_jax_package():
 
 def test_native_sources_include_only_their_own_directory():
     """The core's sources (``horovod_tpu_torch/csrc/``) include only each
-    other and system headers: nothing of the JAX package's ``csrc/``."""
+    other and system headers: nothing of the JAX package's ``csrc/``.
+    ``tf_ops.cc`` adds TensorFlow's framework headers."""
     import re
 
     from horovod_tpu_torch.common import native_build
@@ -99,10 +103,13 @@ def test_native_sources_include_only_their_own_directory():
     csrc = native_build.CSRC_DIR
     assert csrc == os.path.join(PORT, "csrc")
     files = sorted(os.listdir(csrc))
-    assert "ffi_bridge.cc" not in files and "tf_ops.cc" not in files
+    assert "ffi_bridge.cc" not in files and "tf_ops.cc" in files
     for f in files:
         with open(os.path.join(csrc, f)) as fh:
             for inc in re.findall(r'#include\s+"([^"]+)"', fh.read()):
+                if f == "tf_ops.cc" and \
+                        inc.startswith("tensorflow/core/framework/"):
+                    continue
                 assert "/" not in inc and inc in files, (f, inc)
 
 
@@ -141,6 +148,45 @@ def test_native_build_reads_and_writes_only_its_directories(
     assert paths and all(p.startswith(allowed) for p in paths), paths
     assert sum("-c" in c for c in cmds) == len(native_build.CORE_SOURCES)
     # Nothing lands outside the build directory.
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [".native.lock", os.path.basename(native_build.core_path()),
+         os.path.basename(_native_ops.library_path())])
+
+
+def test_tf_ops_build_reads_and_writes_only_its_directories(
+        tmp_path, monkeypatch):
+    """The TensorFlow kernels' build names only the port's ``csrc/``, the
+    build directory and TensorFlow's own headers and libraries, and
+    writes only the core and its library into the build directory."""
+    tf = pytest.importorskip("tensorflow")
+
+    from horovod_tpu_torch.common import native_build
+    from horovod_tpu_torch.tensorflow import _native_ops
+
+    cmds = []
+
+    def run(batch):
+        for cmd in batch:
+            cmds.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "w").close()
+
+    monkeypatch.setattr(native_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native_build, "_run", run)
+    monkeypatch.setattr(native_build, "build_seconds", {})
+    flags, links, key = _native_ops._flags()
+    native_build.build_ops(_native_ops.SRC, flags, links, key)
+    tf_dir = os.path.dirname(os.path.dirname(tf.sysconfig.get_include()))
+    allowed = (native_build.CSRC_DIR, str(tmp_path), tf_dir)
+
+    def path(arg):
+        for prefix in ("-I", "-L", "-Wl,-rpath,"):
+            if arg.startswith(prefix):
+                return arg[len(prefix):]
+        return arg
+
+    paths = [path(a) for cmd in cmds for a in cmd[1:] if "/" in a]
+    assert paths and all(p.startswith(allowed) for p in paths), paths
+    assert os.path.join(native_build.CSRC_DIR, "tf_ops.cc") in paths
     assert sorted(os.listdir(tmp_path)) == sorted(
         [".native.lock", os.path.basename(native_build.core_path()),
          os.path.basename(_native_ops.library_path())])
@@ -200,6 +246,20 @@ def test_classic_front_end_init_without_device_raises(no_cuda):
     with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
         hvd_torch.init()
     assert not hvd_torch.is_initialized()
+
+
+@pytest.mark.parametrize("front_end", ["tensorflow", "keras", "mxnet"])
+def test_other_front_ends_init_without_device_raises(no_cuda, front_end):
+    """The TensorFlow, Keras and MXNet front-ends' ``init`` is the
+    port's: no card, no ``device="cpu"``, no runtime."""
+    import importlib
+
+    if front_end != "mxnet":
+        pytest.importorskip(front_end)
+    hvd_fe = importlib.import_module(f"horovod_tpu_torch.{front_end}")
+    with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+        hvd_fe.init()
+    assert not hvd_fe.is_initialized()
 
 
 def test_model_init_without_device_raises(no_cuda):

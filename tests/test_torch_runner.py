@@ -797,6 +797,41 @@ def test_check_build_names_the_ports_parts(capsys):
         assert "built: " in line or native_build.CSRC_DIR in line, line
     assert "SIMD wire codecs (AVX2 + F16C)" in out
     assert "not ported" not in out
+    # The other frameworks, found (not imported), and the TensorFlow
+    # kernels: built, buildable from the port's csrc/, or TensorFlow
+    # missing.
+    import importlib.util
+
+    for fw, mod in (("TensorFlow", "tensorflow"), ("Keras", "keras"),
+                    ("MXNet", "mxnet")):
+        have = importlib.util.find_spec(mod) is not None
+        assert f"[{'X' if have else ' '}] {fw}\n" in out, fw
+    line = next(x for x in out.splitlines()
+                if "TensorFlow custom kernels (HvdAllreduce/...)" in x)
+    if importlib.util.find_spec("tensorflow") is None:
+        assert line.lstrip().startswith("[ ]"), line
+    else:
+        assert line.lstrip().startswith("[X]"), line
+        assert "libhvd_tf_ops_" in line or native_build.CSRC_DIR in line, \
+            line
     # No row claims a part the port does not have.
-    for absent in ("JAX", "TensorFlow", "XLA", "MXNet", "Keras"):
+    for absent in ("JAX", "XLA"):
         assert f"] {absent}" not in out
+
+
+def test_check_build_imports_no_tensorflow():
+    """``--check-build`` finds TensorFlow, Keras and MXNet without
+    importing them, and the launcher's modules import neither torch nor
+    tensorflow: the launcher stays fast."""
+    code = ("import sys\n"
+            "import horovod_tpu_torch.runner.run as run\n"
+            "import horovod_tpu_torch.runner.launch\n"
+            "before = sorted(m for m in ('torch', 'tensorflow', 'keras')\n"
+            "                if m in sys.modules)\n"
+            "out = run.check_build()\n"
+            "print(before, sorted(m for m in ('tensorflow', 'keras', "
+            "'mxnet') if m in sys.modules))")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=100, cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[] []", res.stdout

@@ -36,6 +36,10 @@ request frame draws ``TAG_FENCE`` and its allreduce raises the typed
 coordinator prints ``SURVIVED rank=0 sum=<v> fences=<n>`` or
 ``RANKS_FAILED <json> fences=<n>`` (its recorder's ``epoch.fence``
 notes).
+
+``bcast_object_busy`` sends a ``broadcast_object`` that one rank receives
+slowly, or wedged, and that every rank takes a while to unpickle (its
+docstring has the knobs and markers).
 """
 
 import json
@@ -84,6 +88,8 @@ else:
 
     def engine():
         return basics._engine_obj
+
+    from horovod_tpu_torch.ops import eager
 
     def init():
         hvd.init(device="cpu", backend="none")
@@ -198,7 +204,87 @@ def scenario_fence_stale_epoch():
         os._exit(0)
 
 
+def _slow_unpickle(seconds, value):
+    """What a ``_SlowUnpickle`` turns into: ``value``, after ``seconds``
+    of Python work on the main thread."""
+    end = time.monotonic() + seconds
+    while time.monotonic() < end:
+        pass
+    return value
+
+
+class _SlowUnpickle:
+    def __init__(self, seconds, value):
+        self.seconds, self.value = seconds, value
+
+    def __reduce__(self):
+        return _slow_unpickle, (self.seconds, self.value)
+
+
+def _throttle_large_receives(piece, pause_s):
+    """Read every receive of 1 MiB or more in ``piece``-byte slices with
+    ``pause_s`` between them: a receiver slower than its root's send,
+    whose bytes keep arriving."""
+    from horovod_tpu_torch.utils import socketutil as su
+
+    plain = su.recv_exact_into
+
+    def slow(sock, view, *args, **kw):
+        if len(view) < (1 << 20):
+            return plain(sock, view, *args, **kw)
+        for i in range(0, len(view), piece):
+            plain(sock, view[i:i + piece], *args, **kw)
+            time.sleep(pause_s)
+
+    su.recv_exact_into = slow
+
+
+def scenario_bcast_object_busy():
+    """``broadcast_object`` from rank 0 of a payload (``BUSY_MB`` MiB of
+    uint8) and an object whose unpickle takes ``BUSY_UNPICKLE_S`` on every
+    rank.  ``BUSY_RANK`` receives slowly (``BUSY_MODE=slow``: 64 KiB
+    slices, 50 ms apart) or wedges its receive of the payload's frame for
+    ``BUSY_STALL_S`` (``BUSY_MODE=wedge``).  Then three allreduces.
+    Prints ``BUSY_OK rank=<r> digest=<hex>`` or ``RANKS_FAILED <json>
+    dt=<s>`` (seconds from the broadcast's start)."""
+    import hashlib
+
+    rank = hvd.rank()
+    busy = int(os.environ["BUSY_RANK"])
+    mode = os.environ["BUSY_MODE"]
+    n = int(float(os.environ["BUSY_MB"]) * (1 << 20))
+    hvd.allreduce(np.ones(4, np.float32), op=hvd.Sum, name="busy.warm")
+    obj = None
+    if rank == 0:
+        obj = {"payload": (np.arange(n) % 251).astype(np.uint8),
+               "slow": _SlowUnpickle(float(os.environ["BUSY_UNPICKLE_S"]),
+                                     "unpickled")}
+    if rank == busy:
+        if mode == "slow":
+            _throttle_large_receives(64 << 10, 0.05)
+        else:
+            # The length's frame passes; the payload's wedges.
+            fi.configure({"faults": [{
+                "site": "sock.stall", "kind": "stall", "after": 1, "times": 1,
+                "stall_s": float(os.environ["BUSY_STALL_S"])}]})
+    t0 = time.monotonic()
+    try:
+        got = eager.broadcast_object(obj, 0, name="busy.obj")
+        for k in range(3):
+            hvd.allreduce(np.ones(4, np.float32), op=hvd.Sum,
+                          name=f"busy.after{k}")
+    except hvd.RanksFailedError as e:
+        print(f"RANKS_FAILED {json.dumps(e.ranks)} "
+              f"dt={time.monotonic() - t0:.3f}", flush=True)
+        os._exit(0)
+    assert got["slow"] == "unpickled", got
+    digest = hashlib.sha256(got["payload"].tobytes()).hexdigest()[:16]
+    print(f"BUSY_OK rank={rank} digest={digest}", flush=True)
+    os._exit(0)
+
+
 SCENARIOS = {
+    "bcast_object_busy": scenario_bcast_object_busy,
     "fence_stale_epoch": scenario_fence_stale_epoch,
     "train_steps": scenario_train_steps,
     "tree_subcoord_steps": scenario_tree_subcoord_steps,
