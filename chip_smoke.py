@@ -218,12 +218,31 @@ non-zero):
    clients re-POSTing to rank 1's door: every reply 200 with ``attempts >
    1``, ``LEADER_FAILOVER`` naming rank 0 on rank 1's timeline, the
    survivors DONE and the launcher's exit 0 (two workers finished).  Every
-   token of A and B equals ``DecodeEngine``'s alone on its prompt, bit for
-   bit.  Prints, beside the card, TTFT, the lockstep step (the leader's
+   token of A and B equals, bit for bit, ``generate``'s on its prompt
+   alone (the serve phase's oracle, which its ``DecodeEngine`` matched).
+   Prints, beside the card, TTFT, the lockstep step (the leader's
    ``hvd_serve_token_latency_seconds``) against the one-process decode
    step, the confirm allreduce a step, the failover by part (detection,
    re-form, the engine rebuilt, replay to the first token) and each
-   rank's peak memory.  Serving runs no flash kernel;
+   rank's peak memory.  Serving runs no flash kernel.  Then the tp serving
+   gang (see SG_TP): ``-np 2 --min-np 1 --collective-timeout 20``, each
+   rank a ``ServingLoop(mesh={"tp": 2})`` on cuda:0 over a gloo group the
+   loop forms (the ranks share the card), holding its half of the heads,
+   d_ff and vocabulary of the flagship at its full width and two layers
+   (see SG_TP_LAYERS).
+   A: the same 16 requests, every reply 200 with ``attempts == 1`` and
+   its tokens, bit for bit, ``DecodeEngine``'s at tp 2 on its prompt
+   alone, which the two ranks compute once their loop stopped.  B: both
+   serve again, eight requests, rank 1 SIGKILLed once every slot is live:
+   rank 0 re-forms alone, its engine at tp 1 (the ``serve.engine`` span
+   says so), and replays them; every reply ``attempts > 1`` and bit for
+   bit ``DecodeEngine``'s alone at tp 1.  Prints, beside the card and
+   all at two layers, the lockstep step at tp 2 against the loop's at tp
+   1 (B's survivor) and ``DecodeEngine``'s step alone at tp 1 and at tp
+   2, the tp collectives' share of a step, and the failover by part.
+   Then the control plane's scale harness (``ctrl_sim.run_curve`` at 8,
+   64 and 256 in-process ranks, star and tree) on the card machine's host,
+   with its CPU count;
 12. the torch-api phase (``--torch-api-rank R``, see TA_PARAM_TOL; right
    after phase 6's first run): phase 6's two ranks train the flagship
    through the classic front-end, ``import horovod_tpu_torch.torch as
@@ -1746,9 +1765,11 @@ def run_serve(tfm, dev, card):
 
     # The tokens against generate() on each prompt alone.
     t_or = time.perf_counter()
+    wants = []
     for i, (p, m) in enumerate(reqs):
         want = tfm.generate(model, [p], max_new_tokens=m,
                             cache_len=SERVE_CACHE)[0, len(p):].tolist()
+        wants.append(want)
         got = replies[i][1]["tokens"]
         if got != want:
             j = next(k for k in range(m) if got[k] != want[k])
@@ -1838,7 +1859,7 @@ def run_serve(tfm, dev, card):
           f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held "
           f"before; oracles {oracle_s:.1f} s; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return step_ms
+    return step_ms, wants
 
 
 # The serving gang (phase 11): SG_RANKS ranks of this script
@@ -1855,6 +1876,23 @@ def run_serve(tfm, dev, card):
 # times come from the ranks' trace files (each process its own directory).
 SG_RANKS, SG_MIN_NP, SG_B_REQUESTS = 3, 2, 8
 SG_START_S, SG_TIMEOUT_S = 180, 420
+# The tp serving gang (phase 11b, ``run_serve_gang_tp``): SG_TP ranks on
+# the one card, ``ServingLoop(mesh={"tp": SG_TP})`` over a gloo group that
+# the loop forms (the ranks share a card, which NCCL refuses), the
+# flagship cut into SG_TP shards of its heads, d_ff and vocabulary, the
+# group and the engine under a collective deadline of SG_TP_DEADLINE_S
+# (``--collective-timeout``).  A: the same SERVE_CLIENTS requests, half
+# through rank 1's door; the loop stops, and both ranks decode each prompt
+# alone in a DecodeEngine at tp SG_TP (the oracle), then time SG_TP_STEPS
+# steps with every slot live, with and without the tp collectives timed.
+# B: both ranks serve again, SG_B_REQUESTS requests, rank 1 SIGKILLed once
+# every slot is live; rank 0 re-forms alone at tp 1, replays them and
+# times its steps.  The flagship at SG_TP_LAYERS layers, its full width:
+# the two ranks time-slice the card and each tp collective copies through
+# the host, so that at eight layers the oracle alone took 225.5 s and the
+# phase 298.5 s (NVIDIA H100 80GB HBM3, 700.00 W), past the smoke's time;
+# every comparison the phase prints is at that depth.
+SG_TP, SG_TP_STEPS, SG_TP_LAYERS, SG_TP_DEADLINE_S = 2, 20, 2, 20.0
 
 
 def _sg_write(path, text):
@@ -1947,30 +1985,20 @@ def _sg_spans(d):
     return spans
 
 
-def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
-                   timeout=SG_TIMEOUT_S):
-    """The serving gang (see SG_RANKS): ``python -m
-    horovod_tpu_torch.runner.run -np 3 --min-np 2 --kv-standbys 1
-    --serve-max-batch 8`` over ranks of this script.  Checks: every reply
-    of A is 200 with ``attempts == 1``; every request of B completes at
-    rank 1's door with ``attempts > 1``; the tokens of both are, bit for
-    bit, ``DecodeEngine``'s alone on each prompt (computed here after the
-    gang); rank 1's timeline has ``LEADER_FAILOVER`` naming rank 0; the
-    survivors print DONE and the launcher exits 0.  Prints TTFT, the
-    lockstep step against the one-process decode step, the confirm
-    allreduce, the failover by part and each rank's peak memory."""
+def _sg_gang(tfm, cfg, rank_device, tp, timeout):
+    """Launch a serving gang and drive it (see SG_RANKS and SG_TP): the
+    launch, A's clients, B's clients and the SIGKILL of its victim (rank 0
+    of the tp 1 gang, rank 1 of the tp gang), the reports, logs and
+    traces; ``rank_device`` is every rank's device (None: each rank's own
+    card, ``cuda:<local_rank>``).  Returns what the checks read."""
     import signal
     import shutil
     import tempfile
     import threading
+    import types
 
     import numpy as np
-    import torch
 
-    from horovod_tpu_torch.serving import DecodeEngine
-
-    t_phase = time.perf_counter()
-    cfg = cfg or _flagship_cfg(tfm)
     cache = min(SERVE_CACHE, cfg.max_seq_len)
     rs = np.random.RandomState(SERVE_SEED)
     reqs = []
@@ -1985,7 +2013,10 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     fields["compute_dtype"] = str(cfg.compute_dtype).split(".")[1]
     with open(os.path.join(tmp, "config.json"), "w") as fh:
-        json.dump({"cfg": fields, "device": str(dev), "cache": cache}, fh)
+        json.dump({"cfg": fields, "device": rank_device, "cache": cache,
+                   "tp": tp, "reqs": reqs}, fh)
+    n_ranks = SG_RANKS if tp == 1 else tp
+    what = "serve gang" if tp == 1 else f"serve gang tp {tp}"
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HVD_", "MASTER_", "HOROVOD_"))}
     # The serve channel is the Python engine's (the launcher's elastic
@@ -1995,15 +2026,18 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.run",
-           "-np", str(SG_RANKS), "--min-np", str(SG_MIN_NP),
-           "--kv-standbys", "1", "--serve-max-batch", str(SERVE_SLOTS),
-           "--no-shm", "--", sys.executable, os.path.abspath(__file__),
-           "--serve-gang-rank", tmp]
-    print(f"serve gang: {' '.join(cmd[1:])}")
+           "-np", str(n_ranks), "--min-np",
+           str(SG_MIN_NP if tp == 1 else 1)] + (
+        ["--kv-standbys", "1"] if tp == 1 else
+        ["--collective-timeout", str(SG_TP_DEADLINE_S)]) + [
+        "--serve-max-batch", str(SERVE_SLOTS),
+        "--no-shm", "--", sys.executable, os.path.abspath(__file__),
+        "--serve-gang-rank", tmp]
+    print(f"{what}: {' '.join(cmd[1:])}")
     p = os.path.join
-    launcher, log_out, log_err = None, None, None
+    launcher, log_out, log_err, oracle = None, None, None, None
     a_out, b_out = [None] * len(reqs), [None] * SG_B_REQUESTS
-    t0 = time.monotonic()
+    t0, t_kill_ns = time.monotonic(), 0
     try:
         log_out = open(p(tmp, "launcher.out"), "w")
         log_err = open(p(tmp, "launcher.err"), "w")
@@ -2013,12 +2047,12 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
         start_by = min(deadline, t0 + SG_START_S)
         # Rank 0 writes its port once its address is in the KV store.
         ports = [int(_sg_wait(p(tmp, f"port{r}"), launcher, start_by,
-                              f"rank {r}'s door")) for r in range(SG_RANKS)]
+                              f"rank {r}'s door")) for r in range(n_ranks)]
         t_up = time.monotonic() - t0
 
         # A: every request at once, half through the followers' doors.
         clients = [threading.Thread(target=_post, args=(
-            ports[0] if i % 2 == 0 else ports[1 + (i // 2) % 2],
+            ports[0] if i % 2 == 0 else ports[1 + (i // 2) % (n_ranks - 1)],
             {"prompt": pr, "max_new_tokens": m}, a_out, i), daemon=True)
             for i, (pr, m) in enumerate(reqs)]
         ta = time.monotonic()
@@ -2029,23 +2063,33 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
         a_s = time.monotonic() - ta
         t_dump_ns = time.monotonic_ns()
         _sg_write(p(tmp, "dumpA"), "1")
-        for r in range(SG_RANKS):
+        for r in range(n_ranks):
             _sg_wait(p(tmp, f"A{r}.json"), launcher, deadline,
                      f"rank {r}'s report of A")
-
-        # B: every slot live on every rank, then rank 0 killed.
+        if tp > 1:
+            # The loop stops; the ranks run the oracle, then serve again.
+            _sg_write(p(tmp, "stopA"), "1")
+            oracle = json.loads(_sg_wait(p(tmp, "oracle.json"), launcher,
+                                         deadline, "the ranks' oracle"))
+            ports = [int(_sg_wait(p(tmp, f"portB{r}"), launcher, deadline,
+                                  f"rank {r}'s second door"))
+                     for r in range(n_ranks)]
+        # B: every slot live on every rank, then the victim killed.
+        victim = 0 if tp == 1 else 1
         b_reqs = [(f"B{i}", reqs[i][0], reqs[i][1])
-                  for i in range(SG_B_REQUESTS)]
+                  for i in range(len(b_out))]
         clients = [threading.Thread(target=_sg_client, args=(
-            [ports[0], ports[1]], {"id": rid, "prompt": pr,
-                                   "max_new_tokens": m}, b_out, i,
-            deadline), daemon=True) for i, (rid, pr, m) in enumerate(b_reqs)]
+            [ports[0], ports[1]] if tp == 1 else [ports[0]],
+            {"id": rid, "prompt": pr, "max_new_tokens": m}, b_out, i,
+            deadline), daemon=True)
+            for i, (rid, pr, m) in enumerate(b_reqs)]
         for c in clients:
             c.start()
         _sg_all_live(ports[0], launcher, deadline)
-        pid0 = int(_sg_wait(p(tmp, "pid0"), launcher, deadline, "pid0"))
+        pid_v = int(_sg_wait(p(tmp, f"pid{victim}"), launcher, deadline,
+                             f"pid{victim}"))
         t_kill_ns = time.monotonic_ns()
-        os.kill(pid0, signal.SIGKILL)
+        os.kill(pid_v, signal.SIGKILL)
         for c in clients:
             c.join(timeout=max(1.0, deadline - time.monotonic()))
         _sg_write(p(tmp, "stop"), "1")
@@ -2055,7 +2099,7 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
             pass
         wall = time.monotonic() - t0
     finally:
-        for r in range(SG_RANKS):
+        for r in range(n_ranks):
             try:
                 with open(p(tmp, f"pid{r}")) as fh:
                     os.kill(int(fh.read()), signal.SIGKILL)
@@ -2067,8 +2111,10 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
         for fh in (log_out, log_err):
             if fh is not None:
                 fh.close()
+    survivors = (1, 2) if tp == 1 else (0,)
     reports = {}
-    for name in [f"A{r}" for r in range(SG_RANKS)] + ["final1", "final2"]:
+    for name in [f"A{r}" for r in range(n_ranks)] + [
+            f"final{r}" for r in survivors] + ["reform0"]:
         if os.path.exists(p(tmp, f"{name}.json")):
             with open(p(tmp, f"{name}.json")) as fh:
                 reports[name] = json.load(fh)
@@ -2083,12 +2129,12 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
     spans0, spans1 = _sg_spans(p(tmp, "trace0")), _sg_spans(p(tmp, "trace1"))
     shutil.rmtree(tmp, ignore_errors=True)
     for line in (out + err).splitlines():
-        print(f"serve gang: {line}")
+        print(f"{what}: {line}")
 
     bad = []
     if launcher.returncode != 0:
         bad.append(f"the launcher exited {launcher.returncode}")
-    for r in (1, 2):
+    for r in survivors:
         if f"[{r}]<stdout>: DONE" not in out:
             bad.append(f"survivor rank {r} did not finish")
     for i, r in enumerate(a_out):
@@ -2098,88 +2144,207 @@ def run_serve_gang(tfm, dev, card, cfg=None, step_alone_ms=None,
     for i, r in enumerate(b_out):
         if r is None or r[0] != 200 or not r[1].get("attempts", 0) > 1:
             bad.append(f"B request {i}: reply {str(r)[:160]}")
+    # The leader's steps of A.
+    lead = [s for s in spans0.get("serve.apply", ()) if s["t0"] < t_dump_ns]
+    conf = [s for s in spans0.get("serve.confirm", ())
+            if s["t0"] < t_dump_ns]
+    if not (lead and conf):
+        bad.append(f"the traces lack spans: {len(lead)} serve.apply and "
+                   f"{len(conf)} serve.confirm of the leader in A")
+    _fail_if(bad, what)
+    return types.SimpleNamespace(
+        what=what, reqs=reqs, cache=cache, n_ranks=n_ranks,
+        survivors=survivors, a_out=a_out, b_out=b_out, reports=reports,
+        timeline=timeline, spans1=spans1, lead=lead, conf=conf,
+        oracle=oracle, t_up=t_up, a_s=a_s, wall=wall, t_kill_ns=t_kill_ns)
+
+
+def _sg_ms(t0_ns, t1_ns):
+    return (t1_ns - t0_ns) / 1e6
+
+
+def _sg_print_a(g, card):
+    """A's launch, TTFT and lockstep lines."""
+    import numpy as np
+
+    ttft = sorted(r[1]["ttft_ms"] for r in g.a_out)
+    tokens = sum(m for _, m in g.reqs)
+    lat = [_sg_ms(s["t0"], s["t1"]) for s in g.lead]
+    conf_ms = [_sg_ms(s["t0"], s["t1"]) for s in g.conf]
+    print(f"{g.what}: {g.n_ranks} ranks launched, every door open and the "
+          f"leader published in {g.t_up:.2f} s; A: {len(g.reqs)} requests, "
+          f"{tokens} tokens in {g.a_s:.2f} s ({tokens / g.a_s:.1f} "
+          f"tokens/s), TTFT p50 {np.percentile(ttft, 50):.2f} ms, p99 "
+          f"{np.percentile(ttft, 99):.2f} ms (host clock); {card}")
+    print(f"{g.what}: lockstep step (the leader's serve.apply spans, the "
+          f"window of hvd_serve_token_latency_seconds, {len(lat)} steps, "
+          f"prefills included): median {statistics.median(lat):.3f} ms, p99 "
+          f"{np.percentile(lat, 99):.3f} ms; the confirm allreduce (the "
+          f"leader's serve.confirm spans, {len(conf_ms)} steps): median "
+          f"{statistics.median(conf_ms):.3f} ms, p99 "
+          f"{np.percentile(conf_ms, 99):.3f} ms a step; {card}")
+
+
+def _sg_print_end(g, card, oracle_s, t_phase):
+    peaks = {r: g.reports[f"A{r}"]["peak_bytes"] for r in range(g.n_ranks)}
+    peaks.update({f"{r} (end)": g.reports[f"final{r}"]["peak_bytes"]
+                  for r in g.survivors})
+    print(f"{g.what}: peak memory per rank "
+          + ", ".join(f"rank {r} " + (f"{v / 2**30:.2f} GiB" if v is not None
+                                      else "not measured (CPU)")
+                      for r, v in peaks.items())
+          + f"; oracles {oracle_s:.1f} s; gang {g.wall:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+
+
+def run_serve_gang(tfm, dev, card, step_alone_ms, alone,
+                   timeout=SG_TIMEOUT_S):
+    """The serving gang (see SG_RANKS): ``python -m
+    horovod_tpu_torch.runner.run -np 3 --min-np 2 --kv-standbys 1
+    --serve-max-batch 8`` over ranks of this script on ``dev``.  Checks:
+    every reply of A is 200 with ``attempts == 1``; every request of B
+    completes at rank 1's door with ``attempts > 1``; the tokens of both
+    are, bit for bit, ``alone`` (the serve phase's ``generate`` oracle,
+    which its ``DecodeEngine`` matched bit for bit); rank 1's timeline has
+    ``LEADER_FAILOVER`` naming rank 0; the survivors print DONE and the
+    launcher exits 0.  Prints TTFT, the lockstep step against the
+    one-process decode step (``step_alone_ms``), the confirm allreduce,
+    the failover by part and each rank's peak memory."""
+    t_phase = time.perf_counter()
+    g = _sg_gang(tfm, _flagship_cfg(tfm), str(dev), 1, timeout)
+    bad = []
     recs = [json.loads(ln.rstrip().rstrip(","))
-            for ln in timeline.splitlines() if "LEADER_FAILOVER" in ln]
+            for ln in g.timeline.splitlines() if "LEADER_FAILOVER" in ln]
     failover = [rec for rec in recs
                 if 0 in ((rec.get("args") or {}).get("failed") or [])]
     if not failover:
         bad.append("rank 1's timeline has no LEADER_FAILOVER naming rank 0")
-    # The leader's steps of A, and rank 1's records of the failover.
-    lead = [s for s in spans0.get("serve.apply", ()) if s["t0"] < t_dump_ns]
-    conf = [s for s in spans0.get("serve.confirm", ())
-            if s["t0"] < t_dump_ns]
-    reform = [s for s in spans1.get("elastic.reform", ())
-              if s["t0"] > t_kill_ns][:1]
-    built = [s for s in spans1.get("serve.engine", ())
+    # Rank 1's records of the failover.
+    reform = [s for s in g.spans1.get("elastic.reform", ())
+              if s["t0"] > g.t_kill_ns][:1]
+    built = [s for s in g.spans1.get("serve.engine", ())
              if reform and s["t0"] >= reform[0]["t1"]][:1]
-    after = [s for s in spans1.get("serve.apply", ())
+    after = [s for s in g.spans1.get("serve.apply", ())
              if built and s["t0"] >= built[0]["t1"]][:1]
-    if not (lead and conf and reform and built and after):
-        bad.append(f"the traces lack spans: {len(lead)} serve.apply and "
-                   f"{len(conf)} serve.confirm of the leader in A, rank 1's "
-                   f"elastic.reform {len(reform)}, serve.engine {len(built)}"
-                   f" and serve.apply {len(after)} after the kill")
-    _fail_if(bad, "serve gang")
+    if not (reform and built and after):
+        bad.append(f"the traces lack spans after the kill: rank 1's "
+                   f"elastic.reform {len(reform)}, serve.engine "
+                   f"{len(built)} and serve.apply {len(after)}")
+    for i, r in enumerate(g.a_out):
+        if r[1]["tokens"] != alone[i]:
+            bad.append(f"A request {i}: tokens differ from the one-process "
+                       f"decode's alone")
+    for i, r in enumerate(g.b_out):
+        if r[1]["tokens"] != alone[i]:
+            bad.append(f"B request {i}: tokens differ from the one-process "
+                       f"decode's alone")
+    _fail_if(bad, g.what)
+    _sg_print_a(g, card)
+    print(f"{g.what}: the one-process decode step at the same depth and "
+          f"{SERVE_SLOTS} live slots {step_alone_ms:.3f} ms; {card}")
+    ms = _sg_ms
+    rf, bl, af = reform[0], built[0], after[0]
+    print(f"{g.what}: failover, SIGKILL of rank 0 to the end of rank 1's "
+          f"first step after {ms(g.t_kill_ns, af['t1']):.1f} ms: detection "
+          f"(to elastic.reform's start) {ms(g.t_kill_ns, rf['t0']):.1f} ms, "
+          f"re-form (elastic.reform: teardown, the new world, re-init) "
+          f"{ms(rf['t0'], rf['t1']):.1f} ms, to DecodeEngine rebuilt (state "
+          f"sync, serve.engine) {ms(rf['t1'], bl['t1']):.1f} ms of which "
+          f"the build {ms(bl['t0'], bl['t1']):.1f} ms, replay (publish, the "
+          f"frame, {af.get('admitted')} prefills and a step, the first "
+          f"serve.apply) {ms(bl['t1'], af['t1']):.1f} ms; rank 1's "
+          f"LEADER_FAILOVER {failover[0].get('args')}; {card}")
+    _sg_print_end(g, card, 0.0, t_phase)
 
-    # The tokens against DecodeEngine alone on each prompt.
+
+def run_serve_gang_tp(tfm, dev, card, rank_device, cfg=None,
+                      timeout=SG_TIMEOUT_S):
+    """The tp serving gang (see SG_TP): ``-np SG_TP --min-np 1`` over
+    ranks of this script, every one on ``rank_device`` (``cuda:0``: one
+    card, where the loop forms a gloo group; None: each rank on its own
+    card, an NCCL group, ``tools/torch_gang_4card.py``).  Checks, past
+    the tp 1 gang's: A's tokens bit for bit the ranks' ``DecodeEngine``
+    at tp SG_TP on each prompt alone; B's (rank 0 alone at tp 1 after rank
+    1's SIGKILL, its first re-formed step at tp 1) bit for bit
+    ``DecodeEngine``'s alone at tp 1, computed here after the gang; rank 0
+    prints DONE.  Prints, at the same depth: the lockstep step at tp
+    SG_TP against the loop's at tp 1 (B's survivor, a gang of one) and the
+    decode step alone at tp 1 and at tp SG_TP; the tp collectives' share
+    of a step; and rank 0's failover by part."""
+    from horovod_tpu_torch.serving import DecodeEngine
+
+    t_phase = time.perf_counter()
+    cfg = cfg or dataclasses.replace(_flagship_cfg(tfm),
+                                     n_layers=SG_TP_LAYERS)
+    g = _sg_gang(tfm, cfg, rank_device, SG_TP, timeout)
+    bad = []
+    rf0 = g.reports.get("reform0")
+    b_steps = g.reports.get("final0", {}).get("b_steps_ms") or []
+    if rf0 is None or rf0["t_body"] < g.t_kill_ns or rf0["tp"] != 1 \
+            or not b_steps:
+        bad.append(f"rank 0's re-formed incarnation after the kill: {rf0}, "
+                   f"{len(b_steps)} steps (its first step must run at tp "
+                   f"1)")
+    _fail_if(bad, g.what)
+    # B's oracle: DecodeEngine alone at tp 1 on this process's card.
     t_or = time.perf_counter()
     model = tfm.init(0, cfg, device=dev)
     engine = DecodeEngine(model, cfg, max_batch=SERVE_SLOTS,
-                          cache_len=cache, device=dev)
-    alone = [_engine_alone(engine, pr, m)[0] for pr, m in reqs]
+                          cache_len=g.cache, device=dev)
+    alone = [_engine_alone(engine, pr, m)[0]
+             for pr, m in g.reqs[:len(g.b_out)]]
+    step_alone_ms = _sg_step_ms(engine, g.reqs, dev)
     del engine, model
-    for i, r in enumerate(a_out):
-        if r[1]["tokens"] != alone[i]:
+    oracle_s = time.perf_counter() - t_or
+    oracle = g.oracle
+    for i, r in enumerate(g.a_out):
+        if r[1]["tokens"] != oracle["tokens"][i]:
             bad.append(f"A request {i}: tokens differ from DecodeEngine's "
-                       f"alone")
-    for i, r in enumerate(b_out):
+                       f"alone at tp {SG_TP}")
+    for i, r in enumerate(g.b_out):
         if r[1]["tokens"] != alone[i]:
             bad.append(f"B request {i}: tokens differ from DecodeEngine's "
-                       f"alone")
-    oracle_s = time.perf_counter() - t_or
-    _fail_if(bad, "serve gang")
+                       f"alone at tp 1")
+    _fail_if(bad, g.what)
+    _sg_print_a(g, card)
+    print(f"{g.what}: at {cfg.n_layers} layers and {SERVE_SLOTS} live "
+          f"slots: the loop's step at tp 1 (B's survivor, a gang of one, "
+          f"{len(b_steps)} steps, replay prefills included) median "
+          f"{statistics.median(b_steps):.3f} ms; DecodeEngine alone at tp 1 "
+          f"{step_alone_ms:.3f} ms, at tp {SG_TP} on rank 0 "
+          f"({SG_TP_STEPS} steps) {oracle['step_ms']:.3f} ms; with each tp "
+          f"collective timed (the card synchronized around each) "
+          f"{oracle['timed_step_ms']:.3f} ms, of which the "
+          f"{oracle['collectives']} tp collectives {oracle['coll_ms']:.3f} "
+          f"ms ({100 * oracle['coll_ms'] / oracle['timed_step_ms']:.1f}% "
+          f"of the step); the oracle's {len(g.reqs)} prompts alone at tp "
+          f"{SG_TP} {oracle['oracle_s']:.1f} s; {card}")
+    ms = _sg_ms
+    print(f"{g.what}: failover, SIGKILL of rank 1 to the end of rank 0's "
+          f"first step at tp {rf0['tp']} after "
+          f"{ms(g.t_kill_ns, rf0['t_step']):.1f} ms: to the re-formed "
+          f"incarnation's start (the group's error, the engine's verdict, "
+          f"the re-form, the state sync) "
+          f"{ms(g.t_kill_ns, rf0['t_body']):.1f} ms, the engine rebuilt and "
+          f"the replay's first step {ms(rf0['t_body'], rf0['t_step']):.1f} "
+          f"ms (host clock; the group's deadline {SG_TP_DEADLINE_S} s); "
+          f"{card}")
+    _sg_print_end(g, card, oracle_s, t_phase)
 
-    def ms(t0_ns, t1_ns):
-        return (t1_ns - t0_ns) / 1e6
 
-    ttft = sorted(r[1]["ttft_ms"] for r in a_out)
-    tokens = sum(m for _, m in reqs)
-    lat = [ms(s["t0"], s["t1"]) for s in lead]
-    conf_ms = [ms(s["t0"], s["t1"]) for s in conf]
-    print(f"serve gang: {SG_RANKS} ranks launched, every door open and the "
-          f"leader published in {t_up:.2f} s; A: {len(reqs)} requests, "
-          f"{tokens} tokens in {a_s:.2f} s ({tokens / a_s:.1f} tokens/s), "
-          f"TTFT p50 {np.percentile(ttft, 50):.2f} ms, p99 "
-          f"{np.percentile(ttft, 99):.2f} ms (host clock); {card}")
-    print(f"serve gang: lockstep step (the leader's serve.apply spans, the "
-          f"window of hvd_serve_token_latency_seconds, {len(lat)} steps, "
-          f"prefills included): median {statistics.median(lat):.3f} ms, p99 "
-          f"{np.percentile(lat, 99):.3f} ms; the one-process decode step at "
-          f"{SERVE_SLOTS} live slots "
-          + (f"{step_alone_ms:.3f} ms" if step_alone_ms else "not measured")
-          + f"; the confirm allreduce (the leader's serve.confirm spans, "
-          f"{len(conf_ms)} steps): median {statistics.median(conf_ms):.3f} "
-          f"ms, p99 {np.percentile(conf_ms, 99):.3f} ms a step; {card}")
-    rf, bl, af = reform[0], built[0], after[0]
-    print(f"serve gang: failover, SIGKILL of rank 0 to the end of rank 1's "
-          f"first step after {ms(t_kill_ns, af['t1']):.1f} ms: detection "
-          f"(to elastic.reform's start) {ms(t_kill_ns, rf['t0']):.1f} ms, "
-          f"re-form (elastic.reform: teardown, the new world, re-init) "
-          f"{ms(rf['t0'], rf['t1']):.1f} ms, to DecodeEngine rebuilt "
-          f"(state sync, serve.engine) {ms(rf['t1'], bl['t1']):.1f} ms of "
-          f"which the build {ms(bl['t0'], bl['t1']):.1f} ms, replay (publish,"
-          f" the frame, {af.get('admitted')} prefills and a step, the first "
-          f"serve.apply) {ms(bl['t1'], af['t1']):.1f} ms; rank 1's "
-          f"LEADER_FAILOVER {failover[0].get('args')}; {card}")
-    peaks = {r: reports[f"A{r}"]["peak_bytes"] for r in range(SG_RANKS)}
-    peaks.update({f"{r} (end)": reports[f"final{r}"]["peak_bytes"]
-                  for r in (1, 2)})
-    print("serve gang: peak memory per rank "
-          + ", ".join(f"rank {r} " + (f"{v / 2**30:.2f} GiB" if v is not None
-                                      else "not measured (CPU)")
-                      for r, v in peaks.items())
-          + f"; oracles {oracle_s:.1f} s; gang {wall:.1f} s; phase "
-          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+def run_ctrl_sim(card):
+    """The control plane's scale harness (``horovod_tpu_torch.ctrl_sim``)
+    on this machine's host: ``run_curve`` at 8, 64 and 256 in-process
+    ranks, star and tree; no card involved."""
+    from horovod_tpu_torch import ctrl_sim
+
+    t0 = time.perf_counter()
+    curve = ctrl_sim.run_curve(sizes=ctrl_sim.CURVE_SIZES)
+    print(f"ctrl_sim: run_curve {json.dumps(curve)} on this host's "
+          f"{os.cpu_count()} CPUs in {time.perf_counter() - t0:.1f} s "
+          f"(host clock); {card}")
+    if not curve["coordination_cycle_p50_us"] > 0:
+        raise AssertionError(f"ctrl_sim: no curve: {curve}")
 
 
 def serve_gang_rank(tmp: str) -> int:
@@ -2196,6 +2361,7 @@ def serve_gang_rank(tmp: str) -> int:
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.basics import resolve_device
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.serving import ServingLoop
     from horovod_tpu_torch.telemetry import trace
@@ -2210,22 +2376,59 @@ def serve_gang_rank(tmp: str) -> int:
     fields = dict(conf["cfg"])
     fields["compute_dtype"] = getattr(torch, fields["compute_dtype"])
     cfg = tfm.TransformerConfig(**fields)
-    dev = torch.device(conf["device"])
+    # No device: each rank on its own card.
+    dev = (torch.device(conf["device"]) if conf["device"] else
+           resolve_device(None, "serve gang"))
     if dev.type == "cpu":
         torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     model = tfm.init(0, cfg, device=dev)
 
-    def report(name):
+    def report(name, **extra):
         peak = (torch.cuda.max_memory_allocated(dev)
                 if dev.type == "cuda" else None)
         _sg_write(p(tmp, f"{name}{rank}.json"), json.dumps(
-            {"rank": rank, "peak_bytes": peak}))
+            dict(extra, rank=rank, peak_bytes=peak)))
 
-    loop = ServingLoop(model, cfg, device=dev, port=0, host="127.0.0.1",
-                       cache_len=conf["cache"], request_timeout_s=300.0,
-                       on_ready=lambda port: _sg_write(p(tmp, f"port{rank}"),
-                                                       str(port)))
+    tp = conf.get("tp", 1)
+
+    class Loop(ServingLoop):
+        """Notes, in ``reform<r>.json``, when the first re-formed
+        incarnation's body starts (the failure detected, the gang
+        re-formed, the state synced) and when its first step ends, with its
+        tp, and times the re-formed incarnations' steps (``b_steps``): a
+        gang of one, which a lone survivor is, writes no trace."""
+
+        t_body = None
+        b_steps = []
+
+        def _epoch_body(self, state):
+            if self.t_body is None and \
+                    int(os.environ.get("HVD_ELASTIC_EPOCH", "0")) > 0:
+                self.t_body = time.monotonic_ns()
+            return super()._epoch_body(state)
+
+        def _apply_frame(self, frame, eng, engine, *, rank0):
+            t = time.perf_counter()
+            done = super()._apply_frame(frame, eng, engine, rank0=rank0)
+            if self.t_body is not None:
+                if self._slots:
+                    self.b_steps.append((time.perf_counter() - t) * 1e3)
+                if not os.path.exists(p(tmp, f"reform{rank}.json")):
+                    _sg_write(p(tmp, f"reform{rank}.json"), json.dumps(
+                        {"t_body": self.t_body,
+                         "t_step": time.monotonic_ns(), "tp": self.tp}))
+            return done
+
+    def make_loop(door):
+        return Loop(model, cfg, device=dev, port=0, host="127.0.0.1",
+                    cache_len=conf["cache"], request_timeout_s=300.0,
+                    mesh={"tp": tp} if tp > 1 else None,
+                    on_ready=lambda port: _sg_write(
+                        p(tmp, f"{door}{rank}"), str(port)))
+
+    # The tp gang's first loop stops at stopA, its second at stop.
+    live = {"loop": make_loop("port"), "stop": "stopA" if tp > 1 else "stop"}
 
     def watch():
         dumped = False
@@ -2233,21 +2436,104 @@ def serve_gang_rank(tmp: str) -> int:
             if not dumped and os.path.exists(p(tmp, "dumpA")):
                 tr = trace.get()
                 if tr is not None:
-                    tr.flush()  # A's spans on disk before rank 0 dies
+                    tr.flush()  # A's spans on disk before a rank dies
                 report("A")
                 dumped = True
-            if os.path.exists(p(tmp, "stop")) and loop.scheduler is not None:
+            loop = live["loop"]
+            if live["stop"] and os.path.exists(p(tmp, live["stop"])) and \
+                    loop.scheduler is not None:
                 loop.stop()
-                return
+                if live["stop"] == "stop":
+                    return
+                live["stop"] = None  # until the second loop
             time.sleep(0.01)
 
     threading.Thread(target=watch, daemon=True).start()
     print(f"serve gang rank {rank}: pid {os.getpid()} on {dev}", flush=True)
-    loop.run()
+    live["loop"].run()
+    if tp > 1:
+        oracle = _sg_tp_oracle(live["loop"], conf, dev)
+        if rank == 0:
+            _sg_write(p(tmp, "oracle.json"), json.dumps(oracle))
+        live["loop"] = make_loop("portB")
+        live["stop"] = "stop"
+        live["loop"].run()
     print("DONE", flush=True)
-    report("final")
+    report("final", b_steps_ms=Loop.b_steps)
     hvd.shutdown()
     return 0
+
+
+def _sg_step_ms(engine, reqs, dev):
+    """The median of SG_TP_STEPS decode steps of ``engine`` with every
+    slot live, the first prompts of ``reqs`` prefilled into the idle slots
+    and three steps run first: host ms, each step ending with its tokens
+    on the host.  The slots stay live."""
+    import torch
+
+    if not int(engine.pos.max()):
+        for s, (pr, _m) in enumerate(reqs[:engine.max_batch]):
+            engine.prefill(s, pr)
+        for _ in range(3):
+            engine.step()
+    out = []
+    for _ in range(SG_TP_STEPS):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        engine.step()  # the tokens reach the host: synchronized
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def _sg_tp_oracle(loop, conf, dev):
+    """The tp gang's oracle, on every rank after its first loop stopped:
+    ``DecodeEngine`` over the loop's mesh and this rank's shard, each
+    prompt of ``conf["reqs"]`` decoded alone; then SG_TP_STEPS steps with
+    every slot live, timed plain, and as many with each tp collective
+    (``torch.distributed``'s ``all_reduce`` and ``all_gather``) timed
+    between two synchronizations of the card."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.serving import DecodeEngine
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    mesh, shard = loop._incarnation_mesh()
+    engine = DecodeEngine(shard, loop.cfg, max_batch=SERVE_SLOTS,
+                          cache_len=conf["cache"], mesh=mesh, device=dev)
+    tokens = [_engine_alone(engine, pr, m)[0] for pr, m in conf["reqs"]]
+    oracle_s = time.perf_counter() - t0
+    step_ms = _sg_step_ms(engine, conf["reqs"], dev)
+    spent, calls = [0.0], [0]
+    plain = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            sync()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            spent[0] += time.perf_counter() - t
+            calls[0] += 1
+            return out
+        return run
+
+    for name, fn in plain.items():
+        setattr(dist, name, timed(fn))
+    try:
+        timed_step_ms = _sg_step_ms(engine, conf["reqs"], dev)
+    finally:
+        for name, fn in plain.items():
+            setattr(dist, name, fn)
+    return {"tokens": tokens, "step_ms": step_ms,
+            "timed_step_ms": timed_step_ms,
+            "coll_ms": spent[0] * 1e3 / SG_TP_STEPS,
+            "collectives": calls[0] // SG_TP_STEPS, "oracle_s": oracle_s}
 
 
 def run_audit(hvd, tfm, make_mesh, dev, card):
@@ -5502,6 +5788,21 @@ def main() -> int:
         run_estimator(card)
         print(card)
         return 0
+    if sys.argv[1:2] == ["--serve-gang-only"]:
+        # The serve phase, both serving gangs and the control plane's
+        # curve alone (phases 10 and 11), for a quick reading.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        serve_step_ms, alone = run_serve(tfm, dev, card)
+        torch.cuda.empty_cache()
+        run_serve_gang(tfm, dev, card, serve_step_ms, alone)
+        torch.cuda.empty_cache()
+        run_serve_gang_tp(tfm, dev, card, str(dev))
+        run_ctrl_sim(card)
+        print(f"chip_smoke: total wall time "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     # The native core builds with g++ while nvcc builds the kernels.
     native_rec = start_native_build()
     t0 = time.perf_counter()
@@ -5601,10 +5902,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     sp_run = run_sp(fa, ra, dev, card)
     torch.cuda.empty_cache()
-    serve_step_ms = run_serve(tfm, dev, card)
+    serve_step_ms, alone = run_serve(tfm, dev, card)
     torch.cuda.empty_cache()
-    run_serve_gang(tfm, dev, card, step_alone_ms=serve_step_ms)
+    run_serve_gang(tfm, dev, card, serve_step_ms, alone)
     torch.cuda.empty_cache()
+    run_serve_gang_tp(tfm, dev, card, str(dev))
+    torch.cuda.empty_cache()
+    run_ctrl_sim(card)
     plain = run_engine(hvd, tfm, fa, dev, card)
     torch.cuda.empty_cache()
     ta_counts = run_torch_api(hvd, tfm, fa, dev, card, engine=plain)

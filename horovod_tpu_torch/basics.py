@@ -48,13 +48,15 @@ destroys the process group.
 ``init`` after ``shutdown`` in one process builds a new runtime from the
 environment as it stands then: an elastic re-form (``elastic/run.py``)
 rewrites ``HVD_RANK``/``HVD_SIZE``/``HVD_RDV_SCOPE``/``HVD_ELASTIC_EPOCH``
-and re-initializes with the first incarnation's device and no process
-group.  :func:`engine_abort_reason` tells the elastic wrapper why the
-running engine aborted.
+and re-initializes with the first incarnation's device and backend: a rank
+that formed a process group forms a new one over the new world.
+:func:`engine_abort_reason` tells the elastic wrapper why the running
+engine aborted.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import threading
 from dataclasses import dataclass
@@ -93,6 +95,9 @@ class _World:
     cross_size: int
     device: torch.device
     group: bool = True  # a torch.distributed process group was formed
+    # The group's timeout (None: the backend's default), which a mesh's
+    # subgroups take too.
+    group_timeout: Optional[datetime.timedelta] = None
 
 
 _world: Optional[_World] = None
@@ -214,7 +219,14 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
     collectives through the eager engine.  ``backend="none"`` forms no
     process group at all, only the engine: a port rank in a gang with JAX
     ranks, which have no torch process group to join, passes it (the
-    mesh-axis collectives then have no group to run on)."""
+    mesh-axis collectives then have no group to run on).
+
+    An elastic rank (``HVD_ELASTIC_EPOCH`` set) bounds every operation of
+    its process group, the store's rendezvous included, by the collective
+    deadline (``HVD_COLLECTIVE_TIMEOUT``) where one is set, so that a
+    group collective stalled on a peer fails within the deadline the
+    eager engine keeps, not after the backend's 30 minutes; otherwise the
+    backend's default holds."""
     global _world, _engine_obj
     with _lock:
         if _world is not None:
@@ -226,20 +238,26 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
         if backend is None:
             backend = "nccl" if dev.type == "cuda" else "gloo"
         group = backend != "none"
+        timeout = env_util.collective_timeout_s() \
+            if os.environ.get(env_util.ELASTIC_EPOCH) else 0.0
+        kw = {}
+        if group and timeout > 0:
+            kw["timeout"] = datetime.timedelta(seconds=timeout)
         if group and s == 1 and init_method is None:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                    world_size=1)
+                                    world_size=1, **kw)
         elif group:
             dist.init_process_group(backend,
                                     init_method=init_method or "env://",
-                                    rank=r, world_size=s)
+                                    rank=r, world_size=s, **kw)
         try:
             _engine_obj = _start_engine(r, s, lr, ls, cr, cs)
         except BaseException:
             if group:
                 dist.destroy_process_group()
             raise
-        _world = _World(r, s, lr, ls, cr, cs, dev, group)
+        _world = _World(r, s, lr, ls, cr, cs, dev, group,
+                        kw.get("timeout"))
         # The engines start telemetry themselves; this idempotent call
         # covers a rank with no engine, so that the eager layer's metrics
         # still count.
@@ -250,7 +268,8 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
 
 def shutdown() -> None:
     """Stop the eager engine (a negotiated stop at size > 1), then tear
-    down the process group."""
+    down the process group; every mesh built on it goes stale
+    (``parallel.mesh.StaleMeshError``)."""
     global _world, _engine_obj
     with _lock:
         if _engine_obj is not None:
@@ -258,6 +277,10 @@ def shutdown() -> None:
             _engine_obj = None
         if _world is not None and _world.group:
             dist.destroy_process_group()
+            # Every mesh held groups of the one just destroyed.
+            from horovod_tpu_torch.parallel import mesh
+
+            mesh.invalidate_meshes()
         _world = None
     # The metrics server and flusher stop (a final flush included); the
     # registry keeps its series, as the JAX package's does.

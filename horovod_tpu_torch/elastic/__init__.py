@@ -15,7 +15,7 @@ from horovod_tpu_torch.elastic.driver import (  # noqa: F401
     HostsUpdatedInterrupt,
 )
 from horovod_tpu_torch.elastic.run import (  # noqa: F401
-    ElasticGroupError,
+    last_group_error,
     last_replay_results,
     run,
 )

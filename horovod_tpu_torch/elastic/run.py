@@ -18,6 +18,12 @@ Failures it handles:
 * a lost coordinator (a ``RuntimeError`` while the engine's abort reason
   names the coordinator): a failure of rank 0, whose lowest surviving old
   rank takes the lead (leader failover);
+* a failed ``torch.distributed`` collective, on a rank whose ``init``
+  formed a process group: the group's error names no rank, so the wrapper
+  asks the engine for its verdict (``PyEngine.group_abort``, told the
+  failed group's ranks, which ``ops/collective.py`` puts on the error) and
+  re-forms without the ranks it names, never on the group's word alone;
+  a rank outside the failed group hears the verdict and re-forms too;
 * :class:`~horovod_tpu_torch.elastic.driver.HostsUpdatedInterrupt`: no
   failure; a joiner announced itself or the discovery script found new
   hosts, and every rank raised it at the same ``State.commit()``.
@@ -43,9 +49,31 @@ Each incarnation initializes under ``HVD_ELASTIC_EPOCH=<n>`` (on every
 frame; the coordinator fences another epoch's) and
 ``HVD_RDV_SCOPE=<base>.elastic-<n>`` (a fresh rendezvous namespace), in a
 flat topology (each rank its own host block), on the first incarnation's
-device, with no ``torch.distributed`` process group: the wrapper refuses a
-rank that formed one (:class:`ElasticGroupError`), since it does not
-re-form the group (ROADMAP Queue 1).
+device and with its backend.  A rank the wrapper initializes forms no
+``torch.distributed`` process group (``backend="none"``).  A rank whose
+``init`` formed one gets a new group at every incarnation, with the same
+backend, since one process drives one card and a group dies with any of
+its ranks:
+
+* the re-form destroys the old group (``hvd.shutdown()``), with it every
+  mesh built on it (``parallel.mesh.StaleMeshError`` from then on), and
+  forgets the old store's address (``multihost.reset()``);
+* the new rank 0 hosts a fresh store and publishes its address under the
+  new epoch's scope (``multihost.init_torch_distributed``), where every
+  member reads it; a zombie of an older epoch reads its own epoch's key
+  and never reaches the new store;
+* a joiner's grant (``elastic/assign/<uid>``) carries the backend, and the
+  joiner forms the same group at its first incarnation;
+* the group's operations, its mesh's subgroups' too, are bounded by the
+  collective deadline (``HVD_COLLECTIVE_TIMEOUT``, which ``hvd.init``
+  reads under the wrapper), so that a gloo collective stalled on a peer
+  raises in the body before the engine's verdict is stale.  Over NCCL a
+  re-form after a peer's death is not shown: in a four-card run the
+  survivor neither raised nor re-formed (ROADMAP, Known differences).
+
+The JAX wrapper re-forms no ``jax.distributed`` world: a JAX rank's mesh
+is its own process's devices, where a port rank reaches other ranks' cards
+only through a process group.
 
 The quorum (``HVD_QUORUM``, default on): a re-form needs a strict majority
 of the last-committed roster (half, when the half holds old rank 0), so
@@ -88,20 +116,6 @@ log = logging.getLogger("horovod_tpu_torch.elastic")
 _ASSIGN_TIMEOUT_S = 600.0
 
 
-class ElasticGroupError(RuntimeError):
-    """``@hvd.elastic.run`` on a rank whose ``init`` formed a
-    ``torch.distributed`` process group: a re-form rebuilds the eager
-    engine, not the group."""
-
-    def __init__(self):
-        super().__init__(
-            "@hvd.elastic.run re-forms the eager engine but not a "
-            "torch.distributed process group, and this rank formed one; "
-            "initialize with hvd.init(device=..., backend=\"none\") (the "
-            "gradients then go through the eager engine), or let the "
-            "wrapper initialize")
-
-
 def _postmortem_suffix() -> str:
     """Where the flight recorder's dumps landed, for a terminal error."""
     if not env_util.blackbox_enabled():
@@ -117,10 +131,13 @@ def _worker_uid() -> str:
 class _ElasticContext:
     """This process's view of the gang across incarnations."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, backend: str = "none"):
         from horovod_tpu_torch.runner.http_client import KVClient
 
         self.device = device
+        # The process group's backend at every incarnation ("none": no
+        # group).
+        self.backend = backend
         self.uid = _worker_uid()
         addr = os.environ.get(env_util.RENDEZVOUS_ADDR, "127.0.0.1")
         port = int(os.environ.get(env_util.RENDEZVOUS_PORT, "0"))
@@ -221,9 +238,17 @@ def _set_world_env(rank: int, size: int, epoch: int) -> None:
 
 
 def _init(ctx: _ElasticContext) -> None:
+    """Initialize this incarnation, with a new process group over a store
+    that its rank 0 hosts where the gang runs one."""
     from horovod_tpu_torch import basics
 
-    basics.init(device=ctx.device, backend="none")
+    if ctx.backend != "none":
+        from horovod_tpu_torch.parallel import multihost
+
+        multihost.reset()
+        multihost.init_torch_distributed(
+            timeout=env_util.get_float(env_util.START_TIMEOUT, 120.0))
+    basics.init(device=ctx.device, backend=ctx.backend)
 
 
 def quorum_lost(roster_size: int, failed: Set[int]) -> bool:
@@ -274,6 +299,7 @@ def _reform(ctx: _ElasticContext, failed: Set[int]) -> None:
         _bb.dump("leader_failover", f"failed={sorted(failed)}")
     _timeline.engine_event("ELASTIC_RESET", failed=sorted(failed))
     ctx.stop_driver()
+    # The engine, then the process group and every mesh built on it.
     basics.shutdown()
     process_sets.reset()  # the ranks are renumbered
 
@@ -304,7 +330,8 @@ def _reform(ctx: _ElasticContext, failed: Set[int]) -> None:
         for i, uid in enumerate(world):
             if uid in admitted:
                 ctx.kv.put(ctx.key(f"elastic/assign/{uid}"), json.dumps(
-                    {"epoch": new_epoch, "rank": i, "size": len(world)}))
+                    {"epoch": new_epoch, "rank": i, "size": len(world),
+                     "backend": ctx.backend}))
                 ctx.kv.delete(ctx.key(f"elastic/pending/{uid}"))
         if deferred:
             log.info("%d joiner(s) deferred (at --max-np=%d)",
@@ -413,6 +440,8 @@ def _join_as_new_worker(ctx: _ElasticContext) -> None:
                 "headroom running?)")
         time.sleep(ctx.check_interval_s)
     grant = json.loads(v)
+    # A JAX leader's grant names no backend: its gang has no group.
+    ctx.backend = grant.get("backend", "none")
     os.environ.pop(env_util.ELASTIC_JOINER, None)
     _set_world_env(grant["rank"], grant["size"], grant["epoch"])
     _init(ctx)
@@ -438,6 +467,50 @@ def _wait_abort_reason() -> Optional[str]:
     return reason
 
 
+def _is_group_error(e: BaseException) -> bool:
+    """A failed ``torch.distributed`` collective: one of the port's
+    collectives (``ops/collective.py`` puts its group's ranks on the
+    error, whichever backend raised it), or a ``DistError`` of a call
+    made on the group directly."""
+    return hasattr(e, "group_ranks") or isinstance(
+        e, torch.distributed.DistError)
+
+
+_last_group_error = None
+
+
+def last_group_error():
+    """The engine's typed error for the most recent process-group failure
+    that this process re-formed after (a
+    :class:`~horovod_tpu_torch.common.types.CollectiveTimeoutError` naming
+    the wedged ranks), or None."""
+    return _last_group_error
+
+
+def _group_failure(e: RuntimeError) -> Set[int]:
+    """The ranks to re-form without after a failed group collective, as
+    the engine rules them (:meth:`PyEngine.group_abort`); re-raises ``e``
+    when it names none."""
+    from horovod_tpu_torch import basics
+
+    reason = basics.engine_abort_reason()
+    if reason is None:
+        abort = getattr(basics._engine_obj, "group_abort", None)
+        wedged = abort(getattr(e, "group_ranks", None)) \
+            if abort is not None else []
+        if wedged:
+            global _last_group_error
+            _last_group_error = basics._engine_obj._collective_err
+            log.warning("process-group collective failed (%s); the gang's "
+                        "verdict: rank(s) %s", e, wedged)
+            return set(wedged)
+        if wedged is None:
+            reason = _wait_abort_reason()
+    if reason is not None and "coordinator" in reason:
+        return {0}
+    raise e
+
+
 def run(func=None, *, device: Union[str, torch.device, None] = None):
     """Decorator: ``@hvd.elastic.run`` around a training function whose
     first argument is a :class:`~horovod_tpu_torch.elastic.state.State`.
@@ -446,11 +519,13 @@ def run(func=None, *, device: Union[str, torch.device, None] = None):
     rolled back to its last commit and synced from the new rank 0: it must
     resume from the state (``state.step``, ...), not from scratch.
 
-    Every incarnation runs on one device: the running runtime's where the
-    wrapper is entered after ``hvd.init(..., backend="none")``, else
-    ``device`` (default: the card, ``cuda:<local_rank>``), which a joiner,
-    uninitialized until its grant, names as ``@hvd.elastic.run(device=
-    ...)``."""
+    Every incarnation runs on one device, with one backend: the running
+    runtime's where the wrapper is entered after ``hvd.init()`` (a rank
+    that formed a process group gets a new one at every re-form), else
+    ``device`` (default: the card, ``cuda:<local_rank>``) with no process
+    group.  A joiner, uninitialized until its grant, names its device as
+    ``@hvd.elastic.run(device=...)`` and takes the gang's backend from
+    the grant."""
     if func is None:
         return functools.partial(run, device=device)
 
@@ -473,13 +548,14 @@ def run(func=None, *, device: Union[str, torch.device, None] = None):
             os.environ["HVD_ELASTIC_SCOPE_BASE"] = \
                 os.environ.get(env_util.RDV_SCOPE, "")
         joined = env_util.get_bool(env_util.ELASTIC_JOINER, False)
+        backend = "none"
         if basics.is_initialized():
-            if basics.has_process_group():
-                raise ElasticGroupError()
             dev = basics.device()
+            if basics.has_process_group():
+                backend = str(torch.distributed.get_backend())
         else:
             dev = basics.resolve_device(device, "@hvd.elastic.run")
-        ctx = _ElasticContext(dev)
+        ctx = _ElasticContext(dev, backend)
         if not joined and not basics.is_initialized():
             os.environ.setdefault(env_util.ELASTIC_EPOCH, "0")
             ctx.epoch = env_util.get_int(env_util.ELASTIC_EPOCH, 0)
@@ -515,12 +591,15 @@ def run(func=None, *, device: Union[str, torch.device, None] = None):
                     replay = isinstance(e, CollectiveTimeoutError)
                 except HostsUpdatedInterrupt:
                     failed = set()
-                except RuntimeError:
-                    reason = _wait_abort_reason()
-                    if reason is None or "coordinator" not in reason:
-                        raise
-                    # The hub died: a failure of rank 0.
-                    failed = {0}
+                except RuntimeError as e:
+                    if ctx.backend != "none" and _is_group_error(e):
+                        failed = _group_failure(e)
+                    else:
+                        reason = _wait_abort_reason()
+                        if reason is None or "coordinator" not in reason:
+                            raise
+                        # The hub died: a failure of rank 0.
+                        failed = {0}
                 old_roster = list(ctx.roster)
                 _reform(ctx, failed)
                 state.on_reset()

@@ -21,6 +21,7 @@ collectives GSPMD inserts around the JAX package's sharded products).
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence
 
 import torch
@@ -28,7 +29,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.common.types import ReduceOp
-from horovod_tpu_torch.parallel.mesh import Axis, world_axis
+from horovod_tpu_torch.parallel.mesh import Axis, check_live, world_axis
 
 _DIST_OP = {
     ReduceOp.AVERAGE: dist.ReduceOp.SUM,
@@ -39,6 +40,22 @@ _DIST_OP = {
 # Wire types the backends cannot reduce: they are gathered as bytes and
 # reduced locally in fp32.
 _GATHER_REDUCED = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+@contextlib.contextmanager
+def _on(ax: Axis):
+    """The axis's process group, for the collective run in the block.  An
+    axis of a mesh whose group is gone raises ``StaleMeshError``; a
+    collective that fails carries its group's ranks (``group_ranks``) on
+    its error, so that ``@hvd.elastic.run`` asks the gang's verdict on
+    that group and blames no rank outside it."""
+    check_live(ax)
+    try:
+        yield ax.group
+    except RuntimeError as e:
+        if not hasattr(e, "group_ranks"):
+            e.group_ranks = tuple(ax.ranks)
+        raise
 
 
 def _ax(axis: Optional[Axis]) -> Axis:
@@ -70,7 +87,8 @@ def _gather(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     x = x.contiguous()
     wire = x.view(torch.uint8) if x.dtype in _GATHER_REDUCED else x
     parts = [torch.empty_like(wire) for _ in range(ax.size)]
-    dist.all_gather(parts, wire, group=ax.group)
+    with _on(ax) as group:
+        dist.all_gather(parts, wire, group=group)
     return torch.stack([p.view(x.dtype) for p in parts])
 
 
@@ -113,7 +131,8 @@ def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
         y = _gather_reduce(x, op, ax)
     elif op in _DIST_OP:
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=_DIST_OP[op], group=ax.group)
+        with _on(ax) as group:
+            dist.all_reduce(y, op=_DIST_OP[op], group=group)
         if op == ReduceOp.AVERAGE:
             y = y / ax.size
     else:
@@ -182,7 +201,8 @@ def broadcast(x: torch.Tensor, root_rank: int = 0,
         raise ValueError(f"root_rank {root_rank} out of range for size "
                          f"{ax.size}")
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.broadcast(y, src=ax.ranks[root_rank], group=ax.group)
+    with _on(ax) as group:
+        dist.broadcast(y, src=ax.ranks[root_rank], group=group)
     return y
 
 
@@ -190,10 +210,11 @@ def barrier(axis: Optional[Axis] = None) -> None:
     """Block until every rank of ``axis`` reaches the barrier."""
     ax = _ax(axis)
     dev = basics.device()
-    if dev.type == "cuda":
-        dist.barrier(group=ax.group, device_ids=[dev.index])
-    else:
-        dist.barrier(group=ax.group)
+    with _on(ax) as group:
+        if dev.type == "cuda":
+            dist.barrier(group=group, device_ids=[dev.index])
+        else:
+            dist.barrier(group=group)
 
 
 def reduce_scatter(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
@@ -210,7 +231,8 @@ def reduce_scatter(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
     y = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     # reduce_scatter_tensor's new name in later torch releases.
     rs = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
-    rs(y, x.contiguous(), op=dist.ReduceOp.SUM, group=ax.group)
+    with _on(ax) as group:
+        rs(y, x.contiguous(), op=dist.ReduceOp.SUM, group=group)
     return y / n if op == ReduceOp.AVERAGE else y
 
 
@@ -250,7 +272,8 @@ class _AllToAll(torch.autograd.Function):
 
 def _all_to_all(x, ax):
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    dist.all_to_all_single(y, x.contiguous(), group=ax.group)
+    with _on(ax) as group:
+        dist.all_to_all_single(y, x.contiguous(), group=group)
     return y
 
 
@@ -289,12 +312,13 @@ def _shift(x, ax, shift):
         return x.clone(memory_format=torch.contiguous_format)
     x = x.contiguous()
     y = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x, ax.ranks[(ax.index + shift) % n],
-                      group=ax.group),
-           dist.P2POp(dist.irecv, y, ax.ranks[(ax.index - shift) % n],
-                      group=ax.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    with _on(ax) as group:
+        ops = [dist.P2POp(dist.isend, x, ax.ranks[(ax.index + shift) % n],
+                          group=group),
+               dist.P2POp(dist.irecv, y, ax.ranks[(ax.index - shift) % n],
+                          group=group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
     return y
 
 
@@ -331,15 +355,16 @@ def _permute(x, ax, perm):
     else:
         y = torch.zeros_like(x)
     ops = []
-    if dst and dst != [me]:
-        ops.append(dist.P2POp(dist.isend, x, ax.ranks[dst[0]],
-                              group=ax.group))
-    if src and src != [me]:
-        ops.append(dist.P2POp(dist.irecv, y, ax.ranks[src[0]],
-                              group=ax.group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    with _on(ax) as group:
+        if dst and dst != [me]:
+            ops.append(dist.P2POp(dist.isend, x, ax.ranks[dst[0]],
+                                  group=group))
+        if src and src != [me]:
+            ops.append(dist.P2POp(dist.irecv, y, ax.ranks[src[0]],
+                                  group=group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
     return y
 
 
@@ -385,7 +410,8 @@ def allgather_dim(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
 
 def _sum(x, ax):
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ax.group)
+    with _on(ax) as group:
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
     return y
 
 

@@ -15,6 +15,13 @@ coordinates on every other axis.  The collectives of
 :mod:`horovod_tpu_torch.ops.collective` take such an ``Axis`` where the JAX
 package's take axis names.
 
+A mesh belongs to the process group it was built on.  When that group
+goes (``hvd.shutdown()``, an elastic re-form), every mesh built on it goes
+stale: its ``axis()`` and every collective over one of its axes raise
+:class:`StaleMeshError` instead of running over a destroyed group.  (The
+JAX package's mesh is one process's devices, which a re-form never
+touches.)
+
 The JAX package's ``filter_spec`` and ``sharding_for`` build
 ``PartitionSpec`` shardings for GSPMD; torch has none.  Each rank holds its
 own shard of a tensor-parallel or expert-parallel parameter, cut by
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import itertools
 import math
+import weakref
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -40,6 +48,36 @@ PIPELINE_AXIS = "pp"
 SEQUENCE_AXIS = "sp"
 EXPERT_AXIS = "ep"
 CROSS_AXIS = "dcn"
+
+
+class StaleMeshError(RuntimeError):
+    """A mesh, or an axis of one, used after the process group it was
+    built on was destroyed."""
+
+    def __init__(self, mesh: "Mesh"):
+        super().__init__(
+            f"{mesh!r} was built on a process group that no longer exists "
+            "(hvd.shutdown() or an elastic re-form destroyed it); build a "
+            "new mesh with make_mesh() after the re-form")
+
+
+# Every live mesh, so that the end of its group can mark it stale.
+_meshes: "weakref.WeakSet[Mesh]" = weakref.WeakSet()
+
+
+def invalidate_meshes() -> None:
+    """Mark every mesh stale and drop its axes' process groups: called
+    when the default group is destroyed."""
+    for m in list(_meshes):
+        m.stale = True
+        m._axes.clear()
+    _meshes.clear()
+
+
+def check_live(axis: "Axis") -> None:
+    """Raise :class:`StaleMeshError` for an axis of a stale mesh."""
+    if getattr(axis.mesh, "stale", False):
+        raise StaleMeshError(axis.mesh)
 
 
 @dataclass(frozen=True)
@@ -107,6 +145,8 @@ class Mesh:
         coords = np.unravel_index(basics.rank(), self.ranks.shape)
         self.coords = {k: int(c) for k, c in zip(self.axis_names, coords)}
         self._axes: Dict[Tuple[str, ...], Axis] = {}
+        self.stale = False
+        _meshes.add(self)
         for name in self.axis_names:
             self.axis(name)
 
@@ -116,6 +156,8 @@ class Mesh:
         A combination of axes not asked for before creates its process
         groups: every rank must ask for it, in the same order as the
         others."""
+        if self.stale:
+            raise StaleMeshError(self)
         if any(n not in self.shape for n in names) or \
                 len(set(names)) != len(names):
             raise ValueError(f"axes {names} are not distinct axes of the "
@@ -146,7 +188,9 @@ class Mesh:
             lines = [sorted(self._line(names, dict(zip(others, idx))))
                      for idx in itertools.product(
                          *(range(self.shape[a]) for a in others))]
-            group, _ = dist.new_subgroups_by_enumeration(lines)
+            # The default group's bound, which new groups do not inherit.
+            group, _ = dist.new_subgroups_by_enumeration(
+                lines, timeout=basics._world.group_timeout)
         return Axis(tuple(names), size, index, mine, group, self)
 
     def __repr__(self) -> str:

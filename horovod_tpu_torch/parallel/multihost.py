@@ -28,6 +28,8 @@ from __future__ import annotations
 import os
 import socket
 
+import torch
+
 from horovod_tpu_torch import basics
 
 _initialized = False
@@ -50,20 +52,8 @@ def init_torch_distributed(timeout: float = 120.0) -> None:
         raise RuntimeError(
             "init_torch_distributed must run before hvd.init(): the "
             "process group reads MASTER_ADDR/MASTER_PORT when it starts")
-    rdv_addr = os.environ.get("HVD_RENDEZVOUS_ADDR")
-    rdv_port = os.environ.get("HVD_RENDEZVOUS_PORT")
-    if not rdv_addr or not rdv_port:
-        raise RuntimeError(
-            "init_torch_distributed needs the launcher rendezvous "
-            "(HVD_RENDEZVOUS_ADDR/PORT); run under the launcher or export "
-            "them manually")
-
-    from horovod_tpu_torch.runner.http_client import KVClient
-
-    kv = KVClient(rdv_addr, int(rdv_port))
-    scope = os.environ.get("HVD_RDV_SCOPE", "")
-    key = (f"hvd/{scope}/torch_coordinator" if scope
-           else "hvd/torch_coordinator")
+    kv = _kv("init_torch_distributed")
+    key = _key("torch_coordinator")
     if rank == 0:
         coord = f"{_my_addr(kv)}:{_free_port()}"
         kv.put(key, coord)
@@ -79,6 +69,54 @@ def init_torch_distributed(timeout: float = 120.0) -> None:
     os.environ["MASTER_ADDR"] = host
     os.environ["MASTER_PORT"] = port
     _initialized = True
+
+
+def ranks_share_a_card(device: torch.device,
+                       timeout: float = 120.0) -> bool:
+    """Whether two ranks of the gang drive one card (NCCL refuses them a
+    group; gloo takes them).  Every rank publishes its card, host name and
+    device index, on the rendezvous KV under ``HVD_RDV_SCOPE`` and reads
+    every other rank's, so that all ranks reach the same answer.  False
+    for one process."""
+    rank, size = basics._discover(None, None, None, None)[:2]
+    if size <= 1:
+        return False
+    kv = _kv("ranks_share_a_card")
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    kv.put(_key(f"card/{rank}"), f"{socket.gethostname()}:{index}")
+    cards = {kv.wait_get(_key(f"card/{r}"), timeout=timeout)
+             for r in range(size)}
+    return len(cards) < size
+
+
+def _kv(what: str):
+    rdv_addr = os.environ.get("HVD_RENDEZVOUS_ADDR")
+    rdv_port = os.environ.get("HVD_RENDEZVOUS_PORT")
+    if not rdv_addr or not rdv_port:
+        raise RuntimeError(
+            f"{what} needs the launcher rendezvous "
+            "(HVD_RENDEZVOUS_ADDR/PORT); run under the launcher or export "
+            "them manually")
+
+    from horovod_tpu_torch.runner.http_client import KVClient
+
+    return KVClient(rdv_addr, int(rdv_port))
+
+
+def _key(name: str) -> str:
+    scope = os.environ.get("HVD_RDV_SCOPE", "")
+    return f"hvd/{scope}/{name}" if scope else f"hvd/{name}"
+
+
+def reset() -> None:
+    """Forget the store address, so that the next
+    :func:`init_torch_distributed` publishes or reads one again: an
+    elastic re-form (``elastic/run.py``) forms a new group over a fresh
+    store at every incarnation, under that incarnation's
+    ``HVD_RDV_SCOPE``."""
+    global _initialized
+    _initialized = False
 
 
 def _free_port() -> int:

@@ -37,7 +37,12 @@ The control plane heals itself, each part under its knob:
   fails the step with the same ``CollectiveTimeoutError``.  A
   ``WireCorruptionError`` (the ladder's last rung) takes the same road.
   The aborted allreduce's inputs are kept (:func:`take_retained_batch`),
-  and ``@hvd.elastic.run`` replays them over the re-formed gang.  Until a
+  and ``@hvd.elastic.run`` replays them over the re-formed gang.  A
+  failed ``torch.distributed`` collective under the wrapper takes the
+  same agreement (:meth:`PyEngine.group_abort`), the process group's own
+  error naming no rank: the report names the failed group, the verdict
+  blames only its silent members, and the ranks outside it, waiting on
+  the engine, apply the broadcast verdict.  Until a
   gang is re-formed its links may still hold the aborted collective's
   frames, so every later collective of the incarnation fails with the
   same error without touching them (an allreduce's inputs join the
@@ -121,7 +126,7 @@ import socket
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 
@@ -161,6 +166,43 @@ _OP_NAMES = {
     RequestType.BARRIER: "BARRIER",
     RequestType.REDUCESCATTER: "REDUCESCATTER",
 }
+
+# The abort agreement's name for a failed torch.distributed collective
+# (PyEngine.group_abort): the elastic wrapper's, apart from any tensor's.
+# A report names the failed group's ranks after a colon
+# ("__torch.distributed:0,1"); bare, the group is the whole gang.
+GROUP_ABORT = "__torch.distributed"
+
+
+def _group_abort_name(ranks: Optional[Sequence[int]]) -> str:
+    if ranks is None:
+        return GROUP_ABORT
+    return GROUP_ABORT + ":" + ",".join(str(r) for r in sorted(set(ranks)))
+
+
+def _group_abort_members(name: str) -> Optional[Set[int]]:
+    """The ranks of the group a :data:`GROUP_ABORT` report names (None:
+    the whole gang)."""
+    _head, _, tail = name.partition(":")
+    return {int(r) for r in tail.split(",")} if tail else None
+
+
+def _is_group_abort(name: str) -> bool:
+    return name.partition(":")[0] == GROUP_ABORT
+
+
+def _merge_group_abort(a: str, b: str) -> str:
+    """One name for the reports of two failed groups: their union."""
+    ma, mb = _group_abort_members(a), _group_abort_members(b)
+    return _group_abort_name(None if ma is None or mb is None
+                             else ma | mb)
+
+
+def _same_abort(a: str, b: str) -> bool:
+    """Two reports of one agreement: the same collective, or failures of
+    process-group collectives, whichever groups (one verdict rules them
+    all)."""
+    return a == b or (_is_group_abort(a) and _is_group_abort(b))
 
 # Knobs that turn on a feature the port has not ported yet: (variable,
 # when it is on: "bool" true, "positive" > 0, "set" non-empty; the
@@ -899,6 +941,11 @@ class PyEngine(_EngineBase):
             with self._abort_cv:
                 self._abort_verdict = (vname, vranks)
                 self._abort_cv.notify_all()
+            if _is_group_abort(vname) and vranks and \
+                    self.rank not in vranks:
+                # A group's verdict reaches the ranks outside the failed
+                # group too, which wait on the engine and report nothing.
+                self._apply_group_verdict(vname, vranks, time.monotonic())
         elif tag == su.TAG_SERVE:
             with self._serve_cv:
                 self._serve_inbox.append(payload)
@@ -1673,7 +1720,7 @@ class PyEngine(_EngineBase):
 
         # A worker's hop deadline fired while this rank runs its cycles:
         # rule on the abort now.
-        if self.collective_timeout > 0:
+        if self.collective_timeout > 0 or self._abort_inbox:
             self._drain_abort_reports()
 
         # Liveness: evict the ranks silent past the timeout or whose link
@@ -1901,13 +1948,15 @@ class PyEngine(_EngineBase):
             if epoch != self.epoch:
                 continue
             if self._last_verdict is not None and \
-                    self._last_verdict[0] == nm:
+                    _same_abort(self._last_verdict[0], nm):
                 # Ruled already: this rank's deadline fired after the
                 # broadcast.
                 self._send_verdict_to(peer)
                 continue
             reports[peer] = suspect
-            name = nm
+            # Reports of several failed groups merge into one name.
+            name = _merge_group_abort(name, nm) if _is_group_abort(name) \
+                and _is_group_abort(nm) else nm
         if reports:
             self._coordinate_abort(name, reports)
 
@@ -1953,16 +2002,25 @@ class PyEngine(_EngineBase):
         background thread, from :meth:`_drain_abort_reports` or from its
         own hop timeout.  ``reports``: reporter -> the peer it blamed."""
         t0 = time.monotonic()
-        self.log.error(
-            "collective %r blew its %gs deadline (reported by rank(s) "
-            "%s); probing the gang", name, self.collective_timeout,
-            sorted(reports))
+        group = _is_group_abort(name)
+        if group:
+            self.log.error(
+                "a process-group collective failed (reported by rank(s) "
+                "%s); probing the gang", sorted(reports))
+        else:
+            self.log.error(
+                "collective %r blew its %gs deadline (reported by rank(s) "
+                "%s); probing the gang", name, self.collective_timeout,
+                sorted(reports))
         live = [r for r in self._ctrl_socks if r not in self._evicted_ranks]
         acks: Dict[int, tuple] = {}
         self._send_probes(live)
         deadline = t0 + max(0.1, self.collective_probe_timeout)
         last_probe = t0
         while time.monotonic() < deadline:
+            if group and (self._group_known_failed() or all(
+                    r in reports for r in self._group_scope(name, live))):
+                break
             with self._abort_lock:
                 inbox, self._abort_inbox = self._abort_inbox, []
             for peer, tag, payload in inbox:
@@ -1971,14 +2029,18 @@ class PyEngine(_EngineBase):
                     if ep == self.epoch:
                         acks[peer] = (busy, busy_s)
                 elif tag == su.TAG_ABORT_REPORT:
-                    _nm, suspect, ep = wire.decode_abort_report(payload)
+                    nm, suspect, ep = wire.decode_abort_report(payload)
                     if ep == self.epoch:
                         reports[peer] = suspect
+                        if group and _is_group_abort(nm):
+                            name = _merge_group_abort(name, nm)
             # Every live worker has reported a timeout of its own (a
             # victim of the hang, not its cause) or acked idle: nothing
-            # more to learn from the window.
-            if all(r in reports or (r in acks and not acks[r][0])
-                   for r in live):
+            # more to learn from the window.  (After a group collective an
+            # idle engine proves nothing: the window runs out.)
+            if not group and all(r in reports
+                                 or (r in acks and not acks[r][0])
+                                 for r in live):
                 break
             now = time.monotonic()
             if now - last_probe >= 0.25:
@@ -1992,7 +2054,17 @@ class PyEngine(_EngineBase):
         wedged = sorted(r for r in live
                         if r not in reports and (r not in acks
                                                  or acks[r][0]))
-        if not wedged:
+        if group:
+            # A process-group collective failed: the ranks this engine
+            # knows dead, else every live member of the failed groups
+            # that did not report a failure of its own within the window
+            # (its peers were blocked on it; its engine, idle, acks as
+            # healthy).  A rank outside those groups is not blamed: it
+            # may be waiting on the engine, not on them.
+            wedged = self._group_known_failed() or sorted(
+                r for r in self._group_scope(name, live)
+                if r not in reports)
+        elif not wedged:
             # Nobody provably stuck (the hang healed, or the victim died
             # with its socket): the most-blamed suspect, non-reporters
             # first, ties to the lowest rank.
@@ -2008,6 +2080,9 @@ class PyEngine(_EngineBase):
                 top = max(blame.values())
                 wedged = [min(r for r, n in blame.items() if n == top)]
 
+        if group and wedged:
+            self._collective_err = CollectiveTimeoutError(
+                wedged, name, self.collective_timeout)
         payload = wire.encode_abort_verdict(name, wedged, self.epoch)
         self._last_verdict = (name, wedged)
         for r in live:
@@ -2103,6 +2178,85 @@ class PyEngine(_EngineBase):
             ranks = self._abort_verdict[1]
             self._abort_verdict = None
         return ranks
+
+    @staticmethod
+    def _group_scope(name: str, live: List[int]) -> List[int]:
+        """The live ranks a group abort's verdict may name: the failed
+        groups' members (every live rank when a report named none)."""
+        members = _group_abort_members(name)
+        return live if members is None else [r for r in live
+                                             if r in members]
+
+    def _group_known_failed(self) -> List[int]:
+        """The coordinator: the ranks it already knows dead this
+        incarnation (evicted, failed, or whose control link dropped)."""
+        return sorted(set(self._ranks_failed) | self._evicted_ranks
+                      | self._conn_lost)
+
+    def group_abort(self, ranks: Optional[Sequence[int]] = None
+                    ) -> Optional[List[int]]:
+        """The gang's verdict on a failed ``torch.distributed``
+        collective, for ``@hvd.elastic.run``: a process group's error says
+        that a peer is gone or stalled, not which, and only the engine's
+        agreement may name it.  Every rank whose group collective failed
+        calls this with the failed group's ranks (None: the whole gang);
+        it runs the hop deadline's agreement (``TAG_ABORT_REPORT``,
+        probes, ``TAG_ABORT_VERDICT``) under :data:`GROUP_ABORT`, the
+        report naming the group, where the coordinator rules wedged the
+        ranks it knows dead, else every live member of the reported groups
+        that reported no failure of its own within the probe window.
+        Returns the wedged ranks (empty: none proven, and the caller
+        re-raises), or None when the coordinator is lost (the engine
+        aborts with that reason).  After a verdict every later collective
+        of the incarnation fails with the same
+        :class:`CollectiveTimeoutError`."""
+        name = _group_abort_name(ranks)
+        t0 = time.monotonic()
+        if self.rank == 0:
+            with self._abort_lock:
+                self._abort_inbox.append((0, su.TAG_ABORT_REPORT,
+                                          wire.encode_abort_report(
+                                              name, -1, self.epoch)))
+            # The probe window, and the background thread's way to it
+            # (it drains reports between cycles).
+            deadline = t0 + max(0.1, self.collective_probe_timeout) + 10.0
+            while not (self._last_verdict is not None
+                       and _same_abort(self._last_verdict[0], name)):
+                if self._aborted or time.monotonic() > deadline:
+                    return None
+                time.sleep(0.02)
+            wedged = list(self._last_verdict[1])
+        else:
+            if self._ctrl_conn_lost:
+                self._abort("lost connection to coordinator")
+                return None
+            wedged = self._report_and_await_verdict(name, -1)
+            if wedged is None:
+                self._abort("a process-group collective failed and no "
+                            "abort verdict arrived: coordinator wedged or "
+                            "lost")
+                return None
+            if self.rank in wedged:
+                raise RuntimeError(
+                    "evicted by the coordinator (process-group collective "
+                    "failure)")
+            if wedged:
+                self._apply_group_verdict(name, wedged, t0)
+        return wedged
+
+    def _apply_group_verdict(self, name: str, ranks: List[int],
+                             t0: float) -> None:
+        """A worker applies a group abort's verdict once, whether it
+        reported the failure or only heard the broadcast: the eviction
+        (``_ranks_failed``), so that a collective it has pending fails
+        with ``RanksFailedError`` when a reporter stops the gang to
+        re-form, and the typed error for every later collective."""
+        with self._abort_cv:
+            if self._collective_err is not None:
+                return
+            self._collective_err = CollectiveTimeoutError(
+                ranks, name, self.collective_timeout)
+        self._apply_abort_verdict(name, ranks, t0)
 
     def _apply_abort_verdict(self, name: str, ranks: List[int],
                              t0: float) -> None:

@@ -45,9 +45,50 @@ Records: the trace's ``serve.engine`` (a ``DecodeEngine`` built),
 
 Unlike the JAX package's loop, this one takes the port's model and a
 device: ``device=None`` is the card (``basics.resolve_device``), and a
-process with no card raises ``NoCudaDeviceError``.  ``run()`` initializes
-with ``hvd.init(device=..., backend="none")``: the elastic wrapper refuses a
-rank that formed a ``torch.distributed`` group.
+process with no card raises ``NoCudaDeviceError``.  Without a mesh,
+``run()`` initializes with ``hvd.init(device=..., backend="none")``.
+
+``mesh=`` serves over tensor parallelism, as the JAX loop's does, but the
+mesh spans ranks: one process drives one card, so a ``tp`` group is a group
+of gang ranks over a ``torch.distributed`` process group, which
+``@hvd.elastic.run`` re-forms at every incarnation.  ``mesh`` is a
+:class:`~horovod_tpu_torch.parallel.mesh.Mesh` built after ``hvd.init()``
+formed a group, or a dict of axis sizes, with which ``run()`` initializes
+and forms the group itself: gloo on the CPU and where two ranks drive one
+card (``multihost.ranks_share_a_card``; NCCL refuses them), NCCL where
+each rank drives a card of its own, bounded by the collective deadline
+(``HVD_COLLECTIVE_TIMEOUT``, ``hvd.init``'s rule under the elastic
+wrapper).  The loop keeps the whole model (``model``), and at every
+incarnation:
+
+* rebuilds the mesh with ``make_mesh`` from the caller's axis sizes but
+  ``dp``, which takes the rest of the ranks (the caller's mesh is bound to
+  the first incarnation's group);
+* takes, where the new size is not a multiple of the asked ``tp`` (a gang
+  of four at dp 2 x tp 2 that lost a rank), the largest ``tp`` not above
+  the asked one that divides the size and the model's heads, ``d_ff`` and
+  vocabulary: the log, the recorder's ``serve.tp`` note and the
+  ``serve.engine`` span carry it (the JAX package's mesh is one process's
+  devices and never meets this case);
+* cuts this rank's shard of the model (``transformer.shard_state_dict``):
+  a promoted or renumbered rank holds another slice than before.
+
+The decode's tensor-parallel collectives run over the group: the
+``reduce_from_axis`` SUM allreduces (the embedding's and two a layer;
+``copy_to_axis`` is the identity forward) and the head's all-gather of
+the logits, 2L + 2 a step; the serve frames and the ``__serve.confirm``
+allreduce stay on the engine.  Gloo takes CUDA tensors for ``all_reduce``
+and ``all_gather``, the two the decode runs; one it refused would raise,
+never fall back.  In-flight requests replay from their prompts after a
+re-form, so each reply is computed within one incarnation and one ``tp``.
+
+A dead or stalled tp peer: gloo fails the survivors' collective at once
+(a closed socket) or at the deadline, and the gang re-forms without it;
+a rank outside the failed group, waiting on the engine, is never blamed.
+Over NCCL (a card a rank) the failover is not shown: after a tp peer's
+SIGKILL on four cards the survivor neither raised at the deadline nor
+re-formed, so a gang that must survive a rank serves over gloo: a mesh
+built after ``hvd.init(backend="gloo")``.
 """
 
 from __future__ import annotations
@@ -92,6 +133,7 @@ class ServingLoop:
                  port: Optional[int] = None,
                  host: str = "0.0.0.0",
                  cache_len: Optional[int] = None,
+                 mesh=None,
                  eos_id: Optional[int] = None,
                  request_timeout_s: float = 120.0,
                  recv_timeout_s: float = 1.0,
@@ -105,6 +147,11 @@ class ServingLoop:
         self.port = env_util.serve_port() if port is None else port
         self.host = host
         self.cache_len = cache_len or cfg.max_seq_len
+        # The caller's axis sizes (a Mesh's shape, or a dict); None: no
+        # mesh, one rank holds the whole model.
+        self.axes = None if mesh is None else dict(
+            getattr(mesh, "shape", mesh))
+        self.tp = 1  # this incarnation's tp
         self.eos_id = eos_id
         self.request_timeout_s = request_timeout_s
         self.recv_timeout_s = recv_timeout_s
@@ -140,8 +187,15 @@ class ServingLoop:
         # The serve channel is the Python engine's.
         os.environ.setdefault("HVD_TPU_CORE", "py")
         if not basics.is_initialized():
-            basics.init(device=basics.resolve_device(
-                self.device, "ServingLoop"), backend="none")
+            dev = basics.resolve_device(self.device, "ServingLoop")
+            backend = "none"
+            if self.axes is not None:
+                from horovod_tpu_torch.parallel import multihost
+
+                multihost.init_torch_distributed()
+                backend = "gloo" if dev.type != "cuda" or \
+                    multihost.ranks_share_a_card(dev) else "nccl"
+            basics.init(device=dev, backend=backend)
         self.device = basics.device()
         try:
             if basics.size() == 1 and \
@@ -179,14 +233,15 @@ class ServingLoop:
         # The last incarnation's engine (its KV cache and cast matrices)
         # goes before this one's is allocated.
         self.engine = None
+        mesh, model = self._incarnation_mesh()
         engine = self.engine = DecodeEngine(
-            self.model, self.cfg, max_batch=self.max_batch,
-            cache_len=self.cache_len, device=self.device)
+            model, self.cfg, max_batch=self.max_batch,
+            cache_len=self.cache_len, mesh=mesh, device=self.device)
         if tr is not None:
             # Host time: device work the build queued lands in the first
             # serve.apply.
             tr.span("serve.engine", tb0, time.monotonic_ns(),
-                    epoch=eng.epoch)
+                    epoch=eng.epoch, tp=self.tp)
         # The previous incarnation's in-flight table survives the reset
         # here: on a promoted rank it seeds the fresh scheduler below.
         shadow = sorted(self._slots.items())
@@ -221,6 +276,53 @@ class ServingLoop:
             self._drive(eng, engine)
         else:
             self._follow(eng, engine)
+
+    def _choose_tp(self, size: int) -> int:
+        """The largest ``tp`` not above the asked one that divides the
+        gang (with the caller's other axes but ``dp``) and the model."""
+        asked = self.axes.get("tp", 1)
+        fixed = 1
+        for name, n in self.axes.items():
+            if name not in ("dp", "tp"):
+                fixed *= n
+        cfg = self.cfg
+        for tp in range(min(asked, size), 0, -1):
+            if size % (fixed * tp) == 0 and not (
+                    cfg.n_heads % tp or cfg.d_ff % tp
+                    or cfg.vocab_size % tp):
+                return tp
+        raise ValueError(f"a gang of {size} rank(s) holds no mesh of the "
+                         f"axes {self.axes} but dp")
+
+    def _incarnation_mesh(self):
+        """This incarnation's mesh (None without one) and this rank's
+        model: its shard over the mesh's ``tp``."""
+        from horovod_tpu_torch import basics
+        from horovod_tpu_torch.models import transformer as T
+        from horovod_tpu_torch.parallel.mesh import make_mesh
+
+        if self.axes is None:
+            return None, self.model
+        size = basics.size()
+        self.tp = tp = self._choose_tp(size)
+        # The caller's order; a dp it did not name goes first.
+        axes = {} if "dp" in self.axes else {"dp": -1}
+        axes.update((name, -1 if name == "dp" else tp if name == "tp"
+                     else n) for name, n in self.axes.items())
+        axes.setdefault("tp", tp)
+        mesh = make_mesh(axes)
+        asked = self.axes.get("tp", 1)
+        log.info("serving over %s: tp %d (asked %d) on %d rank(s)",
+                 mesh.shape, tp, asked, size)
+        _bb.note("serve.tp", time.monotonic_ns(), tp=tp, asked=asked,
+                 size=size)
+        if tp == 1:
+            return mesh, self.model
+        with torch.device(self.device):
+            model = T.Transformer(self.cfg, mesh)
+        model.load_state_dict(T.shard_state_dict(
+            self.model.state_dict(), self.cfg, mesh))
+        return mesh, model
 
     def _ensure_front_door(self, leader: bool = True) -> None:
         """Bind this rank's front door once per process (its port is

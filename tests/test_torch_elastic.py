@@ -65,7 +65,7 @@ def kill_plan(after):
 
 def start_gang(pkgs, cwd, *, min_np=1, max_np=None, scenario="train",
                base_env=None, rank_env=None, joiner=None,
-               joiner_after="STEP 1 ", shm=False):
+               joiner_after="STEP 1 ", shm=False, joiner_watch=0):
     """Start one elastic gang against its own rendezvous server: rank r
     runs ``pkgs[r]``, ``"port"`` (``tests/torch_port_elastic_worker.py``)
     or ``"jax"`` (``tests/elastic_worker.py``, or for the ``stall``
@@ -73,7 +73,8 @@ def start_gang(pkgs, cwd, *, min_np=1, max_np=None, scenario="train",
     late worker with ``HVD_ELASTIC_JOINER=1`` once rank 0 has printed
     ``joiner_after`` (by default its ``STEP 1``: a JAX incumbent that
     reaches its first ``consume_updates()`` after the announcement never
-    admits the joiner).  Each rank's output goes to ``<cwd>/out<r>``.
+    admits the joiner; ``joiner_watch`` names another rank whose output to
+    watch).  Each rank's output goes to ``<cwd>/out<r>``.
     Every rank pins ``HVD_SHM_DISABLE=1`` unless ``shm``."""
     os.makedirs(cwd, exist_ok=True)
     server = RendezvousServer("127.0.0.1")
@@ -118,8 +119,9 @@ def start_gang(pkgs, cwd, *, min_np=1, max_np=None, scenario="train",
     if joiner is not None:
         def start_joiner():
             deadline = time.monotonic() + GANG_TIMEOUT
-            path = os.path.join(cwd, "out0")
-            while time.monotonic() < deadline and procs[0].poll() is None:
+            path = os.path.join(cwd, f"out{joiner_watch}")
+            while time.monotonic() < deadline and \
+                    procs[joiner_watch].poll() is None:
                 with open(path, "rb") as fh:
                     if joiner_after.encode() in fh.read():
                         break
@@ -856,29 +858,55 @@ def test_stalled_rank_abort_evict_replay_on_shm(tmp_path, fusion):
 
 
 def test_group_backed_rank_is_refused(monkeypatch):
-    """A rank whose ``init`` formed a process group gets the named error
-    at the wrapper's entry: the wrapper re-forms the engine, not the
-    group."""
+    """The one-rank case of a group-backed rank under the wrapper, which
+    no longer refuses it: a rank that called ``hvd.init(device="cpu")``
+    (a gloo group over a ``HashStore``) runs under ``@hvd.elastic.run``,
+    and its group is the wrapper's: a re-form (a host update) destroys it,
+    marks the mesh built on it stale, and forms a new gloo group for the
+    next incarnation."""
+    import torch.distributed as dist
+
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch import basics, elastic
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.parallel import mesh as M
 
     for k in list(os.environ):
         if k.startswith("HVD_"):
             monkeypatch.delenv(k)
     # The wrapper freezes the launch's scope here; monkeypatch restores it.
     monkeypatch.setenv("HVD_ELASTIC_SCOPE_BASE", "")
+    server = RendezvousServer("127.0.0.1")
+    monkeypatch.setenv("HVD_RENDEZVOUS_ADDR", "127.0.0.1")
+    monkeypatch.setenv("HVD_RENDEZVOUS_PORT", str(server.start()))
+    for k in ("HVD_RANK", "HVD_SIZE", "HVD_ELASTIC_EPOCH",
+              "HVD_RDV_SCOPE", "HVD_LOCAL_RANK", "HVD_LOCAL_SIZE",
+              "HVD_CROSS_RANK", "HVD_CROSS_SIZE", "HVD_TPU_CORE"):
+        # Set by the wrapper; monkeypatch restores what it recorded.
+        monkeypatch.setenv(k, "0")
+        monkeypatch.delenv(k)
     hvd.shutdown()
     hvd.init(device="cpu")  # one rank, a gloo group over a HashStore
     try:
-        ran = []
+        seen = []
 
         @elastic.run
         def train(state):
-            ran.append(True)
+            seen.append((basics.has_process_group(), str(dist.get_backend()),
+                         id(dist.group.WORLD)))
+            if len(seen) == 1:
+                state.axis = M.make_mesh().axis("dp")
+                raise elastic.HostsUpdatedInterrupt()
+            with pytest.raises(M.StaleMeshError, match="re-form"):
+                C.allreduce(torch.ones(2), axis=state.axis)
+            out = C.allreduce(torch.full((2,), 3.0),
+                              axis=M.make_mesh().axis("dp"))
+            assert torch.equal(out, torch.full((2,), 3.0))
 
-        with pytest.raises(elastic.ElasticGroupError,
-                           match='backend="none"'):
-            train(elastic.ObjectState(step=0))
-        assert not ran
+        train(elastic.ObjectState(step=0))
+        assert [s[:2] for s in seen] == [(True, "gloo")] * 2
+        assert seen[0][2] != seen[1][2]
+        assert os.environ["HVD_ELASTIC_EPOCH"] == "1"
     finally:
         hvd.shutdown()
+        server.stop()

@@ -11,6 +11,7 @@ rendezvous KV client (``runner/http_client.py``), on the CPU.
 * The KV client against the JAX package's ``RendezvousServer``: ``put`` and
   ``wait_get`` with and without a secret, a wrong secret refused, a stale
   epoch fenced, endpoint failover.
+* ``ranks_share_a_card``: every rank's card read from the KV.
 """
 
 import os
@@ -180,6 +181,33 @@ def test_rank1_waits_for_the_key_and_sets_the_store(server, monkeypatch):
         "10.1.2.3", "4567")
     # The JAX package's key is a different one.
     assert kv.get("hvd/attempt1/jax_coordinator") is None
+
+
+@pytest.mark.parametrize("peer_index,shared", [(0, True), (1, False)],
+                         ids=["one-card", "own-cards"])
+def test_ranks_share_a_card_reads_every_rank(server, monkeypatch,
+                                             peer_index, shared):
+    """Rank 0 on cuda:0 publishes its card under the scope and reads rank
+    1's, which a peer publishes late: the same card on the same host is
+    shared, another index is not."""
+    import socket
+
+    import torch
+
+    from horovod_tpu_torch.parallel import multihost
+
+    monkeypatch.setenv("HVD_RANK", "0")
+    monkeypatch.setenv("HVD_SIZE", "2")
+    monkeypatch.setenv("HVD_RENDEZVOUS_ADDR", "127.0.0.1")
+    monkeypatch.setenv("HVD_RENDEZVOUS_PORT", str(server))
+    monkeypatch.setenv("HVD_RDV_SCOPE", "attempt1")
+    kv = KVClient("127.0.0.1", server)
+    threading.Timer(0.2, kv.put, (
+        "hvd/attempt1/card/1",
+        f"{socket.gethostname()}:{peer_index}")).start()
+    assert multihost.ranks_share_a_card(torch.device("cuda", 0),
+                                        timeout=10.0) is shared
+    assert kv.get("hvd/attempt1/card/0") == f"{socket.gethostname()}:0"
 
 
 @pytest.mark.parametrize("cross", [None, ("1", "3")], ids=["one-host",

@@ -68,7 +68,7 @@ def test_import_loads_no_jax_or_jax_package():
                 "torch._native_ops", "utils.logging", "utils.platform",
                 "tensorflow", "tensorflow._native_ops", "keras",
                 "keras.callbacks", "callbacks", "mxnet", "spark",
-                "spark.store", "spark.estimator"):
+                "spark.store", "spark.estimator", "ctrl_sim"):
         assert f"horovod_tpu_torch.{mod}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -1,7 +1,7 @@
 """The port's elastic worker, for ``tests/test_torch_elastic.py`` and
 ``tests/test_torch_elastic_mixed.py``.
 
-    python tests/torch_port_elastic_worker.py <train|stall>
+    python tests/torch_port_elastic_worker.py <train|stall|group>
 
 ``train`` is ``tests/elastic_worker.py`` on ``horovod_tpu_torch``: one gang
 member running a training loop under ``@hvd.elastic.run(device="cpu")``
@@ -25,9 +25,19 @@ data-plane receive at step 1 (``TIMEOUT_SITE``), and the survivors print
 ``CTE ranks=<json> tensor=<name> dt=<s>``, re-form, print ``REPLAY
 <name> <hex>`` for each replayed tensor and finish the steps.
 
-Both check the sender threads as ``tests/elastic_worker.py`` does: at most
-size-1 ``hvd-send-*`` threads after the last re-form, none after
-``shutdown``.  Exit codes: 0 done, 137 killed by an injected fault.
+``group`` (``tests/test_torch_elastic_group.py``): each rank forms a gloo
+process group (``init_torch_distributed`` then ``hvd.init(device="cpu")``;
+a joiner only at its grant) and every step allreduces one exactly
+representable tensor over a fresh mesh's ``dp`` axis and through the
+engine, printing ``STEP <i> e<epoch> size <n> rank <r> same <bool> <sum>``;
+each incarnation prints ``GROUP epoch <e> ... store <addr>`` and, after
+the first, whether the last incarnation's axis raised ``StaleMeshError``;
+the reset callback prints the wrapper's group verdict.  It ends after
+three steps at epoch 3.
+
+Every scenario checks the sender threads as ``tests/elastic_worker.py``
+does: at most size-1 ``hvd-send-*`` threads after the last re-form, none
+after ``shutdown``.  Exit codes: 0 done, 137 killed by an injected fault.
 """
 
 import json
@@ -180,9 +190,87 @@ def scenario_stall():
     finish()
 
 
+GROUP_MAX_STEPS = 400
+GROUP_LAST_EPOCH = 3
+GROUP_STEPS_AT_LAST = 3
+
+
+def scenario_group():
+    """A gang whose ranks each form a gloo process group, re-formed by the
+    wrapper at every epoch (a joiner takes its backend from the grant)."""
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.parallel import mesh as M
+    from horovod_tpu_torch.parallel import multihost
+
+    joiner = os.environ.get("HVD_ELASTIC_JOINER") == "1"
+    if not joiner:
+        multihost.init_torch_distributed()
+        hvd.init(device="cpu")
+    step_sleep = float(os.environ.get("ELASTIC_STEP_SLEEP", "0.05"))
+    state = hvd.elastic.ObjectState(step=0, last_steps=0)
+    old = {}
+
+    def on_reset():
+        err = hvd.elastic.last_group_error()
+        print(f"RESET size {hvd.size()} epoch "
+              f"{os.environ['HVD_ELASTIC_EPOCH']} t {time.monotonic():.3f} "
+              f"verdict {type(err).__name__ if err else None} "
+              f"{json.dumps(err.ranks) if err else '[]'}", flush=True)
+
+    state.register_reset_callbacks([on_reset])
+
+    @hvd.elastic.run(device="cpu")
+    def train(state):
+        epoch = int(os.environ["HVD_ELASTIC_EPOCH"])
+        if "axis" in old:
+            # The last incarnation's mesh is bound to a destroyed group.
+            try:
+                C.allreduce(torch.ones(2), axis=old["axis"])
+                print("STALE none", flush=True)
+            except M.StaleMeshError:
+                print("STALE StaleMeshError", flush=True)
+        mesh = M.make_mesh()
+        old["axis"] = mesh.axis("dp")
+        print(f"GROUP epoch {epoch} rank {hvd.rank()} size {hvd.size()} "
+              f"backend {torch.distributed.get_backend()} store "
+              f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+              flush=True)
+        while state.step < GROUP_MAX_STEPS:
+            if epoch >= GROUP_LAST_EPOCH and \
+                    state.last_steps >= GROUP_STEPS_AT_LAST:
+                break
+            rank = hvd.rank()
+            # Exactly representable in fp32: every order of the sum
+            # gives the same bits.
+            x = (torch.arange(8, dtype=torch.float32) * (rank + 1)
+                 + 0.25 * state.step)
+            fi.fire("train.step", f"e{epoch}.s{state.step}.")
+            t0 = time.monotonic()
+            try:
+                g = C.allreduce(x, op=hvd.Sum, axis=old["axis"])
+            except RuntimeError as e:
+                print(f"GROUP_ERR e{epoch}.s{state.step} t {t0:.3f} "
+                      f"{str(e)[:80]!r}", flush=True)
+                raise
+            e = torch.as_tensor(np.asarray(hvd.allreduce(
+                x.numpy(), op=hvd.Sum, name=f"group.s{state.step}")))
+            same = g.numpy().tobytes() == e.numpy().tobytes()
+            print(f"STEP {state.step} e{epoch} size {hvd.size()} rank "
+                  f"{rank} same {same} {float(g.sum())}", flush=True)
+            state.step += 1
+            if epoch >= GROUP_LAST_EPOCH:
+                state.last_steps += 1
+            state.commit()
+            time.sleep(step_sleep)
+
+    train(state)
+    finish()
+
+
 if __name__ == "__main__":
     if os.environ.get("ELASTIC_METRICS") == "1":
         from horovod_tpu_torch.telemetry import registry
 
         registry.configure(True)
-    {"train": scenario_train, "stall": scenario_stall}[sys.argv[1]]()
+    {"train": scenario_train, "stall": scenario_stall,
+     "group": scenario_group}[sys.argv[1]]()

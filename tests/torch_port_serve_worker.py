@@ -11,7 +11,9 @@ device="cpu").run()``.  A rank writes its front door's port to
 ``SERVE_PORT_FILE`` (when set); the serving leader writes ``SERVE_READY_FILE``
 once it published its address under the KV key ``serve/leader``, from when
 on a follower's door forwards.  The leader stops the loop once
-``SERVE_EXPECT`` requests completed (0: never).  ``SERVE_SHADOW_FILE``:
+``SERVE_EXPECT`` requests completed (0: never), or, with
+``SERVE_STOP_FILE``, once that file exists (the test writes it when every
+client has its reply).  ``SERVE_SHADOW_FILE``:
 written once every slot of this rank's slot table (the frames' shadow of
 the leader's in-flight requests) is live.
 
@@ -19,13 +21,19 @@ Knobs: ``SERVE_VICTIM=1`` with ``SERVE_STALL_SEQ=<k>`` arms a data-plane
 stall (``SERVE_SITE``, default ``sock.stall``) before this rank applies
 serve frame ``k``, so that it wedges in that step's token-agreement
 allreduce (the worker never exits on its own).  ``SERVE_CACHE_LEN``,
-``SERVE_MAX_BATCH``, ``SERVE_MAX_QUEUE`` size the loop.
+``SERVE_MAX_BATCH``, ``SERVE_MAX_QUEUE`` size the loop.  ``SERVE_MODEL``
+(a JSON dict of ``TransformerConfig`` widths) replaces the tiny model, and
+``SERVE_MESH`` (a JSON dict of axis sizes) serves over that mesh, the loop
+forming the gloo group (``tests/test_torch_serving_tp.py``); the worker
+then prints ``TP <tp> epoch <e> size <n> rank <r>`` at each incarnation's
+first frame.
 
 Markers (flushed): ``PORT <p>``, ``GEN <epoch>`` at start, ``GEN_FINAL
 <epoch>`` after ``run()``, ``DONE``; then the sender-thread leak check of
 ``tests/serve_worker.py``.
 """
 
+import json
 import os
 import sys
 import threading
@@ -52,9 +60,12 @@ def main():
     from horovod_tpu_torch.serving import ServingLoop
 
     cache_len = int(os.environ.get("SERVE_CACHE_LEN", "64"))
-    cfg = tfm.TransformerConfig(
-        vocab_size=64, d_model=32, n_layers=2, n_heads=2, d_ff=64,
-        max_seq_len=cache_len, compute_dtype=torch.float32, remat=False)
+    dims = json.loads(os.environ.get("SERVE_MODEL", "null")) or dict(
+        vocab_size=64, d_model=32, n_layers=2, n_heads=2, d_ff=64)
+    mesh = json.loads(os.environ.get("SERVE_MESH", "null"))
+    cfg = tfm.TransformerConfig(max_seq_len=cache_len,
+                                compute_dtype=torch.float32, remat=False,
+                                **dims)
     model = tfm.Transformer(cfg)
     model.load_state_dict(torch.load(os.environ["SERVE_WEIGHTS"]))
 
@@ -62,6 +73,7 @@ def main():
     ready_file = os.environ.get("SERVE_READY_FILE", "")
     shadow_file = os.environ.get("SERVE_SHADOW_FILE", "")
     expect = int(os.environ.get("SERVE_EXPECT", "0"))
+    stop_file = os.environ.get("SERVE_STOP_FILE", "")
 
     def on_ready(port):
         print(f"PORT {port}", flush=True)
@@ -74,7 +86,13 @@ def main():
             if ready_file:
                 _write(ready_file, self._known_leader)
 
+        _tp_seen = None
+
         def _apply_frame(self, frame, eng, engine, *, rank0):
+            if mesh is not None and self._tp_seen != (self.tp, eng.epoch):
+                self._tp_seen = (self.tp, eng.epoch)
+                print(f"TP {self.tp} epoch {eng.epoch} size {hvd.size()} "
+                      f"rank {hvd.rank()}", flush=True)
             done = super()._apply_frame(frame, eng, engine, rank0=rank0)
             if shadow_file and len(self._slots) == self.max_batch and \
                     not os.path.exists(shadow_file):
@@ -108,17 +126,20 @@ def main():
         model, cfg, device="cpu",
         max_batch=int(os.environ.get("SERVE_MAX_BATCH", "2")),
         max_queue=int(os.environ.get("SERVE_MAX_QUEUE", "16")),
-        port=0, host="127.0.0.1", cache_len=cache_len, eos_id=None,
+        port=0, host="127.0.0.1", cache_len=cache_len, mesh=mesh,
+        eos_id=None,
         request_timeout_s=90.0, on_ready=on_ready)
 
     # The scheduler exists only on the serving leader (rank 0 at start, or
     # a rank promoted by a failover): the stopper runs on every rank and
     # fires where the requests complete.
-    if expect:
+    if expect or stop_file:
         def stopper():
             while True:
                 sch = loop.scheduler
-                if sch is not None and sch.stats()["completed"] >= expect:
+                if sch is not None and (
+                        os.path.exists(stop_file) if stop_file
+                        else sch.stats()["completed"] >= expect):
                     loop.stop()
                     return
                 time.sleep(0.05)

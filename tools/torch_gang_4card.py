@@ -47,7 +47,20 @@ from seed 0):
    2}``, and the flagship with ring attention over ``{"dp": 2, "sp": 2}``:
    three steps each against the one-process step on the same global
    batches, whose losses must agree within LOSS_TOL at step 0 and
-   STEP_LOSS_TOL after.
+   STEP_LOSS_TOL after;
+6. the tp 2 serving cell, after the training gang: ``chip_smoke.py``'s
+   tp serving gang (``run_serve_gang_tp``) on the first two cards, one
+   launched rank a card, each ``ServingLoop(mesh={"tp": 2})`` over an
+   NCCL group it forms: the serve phase's 16 requests, every reply bit
+   for bit ``DecodeEngine``'s at tp 2 on its prompt alone (the two ranks
+   decode each prompt alone once their loop stopped), with the lockstep
+   step and the tp collectives' share of a step printed; then rank 1 is
+   SIGKILLed mid-stream, and rank 0 must re-form alone at tp 1 and replay
+   eight requests, each bit for bit ``DecodeEngine``'s at tp 1.  This
+   half fails: over NCCL rank 0 neither raised at the group's 20 s
+   deadline nor re-formed within the gang's 420 s (ROADMAP, Known
+   differences), and the cell reproduces that fault until it is fixed.
+   ``--serve-only`` runs this cell alone.
 
 The configuration, the batches (``chip_smoke._token_batches``: the input
 pipeline) and the tolerances the two scripts share come from
@@ -418,6 +431,23 @@ def _worker(rank, port, cpu, out_path, zero1_seeds):
         hvd.shutdown()
 
 
+def run_serve_tp(torch, cpu):
+    """The tp 2 serving cell (6. above): ``chip_smoke.run_serve_gang_tp``,
+    the flagship at its eight layers with each rank on its own card (the
+    narrow model of ``_cfg`` on the CPU, over gloo)."""
+    from horovod_tpu_torch.models import transformer as tfm
+
+    dev = torch.device("cpu" if cpu else "cuda:0")
+    card = "cpu" if cpu else _card_line().splitlines()[0]
+    cfg = _cfg(tfm, cpu)
+    if cpu:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, max_seq_len=128)
+    smoke.run_serve_gang_tp(tfm, dev, card, "cpu" if cpu else None,
+                            cfg=cfg)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -436,6 +466,8 @@ def main() -> int:
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--zero1-seeds", default="8",
                     help="comma-separated seeds of ZeRO-1's batches")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="the tp 2 serving cell alone")
     args = ap.parse_args()
     cpu = args.cpu
     seeds = [int(s) for s in args.zero1_seeds.split(",")]
@@ -443,6 +475,12 @@ def main() -> int:
         print(f"torch finds {torch.cuda.device_count()} CUDA devices; this "
               f"needs {RANKS}", file=sys.stderr)
         return 1
+    if args.serve_only:
+        run_serve_tp(torch, cpu)
+        if not cpu:
+            print(_card_line())
+        print(json.dumps({"ok": True}))
+        return 0
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "result.json")
         mp.start_processes(_worker, args=(_free_port(), cpu, out_path,
@@ -453,6 +491,7 @@ def main() -> int:
     if result["failures"] or result["ranks_failing"]:
         print(f"FAILED: {result}", file=sys.stderr)
         return 1
+    run_serve_tp(torch, cpu)
     if not cpu:
         print(_card_line())
     print(json.dumps({"ok": True, "pp_gang_ms": result["pp_gang_ms"],
