@@ -290,6 +290,31 @@ non-zero):
    within EST_PARAM_TOL of the CPU fit's.  Prints both fits' wall times
    and the gap beside the card.  TensorFlow, Keras, MXNet and Spark are
    not on the card's machine, so their front-ends have no phase.
+15. the examples phase (see EX_LM_ARGS; after phase 14): three scripts of
+   ``examples/torch_port/``, each its own process on cuda:0 through
+   ``hvdrun-torch -np 1`` (``python -m horovod_tpu_torch.runner.run``)
+   under a time limit: ``transformer_lm.py`` at the flagship's full width
+   (bf16, causal flash attention, a one-rank NCCL group) for EX_LM_STEPS
+   steps, ``pytorch_synthetic_benchmark.py`` (the port's ResNet-50 at
+   batch 32, a short schedule) and ``serve_lm.py --selftest`` on the
+   flagship's width in bf16 (seeded prompts whose replies must differ,
+   every reply held to ``DecodeEngine`` alone).  Each must exit 0, print only finite
+   losses and name cuda:0 and the card as its device; the LM must launch
+   the flash forward, dQ and dK/dV kernels (its own count, printed).
+   Prints each script's wall time, the LM's step median and tokens/s and
+   the benchmark's Img/sec, each beside the card's name and power limit.
+   ``python3 chip_smoke.py --examples-only`` runs the build and this phase
+   alone.
+
+Phases 0-5 run in this order, then the control plane's curve (phase 11's
+``ctrl_sim``) and phase 14, which time the host, alone.  The gang phases
+then run in three lanes at once, each lane a thread of this process that
+runs its phases in order: the engine lane (phase 6, 12, 13, 6 with the
+telemetry knobs, 6 with LV_KNOBS), the fault lane (7, 8, 10) and the
+serving lane (11's gangs, 15).  Their ranks share the card and the host's
+cores with the other lanes' ranks, so their wall and step times are those
+of a loaded host; the references they train in this process take turns
+(``_INPROC``).  Phase 9's kernel times are taken after every lane ended.
 
 The ``kernels`` JSON lists the flagship's three kernels, the same three
 with their launches in the MoE flagship's run (``flash_<kernel>_moe``: its
@@ -322,6 +347,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # Peak rates for the bound: (bf16 dense tensor-core FLOP/s, tf32 dense
@@ -456,6 +482,75 @@ def _peaks(name):
 def _fail_if(failures, what):
     if failures:
         raise AssertionError(f"{what}: " + "; ".join(failures))
+
+
+# The lanes' work in this process (``hvd.init()`` here, and the flagship
+# trained on all the rows as a gang's reference) takes this lock: one
+# reference at a time, as before the lanes.
+_INPROC = threading.Lock()
+
+
+class _LineRouter:
+    """``sys.stdout`` while the lanes run: each thread's text goes out
+    whole lines at a time, so that two lanes' lines never mix."""
+
+    def __init__(self, real):
+        self.real = real
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def write(self, text):
+        head, sep, tail = (getattr(self.local, "part", "")
+                           + text).rpartition("\n")
+        self.local.part = tail
+        if sep:
+            with self.lock:
+                self.real.write(head + sep)
+                self.real.flush()
+        return len(text)
+
+    def flush(self):
+        pass  # a line goes out when it is whole
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+def _run_lanes(lanes):
+    """Run the lanes ({name: function of no arguments, which runs its
+    phases in order}) at once, each on a thread of its own, and return
+    {name: its result}.  Every lane runs to its end; then the first
+    failure, in the lanes' order, is raised."""
+    results, errors, walls = {}, {}, {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        try:
+            results[name] = fn()
+        except BaseException as e:  # raised below, once every lane ended
+            errors[name] = e
+            print(f"lanes: the {name} lane failed: {e!r}")
+        finally:
+            walls[name] = time.perf_counter() - t0
+
+    real, t0 = sys.stdout, time.perf_counter()
+    sys.stdout = _LineRouter(real)
+    try:
+        threads = [threading.Thread(target=run, args=lane,
+                                    name=f"lane-{lane[0]}")
+                   for lane in lanes.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.stdout = real
+    print("lanes: " + ", ".join(f"{n} {walls[n]:.1f} s" for n in lanes)
+          + f"; {time.perf_counter() - t0:.1f} s of wall time at once")
+    for name in lanes:
+        if name in errors:
+            raise errors[name]
+    return results
 
 
 def _time_ms(fn, reps=20, batches=5, warmup=3):
@@ -2332,6 +2427,107 @@ def run_serve_gang_tp(tfm, dev, card, rank_device, cfg=None,
     _sg_print_end(g, card, oracle_s, t_phase)
 
 
+# The examples phase (phase 15): the flagship at its full width and depth
+# for EX_LM_STEPS steps, the synthetic benchmark at batch 32 for EX_RN_ARGS'
+# short schedule, the serving selftest's EX_SERVE_REQUESTS requests (seeded
+# prompts whose replies differ) on the flagship in bf16; each script under
+# EX_TIMEOUT_S.
+EX_LM_STEPS, EX_SERVE_REQUESTS, EX_TIMEOUT_S = 6, 8, 180
+EX_WIDTH_ARGS = ["--d-model", "1024", "--n-layers", "8", "--n-heads", "16",
+                 "--d-ff", "4096", "--vocab-size", "32768"]
+EX_LM_ARGS = EX_WIDTH_ARGS + ["--seq-len", "1024", "--batch-size", "8",
+                              "--steps", str(EX_LM_STEPS)]
+EX_SERVE_ARGS = EX_WIDTH_ARGS + ["--bf16", "--selftest",
+                                 str(EX_SERVE_REQUESTS)]
+EX_RN_ARGS = ["--batch-size", "32", "--num-warmup-batches", "3",
+              "--num-batches-per-iter", "5", "--num-iters", "3"]
+
+
+def run_examples(card, device=None, lm_args=EX_LM_ARGS, rn_args=EX_RN_ARGS,
+                 serve_args=EX_SERVE_ARGS):
+    """Phase 15 (see the module docstring).  ``device`` is passed to every
+    script (None: their default, the card); a rehearsal on the CPU passes
+    ``"cpu"`` and narrower arguments."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ex = os.path.join(here, "examples", "torch_port")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HVD_", "MASTER_", "HOROVOD_"))}
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    want = "cuda:0" if device is None else device
+    if want.startswith("cuda"):
+        import torch
+
+        want_name = torch.cuda.get_device_name(0)
+    else:
+        want_name = "cpu"
+    dev_args = [] if device is None else ["--device", device]
+    t_phase = time.perf_counter()
+    outs = {}
+    with tempfile.TemporaryDirectory(prefix="hvd-examples-") as tmp:
+        env["HVD_BLACKBOX_DIR"] = os.path.join(tmp, "blackbox")
+        for script, args in (
+                ("transformer_lm.py", lm_args),
+                ("pytorch_synthetic_benchmark.py", rn_args),
+                ("serve_lm.py", serve_args)):
+            cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.run",
+                   "-np", "1", "--", sys.executable,
+                   os.path.join(ex, script)] + args + dev_args
+            t0 = time.perf_counter()
+            try:
+                p = subprocess.run(cmd, env=env, cwd=tmp,
+                                   capture_output=True, text=True,
+                                   timeout=EX_TIMEOUT_S)
+                rc, out = p.returncode, p.stdout + p.stderr
+            except subprocess.TimeoutExpired as e:
+                rc = "timeout"
+                out = (e.stdout or b"").decode(errors="replace") \
+                    if isinstance(e.stdout, bytes) else (e.stdout or "")
+            wall = time.perf_counter() - t0
+            outs[script] = out
+            for line in out.splitlines():
+                if "[0]<stdout>" in line or "Error" in line:
+                    print(f"examples: {script}: {line}")
+            bad = []
+            if rc != 0:
+                bad.append(f"exit {rc}")
+            losses = [float(v) for v in re.findall(
+                r"loss (\S+?)(?:\s|$)", out)]
+            if script != "serve_lm.py" and not losses:
+                bad.append("no loss printed")
+            if not all(math.isfinite(v) for v in losses):
+                bad.append(f"non-finite loss among {losses}")
+            if want not in out or want_name not in out:
+                bad.append(f"no report of {want} ({want_name})")
+            if script == "serve_lm.py" and \
+                    "replies equal to DecodeEngine's alone" not in out:
+                bad.append("no selftest verdict")
+            _fail_if(bad, f"examples: {script}")
+            print(f"examples: {script} passed in {wall:.1f} s of wall time "
+                  f"(launcher and process start included); {card}")
+
+    lm = outs["transformer_lm.py"]
+    launches = json.loads(re.search(r"flash kernel launches: (\{.*\})",
+                                    lm).group(1).replace("'", '"'))
+    if want.startswith("cuda") and not all(
+            launches[k] > 0 for k in ("fwd", "dq", "dkv")):
+        raise AssertionError(f"examples: transformer_lm.py launched "
+                             f"{launches} flash kernels")
+    step = re.search(r"([\d.]+) tokens/sec, step median ([\d.]+) ms", lm)
+    img = re.search(r"Img/sec per device: ([\d.]+) \+-([\d.]+)",
+                    outs["pytorch_synthetic_benchmark.py"])
+    print(f"examples: transformer_lm.py at the flagship's width "
+          f"({' '.join(lm_args)}): step median {step.group(2)} ms (host "
+          f"clock, the first step included), {step.group(1)} tokens/s, "
+          f"flash launches {launches}; {card}")
+    print(f"examples: pytorch_synthetic_benchmark.py "
+          f"({' '.join(rn_args)}): {img.group(1)} +-{img.group(2)} Img/sec "
+          f"per device; {card}")
+    print(f"examples: phase wall time {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}")
+
+
 def run_ctrl_sim(card):
     """The control plane's scale harness (``horovod_tpu_torch.ctrl_sim``)
     on this machine's host: ``run_curve`` at 8, 64 and 256 in-process
@@ -3260,27 +3456,29 @@ def _engine_ref(hvd, cfg, dev, batches):
     import torch
 
     key = (repr(cfg), len(batches), str(dev))
-    if key in _ENGINE_REFS:
+    with _INPROC:
+        if key in _ENGINE_REFS:
+            return _ENGINE_REFS[key]
+        hvd.init(device=dev)
+        try:
+            step_fn, init_fn = hvd.make_transformer_train_step(cfg,
+                                                               device=dev)
+            state = init_fn(0)
+            for s, (tokens, targets) in enumerate(batches):
+                state, loss = step_fn(state, tokens, targets)
+                if s == 0:
+                    ref_loss = float(loss)
+                    ref_grads = {n: p.grad.detach().cpu()
+                                 for n, p in state.model.named_parameters()}
+            ref_params = {n: p.detach().cpu()
+                          for n, p in state.model.named_parameters()}
+            del state, step_fn, init_fn
+        finally:
+            hvd.shutdown()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        _ENGINE_REFS[key] = (ref_loss, ref_grads, ref_params)
         return _ENGINE_REFS[key]
-    hvd.init(device=dev)
-    try:
-        step_fn, init_fn = hvd.make_transformer_train_step(cfg, device=dev)
-        state = init_fn(0)
-        for s, (tokens, targets) in enumerate(batches):
-            state, loss = step_fn(state, tokens, targets)
-            if s == 0:
-                ref_loss = float(loss)
-                ref_grads = {n: p.grad.detach().cpu()
-                             for n, p in state.model.named_parameters()}
-        ref_params = {n: p.detach().cpu()
-                      for n, p in state.model.named_parameters()}
-        del state, step_fn, init_fn
-    finally:
-        hvd.shutdown()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    _ENGINE_REFS[key] = (ref_loss, ref_grads, ref_params)
-    return _ENGINE_REFS[key]
 
 
 def run_engine(hvd, tfm, fa, dev, card, cfg=None, timeout=ENGINE_TIMEOUT_S,
@@ -4793,16 +4991,18 @@ def _el_ref(tfm, cfg, dev, steps):
 
     batches = _token_batches(dev, steps, B=EL_ROWS, S=cfg.max_seq_len,
                              vocab=cfg.vocab_size, seed=7)
-    hvd.init(device=dev)
-    try:
-        step_fn, init_fn = hvd.make_transformer_train_step(cfg, device=dev)
-        state = init_fn(0)
-        for tokens, targets in batches:
-            state, _ = step_fn(state, tokens, targets)
-        return {n: p.detach().clone()
-                for n, p in state.model.named_parameters()}
-    finally:
-        hvd.shutdown()
+    with _INPROC:
+        hvd.init(device=dev)
+        try:
+            step_fn, init_fn = hvd.make_transformer_train_step(cfg,
+                                                               device=dev)
+            state = init_fn(0)
+            for tokens, targets in batches:
+                state, _ = step_fn(state, tokens, targets)
+            return {n: p.detach().clone()
+                    for n, p in state.model.named_parameters()}
+        finally:
+            hvd.shutdown()
 
 
 def _el_span(rep, t_fail):
@@ -5289,6 +5489,11 @@ def _ta_twin(tfm, cfg, dev, batches):
     """The one-process twin: seed 0, AdamW after the root's zero-gradient
     step (its parameters kept), ``len(batches)`` steps on all the rows.
     Returns the step-0 gradients and the last parameters."""
+    with _INPROC:
+        return _ta_twin_steps(tfm, cfg, dev, batches)
+
+
+def _ta_twin_steps(tfm, cfg, dev, batches):
     import torch
 
     model = tfm.init(0, cfg, device=dev)
@@ -5788,6 +5993,13 @@ def main() -> int:
         run_estimator(card)
         print(card)
         return 0
+    if sys.argv[1:2] == ["--examples-only"]:
+        # The kernels' build, then the examples phase alone (phase 15),
+        # for a quick reading.
+        _build.lib()
+        run_examples(card)
+        print(card)
+        return 0
     if sys.argv[1:2] == ["--serve-gang-only"]:
         # The serve phase, both serving gangs and the control plane's
         # curve alone (phases 10 and 11), for a quick reading.
@@ -5904,39 +6116,49 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_step_ms, alone = run_serve(tfm, dev, card)
     torch.cuda.empty_cache()
-    run_serve_gang(tfm, dev, card, serve_step_ms, alone)
-    torch.cuda.empty_cache()
-    run_serve_gang_tp(tfm, dev, card, str(dev))
-    torch.cuda.empty_cache()
+    # The two phases that time the host run alone.
     run_ctrl_sim(card)
-    plain = run_engine(hvd, tfm, fa, dev, card)
-    torch.cuda.empty_cache()
-    ta_counts = run_torch_api(hvd, tfm, fa, dev, card, engine=plain)
-    torch.cuda.empty_cache()
-    run_native(hvd, tfm, fa, dev, card, plain, build=native_rec)
-    torch.cuda.empty_cache()
-    tel = run_engine(hvd, tfm, fa, dev, card, steps=TEL_STEPS,
-                     telemetry=True)
-    torch.cuda.empty_cache()
-    for r in range(ENGINE_RANKS):
-        print(f"telemetry rank {r}: step median with every knob on "
-              f"{statistics.median(s['ms'] for s in tel[r]['steps']):.1f} "
-              f"ms, synchronize "
-              f"{statistics.median(s['sync_ms'] for s in tel[r]['steps']):.1f}"
-              f" ms, against the engine phase's "
-              f"{statistics.median(s['ms'] for s in plain[r]['steps']):.1f}"
-              f" ms and "
-              f"{statistics.median(s['sync_ms'] for s in plain[r]['steps']):.1f}"
-              f" ms; {card}")
-    run_dataplane(tfm, dev, card)
-    torch.cuda.empty_cache()
-    run_liveness(tfm, dev, card)
-    torch.cuda.empty_cache()
-    run_engine(hvd, tfm, fa, dev, card, knobs=LV_KNOBS)
-    torch.cuda.empty_cache()
-    el_counts = run_elastic(tfm, fa, dev, card)
-    torch.cuda.empty_cache()
     run_estimator(card)
+
+    def engine_lane():
+        plain = run_engine(hvd, tfm, fa, dev, card)
+        torch.cuda.empty_cache()
+        ta_counts = run_torch_api(hvd, tfm, fa, dev, card, engine=plain)
+        torch.cuda.empty_cache()
+        run_native(hvd, tfm, fa, dev, card, plain, build=native_rec)
+        torch.cuda.empty_cache()
+        tel = run_engine(hvd, tfm, fa, dev, card, steps=TEL_STEPS,
+                         telemetry=True)
+        torch.cuda.empty_cache()
+        for r in range(ENGINE_RANKS):
+            med = {(run, k): statistics.median(s[k] for s in got[r]["steps"])
+                   for run, got in (("tel", tel), ("plain", plain))
+                   for k in ("ms", "sync_ms")}
+            print(f"telemetry rank {r}: step median with every knob on "
+                  f"{med['tel', 'ms']:.1f} ms, synchronize "
+                  f"{med['tel', 'sync_ms']:.1f} ms, against the engine "
+                  f"phase's {med['plain', 'ms']:.1f} ms and "
+                  f"{med['plain', 'sync_ms']:.1f} ms; {card}")
+        run_engine(hvd, tfm, fa, dev, card, knobs=LV_KNOBS)
+        return ta_counts
+
+    def fault_lane():
+        run_dataplane(tfm, dev, card)
+        torch.cuda.empty_cache()
+        run_liveness(tfm, dev, card)
+        torch.cuda.empty_cache()
+        return run_elastic(tfm, fa, dev, card)
+
+    def serving_lane():
+        run_serve_gang(tfm, dev, card, serve_step_ms, alone)
+        torch.cuda.empty_cache()
+        run_serve_gang_tp(tfm, dev, card, str(dev))
+        run_examples(card)
+
+    lanes = _run_lanes({"engine": engine_lane, "fault": fault_lane,
+                        "serving": serving_lane})
+    ta_counts, el_counts = lanes["engine"], lanes["fault"]
+    torch.cuda.empty_cache()
 
     # Timed after the slice, so that no profiler has run before the steps
     # are timed.

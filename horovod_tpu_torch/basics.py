@@ -51,7 +51,8 @@ rewrites ``HVD_RANK``/``HVD_SIZE``/``HVD_RDV_SCOPE``/``HVD_ELASTIC_EPOCH``
 and re-initializes with the first incarnation's device and backend: a rank
 that formed a process group forms a new one over the new world.
 :func:`engine_abort_reason` tells the elastic wrapper why the running
-engine aborted.
+engine aborted, and :func:`abort_process_groups` frees a rank held on
+an NCCL group by a dead peer.
 """
 
 from __future__ import annotations
@@ -98,10 +99,19 @@ class _World:
     # The group's timeout (None: the backend's default), which a mesh's
     # subgroups take too.
     group_timeout: Optional[datetime.timedelta] = None
+    backend: str = ""  # the group's backend ("nccl", "gloo"; "": none)
 
 
 _world: Optional[_World] = None
 _engine_obj = None  # the eager engine, or None
+# Why this incarnation's NCCL groups were aborted (None: they were not),
+# set once under its own lock, held through the abort: the engine's
+# threads abort, and ``_lock`` is held while ``shutdown`` joins them.
+_group_aborted: Optional[str] = None
+# Set by ``shutdown`` under the same lock: its groups are being destroyed,
+# and no abort may start on them.
+_groups_closing = False
+_abort_lock = threading.Lock()
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -226,8 +236,16 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
     deadline (``HVD_COLLECTIVE_TIMEOUT``) where one is set, so that a
     group collective stalled on a peer fails within the deadline the
     eager engine keeps, not after the backend's 30 minutes; otherwise the
-    backend's default holds."""
-    global _world, _engine_obj
+    backend's default holds.  An elastic rank's NCCL group is aborted on
+    the eager engine's word (:func:`abort_process_groups`, through
+    torch's ``_abort_process_group``), which torch documents for use with
+    the watchdog's error handling off, so that the watchdog does not
+    handle the aborted communicators' errors itself: it is set off
+    (``TORCH_NCCL_ASYNC_ERROR_HANDLING=0``) unless the environment sets
+    it.  The group's timeout then only logs, so a live peer that stalls
+    inside a group collective holds the rank until that peer's control
+    link drops."""
+    global _world, _engine_obj, _group_aborted, _groups_closing
     with _lock:
         if _world is not None:
             return
@@ -243,6 +261,10 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
         kw = {}
         if group and timeout > 0:
             kw["timeout"] = datetime.timedelta(seconds=timeout)
+        elastic_nccl = backend == "nccl" and \
+            os.environ.get(env_util.ELASTIC_EPOCH) is not None
+        if elastic_nccl:
+            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
         if group and s == 1 and init_method is None:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1, **kw)
@@ -257,7 +279,10 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
                 dist.destroy_process_group()
             raise
         _world = _World(r, s, lr, ls, cr, cs, dev, group,
-                        kw.get("timeout"))
+                        kw.get("timeout"), backend if group else "")
+        _group_aborted, _groups_closing = None, False
+        if elastic_nccl and hasattr(_engine_obj, "free_groups_on_failure"):
+            _engine_obj.free_groups_on_failure(abort_process_groups)
         # The engines start telemetry themselves; this idempotent call
         # covers a rank with no engine, so that the eager layer's metrics
         # still count.
@@ -266,17 +291,59 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
         telemetry.init_from_env(r, lr or 0, size=s)
 
 
+def abort_process_groups(reason: str) -> bool:
+    """Abort the NCCL communicators of the world group and of every group
+    made from it (a mesh's subgroups), in one NCCL group call
+    (``torch.distributed``'s ``_abort_process_group`` of the world), on the
+    eager engine's word that a peer is gone: an eviction, an agreed abort,
+    a lost coordinator, or an elastic re-form after a failure.
+
+    A peer's death never ends an NCCL kernel that waits on it, and the host
+    thread's next sync on the card (a decode step's copy of its tokens)
+    waits behind that kernel; the abort ends the kernel, the sync returns,
+    and the next collective of this incarnation raises
+    ``parallel.mesh.GroupAbortedError``, which ``@hvd.elastic.run`` reads
+    as a group failure.  The groups are gone after it (``shutdown`` does
+    not destroy them again).  A no-op returning False for a gloo group
+    (its collectives fail on a closed socket or at the group's timeout),
+    for no group, after the first call and once ``shutdown`` began."""
+    global _group_aborted
+    # Held through the abort: a second caller (the re-form after the
+    # engine's eviction) returns only once the groups are gone.
+    with _abort_lock:
+        if _world is None or _world.backend != "nccl" or \
+                _group_aborted is not None or _groups_closing:
+            return False
+        _group_aborted = reason
+        import logging
+
+        logging.getLogger("horovod_tpu_torch").warning(
+            "aborting the NCCL process groups: %s", reason)
+        dist.distributed_c10d._abort_process_group()
+    return True
+
+
+def group_aborted() -> Optional[str]:
+    """Why this incarnation's process groups were aborted
+    (:func:`abort_process_groups`), or None."""
+    return _group_aborted
+
+
 def shutdown() -> None:
     """Stop the eager engine (a negotiated stop at size > 1), then tear
     down the process group; every mesh built on it goes stale
-    (``parallel.mesh.StaleMeshError``)."""
-    global _world, _engine_obj
+    (``parallel.mesh.StaleMeshError``).  Groups that
+    :func:`abort_process_groups` aborted are not destroyed again."""
+    global _world, _engine_obj, _groups_closing
     with _lock:
         if _engine_obj is not None:
             _engine_obj.shutdown()
             _engine_obj = None
         if _world is not None and _world.group:
-            dist.destroy_process_group()
+            with _abort_lock:
+                _groups_closing = True
+            if _group_aborted is None:
+                dist.destroy_process_group()
             # Every mesh held groups of the one just destroyed.
             from horovod_tpu_torch.parallel import mesh
 

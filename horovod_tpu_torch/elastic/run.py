@@ -57,7 +57,12 @@ its ranks:
 
 * the re-form destroys the old group (``hvd.shutdown()``), with it every
   mesh built on it (``parallel.mesh.StaleMeshError`` from then on), and
-  forgets the old store's address (``multihost.reset()``);
+  forgets the old store's address (``multihost.reset()``); an NCCL group
+  of a gang that lost a rank is aborted instead
+  (``basics.abort_process_groups``), and the engine aborts it as soon as
+  it learns of the loss (an eviction, an agreed abort, a lost
+  coordinator), which frees a host thread held by a kernel that waits on
+  the dead peer;
 * the new rank 0 hosts a fresh store and publishes its address under the
   new epoch's scope (``multihost.init_torch_distributed``), where every
   member reads it; a zombie of an older epoch reads its own epoch's key
@@ -67,9 +72,7 @@ its ranks:
 * the group's operations, its mesh's subgroups' too, are bounded by the
   collective deadline (``HVD_COLLECTIVE_TIMEOUT``, which ``hvd.init``
   reads under the wrapper), so that a gloo collective stalled on a peer
-  raises in the body before the engine's verdict is stale.  Over NCCL a
-  re-form after a peer's death is not shown: in a four-card run the
-  survivor neither raised nor re-formed (ROADMAP, Known differences).
+  raises in the body before the engine's verdict is stale.
 
 The JAX wrapper re-forms no ``jax.distributed`` world: a JAX rank's mesh
 is its own process's devices, where a port rank reaches other ranks' cards
@@ -299,6 +302,12 @@ def _reform(ctx: _ElasticContext, failed: Set[int]) -> None:
         _bb.dump("leader_failover", f"failed={sorted(failed)}")
     _timeline.engine_event("ELASTIC_RESET", failed=sorted(failed))
     ctx.stop_driver()
+    if failed:
+        # An NCCL group with a dead member is aborted, never destroyed:
+        # its destruction waits on kernels that wait on the dead peer
+        # (a gloo group is destroyed as ever).
+        basics.abort_process_groups(
+            f"re-forming without rank(s) {sorted(failed)}")
     # The engine, then the process group and every mesh built on it.
     basics.shutdown()
     process_sets.reset()  # the ranks are renumbered

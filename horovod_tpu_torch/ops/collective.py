@@ -29,7 +29,12 @@ import torch.distributed as dist
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.common.types import ReduceOp
-from horovod_tpu_torch.parallel.mesh import Axis, check_live, world_axis
+from horovod_tpu_torch.parallel.mesh import (
+    Axis,
+    check_live,
+    check_not_aborted,
+    world_axis,
+)
 
 _DIST_OP = {
     ReduceOp.AVERAGE: dist.ReduceOp.SUM,
@@ -48,11 +53,14 @@ def _on(ax: Axis):
     axis of a mesh whose group is gone raises ``StaleMeshError``; a
     collective that fails carries its group's ranks (``group_ranks``) on
     its error, so that ``@hvd.elastic.run`` asks the gang's verdict on
-    that group and blames no rank outside it."""
+    that group and blames no rank outside it.  A collective that the
+    groups' abort (``basics.abort_process_groups``, on another thread)
+    cut short raises ``GroupAbortedError`` instead of torch's error."""
     check_live(ax)
     try:
         yield ax.group
     except RuntimeError as e:
+        check_not_aborted(ax)
         if not hasattr(e, "group_ranks"):
             e.group_ranks = tuple(ax.ranks)
         raise

@@ -20,7 +20,9 @@ goes (``hvd.shutdown()``, an elastic re-form), every mesh built on it goes
 stale: its ``axis()`` and every collective over one of its axes raise
 :class:`StaleMeshError` instead of running over a destroyed group.  (The
 JAX package's mesh is one process's devices, which a re-form never
-touches.)
+touches.)  After ``basics.abort_process_groups`` (an NCCL group aborted on
+the eager engine's word that a peer is gone) every collective of the
+incarnation raises :class:`GroupAbortedError`.
 
 The JAX package's ``filter_spec`` and ``sharding_for`` build
 ``PartitionSpec`` shardings for GSPMD; torch has none.  Each rank holds its
@@ -61,6 +63,18 @@ class StaleMeshError(RuntimeError):
             "new mesh with make_mesh() after the re-form")
 
 
+class GroupAbortedError(RuntimeError):
+    """A collective over an axis after this incarnation's NCCL groups were
+    aborted (``basics.abort_process_groups``).  Carries the axis's ranks
+    (``group_ranks``), as a failed collective's error does, so that
+    ``@hvd.elastic.run`` asks the gang's verdict and re-forms."""
+
+    def __init__(self, ranks: Tuple[int, ...], reason: str):
+        super().__init__(f"the process groups were aborted ({reason}); "
+                         "re-form the gang before the next collective")
+        self.group_ranks = tuple(ranks)
+
+
 # Every live mesh, so that the end of its group can mark it stale.
 _meshes: "weakref.WeakSet[Mesh]" = weakref.WeakSet()
 
@@ -75,9 +89,19 @@ def invalidate_meshes() -> None:
 
 
 def check_live(axis: "Axis") -> None:
-    """Raise :class:`StaleMeshError` for an axis of a stale mesh."""
+    """Raise :class:`StaleMeshError` for an axis of a stale mesh, and
+    :class:`GroupAbortedError` after the groups were aborted."""
     if getattr(axis.mesh, "stale", False):
         raise StaleMeshError(axis.mesh)
+    check_not_aborted(axis)
+
+
+def check_not_aborted(axis: "Axis") -> None:
+    """Raise :class:`GroupAbortedError` for the axis once this
+    incarnation's groups were aborted (``basics.group_aborted()``)."""
+    aborted = basics.group_aborted()
+    if aborted is not None:
+        raise GroupAbortedError(axis.ranks, aborted)
 
 
 @dataclass(frozen=True)

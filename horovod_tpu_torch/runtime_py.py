@@ -126,7 +126,7 @@ import socket
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Set
+from typing import Callable, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 
@@ -515,6 +515,11 @@ class PyEngine(_EngineBase):
     """Multi-process engine: background thread, star controller, ring data
     plane.  See the module docstring."""
 
+    # Set by ``free_groups_on_failure`` (an elastic rank on an NCCL
+    # group): the groups' abort, and eviction on a dropped link.
+    _abort_groups: Optional[Callable[[str], object]] = None
+    _evict_on_lost_link = False
+
     def __init__(self, rank, size, local_rank, local_size,
                  cross_rank, cross_size, rdv_addr, rdv_port):
         check_left_out_knobs()
@@ -809,7 +814,8 @@ class PyEngine(_EngineBase):
                 tag, payload = su.recv_frame(sock)
                 self._dispatch_ctrl_frame(peer_rank, tag, payload)
         except (ConnectionError, OSError):
-            # EOF or reset: a dead rank, acted on only with liveness on.
+            # EOF or reset: a dead rank, acted on with liveness on or
+            # after free_groups_on_failure (_check_dead_ranks).
             self._conn_lost.add(peer_rank)
 
     def _dispatch_ctrl_frame(self, peer_rank: int, tag: int,
@@ -1845,17 +1851,29 @@ class PyEngine(_EngineBase):
                 return False
         return True
 
+    def free_groups_on_failure(self,
+                               abort: Callable[[str], object]) -> None:
+        """For a rank whose process group a dead peer would hold for good
+        (an elastic rank on an NCCL group): evict a rank whose control
+        link dropped even with liveness off, and call ``abort(reason)``
+        on every eviction, agreed abort and abort of this engine."""
+        self._abort_groups = abort
+        self._evict_on_lost_link = True
+
     def _check_dead_ranks(self) -> List[int]:
         """Ranks whose control link dropped or that have been silent past
-        the heartbeat timeout; empty with liveness off."""
-        if self.heartbeat_timeout <= 0:
+        the heartbeat timeout.  With liveness off, only ranks whose link
+        dropped, and only after ``free_groups_on_failure``; else none."""
+        liveness = self.heartbeat_timeout > 0
+        if not liveness and not self._evict_on_lost_link:
             return []
         now = time.monotonic()
         dead = []
         for r, t in self._last_seen.items():
             if r in self._evicted_ranks:
                 continue
-            if r in self._conn_lost or now - t > self.heartbeat_timeout:
+            if r in self._conn_lost or (
+                    liveness and now - t > self.heartbeat_timeout):
                 dead.append(r)
         # A dying sub-coordinator takes its children's uplink with it: a
         # child still routed through a parent that is dead this round gets
@@ -2288,6 +2306,21 @@ class PyEngine(_EngineBase):
             # abort cannot wait on the wedged ranks.
             self._joined_ranks.update(ranks)
             self._prune_evicted()
+        self._notify_ranks_failed(
+            f"gang verdict: rank(s) {list(ranks)} wedged during {name!r}")
+
+    def _notify_ranks_failed(self, reason: str) -> None:
+        """Abort the process groups, after ``free_groups_on_failure``,
+        since peers are gone; its failure is logged, never raised into
+        the engine's thread."""
+        abort = self._abort_groups
+        if abort is None:
+            return
+        try:
+            abort(reason)
+        except Exception:
+            self.log.exception("aborting the process groups (%r) failed",
+                               reason)
 
     def _retain_for_replay(self, resp: Response,
                            entries: List[TensorTableEntry]) -> None:
@@ -2581,6 +2614,7 @@ class PyEngine(_EngineBase):
                 "rank(s) %s evicted; completing in-flight collectives on "
                 "the survivors", ranks)
             blackbox_mod.dump("ranks_failed", f"evicted={ranks}")
+            self._notify_ranks_failed(f"rank(s) {ranks} evicted")
             return
 
         if resp.response_type == ResponseType.ERROR:
@@ -2739,3 +2773,4 @@ class PyEngine(_EngineBase):
         blackbox_mod.dump("engine_abort", reason)
         self._shutdown_flag.set()
         self._wake_serve()
+        self._notify_ranks_failed(f"engine aborted: {reason}")

@@ -85,10 +85,12 @@ re-form, so each reply is computed within one incarnation and one ``tp``.
 A dead or stalled tp peer: gloo fails the survivors' collective at once
 (a closed socket) or at the deadline, and the gang re-forms without it;
 a rank outside the failed group, waiting on the engine, is never blamed.
-Over NCCL (a card a rank) the failover is not shown: after a tp peer's
-SIGKILL on four cards the survivor neither raised at the deadline nor
-re-formed, so a gang that must survive a rank serves over gloo: a mesh
-built after ``hvd.init(backend="gloo")``.
+Over NCCL (a card a rank) a dead peer's kernel never ends, and a
+survivor waits in its step's host copy: the eager engine evicts the rank
+whose control link dropped and aborts the incarnation's NCCL
+communicators (``basics.abort_process_groups``), the copy returns, the
+step's next collective fails, and the gang re-forms as over gloo.  A
+stalled (live) NCCL peer is not shown to end that way.
 """
 
 from __future__ import annotations

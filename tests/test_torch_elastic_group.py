@@ -22,6 +22,20 @@ epochs:
 
 The gang's knobs are ``tests/test_torch_elastic.py``'s (heartbeats at 2 s
 every 0.25 s) with ``HVD_SHM_DISABLE=1``.
+
+Two more gangs of four (``torch_port_elastic_worker.py group_abort``, a dp
+2 x tp 2 mesh, rank 3 SIGKILLed before its group collective of step 2),
+started together, both with liveness off (the launcher's default): one
+whose ranks asked for NCCL (formed over gloo by a stand-in,
+``GROUP_FAKE_NCCL=1``) and wait, as an NCCL collective with a dead peer
+does, until the groups' abort frees them; and one on gloo, the control.
+With NCCL the coordinator evicts rank 3 once its control link drops, and
+the eviction aborts the world group and each mesh subgroup
+(``basics.abort_process_groups``, recorded at torch's
+``_abort_process_group``): the pending wait ends, the next collective
+raises ``GroupAbortedError`` and the gang re-forms at three.  On gloo
+nothing is evicted or aborted: the failed collective's verdict re-forms
+the gang as before.
 """
 
 import json
@@ -127,3 +141,63 @@ def test_stalled_group_peer_ends_in_typed_error_within_deadline(gang):
         g = _groups(out)
         assert g[3][1:3] == (2, "gloo"), out
         assert len([1 for _s, e, *_ in _steps(out) if e == 3]) == 3, out
+
+
+@pytest.fixture(scope="module")
+def abort_gangs(tmp_path_factory):
+    gangs = {}
+    for mode in ("nccl", "gloo"):
+        # The launcher's default: liveness off.
+        env = {"HVD_COLLECTIVE_TIMEOUT": str(DEADLINE_S),
+               "HVD_COLLECTIVE_PROBE_TIMEOUT": str(PROBE_S),
+               "HVD_HEARTBEAT_TIMEOUT": "0", "OMP_NUM_THREADS": "1"}
+        if mode == "nccl":
+            env["GROUP_FAKE_NCCL"] = "1"
+        gangs[mode] = start_gang(
+            ["port"] * 4, str(tmp_path_factory.mktemp(f"abort_{mode}")),
+            min_np=2, max_np=4, scenario="group_abort", base_env=env,
+            rank_env={3: {"HOROVOD_FAULT_PLAN": _plan(
+                {"kind": "kill", "match": "e0.s2."})}})
+    return {mode: finish_gang(g, timeout=120.0) for mode, g in gangs.items()}
+
+
+def _abort_lines(out):
+    return [(t, json.loads(r), json.loads(g)) for t, r, g in re.findall(
+        r"ABORT thread (\S+) reason (\[.*?\]) groups (\[.*\])", out)]
+
+
+@pytest.mark.parametrize("mode", ["nccl", "gloo"])
+def test_eviction_aborts_nccl_groups_gloo_unchanged(abort_gangs, mode):
+    outs = abort_gangs[mode]
+    assert outs[3][0] == 137, outs[3][1]
+    for r in range(3):
+        rc, out = outs[r]
+        assert rc == 0, out
+        mesh = re.search(r"MESH epoch 0 rank (\d) backend (\w+) axes "
+                         r"(\[.*\])", out)
+        assert mesh and mesh.group(2) == mode, out
+        tp, dp = json.loads(mesh.group(3))
+        aborts = _abort_lines(out)
+        if mode == "gloo":
+            assert aborts == [] and "PENDING" not in out, out
+        else:
+            # Once, from the engine's thread, on the eviction's word: the
+            # world group and this rank's tp and dp subgroups.
+            assert len(aborts) == 1, out
+            thread, reason, groups = aborts[0]
+            assert thread != "MainThread" and reason == [
+                "rank(s) [3] evicted"], out
+            # torch's registry of this rank's groups may hold other lines
+            # of the mesh too.
+            lines = [[0, 1, 2, 3], [0, 1], [2, 3], [0, 2], [1, 3]]
+            assert all(g in groups for g in ([0, 1, 2, 3], tp, dp)), out
+            assert all(g in lines for g in groups), out
+            assert "PENDING freed True" in out, out
+            assert "GROUP_ERR GroupAbortedError" in out, out
+        assert "RESET size 3 epoch 1" in out, out
+        # Steps 0 and 1 at four (280 + 8 s), then two at three from the
+        # last commit, step 2 (168 + 6 s).
+        steps = [(int(s), int(e), int(n), float(v)) for s, e, n, v in
+                 re.findall(r"STEP (\d+) e(\d+) size (\d+) ([\d.]+)", out)]
+        assert steps == [(0, 0, 4, 280.0), (1, 0, 4, 288.0),
+                         (2, 1, 3, 180.0), (3, 1, 3, 186.0)], out

@@ -92,6 +92,28 @@ def test_no_source_file_imports_jax_or_jax_package():
     assert bad == []
 
 
+def test_no_example_script_imports_jax_or_jax_package():
+    """``examples/torch_port/`` runs on the port alone."""
+    ex = os.path.join(REPO, "examples", "torch_port")
+    files = sorted(os.path.join(ex, f) for f in os.listdir(ex)
+                   if f.endswith(".py"))
+    assert len(files) >= 17
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path}:{node.lineno} {n}" for n in names
+                    if _forbidden(n)]
+    assert bad == []
+
+
 def test_native_sources_include_only_their_own_directory():
     """The core's sources (``horovod_tpu_torch/csrc/``) include only each
     other and system headers: nothing of the JAX package's ``csrc/``.

@@ -1,7 +1,7 @@
 """The port's elastic worker, for ``tests/test_torch_elastic.py`` and
 ``tests/test_torch_elastic_mixed.py``.
 
-    python tests/torch_port_elastic_worker.py <train|stall|group>
+    python tests/torch_port_elastic_worker.py <train|stall|group|group_abort>
 
 ``train`` is ``tests/elastic_worker.py`` on ``horovod_tpu_torch``: one gang
 member running a training loop under ``@hvd.elastic.run(device="cpu")``
@@ -34,6 +34,10 @@ each incarnation prints ``GROUP epoch <e> ... store <addr>`` and, after
 the first, whether the last incarnation's axis raised ``StaleMeshError``;
 the reset callback prints the wrapper's group verdict.  It ends after
 three steps at epoch 3.
+
+``group_abort`` (``tests/test_torch_elastic_group.py``): the eager
+engine's eviction aborting an NCCL group (``basics.abort_process_groups``);
+see its docstring.
 
 Every scenario checks the sender threads as ``tests/elastic_worker.py``
 does: at most size-1 ``hvd-send-*`` threads after the last re-form, none
@@ -267,10 +271,107 @@ def scenario_group():
     finish()
 
 
+ABORT_KILL_STEP = 2
+ABORT_STEPS_AFTER = 2
+
+
+def scenario_group_abort():
+    """A gang of four on a dp 2 x tp 2 mesh whose rank 3 dies before its
+    group collective of step ``ABORT_KILL_STEP`` (an injected ``kill``).
+    Under ``GROUP_FAKE_NCCL=1`` each rank asks ``hvd.init`` for an NCCL
+    group, which a stand-in ``init_process_group`` forms over gloo, and
+    the survivors model an NCCL collective with a dead peer: at the kill
+    step they wait, before the group collective, until the groups'
+    abort frees them.  ``_abort_process_group`` is wrapped to print
+    ``ABORT thread <name> reason <json> groups <json>`` (the thread that
+    called it, ``abort_process_groups``' reason, and the ranks of every
+    group it aborts) before it runs.  Each step prints ``STEP``; the
+    survivors' failed collective ``GROUP_ERR <type>``; the reset callback
+    ``RESET size <n> epoch <e>``."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.parallel import mesh as M
+    from horovod_tpu_torch.parallel import multihost
+
+    fake = os.environ.get("GROUP_FAKE_NCCL") == "1"
+    aborted = threading.Event()
+    reasons = []
+    real_abort = c10d._abort_process_group
+    real_reason = basics.abort_process_groups
+
+    def abort_process_groups(reason):
+        reasons.append(reason)
+        return real_reason(reason)
+
+    def record_abort(group=None):
+        groups = sorted(sorted(m) for m in c10d._world.pg_group_ranks.values())
+        print(f"ABORT thread {threading.current_thread().name} reason "
+              f"{json.dumps(reasons[-1:])} groups {json.dumps(groups)}",
+              flush=True)
+        real_abort(group)
+        aborted.set()
+
+    c10d._abort_process_group = record_abort
+    basics.abort_process_groups = abort_process_groups
+    if fake:
+        real_init = dist.init_process_group
+
+        def init_process_group(backend, *a, **k):
+            return real_init("gloo" if backend == "nccl" else backend,
+                             *a, **k)
+
+        dist.init_process_group = init_process_group
+        dist.get_backend = lambda group=None: "nccl"
+    multihost.init_torch_distributed()
+    hvd.init(device="cpu", backend="nccl" if fake else None)
+    state = hvd.elastic.ObjectState(step=0, after=0)
+    state.register_reset_callbacks([lambda: print(
+        f"RESET size {hvd.size()} epoch {os.environ['HVD_ELASTIC_EPOCH']}",
+        flush=True)])
+
+    @hvd.elastic.run(device="cpu")
+    def train(state):
+        epoch = int(os.environ["HVD_ELASTIC_EPOCH"])
+        if hvd.size() == 4:
+            mesh = M.make_mesh({"dp": 2, "tp": 2})
+            axes = [mesh.axis("tp"), mesh.axis("dp")]
+        else:
+            axes = [M.make_mesh().axis("dp")]
+        print(f"MESH epoch {epoch} rank {hvd.rank()} backend "
+              f"{basics._world.backend} axes "
+              f"{json.dumps([list(a.ranks) for a in axes])}", flush=True)
+        while state.after < ABORT_STEPS_AFTER:
+            x = (torch.arange(8, dtype=torch.float32) * (hvd.rank() + 1)
+                 + 0.25 * state.step)
+            fi.fire("train.step", f"e{epoch}.s{state.step}.")
+            if fake and epoch == 0 and state.step == ABORT_KILL_STEP:
+                freed = aborted.wait(60.0)
+                print(f"PENDING freed {freed}", flush=True)
+            try:
+                for ax in axes:
+                    x = C.allreduce(x, op=hvd.Sum, axis=ax)
+            except RuntimeError as e:
+                print(f"GROUP_ERR {type(e).__name__}", flush=True)
+                raise
+            print(f"STEP {state.step} e{epoch} size {hvd.size()} "
+                  f"{float(x.sum())}", flush=True)
+            state.step += 1
+            if epoch > 0:
+                state.after += 1
+            state.commit()
+
+    train(state)
+    print(f"REASONS {json.dumps(reasons)}", flush=True)
+    finish()
+
+
 if __name__ == "__main__":
     if os.environ.get("ELASTIC_METRICS") == "1":
         from horovod_tpu_torch.telemetry import registry
 
         registry.configure(True)
     {"train": scenario_train, "stall": scenario_stall,
-     "group": scenario_group}[sys.argv[1]]()
+     "group": scenario_group,
+     "group_abort": scenario_group_abort}[sys.argv[1]]()

@@ -56,11 +56,10 @@ from seed 0):
    decode each prompt alone once their loop stopped), with the lockstep
    step and the tp collectives' share of a step printed; then rank 1 is
    SIGKILLed mid-stream, and rank 0 must re-form alone at tp 1 and replay
-   eight requests, each bit for bit ``DecodeEngine``'s at tp 1.  This
-   half fails: over NCCL rank 0 neither raised at the group's 20 s
-   deadline nor re-formed within the gang's 420 s (ROADMAP, Known
-   differences), and the cell reproduces that fault until it is fixed.
-   ``--serve-only`` runs this cell alone.
+   eight requests, each bit for bit ``DecodeEngine``'s at tp 1 (the
+   engine evicts rank 1 once its control link drops and aborts rank 0's
+   NCCL communicators, which frees rank 0's step).  ``--serve-only``
+   runs this cell alone.
 
 The configuration, the batches (``chip_smoke._token_batches``: the input
 pipeline) and the tolerances the two scripts share come from
