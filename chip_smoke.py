@@ -240,6 +240,14 @@ non-zero):
    all at two layers, the lockstep step at tp 2 against the loop's at tp
    1 (B's survivor) and ``DecodeEngine``'s step alone at tp 1 and at tp
    2, the tp collectives' share of a step, and the failover by part.
+   Then the collective watch's check (``--group-watch-check``, see
+   GW_DEADLINE_S): one elastic rank on a one-rank NCCL group on cuda:0
+   under a short collective deadline; a group collective queued behind a
+   device-side spin shorter than the deadline completes with no firing,
+   and one queued behind a spin longer than it must fire the watch within
+   the deadline + 1 s, after which the next collective raises
+   ``GroupAbortedError`` carrying the group's ranks.  Prints the watch's
+   times beside the card.
    Then the control plane's scale harness (``ctrl_sim.run_curve`` at 8,
    64 and 256 in-process ranks, star and tree) on the card machine's host,
    with its CPU count;
@@ -1988,6 +1996,17 @@ SG_START_S, SG_TIMEOUT_S = 180, 420
 # phase 298.5 s (NVIDIA H100 80GB HBM3, 700.00 W), past the smoke's time;
 # every comparison the phase prints is at that depth.
 SG_TP, SG_TP_STEPS, SG_TP_LAYERS, SG_TP_DEADLINE_S = 2, 20, 2, 20.0
+# C (``run_serve_gang_tp_stall``, four cards only: ``tools/
+# torch_gang_4card.py``, one rank a card over NCCL): a fresh tp gang
+# serves SG_B_REQUESTS requests; once every slot is live, rank 1 stalls
+# alive in the ``serve.step`` fault site SG_C_FRAMES frames later, its
+# control link up.  Rank 0's tp collective stays pending on its card; the
+# collective watch fires at the deadline, the gang's verdict names rank 1,
+# and rank 0 must take its first step at tp 1 within SG_TP_DEADLINE_S +
+# the probe window + SG_C_SLACK_S of the stall, each reply bit for bit
+# ``DecodeEngine``'s alone at tp 1.  A gang still not re-formed
+# SG_TP_DEADLINE_S + SG_C_HANG_S after the stall hangs on it.
+SG_C_FRAMES, SG_C_SLACK_S, SG_C_HANG_S = 3, 5.0, 60.0
 
 
 def _sg_write(path, text):
@@ -2080,12 +2099,14 @@ def _sg_spans(d):
     return spans
 
 
-def _sg_gang(tfm, cfg, rank_device, tp, timeout):
+def _sg_gang(tfm, cfg, rank_device, tp, timeout, stall=False):
     """Launch a serving gang and drive it (see SG_RANKS and SG_TP): the
     launch, A's clients, B's clients and the SIGKILL of its victim (rank 0
     of the tp 1 gang, rank 1 of the tp gang), the reports, logs and
     traces; ``rank_device`` is every rank's device (None: each rank's own
-    card, ``cuda:<local_rank>``).  Returns what the checks read."""
+    card, ``cuda:<local_rank>``).  ``stall``: C (see SG_TP) instead of A
+    and B, its victim (rank 1) stalled alive.  Returns what the checks
+    read."""
     import signal
     import shutil
     import tempfile
@@ -2109,9 +2130,10 @@ def _sg_gang(tfm, cfg, rank_device, tp, timeout):
     fields["compute_dtype"] = str(cfg.compute_dtype).split(".")[1]
     with open(os.path.join(tmp, "config.json"), "w") as fh:
         json.dump({"cfg": fields, "device": rank_device, "cache": cache,
-                   "tp": tp, "reqs": reqs}, fh)
+                   "tp": tp, "reqs": reqs, "stall": stall}, fh)
     n_ranks = SG_RANKS if tp == 1 else tp
-    what = "serve gang" if tp == 1 else f"serve gang tp {tp}"
+    what = "serve gang" if tp == 1 else f"serve gang tp {tp}" + (
+        " C" if stall else "")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HVD_", "MASTER_", "HOROVOD_"))}
     # The serve channel is the Python engine's (the launcher's elastic
@@ -2132,7 +2154,8 @@ def _sg_gang(tfm, cfg, rank_device, tp, timeout):
     p = os.path.join
     launcher, log_out, log_err, oracle = None, None, None, None
     a_out, b_out = [None] * len(reqs), [None] * SG_B_REQUESTS
-    t0, t_kill_ns = time.monotonic(), 0
+    t0, t_kill_ns, t_up, a_s = time.monotonic(), 0, 0.0, 0.0
+    hang = None  # C: why the gang hung on the stall
     try:
         log_out = open(p(tmp, "launcher.out"), "w")
         log_err = open(p(tmp, "launcher.err"), "w")
@@ -2149,7 +2172,7 @@ def _sg_gang(tfm, cfg, rank_device, tp, timeout):
         clients = [threading.Thread(target=_post, args=(
             ports[0] if i % 2 == 0 else ports[1 + (i // 2) % (n_ranks - 1)],
             {"prompt": pr, "max_new_tokens": m}, a_out, i), daemon=True)
-            for i, (pr, m) in enumerate(reqs)]
+            for i, (pr, m) in enumerate(reqs)] if not stall else []
         ta = time.monotonic()
         for c in clients:
             c.start()
@@ -2161,7 +2184,7 @@ def _sg_gang(tfm, cfg, rank_device, tp, timeout):
         for r in range(n_ranks):
             _sg_wait(p(tmp, f"A{r}.json"), launcher, deadline,
                      f"rank {r}'s report of A")
-        if tp > 1:
+        if tp > 1 and not stall:
             # The loop stops; the ranks run the oracle, then serve again.
             _sg_write(p(tmp, "stopA"), "1")
             oracle = json.loads(_sg_wait(p(tmp, "oracle.json"), launcher,
@@ -2169,9 +2192,10 @@ def _sg_gang(tfm, cfg, rank_device, tp, timeout):
             ports = [int(_sg_wait(p(tmp, f"portB{r}"), launcher, deadline,
                                   f"rank {r}'s second door"))
                      for r in range(n_ranks)]
-        # B: every slot live on every rank, then the victim killed.
+        # B: every slot live on every rank, then the victim killed (C:
+        # stalled).
         victim = 0 if tp == 1 else 1
-        b_reqs = [(f"B{i}", reqs[i][0], reqs[i][1])
+        b_reqs = [(f"{'C' if stall else 'B'}{i}", reqs[i][0], reqs[i][1])
                   for i in range(len(b_out))]
         clients = [threading.Thread(target=_sg_client, args=(
             [ports[0], ports[1]] if tp == 1 else [ports[0]],
@@ -2183,13 +2207,42 @@ def _sg_gang(tfm, cfg, rank_device, tp, timeout):
         _sg_all_live(ports[0], launcher, deadline)
         pid_v = int(_sg_wait(p(tmp, f"pid{victim}"), launcher, deadline,
                              f"pid{victim}"))
-        t_kill_ns = time.monotonic_ns()
-        os.kill(pid_v, signal.SIGKILL)
+        if stall:
+            _sg_write(p(tmp, "stallC"), "1")
+            t_kill_ns = json.loads(_sg_wait(
+                p(tmp, "stall1.json"), launcher, deadline,
+                "rank 1's stall"))["t_stall"]
+            # Rank 0's re-formed first step within the deadline + 60 s,
+            # or the gang hangs on the stall.
+            hang_by = min(deadline, time.monotonic() + SG_TP_DEADLINE_S
+                          + SG_C_HANG_S)
+            while not os.path.exists(p(tmp, "reform0.json")) and \
+                    time.monotonic() < hang_by and launcher.poll() is None:
+                time.sleep(0.05)
+            if not os.path.exists(p(tmp, "reform0.json")):
+                notes = {n: os.path.exists(p(tmp, f"{n}.json"))
+                         for n in ("watch0", "agree0")}
+                hang = (f"{what}: rank 0 did not re-form within "
+                        f"{SG_TP_DEADLINE_S} + {SG_C_HANG_S} s of rank 1's "
+                        f"stall: the gang hangs on a stalled, live tp peer "
+                        f"({time.monotonic() - t0:.1f} s into the gang; "
+                        f"rank 0's notes {notes})")
+                # Rank 0's threads' stacks into its output.
+                os.kill(int(_sg_wait(p(tmp, "pid0"), launcher, deadline,
+                                     "pid0")), signal.SIGUSR1)
+                time.sleep(2.0)
+        else:
+            t_kill_ns = time.monotonic_ns()
+            os.kill(pid_v, signal.SIGKILL)
         for c in clients:
-            c.join(timeout=max(1.0, deadline - time.monotonic()))
+            c.join(timeout=1.0 if hang is not None else
+                   max(1.0, deadline - time.monotonic()))
+        if stall:
+            os.kill(pid_v, signal.SIGKILL)  # stalled for an hour
         _sg_write(p(tmp, "stop"), "1")
         try:
-            launcher.wait(timeout=max(1.0, deadline - time.monotonic()))
+            launcher.wait(timeout=1.0 if hang is not None else
+                          max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
             pass
         wall = time.monotonic() - t0
@@ -2209,7 +2262,8 @@ def _sg_gang(tfm, cfg, rank_device, tp, timeout):
     survivors = (1, 2) if tp == 1 else (0,)
     reports = {}
     for name in [f"A{r}" for r in range(n_ranks)] + [
-            f"final{r}" for r in survivors] + ["reform0"]:
+            f"final{r}" for r in survivors] + ["reform0", "watch0",
+                                               "agree0"]:
         if os.path.exists(p(tmp, f"{name}.json")):
             with open(p(tmp, f"{name}.json")) as fh:
                 reports[name] = json.load(fh)
@@ -2225,6 +2279,8 @@ def _sg_gang(tfm, cfg, rank_device, tp, timeout):
     shutil.rmtree(tmp, ignore_errors=True)
     for line in (out + err).splitlines():
         print(f"{what}: {line}")
+    if hang is not None:
+        raise AssertionError(hang)
 
     bad = []
     if launcher.returncode != 0:
@@ -2232,18 +2288,18 @@ def _sg_gang(tfm, cfg, rank_device, tp, timeout):
     for r in survivors:
         if f"[{r}]<stdout>: DONE" not in out:
             bad.append(f"survivor rank {r} did not finish")
-    for i, r in enumerate(a_out):
+    for i, r in enumerate(a_out if not stall else ()):
         if r is None or r[0] != 200 or r[1].get("attempts") != 1 or \
                 len(r[1].get("tokens", ())) != reqs[i][1]:
             bad.append(f"A request {i}: reply {str(r)[:160]}")
     for i, r in enumerate(b_out):
         if r is None or r[0] != 200 or not r[1].get("attempts", 0) > 1:
-            bad.append(f"B request {i}: reply {str(r)[:160]}")
+            bad.append(f"{b_reqs[i][0]} request: reply {str(r)[:160]}")
     # The leader's steps of A.
     lead = [s for s in spans0.get("serve.apply", ()) if s["t0"] < t_dump_ns]
     conf = [s for s in spans0.get("serve.confirm", ())
             if s["t0"] < t_dump_ns]
-    if not (lead and conf):
+    if not (lead and conf) and not stall:
         bad.append(f"the traces lack spans: {len(lead)} serve.apply and "
                    f"{len(conf)} serve.confirm of the leader in A")
     _fail_if(bad, what)
@@ -2562,6 +2618,10 @@ def serve_gang_rank(tmp: str) -> int:
     from horovod_tpu_torch.serving import ServingLoop
     from horovod_tpu_torch.telemetry import trace
 
+    import faulthandler
+    import signal
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     p = os.path.join
     rank = int(os.environ["HVD_RANK"])  # the launch rank, kept
     os.environ["HVD_TIMELINE"] = p(tmp, f"timeline{rank}.json")
@@ -2587,6 +2647,9 @@ def serve_gang_rank(tmp: str) -> int:
             dict(extra, rank=rank, peak_bytes=peak)))
 
     tp = conf.get("tp", 1)
+    stall = conf.get("stall", False)
+    if stall and rank == 0:
+        _sg_note_failover(p(tmp, "watch0.json"), p(tmp, "agree0.json"))
 
     class Loop(ServingLoop):
         """Notes, in ``reform<r>.json``, when the first re-formed
@@ -2597,6 +2660,7 @@ def serve_gang_rank(tmp: str) -> int:
 
         t_body = None
         b_steps = []
+        stall_in = None  # C: frames to go before rank 1 stalls
 
         def _epoch_body(self, state):
             if self.t_body is None and \
@@ -2605,6 +2669,22 @@ def serve_gang_rank(tmp: str) -> int:
             return super()._epoch_body(state)
 
         def _apply_frame(self, frame, eng, engine, *, rank0):
+            if stall and rank == 1:
+                if Loop.stall_in is None and \
+                        os.path.exists(p(tmp, "stallC")):
+                    Loop.stall_in = SG_C_FRAMES
+                if Loop.stall_in is not None:
+                    Loop.stall_in -= 1
+                    if Loop.stall_in == 0:
+                        from horovod_tpu_torch.common import \
+                            fault_injection as fi
+
+                        _sg_write(p(tmp, "stall1.json"), json.dumps(
+                            {"t_stall": time.monotonic_ns()}))
+                        # This frame's serve.step site stalls rank 1.
+                        fi.configure({"faults": [
+                            {"site": "serve.step", "kind": "stall",
+                             "stall_s": 3600}]})
             t = time.perf_counter()
             done = super()._apply_frame(frame, eng, engine, rank0=rank0)
             if self.t_body is not None:
@@ -2623,8 +2703,10 @@ def serve_gang_rank(tmp: str) -> int:
                     on_ready=lambda port: _sg_write(
                         p(tmp, f"{door}{rank}"), str(port)))
 
-    # The tp gang's first loop stops at stopA, its second at stop.
-    live = {"loop": make_loop("port"), "stop": "stopA" if tp > 1 else "stop"}
+    # The tp gang's first loop stops at stopA, its second at stop (C's
+    # one loop at stop).
+    two = tp > 1 and not stall
+    live = {"loop": make_loop("port"), "stop": "stopA" if two else "stop"}
 
     def watch():
         dumped = False
@@ -2647,7 +2729,7 @@ def serve_gang_rank(tmp: str) -> int:
     threading.Thread(target=watch, daemon=True).start()
     print(f"serve gang rank {rank}: pid {os.getpid()} on {dev}", flush=True)
     live["loop"].run()
-    if tp > 1:
+    if two:
         oracle = _sg_tp_oracle(live["loop"], conf, dev)
         if rank == 0:
             _sg_write(p(tmp, "oracle.json"), json.dumps(oracle))
@@ -2658,6 +2740,237 @@ def serve_gang_rank(tmp: str) -> int:
     report("final", b_steps_ms=Loop.b_steps)
     hvd.shutdown()
     return 0
+
+
+# The collective watch's check (phase 11, ``run_group_watch``): one
+# elastic rank of a one-rank NCCL group under a collective deadline of
+# GW_DEADLINE_S; a collective queued behind a device-side spin of
+# GW_SHORT_SPIN_S must complete unwatched, and one behind GW_LONG_SPIN_S
+# must fire the watch within GW_DEADLINE_S + GW_SLACK_S of its enqueue.
+# The spin cannot be aborted: the groups' abort waits for its end, for at
+# most the group's timeout (the deadline) an attempt, so the long spin
+# ends within the first attempt.  GW_TIMEOUT_S bounds the subprocess (its
+# start and NCCL's included).
+GW_DEADLINE_S, GW_SHORT_SPIN_S, GW_LONG_SPIN_S = 1.0, 0.4, 1.5
+GW_SLACK_S, GW_TIMEOUT_S = 1.0, 60
+
+
+def group_watch_check() -> int:
+    """The watch's check, in a process of its own (``--group-watch-check``):
+    prints one ``group watch: {json}`` line, exits 0 when it held."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    for k in list(os.environ):
+        if k.startswith(("HVD_", "HOROVOD_")) or k in (
+                "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+            del os.environ[k]
+    os.environ["HVD_ELASTIC_EPOCH"] = "0"
+    os.environ["HVD_COLLECTIVE_TIMEOUT"] = str(GW_DEADLINE_S)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.parallel import group_watch
+    from horovod_tpu_torch.parallel.mesh import GroupAbortedError
+
+    dev = torch.device("cuda", 0)
+    rep, bad = {}, []
+    hvd.init(device=dev)  # NCCL, one rank: the watch is armed
+    try:
+        watch = group_watch.current()
+        if watch is None or basics._world.backend != "nccl":
+            raise AssertionError("no watch armed on the elastic NCCL rank")
+        x = torch.ones(1 << 20, device=dev)
+        C.allreduce(x, op=hvd.Sum)  # the communicator's first use
+        torch.cuda.synchronize(dev)
+        # The spin's cycles a second, on this card now.
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.cuda._sleep(50_000_000)
+        b.record()
+        b.synchronize()
+        hz = 50_000_000 / (a.elapsed_time(b) / 1e3)
+        # Behind a spin shorter than the deadline: no firing.
+        torch.cuda._sleep(int(hz * GW_SHORT_SPIN_S))
+        t0 = time.monotonic()
+        C.allreduce(x, op=hvd.Sum)
+        torch.cuda.synchronize(dev)
+        rep["short_spin_s"] = time.monotonic() - t0
+        time.sleep(2 * watch.poll_s)
+        if watch.fired is not None or basics.group_aborted() is not None:
+            bad.append(f"the watch fired behind a {GW_SHORT_SPIN_S} s "
+                       f"spin: {watch.fired}")
+        # Behind a spin longer than the deadline: the watch fires.
+        torch.cuda._sleep(int(hz * GW_LONG_SPIN_S))
+        t0 = time.monotonic()
+        C.allreduce(x, op=hvd.Sum)
+        rep["enqueue_ms"] = (time.monotonic() - t0) * 1e3
+        stop = t0 + GW_DEADLINE_S + GW_SLACK_S + 5.0
+        while basics.group_aborted() is None and time.monotonic() < stop:
+            time.sleep(0.001)
+        t_fire = time.monotonic()
+        while group_watch.current() is not None and \
+                time.monotonic() < stop:
+            time.sleep(0.001)
+        rep.update(fired=list(watch.fired or ()),
+                   fired_age_s=watch.fired_age_s,
+                   to_abort_s=t_fire - t0,
+                   abort_done_s=time.monotonic() - t0,
+                   poll_s=watch.poll_s, spin_hz=hz)
+        if basics.group_aborted() is None:
+            bad.append("the watch did not fire behind a "
+                       f"{GW_LONG_SPIN_S} s spin")
+        elif not GW_DEADLINE_S <= rep["to_abort_s"] <= \
+                GW_DEADLINE_S + GW_SLACK_S:
+            bad.append(f"the watch fired {rep['to_abort_s']:.3f} s after "
+                       f"the enqueue, not within [{GW_DEADLINE_S}, "
+                       f"{GW_DEADLINE_S + GW_SLACK_S}] s")
+        if rep["fired"] != [0]:
+            bad.append(f"the watch named the group {rep['fired']}")
+        try:
+            C.allreduce(x, op=hvd.Sum)
+            bad.append("a collective after the abort ran")
+        except GroupAbortedError as e:
+            rep["next_raised"] = list(e.group_ranks)
+            if rep["next_raised"] != [0]:
+                bad.append(f"GroupAbortedError named {e.group_ranks}")
+        torch.cuda.synchronize(dev)  # the spin's end
+        rep["spin_end_s"] = time.monotonic() - t0
+    finally:
+        hvd.shutdown()
+    rep["bad"] = bad
+    print("group watch: " + json.dumps(rep), flush=True)
+    return 1 if bad else 0
+
+
+def run_group_watch(card):
+    """The collective watch's check (see GW_DEADLINE_S) in a subprocess;
+    prints its times beside the card."""
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HVD_", "MASTER_", "HOROVOD_"))}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    try:
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--group-watch-check"], env=env,
+                           capture_output=True, text=True,
+                           timeout=GW_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"group watch: no end within {GW_TIMEOUT_S} "
+                             f"s: {e.stdout!r} {e.stderr!r}")
+    line = [ln for ln in p.stdout.splitlines()
+            if ln.startswith("group watch: ")]
+    if p.returncode != 0 or not line:
+        raise AssertionError(f"group watch: exit {p.returncode}: "
+                             f"{p.stdout[-4000:]} {p.stderr[-4000:]}")
+    rep = json.loads(line[-1][len("group watch: "):])
+    print(f"group watch: deadline {GW_DEADLINE_S} s; a collective behind "
+          f"a {GW_SHORT_SPIN_S} s spin completed in "
+          f"{rep['short_spin_s']:.3f} s unwatched; behind a "
+          f"{GW_LONG_SPIN_S} s spin (enqueued in {rep['enqueue_ms']:.3f} "
+          f"ms) the watch fired {rep['to_abort_s']:.3f} s after the "
+          f"enqueue (the oldest event {rep['fired_age_s']:.3f} s pending, "
+          f"polled every {rep['poll_s'] * 1e3:.0f} ms), naming the group "
+          f"{rep['fired']}; the abort done at {rep['abort_done_s']:.3f} s; "
+          f"the next collective raised GroupAbortedError naming "
+          f"{rep['next_raised']}; the spin ended at "
+          f"{rep['spin_end_s']:.3f} s; check {time.perf_counter() - t0:.1f} "
+          f"s; {card}")
+
+
+def _sg_note_failover(watch_path, agree_path):
+    """C's rank 0: note when the collective watch fires (its group and the
+    pending age) and when the gang's agreement on the failed group returns
+    (its verdict), each as ``time.monotonic_ns()``."""
+    from horovod_tpu_torch import basics, runtime_py
+
+    expired = getattr(basics, "_collective_expired", None)
+    if expired is not None:
+        def collective_expired(ranks, age_s):
+            _sg_write(watch_path, json.dumps(
+                {"t": time.monotonic_ns(), "ranks": list(ranks),
+                 "age_s": age_s}))
+            expired(ranks, age_s)
+
+        basics._collective_expired = collective_expired
+    group_abort = runtime_py.PyEngine.group_abort
+
+    def noted_group_abort(self, ranks=None):
+        t0 = time.monotonic_ns()
+        wedged = group_abort(self, ranks)
+        _sg_write(agree_path, json.dumps(
+            {"t0": t0, "t": time.monotonic_ns(), "ranks": list(ranks or ()),
+             "wedged": wedged}))
+        return wedged
+
+    runtime_py.PyEngine.group_abort = noted_group_abort
+
+
+def run_serve_gang_tp_stall(tfm, dev, card, rank_device, cfg=None,
+                            timeout=SG_TIMEOUT_S):
+    """C (see SG_C_FRAMES): the tp gang whose rank 1 stalls alive.
+    Checks: rank 0 re-forms at tp 1 and takes its first step within
+    SG_TP_DEADLINE_S + the probe window + SG_C_SLACK_S of the stall; on a
+    card, the collective watch fired naming the group [0, 1] and the
+    verdict named rank 1 alone; every reply ``attempts > 1`` and bit for
+    bit ``DecodeEngine``'s alone at tp 1; rank 0 prints DONE.  Prints the
+    stall to rank 0's first step by part."""
+    from horovod_tpu_torch.serving import DecodeEngine
+    from horovod_tpu_torch.utils import env as env_util
+
+    t_phase = time.perf_counter()
+    cfg = cfg or dataclasses.replace(_flagship_cfg(tfm),
+                                     n_layers=SG_TP_LAYERS)
+    g = _sg_gang(tfm, cfg, rank_device, SG_TP, timeout, stall=True)
+    probe = env_util.collective_probe_timeout_s(SG_TP_DEADLINE_S)
+    bound_s = SG_TP_DEADLINE_S + probe + SG_C_SLACK_S
+    t_stall = g.t_kill_ns
+    rf0 = g.reports.get("reform0")
+    watch, agree = g.reports.get("watch0"), g.reports.get("agree0")
+    bad = []
+    if rf0 is None or rf0["tp"] != 1 or rf0["t_body"] < t_stall:
+        bad.append(f"rank 0's re-formed incarnation after the stall: {rf0}")
+    elif (rf0["t_step"] - t_stall) / 1e9 > bound_s:
+        bad.append(f"rank 0's first step at tp 1 came "
+                   f"{(rf0['t_step'] - t_stall) / 1e9:.1f} s after the "
+                   f"stall, past {bound_s:.1f} s")
+    if agree is None or agree["wedged"] != [1]:
+        bad.append(f"the gang's verdict on the failed group: {agree}")
+    on_card = rank_device is None or str(rank_device).startswith("cuda")
+    if on_card and (watch is None or watch["ranks"] != [0, 1]):
+        bad.append(f"the collective watch's firing: {watch}")
+    _fail_if(bad, g.what)
+    model = tfm.init(0, cfg, device=dev)
+    engine = DecodeEngine(model, cfg, max_batch=SERVE_SLOTS,
+                          cache_len=g.cache, device=dev)
+    alone = [_engine_alone(engine, pr, m)[0]
+             for pr, m in g.reqs[:len(g.b_out)]]
+    del engine, model
+    for i, r in enumerate(g.b_out):
+        if r[1]["tokens"] != alone[i]:
+            bad.append(f"C request {i}: tokens differ from DecodeEngine's "
+                       f"alone at tp 1")
+    _fail_if(bad, g.what)
+    ms = _sg_ms
+    parts = [f"the watch's firing {ms(t_stall, watch['t']):.1f} ms "
+             f"(its event pending {watch['age_s'] * 1e3:.1f} ms)"
+             if watch else "no watch (a gloo group fails at its timeout)",
+             f"the agreement {ms(agree['t0'], agree['t']):.1f} ms (it "
+             f"began {ms(t_stall, agree['t0']):.1f} ms after the stall)",
+             f"the re-form to the incarnation's start "
+             f"{ms(agree['t'], rf0['t_body']):.1f} ms",
+             f"the engine rebuilt and the replay's first step "
+             f"{ms(rf0['t_body'], rf0['t_step']):.1f} ms"]
+    print(f"{g.what}: failover, rank 1's stall (alive, its control link "
+          f"up) to the end of rank 0's first step at tp {rf0['tp']} after "
+          f"{ms(t_stall, rf0['t_step']):.1f} ms (bound {bound_s:.1f} s: "
+          f"the deadline {SG_TP_DEADLINE_S} s, the probe window {probe} s, "
+          f"{SG_C_SLACK_S} s): " + "; ".join(parts)
+          + f"; {len(g.b_out)} replies bit for bit DecodeEngine's alone at "
+          f"tp 1; gang {g.wall:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock); {card}")
 
 
 def _sg_step_ms(engine, reqs, dev):
@@ -5963,6 +6276,8 @@ def main() -> int:
         return serve_gang_rank(sys.argv[2])
     if sys.argv[1:2] == ["--torch-api-rank"]:  # a torch-api phase rank
         return torch_api_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--group-watch-check"]:  # the watch's check
+        return group_watch_check()
     t_start = time.perf_counter()
     import torch
 
@@ -6010,6 +6325,7 @@ def main() -> int:
         run_serve_gang(tfm, dev, card, serve_step_ms, alone)
         torch.cuda.empty_cache()
         run_serve_gang_tp(tfm, dev, card, str(dev))
+        run_group_watch(card)
         run_ctrl_sim(card)
         print(f"chip_smoke: total wall time "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -6153,6 +6469,7 @@ def main() -> int:
         run_serve_gang(tfm, dev, card, serve_step_ms, alone)
         torch.cuda.empty_cache()
         run_serve_gang_tp(tfm, dev, card, str(dev))
+        run_group_watch(card)
         run_examples(card)
 
     lanes = _run_lanes({"engine": engine_lane, "fault": fault_lane,

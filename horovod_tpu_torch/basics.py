@@ -52,7 +52,9 @@ and re-initializes with the first incarnation's device and backend: a rank
 that formed a process group forms a new one over the new world.
 :func:`engine_abort_reason` tells the elastic wrapper why the running
 engine aborted, and :func:`abort_process_groups` frees a rank held on
-an NCCL group by a dead peer.
+an NCCL group by a dead peer, or (through the collective watch,
+``parallel/group_watch.py``) by a live peer that stalls outside the group
+collective past the collective deadline.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.common.types import NoCudaDeviceError, \
     NotInitializedError
+from horovod_tpu_torch.parallel import group_watch
 from horovod_tpu_torch.utils import env as env_util
 
 _lock = threading.Lock()
@@ -108,10 +111,15 @@ _engine_obj = None  # the eager engine, or None
 # set once under its own lock, held through the abort: the engine's
 # threads abort, and ``_lock`` is held while ``shutdown`` joins them.
 _group_aborted: Optional[str] = None
+_group_aborted_ranks: Optional[tuple] = None
 # Set by ``shutdown`` under the same lock: its groups are being destroyed,
 # and no abort may start on them.
 _groups_closing = False
 _abort_lock = threading.Lock()
+# How many times abort_process_groups asks torch to abort the groups.
+ABORT_ATTEMPTS = 3
+# An elastic NCCL group's timeout, in collective deadlines (the watch's).
+NCCL_TIMEOUT_FACTOR = 2
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -238,14 +246,21 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
     eager engine keeps, not after the backend's 30 minutes; otherwise the
     backend's default holds.  An elastic rank's NCCL group is aborted on
     the eager engine's word (:func:`abort_process_groups`, through
-    torch's ``_abort_process_group``), which torch documents for use with
-    the watchdog's error handling off, so that the watchdog does not
-    handle the aborted communicators' errors itself: it is set off
-    (``TORCH_NCCL_ASYNC_ERROR_HANDLING=0``) unless the environment sets
-    it.  The group's timeout then only logs, so a live peer that stalls
-    inside a group collective holds the rank until that peer's control
-    link drops."""
-    global _world, _engine_obj, _group_aborted, _groups_closing
+    torch's ``_abort_process_group``).  Such a rank with a deadline also
+    arms the collective watch
+    (``parallel.group_watch``): a group collective still pending on the
+    card at the deadline, behind a live peer that never joined it, aborts
+    the groups naming that group, and the next collective (or the serving
+    engine's check after its copy) raises
+    ``parallel.mesh.GroupAbortedError``, which ``@hvd.elastic.run`` takes
+    to the gang's verdict, as it does a gloo collective that failed at
+    the group's timeout.  Its group's own timeout is then
+    NCCL_TIMEOUT_FACTOR deadlines, a backstop behind the watch: NCCL's
+    watchdog, under its own error handling
+    (``TORCH_NCCL_ASYNC_ERROR_HANDLING``, torch's default unless set),
+    never times out a collective that the watch did not abort first."""
+    global _world, _engine_obj, _group_aborted, _group_aborted_ranks, \
+        _groups_closing
     with _lock:
         if _world is not None:
             return
@@ -258,13 +273,17 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
         group = backend != "none"
         timeout = env_util.collective_timeout_s() \
             if os.environ.get(env_util.ELASTIC_EPOCH) else 0.0
-        kw = {}
-        if group and timeout > 0:
-            kw["timeout"] = datetime.timedelta(seconds=timeout)
         elastic_nccl = backend == "nccl" and \
             os.environ.get(env_util.ELASTIC_EPOCH) is not None
-        if elastic_nccl:
-            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
+        kw = {}
+        if group and timeout > 0:
+            # The collective watch holds an NCCL group to the deadline;
+            # torch's own timeout backs it, later, so that its watchdog's
+            # handling of a timed-out collective does not race the
+            # watch's abort.
+            kw["timeout"] = datetime.timedelta(
+                seconds=timeout * (NCCL_TIMEOUT_FACTOR if elastic_nccl
+                                   else 1))
         if group and s == 1 and init_method is None:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1, **kw)
@@ -280,9 +299,12 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
             raise
         _world = _World(r, s, lr, ls, cr, cs, dev, group,
                         kw.get("timeout"), backend if group else "")
-        _group_aborted, _groups_closing = None, False
+        _group_aborted, _group_aborted_ranks = None, None
+        _groups_closing = False
         if elastic_nccl and hasattr(_engine_obj, "free_groups_on_failure"):
             _engine_obj.free_groups_on_failure(abort_process_groups)
+        if elastic_nccl and timeout > 0:
+            group_watch.arm(timeout, _collective_expired, dev)
         # The engines start telemetry themselves; this idempotent call
         # covers a rank with no engine, so that the eager layer's metrics
         # still count.
@@ -291,7 +313,16 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
         telemetry.init_from_env(r, lr or 0, size=s)
 
 
-def abort_process_groups(reason: str) -> bool:
+def _collective_expired(ranks, age_s: float) -> None:
+    """The collective watch's deadline passed on a collective of the
+    group ``ranks``."""
+    abort_process_groups(
+        f"a collective of the group {list(ranks)} was still pending on "
+        f"the card {age_s:.1f} s after it was queued (the collective "
+        f"deadline)", ranks=ranks)
+
+
+def abort_process_groups(reason: str, ranks=None) -> bool:
     """Abort the NCCL communicators of the world group and of every group
     made from it (a mesh's subgroups), in one NCCL group call
     (``torch.distributed``'s ``_abort_process_group`` of the world), on the
@@ -304,10 +335,17 @@ def abort_process_groups(reason: str) -> bool:
     and the next collective of this incarnation raises
     ``parallel.mesh.GroupAbortedError``, which ``@hvd.elastic.run`` reads
     as a group failure.  The groups are gone after it (``shutdown`` does
-    not destroy them again).  A no-op returning False for a gloo group
-    (its collectives fail on a closed socket or at the group's timeout),
-    for no group, after the first call and once ``shutdown`` began."""
-    global _group_aborted
+    not destroy them again).  ``ranks``: the group whose collective
+    failed (the collective watch's), which every ``GroupAbortedError`` of
+    the incarnation then carries; None names each collective's own group.
+    The watch stops.  torch waits for each communicator's abort up to the
+    group's timeout; one that the card holds past it (a kernel queued
+    behind other work, which the abort cannot end) raises, and the abort
+    is tried again, ABORT_ATTEMPTS times in all.  A no-op returning False
+    for a gloo group (its collectives fail on a closed socket or at the
+    group's timeout), for no group, after the first call and once
+    ``shutdown`` began."""
+    global _group_aborted, _group_aborted_ranks
     # Held through the abort: a second caller (the re-form after the
     # engine's eviction) returns only once the groups are gone.
     with _abort_lock:
@@ -315,11 +353,20 @@ def abort_process_groups(reason: str) -> bool:
                 _group_aborted is not None or _groups_closing:
             return False
         _group_aborted = reason
+        _group_aborted_ranks = None if ranks is None else tuple(ranks)
         import logging
 
-        logging.getLogger("horovod_tpu_torch").warning(
-            "aborting the NCCL process groups: %s", reason)
-        dist.distributed_c10d._abort_process_group()
+        log = logging.getLogger("horovod_tpu_torch")
+        log.warning("aborting the NCCL process groups: %s", reason)
+        for attempt in range(1, ABORT_ATTEMPTS + 1):
+            try:
+                dist.distributed_c10d._abort_process_group()
+                break
+            except dist.DistBackendError as e:
+                if attempt == ABORT_ATTEMPTS:
+                    raise
+                log.warning("the groups' abort, attempt %d: %s", attempt, e)
+    group_watch.disarm()
     return True
 
 
@@ -329,12 +376,19 @@ def group_aborted() -> Optional[str]:
     return _group_aborted
 
 
+def group_aborted_ranks() -> Optional[tuple]:
+    """The group whose collective the abort named (the collective
+    watch's), or None."""
+    return _group_aborted_ranks
+
+
 def shutdown() -> None:
     """Stop the eager engine (a negotiated stop at size > 1), then tear
     down the process group; every mesh built on it goes stale
     (``parallel.mesh.StaleMeshError``).  Groups that
     :func:`abort_process_groups` aborted are not destroyed again."""
     global _world, _engine_obj, _groups_closing
+    group_watch.disarm()
     with _lock:
         if _engine_obj is not None:
             _engine_obj.shutdown()

@@ -29,6 +29,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.common.types import ReduceOp
+from horovod_tpu_torch.parallel import group_watch
 from horovod_tpu_torch.parallel.mesh import (
     Axis,
     check_live,
@@ -55,7 +56,10 @@ def _on(ax: Axis):
     its error, so that ``@hvd.elastic.run`` asks the gang's verdict on
     that group and blames no rank outside it.  A collective that the
     groups' abort (``basics.abort_process_groups``, on another thread)
-    cut short raises ``GroupAbortedError`` instead of torch's error."""
+    cut short raises ``GroupAbortedError`` instead of torch's error.
+    Where the collective watch is armed (an elastic rank on an NCCL
+    group), a collective queued in the block is watched on the card
+    (``parallel.group_watch.record``)."""
     check_live(ax)
     try:
         yield ax.group
@@ -64,6 +68,7 @@ def _on(ax: Axis):
         if not hasattr(e, "group_ranks"):
             e.group_ranks = tuple(ax.ranks)
         raise
+    group_watch.record(ax.ranks)
 
 
 def _ax(axis: Optional[Axis]) -> Axis:

@@ -21,8 +21,9 @@ stale: its ``axis()`` and every collective over one of its axes raise
 :class:`StaleMeshError` instead of running over a destroyed group.  (The
 JAX package's mesh is one process's devices, which a re-form never
 touches.)  After ``basics.abort_process_groups`` (an NCCL group aborted on
-the eager engine's word that a peer is gone) every collective of the
-incarnation raises :class:`GroupAbortedError`.
+the eager engine's word that a peer is gone, or by the collective watch,
+``parallel/group_watch.py``, at the collective deadline) every collective
+of the incarnation raises :class:`GroupAbortedError`.
 
 The JAX package's ``filter_spec`` and ``sharding_for`` build
 ``PartitionSpec`` shardings for GSPMD; torch has none.  Each rank holds its
@@ -96,12 +97,20 @@ def check_live(axis: "Axis") -> None:
     check_not_aborted(axis)
 
 
-def check_not_aborted(axis: "Axis") -> None:
-    """Raise :class:`GroupAbortedError` for the axis once this
-    incarnation's groups were aborted (``basics.group_aborted()``)."""
+def check_not_aborted(axis: Optional["Axis"] = None) -> None:
+    """Raise :class:`GroupAbortedError` once this incarnation's groups
+    were aborted (``basics.group_aborted()``), carrying the group whose
+    collective the abort named (the collective watch's), else the axis's
+    ranks (None: every rank's).  The serving engine calls it after its
+    host copy: a copy behind an aborted collective returned values that
+    are not the step's."""
     aborted = basics.group_aborted()
     if aborted is not None:
-        raise GroupAbortedError(axis.ranks, aborted)
+        ranks = basics.group_aborted_ranks()
+        if ranks is None:
+            ranks = axis.ranks if axis is not None else \
+                tuple(range(basics.size()))
+        raise GroupAbortedError(ranks, aborted)
 
 
 @dataclass(frozen=True)

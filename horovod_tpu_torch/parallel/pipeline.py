@@ -68,6 +68,7 @@ from horovod_tpu_torch import basics
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import collective as C
 from horovod_tpu_torch.ops.flash_attention import flash_attention
+from horovod_tpu_torch.parallel import group_watch
 from horovod_tpu_torch.parallel import ring_attention as ra
 from horovod_tpu_torch.parallel.mesh import Axis, Mesh, mesh_axis_size, \
     sub_axis
@@ -206,6 +207,7 @@ def _gang_exchange(axis: Axis, like: torch.Tensor) -> Exchange:
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
+            group_watch.record(axis.ranks)
         return got
 
     return exchange

@@ -20,6 +20,12 @@ rank holds its ``H/tp`` heads of the cache (``KV_CACHE_SPEC``), and every
 rank of the ``tp`` group steps together and computes the same tokens.
 Other mesh axes hold replicas.  Greedy decoding only: determinism is what
 lets every rank step without exchanging tokens.
+
+Over a mesh, a host copy that comes back after the incarnation's groups
+were aborted (the collective watch's deadline on a tp collective that a
+stalled peer never joined, or the engine's eviction of a dead one) raises
+``parallel.mesh.GroupAbortedError`` instead of returning tokens that are
+not the step's.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ import torch
 
 from horovod_tpu_torch.basics import resolve_device
 from horovod_tpu_torch.models import transformer as T
-from horovod_tpu_torch.parallel.mesh import mesh_axis_size
+from horovod_tpu_torch.parallel.mesh import check_not_aborted, \
+    mesh_axis_size
 
 
 class DecodeEngine:
@@ -69,7 +76,7 @@ class DecodeEngine:
             self.cache_len, mesh=self.mesh)
         self.ks[:, slot] = ks1[:, 0]
         self.vs[:, slot] = vs1[:, 0]
-        first = int(torch.argmax(logits))
+        first = int(self._host(torch.argmax(logits)))
         self.tok[slot] = first
         self.pos[slot] = len(prompt)
         return first
@@ -92,4 +99,19 @@ class DecodeEngine:
         # Clamp, so that an idle slot parked at the end never writes out of
         # bounds; an active slot retires before it gets there.
         self.pos = torch.clamp(self.pos + 1, max=self.cache_len - 1)
-        return self.tok.cpu().numpy()
+        return self._host(self.tok).numpy()
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on the host: the sync with the card that a stalled tp
+        collective holds until the groups' abort ends it; after that
+        abort, ``GroupAbortedError`` (the copy's values are not the
+        step's)."""
+        try:
+            out = t.cpu()
+        except RuntimeError:
+            if self.mesh is not None:
+                check_not_aborted()
+            raise
+        if self.mesh is not None:
+            check_not_aborted()
+        return out

@@ -9,7 +9,12 @@ JAX package's, on the CPU.
   majority, a tie (to the lowest rank), every rank disagreeing.
 * One three-process gloo gang: a clean round gives every rank the same
   folded digest; one bit flipped in rank 1's first leaf makes every rank
-  raise ``ReplicaDivergenceError`` naming rank 1 and that leaf.
+  raise ``ReplicaDivergenceError`` naming rank 1 and that leaf; so does
+  the ``state.bitflip`` fault site on rank 1 (the plan of the JAX
+  package's ``test_divergence_detected_and_deviant_evicted``), once, and
+  the next round is clean.
+* ``state.bitflip`` in one process moves exactly one ``fingerprint``, as
+  in the JAX package's ``test_fingerprint_deterministic_and_sensitive``.
 * ``ReplicaAuditor``'s pacing: ``step=``, ``HVD_AUDIT_INTERVAL``, 0 turning
   it off, a negative interval refused.
 * The error types are the JAX package's: the same messages and attributes.
@@ -23,6 +28,7 @@ import pytest
 import torch
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.common import fault_injection as fi
 from horovod_tpu_torch.common import types as ptypes
 from horovod_tpu_torch.integrity import audit
 
@@ -102,6 +108,20 @@ def _gang_tree(rank):
             "n": [torch.arange(5, dtype=torch.int32)]}
 
 
+BITFLIP_PLAN = {"faults": [
+    {"site": "state.bitflip", "kind": "corrupt", "times": 1}]}
+
+
+def _audit(tree):
+    try:
+        audit.audit_replicas(tree)
+        return None
+    except ptypes.ReplicaDivergenceError as e:
+        return {"ranks": e.ranks, "leaf": e.leaf_path,
+                "digests": {str(k): v for k, v in e.digests.items()},
+                "message": str(e)}
+
+
 def _worker(rank, size, store, out_dir):
     torch.set_num_threads(1)
     hvd.init(rank=rank, size=size, device="cpu",
@@ -109,16 +129,17 @@ def _worker(rank, size, store, out_dir):
     try:
         tree = _gang_tree(rank)
         out = {"clean": f"{audit.audit_replicas(tree):016x}"}
+        flipped = _gang_tree(rank)
         if rank == 1:  # one bit of the first leaf ("b", in sorted order)
-            tree["b"].view(torch.int16)[0] ^= 1
-        try:
-            audit.audit_replicas(tree)
-            out["raised"] = None
-        except ptypes.ReplicaDivergenceError as e:
-            out["raised"] = {"ranks": e.ranks, "leaf": e.leaf_path,
-                             "digests": {str(k): v
-                                         for k, v in e.digests.items()},
-                             "message": str(e)}
+            flipped["b"].view(torch.int16)[0] ^= 1
+        out["raised"] = _audit(flipped)
+        if rank == 1:  # the fault site flips one bit of the same leaf
+            fi.configure(BITFLIP_PLAN)
+        out["bitflip"] = _audit(tree)
+        out["bitflip_fired"] = fi._PLAN.faults[0].fired if rank == 1 \
+            else None
+        out["after"] = f"{audit.audit_replicas(tree):016x}"
+        fi.clear()
         with open(f"{out_dir}/rank{rank}.json", "w") as fh:
             json.dump(out, fh)
     finally:
@@ -153,6 +174,45 @@ def test_gang_names_the_flipped_rank_and_leaf(gang):
         assert d["0"] == d["2"] == gang[0]["clean"] != d["1"]
         assert "diverged on rank(s) [1] (first divergent leaf: b)" in \
             r["message"]
+
+
+@pytest.mark.timeout(180)
+def test_gang_flags_the_bitflipped_replica(gang):
+    """``state.bitflip`` on rank 1 only: every rank's audit names rank 1
+    and its first leaf (the flipped replica's), the plan fired once, and
+    the next round agrees on the clean digest."""
+    clean = gang[0]["clean"]
+    for r, o in enumerate(gang):
+        b = o["bitflip"]
+        assert b is not None, (r, o)
+        assert b["ranks"] == [1] and b["leaf"] == "b", (r, b)
+        d = b["digests"]
+        assert d["0"] == d["2"] == clean != d["1"]
+        assert d["1"] == gang[0]["raised"]["digests"]["1"]
+        assert o["after"] == clean
+    assert gang[1]["bitflip_fired"] == 1
+
+
+def test_bitflip_site_moves_exactly_one_fingerprint():
+    from horovod_tpu.common import fault_injection as jfi
+    from horovod_tpu.integrity import fingerprint as jfingerprint
+
+    tree = _numpy_tree()
+    folded = audit.fingerprint(_to_torch(tree))[0]
+    jfolded = jfingerprint(tree)[0]
+    assert folded == jfolded
+    try:
+        fi.configure(BITFLIP_PLAN)
+        jfi.configure(BITFLIP_PLAN)
+        flipped = audit.fingerprint(_to_torch(tree))[0]
+        assert flipped != folded
+        assert flipped == jfingerprint(tree)[0]  # the same bit flipped
+        assert audit.fingerprint(_to_torch(tree))[0] == folded
+        assert jfingerprint(tree)[0] == folded  # times exhausted
+        assert fi._PLAN.faults[0].fired == 1
+    finally:
+        fi.clear()
+        jfi.clear()
 
 
 @pytest.mark.parametrize("interval,steps,fired", [

@@ -1,7 +1,8 @@
 """The port's checkpoints (``horovod_tpu_torch.utils.checkpoint``) on the
 CPU: the plain and verified layers in one process (round trips, the
 manifest, which the JAX package's ``verify_checkpoint`` accepts, pruning,
-the fallback past a corrupted file), and, in one two-process gloo gang,
+the fallback past a corrupted file, and past one that the ``ckpt.corrupt``
+fault site corrupted), and, in one two-process gloo gang,
 training states resumed bit for bit: replicated state (rank 0 writes),
 ZeRO-1 moments over ``{"dp": 2}`` and a pipeline stage over ``{"pp": 2}``
 (every rank writes its shard).  A resumed state's next step gives the same
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.common import fault_injection as fi
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import collective as C
 from horovod_tpu_torch.parallel import pipeline as pl
@@ -122,6 +124,42 @@ def test_corrupt_file_falls_back_to_the_previous(tmp_path, caplog):
         False, "no manifest sidecar")
     with pytest.raises(FileNotFoundError):
         ckpt.restore_verified(str(tmp_path / "empty"))
+
+
+def test_ckpt_corrupt_site_falls_back_to_the_previous(tmp_path):
+    """The ``ckpt.corrupt`` fault site corrupts the newest checkpoint
+    after its manifest is sealed; restore falls back to the previous
+    verified step, as in the JAX package's
+    ``test_ckpt_corrupt_falls_back_to_previous`` on the same plan."""
+    root = str(tmp_path / "ver")
+    ckpt.save_verified(root, {"w": torch.full((8,), 1.0)}, step=1)
+    try:
+        fi.configure({"faults": [
+            {"site": "ckpt.corrupt", "kind": "corrupt", "times": 1}]})
+        ckpt.save_verified(root, {"w": torch.full((8,), 2.0)}, step=2)
+        assert fi._PLAN.faults[0].fired == 1
+    finally:
+        fi.clear()
+    ok, reason = ckpt.verify_checkpoint(os.path.join(root, "step_2"))
+    assert not ok and "sha256 mismatch" in reason
+    tree, step = ckpt.restore_verified(root)
+    assert step == 1 and torch.equal(tree["w"], torch.full((8,), 1.0))
+
+
+def test_ckpt_corrupt_site_on_every_save_leaves_none_to_restore(tmp_path):
+    root = str(tmp_path / "ver")
+    with pytest.raises(FileNotFoundError):
+        ckpt.restore_verified(root)
+    try:
+        fi.configure({"faults": [
+            {"site": "ckpt.corrupt", "kind": "corrupt"}]})
+        ckpt.save_verified(root, {"w": torch.full((8,), 1.0)}, step=1)
+        ckpt.save_verified(root, {"w": torch.full((8,), 2.0)}, step=2)
+        assert fi._PLAN.faults[0].fired == 2
+    finally:
+        fi.clear()
+    with pytest.raises(ckpt.CheckpointVerifyError, match="no verifiable"):
+        ckpt.restore_verified(root)
 
 
 def _resume(name, make, mesh, toks, tgts, root, sharded, out):

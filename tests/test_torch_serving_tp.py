@@ -19,7 +19,15 @@ the loop cuts its shard.  Both gangs start together, once:
   timeout, ranks 2 and 3, whose tp group is healthy, wait on the engine
   and report nothing, and the verdict names rank 1 alone (the failed
   group's silent member), so that ranks 0, 2 and 3 re-form at tp 1, rank 0
-  still the leader, and every reply equals the oracle.
+  still the leader, and every reply equals the oracle;
+* tp 2 on two ranks over a modelled NCCL group (the worker's
+  ``SERVE_FAKE_NCCL``: gloo, whose timeout of 60 s outlasts the deadline,
+  each collective returning once its work completes or the groups are
+  aborted, its work watched by the collective watch) whose rank 1 stalls
+  mid-stream: rank 0's tp collective stays pending, the watch fires at the
+  deadline naming the group [0, 1], the next collective raises
+  ``GroupAbortedError``, the verdict names rank 1 alone, and rank 0
+  re-forms alone at tp 1 and replays; every reply equals the oracle.
 
 Knobs as ``tests/test_torch_serving_loop.py``'s failover gang (collective
 deadline 5 s, probe window 0.5 s, rank 0's steps delayed 50 ms); the
@@ -45,6 +53,7 @@ from horovod_tpu_torch.runner.http_server import RendezvousServer
 TP_REQS = _requests(8)
 FAILOVER_REQS = [(f"cli{i}", [3 + i, 14, 15], 24) for i in range(4)]
 STALL_REQS = [(f"st{i}", [7 + i, 20, 21], 24) for i in range(4)]
+WATCH_REQS = [(f"wt{i}", [11 + i, 30, 31], 24) for i in range(4)]
 KNOBS = {"HVD_COLLECTIVE_TIMEOUT": "5.0",
          "HVD_COLLECTIVE_PROBE_TIMEOUT": "0.5",
          "HVD_KV_RETRY_BASE_S": "0.02",
@@ -52,8 +61,8 @@ KNOBS = {"HVD_COLLECTIVE_TIMEOUT": "5.0",
          "OMP_NUM_THREADS": "1"}
 
 
-def _gang_envs(tmp, np_, mesh, rport, per_rank):
-    return [_env(tmp, r, np_, rport, min_np=2, extra=dict(
+def _gang_envs(tmp, np_, mesh, rport, per_rank, min_np=2):
+    return [_env(tmp, r, np_, rport, min_np=min_np, extra=dict(
         KNOBS, SERVE_MESH=json.dumps(mesh), **per_rank(r)))
         for r in range(np_)]
 
@@ -108,15 +117,33 @@ def _run_stall(tmp, procs, out):
     out["results"] = results
 
 
+def _run_watch(tmp, procs, out):
+    _wait_file(tmp / "ready", procs, tmp)
+    port0 = int(_wait_file(tmp / "port0", procs, tmp))
+    results = {}
+    threads = _post_all([(port0, rid, p, m) for rid, p, m in WATCH_REQS],
+                        results)
+    for t in threads:
+        t.join(timeout=90)
+    # The stalled rank first: its gloo work, which rank 0 left pending,
+    # ends with its sockets.
+    procs[1].kill()
+    procs[1].wait(timeout=10)
+    (tmp / "stop").write_text("1")
+    _finish(procs[:1])
+    out["results"] = results
+
+
 @pytest.fixture(scope="module")
 def gangs(tmp_path_factory):
     tmp_a = tmp_path_factory.mktemp("serve_tp2")
     tmp_b = tmp_path_factory.mktemp("serve_dp2tp2")
     tmp_c = tmp_path_factory.mktemp("serve_dp2tp2_stall")
+    tmp_d = tmp_path_factory.mktemp("serve_tp2_watch")
     weights = convert.params_from_jax(_params())
-    for tmp in (tmp_a, tmp_b, tmp_c):
+    for tmp in (tmp_a, tmp_b, tmp_c, tmp_d):
         torch.save(weights, tmp / "weights.pt")
-    servers = [RendezvousServer("127.0.0.1") for _ in range(3)]
+    servers = [RendezvousServer("127.0.0.1") for _ in range(4)]
     rports = [s.start() for s in servers]
 
     def tp2_rank(r):
@@ -154,13 +181,28 @@ def gangs(tmp_path_factory):
                  "after": 5}]})
         return extra
 
+    def watch_rank(r):
+        extra = {"SERVE_MAX_BATCH": "4", "SERVE_FAKE_NCCL": "1",
+                 "SERVE_GLOO_TIMEOUT_S": "60",
+                 "SERVE_STOP_FILE": str(tmp_d / "stop")}
+        if r == 0:
+            extra["SERVE_PORT_FILE"] = str(tmp_d / "port0")
+            extra["SERVE_READY_FILE"] = str(tmp_d / "ready")
+        if r == 1:
+            extra["HOROVOD_FAULT_PLAN"] = json.dumps({"faults": [
+                {"site": "serve.step", "kind": "stall", "stall_s": 3600,
+                 "after": 5}]})
+        return extra
+
     procs_a = _start(tmp_a, _gang_envs(tmp_a, 2, {"tp": 2}, rports[0],
                                        tp2_rank))
     procs_b = _start(tmp_b, _gang_envs(tmp_b, 4, {"dp": 2, "tp": 2},
                                        rports[1], failover_rank))
     procs_c = _start(tmp_c, _gang_envs(tmp_c, 4, {"dp": 2, "tp": 2},
                                        rports[2], stall_rank))
-    out_a, out_b, out_c, errors = {}, {}, {}, []
+    procs_d = _start(tmp_d, _gang_envs(tmp_d, 2, {"tp": 2}, rports[3],
+                                       watch_rank, min_np=1))
+    out_a, out_b, out_c, out_d, errors = {}, {}, {}, {}, []
 
     def guard(fn, *args):
         try:
@@ -171,18 +213,19 @@ def gangs(tmp_path_factory):
     runners = [threading.Thread(target=guard, args=a, daemon=True) for a in
                ((_run_tp2, tmp_a, procs_a, out_a),
                 (_run_failover, tmp_b, procs_b, out_b),
-                (_run_stall, tmp_c, procs_c, out_c))]
+                (_run_stall, tmp_c, procs_c, out_c),
+                (_run_watch, tmp_d, procs_d, out_d))]
     try:
         for t in runners:
             t.start()
         # The oracles while the gangs serve.
         oracle = {tuple(p): _jax_tokens(p, m) for p, m in
                   TP_REQS + [(p, m) for _, p, m in
-                             FAILOVER_REQS + STALL_REQS]}
+                             FAILOVER_REQS + STALL_REQS + WATCH_REQS]}
         for t in runners:
             t.join(timeout=170)
     finally:
-        _kill_all(procs_a + procs_b + procs_c)
+        _kill_all(procs_a + procs_b + procs_c + procs_d)
         for s in servers:
             s.stop()
     if errors:
@@ -190,7 +233,8 @@ def gangs(tmp_path_factory):
     return {"oracle": oracle,
             "tp2": (procs_a, tmp_a, out_a.get("results", {})),
             "failover": (procs_b, tmp_b, out_b.get("results", {})),
-            "stall": (procs_c, tmp_c, out_c.get("results", {}))}
+            "stall": (procs_c, tmp_c, out_c.get("results", {})),
+            "watch": (procs_d, tmp_d, out_d.get("results", {}))}
 
 
 def _tps(out):
@@ -253,6 +297,34 @@ def test_dp2_tp2_stalled_rank_evicted_alone(gangs):
     assert "the gang's verdict: rank(s) [1]" in _out(tmp, 0), _out(tmp, 0)
     assert len(results) == len(STALL_REQS), results
     for i, (rid, prompt, _max_new) in enumerate(STALL_REQS):
+        code, body = results[i]
+        assert code == 200, (rid, code, body)
+        assert json.loads(body)["tokens"] == \
+            gangs["oracle"][tuple(prompt)], rid
+
+
+@pytest.mark.timeout(240)
+def test_tp2_stalled_peer_fails_over_through_the_watch(gangs):
+    procs, tmp, results = gangs["watch"]
+    assert procs[1].returncode == -9
+    out = _out(tmp, 0)
+    assert procs[0].returncode == 0 and "DONE" in out, out
+    assert _final_epoch(out) >= 1, out
+    tps = _tps(out)
+    assert tps[0] == (2, 0, 2, 0), out
+    assert tps[1:] and all(tp == 1 and n == 1 for tp, _e, n, _r
+                           in tps[1:]), out
+    # The watch ended the wait, once, on the tp group: gloo's 60 s
+    # timeout did not, and the verdict that followed names rank 1 alone.
+    fired = re.findall(r"WATCH_FIRED ranks (\[[\d, ]*\]) age ([\d.]+)", out)
+    assert [json.loads(r) for r, _ in fired] == [[0, 1]], out
+    assert 5.0 <= float(fired[0][1]) < 60.0, fired
+    verdict = out.find("the gang's verdict: rank(s) [1]")
+    assert 0 <= out.find("WATCH_FIRED") < verdict, out
+    assert "GroupAbortedError" in out[:verdict] or \
+        "the process groups were aborted" in out[:verdict], out
+    assert len(results) == len(WATCH_REQS), results
+    for i, (rid, prompt, _max_new) in enumerate(WATCH_REQS):
         code, body = results[i]
         assert code == 200, (rid, code, body)
         assert json.loads(body)["tokens"] == \

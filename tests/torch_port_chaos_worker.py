@@ -37,6 +37,13 @@ coordinator prints ``SURVIVED rank=0 sum=<v> fences=<n>`` or
 ``RANKS_FAILED <json> fences=<n>`` (its recorder's ``epoch.fence``
 notes).
 
+``bootstrap_allreduce`` is ``tests/chaos_worker.py``'s, over three
+allreduces of ``grad(rank, step, 0)``: the gang bootstraps and reduces
+under the environment's fault plan (``tests/test_torch_fault_coverage.py``
+gives it harmless delays at the bootstrap, cycle and control sites), then
+prints ``FIRED <json {site: times fired}>`` (this rank's plan) and
+``BOOT_OK <rank> <json [hex of each sum's bytes]>``.
+
 ``bcast_object_busy`` sends a ``broadcast_object`` that one rank receives
 slowly, or wedged, and that every rank takes a while to unpickle (its
 docstring has the knobs and markers).
@@ -283,7 +290,21 @@ def scenario_bcast_object_busy():
     os._exit(0)
 
 
+def scenario_bootstrap_allreduce():
+    sums = []
+    for step in range(3):
+        out = hvd.allreduce(grad(hvd.rank(), step, 0), op=hvd.Sum,
+                            name=f"chaos.boot{step}")
+        sums.append(np.asarray(out, np.float32).tobytes().hex())
+    fired = {}
+    for f in fi._PLAN.faults if fi._PLAN is not None else ():
+        fired[f.site] = fired.get(f.site, 0) + f.fired
+    print(f"FIRED {json.dumps(fired)}", flush=True)
+    print(f"BOOT_OK {hvd.rank()} {json.dumps(sums)}", flush=True)
+
+
 SCENARIOS = {
+    "bootstrap_allreduce": scenario_bootstrap_allreduce,
     "bcast_object_busy": scenario_bcast_object_busy,
     "fence_stale_epoch": scenario_fence_stale_epoch,
     "train_steps": scenario_train_steps,

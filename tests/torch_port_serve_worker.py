@@ -28,6 +28,20 @@ forming the gloo group (``tests/test_torch_serving_tp.py``); the worker
 then prints ``TP <tp> epoch <e> size <n> rank <r>`` at each incarnation's
 first frame.
 
+``SERVE_FAKE_NCCL=1`` (with ``SERVE_MESH``) models an NCCL group over gloo
+on the CPU, as ``tests/torch_port_elastic_worker.py``'s ``GROUP_FAKE_NCCL``
+does: the loop's ``hvd.init`` asks for ``nccl`` and a stand-in
+``init_process_group`` forms gloo, with a timeout of
+``SERVE_GLOO_TIMEOUT_S`` (default 60) instead of the collective deadline,
+so that the collective watch, not gloo, ends a wait on a stalled peer.
+Each ``all_reduce``/``all_gather`` returns to the caller once its gloo
+work completes or the groups are aborted, as a host sync behind an NCCL
+kernel does, and its work is the watch's handle (``group_watch``'s:
+pending until the peer joins).  The groups' abort clears torch's group
+state without gloo's own abort, which would wait for the pending work.
+The worker prints ``WATCH_FIRED ranks <json> age <s>`` when the watch's
+deadline passes.
+
 Markers (flushed): ``PORT <p>``, ``GEN <epoch>`` at start, ``GEN_FINAL
 <epoch>`` after ``run()``, ``DONE``; then the sender-thread leak check of
 ``tests/serve_worker.py``.
@@ -52,6 +66,82 @@ def _write(path, text):
     os.replace(path + ".tmp", path)
 
 
+_kept_groups = []  # gloo groups "aborted" with pending work, never freed
+
+
+def _fake_nccl():
+    """See ``SERVE_FAKE_NCCL`` in the module docstring."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.parallel import group_watch
+
+    gloo_timeout = datetime.timedelta(seconds=float(
+        os.environ.get("SERVE_GLOO_TIMEOUT_S", "60")))
+    real_init, real_basics_init = dist.init_process_group, basics.init
+
+    def init_process_group(backend, *a, **k):
+        k["timeout"] = gloo_timeout
+        return real_init("gloo" if backend == "nccl" else backend, *a, **k)
+
+    def basics_init(*a, backend=None, **k):
+        return real_basics_init(
+            *a, backend="nccl" if backend == "gloo" else backend, **k)
+
+    real_abort = c10d._abort_process_group
+
+    def abort_process_group(group=None):
+        _kept_groups.extend(c10d._world.pg_map)
+        pg_abort = dist.ProcessGroup.abort
+        dist.ProcessGroup.abort = lambda self: None
+        try:
+            real_abort(group)
+        finally:
+            dist.ProcessGroup.abort = pg_abort
+
+    expired = basics._collective_expired
+
+    def collective_expired(ranks, age_s):
+        print(f"WATCH_FIRED ranks {json.dumps(list(ranks))} age "
+              f"{age_s:.3f}", flush=True)
+        expired(ranks, age_s)
+
+    class _Pending:
+        def __init__(self, work):
+            self.work = work
+
+        def query(self):
+            return self.work.is_completed()
+
+    def nccl_like(fn):
+        def run(*a, group=None, async_op=False, **k):
+            work = fn(*a, group=group, async_op=True, **k)
+            if async_op:
+                return work
+            group_watch.current().add(_Pending(work),
+                                      dist.get_process_group_ranks(
+                                          group or dist.group.WORLD))
+            while not work.is_completed():
+                if basics.group_aborted() is not None:
+                    _kept_groups.append(work)
+                    return None  # the kernel ended: its values are junk
+                time.sleep(0.0005)
+            work.wait()
+            return None
+        return run
+
+    dist.init_process_group = init_process_group
+    dist.get_backend = lambda group=None: "nccl"
+    basics.init = basics_init
+    basics._collective_expired = collective_expired
+    c10d._abort_process_group = abort_process_group
+    dist.all_reduce = nccl_like(dist.all_reduce)
+    dist.all_gather = nccl_like(dist.all_gather)
+
+
 def main():
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.common import fault_injection as fi
@@ -59,6 +149,8 @@ def main():
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.serving import ServingLoop
 
+    if os.environ.get("SERVE_FAKE_NCCL") == "1":
+        _fake_nccl()
     cache_len = int(os.environ.get("SERVE_CACHE_LEN", "64"))
     dims = json.loads(os.environ.get("SERVE_MODEL", "null")) or dict(
         vocab_size=64, d_model=32, n_layers=2, n_heads=2, d_ff=64)

@@ -7,6 +7,8 @@ over NCCL, each held against its one-process twin.
                                                # a small model, no card
     python3 tools/torch_gang_4card.py --zero1-seeds 8,21,22
                                                # ZeRO-1 on more batches
+    python3 tools/torch_gang_4card.py --serve-only  # the serving cell
+    python3 tools/torch_gang_4card.py --stall-only  # its C alone
 
 One process per card (``hvd.init`` over ``tcp://127.0.0.1:<free port>``).
 On the flagship of ``chip_smoke.py`` (vocab 32768, d_model 1024, 8 layers,
@@ -58,8 +60,17 @@ from seed 0):
    SIGKILLed mid-stream, and rank 0 must re-form alone at tp 1 and replay
    eight requests, each bit for bit ``DecodeEngine``'s at tp 1 (the
    engine evicts rank 1 once its control link drops and aborts rank 0's
-   NCCL communicators, which frees rank 0's step).  ``--serve-only``
-   runs this cell alone.
+   NCCL communicators, which frees rank 0's step).  C: a fresh gang of
+   two whose rank 1 stalls alive in the ``serve.step`` fault site once
+   every slot is live, its control link up: rank 0's tp collective stays
+   pending on its card until the collective watch fires at the deadline
+   (20 s) and aborts the groups; the gang's verdict names rank 1 alone,
+   and rank 0 must take its first step at tp 1 within the deadline + the
+   probe window + 5 s of the stall, every reply bit for bit
+   ``DecodeEngine``'s at tp 1 (``chip_smoke.run_serve_gang_tp_stall``;
+   a gang that has not re-formed 60 s past the deadline hangs, and C
+   fails).  ``--serve-only`` runs this cell (A, B, C) alone,
+   ``--stall-only`` C alone.
 
 The configuration, the batches (``chip_smoke._token_batches``: the input
 pipeline) and the tolerances the two scripts share come from
@@ -430,10 +441,12 @@ def _worker(rank, port, cpu, out_path, zero1_seeds):
         hvd.shutdown()
 
 
-def run_serve_tp(torch, cpu):
-    """The tp 2 serving cell (6. above): ``chip_smoke.run_serve_gang_tp``,
-    the flagship at its eight layers with each rank on its own card (the
-    narrow model of ``_cfg`` on the CPU, over gloo)."""
+def run_serve_tp(torch, cpu, stall_only=False):
+    """The tp 2 serving cell (6. above): ``chip_smoke.run_serve_gang_tp``
+    (A, B) unless ``stall_only``, then ``run_serve_gang_tp_stall`` (C), the
+    flagship at its eight layers with each rank on its own card (the
+    narrow model of ``_cfg`` on the CPU, over gloo, where C fails over at
+    gloo's timeout: the watch is an NCCL rank's)."""
     from horovod_tpu_torch.models import transformer as tfm
 
     dev = torch.device("cpu" if cpu else "cuda:0")
@@ -443,8 +456,10 @@ def run_serve_tp(torch, cpu):
         import dataclasses
 
         cfg = dataclasses.replace(cfg, max_seq_len=128)
-    smoke.run_serve_gang_tp(tfm, dev, card, "cpu" if cpu else None,
-                            cfg=cfg)
+    rank_device = "cpu" if cpu else None
+    if not stall_only:
+        smoke.run_serve_gang_tp(tfm, dev, card, rank_device, cfg=cfg)
+    smoke.run_serve_gang_tp_stall(tfm, dev, card, rank_device, cfg=cfg)
 
 
 def _free_port() -> int:
@@ -467,6 +482,9 @@ def main() -> int:
                     help="comma-separated seeds of ZeRO-1's batches")
     ap.add_argument("--serve-only", action="store_true",
                     help="the tp 2 serving cell alone")
+    ap.add_argument("--stall-only", action="store_true",
+                    help="the serving cell's C (a stalled, live peer) "
+                         "alone")
     args = ap.parse_args()
     cpu = args.cpu
     seeds = [int(s) for s in args.zero1_seeds.split(",")]
@@ -474,8 +492,8 @@ def main() -> int:
         print(f"torch finds {torch.cuda.device_count()} CUDA devices; this "
               f"needs {RANKS}", file=sys.stderr)
         return 1
-    if args.serve_only:
-        run_serve_tp(torch, cpu)
+    if args.serve_only or args.stall_only:
+        run_serve_tp(torch, cpu, stall_only=args.stall_only)
         if not cpu:
             print(_card_line())
         print(json.dumps({"ok": True}))
