@@ -2302,6 +2302,10 @@ def _sg_gang(tfm, cfg, rank_device, tp, timeout, stall=False):
     if not (lead and conf) and not stall:
         bad.append(f"the traces lack spans: {len(lead)} serve.apply and "
                    f"{len(conf)} serve.confirm of the leader in A")
+    if bad:
+        # The ranks' last words, where only the error's text is kept.
+        bad.append("the launcher's last lines: "
+                   + " | ".join(err.splitlines()[-10:]))
     _fail_if(bad, what)
     return types.SimpleNamespace(
         what=what, reqs=reqs, cache=cache, n_ranks=n_ranks,

@@ -244,10 +244,14 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
     deadline (``HVD_COLLECTIVE_TIMEOUT``) where one is set, so that a
     group collective stalled on a peer fails within the deadline the
     eager engine keeps, not after the backend's 30 minutes; otherwise the
-    backend's default holds.  An elastic rank's NCCL group is aborted on
-    the eager engine's word (:func:`abort_process_groups`, through
-    torch's ``_abort_process_group``).  Such a rank with a deadline also
-    arms the collective watch
+    backend's default holds.  Its eager engine evicts a peer whose
+    control link dropped, liveness on or off, and under a deadline takes
+    a hop that failed on a dropped link to the gang's agreement, so that
+    a peer that dies mid-step is named, whichever of the engine's
+    collectives or the group's it was in.  An elastic rank's NCCL group
+    is aborted on the eager engine's word (:func:`abort_process_groups`,
+    through torch's ``_abort_process_group``).  Such a rank with a
+    deadline also arms the collective watch
     (``parallel.group_watch``): a group collective still pending on the
     card at the deadline, behind a live peer that never joined it, aborts
     the groups naming that group, and the next collective (or the serving
@@ -273,8 +277,8 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
         group = backend != "none"
         timeout = env_util.collective_timeout_s() \
             if os.environ.get(env_util.ELASTIC_EPOCH) else 0.0
-        elastic_nccl = backend == "nccl" and \
-            os.environ.get(env_util.ELASTIC_EPOCH) is not None
+        elastic = os.environ.get(env_util.ELASTIC_EPOCH) is not None
+        elastic_nccl = backend == "nccl" and elastic
         kw = {}
         if group and timeout > 0:
             # The collective watch holds an NCCL group to the deadline;
@@ -301,7 +305,7 @@ def init(rank: Optional[int] = None, size: Optional[int] = None,
                         kw.get("timeout"), backend if group else "")
         _group_aborted, _group_aborted_ranks = None, None
         _groups_closing = False
-        if elastic_nccl and hasattr(_engine_obj, "free_groups_on_failure"):
+        if elastic and hasattr(_engine_obj, "free_groups_on_failure"):
             _engine_obj.free_groups_on_failure(abort_process_groups)
         if elastic_nccl and timeout > 0:
             group_watch.arm(timeout, _collective_expired, dev)

@@ -895,8 +895,11 @@ class PyEngine(_EngineBase):
                     or self._shutdown_requested.is_set() or self._closed):
                 self._ctrl_conn_lost = True
                 # The abort fires from the next worker cycle; wake a
-                # serving loop parked in serve_recv now.
+                # serving loop parked in serve_recv now, and a failed
+                # hop's wait for a verdict that cannot come.
                 self._wake_serve()
+                with self._abort_cv:
+                    self._abort_cv.notify_all()
 
     def _wake_serve(self) -> None:
         with self._serve_cv:
@@ -1853,10 +1856,14 @@ class PyEngine(_EngineBase):
 
     def free_groups_on_failure(self,
                                abort: Callable[[str], object]) -> None:
-        """For a rank whose process group a dead peer would hold for good
-        (an elastic rank on an NCCL group): evict a rank whose control
-        link dropped even with liveness off, and call ``abort(reason)``
-        on every eviction, agreed abort and abort of this engine."""
+        """For an elastic rank, whose gang re-forms without a dead peer:
+        evict a rank whose control link dropped even with liveness off (a
+        peer that died before it joined a negotiation would hold it for
+        good), take a hop that failed on a dropped link to the gang's
+        agreement under a collective deadline (``_perform_operation``),
+        and call ``abort(reason)`` on every eviction, agreed abort and
+        abort of this engine (an NCCL group's abort; a no-op
+        elsewhere)."""
         self._abort_groups = abort
         self._evict_on_lost_link = True
 
@@ -2053,11 +2060,13 @@ class PyEngine(_EngineBase):
                         if group and _is_group_abort(nm):
                             name = _merge_group_abort(name, nm)
             # Every live worker has reported a timeout of its own (a
-            # victim of the hang, not its cause) or acked idle: nothing
-            # more to learn from the window.  (After a group collective an
-            # idle engine proves nothing: the window runs out.)
+            # victim of the hang, not its cause), acked idle or dropped
+            # its link (dead, never to ack): nothing more to learn from
+            # the window.  (After a group collective an idle engine
+            # proves nothing: the window runs out.)
             if not group and all(r in reports
                                  or (r in acks and not acks[r][0])
+                                 or r in self._conn_lost
                                  for r in live):
                 break
             now = time.monotonic()
@@ -2190,7 +2199,7 @@ class PyEngine(_EngineBase):
         with self._abort_cv:
             while self._abort_verdict is None:
                 remaining = deadline - time.monotonic()
-                if remaining <= 0:
+                if remaining <= 0 or self._ctrl_conn_lost:
                     return None
                 self._abort_cv.wait(remaining)
             ranks = self._abort_verdict[1]
@@ -2340,8 +2349,9 @@ class PyEngine(_EngineBase):
     def _collective_abort(self, resp: Response,
                           entries: List[TensorTableEntry],
                           hop: Exception) -> Status:
-        """A hop deadline fired here: run the gang-wide agreement and build
-        the typed status every survivor shares."""
+        """A hop deadline fired here, or (an elastic rank) a hop's link
+        dropped: run the gang-wide agreement and build the typed status
+        every survivor shares."""
         name = resp.tensor_names[0]
         suspect = int(getattr(hop, "peer", -1))
         # The blame edge: whom this rank was blocked on when its deadline
@@ -2355,7 +2365,9 @@ class PyEngine(_EngineBase):
             t0 = time.monotonic()
             wedged = self._report_and_await_verdict(name, suspect)
             if wedged is None:
-                reason = ("collective timed out and no abort verdict "
+                reason = ("lost connection to coordinator"
+                          if self._ctrl_conn_lost else
+                          "collective timed out and no abort verdict "
                           "arrived: coordinator wedged or lost")
                 self._abort(reason)
                 return Status.aborted(reason)
@@ -2723,6 +2735,20 @@ class PyEngine(_EngineBase):
                 status = Status.unknown_error(str(e))
                 if corrupt:
                     blackbox_mod.dump("wire_corruption", str(e))
+        except ConnectionError as e:
+            # A link that dropped mid-hop: its peer died.  On an elastic
+            # rank under a deadline, the gang's agreement names it, as at
+            # a hop's deadline; elsewhere, the collective's error here.
+            results = [None] * len(entries)
+            if deadline_on and self._evict_on_lost_link and \
+                    not self._shutdown_flag.is_set():
+                self.log.error("collective %s: a link dropped mid-hop "
+                               "(%r); asking the gang", op_name, e)
+                self._in_collective_since = 0.0
+                status = self._collective_abort(resp, entries, e)
+            else:
+                self.log.error("collective %s failed: %r", op_name, e)
+                status = Status.unknown_error(str(e))
         except Exception as e:
             self.log.error("collective %s failed: %r", op_name, e)
             results = [None] * len(entries)

@@ -90,7 +90,13 @@ survivor waits in its step's host copy: the eager engine evicts the rank
 whose control link dropped and aborts the incarnation's NCCL
 communicators (``basics.abort_process_groups``), the copy returns, the
 step's next collective fails, and the gang re-forms as over gloo.  A
-stalled (live) NCCL peer is not shown to end that way.
+stalled (live) NCCL peer's collective stays pending on the card until the
+collective watch (``parallel/group_watch.py``) aborts the groups at the
+deadline; the copy then raises ``GroupAbortedError`` and the verdict
+names the silent peer.  A peer that dies outside the tp collectives, in
+the token-agreement allreduce or before it joins it, is the engine's to
+name, on either backend: it evicts the rank whose link dropped, and a hop
+that failed on that link goes to the gang's agreement.
 """
 
 from __future__ import annotations

@@ -27,7 +27,14 @@ the loop cuts its shard.  Both gangs start together, once:
   mid-stream: rank 0's tp collective stays pending, the watch fires at the
   deadline naming the group [0, 1], the next collective raises
   ``GroupAbortedError``, the verdict names rank 1 alone, and rank 0
-  re-forms alone at tp 1 and replays; every reply equals the oracle.
+  re-forms alone at tp 1 and replays; every reply equals the oracle;
+* tp 2 on two ranks whose rank 1 dies (the ``kill`` fault kind) mid-stream,
+  twice: as it sends a control frame, so that rank 0's token-agreement
+  allreduce waits on a request that never comes and the engine evicts the
+  rank whose link dropped; and as it sends a data frame, so that rank 0's
+  hop of that allreduce fails on the dropped link and the gang's
+  agreement names rank 1.  Either way rank 0 re-forms alone at tp 1 and
+  replays, and every reply equals the oracle.
 
 Knobs as ``tests/test_torch_serving_loop.py``'s failover gang (collective
 deadline 5 s, probe window 0.5 s, rank 0's steps delayed 50 ms); the
@@ -54,6 +61,12 @@ TP_REQS = _requests(8)
 FAILOVER_REQS = [(f"cli{i}", [3 + i, 14, 15], 24) for i in range(4)]
 STALL_REQS = [(f"st{i}", [7 + i, 20, 21], 24) for i in range(4)]
 WATCH_REQS = [(f"wt{i}", [11 + i, 30, 31], 24) for i in range(4)]
+DEAD_REQS = [(f"dd{i}", [13 + i, 40, 41], 24) for i in range(4)]
+# Where rank 1 dies, by gang: the fault site its kill fires at, and the
+# line rank 0's engine logs on that path.
+DEAD_SITES = {"unjoined": ("ctrl.worker.send",
+                           "rank 1 unresponsive (connection lost)"),
+              "midhop": ("sock.send", "a link dropped mid-hop")}
 KNOBS = {"HVD_COLLECTIVE_TIMEOUT": "5.0",
          "HVD_COLLECTIVE_PROBE_TIMEOUT": "0.5",
          "HVD_KV_RETRY_BASE_S": "0.02",
@@ -134,16 +147,32 @@ def _run_watch(tmp, procs, out):
     out["results"] = results
 
 
+def _run_dead(tmp, procs, out):
+    _wait_file(tmp / "ready", procs, tmp)
+    port0 = int(_wait_file(tmp / "port0", procs, tmp))
+    results = {}
+    threads = _post_all([(port0, rid, p, m) for rid, p, m in DEAD_REQS],
+                        results)
+    for t in threads:
+        t.join(timeout=90)
+    (tmp / "stop").write_text("1")
+    _finish(procs)
+    out["results"] = results
+
+
 @pytest.fixture(scope="module")
 def gangs(tmp_path_factory):
     tmp_a = tmp_path_factory.mktemp("serve_tp2")
     tmp_b = tmp_path_factory.mktemp("serve_dp2tp2")
     tmp_c = tmp_path_factory.mktemp("serve_dp2tp2_stall")
     tmp_d = tmp_path_factory.mktemp("serve_tp2_watch")
+    tmp_dead = {k: tmp_path_factory.mktemp(f"serve_tp2_dead_{k}")
+                for k in DEAD_SITES}
     weights = convert.params_from_jax(_params())
-    for tmp in (tmp_a, tmp_b, tmp_c, tmp_d):
+    for tmp in (tmp_a, tmp_b, tmp_c, tmp_d, *tmp_dead.values()):
         torch.save(weights, tmp / "weights.pt")
-    servers = [RendezvousServer("127.0.0.1") for _ in range(4)]
+    servers = [RendezvousServer("127.0.0.1")
+               for _ in range(4 + len(DEAD_SITES))]
     rports = [s.start() for s in servers]
 
     def tp2_rank(r):
@@ -194,6 +223,22 @@ def gangs(tmp_path_factory):
                  "after": 5}]})
         return extra
 
+    def dead_rank(kind):
+        tmp = tmp_dead[kind]
+
+        def extra(r):
+            ex = {"SERVE_MAX_BATCH": "4", "SERVE_STOP_FILE": str(tmp / "stop")}
+            if r == 0:
+                ex["SERVE_PORT_FILE"] = str(tmp / "port0")
+                ex["SERVE_READY_FILE"] = str(tmp / "ready")
+            if r == 1:
+                # Ten frames into the stream.
+                ex["HOROVOD_FAULT_PLAN"] = json.dumps({"faults": [
+                    {"site": DEAD_SITES[kind][0], "kind": "kill",
+                     "after": 10}]})
+            return ex
+        return extra
+
     procs_a = _start(tmp_a, _gang_envs(tmp_a, 2, {"tp": 2}, rports[0],
                                        tp2_rank))
     procs_b = _start(tmp_b, _gang_envs(tmp_b, 4, {"dp": 2, "tp": 2},
@@ -202,7 +247,12 @@ def gangs(tmp_path_factory):
                                        rports[2], stall_rank))
     procs_d = _start(tmp_d, _gang_envs(tmp_d, 2, {"tp": 2}, rports[3],
                                        watch_rank, min_np=1))
+    procs_dead = {k: _start(tmp, _gang_envs(tmp, 2, {"tp": 2},
+                                            rports[4 + i], dead_rank(k),
+                                            min_np=1))
+                  for i, (k, tmp) in enumerate(tmp_dead.items())}
     out_a, out_b, out_c, out_d, errors = {}, {}, {}, {}, []
+    out_dead = {k: {} for k in DEAD_SITES}
 
     def guard(fn, *args):
         try:
@@ -214,18 +264,23 @@ def gangs(tmp_path_factory):
                ((_run_tp2, tmp_a, procs_a, out_a),
                 (_run_failover, tmp_b, procs_b, out_b),
                 (_run_stall, tmp_c, procs_c, out_c),
-                (_run_watch, tmp_d, procs_d, out_d))]
+                (_run_watch, tmp_d, procs_d, out_d))] + [
+        threading.Thread(target=guard, args=(_run_dead, tmp_dead[k],
+                                             procs_dead[k], out_dead[k]),
+                         daemon=True) for k in DEAD_SITES]
     try:
         for t in runners:
             t.start()
         # The oracles while the gangs serve.
         oracle = {tuple(p): _jax_tokens(p, m) for p, m in
                   TP_REQS + [(p, m) for _, p, m in
-                             FAILOVER_REQS + STALL_REQS + WATCH_REQS]}
+                             FAILOVER_REQS + STALL_REQS + WATCH_REQS
+                             + DEAD_REQS]}
         for t in runners:
             t.join(timeout=170)
     finally:
-        _kill_all(procs_a + procs_b + procs_c + procs_d)
+        _kill_all(procs_a + procs_b + procs_c + procs_d
+                  + [p for ps in procs_dead.values() for p in ps])
         for s in servers:
             s.stop()
     if errors:
@@ -234,7 +289,10 @@ def gangs(tmp_path_factory):
             "tp2": (procs_a, tmp_a, out_a.get("results", {})),
             "failover": (procs_b, tmp_b, out_b.get("results", {})),
             "stall": (procs_c, tmp_c, out_c.get("results", {})),
-            "watch": (procs_d, tmp_d, out_d.get("results", {}))}
+            "watch": (procs_d, tmp_d, out_d.get("results", {})),
+            **{f"dead_{k}": (procs_dead[k], tmp_dead[k],
+                             out_dead[k].get("results", {}))
+               for k in DEAD_SITES}}
 
 
 def _tps(out):
@@ -325,6 +383,33 @@ def test_tp2_stalled_peer_fails_over_through_the_watch(gangs):
         "the process groups were aborted" in out[:verdict], out
     assert len(results) == len(WATCH_REQS), results
     for i, (rid, prompt, _max_new) in enumerate(WATCH_REQS):
+        code, body = results[i]
+        assert code == 200, (rid, code, body)
+        assert json.loads(body)["tokens"] == \
+            gangs["oracle"][tuple(prompt)], rid
+
+
+@pytest.mark.timeout(240)
+@pytest.mark.parametrize("kind", sorted(DEAD_SITES))
+def test_tp2_peer_dead_mid_step_fails_over(gangs, kind):
+    """Rank 1 dies mid-stream outside the tp collectives: before it joins
+    the step's token-agreement allreduce (``unjoined``) or inside one of
+    its hops (``midhop``).  Rank 0, the engine's coordinator, names it
+    either way and re-forms alone at tp 1, instead of waiting on the
+    negotiation for good or dying of the hop's connection error."""
+    procs, tmp, results = gangs[f"dead_{kind}"]
+    assert procs[1].returncode == 137, _out(tmp, 1)
+    out = _out(tmp, 0)
+    assert procs[0].returncode == 0 and "DONE" in out, out
+    assert _final_epoch(out) >= 1, out
+    tps = _tps(out)
+    assert tps[0] == (2, 0, 2, 0), out
+    assert tps[1:] and all(tp == 1 and n == 1 for tp, _e, n, _r
+                           in tps[1:]), out
+    assert DEAD_SITES[kind][1] in out, out
+    assert "rank(s) [1]" in out, out
+    assert len(results) == len(DEAD_REQS), results
+    for i, (rid, prompt, _max_new) in enumerate(DEAD_REQS):
         code, body = results[i]
         assert code == 200, (rid, code, body)
         assert json.loads(body)["tokens"] == \
